@@ -9,17 +9,24 @@ failing the run on its own error:
 
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile the kernels, one nvcc per source, all at once;
-3. kernels: each hand-written kernel against its plain PyTorch version
-   (computed in fp32) at the flagship shapes and a few ragged ones, with the
-   stated tolerance; time kernel, plain version and one library call;
-4. pipeline: GuidedLatentDiffusionPipeline.fast_inference("latency") at the
-   full SD2.1 geometry (random seeded weights held in bf16), batch 2,
-   RGB + raw at 640x360, 10 DDIM steps; the launch counts of one call must
-   be 100 attention and 160 GEGLU; ms/frame is the median of three calls;
-   one more call is profiled (device time by kernel group, idle share); one
-   UNet forward with the kernels must agree with the same forward through
-   the plain torch paths;
-5. a JSON line of per-kernel numbers, then the JSON result as the last line.
+3. kernels: each hand-written kernel against its plain PyTorch version at
+   the main paths' shapes and a few ragged ones, with the stated tolerance;
+   time kernel, plain version and one library call, and compute the bound
+   (bf16 peak for the bf16 kernels, int8 peak for the int8 ones);
+4. latency path: GuidedLatentDiffusionPipeline.fast_inference("latency")
+   at the full SD2.1 geometry (random seeded weights held in bf16), batch
+   2, RGB + raw at 640x360, 10 DDIM steps; the launch counts of one call
+   must be 100 attention and 160 GEGLU; ms/frame is the median of three
+   calls; one more call is profiled (device time by kernel group, idle
+   share); one UNet forward with the kernels must agree with the same
+   forward through the plain torch paths;
+5. bench-default path on the same models: fast_inference("throughput")
+   (static int8), deepcache(2, depth=2), calibrate on one batch; the launch
+   counts of one call must be 102 int8 attention, 130 int8 GEGLU and one
+   int8 conv per quantized conv site the capture logs list; ms/frame, the
+   profile, and one full and one shallow UNet forward through the int8
+   kernels against the same forwards through the kernels' plain versions;
+6. a JSON line of per-kernel numbers, then the JSON result as the last line.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -33,11 +40,15 @@ import sys
 import time
 
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
+H100_INT8_OPS = 1979e12  # dense int8 tensor-core peak, H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3 bandwidth, H100 SXM data sheet
 # Kernels against their plain versions: max |err| <= REL_TOL * max |ref|.
 # bf16 rounding of the output (2^-9 relative) and of P or of the gated
-# product keeps the measured ratio near 4e-3 for both kernels; an error of a
-# few percent anywhere (a denominator, a rescale, a bias) exceeds it.
+# product keeps the measured ratio near 4e-3 for the bf16 kernels; the int8
+# attention differs by one bf16 rounding of its output (its denominator sums
+# in another order), and the int8 GEGLU, conv and quantize kernels are
+# bit-equal to their plain versions. An error of a few percent anywhere (a
+# denominator, a rescale, a scale grid, a bias) exceeds it.
 REL_TOL = 1e-2
 UNET_REL_TOL = 5e-2  # kernel path vs plain path, max error / max |output|
 H, W = 360, 640
@@ -68,9 +79,11 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(flops: float, nbytes: float):
-    """Least time on the card (ms) and what sets it."""
-    t_ops = flops / H100_BF16_FLOPS * 1e3
+def bound(flops: float, nbytes: float, peak: float = H100_BF16_FLOPS):
+    """Least time on the card (ms) and what sets it: the larger of the
+    operations over `peak` (bf16, or H100_INT8_OPS for the int8 kernels) and
+    the bytes over the memory rate."""
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -81,7 +94,8 @@ def pin_one_card() -> None:
     os.environ["CUDA_VISIBLE_DEVICES"] = "0" if visible is None else visible.split(",")[0]
 
 
-def device_phase() -> None:
+def device_phase() -> str:
+    """Require one CUDA card; print and return its name and power limit."""
     import torch
 
     if not torch.cuda.is_available():
@@ -95,6 +109,7 @@ def device_phase() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}",
           flush=True)
+    return smi.splitlines()[0]
 
 
 def build_phase() -> None:
@@ -132,6 +147,7 @@ def _attention_case(b, n, m, h, d, gen, timed):
         row["ms"] = time_ms(lambda: mha_attention(q, k, v))
         row["plain_ms"] = time_ms(lambda: mha_attention_plain(q, k, v), reps=5)
         row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        row["library_call"] = "F.scaled_dot_product_attention (bf16)"
         flops = 4.0 * b * h * n * m * d
         nbytes = 2.0 * (2 * b * n * h * d + 2 * b * m * h * d)
         row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
@@ -179,6 +195,7 @@ def _geglu_case(rows, c, f, gen, timed):
         row["plain_ms"] = time_ms(lambda: geglu_ff_plain(x, w1h, w1g, w2, b1h, b1g, b2),
                                   reps=5)
         row["library_ms"] = time_ms(library)
+        row["library_call"] = "F.linear(x, W1) -> gelu -> F.linear(y, W2) (bf16)"
         flops = 6.0 * rows * c * f
         nbytes = 2.0 * (2 * rows * c + 3 * c * f) + 4.0 * (2 * f + c)
         row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
@@ -208,6 +225,199 @@ def kernel_phase():
         _geglu_case(*shape, gen, False)
     _sync()
     return attn, geglu
+
+
+def _attention_int8_case(b, n, m, h, d, gen, timed):
+    import torch
+    import torch.nn.functional as F
+
+    from d3roma_tpu_torch.ops.kernels import mha_attention_int8, mha_attention_int8_plain
+
+    q, k, v = (torch.randn((b, length, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+               for length in (n, m, m))
+    out = mha_attention_int8(q, k, v)
+    ref = mha_attention_int8_plain(q, k, v).float()
+    _sync()
+    err = (out.float() - ref).abs().max().item()
+    tol = REL_TOL * ref.abs().max().item()
+    row = {"shape": [b, n, m, h, d], "max_abs_err": err, "tol": tol,
+           "max_abs_out": ref.abs().max().item()}
+    if timed:
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        row["ms"] = time_ms(lambda: mha_attention_int8(q, k, v))
+        row["plain_ms"] = time_ms(lambda: mha_attention_int8_plain(q, k, v), reps=3, warmup=1)
+        row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        row["library_call"] = "F.scaled_dot_product_attention (bf16)"
+        ops = 4.0 * b * h * n * m * d
+        nbytes = 2.0 * (2 * b * n * h * d + 2 * b * m * h * d)
+        row["bound_ms"], row["bound_by"] = bound(ops, nbytes, H100_INT8_OPS)
+    _sync()
+    print(f"  attention_int8 {row}", flush=True)
+    if not err <= tol:
+        raise AssertionError(f"attention_int8 {row['shape']}: max abs err {err} > {tol}")
+    return row
+
+
+def _int8_ff_operands(c, f, gen):
+    import torch
+
+    from d3roma_tpu_torch.ops.quant import quantize_weight
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    w1h, w1g = (rnd(f, c, scale=c ** -0.5).to(torch.bfloat16) for _ in range(2))
+    w2 = rnd(c, f, scale=f ** -0.5).to(torch.bfloat16)
+    (w1hq, s1h), (w1gq, s1g), (w2q, s2) = (quantize_weight(w) for w in (w1h, w1g, w2))
+    return w1hq, w1gq, w2q, s1h, s1g, s2, rnd(f, scale=0.1), rnd(f, scale=0.1), rnd(c, scale=0.1)
+
+
+def _geglu_int8_case(rows, c, f, gen, timed):
+    import torch
+    import torch.nn.functional as F
+
+    from d3roma_tpu_torch.ops.kernels import geglu_ff_int8, geglu_ff_int8_plain
+    from d3roma_tpu_torch.ops.kernels.geglu import int8_output_chunk
+    from d3roma_tpu_torch.ops.quant import fp32, quantize_int8
+
+    x = torch.randn((1, rows, c), generator=gen, device="cuda").to(torch.bfloat16)
+    ops_in = _int8_ff_operands(c, f, gen)
+    act = fp32(x.float().abs().max().item() * 1.25 / 127)
+    out = geglu_ff_int8(x, *ops_in, act)
+    ref = geglu_ff_int8_plain(x, *ops_in, act).float()
+    _sync()
+    err = (out.float() - ref).abs().max().item()
+    tol = REL_TOL * ref.abs().max().item()
+    row = {"shape": [rows, c, f], "max_abs_err": err, "tol": tol,
+           "max_abs_out": ref.abs().max().item(), "column_chunk": int8_output_chunk(c)}
+    if timed:
+        w1hq, w1gq, w2q = ops_in[:3]
+        w1t = torch.cat([w1hq, w1gq]).t()  # [C, 2F], column-major
+        w2t = w2q.t()                      # [F, C], column-major
+        xq = quantize_int8(x.reshape(rows, c), act)
+
+        def library():
+            hg = torch._int_mm(xq, w1t).float()
+            y = hg[:, :f] * F.gelu(hg[:, f:], approximate="tanh")
+            return torch._int_mm(y.to(torch.int8), w2t)
+
+        row["ms"] = time_ms(lambda: geglu_ff_int8(x, *ops_in, act))
+        row["plain_ms"] = time_ms(lambda: geglu_ff_int8_plain(x, *ops_in, act), reps=3,
+                                  warmup=1)
+        row["library_ms"] = time_ms(library)
+        row["library_call"] = "torch._int_mm(xq, W1) -> gelu -> torch._int_mm(y, W2)"
+        ops = 6.0 * rows * c * f
+        nbytes = 2.0 * 2 * rows * c + 3.0 * c * f + 4.0 * (4 * f + 2 * c)
+        row["bound_ms"], row["bound_by"] = bound(ops, nbytes, H100_INT8_OPS)
+    _sync()
+    print(f"  geglu_int8 {row}", flush=True)
+    if not err <= tol:
+        raise AssertionError(f"geglu_int8 {row['shape']}: max abs err {err} > {tol}")
+    return row
+
+
+def _conv_int8_case(b, h, w, cin, cout, k, stride, padding, gen, timed):
+    import torch
+    import torch.nn.functional as F
+
+    from d3roma_tpu_torch.ops.kernels import conv2d_int8, conv2d_int8_plain
+    from d3roma_tpu_torch.ops.kernels.conv2d import conv_out_hw
+    from d3roma_tpu_torch.ops.quant import fp32, quantize_weight
+
+    x = torch.randn((b, h, w, cin), generator=gen, device="cuda").to(torch.bfloat16)
+    wt = (torch.randn((cout, k, k, cin), generator=gen, device="cuda")
+          * (k * k * cin) ** -0.5).to(torch.bfloat16)
+    bias = (torch.randn((cout,), generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+    wq, ws = quantize_weight(wt)
+    act = fp32(x.float().abs().max().item() * 1.25 / 127)
+    out = conv2d_int8(x, wq, ws, act, bias, stride, padding)
+    ref = conv2d_int8_plain(x, wq, ws, act, bias, stride, padding).float()
+    _sync()
+    err = (out.float() - ref).abs().max().item()
+    tol = REL_TOL * ref.abs().max().item()
+    row = {"shape": [b, h, w, cin, cout, k, stride, padding], "max_abs_err": err,
+           "tol": tol, "max_abs_out": ref.abs().max().item()}
+    if timed:
+        xc = x.permute(0, 3, 1, 2)  # NCHW view, channels_last in memory
+        wc = wt.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        row["ms"] = time_ms(lambda: conv2d_int8(x, wq, ws, act, bias, stride, padding))
+        row["plain_ms"] = time_ms(
+            lambda: conv2d_int8_plain(x, wq, ws, act, bias, stride, padding), reps=3, warmup=1)
+        row["library_ms"] = time_ms(lambda: F.conv2d(xc, wc, bias, stride, padding))
+        row["library_call"] = "F.conv2d (bf16, cuDNN, channels_last)"
+        oh, ow = conv_out_hw(h, w, k, stride, padding)
+        ops = 2.0 * b * oh * ow * cout * k * k * cin
+        nbytes = 2.0 * b * h * w * cin + 1.0 * cout * k * k * cin + 6.0 * cout + 2.0 * b * oh * ow * cout
+        row["bound_ms"], row["bound_by"] = bound(ops, nbytes, H100_INT8_OPS)
+    _sync()
+    print(f"  conv2d_int8 {row}", flush=True)
+    if not err <= tol:
+        raise AssertionError(f"conv2d_int8 {row['shape']}: max abs err {err} > {tol}")
+    return row
+
+
+def _quantize_case(shape, gen, timed):
+    import torch
+
+    from d3roma_tpu_torch.ops.kernels import quantize_int8_plain, quantize_int8_scalar
+    from d3roma_tpu_torch.ops.quant import fp32
+
+    x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    scale = fp32(x.float().abs().max().item() * 0.9 / 127)  # some values clip
+    out = quantize_int8_scalar(x, scale)
+    ref = quantize_int8_plain(x, scale)
+    _sync()
+    err = (out.int() - ref.int()).abs().max().item()
+    row = {"shape": list(shape), "max_abs_err": float(err), "tol": 0.0}
+    if timed:
+        n = x.numel()
+        row["ms"] = time_ms(lambda: quantize_int8_scalar(x, scale))
+        row["plain_ms"] = time_ms(lambda: quantize_int8_plain(x, scale))
+        row["library_ms"] = None
+        row["library_call"] = None
+        row["bound_ms"], row["bound_by"] = bound(0.0, 3.0 * n)
+    print(f"  quantize_int8 {row}", flush=True)
+    if err != 0:
+        raise AssertionError(f"quantize_int8 {shape}: differs from the plain version")
+    return row
+
+
+def int8_kernel_phase():
+    """The int8 kernels against their plain versions at the bench-default
+    path's shapes (timed) and ragged ones (checked only)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    rows = {"quantize": [_quantize_case((BATCH, 3600, 320), gen, True)]}
+    for shape in ((7,), (3, 5, 33)):
+        _quantize_case(shape, gen, False)
+    rows["attention_int8"] = [
+        _attention_int8_case(BATCH, 3600, 3600, 5, 64, gen, True),
+        _attention_int8_case(BATCH, 920, 920, 10, 64, gen, True),
+        _attention_int8_case(2 * BATCH, 3600, 3600, 1, 512, gen, True),  # VAE encode
+        _attention_int8_case(BATCH, 3600, 3600, 1, 512, gen, True)]      # VAE decode
+    for shape in ((1, 600, 600, 2, 64), (2, 300, 77, 3, 64), (1, 100, 130, 2, 128),
+                  (1, 70, 50, 1, 32), (1, 200, 150, 1, 512), (1, 90, 90, 2, 256)):
+        _attention_int8_case(*shape, gen, False)
+    rows["geglu_int8"] = [
+        _geglu_int8_case(BATCH * 3600, 320, 1280, gen, True),
+        _geglu_int8_case(BATCH * 920, 640, 2560, gen, True),
+        _geglu_int8_case(BATCH * 240, 1280, 5120, gen, True),
+        _geglu_int8_case(BATCH * 60, 1280, 5120, gen, True)]
+    for shape in ((100, 64, 256), (33, 1280, 5120), (300, 320, 1280), (50, 1920, 7680),
+                  (1000, 640, 2560)):
+        _geglu_int8_case(*shape, gen, False)
+    rows["conv2d_int8"] = [
+        _conv_int8_case(BATCH, 23, 40, 1920, 640, 3, 1, 1, gen, True),   # UNet up block 2
+        _conv_int8_case(2 * BATCH, H, W, 128, 128, 3, 1, 1, gen, True),  # VAE encoder
+        _conv_int8_case(2 * BATCH, H + 1, W + 1, 128, 128, 3, 2, 0, gen, True),  # VAE down
+        _conv_int8_case(BATCH, H, W, 256, 128, 1, 1, 0, gen, True)]      # VAE 1x1 shortcut
+    for shape in ((BATCH, 45, 80, 320, 320, 3, 2, 1), (1, 7, 9, 32, 64, 3, 1, 1),
+                  (1, 5, 6, 64, 96, 3, 2, 1), (2, 9, 11, 32, 130, 1, 1, 0),
+                  (1, 13, 17, 96, 34, 3, 2, 0)):
+        _conv_int8_case(*shape, gen, False)
+    _sync()
+    return rows
 
 
 def _schedule():
@@ -267,8 +477,7 @@ def pipeline_phase():
     _sync()
     print(f"pipeline: first call {time.perf_counter() - t0:.2f}s", flush=True)
 
-    mha_attention.launches = 0
-    geglu_ff.launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     out = run()
     _sync()
@@ -297,7 +506,7 @@ def pipeline_phase():
         raise AssertionError(f"kernel launches {counts}, expected "
                              f"{{'attention': {10 * STEPS}, 'geglu': {16 * STEPS}}}")
 
-    profile_phase(run)
+    profile_phase(run, "latency")
 
     # One UNet forward through the kernels against the same forward through
     # the plain torch paths (the attention and feed-forward the JAX package
@@ -317,11 +526,188 @@ def pipeline_phase():
     if not rel <= UNET_REL_TOL:
         raise AssertionError(f"UNet kernel path differs from the plain path: {rel}")
     _sync()
+    return pipe, (rgb, raw, gen), counts, ms_per_frame
+
+
+def _int8_launches():
+    from d3roma_tpu_torch.ops.kernels import (
+        conv2d_int8,
+        geglu_ff,
+        geglu_ff_int8,
+        mha_attention,
+        mha_attention_int8,
+        quantize_int8_scalar,
+    )
+
+    return {"attention": mha_attention.launches, "geglu": geglu_ff.launches,
+            "attention_int8": mha_attention_int8.launches,
+            "geglu_int8": geglu_ff_int8.launches, "conv2d_int8": conv2d_int8.launches,
+            "quantize": quantize_int8_scalar.launches}
+
+
+def _zero_launches():
+    from d3roma_tpu_torch.ops import kernels
+
+    for fn in (kernels.mha_attention, kernels.geglu_ff, kernels.mha_attention_int8,
+               kernels.geglu_ff_int8, kernels.conv2d_int8, kernels.quantize_int8_scalar):
+        fn.launches = 0
+
+
+def _plain_int8_forward(fn, attention: bool = True):
+    """fn() with the int8 kernel wrappers (the attention one too, unless
+    attention=False) replaced by their plain versions: the same arithmetic
+    in PyTorch ops, on the card."""
+    from d3roma_tpu_torch.models import layers
+    from d3roma_tpu_torch.ops import kernels, quant
+
+    saved = (layers.mha_attention_int8, layers.geglu_ff_int8, layers.conv2d_int8,
+             quant.conv2d_int8)
+    if attention:
+        layers.mha_attention_int8 = kernels.mha_attention_int8_plain
+    layers.geglu_ff_int8 = kernels.geglu_ff_int8_plain
+    layers.conv2d_int8 = quant.conv2d_int8 = kernels.conv2d_int8_plain
+    try:
+        return fn()
+    finally:
+        (layers.mha_attention_int8, layers.geglu_ff_int8, layers.conv2d_int8,
+         quant.conv2d_int8) = saved
+
+
+def bench_default_phase(pipe, inputs):
+    """The JAX package's bench default on the same models: static int8 in
+    the UNet and the VAE, DeepCache interval 2 at depth 2, calibrated on one
+    batch. Returns the launch counts of one call and the median ms/frame."""
+    import torch
+
+    from d3roma_tpu_torch.ops.quant import replay_act_scales
+    from d3roma_tpu_torch.pipelines.sampling import uniform_cache_schedule
+
+    rgb, raw, gen = inputs
+    t0 = time.perf_counter()
+    logs = {}
+    pipe.fast_inference("throughput").deepcache(2, depth=2).calibrate(
+        gen, [dict(rgb_images=rgb, sim_disp=raw)], cond_channels="rgb+raw",
+        num_inference_steps=STEPS, shape_logs=logs)
+    _sync()
+    print(f"bench default: calibrated in {time.perf_counter() - t0:.2f}s; table lengths "
+          f"{ {k: len(v) for k, v in pipe.act_scales.items()} }", flush=True)
+    pattern = uniform_cache_schedule(2, STEPS)
+    # the int8 conv kernel serves every quantized conv and dense site
+    convs = {k: sum(1 for kind, _ in v if kind in ("conv", "dot")) for k, v in logs.items()}
+    expected = {
+        # full pass: 10 self-attention sites of >= 512 tokens and 16 GEGLUs;
+        # shallow pass at depth 2: the same 10 sites and 10 of the GEGLUs;
+        # the VAE's mid attention in the encode and in the decode
+        "attention_int8": 10 * pattern.count("F") + 10 * pattern.count("S") + 2,
+        "geglu_int8": 16 * pattern.count("F") + 10 * pattern.count("S"),
+        # one launch per quantized conv or dense site visited, from the
+        # capture logs
+        "conv2d_int8": (convs["vae_encode"] + convs["unet"] * pattern.count("F")
+                        + convs["unet_cached"] * pattern.count("S") + convs["vae_decode"]),
+    }
+    if (expected["attention_int8"], expected["geglu_int8"]) != (102, 130):
+        raise AssertionError(f"expected launches {expected} for pattern {pattern}")
+
+    def run():
+        return pipe(num_inference_steps=STEPS, num_intermediate_images=1,
+                    cond_channels="rgb+raw", rgb_images=rgb, sim_disp=raw,
+                    generator=torch.Generator(device="cuda").manual_seed(7))
+
+    t0 = time.perf_counter()
+    run()
+    _sync()
+    print(f"bench default: first call {time.perf_counter() - t0:.2f}s", flush=True)
+    _zero_launches()
+    t0 = time.perf_counter()
+    out = run()
+    _sync()
+    walls = [time.perf_counter() - t0]
+    counts = _int8_launches()
+    for _ in range(2):
+        t0 = time.perf_counter()
+        run()
+        _sync()
+        walls.append(time.perf_counter() - t0)
+    ms_per_frame = sorted(walls)[1] * 1e3 / BATCH
+    disp = pipe.normalizer.denormalize(out.images.float())
+    print(f"bench default: {counts} launches in one call (expected {expected}); "
+          f"{ms_per_frame:.2f} ms/frame, median of "
+          f"{[round(w * 1e3 / BATCH, 2) for w in walls]} (batch {BATCH}, {STEPS} steps, "
+          f"pattern {pattern}, {H}x{W}); images {tuple(out.images.shape)} in "
+          f"[{out.images.min().item():.4f}, {out.images.max().item():.4f}], disparity in "
+          f"[{disp.min().item():.3f}, {disp.max().item():.3f}]", flush=True)
+    if tuple(out.images.shape) != (BATCH, H, W, 1):
+        raise AssertionError(f"images shape {tuple(out.images.shape)}")
+    if not (torch.isfinite(out.images).all() and torch.isfinite(disp).all()):
+        raise AssertionError("non-finite pipeline output")
+    # one activation quantization in front of each int8 conv, dense and GEGLU
+    expected["quantize"] = expected["conv2d_int8"] + expected["geglu_int8"]
+    if any(counts[k] != v for k, v in expected.items()):
+        raise AssertionError(f"kernel launches {counts}, expected {expected}")
+
+    profile_phase(run, "bench default")
+
+    # One full and one shallow UNet forward, each replaying its table,
+    # through the int8 kernels against the same forwards through their plain
+    # versions. The conv (and dense), GEGLU and quantize kernels are
+    # bit-equal to their plain versions; the attention kernel is not (its
+    # denominator sums in another order, expf rounds in the last place), and
+    # a last-place difference before a quantization moves that value by one
+    # int8 quantum, which the following layers amplify to the level of the
+    # int8 noise itself. So: (1) with the attention kernel on both sides, the
+    # forwards must agree to 1e-3 of max |out| (expected: equal); (2) with
+    # all four plain, the difference must stay within the int8 noise: two
+    # int8 forwards whose roundings have come apart differ by up to ~sqrt(2)
+    # times the distance of one from the float forward, so no more than
+    # twice the same forward's distance from its bf16 version (the latency
+    # path's kernels, no int8).
+    unet = pipe.unet
+    x = torch.randn((BATCH, H // 8, W // 8, unet.in_channels), generator=gen, device="cuda")
+    ctx = torch.zeros((BATCH, 2, 1024), device="cuda")
+
+    def forwards(quant="static"):
+        with torch.no_grad():
+            if quant != "static":
+                full, trunk = unet(x, 981, ctx, return_trunk=True)
+                return full, unet(x, 881, ctx, cached_trunk=trunk)
+            with replay_act_scales(pipe.act_scales["unet"]):
+                full, trunk = unet(x, 981, ctx, return_trunk=True)
+            with replay_act_scales(pipe.act_scales["unet_cached"]):
+                shallow = unet(x, 881, ctx, cached_trunk=trunk)
+        return full, shallow
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    fast = forwards()
+    same_attention = _plain_int8_forward(forwards, attention=False)
+    plain = _plain_int8_forward(forwards)
+    unet.set_quant(False)
+    bf16 = forwards(quant=False)
+    unet.set_quant("static")
+    for i, name in enumerate(("full", "shallow")):
+        r1, r2, noise = rel(fast[i], same_attention[i]), rel(fast[i], plain[i]), rel(
+            fast[i], bf16[i])
+        print(f"unet {name} pass (int8), max err / max |out|: kernels vs plain versions "
+              f"with the attention kernel on both sides {r1:.3e} (tol 1e-3); all plain "
+              f"{r2:.3e} (tol: twice the int8 noise, {noise:.3e} from the bf16 forward)",
+              flush=True)
+        if not (r1 <= 1e-3 and r2 <= 2 * noise):
+            raise AssertionError(f"UNet {name} pass: kernel path differs from the plain "
+                                 f"versions: {r1}, {r2} (int8 noise {noise})")
+    _sync()
     return counts, ms_per_frame
 
 
 _KERNEL_GROUPS = (
-    ("geglu_ff kernel", ("geglu_",)),
+    # the port's own kernels first, so that no library group takes one of them
+    ("conv2d_int8 kernel", ("conv_int8_kernel",)),
+    ("geglu_ff_int8 kernel", ("geglu_int8_kernel",)),
+    ("mha_attention_int8 kernels (quantize heads, attention)",
+     ("mha_int8_rows_kernel", "mha_int8_wide_kernel", "absmax_kernel",
+      "quantize_heads_kernel")),
+    ("quantize_int8 kernel", ("quantize_bf16_vec8", "quantize_scalar")),
+    ("geglu_ff kernel", ("geglu_kernel", "geglu_reduce")),
     ("mha_attention kernel", ("mha_kernel",)),
     ("convolution", ("conv", "cudnn", "xmma_fprop", "implicit_gemm", "nhwc", "winograd")),
     ("matmul", ("gemm", "cutlass", "cublas", "sm90_xmma", "splitk")),
@@ -337,7 +723,7 @@ def _group(kernel_name: str) -> str:
     return "elementwise and other"
 
 
-def profile_phase(run) -> None:
+def profile_phase(run, label: str = "pipeline") -> None:
     """One more pipeline call under torch.profiler: device time by kernel
     group and the device's idle share of the call's wall time."""
     import torch
@@ -359,7 +745,7 @@ def profile_phase(run) -> None:
         g = _group(evt.key)
         groups[g] = groups.get(g, 0.0) + us / 1e3
     busy = sum(groups.values())
-    print(f"profile: one call {wall_ms:.1f} ms wall (profiled), device busy {busy:.1f} ms "
+    print(f"profile ({label}): one call {wall_ms:.1f} ms wall (profiled), device busy {busy:.1f} ms "
           f"= {busy / BATCH:.1f} ms/frame, idle share {max(0.0, 1 - busy / wall_ms):.3f}",
           flush=True)
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
@@ -375,16 +761,20 @@ def _kernel_entry(name, source, replaces, rows, launches):
         "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": first["ms"], "kernel_ms": first["ms"], "plain_ms": first["plain_ms"],
         "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
-        "library_ms": first["library_ms"], "shapes": rows,
+        "library_ms": first["library_ms"],
+        "library_call": first["library_call"],
+        "shapes": rows,
     }
 
 
 def main() -> int:
     pin_one_card()
-    device_phase()
+    card = device_phase()
     build_phase()
     attn_rows, geglu_rows = kernel_phase()
-    counts, ms_per_frame = pipeline_phase()
+    int8_rows = int8_kernel_phase()
+    pipe, inputs, counts, ms_per_frame = pipeline_phase()
+    bench_counts, bench_ms_per_frame = bench_default_phase(pipe, inputs)
 
     import torch
 
@@ -394,9 +784,25 @@ def main() -> int:
                       counts["attention"]),
         _kernel_entry("geglu_ff", "d3roma_tpu_torch/csrc/geglu.cu",
                       "d3roma_tpu/ops/pallas/geglu.py:114", geglu_rows, counts["geglu"]),
+        _kernel_entry("mha_attention_int8", "d3roma_tpu_torch/csrc/attention_int8.cu",
+                      "d3roma_tpu/ops/pallas/attention.py:90", int8_rows["attention_int8"],
+                      bench_counts["attention_int8"]),
+        _kernel_entry("geglu_ff_int8", "d3roma_tpu_torch/csrc/geglu_int8.cu",
+                      "d3roma_tpu/ops/pallas/geglu.py:71", int8_rows["geglu_int8"],
+                      bench_counts["geglu_int8"]),
+        _kernel_entry("conv2d_int8", "d3roma_tpu_torch/csrc/conv2d_int8.cu",
+                      "d3roma_tpu/ops/pallas/conv2d.py:80", int8_rows["conv2d_int8"],
+                      bench_counts["conv2d_int8"]),
+        # no Pallas kernel: the XLA quantization in front of the int8 ops
+        _kernel_entry("quantize_int8", "d3roma_tpu_torch/csrc/quantize.cu",
+                      "d3roma_tpu/ops/quant.py:64", int8_rows["quantize"],
+                      bench_counts["quantize"]),
     ]
-    print(json.dumps({"pipeline_ms_per_frame": ms_per_frame, "batch": BATCH,
-                      "steps": STEPS}), flush=True)
+    # the card again, so that the end of a long log still names it
+    print(card, flush=True)
+    print(json.dumps({"pipeline_ms_per_frame": {"latency": ms_per_frame,
+                                                "bench_default": bench_ms_per_frame},
+                      "batch": BATCH, "steps": STEPS}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

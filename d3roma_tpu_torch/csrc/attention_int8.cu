@@ -1,0 +1,566 @@
+// Multi-head attention for Hopper (sm_90a) with both products in int8:
+//   s = (qq . kq) * (scale * sq * sk)          int32 sums, fp32 scores
+//   p = exp(s - rowmax(s))                      fp32, over the whole key row
+//   out = ((round(127 p) . vq) * (sv / 127)) / sum(p)      bf16
+// with q, k and v quantized per (batch, head): s_x = max(absmax, 1e-6) / 127,
+// x_q = round(x / s_x), no clip.
+//
+// Replaces: d3roma_tpu/ops/pallas/attention.py::mha_attention, its int8 path
+// (kernel body _kernel_int8, and the wrapper's quantization, which XLA runs
+// there). That TPU kernel holds a whole [block_q, M] score row in VMEM: it
+// takes the true row max, quantizes the unnormalized P = exp(s - max) at the
+// fixed scale 127, and divides by the fp32 denominator at the end.
+//
+// What bounds it on the H100: operations. At the UNet's sites (N = M = 3600,
+// H = 5 and N = M = 920, H = 10, D = 64) and the VAE's (N = M = 3600, H = 1,
+// D = 512) the two products do 4*N*M*D int8 operations per (batch, head)
+// against about 4*N*D bytes, i.e. ~M operations per byte, above the ~590 per
+// byte where the int8 tensor cores become the limit.
+//
+// Design. One call runs four launches on the caller's stream: zero the
+// absmax table; absmax of q, k and v per (batch, head) (atomicMax on the bit
+// pattern of non-negative floats); quantize q and k in place of layout and v
+// into [B, H, D, M_pad] (keys contiguous: the int8 mma takes its B operand
+// as k-contiguous rows; zero past M); the attention kernel.
+//
+// A Hopper block cannot hold a [64, 3600] score row, and an online softmax
+// only knows a running max, so it could not quantize P against the true
+// row max as the TPU kernel does. The attention kernel therefore walks the
+// keys twice, in tiles of 64:
+//   pass 1: S = Q K^T (int32), keeping each row's largest integer score; the
+//           row max of the fp32 scores is that integer times
+//           scale * sq * sk (the conversion and the product are monotonic);
+//   pass 2: S again; p = exp(s - max) into the fp32 denominator, unrounded;
+//           round(127 p) into an int8 P tile; O += P V (int32).
+// That costs the first product twice (1.5x the operations), for numerics
+// that are the TPU kernel's. Both products are mma.sync m16n8k32 (int8,
+// int32 accumulation). The int32 sums cannot overflow: at most 127^2 * D
+// for Q K^T and 127^2 * M for P V.
+//
+// Head widths up to 128 (the UNet): a block takes 64 query rows with 4
+// warps, and each warp owns 16 rows outright: their scores, row maxima and
+// denominators stay in its registers (a row's 64 keys live in one quad of
+// lanes), its P rows go through its own slice of shared memory (the
+// accumulator layout of one m16n8k32 is not the A layout of the next), and
+// its [16, D] int32 output stays in registers. K and V tiles are
+// double-buffered by cp.async, so the block meets one barrier per key tile.
+//
+// Head width 512 (the VAE): a warp's [16, 512] int32 output would take 256
+// registers per thread, so the block takes 32 query rows with 8 warps and
+// splits D across them (each warp owns 16 of the 128 output fragments of
+// [32, 512]); the scores go through shared memory, every warp reads the
+// shared P tile, and the K and V tiles (33 and 40 KB) are loaded and waited
+// for (no double buffering at this width).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <limits.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "int8_mma.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+using d3r::cp_async_16;
+
+constexpr int kBK = 64;  // keys per tile
+
+struct AttnArgs {
+  const int8_t* q;   // [B, N, H, D]
+  const int8_t* k;   // [B, M, H, D]
+  const int8_t* vt;  // [B, H, D, Mp]
+  const unsigned int* amax;  // [3, B, H]: absmax bits of q, k, v
+  bf16* o;           // [B, N, H, D]
+  int B, N, M, Mp, H;
+  float scale;
+};
+
+__device__ __forceinline__ float head_scale(const unsigned int* amax, int i) {
+  return __fdiv_rn(fmaxf(__uint_as_float(amax[i]), 1e-6f), 127.f);
+}
+
+// --------------------------------------------------------------------------
+// The per-(batch, head) quantization.
+
+struct QuantArgs {
+  const bf16* x[3];  // q [B, N, H, D], k and v [B, M, H, D]
+  int L[3];          // N, M, M
+  int8_t* xq[2];     // qq, kq: the layout of q and k
+  int8_t* vt;        // [B, H, D, Mp]
+  unsigned int* amax;
+  int B, H, D, Mp;
+};
+
+constexpr int kAbsRows = 64;
+
+// grid (ceil(max L / 64), B * H, 3): one block per (64 rows, batch and head,
+// tensor).
+__global__ void absmax_kernel(QuantArgs a) {
+  const int z = blockIdx.z, bh = blockIdx.y;
+  const int L = a.L[z];
+  const int b = bh / a.H, h = bh % a.H;
+  const int r0 = blockIdx.x * kAbsRows;
+  const int vec = a.D / 8;
+  float m = 0.f;
+  for (int i = threadIdx.x; i < kAbsRows * vec; i += blockDim.x) {
+    const int r = r0 + i / vec;
+    if (r >= L) break;
+    const uint4 v = *reinterpret_cast<const uint4*>(
+        a.x[z] + (((long long)b * L + r) * a.H + h) * a.D + (i % vec) * 8);
+    const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) m = fmaxf(m, fabsf(__bfloat162float(e[j])));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if (threadIdx.x % 32 == 0) atomicMax(a.amax + z * a.B * a.H + bh, __float_as_uint(m));
+}
+
+// grid (blocks, 1, 3): z = 0, 1 quantize q and k in their own layout, z = 2
+// writes v transposed to [B, H, D, Mp], zero past M.
+__global__ void quantize_heads_kernel(QuantArgs a) {
+  const int z = blockIdx.z;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long start = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned int* amax = a.amax + z * a.B * a.H;
+  if (z < 2) {
+    const long long n = (long long)a.B * a.L[z] * a.H * a.D;
+    for (long long i = start; i < n; i += stride) {
+      const int h = (int)((i / a.D) % a.H);
+      const int b = (int)(i / ((long long)a.L[z] * a.H * a.D));
+      const float s = head_scale(amax, b * a.H + h);
+      a.xq[z][i] = (int8_t)rintf(__fdiv_rn(__bfloat162float(a.x[z][i]), s));
+    }
+  } else {
+    const int L = a.L[2];
+    const long long n = (long long)a.B * a.H * a.D * a.Mp;
+    for (long long i = start; i < n; i += stride) {
+      const int l = (int)(i % a.Mp);
+      const int d = (int)((i / a.Mp) % a.D);
+      const int bh = (int)(i / ((long long)a.Mp * a.D));
+      int8_t q = 0;
+      if (l < L) {
+        const int b = bh / a.H, h = bh % a.H;
+        const float x = __bfloat162float(a.x[2][(((long long)b * L + l) * a.H + h) * a.D + d]);
+        q = (int8_t)rintf(__fdiv_rn(x, head_scale(amax, bh)));
+      }
+      a.vt[i] = q;
+    }
+  }
+}
+
+// --------------------------------------------------------------------------
+// Head widths up to 128: each warp owns 16 query rows.
+
+template <int D>
+struct RowsCfg {
+  static constexpr int kWarps = 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kBQ = 16 * kWarps;
+  static constexpr int kLdq = D + 16;    // Q and K rows, bytes
+  static constexpr int kLdv = kBK + 16;  // V^T rows (one per d), bytes
+  static constexpr int kLdp = kBK + 16;  // P rows, bytes
+  static constexpr size_t q = 0;
+  static constexpr size_t k = q + (size_t)kBQ * kLdq;    // 2 buffers
+  static constexpr size_t v = k + 2 * (size_t)kBK * kLdq;  // 2 buffers
+  static constexpr size_t p = v + 2 * (size_t)D * kLdv;    // one slice per warp
+  static constexpr size_t bytes = p + (size_t)kWarps * 16 * kLdp;
+  static_assert(D % 32 == 0 && D <= 128, "head width");
+};
+
+template <int D>
+__global__ void __launch_bounds__(RowsCfg<D>::kThreads) mha_int8_rows_kernel(AttnArgs a) {
+  using C = RowsCfg<D>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  int8_t* qs = reinterpret_cast<int8_t*>(smem + C::q);
+  int8_t* ks = reinterpret_cast<int8_t*>(smem + C::k);
+  int8_t* vs = reinterpret_cast<int8_t*>(smem + C::v);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  int8_t* pw = reinterpret_cast<int8_t*>(smem + C::p) + warp * 16 * C::kLdp;
+
+  const int q0 = blockIdx.x * C::kBQ, h = blockIdx.y, b = blockIdx.z;
+  const int bh = b * a.H + h, BH = a.B * a.H;
+  const float c = __fmul_rn(__fmul_rn(a.scale, head_scale(a.amax, bh)),
+                            head_scale(a.amax, BH + bh));
+  const long long row_stride = (long long)a.H * D;
+  const int8_t* qb = a.q + ((long long)b * a.N * a.H + h) * D;
+  const int8_t* kb = a.k + ((long long)b * a.M * a.H + h) * D;
+  const int8_t* vb = a.vt + (long long)bh * D * a.Mp;
+  constexpr int kVecD = D / 16, kVecK = kBK / 16;
+
+  auto load_tile = [&](int t, int buf, bool with_v) {
+    for (int i = tid; i < kBK * kVecD; i += C::kThreads) {
+      const int r = i / kVecD, cc = (i % kVecD) * 16;
+      const int key = t * kBK + r;
+      const bool ok = key < a.M;
+      cp_async_16(ks + (buf * kBK + r) * C::kLdq + cc, ok ? kb + key * row_stride + cc : a.k,
+                  ok ? 16 : 0);
+    }
+    if (with_v) {
+      for (int i = tid; i < D * kVecK; i += C::kThreads) {
+        const int d = i / kVecK, cc = (i % kVecK) * 16;
+        cp_async_16(vs + (buf * D + d) * C::kLdv + cc, vb + (long long)d * a.Mp + t * kBK + cc,
+                    16);
+      }
+    }
+  };
+
+  for (int i = tid; i < C::kBQ * kVecD; i += C::kThreads) {
+    const int r = i / kVecD, cc = (i % kVecD) * 16;
+    const bool ok = q0 + r < a.N;
+    cp_async_16(qs + r * C::kLdq + cc, ok ? qb + (q0 + r) * row_stride + cc : a.q, ok ? 16 : 0);
+  }
+  load_tile(0, 0, false);
+  d3r::cp_async_commit();
+
+  const int n_tiles = (a.M + kBK - 1) / kBK;
+  int run_max[2] = {INT_MIN, INT_MIN};  // rows g and g + 8 of this warp
+  float m_row[2] = {0.f, 0.f}, l_row[2] = {0.f, 0.f};
+  int acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
+  uint32_t qf[D / 32][4];
+
+  for (int it = 0; it < 2 * n_tiles; ++it) {
+    const bool pass2 = it >= n_tiles;
+    const int t = pass2 ? it - n_tiles : it;
+    const int buf = it & 1;
+    d3r::cp_async_wait<0>();
+    __syncthreads();  // tile `it` has landed; every warp is done with tile it - 1
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < D / 32; ++kk) d3r::load_a(qf[kk], qs, C::kLdq, warp * 16, kk * 32, lane);
+    }
+    if (it + 1 < 2 * n_tiles) {
+      const int next = it + 1 >= n_tiles ? it + 1 - n_tiles : it + 1;
+      load_tile(next, buf ^ 1, it + 1 >= n_tiles);
+    }
+    d3r::cp_async_commit();
+
+    const int8_t* kt = ks + buf * kBK * C::kLdq;
+    int s[kBK / 8][4];
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j) {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0;
+#pragma unroll
+      for (int kk = 0; kk < D / 32; ++kk) {
+        uint32_t b0, b1;
+        d3r::load_b(b0, b1, kt, C::kLdq, j * 8, kk * 32, lane);
+        d3r::mma_s8(s[j], qf[kk], b0, b1);
+      }
+    }
+    const int key0 = t * kBK + 2 * t4;  // key of s[j][0] is key0 + 8 j; s[j][1] the next
+    if (!pass2) {
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (key0 + 8 * j + (e & 1) < a.M) run_max[e >> 1] = max(run_max[e >> 1], s[j][e]);
+        }
+      }
+      if (it == n_tiles - 1) {  // a row's keys live in one quad of lanes
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          run_max[r] = max(run_max[r], __shfl_xor_sync(0xffffffffu, run_max[r], 1));
+          run_max[r] = max(run_max[r], __shfl_xor_sync(0xffffffffu, run_max[r], 2));
+          m_row[r] = __fmul_rn((float)run_max[r], c);
+        }
+      }
+      continue;
+    }
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        uint32_t pair = 0;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float p = 0.f;
+          if (key0 + 8 * j + e < a.M) {
+            p = expf(__fsub_rn(__fmul_rn((float)s[j][2 * r + e], c), m_row[r]));
+          }
+          l_row[r] = __fadd_rn(l_row[r], p);
+          // p in [0, 1]: round(127 p) in [0, 127]
+          pair |= (uint32_t)rintf(__fmul_rn(p, 127.f)) << (8 * e);
+        }
+        *reinterpret_cast<uint16_t*>(pw + (g + 8 * r) * C::kLdp + 8 * j + 2 * t4) =
+            (uint16_t)pair;
+      }
+    }
+    __syncwarp();
+    const int8_t* vtile = vs + buf * D * C::kLdv;
+#pragma unroll
+    for (int kk = 0; kk < kBK / 32; ++kk) {
+      uint32_t af[4];
+      d3r::load_a(af, pw, C::kLdp, 0, kk * 32, lane);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        uint32_t b0, b1;
+        d3r::load_b(b0, b1, vtile, C::kLdv, n * 8, kk * 32, lane);
+        d3r::mma_s8(acc[n], af, b0, b1);
+      }
+    }
+    __syncwarp();  // the next tile's P overwrites this warp's slice
+  }
+  d3r::cp_async_wait<0>();
+
+  const float sv127 = __fdiv_rn(head_scale(a.amax, 2 * BH + bh), 127.f);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_row[r] = __fadd_rn(l_row[r], __shfl_xor_sync(0xffffffffu, l_row[r], 1));
+    l_row[r] = __fadd_rn(l_row[r], __shfl_xor_sync(0xffffffffu, l_row[r], 2));
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int n = q0 + warp * 16 + g + 8 * r;
+    if (n >= a.N) continue;
+    bf16* orow = a.o + (((long long)b * a.N + n) * a.H + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const float v0 = __fdiv_rn(__fmul_rn((float)acc[j][2 * r], sv127), l_row[r]);
+      const float v1 = __fdiv_rn(__fmul_rn((float)acc[j][2 * r + 1], sv127), l_row[r]);
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t4) = __floats2bfloat162_rn(v0, v1);
+    }
+  }
+}
+
+// --------------------------------------------------------------------------
+// Head widths 256 and 512: the warps split D and share the score and P tiles.
+
+template <int D, int BQ, int WARPS>
+struct WideCfg {
+  static constexpr int kThreads = 32 * WARPS;
+  static constexpr int kLdq = D + 16;    // Q and K rows, bytes
+  static constexpr int kLdv = kBK + 16;  // V^T rows (one per d), bytes
+  static constexpr int kLds = kBK + 4;   // score rows, int32
+  static constexpr int kLdp = kBK + 16;  // P rows, bytes
+  static constexpr int kTpr = kThreads / BQ;  // threads per score row
+  static constexpr int kKpt = kBK / kTpr;     // keys per thread
+  static constexpr int kSTiles = (BQ / 16) * (kBK / 8);
+  static constexpr int kOTiles = (BQ / 16) * (D / 8);
+  static constexpr int kOPerWarp = kOTiles / WARPS;
+  static constexpr size_t q = 0;
+  static constexpr size_t k = q + (size_t)BQ * kLdq;
+  static constexpr size_t v = k + (size_t)kBK * kLdq;
+  static constexpr size_t s = v + (size_t)D * kLdv;
+  static constexpr size_t p = s + sizeof(int) * BQ * kLds;
+  static constexpr size_t l = p + (size_t)BQ * kLdp;
+  static constexpr size_t bytes = l + sizeof(float) * BQ;
+  static_assert(D % 32 == 0 && BQ % 16 == 0, "tile shapes");
+  static_assert(kThreads % BQ == 0 && 32 % kTpr == 0 && kKpt % 4 == 0, "row split");
+  static_assert(kOTiles % WARPS == 0, "output fragments per warp");
+};
+
+template <int D, int BQ, int WARPS>
+__global__ void __launch_bounds__(32 * WARPS) mha_int8_wide_kernel(AttnArgs a) {
+  using C = WideCfg<D, BQ, WARPS>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  int8_t* qs = reinterpret_cast<int8_t*>(smem + C::q);
+  int8_t* ks = reinterpret_cast<int8_t*>(smem + C::k);
+  int8_t* vs = reinterpret_cast<int8_t*>(smem + C::v);
+  int* ss = reinterpret_cast<int*>(smem + C::s);
+  int8_t* ps = reinterpret_cast<int8_t*>(smem + C::p);
+  float* lsum = reinterpret_cast<float*>(smem + C::l);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int bh = b * a.H + h, BH = a.B * a.H;
+  const float c = __fmul_rn(__fmul_rn(a.scale, head_scale(a.amax, bh)),
+                            head_scale(a.amax, BH + bh));
+  const long long row_stride = (long long)a.H * D;
+  const int8_t* qb = a.q + ((long long)b * a.N * a.H + h) * D;
+  const int8_t* kb = a.k + ((long long)b * a.M * a.H + h) * D;
+  const int8_t* vb = a.vt + (long long)bh * D * a.Mp;
+
+  constexpr int kVecD = D / 16;
+  for (int i = tid; i < BQ * kVecD; i += C::kThreads) {
+    const int r = i / kVecD, cc = (i % kVecD) * 16;
+    const bool ok = q0 + r < a.N;
+    cp_async_16(qs + r * C::kLdq + cc, ok ? qb + (q0 + r) * row_stride + cc : a.q, ok ? 16 : 0);
+  }
+  d3r::cp_async_commit();
+
+  const int row = tid / C::kTpr;                 // this thread's score row
+  const int key_lo = (tid % C::kTpr) * C::kKpt;  // and its keys in a tile
+  int run_max = INT_MIN;
+  float m_row = 0.f, l_part = 0.f;
+  int acc[C::kOPerWarp][4];
+#pragma unroll
+  for (int i = 0; i < C::kOPerWarp; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0;
+  const int n_tiles = (a.M + kBK - 1) / kBK;
+
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int t = 0; t < n_tiles; ++t) {
+      for (int i = tid; i < kBK * kVecD; i += C::kThreads) {
+        const int r = i / kVecD, cc = (i % kVecD) * 16;
+        const int key = t * kBK + r;
+        const bool ok = key < a.M;
+        cp_async_16(ks + r * C::kLdq + cc, ok ? kb + key * row_stride + cc : a.k, ok ? 16 : 0);
+      }
+      if (pass == 1) {
+        constexpr int kVecK = kBK / 16;
+        for (int i = tid; i < D * kVecK; i += C::kThreads) {
+          const int d = i / kVecK, cc = (i % kVecK) * 16;
+          cp_async_16(vs + d * C::kLdv + cc, vb + (long long)d * a.Mp + t * kBK + cc, 16);
+        }
+      }
+      d3r::cp_async_commit();
+      d3r::cp_async_wait<0>();
+      __syncthreads();
+
+      // S = Q K^T: the (16 x 8) score fragments are dealt out to the warps.
+      for (int ti = warp; ti < C::kSTiles; ti += WARPS) {
+        const int mt = ti / (kBK / 8), nt = ti % (kBK / 8);
+        int s[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int kk = 0; kk < D / 32; ++kk) {
+          uint32_t af[4], b0, b1;
+          d3r::load_a(af, qs, C::kLdq, mt * 16, kk * 32, lane);
+          d3r::load_b(b0, b1, ks, C::kLdq, nt * 8, kk * 32, lane);
+          d3r::mma_s8(s, af, b0, b1);
+        }
+        int* dst = ss + (mt * 16 + g) * C::kLds + nt * 8 + 2 * t4;
+        *reinterpret_cast<int2*>(dst) = make_int2(s[0], s[1]);
+        *reinterpret_cast<int2*>(dst + 8 * C::kLds) = make_int2(s[2], s[3]);
+      }
+      __syncthreads();
+
+      const int* srow = ss + row * C::kLds + key_lo;
+      const int key0 = t * kBK + key_lo;
+      if (pass == 0) {
+#pragma unroll
+        for (int j = 0; j < C::kKpt; ++j) {
+          if (key0 + j < a.M) run_max = max(run_max, srow[j]);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < C::kKpt; j += 4) {
+          uint32_t packed = 0;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = 0.f;
+            if (key0 + j + e < a.M) {
+              p = expf(__fsub_rn(__fmul_rn((float)srow[j + e], c), m_row));
+            }
+            l_part = __fadd_rn(l_part, p);
+            // p in [0, 1]: round(127 p) in [0, 127]
+            packed |= (uint32_t)rintf(__fmul_rn(p, 127.f)) << (8 * e);
+          }
+          *reinterpret_cast<uint32_t*>(ps + row * C::kLdp + key_lo + j) = packed;
+        }
+        __syncthreads();
+        // O += P V: this warp's output fragments.
+#pragma unroll
+        for (int i = 0; i < C::kOPerWarp; ++i) {
+          const int ti = warp + i * WARPS;
+          const int mt = ti / (D / 8), nt = ti % (D / 8);
+#pragma unroll
+          for (int kk = 0; kk < kBK / 32; ++kk) {
+            uint32_t af[4], b0, b1;
+            d3r::load_a(af, ps, C::kLdp, mt * 16, kk * 32, lane);
+            d3r::load_b(b0, b1, vs, C::kLdv, nt * 8, kk * 32, lane);
+            d3r::mma_s8(acc[i], af, b0, b1);
+          }
+        }
+      }
+      __syncthreads();  // the next tile's copies overwrite K, V, S and P
+    }
+    if (pass == 0) {
+#pragma unroll
+      for (int o = 1; o < C::kTpr; o <<= 1) {
+        run_max = max(run_max, __shfl_xor_sync(0xffffffffu, run_max, o));
+      }
+      m_row = __fmul_rn((float)run_max, c);
+    }
+  }
+#pragma unroll
+  for (int o = 1; o < C::kTpr; o <<= 1) {
+    l_part = __fadd_rn(l_part, __shfl_xor_sync(0xffffffffu, l_part, o));
+  }
+  if (tid % C::kTpr == 0) lsum[row] = l_part;
+  __syncthreads();
+
+  const float sv127 = __fdiv_rn(head_scale(a.amax, 2 * BH + bh), 127.f);
+#pragma unroll
+  for (int i = 0; i < C::kOPerWarp; ++i) {
+    const int ti = warp + i * WARPS;
+    const int mt = ti / (D / 8), nt = ti % (D / 8);
+    const int d = nt * 8 + 2 * t4;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = mt * 16 + g + 8 * hh;
+      const int n = q0 + r;
+      if (n >= a.N) continue;
+      const float v0 = __fdiv_rn(__fmul_rn((float)acc[i][2 * hh], sv127), lsum[r]);
+      const float v1 = __fdiv_rn(__fmul_rn((float)acc[i][2 * hh + 1], sv127), lsum[r]);
+      *reinterpret_cast<__nv_bfloat162*>(a.o + (((long long)b * a.N + n) * a.H + h) * D + d) =
+          __floats2bfloat162_rn(v0, v1);
+    }
+  }
+}
+
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, size_t bytes, int threads, int bq, const AttnArgs& a,
+                   cudaStream_t stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.N + bq - 1) / bq, a.H, a.B);
+  kernel<<<grid, threads, bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_rows(const AttnArgs& a, cudaStream_t st) {
+  using C = RowsCfg<D>;
+  return launch(mha_int8_rows_kernel<D>, C::bytes, C::kThreads, C::kBQ, a, st);
+}
+
+template <int D, int BQ, int WARPS>
+cudaError_t launch_wide(const AttnArgs& a, cudaStream_t st) {
+  using C = WideCfg<D, BQ, WARPS>;
+  return launch(mha_int8_wide_kernel<D, BQ, WARPS>, C::bytes, C::kThreads, BQ, a, st);
+}
+
+}  // namespace
+
+// q [B, N, H, D], k and v [B, M, H, D]: bf16, contiguous, 16-byte aligned.
+// Scratch: qq [B, N, H, D] and kq [B, M, H, D] int8, vt [B, H, D, Mp] int8
+// (Mp a multiple of 64, at least M), amax [3, B, H] uint32. o [B, N, H, D]
+// bf16. D in {32, 64, 96, 128, 256, 512}. Returns the first CUDA error of
+// the four launches, else cudaGetLastError().
+extern "C" int d3r_mha_attention_int8(const void* q, const void* k, const void* v, void* qq,
+                                      void* kq, void* vt, void* amax, void* o, int B, int N,
+                                      int M, int Mp, int H, int D, float scale, void* stream) {
+  if (B <= 0 || N <= 0 || M <= 0 || H <= 0 || Mp % kBK != 0 || Mp < M || D % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(amax, 0, sizeof(unsigned int) * 3 * B * H, st);
+  if (err != cudaSuccess) return (int)err;
+  QuantArgs qa{{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                static_cast<const bf16*>(v)},
+               {N, M, M},
+               {static_cast<int8_t*>(qq), static_cast<int8_t*>(kq)},
+               static_cast<int8_t*>(vt), static_cast<unsigned int*>(amax), B, H, D, Mp};
+  const int max_l = N > M ? N : M;
+  absmax_kernel<<<dim3((max_l + kAbsRows - 1) / kAbsRows, B * H, 3), 256, 0, st>>>(qa);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  quantize_heads_kernel<<<dim3(132 * 4, 1, 3), 256, 0, st>>>(qa);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  AttnArgs a{static_cast<const int8_t*>(qq), static_cast<const int8_t*>(kq),
+             static_cast<const int8_t*>(vt), static_cast<const unsigned int*>(amax),
+             static_cast<bf16*>(o), B, N, M, Mp, H, scale};
+  switch (D) {
+    case 32: return (int)launch_rows<32>(a, st);
+    case 64: return (int)launch_rows<64>(a, st);
+    case 96: return (int)launch_rows<96>(a, st);
+    case 128: return (int)launch_rows<128>(a, st);
+    case 256: return (int)launch_wide<256, 32, 8>(a, st);
+    case 512: return (int)launch_wide<512, 32, 8>(a, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

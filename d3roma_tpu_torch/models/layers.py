@@ -17,6 +17,15 @@ self-attention sites of >= 512 keys (`use_flash="pallas-self"`), and the
 fused GEGLU feed-forward (`fused=True`). Sites the JAX package leaves to
 XLA (`jax.nn.dot_product_attention`, the unfused feed-forward) are plain
 torch ops here.
+
+`quant="static"` (`set_quant`) is the JAX package's static int8 mode
+(`ops/quant.py`): the dense layers and convolutions of the resnets,
+transformers, attention blocks and resamplers take one activation scale each
+in call order and run in int8 (on CUDA both through the int8 conv kernel,
+the dense as a 1x1 conv); the attention sites that take the whole-row kernel take its int8
+version, and the fused feed-forward the int8 GEGLU kernel. Under a capture
+context (calibration) every such site records its tap and runs in float, and
+the attention kernels are skipped, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -29,10 +38,21 @@ import torch.nn.functional as F
 from torch import nn
 
 from d3roma_tpu_torch.ops.kernels import (
+    conv2d_int8,
     geglu_ff,
+    geglu_ff_int8,
     geglu_supported,
     mha_attention,
+    mha_attention_int8,
     mha_supported,
+)
+from d3roma_tpu_torch.ops.quant import (
+    QUANT_MODES,
+    act_ctx_mode,
+    consume_act_scale,
+    fp32,
+    int8_linear,
+    quantize_weight,
 )
 
 # use_flash values ported so far: False (plain attention everywhere),
@@ -57,12 +77,48 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int, flip_sin_to_cos: bool 
     return out
 
 
+def _weight_key(*params) -> tuple:
+    """Identifies a set of weights and their values (PyTorch bumps a
+    tensor's _version on every in-place change)."""
+    return tuple((p.data_ptr(), p._version, p.dtype, p.device) for p in params
+                 if p is not None)
+
+
+class _Int8Weight:
+    """The int8 weight [Cout, ...] and fp32 scales [Cout] of a module's
+    weight, made once and kept until the weight changes."""
+
+    def __init__(self):
+        self._cache = None
+
+    def get(self, weight: torch.Tensor, layout=None):
+        key = _weight_key(weight)
+        if self._cache is None or self._cache[0] != key:
+            with torch.no_grad():
+                w = weight if layout is None else layout(weight)
+                wq, ws = quantize_weight(w)
+            self._cache = (key, wq.contiguous(), ws.contiguous())
+        return self._cache[1], self._cache[2]
+
+
 class Linear(nn.Linear):
     """nn.Linear that computes in its weight's dtype (Flax Dense casts its
-    input to the module dtype the same way)."""
+    input to the module dtype the same way). With quant="static" it takes
+    one activation tap on that cast input and runs the static int8 dense."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias)
+        self.quant = False
+        self._int8 = _Int8Weight()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        x = x.to(self.weight.dtype)
+        if self.quant == "static":
+            mode, scale = consume_act_scale(x, "dot")
+            if mode == "int8":
+                wq, ws = self._int8.get(self.weight)
+                return int8_linear(x, wq, ws, scale, self.bias)
+        return F.linear(x, self.weight, self.bias)
 
 
 class Conv2d(nn.Conv2d):
@@ -79,6 +135,8 @@ class Conv2d(nn.Conv2d):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride,
                          padding=padding)
         self.compute_dtype = compute_dtype
+        self.quant = False
+        self._int8 = _Int8Weight()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.compute_dtype is None:
@@ -87,7 +145,16 @@ class Conv2d(nn.Conv2d):
             dt = torch.promote_types(x.dtype, self.weight.dtype)
         else:
             dt = self.compute_dtype
-        y = self._conv_forward(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt),
+        x = x.to(dt)
+        if self.quant == "static":
+            mode, scale = consume_act_scale(x, "conv")
+            if mode == "int8":
+                # [Cout, Cin, KH, KW] -> [Cout, KH, KW, Cin]: K-contiguous rows
+                wq, ws = self._int8.get(self.weight, lambda w: w.permute(0, 2, 3, 1))
+                return conv2d_int8(x, wq, ws, fp32(scale),
+                                   None if self.bias is None else self.bias.to(dt),
+                                   self.stride[0], self.padding[0])
+        y = self._conv_forward(x.permute(0, 3, 1, 2), self.weight.to(dt),
                                None if self.bias is None else self.bias.to(dt))
         return y.permute(0, 2, 3, 1)
 
@@ -222,6 +289,7 @@ class SelfAttention2D(nn.Module):
     def __init__(self, channels: int, head_dim: int = 8, groups: int = 32,
                  eps: float = 1e-5):
         super().__init__()
+        self.quant = False
         self.num_heads = max(1, channels // head_dim)
         self.group_norm = GroupNorm(channels, groups, eps)
         self.to_q = Linear(channels, channels)
@@ -236,8 +304,15 @@ class SelfAttention2D(nn.Module):
         q = self.to_q(h).reshape(heads)
         k = self.to_k(h).reshape(heads)
         v = self.to_v(h).reshape(heads)
-        attn = dot_product_attention(q, k, v).reshape(B, H * W, C)
-        out = self.to_out[0](attn).reshape(B, H, W, C)
+        d = C // self.num_heads
+        # the int8 whole-row kernel (the VAE's single 512-wide head) under
+        # quant, outside calibration captures, at >= 512 tokens
+        if (self.quant == "static" and act_ctx_mode() != "capture" and H * W >= 512
+                and d >= 64 and mha_supported(H * W, d, itemsize=1)):
+            attn = mha_attention_int8(q, k, v)
+        else:
+            attn = dot_product_attention(q, k, v)
+        out = self.to_out[0](attn.reshape(B, H * W, C)).reshape(B, H, W, C)
         return x.to(out.dtype) + out
 
 
@@ -253,6 +328,7 @@ class CrossAttention(nn.Module):
         inner = heads * head_dim
         self.heads, self.head_dim = heads, head_dim
         self.use_flash = use_flash
+        self.quant = False
         self.to_q = Linear(query_dim, inner, bias=False)
         self.to_k = Linear(context_dim or query_dim, inner, bias=False)
         self.to_v = Linear(context_dim or query_dim, inner, bias=False)
@@ -268,8 +344,10 @@ class CrossAttention(nn.Module):
         v = self.to_v(context).reshape(B, M, self.heads, self.head_dim)
         use_kernel = self.use_flash == "pallas" or (self.use_flash == "pallas-self"
                                                     and is_self)
-        if use_kernel and M >= 512 and mha_supported(M, self.head_dim):
-            attn = mha_attention(q, k, v)
+        # the kernels take no tap, so a calibration capture skips them
+        if (use_kernel and M >= 512 and mha_supported(M, self.head_dim)
+                and act_ctx_mode() != "capture"):
+            attn = (mha_attention_int8 if self.quant == "static" else mha_attention)(q, k, v)
         else:
             attn = dot_product_attention(q, k, v)
         return self.to_out[0](attn.reshape(B, N, self.heads * self.head_dim))
@@ -298,14 +376,31 @@ class FeedForward(nn.Module):
     def __init__(self, dim: int, fused: bool = False):
         super().__init__()
         self.dim, self.hidden, self.fused = dim, 4 * dim, fused
+        self.quant = False
         self.net = nn.ModuleList([GEGLU(dim, self.hidden), nn.Identity(),
                                   Linear(self.hidden, dim)])
         self._kernel_operands = None
+        self._int8_operands = None
+
+    def _int8(self):
+        """The int8 kernel's operands: W1h, W1g [F, C] and W2 [C, F] int8
+        with per-column fp32 scales (the JAX wrapper's absmax_scale over the
+        contracted axis), fp32 biases; kept until a weight changes."""
+        proj, out = self.net[0].proj, self.net[2]
+        key = _weight_key(proj.weight, proj.bias, out.weight, out.bias)
+        if self._int8_operands is None or self._int8_operands[0] != key:
+            f = self.hidden
+            with torch.no_grad():
+                (w1hq, s1h), (w1gq, s1g), (w2q, s2) = (
+                    quantize_weight(w) for w in (proj.weight[:f], proj.weight[f:], out.weight))
+                ops = (w1hq, w1gq, w2q, s1h, s1g, s2, proj.bias[:f].float().contiguous(),
+                       proj.bias[f:].float().contiguous(), out.bias.float().contiguous())
+            self._int8_operands = (key, ops)
+        return self._int8_operands[1]
 
     def _operands(self):
         proj, out = self.net[0].proj, self.net[2]
-        key = tuple((p.data_ptr(), p._version, p.dtype, p.device)
-                    for p in (proj.weight, proj.bias, out.weight, out.bias))
+        key = _weight_key(proj.weight, proj.bias, out.weight, out.bias)
         if self._kernel_operands is None or self._kernel_operands[0] != key:
             f = self.hidden
             with torch.no_grad():
@@ -316,8 +411,22 @@ class FeedForward(nn.Module):
             self._kernel_operands = (key, ops)
         return self._kernel_operands[1]
 
+    def _inline(self, x: torch.Tensor) -> torch.Tensor:
+        """The fused branch's math in plain ops on the weights (the JAX
+        package's calibration capture runs it inline in XLA, through no
+        quantized dense, so it takes no taps of its own)."""
+        proj, out = self.net[0].proj, self.net[2]
+        h, gate = F.linear(x, proj.weight, proj.bias).chunk(2, dim=-1)
+        return F.linear(h * F.gelu(gate, approximate="tanh"), out.weight, out.bias)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.fused and geglu_supported(self.dim, self.hidden):
+            dt = self.net[0].proj.weight.dtype
+            if self.quant == "static":
+                mode, scale = consume_act_scale(x, "geglu")
+                if mode == "float":
+                    return self._inline(x.to(dt))
+                return geglu_ff_int8(x.to(dt), *self._int8(), scale)
             w1h, w1g, w2, b1h, b1g, b2 = self._operands()
             return geglu_ff(x.to(w1h.dtype), w1h, w1g, w2, b1h, b1g, b2)
         return self.net[2](self.net[0](x))
@@ -397,6 +506,33 @@ class Upsample2D(nn.Module):
         size = tuple(out_hw) if out_hw is not None else (H * 2, W * 2)
         x = F.interpolate(x.permute(0, 3, 1, 2), size=size, mode="nearest-exact")
         return self.conv(x.permute(0, 2, 3, 1))
+
+
+def set_quant(module: nn.Module, quant) -> None:
+    """Set the int8 mode (False or "static") of every site under `module`
+    that the JAX package quantizes: the convolutions of resnets (not their
+    time_emb_proj) and resamplers, the dense layers of attention blocks,
+    transformer projections and feed-forwards, and the attention and
+    feed-forward kernels. A model's conv_in, conv_out, time embedding and
+    the VAE's quant convs are not under any of these, and stay in float."""
+    if quant not in QUANT_MODES:
+        raise NotImplementedError(f"quant={quant!r} is not ported; supported: {QUANT_MODES}")
+    for m in module.modules():
+        if isinstance(m, ResnetBlock2D):
+            sites = [m.conv1, m.conv2, m.conv_shortcut]
+        elif isinstance(m, (CrossAttention, SelfAttention2D)):
+            sites = [m, m.to_q, m.to_k, m.to_v, m.to_out[0]]
+        elif isinstance(m, Transformer2D):
+            sites = [m.proj_in, m.proj_out]
+        elif isinstance(m, FeedForward):
+            sites = [m, m.net[0].proj, m.net[2]]
+        elif isinstance(m, (Downsample2D, Upsample2D)):
+            sites = [m.conv]
+        else:
+            continue
+        for site in sites:
+            if site is not None:
+                site.quant = quant
 
 
 def set_kernels(module: nn.Module, use_flash_attention=None, fused_ff=None) -> None:

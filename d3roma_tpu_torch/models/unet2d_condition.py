@@ -1,11 +1,11 @@
 """Latent-space cross-attention UNet (diffusers UNet2DConditionModel / SD2.1
 geometry), NHWC.
 
-Port of `d3roma_tpu/models/unet2d_condition.py`, full pass only: DeepCache
-(`cache_depth` other than 1, `return_trunk`, `cached_trunk`) is not ported
-yet and raises; the int8 and fused-GroupNorm options are not offered yet.
-Parameter names
-follow diffusers (`down_blocks.0.attentions.0.transformer_blocks.0...`).
+Port of `d3roma_tpu/models/unet2d_condition.py`: the full pass, the
+DeepCache passes (`cache_depth`, `return_trunk`, `cached_trunk`) and the
+static int8 mode (`quant`); the fused-GroupNorm option is not offered yet.
+Parameter names follow diffusers
+(`down_blocks.0.attentions.0.transformer_blocks.0...`).
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from d3roma_tpu_torch.models.layers import (
     Transformer2D,
     Upsample2D,
     set_kernels,
+    set_quant,
     timestep_embedding,
 )
 
@@ -37,7 +38,13 @@ class _Block(nn.Module):
 class UNet2DCondition(nn.Module):
     """Built on `device` (CUDA unless the caller names another), in fp32.
     `use_flash_attention` and `fused_ff` route the attention and feed-forward
-    sites to the kernels; `set_kernels` changes them after construction."""
+    sites to the kernels; `set_kernels` changes them after construction, and
+    `set_quant` sets the int8 mode (False, the default, or "static").
+
+    `cache_depth` is the DeepCache shallow pass's depth: how many trailing
+    up blocks (and the matching leading down blocks) the cached pass
+    refreshes, from 1 to len(up_block_types) - 1; the trunk is the feature
+    entering the first refreshed up block."""
 
     def __init__(
         self,
@@ -62,8 +69,6 @@ class UNet2DCondition(nn.Module):
         device: DeviceLike = None,
     ):
         super().__init__()
-        if cache_depth != 1:
-            raise NotImplementedError("DeepCache (cache_depth) is not ported yet")
         self.in_channels = in_channels
         self.block_out_channels = tuple(block_out_channels)
         self.cross_attention_dim = cross_attention_dim
@@ -126,6 +131,27 @@ class UNet2DCondition(nn.Module):
             self.conv_out = Conv2d(c0, out_channels, 3, padding=1,
                                    compute_dtype=torch.float32)
         self.set_kernels(use_flash_attention, fused_ff)
+        self.quant = False
+        self.cache_depth = cache_depth
+
+    @property
+    def cache_depth(self) -> int:
+        return self._cache_depth
+
+    @cache_depth.setter
+    def cache_depth(self, depth: int) -> None:
+        n_up = len(self.up_blocks)
+        if not 1 <= int(depth) <= n_up - 1:
+            raise ValueError(f"cache_depth must be in [1, {n_up - 1}] (the mid block is "
+                             f"always part of the cached trunk), got {depth}")
+        self._cache_depth = int(depth)
+
+    def set_quant(self, quant) -> None:
+        """Set the int8 mode (False or "static") of every site the JAX
+        package quantizes; conv_in, the time embedding and the fp32
+        conv_out stay in float."""
+        set_quant(self, quant)
+        self.quant = quant
 
     def set_kernels(self, use_flash_attention=None, fused_ff=None) -> None:
         """Route the attention (False / "pallas" / "pallas-self") and the
@@ -136,14 +162,28 @@ class UNet2DCondition(nn.Module):
         if fused_ff is not None:
             self.fused_ff = bool(fused_ff)
 
+    def _up_block(self, blk, x, skips, t_emb, context, upsample: bool):
+        attns = getattr(blk, "attentions", None)
+        for j, res in enumerate(blk.resnets):
+            x = res(torch.cat([x, skips.pop()], dim=-1), t_emb)
+            if attns is not None:
+                x = attns[j](x, context)
+        if upsample:
+            x = blk.upsamplers[0](x, out_hw=skips[-1].shape[1:3])
+        return x
+
     def forward(self, sample: torch.Tensor, timesteps, encoder_hidden_states: torch.Tensor,
-                cached_trunk=None, return_trunk: bool = False) -> torch.Tensor:
+                cached_trunk=None, return_trunk: bool = False):
         """sample [B, h, w, in_channels] (latents + condition latents),
         timesteps an int or [B] / 0-d tensor, encoder_hidden_states
-        [B, T, cross_attention_dim] -> fp32 [B, h, w, out_channels]."""
-        if cached_trunk is not None or return_trunk:
-            raise NotImplementedError("DeepCache (cached_trunk / return_trunk) is not "
-                                      "ported yet")
+        [B, T, cross_attention_dim] -> fp32 [B, h, w, out_channels].
+
+        DeepCache: `return_trunk=True` also returns the trunk, (out, trunk);
+        `cached_trunk` runs only the shallow pass (conv_in, down blocks
+        [0, cache_depth), the last cache_depth up blocks, conv_out) with the
+        given trunk in place of the deep levels. Exact when the trunk comes
+        from a full pass over the same input; an approximation when reused
+        across steps."""
         dtype = self.conv_in.weight.dtype
         B = sample.shape[0]
         timesteps = torch.as_tensor(timesteps, device=sample.device)
@@ -154,33 +194,43 @@ class UNet2DCondition(nn.Module):
                                    self.flip_sin_to_cos, self.freq_shift).to(dtype)
         t_emb = self.time_embedding(t_emb)
 
+        n_up = len(self.up_blocks)
+        depth = self.cache_depth
+        # up block i consumes the skips of down block n_up - 1 - i, so the
+        # shallow pass runs down blocks [0, depth) and up blocks [n_up - depth, n_up)
+        refresh_from = n_up - depth
+
         x = self.conv_in(sample)
         skips = [x]
-        for blk in self.down_blocks:
+        for i, blk in enumerate(self.down_blocks):
             attns = getattr(blk, "attentions", None)
             for j, res in enumerate(blk.resnets):
                 x = res(x, t_emb)
                 if attns is not None:
                     x = attns[j](x, context)
                 skips.append(x)
+            if cached_trunk is not None and i == depth - 1:
+                break
             if hasattr(blk, "downsamplers"):
                 x = blk.downsamplers[0](x)
                 skips.append(x)
 
-        x = self.mid_block.resnets[0](x, t_emb)
-        x = self.mid_block.attentions[0](x, context)
-        x = self.mid_block.resnets[1](x, t_emb)
+        if cached_trunk is None:
+            x = self.mid_block.resnets[0](x, t_emb)
+            x = self.mid_block.attentions[0](x, context)
+            x = self.mid_block.resnets[1](x, t_emb)
+            for blk in self.up_blocks[:refresh_from]:
+                x = self._up_block(blk, x, skips, t_emb, context, upsample=True)
+            trunk = x
+        else:
+            trunk = x = cached_trunk.to(dtype)
 
-        for blk in self.up_blocks:
-            attns = getattr(blk, "attentions", None)
-            for j, res in enumerate(blk.resnets):
-                x = res(torch.cat([x, skips.pop()], dim=-1), t_emb)
-                if attns is not None:
-                    x = attns[j](x, context)
-            if hasattr(blk, "upsamplers"):
-                x = blk.upsamplers[0](x, out_hw=skips[-1].shape[1:3])
+        for i in range(refresh_from, n_up):
+            x = self._up_block(self.up_blocks[i], x, skips, t_emb, context,
+                               upsample=i < n_up - 1)
 
-        return self.conv_out(self.conv_norm_out(x))
+        out = self.conv_out(self.conv_norm_out(x))
+        return (out, trunk) if return_trunk else out
 
 
 def widened_in_channels(cond_channels: str, latent_channels: int = 4) -> int:

@@ -1,7 +1,9 @@
 """AutoencoderKL (the Stable Diffusion VAE), NHWC.
 
-Port of `d3roma_tpu/models/vae.py`. Parameter names follow diffusers'
-AutoencoderKL (`encoder.down_blocks.0.resnets.0.conv1.weight`,
+Port of `d3roma_tpu/models/vae.py`, with its static int8 mode (`quant`:
+every resnet conv, resampler conv and mid-attention projection; conv_in,
+conv_out and the quant convs stay in float). Parameter names follow
+diffusers' AutoencoderKL (`encoder.down_blocks.0.resnets.0.conv1.weight`,
 `decoder.up_blocks.0.upsamplers.0.conv.weight`, `quant_conv.weight`, ...).
 """
 
@@ -21,6 +23,7 @@ from d3roma_tpu_torch.models.layers import (
     ResnetBlock2D,
     SelfAttention2D,
     Upsample2D,
+    set_quant,
 )
 
 SD_LATENT_SCALE = 0.18215
@@ -143,6 +146,13 @@ class AutoencoderKL(nn.Module):
                                      compute_dtype="promote")
             self.post_quant_conv = Conv2d(latent_channels, latent_channels, 1,
                                           compute_dtype="promote")
+        self.quant = False
+
+    def set_quant(self, quant) -> None:
+        """Set the int8 mode (False or "static") of every site the JAX
+        package quantizes."""
+        set_quant(self, quant)
+        self.quant = quant
 
     def encode(self, x: torch.Tensor) -> GaussianPosterior:
         mean, logvar = self.quant_conv(self.encoder(x)).chunk(2, dim=-1)

@@ -1,8 +1,13 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
 version, its applicability gate and its launch counter.
 
-- `attention.mha_attention`  <- d3roma_tpu/ops/pallas/attention.py::mha_attention
-- `geglu.geglu_ff`           <- d3roma_tpu/ops/pallas/geglu.py::geglu_ff
+- `attention.mha_attention`       <- d3roma_tpu/ops/pallas/attention.py::mha_attention (bf16)
+- `attention.mha_attention_int8`  <- the same, quant="int8"
+- `geglu.geglu_ff`                <- d3roma_tpu/ops/pallas/geglu.py::geglu_ff (bf16)
+- `geglu.geglu_ff_int8`           <- the same, quant="static"
+- `conv2d.conv2d_int8`            <- d3roma_tpu/ops/pallas/conv2d.py::conv3x3_flat
+                                     (quant="static"), at every static int8 conv
+- `quantize.quantize_int8_scalar` <- the XLA quantization in front of the int8 ops
 
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises.
@@ -10,13 +15,26 @@ tensors it launches its kernel or raises.
 
 from d3roma_tpu_torch.ops.kernels.attention import (  # noqa: F401
     mha_attention,
+    mha_attention_int8,
+    mha_attention_int8_plain,
     mha_attention_plain,
     mha_supported,
 )
+from d3roma_tpu_torch.ops.kernels.conv2d import (  # noqa: F401
+    conv2d_int8,
+    conv2d_int8_plain,
+)
 from d3roma_tpu_torch.ops.kernels.geglu import (  # noqa: F401
     geglu_ff,
+    geglu_ff_int8,
+    geglu_ff_int8_plain,
     geglu_ff_plain,
     geglu_supported,
 )
+from d3roma_tpu_torch.ops.kernels.quantize import (  # noqa: F401
+    quantize_int8_plain,
+    quantize_int8_scalar,
+)
 
-KERNEL_SOURCES = ("attention", "geglu")
+KERNEL_SOURCES = ("attention", "geglu", "attention_int8", "geglu_int8", "conv2d_int8",
+                  "quantize")

@@ -1,10 +1,12 @@
 """Whole-row multi-head attention: the CUDA kernel, its plain PyTorch
 version, its gate and its launch counter.
 
-Port of `d3roma_tpu/ops/pallas/attention.py::mha_attention` (bf16/fp32
-path, kernel body `_kernel_f32`). The kernel is `csrc/attention.cu`; its
-source note says what bounds it on the H100 and how it is built around that.
-The int8 path (`_kernel_int8`) is not ported yet.
+Port of `d3roma_tpu/ops/pallas/attention.py::mha_attention`: the bf16/fp32
+path (kernel body `_kernel_f32`) is `mha_attention` over
+`csrc/attention.cu`; the int8 path (`_kernel_int8`, with the wrapper's
+per-(batch, head) quantization) is `mha_attention_int8` over
+`csrc/attention_int8.cu`. Each source note says what bounds the kernel on
+the H100 and how it is built around that.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Optional
 import torch
 
 from d3roma_tpu_torch.ops.kernels import _build
+from d3roma_tpu_torch.ops.kernels.quantize import fp32, ieee_div
 
 _LANES = 128
 # the TPU kernel's VMEM limit; the gate keeps it so the same sites take the
@@ -124,3 +127,95 @@ def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 mha_attention.launches = 0
+
+# head widths the int8 kernel is built for
+INT8_HEAD_DIMS = (32, 64, 96, 128, 256, 512)
+_INT8_KEY_TILE = 64
+
+
+def quantize_per_head(x: torch.Tensor):
+    """The TPU wrapper's int8 quantization of q, k or v [B, L, H, D]: one
+    scale per (batch, head), max(absmax, 1e-6) / 127, and round(x / scale)
+    with no clip. Returns (int8 [B, L, H, D], fp32 scales [B, H])."""
+    s = ieee_div(torch.clamp_min(x.float().abs().amax(dim=(1, 3)), 1e-6), 127.0)
+    return torch.round(torch.div(x.float(), s[:, None, :, None])).to(torch.int8), s
+
+
+def mha_attention_int8_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             sm_scale: Optional[float] = None) -> torch.Tensor:
+    """The TPU int8 kernel's arithmetic in PyTorch: q, k, v quantized per
+    (batch, head); exact int32 scores (through float64) times
+    scale * sq * sk; the max-then-exp softmax over the whole key row;
+    round(127 p) times vq, exact; times sv / 127, divided by the fp32
+    denominator. q [B, N, H, D], k/v [B, M, H, D] -> [B, N, H, D]."""
+    d = q.shape[-1]
+    scale = fp32(sm_scale if sm_scale is not None else 1.0 / math.sqrt(d))
+    (qq, sq), (kq, sk), (vq, sv) = (quantize_per_head(t) for t in (q, k, v))
+    s = torch.matmul(qq.transpose(1, 2).double(), kq.permute(0, 2, 3, 1).double()).float()
+    s = s * ((sq * scale) * sk)[..., None, None]
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    denom = p.sum(dim=-1, keepdim=True)
+    p_i8 = torch.round(p * 127.0)
+    pv = torch.matmul(p_i8.double(), vq.transpose(1, 2).double()).float()
+    out = pv * ieee_div(sv, 127.0)[..., None, None] / denom
+    return out.to(q.dtype).transpose(1, 2)
+
+
+def _library_int8() -> ctypes.CDLL:
+    lib = _build.load("attention_int8")
+    fn = lib.d3r_mha_attention_int8
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_cuda_int8(q: torch.Tensor) -> None:
+    d = q.shape[3]
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the CUDA int8 attention kernel takes bfloat16, got {q.dtype}")
+    if d not in INT8_HEAD_DIMS:
+        raise ValueError(f"the CUDA int8 attention kernel takes head_dim in {INT8_HEAD_DIMS}, "
+                         f"got {d}")
+
+
+def mha_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Multi-head attention with both products in int8 (the TPU kernel's
+    quant="int8"), q [B, N, H, D], k/v [B, M, H, D] -> [B, N, H, D].
+
+    CUDA tensors go to the Hopper kernels (bf16, head_dim in
+    INT8_HEAD_DIMS): the per-(batch, head) quantization of q, k and v and
+    the attention, in one call; or raise. CPU tensors take the plain
+    version. `mha_attention_int8.launches` counts the calls."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        mha_attention_int8.launches += 1
+        return mha_attention_int8_plain(q, k, v, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"mha_attention_int8 runs on CUDA or the CPU, got {q.device}")
+    _check_cuda_int8(q)
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    b, n, h, d = q.shape
+    m = k.shape[1]
+    scale = fp32(sm_scale if sm_scale is not None else 1.0 / math.sqrt(d))
+    m_pad = _round_up(m, _INT8_KEY_TILE)
+    dev = q.device
+    qq = torch.empty(q.shape, dtype=torch.int8, device=dev)
+    kq = torch.empty(k.shape, dtype=torch.int8, device=dev)
+    # v quantized with keys contiguous, as the int8 mma takes its B operand
+    vt = torch.empty((b, h, d, m_pad), dtype=torch.int8, device=dev)
+    amax = torch.empty((3, b, h), dtype=torch.int32, device=dev)
+    out = torch.empty((b, n, h, d), dtype=q.dtype, device=dev)
+    with torch.cuda.device(dev):
+        err = _library_int8().d3r_mha_attention_int8(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), qq.data_ptr(), kq.data_ptr(),
+            vt.data_ptr(), amax.data_ptr(), out.data_ptr(), b, n, m, m_pad, h, d, scale,
+            _build.current_stream(dev))
+    _build.check(err, "mha_attention_int8")
+    mha_attention_int8.launches += 1
+    return out
+
+
+mha_attention_int8.launches = 0

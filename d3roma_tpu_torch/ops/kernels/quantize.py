@@ -1,0 +1,76 @@
+"""Static int8 quantization of an activation: the CUDA kernel, its plain
+PyTorch version and its launch counter.
+
+The JAX package leaves this elementwise step to XLA
+(`d3roma_tpu/ops/quant.py::quantize_int8`), which fuses it into the op that
+produces the activation; the kernel is `csrc/quantize.cu`. It runs in front
+of every static int8 dense, convolution and fused GEGLU of the port.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from d3roma_tpu_torch.ops.kernels import _build
+
+
+def fp32(value: float) -> float:
+    """`value` rounded to fp32 (as jnp.float32(scale) does), as a python float."""
+    return float(np.float32(value))
+
+
+def ieee_div(x: torch.Tensor, value: float) -> torch.Tensor:
+    """x / fp32(value), an IEEE division on every device: the divisor is a
+    0-d tensor, since PyTorch on CUDA multiplies by the reciprocal of a
+    python scalar divisor, which moves quantization ties."""
+    return torch.div(x, torch.tensor(fp32(value), dtype=torch.float32, device=x.device))
+
+
+def quantize_int8_plain(x: torch.Tensor, scale) -> torch.Tensor:
+    """clip(round_half_even(x / scale), -127, 127) as int8, with an IEEE
+    division. `scale` is a tensor that broadcasts against x or a python
+    float (taken as fp32)."""
+    xf = x.float()
+    q = torch.round(torch.div(xf, scale) if isinstance(scale, torch.Tensor)
+                    else ieee_div(xf, scale))
+    return torch.clamp(q, -127.0, 127.0).to(torch.int8)
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load("quantize")
+    fn = lib.d3r_quantize_int8
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def quantize_int8_scalar(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """x (bf16 or fp32) -> int8 of the same shape, with one scale for the
+    whole tensor. CUDA tensors go to the kernel or raise; CPU tensors take
+    the plain version. `quantize_int8_scalar.launches` counts the calls."""
+    if x.device.type == "cpu":
+        quantize_int8_scalar.launches += 1
+        return quantize_int8_plain(x, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"quantize_int8_scalar runs on CUDA or the CPU, got {x.device}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the CUDA quantize kernel takes bf16 or fp32, got {x.dtype}")
+    x = x.contiguous()
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    if x.numel() == 0:
+        return q
+    with torch.cuda.device(x.device):
+        err = _library().d3r_quantize_int8(
+            x.data_ptr(), q.data_ptr(), x.numel(), int(x.dtype == torch.bfloat16),
+            fp32(scale), _build.current_stream(x.device))
+    _build.check(err, "quantize_int8")
+    quantize_int8_scalar.launches += 1
+    return q
+
+
+quantize_int8_scalar.launches = 0

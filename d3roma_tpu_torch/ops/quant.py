@@ -1,0 +1,181 @@
+"""Static int8: per-call activation scales (capture and replay), weight
+quantization, and the int8 dense and convolution of the `"static"` mode
+(both served on CUDA by the int8 conv kernel, the dense as a 1x1 conv).
+
+Port of `d3roma_tpu/ops/quant.py` (`absmax_scale`, `quantize_int8`,
+`STATIC_ACT_SCALE`, the act-scale context, `consume_act_scale`,
+`int8_dot_general_static`, `int8_conv_general_dilated_static`). The
+percentile-clipping half (quantiles, `with_act_clipping`, call maps, kind
+pins) is not ported yet.
+
+The static int8 ops take their activation scale in call order: each
+quantized dense or convolution calls `consume_act_scale` once per forward.
+Under `capture_act_scales` every call records absmax(x)/127 (a tensor on x's
+device) and the op runs in float; under `replay_act_scales` every call takes
+the next scale of a flat table (pinned indices run in float but still take
+their index); outside both contexts every call uses STATIC_ACT_SCALE. A
+replay context wraps one forward and must consume its whole table: a short
+or a long table raises. Tables are lists of python floats, the JAX package's
+JSON form, so a table captured by either package replays in the other.
+
+Arithmetic, as in the JAX package: clip(round_half_even(x / scale), -127,
+127) with an IEEE division by an fp32 scale; per-output-channel weight
+scales absmax/127 (>= 1e-8); exact int32 sums; the dequantization
+acc * act_scale * weight_scale in fp32, in that order, then one cast to the
+input type, and the bias added in that type.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from d3roma_tpu_torch.ops.kernels import conv2d_int8
+from d3roma_tpu_torch.ops.kernels.quantize import fp32, ieee_div
+from d3roma_tpu_torch.ops.kernels.quantize import quantize_int8_plain as quantize_int8
+
+EPS = 1e-8
+# the uncalibrated activation scale: normalized activations rarely exceed ~8
+STATIC_ACT_SCALE = 8.0 / 127.0
+QUANT_MODES = (False, "static")
+
+
+def absmax_scale(x: torch.Tensor, dims) -> torch.Tensor:
+    """Symmetric absmax scale over `dims`, kept dims, fp32, >= 1e-8."""
+    m = x.float().abs().amax(dim=dims, keepdim=True)
+    return torch.clamp_min(ieee_div(m, 127.0), EPS)
+
+
+class _ActScaleCtx(threading.local):
+    """The per-thread act-scale context: mode None | "capture" | "replay"."""
+
+    def __init__(self):
+        self.mode = None
+        self.taps = None
+        self.shape_log = None
+        self.scales = None
+        self.idx = 0
+        self.pins = frozenset()
+
+
+_ACTX = _ActScaleCtx()
+
+
+class _ScaleCtxManager:
+    def __init__(self, mode: str, payload, pins=(), shape_log=None):
+        self.mode, self.payload = mode, payload
+        self.pins, self.shape_log = pins, shape_log
+
+    def __enter__(self):
+        if _ACTX.mode is not None:
+            raise RuntimeError("nested act-scale contexts")
+        _ACTX.mode = self.mode
+        if self.mode == "capture":
+            _ACTX.taps = self.payload
+            _ACTX.shape_log = self.shape_log
+        else:
+            _ACTX.scales = [float(s) for s in self.payload]
+            _ACTX.idx = 0
+            _ACTX.pins = frozenset(int(i) for i in (self.pins or ()))
+        return self.payload
+
+    def __exit__(self, *exc):
+        idx, n = _ACTX.idx, len(_ACTX.scales or ())
+        _ACTX.__init__()
+        if self.mode == "replay" and exc[0] is None and idx != n:
+            raise RuntimeError(
+                f"calibrated-scale replay consumed {idx} of {n} scales: the quantized "
+                f"call sequence no longer matches the calibration pass")
+        return False
+
+
+def act_ctx_mode() -> Optional[str]:
+    """None, "capture" or "replay". Model code keeps the capture forward off
+    the kernels that take no tap (whole-row attention) and runs the fused
+    GEGLU's math inline there, as the JAX package does."""
+    return _ACTX.mode
+
+
+def capture_act_scales(taps: list, shape_log: Optional[list] = None):
+    """Context: every static int8 op appends absmax(x)/127 (a 0-d fp32
+    tensor) to `taps` and computes in float; with `shape_log`, also appends
+    (kind, shape) per call, kind one of "dot", "conv", "geglu"."""
+    return _ScaleCtxManager("capture", taps, shape_log=shape_log)
+
+
+def replay_act_scales(scales: Sequence[float], pins=()):
+    """Context: every static int8 op takes the next of `scales`; indices in
+    `pins` run in float but still take their index. The whole table must be
+    consumed by the time the context exits."""
+    return _ScaleCtxManager("replay", scales, pins=pins)
+
+
+def consume_act_scale(x: torch.Tensor, kind: str) -> Tuple[str, Optional[float]]:
+    """("float", None) under capture (after recording the tap) or for a
+    pinned replay index; otherwise ("int8", scale), scale a python float."""
+    if _ACTX.mode == "capture":
+        if _ACTX.shape_log is not None:
+            _ACTX.shape_log.append((kind, tuple(int(d) for d in x.shape)))
+        m = x.detach().float().abs().amax()
+        _ACTX.taps.append(ieee_div(m, 127.0))
+        return "float", None
+    if _ACTX.mode == "replay":
+        if _ACTX.idx >= len(_ACTX.scales):
+            raise RuntimeError(
+                f"calibrated-scale replay needs more than the {len(_ACTX.scales)} "
+                f"captured scales: the quantized call sequence no longer matches "
+                f"the calibration pass")
+        i = _ACTX.idx
+        _ACTX.idx += 1
+        if i in _ACTX.pins:
+            return "float", None
+        return "int8", _ACTX.scales[i]
+    return "int8", STATIC_ACT_SCALE
+
+
+def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-channel (dim 0) int8 weights and their fp32 scales [Cout]:
+    the absmax over every other axis, as the JAX package takes it over all
+    but the last axis of its [..., Cout] kernels."""
+    dims = tuple(range(1, w.ndim))
+    s = absmax_scale(w.detach(), dims)
+    return quantize_int8(w.detach(), s), s.reshape(-1)
+
+
+def _int_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact int8 [m, k] @ [k, n] -> int32, through float64 (exact below
+    2^53; fp32 stops being exact past 2^24)."""
+    return torch.matmul(a.double(), b.double()).to(torch.int32)
+
+
+def int8_linear(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor, act_scale: float,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """y = dequant(quant(x) @ wq.T) + bias. x [..., K] in the compute type,
+    wq [N, K] int8, ws [N] fp32.
+
+    On CUDA this is the int8 conv kernel as a 1x1 convolution over the rows
+    (its epilogue is the dense's dequantization and bias), which takes two
+    launches (quantize, product) where XLA's int8 dot plus PyTorch's
+    elementwise dequantization would take seven; on the CPU the same
+    arithmetic in plain ops."""
+    ls = fp32(act_scale)
+    lead, k, n = x.shape[:-1], x.shape[-1], wq.shape[0]
+    b = None if bias is None else bias.to(x.dtype)
+    if x.device.type == "cuda":
+        out = conv2d_int8(x.reshape(1, 1, -1, k), wq.view(n, 1, 1, k), ws, ls, b, 1, 0)
+        return out.reshape(lead + (n,))
+    acc = _int_matmul_plain(quantize_int8(x.reshape(-1, k), ls), wq.t())
+    out = (acc.float() * ls * ws).to(x.dtype)
+    if b is not None:
+        out = out + b
+    return out.reshape(lead + (n,))
+
+
+def stack_taps(taps: List[torch.Tensor]) -> np.ndarray:
+    """The captured taps of one pass as an fp32 numpy vector."""
+    if not taps:
+        return np.zeros((0,), np.float32)
+    return torch.stack([t.float() for t in taps]).cpu().numpy().astype(np.float32)

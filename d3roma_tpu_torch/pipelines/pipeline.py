@@ -2,31 +2,48 @@
 embedding + sampler + normalizer.
 
 Port of `d3roma_tpu/pipelines/pipeline.py::GuidedLatentDiffusionPipeline`:
-`__call__`, `half_precision` and `fast_inference("latency")` (bf16 weights,
+`__call__`, `half_precision`, `fast_inference("latency")` (bf16 weights,
 the whole-row attention kernel at self-attention sites of >= 512 tokens, the
-fused GEGLU kernel). Guidance, DeepCache, static int8 and its calibration,
-split programs / scan chunks and the compiled-program cache are not ported
-yet and raise NotImplementedError.
+fused GEGLU kernel) and `fast_inference("throughput")` (the same with the
+static int8 mode in the UNet and the VAE), `deepcache` and `calibrate`
+(without quantiles). Guidance, the other int8 modes, split programs / scan
+chunks and the compiled-program cache are not ported yet and raise
+NotImplementedError.
+
+Unlike the JAX package's, whose methods return a replaced copy, this
+pipeline's configuration methods change the pipeline (and its models) in
+place and return it.
+
+`act_scales` keeps the JAX package's JSON form: tables "unet",
+"unet_cached", "vae_encode", "vae_decode" (and "<table>@pins"), lists of
+floats in call order. Each forward replays its table in its own context.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from d3roma_tpu_torch.device import DeviceLike, resolve_device
 from d3roma_tpu_torch.models.unet2d_condition import UNet2DCondition
 from d3roma_tpu_torch.models.vae import AutoencoderKL, decode_latent, encode_image_to_latent
 from d3roma_tpu_torch.ops.normalizer import Normalizer
+from d3roma_tpu_torch.ops.quant import capture_act_scales, replay_act_scales, stack_taps
+from d3roma_tpu_torch.ops.scheduler_step import ddim_step
+from d3roma_tpu_torch.ops.schedules import set_timesteps
 from d3roma_tpu_torch.pipelines.sampling import (
     PipelineOutput,
     SamplerSpec,
     latent_decode_images,
     latent_denoise,
     latent_encode_conds,
+    step_pattern,
 )
+
+ACT_TABLES = ("unet", "unet_cached", "vae_encode", "vae_decode")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +66,12 @@ class GuidedLatentDiffusionPipeline:
     normalizer: Normalizer
     device: DeviceLike = None
     guidance: Optional[GuidanceConfig] = None
+    # calibrated static-int8 activation scales (see the module docstring)
+    act_scales: Optional[Dict[str, List[float]]] = None
+    # DeepCache: groups of one full and cache_interval - 1 shallow passes,
+    # or an explicit F/S step pattern (which overrides the interval)
+    cache_interval: int = 1
+    cache_schedule: Optional[str] = None
 
     def __post_init__(self):
         if self.guidance is not None and self.guidance.enabled:
@@ -66,21 +89,176 @@ class GuidedLatentDiffusionPipeline:
         self.vae.to(torch.bfloat16)
         return self
 
-    def fast_inference(self, mode: str = "latency") -> "GuidedLatentDiffusionPipeline":
+    def set_quant(self, quant) -> "GuidedLatentDiffusionPipeline":
+        """The int8 mode (False or "static") of the UNet and the VAE."""
+        self.unet.set_quant(quant)
+        self.vae.set_quant(quant)
+        return self
+
+    def fast_inference(self, mode: str = "throughput") -> "GuidedLatentDiffusionPipeline":
         """"latency": bf16 weights, the whole-row attention kernel at the
         self-attention sites of >= 512 tokens, the fused GEGLU kernel in
-        every transformer block. "off" returns the pipeline unchanged. The
-        int8 modes ("throughput", "dense", "wino") are not ported yet."""
+        every transformer block, no int8. "throughput": the same with the
+        static int8 mode in the UNet and the VAE (the int8 attention, GEGLU
+        and conv kernels). "off" returns the pipeline unchanged. "dense" and
+        "wino" are not ported yet."""
         if mode in ("off", "", None):
             return self
-        if mode in ("throughput", "dense", "wino"):
-            raise NotImplementedError(f"fast_inference({mode!r}): int8 and Winograd "
-                                      f"are not ported yet")
-        if mode != "latency":
+        if mode in ("dense", "wino"):
+            raise NotImplementedError(f"fast_inference({mode!r}) is not ported yet")
+        if mode not in ("latency", "throughput"):
             raise ValueError(f"unknown fast_inference mode {mode!r}")
         pipe = self.half_precision()
         pipe.unet.set_kernels(use_flash_attention="pallas-self", fused_ff=True)
-        return pipe
+        return pipe.set_quant("static" if mode == "throughput" else False)
+
+    def deepcache(self, interval=2, depth: Optional[int] = None) -> "GuidedLatentDiffusionPipeline":
+        """Enable DeepCache: each group of `interval` denoise steps runs one
+        full UNet pass (which also returns its trunk) and interval - 1
+        shallow passes on that trunk. `interval` may instead be an F/S
+        pattern string (e.g. "FSFSFSFSFF"). `depth` (default: keep the
+        UNet's) is the shallow pass's depth. Calibrated tables depend on the
+        schedule and the depth: calibrate after changing either."""
+        if depth is not None:
+            self.unet.cache_depth = int(depth)
+        if isinstance(interval, str):
+            s = interval.strip().upper()
+            if not s or set(s) - {"F", "S"} or s[0] != "F":
+                raise ValueError(f"cache schedule must be a nonempty F/S string starting "
+                                 f"with F, got {interval!r}")
+            self.cache_schedule, self.cache_interval = s, 1
+            return self
+        interval = int(interval)
+        if interval < 1:
+            raise ValueError(f"cache_interval must be >= 1, got {interval}")
+        self.cache_interval, self.cache_schedule = interval, None
+        return self
+
+    @property
+    def cache_active(self) -> bool:
+        """True when any denoise step runs the shallow cached pass."""
+        return self.cache_interval > 1 or bool(
+            self.cache_schedule and "S" in self.cache_schedule.upper())
+
+    def _replayed(self, fn, table: str):
+        """`fn` with its static int8 ops taking the `table` scales, one
+        replay context per call (no-op without a table)."""
+        scales = (self.act_scales or {}).get(table)
+        if not scales:
+            return fn
+        pins = (self.act_scales or {}).get(table + "@pins") or ()
+
+        def wrapped(*args):
+            with replay_act_scales(scales, pins=pins):
+                return fn(*args)
+        return wrapped
+
+    def _unet_cache_fns(self):
+        """(trunk_apply, cached_apply) of the DeepCache path, or (None,
+        None) without it; each pass replays its own table ("unet" for the
+        full pass, "unet_cached" for the shallow one)."""
+        if not self.cache_active:
+            return None, None
+        tabs = self.act_scales or {}
+        if tabs.get("unet") and self.unet.quant == "static" and not tabs.get("unet_cached"):
+            raise ValueError(
+                "deepcache with calibrated static int8 needs the 'unet_cached' scale "
+                "table: re-run calibrate() (it captures both passes); replaying the "
+                "full-pass table against the shallow pass's different call order "
+                "would misassign every per-layer scale")
+
+        def trunk_apply(model_input, t, ctx):
+            return self.unet(model_input, t, ctx, return_trunk=True)
+
+        def cached_apply(model_input, t, ctx, trunk):
+            return self.unet(model_input, t, ctx, cached_trunk=trunk)
+
+        return self._replayed(trunk_apply, "unet"), self._replayed(cached_apply, "unet_cached")
+
+    def calibrate(self, generator: Optional[torch.Generator], batches,
+                  cond_channels: str = "rgb+raw", num_inference_steps: int = 10,
+                  margin: float = 1.25,
+                  shape_logs: Optional[Dict[str, list]] = None) -> "GuidedLatentDiffusionPipeline":
+        """Calibrate the static int8 activation scales and keep them in
+        `act_scales` (the UNet and the VAE are switched to quant="static"
+        first if they are not).
+
+        Capture passes record absmax(x)/127 at every quantized site, in call
+        order, with the ops in float: one stacked VAE encode of the
+        conditions; the UNet along a `num_inference_steps` DDIM trajectory
+        from noise, following the deployed F/S pattern (shallow steps see
+        the stale trunk of their group's full step; without any shallow
+        step, each step also captures the shallow pass on its own trunk);
+        the decode of the final x_hat0 and of the raw condition's latent.
+        Each table is the maximum over `batches` times `margin`.
+
+        `batches`: dicts with the __call__ condition tensors (rgb_images,
+        left_images, right_images, sim_disp) and optionally `latents`, the
+        initial noise (else drawn from `generator`, fp32). `shape_logs`, a
+        dict, receives each table's (kind, shape) per call of the first
+        batch."""
+        if self.unet.quant != "static":
+            self.set_quant("static")
+        tabs: Dict[str, Optional[np.ndarray]] = {k: None for k in ACT_TABLES}
+
+        def capture(table, fn, *args):
+            taps: list = []
+            log = [] if shape_logs is not None and table not in shape_logs else None
+            with capture_act_scales(taps, shape_log=log):
+                out = fn(*args)
+            if log is not None:
+                shape_logs[table] = log
+            arr = stack_taps(taps)
+            tabs[table] = arr if tabs[table] is None else np.maximum(tabs[table], arr)
+            return out
+
+        cfg = self.spec.schedule
+        ts = set_timesteps(cfg, num_inference_steps)
+        step_ratio = cfg.num_train_timesteps // num_inference_steps
+        pattern = step_pattern(len(ts), self.cache_interval, self.cache_schedule)
+        dual_capture = pattern is None
+        pattern = pattern or "F" * len(ts)
+
+        def encode(x):
+            return encode_image_to_latent(self.vae, x)
+
+        def decode(z):
+            return decode_latent(self.vae, z)
+
+        with torch.no_grad():
+            for b in batches:
+                conds_in = {k: None if b.get(name) is None
+                            else torch.as_tensor(b[name]).to(self.device, torch.float32)
+                            for k, name in (("rgb", "rgb_images"), ("left", "left_images"),
+                                            ("right", "right_images"), ("sim_disp", "sim_disp"))}
+                conds, lat = capture("vae_encode", latent_encode_conds, encode, cond_channels,
+                                     *conds_in.values())
+                shape = tuple(conds.shape[:-1]) + (4,)
+                if b.get("latents") is not None:
+                    x = torch.as_tensor(b["latents"]).to(self.device, torch.float32)
+                else:
+                    x = torch.randn(shape, generator=generator, device=self.device)
+                x0 = x
+                ctx = self.text_embed.expand((shape[0],) + tuple(self.text_embed.shape[1:]))
+                trunk = None
+                for i, t in enumerate(ts):
+                    t = int(t)
+                    model_input = torch.cat([x, conds], dim=-1)
+                    if pattern[i] == "S":
+                        out = capture("unet_cached", self.unet, model_input, t, ctx, trunk)
+                    else:
+                        out, trunk = capture("unet", self.unet, model_input, t, ctx, None, True)
+                        if dual_capture:
+                            capture("unet_cached", self.unet, model_input, t, ctx, trunk)
+                    step = ddim_step(self._tables, cfg, out, t, t - step_ratio, x)
+                    x, x0 = step.prev_sample, step.pred_original_sample
+                capture("vae_decode", decode, x0)
+                if "raw" in lat:  # intermediates also decode the condition's latent
+                    capture("vae_decode", decode, lat["raw"])
+
+        self.act_scales = {k: [float(max(v * margin, 1e-8)) for v in tab]
+                           for k, tab in tabs.items() if tab is not None and tab.size}
+        return self
 
     def __call__(
         self,
@@ -117,13 +295,17 @@ class GuidedLatentDiffusionPipeline:
         rgb, left, right, raw = map(on_device, (rgb_images, left_images, right_images,
                                                 sim_disp))
         ref = next(x for x in (rgb, left, right, raw) if x is not None)
+        trunk_apply, cached_apply = self._unet_cache_fns()
         with torch.no_grad():
             conds, lat = latent_encode_conds(
-                lambda x: encode_image_to_latent(self.vae, x), cond_channels,
-                rgb=rgb, left=left, right=right, sim_disp=raw)
+                self._replayed(lambda x: encode_image_to_latent(self.vae, x), "vae_encode"),
+                cond_channels, rgb=rgb, left=left, right=right, sim_disp=raw)
             kept = latent_denoise(
-                self.unet, self.text_embed, self.spec, self._tables,
+                self._replayed(self.unet, "unet"), self.text_embed, self.spec, self._tables,
                 num_inference_steps, num_intermediate_images, conds, lat,
                 cond_channels, generator=generator, latents=latents,
-                noise_dtype=ref.dtype)
-            return latent_decode_images(lambda z: decode_latent(self.vae, z), kept)
+                noise_dtype=ref.dtype, cache_interval=self.cache_interval,
+                unet_apply_trunk=trunk_apply, unet_apply_cached=cached_apply,
+                cache_schedule=self.cache_schedule)
+            return latent_decode_images(
+                self._replayed(lambda z: decode_latent(self.vae, z), "vae_decode"), kept)

@@ -6,8 +6,12 @@ the host timestep table. The returned images are the VAE decodes of the
 kept x_hat0 latents (channel mean -> 1 channel), clamped to [-1, 1]; the
 last one is the final step's.
 
+DeepCache (`cache_interval`, `cache_schedule`) runs each step's UNet pass as
+the F/S pattern says: a full pass that also returns its trunk where a
+shallow step follows, the shallow pass on the latest trunk at an S step.
+
 Only the DDIM samplers (eta 0 or with a generator) are ported; DDPM,
-euler, heun, DeepCache, guidance and add_noise_rgb wait for later slices.
+euler, heun, guidance and add_noise_rgb wait for later slices.
 """
 
 from __future__ import annotations
@@ -81,6 +85,53 @@ def _kept_indices(num_inference_steps: int, num_intermediate_images: int) -> np.
     return idx
 
 
+def parse_cache_schedule(schedule: str, num_steps: int) -> tuple:
+    """Validate and canonicalize a DeepCache step pattern over {F, S}
+    (case-insensitive): F = full UNet pass (refreshes the trunk), S =
+    shallow pass on the trunk of the latest F. It must start with F and
+    have `num_steps` letters. Returns the segment lengths (one F and its
+    trailing S run each): "FSFSFF" -> (2, 2, 1, 1)."""
+    s = schedule.strip().upper()
+    if not s or set(s) - {"F", "S"}:
+        raise ValueError(f"cache_schedule must be a nonempty string over F/S, got "
+                         f"{schedule!r}")
+    if s[0] != "F":
+        raise ValueError(f"cache_schedule must start with F (a shallow step needs a "
+                         f"prior full step's trunk), got {schedule!r}")
+    if len(s) != num_steps:
+        raise ValueError(f"cache_schedule length {len(s)} != num_inference_steps "
+                         f"{num_steps}: {schedule!r}")
+    segs: List[int] = []
+    for c in s:
+        if c == "F":
+            segs.append(1)
+        else:
+            segs[-1] += 1
+    return tuple(segs)
+
+
+def uniform_cache_schedule(interval: int, num_steps: int) -> str:
+    """The pattern string of the uniform DeepCache interval: groups of one F
+    and interval - 1 S, the remainder full steps."""
+    k = max(1, int(interval))
+    groups, rem = divmod(num_steps, k)
+    return ("F" + "S" * (k - 1)) * groups + "F" * rem
+
+
+def step_pattern(num_steps: int, cache_interval: int = 1,
+                 cache_schedule: Optional[str] = None) -> Optional[str]:
+    """The F/S pattern the denoise loop follows, or None when every step is
+    a plain full pass. An explicit schedule overrides the interval."""
+    if cache_schedule is not None:
+        parse_cache_schedule(cache_schedule, num_steps)
+        pattern = cache_schedule.strip().upper()
+    elif cache_interval and cache_interval > 1:
+        pattern = uniform_cache_schedule(cache_interval, num_steps)
+    else:
+        return None
+    return pattern if "S" in pattern else None
+
+
 def run_sampler_steps(
     model_fn: Callable[[torch.Tensor, int], torch.Tensor],
     spec: SamplerSpec,
@@ -90,13 +141,32 @@ def run_sampler_steps(
     ts,
     prev_ts,
     generator: Optional[torch.Generator] = None,
+    cache_interval: int = 1,
+    model_fn_trunk=None,
+    model_fn_cached=None,
+    cache_schedule: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The denoise loop: model_fn(cat([x, conds]), t) -> model output, then
-    a DDIM step. Returns (final sample, x_hat0 of every step [S, ...])."""
+    a DDIM step. Returns (final sample, x_hat0 of every step [S, ...]).
+
+    With DeepCache (cache_interval > 1 or a cache_schedule with an S), a
+    full step followed by an S runs model_fn_trunk(input, t) -> (output,
+    trunk) and an S step model_fn_cached(input, t, trunk); other full steps
+    run model_fn, as the JAX package's grouped scans do."""
+    pattern = step_pattern(len(ts), cache_interval, cache_schedule)
+    if pattern is not None and (model_fn_trunk is None or model_fn_cached is None):
+        raise ValueError("DeepCache needs model_fn_trunk and model_fn_cached")
     x = x_init
+    trunk = None
     x0s: List[torch.Tensor] = []
-    for t, prev_t in zip(ts, prev_ts):
-        out = model_fn(torch.cat([x, conds], dim=-1), int(t))
+    for i, (t, prev_t) in enumerate(zip(ts, prev_ts)):
+        model_input = torch.cat([x, conds], dim=-1)
+        if pattern is not None and pattern[i] == "S":
+            out = model_fn_cached(model_input, int(t), trunk)
+        elif pattern is not None and i + 1 < len(pattern) and pattern[i + 1] == "S":
+            out, trunk = model_fn_trunk(model_input, int(t))
+        else:
+            out = model_fn(model_input, int(t))
         step = ddim_step(tables, spec.schedule, out, int(t), int(prev_t), x, eta=spec.eta,
                          generator=generator,
                          use_clipped_model_output=spec.use_clipped_model_output)
@@ -145,9 +215,15 @@ def latent_denoise(
     generator: Optional[torch.Generator] = None,
     latents: Optional[torch.Tensor] = None,
     noise_dtype: Optional[torch.dtype] = None,
+    cache_interval: int = 1,
+    unet_apply_trunk=None,
+    unet_apply_cached=None,
+    cache_schedule: Optional[str] = None,
 ) -> torch.Tensor:
     """Stage 2: initial latent noise, then the denoise loop. Returns the kept
     x_hat0 latents [S, B, h, w, 4] (the last is the final step's).
+    DeepCache: `unet_apply_trunk(input, t, ctx) -> (out, trunk)` and
+    `unet_apply_cached(input, t, ctx, trunk) -> out`, see run_sampler_steps.
 
     `latents` is the initial noise [B, h, w, 4] (the diffusers idiom);
     without it the noise is drawn from `generator`, in `noise_dtype` (the
@@ -167,9 +243,17 @@ def latent_denoise(
     def model_fn(model_input, t):
         return unet_apply(model_input, t, text_embed)
 
+    def model_fn_trunk(model_input, t):
+        return unet_apply_trunk(model_input, t, text_embed)
+
+    def model_fn_cached(model_input, t, trunk):
+        return unet_apply_cached(model_input, t, text_embed, trunk)
+
     ts, prev_ts = _timestep_arrays(spec.schedule, num_inference_steps)
-    _, x0_stack = run_sampler_steps(model_fn, spec, tables, x_init, conds, ts, prev_ts,
-                                    generator)
+    _, x0_stack = run_sampler_steps(
+        model_fn, spec, tables, x_init, conds, ts, prev_ts, generator,
+        cache_interval=cache_interval, model_fn_trunk=model_fn_trunk,
+        model_fn_cached=model_fn_cached, cache_schedule=cache_schedule)
     kept = _kept_indices(num_inference_steps, num_intermediate_images)
     return x0_stack[torch.as_tensor(kept, device=x0_stack.device)]
 

@@ -79,3 +79,57 @@ def test_cuda_checks_refuse_what_the_kernel_cannot_take(case):
     with pytest.raises(err):
         port_attention._check_cuda(q, q, q)
     port_attention._check_cuda(*(torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16),) * 3)
+
+
+# int8: both sides quantize q, k, v per (batch, head) alike and sum exactly;
+# exp differs between XLA and PyTorch in the last place, which can move
+# round(127 p) by one quantum for a few keys (a change of ~1/127 of one
+# key's weight in the output row)
+INT8_SHAPES = {
+    "self600_d64": (2, 600, 600, 2, 64),
+    "cross300x77_d64": (2, 300, 77, 2, 64),
+    # the VAE's one wide head (head_dim 512), ragged against 128 keys
+    "wide_head_d512": (1, 520, 520, 1, 512),
+}
+INT8_TOL = 2e-3
+
+
+@pytest.mark.parametrize("shape", list(INT8_SHAPES))
+def test_int8_matches_pallas_kernel(shape):
+    b, n, m, h, d = INT8_SHAPES[shape]
+    q, k, v = (randn(seed, b, length, h, d) for seed, length in ((3, n), (4, m), (5, m)))
+    ref = np.asarray(jax_attention.mha_attention(*map(jnp.asarray, (q, k, v)), quant="int8",
+                                                 interpret=True))
+    before = port_attention.mha_attention_int8.launches
+    out = port_attention.mha_attention_int8(*map(torch.from_numpy, (q, k, v)))
+    assert port_attention.mha_attention_int8.launches == before + 1
+    assert tuple(out.shape) == (b, n, h, d)
+    np.testing.assert_allclose(out.numpy(), ref, atol=INT8_TOL * np.abs(ref).max(), rtol=0)
+    # and the int8 result is an int8 result: the float kernel differs from it
+    # by far more than the tolerance
+    f32 = np.asarray(jax_attention.mha_attention(*map(jnp.asarray, (q, k, v)), interpret=True))
+    assert np.abs(f32 - ref).max() > 5 * INT8_TOL * np.abs(ref).max()
+
+
+def test_int8_quantization_matches_the_tpu_wrapper():
+    """Per-(batch, head) scales max(absmax, 1e-6) / 127 and rounding with no
+    clip, as attention.py's wrapper (_absmax_bh) computes them."""
+    x = randn(6, 2, 40, 3, 64)
+    xs = jnp.swapaxes(jnp.asarray(x), 1, 2)
+    s_ref = jax_attention._absmax_bh(xs)
+    q_ref = np.asarray(jnp.round(xs.astype(jnp.float32) / s_ref).astype(jnp.int8))
+    q, s = port_attention.quantize_per_head(torch.from_numpy(x))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(s_ref)[..., 0, 0])
+    np.testing.assert_array_equal(q.transpose(1, 2).numpy(), q_ref)
+
+
+@pytest.mark.parametrize("case", ["fp32", "head_dim_48", "head_dim_640"])
+def test_int8_cuda_checks_refuse_what_the_kernel_cannot_take(case):
+    if case == "fp32":
+        q, err = torch.zeros(1, 8, 2, 64), TypeError
+    else:
+        q, err = torch.zeros(1, 8, 1, int(case.split("_")[-1]), dtype=torch.bfloat16), ValueError
+    with pytest.raises(err):
+        port_attention._check_cuda_int8(q)
+    for d in port_attention.INT8_HEAD_DIMS:
+        port_attention._check_cuda_int8(torch.zeros(1, 8, 1, d, dtype=torch.bfloat16))

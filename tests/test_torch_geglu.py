@@ -90,3 +90,68 @@ def test_output_chunk_fits_shared_memory():
     multiple of 16 dividing C (1280 -> 640, so two chunks)."""
     assert [port_geglu._output_chunk(c) for c in (32, 320, 640, 1280, 1920, 2048)] == [
         32, 320, 640, 640, 640, 512]
+
+
+def _int8_operands(c, f, rows, padded_dominates=False):
+    """Numpy-seeded operands of the int8 GEGLU, as JAX takes them and as the
+    port takes them. With padded_dominates, the zero-padded rows' y =
+    b1h * gelu(b1g) = 6 gelu(6) ~ 36 is far above every real row's (x is
+    positive and W1g pulls the real rows' gate down to ~6 - 5)."""
+    from d3roma_tpu_torch.ops.quant import quantize_weight
+
+    x, w1h, w1g, w2, b1h, b1g, b2 = _inputs(c, f, rows)
+    if padded_dominates:
+        x = np.abs(x)
+        w1h = w1h * 0.01
+        w1g = np.full_like(w1g, -5.0 / (0.8 * c))
+        b1h = b1g = np.full_like(b1h, 6.0)
+    (w1hq, s1h), (w1gq, s1g), (w2q, s2) = (quantize_weight(torch.from_numpy(w).t())
+                                           for w in (w1h, w1g, w2))
+    port_ops = (w1hq, w1gq, w2q, s1h, s1g, s2, *map(torch.from_numpy, (b1h, b1g, b2)))
+    return x, (w1h, w1g, w2, b1h, b1g, b2), port_ops
+
+
+# int8: the same integers on both sides and the TPU kernel's scale grid; tanh
+# differs between XLA and PyTorch in the last place, which can move one
+# re-quantized y by one quantum (1/127 of its tile's absmax)
+INT8_TOL = 2e-3
+
+
+@pytest.mark.parametrize("c,f,rows,padded_dominates", [
+    (32, 128, (2, 150), False),   # 300 rows: not a multiple of the 512-row sub-chunk
+    (64, 256, (1, 700), False),   # two sub-chunk tiles, the second one padded
+    (640, 2560, (1, 20), False),  # two blk_cols chunks of 640 (the 920-token level's F)
+    (64, 256, (1, 30), True),     # padded rows' b1h * gelu(b1g) set the tile's absmax
+])
+def test_int8_matches_pallas_kernel(c, f, rows, padded_dominates):
+    x, jax_ops, port_ops = _int8_operands(c, f, rows, padded_dominates)
+    act = float(np.float32(np.abs(x).max() / 127 * 1.25))
+    ref = np.asarray(jax_geglu.geglu_ff(*map(jnp.asarray, (x, *jax_ops)), quant="static",
+                                        act_scale=act, interpret=True))
+    before = port_geglu.geglu_ff_int8.launches
+    out = port_geglu.geglu_ff_int8(torch.from_numpy(x), *port_ops, act)
+    assert port_geglu.geglu_ff_int8.launches == before + 1
+    assert tuple(out.shape) == x.shape
+    np.testing.assert_allclose(out.numpy(), ref, atol=INT8_TOL * np.abs(ref).max(), rtol=0)
+
+
+def test_int8_padded_rows_reach_the_tile_absmax(monkeypatch):
+    """When the zero-padded rows' y = b1h * gelu(b1g) exceed every real
+    row's, they set the tile's scale: a grid whose tile ends at the last real
+    row (no padded rows) gives another result. The padded_dominates case
+    above holds the padded-row result against the TPU kernel."""
+    x, _, port_ops = _int8_operands(64, 256, (1, 30), padded_dominates=True)
+    act = float(np.float32(np.abs(x).max() / 127 * 1.25))
+    padded = port_geglu.geglu_ff_int8_plain(torch.from_numpy(x), *port_ops, act)
+    monkeypatch.setattr(port_geglu, "pick_rows", lambda c: (2048, 30))
+    unpadded = port_geglu.geglu_ff_int8_plain(torch.from_numpy(x), *port_ops, act)
+    assert not torch.equal(padded, unpadded)
+
+
+def test_int8_scale_grid_matches_jax():
+    for c in (32, 320, 640, 1280):
+        assert port_geglu.pick_rows(c) == jax_geglu._pick_rows(c)
+    for f in (128, 256, 1280, 2560, 5120, 7680):
+        assert port_geglu.pick_cols(f) == jax_geglu._pick_cols(f)
+    assert [port_geglu.int8_output_chunk(c) for c in (64, 320, 640, 1280, 1920, 512)] == [
+        64, 320, 320, 320, 320, 256]

@@ -53,6 +53,18 @@ out = pipe(num_inference_steps=1, num_intermediate_images=1, cond_channels="rgb+
            generator=torch.Generator().manual_seed(0))
 assert tuple(out.images.shape) == (1, 32, 64, 1) and torch.isfinite(out.images).all()
 
+# the bench default (static int8, DeepCache, calibration) on the CPU as well
+bench = GuidedLatentDiffusionPipeline(
+    unet=UNet2DCondition(**unet_kw, device="cpu"), vae=AutoencoderKL(**vae_kw, device="cpu"),
+    text_embed=torch.zeros(1, 2, 16), spec=spec, normalizer=norm, device="cpu")
+batch = dict(rgb_images=torch.rand(1, 32, 64, 3), sim_disp=torch.rand(1, 32, 64, 1))
+bench.fast_inference("throughput").deepcache(2).calibrate(
+    torch.Generator().manual_seed(0), [batch], num_inference_steps=2)
+assert set(bench.act_scales) == {"unet", "unet_cached", "vae_encode", "vae_decode"}
+out = bench(num_inference_steps=2, num_intermediate_images=1, cond_channels="rgb+raw",
+            generator=torch.Generator().manual_seed(1), **batch)
+assert tuple(out.images.shape) == (1, 32, 64, 1) and torch.isfinite(out.images).all()
+
 if not torch.cuda.is_available():
     cpu_unet = UNet2DCondition(**unet_kw, device="cpu")
     for make in (lambda: UNet2DCondition(**unet_kw), lambda: AutoencoderKL(**vae_kw),

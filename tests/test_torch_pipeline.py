@@ -5,13 +5,17 @@ the JAX side runs both Pallas kernels in interpret mode. Stage by stage
 (encoded conditions, one UNet forward, decode) and end to end, plus the
 kernel launch counts."""
 
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import d3roma_tpu.models.layers as jax_layers
 import d3roma_tpu.ops.pallas as jax_pallas
+import d3roma_tpu.ops.quant as jax_quant
 from d3roma_tpu.guidance import FlowGuidance
 from d3roma_tpu.models import AutoencoderKL as JaxVAE
 from d3roma_tpu.models import UNet2DCondition as JaxUNet
@@ -31,7 +35,13 @@ from d3roma_tpu_torch.models import (
     encode_disp_to_latent,
     encode_image_to_latent,
 )
-from d3roma_tpu_torch.ops.kernels import geglu_ff, mha_attention
+from d3roma_tpu_torch.ops.kernels import (
+    conv2d_int8,
+    geglu_ff,
+    geglu_ff_int8,
+    mha_attention,
+    mha_attention_int8,
+)
 from d3roma_tpu_torch.ops.normalizer import Normalizer
 from d3roma_tpu_torch.ops.schedules import ScheduleConfig
 from d3roma_tpu_torch.pipelines import GuidedLatentDiffusionPipeline, SamplerSpec
@@ -40,6 +50,7 @@ from torch_port_utils import (
     IMAGE_HW,
     SCHEDULE,
     TINY_UNET,
+    TINY_UNET3,
     TINY_VAE,
     randn,
     randomize_,
@@ -233,3 +244,162 @@ def test_fast_inference_latency_bf16(models, jax_kernel_calls):
     assert err.max() <= 0.1 and err.mean() <= 1e-2, (err.max(), err.mean())
     disp = fast.normalizer.denormalize(got.images)
     assert tuple(disp.shape) == (2,) + IMAGE_HW + (1,) and torch.isfinite(disp).all()
+
+
+# ---------------------------------------------------------------------------
+# The bench default: fast_inference("throughput") (bf16, static int8 in the
+# UNet and the VAE, the int8 attention, GEGLU and conv kernels) with
+# DeepCache interval 2 at depth 2 and calibrated activation scales.
+
+DC_STEPS = 2  # pattern "FS": one full pass with its trunk, one shallow pass
+
+
+@pytest.fixture(scope="module")
+def bench_default():
+    """The tiny bench-default pipeline in both packages on the same weights:
+    JAX calibrates, then runs one call with its Pallas kernels in interpret
+    mode while the kernel calls are counted (at trace time, so one full and
+    one shallow UNet pass, one encode and one decode). The port calibrates
+    on the noise the JAX calibration drew."""
+    unet = randomize_(UNet2DCondition(**TINY_UNET3, device="cpu"), 0)
+    vae = randomize_(AutoencoderKL(**TINY_VAE, device="cpu"), 1)
+    text_embed = randn(2, 1, 2, TINY_UNET3["cross_attention_dim"])
+    h, w = IMAGE_HW
+    rgb = randn(3, 2, h, w, 3, scale=0.5)
+    raw = np.abs(randn(4, 2, h, w, 1, scale=0.5))
+    jax_pipe = JaxPipeline(
+        unet=JaxUNet(**TINY_UNET3),
+        unet_params=jax.tree_util.tree_map(jnp.asarray,
+                                           unet_torch_to_flax(state_dict_numpy(unet))),
+        vae=JaxVAE(**TINY_VAE),
+        vae_params=jax.tree_util.tree_map(jnp.asarray,
+                                          vae_torch_to_flax(state_dict_numpy(vae))),
+        text_embed=jnp.asarray(text_embed),
+        spec=JaxSamplerSpec("my_ddim", JaxScheduleConfig(**SCHEDULE)),
+        guidance=FlowGuidance(flow_guidance_weight=0.0),
+        normalizer=JaxNormalizer(ssi=False, mode="average", num_chs=1,
+                                 ch_bounds=(128.0,), ch_gammas=(1.0,)))
+    port = GuidedLatentDiffusionPipeline(
+        unet=unet, vae=vae, text_embed=torch.from_numpy(text_embed),
+        spec=SamplerSpec("my_ddim", ScheduleConfig(**SCHEDULE)),
+        normalizer=Normalizer(ssi=False, mode="average", num_chs=1,
+                              ch_bounds=(128.0,), ch_gammas=(1.0,)),
+        device="cpu").fast_inference("throughput").deepcache(2, depth=2)
+
+    cal_key, key = jax.random.PRNGKey(21), jax.random.PRNGKey(22)
+    batch = dict(rgb_images=jnp.asarray(rgb), sim_disp=jnp.asarray(raw))
+    jax_fast = (jax_pipe.fast_inference("throughput").deepcache(2, depth=2)
+                .calibrate(cal_key, [batch], cond_channels="rgb+raw",
+                           num_inference_steps=DC_STEPS))
+    latent_shape = (2, h // 2, w // 2, 4)
+    # the noise JAX's calibrate drew for batch 0, and its __call__'s noise
+    cal_noise = np.array(jax.random.normal(jax.random.fold_in(cal_key, 0), latent_shape))
+    x_init = np.array(jax.random.normal(jax.random.split(key)[1], latent_shape, jnp.float32))
+
+    calls = {"attention": 0, "geglu": 0, "conv": 0}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("D3ROMA_PALLAS_INTERPRET", "1")
+        for mod, name, k in ((jax_pallas, "mha_attention", "attention"),
+                             (jax_pallas, "geglu_ff", "geglu"),
+                             (jax_layers, "int8_conv_general_dilated_static", "conv")):
+            def counted(*a, _real=getattr(mod, name), _k=k, **kw):
+                calls[_k] += 1
+                return _real(*a, **kw)
+            mp.setattr(mod, name, counted)
+        ref = jax_fast(key, num_inference_steps=DC_STEPS, num_intermediate_images=1,
+                       cond_channels="rgb+raw", rgb_images=jnp.asarray(rgb),
+                       sim_disp=jnp.asarray(raw))
+
+    shape_logs = {}
+    port.calibrate(None, [dict(rgb_images=torch.from_numpy(rgb), sim_disp=torch.from_numpy(raw),
+                               latents=torch.from_numpy(cal_noise))],
+                   cond_channels="rgb+raw", num_inference_steps=DC_STEPS, shape_logs=shape_logs)
+    return dict(port=port, jax_fast=jax_fast, ref=np.asarray(ref.images, np.float32),
+                jax_calls=calls, x_init=x_init, rgb=rgb, raw=raw,
+                port_scales=dict(port.act_scales), shape_logs=shape_logs)
+
+
+def _int8_counts():
+    return {"attention": mha_attention_int8.launches, "geglu": geglu_ff_int8.launches,
+            "conv": conv2d_int8.launches}
+
+
+def test_bench_default_replays_a_jax_table(bench_default):
+    """(a) The JAX-calibrated table, through its JSON form, replays unchanged
+    in the port; the output against the JAX pipeline on the same weights,
+    table and initial noise, and the kernel launches of one call.
+
+    Every int8 op matches its JAX counterpart exactly on equal inputs
+    (test_torch_quant.py, test_torch_conv2d.py, the int8 kernel tests), and
+    the call order is JAX's (test_bench_default_calibration_matches_jax).
+    But the float ops between them round differently in the two packages
+    (XLA's and PyTorch's bf16 ops, GroupNorm statistics, exp and tanh in the
+    last place), and a value that lands on the other side of a rounding
+    boundary before a quantization moves by one int8 quantum. Each
+    quantized layer turns a difference d well below a quantum q into one of
+    about sqrt(d q), so over the ~60 quantized layers of a pass the two
+    pipelines drift apart to the int8 quantization noise itself: at this
+    tiny random model, about 2e-2 mean on images in [-1, 1] (the same as
+    between the int8 and the bf16 pipeline). Bounds: 0.2 max, 3e-2 mean."""
+    bd = bench_default
+    port = bd["port"]
+    port.act_scales = json.loads(json.dumps(bd["jax_fast"].act_scales))
+    assert set(port.act_scales) == {"unet", "unet_cached", "vae_encode", "vae_decode"}
+    before = _int8_counts()
+    got = port(num_inference_steps=DC_STEPS, num_intermediate_images=1,
+               cond_channels="rgb+raw", rgb_images=torch.from_numpy(bd["rgb"]),
+               sim_disp=torch.from_numpy(bd["raw"]), latents=torch.from_numpy(bd["x_init"]))
+    # (c) launches of one call: one full and one shallow pass, one encode,
+    # one decode, as the JAX trace counted
+    assert _delta(_int8_counts(), before) == bd["jax_calls"]
+    assert bd["jax_calls"]["attention"] > 0 and bd["jax_calls"]["geglu"] > 0
+    assert got.images.dtype == torch.float32
+    err = np.abs(got.images.numpy() - bd["ref"])
+    assert np.mean(np.abs(bd["ref"]) < 0.999) > 0.5
+    assert err.max() <= 0.2 and err.mean() <= 3e-2, (err.max(), err.mean())
+
+
+def test_bench_default_calibration_matches_jax(bench_default):
+    """(b) The port's own calibrate() against JAX's on one batch with the
+    same initial noise: the same tables with the same lengths; the call
+    order's kinds and shapes equal JAX's quant_call_map; each scale within
+    5e-2 of JAX's (absmax taps of bf16 activations whose rounding differs
+    between the two packages)."""
+    bd = bench_default
+    ours, ref = bd["port_scales"], bd["jax_fast"].act_scales
+    assert set(ours) == set(ref)
+    for table in ref:
+        assert len(ours[table]) == len(ref[table]), table
+        np.testing.assert_allclose(ours[table], ref[table], rtol=5e-2, err_msg=table)
+    h, w = IMAGE_HW
+    call_map = bd["jax_fast"].quant_call_map(batch=2, height=h * 4, width=w * 4)
+    call_map.update(_jax_vae_call_maps(bd["jax_fast"], h, w))
+    for table in ref:
+        assert [(k, tuple(s)) for k, s in call_map[table]] == bd["shape_logs"][table], table
+
+
+def _jax_vae_call_maps(jax_pipe, h, w):
+    """(kind, shape) of every static int8 call of the JAX VAE's stacked
+    encode (rgb + raw, batch 2) and decode, from an abstract capture trace."""
+    vapply = jax_pipe._vae_apply(jax_pipe.vae_params)
+    logs = {}
+    for table, fn, shape in (
+            ("vae_encode", lambda x: jax_encode(vapply, x), (4, h, w, 3)),
+            ("vae_decode", lambda z: jax_decode_latent(vapply, z), (2, h // 2, w // 2, 4))):
+        logs[table] = []
+        with jax_quant.capture_act_scales([], shape_log=logs[table]):
+            jax.eval_shape(fn, jax.ShapeDtypeStruct(shape, jnp.float32))
+    return logs
+
+
+def test_bench_default_needs_the_shallow_table(bench_default):
+    """A calibrated full-pass table without the shallow pass's is refused:
+    the shallow pass visits another sequence of sites."""
+    port = bench_default["port"]
+    saved = port.act_scales
+    try:
+        port.act_scales = {k: v for k, v in saved.items() if k != "unet_cached"}
+        with pytest.raises(ValueError, match="unet_cached"):
+            port._unet_cache_fns()
+    finally:
+        port.act_scales = saved

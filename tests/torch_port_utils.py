@@ -16,6 +16,13 @@ TINY_UNET = dict(
     layers_per_block=1, attention_head_dim=32, cross_attention_dim=16,
     norm_groups=8, use_flash_attention="pallas-self", fused_ff=True,
 )
+# Three levels, so the DeepCache shallow pass can run at depth 1 and 2 (the
+# bench default's depth); the 512-token level is the only kernel level.
+TINY_UNET3 = dict(
+    TINY_UNET, block_out_channels=(32, 64, 64),
+    down_block_types=("CrossAttnDownBlock2D", "CrossAttnDownBlock2D", "DownBlock2D"),
+    up_block_types=("UpBlock2D", "CrossAttnUpBlock2D", "CrossAttnUpBlock2D"),
+)
 TINY_VAE = dict(block_out_channels=(32, 64), norm_groups=8)
 IMAGE_HW = (32, 64)
 

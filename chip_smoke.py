@@ -26,7 +26,16 @@ failing the run on its own error:
    int8 conv per quantized conv site the capture logs list; ms/frame, the
    profile, and one full and one shallow UNet forward through the int8
    kernels against the same forwards through the kernels' plain versions;
-6. a JSON line of per-kernel numbers, then the JSON result as the last line.
+6. opt-in path on the same models: fast_inference("wino").fuse_norms(), the
+   fused self-attention (set_kernels(use_flash_attention="fused")),
+   deepcache(2, depth=2), calibrate on one batch; a dry pass logs the
+   port's routing (Winograd or static int8 per conv, fused GroupNorm or not
+   per norm); the launch counts of one call must be 130 fused attention,
+   2 int8 whole-row attention (the VAE's), 130 int8 GEGLU, one int8 conv per
+   conv or dense site of the capture logs and the Winograd and fused
+   GroupNorm calls of the dry pass; ms/frame, the profile, and one full and
+   one shallow UNet forward through the kernels against their plain versions;
+7. a JSON line of per-kernel numbers, then the JSON result as the last line.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -86,6 +95,15 @@ def bound(flops: float, nbytes: float, peak: float = H100_BF16_FLOPS):
     t_ops = flops / peak * 1e3
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _check_row(name, row, err, tol):
+    """Print a kernel case's row; fail it when its error exceeds its tolerance."""
+    _sync()
+    print(f"  {name} {row}", flush=True)
+    if not err <= tol:
+        raise AssertionError(f"{name} {row['shape']}: max abs err {err} > {tol}")
+    return row
 
 
 def pin_one_card() -> None:
@@ -151,11 +169,7 @@ def _attention_case(b, n, m, h, d, gen, timed):
         flops = 4.0 * b * h * n * m * d
         nbytes = 2.0 * (2 * b * n * h * d + 2 * b * m * h * d)
         row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
-    _sync()
-    print(f"  attention {row}", flush=True)
-    if not err <= tol:
-        raise AssertionError(f"attention {row['shape']}: max abs err {err} > {tol}")
-    return row
+    return _check_row("attention", row, err, tol)
 
 
 def _geglu_case(rows, c, f, gen, timed):
@@ -199,11 +213,7 @@ def _geglu_case(rows, c, f, gen, timed):
         flops = 6.0 * rows * c * f
         nbytes = 2.0 * (2 * rows * c + 3 * c * f) + 4.0 * (2 * f + c)
         row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
-    _sync()
-    print(f"  geglu {row}", flush=True)
-    if not err <= tol:
-        raise AssertionError(f"geglu {row['shape']}: max abs err {err} > {tol}")
-    return row
+    return _check_row("geglu", row, err, tol)
 
 
 def kernel_phase():
@@ -251,11 +261,7 @@ def _attention_int8_case(b, n, m, h, d, gen, timed):
         ops = 4.0 * b * h * n * m * d
         nbytes = 2.0 * (2 * b * n * h * d + 2 * b * m * h * d)
         row["bound_ms"], row["bound_by"] = bound(ops, nbytes, H100_INT8_OPS)
-    _sync()
-    print(f"  attention_int8 {row}", flush=True)
-    if not err <= tol:
-        raise AssertionError(f"attention_int8 {row['shape']}: max abs err {err} > {tol}")
-    return row
+    return _check_row("attention_int8", row, err, tol)
 
 
 def _int8_ff_operands(c, f, gen):
@@ -309,11 +315,7 @@ def _geglu_int8_case(rows, c, f, gen, timed):
         ops = 6.0 * rows * c * f
         nbytes = 2.0 * 2 * rows * c + 3.0 * c * f + 4.0 * (4 * f + 2 * c)
         row["bound_ms"], row["bound_by"] = bound(ops, nbytes, H100_INT8_OPS)
-    _sync()
-    print(f"  geglu_int8 {row}", flush=True)
-    if not err <= tol:
-        raise AssertionError(f"geglu_int8 {row['shape']}: max abs err {err} > {tol}")
-    return row
+    return _check_row("geglu_int8", row, err, tol)
 
 
 def _conv_int8_case(b, h, w, cin, cout, k, stride, padding, gen, timed):
@@ -349,11 +351,7 @@ def _conv_int8_case(b, h, w, cin, cout, k, stride, padding, gen, timed):
         ops = 2.0 * b * oh * ow * cout * k * k * cin
         nbytes = 2.0 * b * h * w * cin + 1.0 * cout * k * k * cin + 6.0 * cout + 2.0 * b * oh * ow * cout
         row["bound_ms"], row["bound_by"] = bound(ops, nbytes, H100_INT8_OPS)
-    _sync()
-    print(f"  conv2d_int8 {row}", flush=True)
-    if not err <= tol:
-        raise AssertionError(f"conv2d_int8 {row['shape']}: max abs err {err} > {tol}")
-    return row
+    return _check_row("conv2d_int8", row, err, tol)
 
 
 def _quantize_case(shape, gen, timed):
@@ -376,10 +374,7 @@ def _quantize_case(shape, gen, timed):
         row["library_ms"] = None
         row["library_call"] = None
         row["bound_ms"], row["bound_by"] = bound(0.0, 3.0 * n)
-    print(f"  quantize_int8 {row}", flush=True)
-    if err != 0:
-        raise AssertionError(f"quantize_int8 {shape}: differs from the plain version")
-    return row
+    return _check_row("quantize_int8", row, float(err), 0.0)
 
 
 def int8_kernel_phase():
@@ -416,6 +411,155 @@ def int8_kernel_phase():
                   (1, 5, 6, 64, 96, 3, 2, 1), (2, 9, 11, 32, 130, 1, 1, 0),
                   (1, 13, 17, 96, 34, 3, 2, 0)):
         _conv_int8_case(*shape, gen, False)
+    _sync()
+    return rows
+
+
+def _gn_case(shape, gen, timed, dtype="bfloat16"):
+    import torch
+    import torch.nn.functional as F
+
+    from d3roma_tpu_torch.ops.kernels import group_norm_silu, group_norm_silu_plain
+
+    c = shape[-1]
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2.0 + 0.5).to(getattr(torch, dtype))
+    gamma = 1.0 + 0.1 * torch.randn((c,), generator=gen, device="cuda")
+    beta = 0.1 * torch.randn((c,), generator=gen, device="cuda")
+    out = group_norm_silu(x, gamma, beta, 32, 1e-5)
+    ref = group_norm_silu_plain(x, gamma, beta, 32, 1e-5).float()
+    _sync()
+    err = (out.float() - ref).abs().max().item()
+    tol = REL_TOL * ref.abs().max().item()
+    row = {"shape": list(shape), "dtype": dtype, "max_abs_err": err, "tol": tol,
+           "max_abs_out": ref.abs().max().item()}
+    if timed:
+        xc = x.permute(0, 3, 1, 2)  # NCHW view, channels_last in memory
+        gb, bb = gamma.to(x.dtype), beta.to(x.dtype)
+        row["ms"] = time_ms(lambda: group_norm_silu(x, gamma, beta, 32, 1e-5))
+        row["plain_ms"] = time_ms(lambda: group_norm_silu_plain(x, gamma, beta, 32, 1e-5))
+        row["library_ms"] = time_ms(lambda: F.silu(F.group_norm(xc, 32, gb, bb, 1e-5)))
+        row["library_call"] = "F.silu(F.group_norm(x)) (bf16, channels_last)"
+        row["bound_ms"], row["bound_by"] = bound(0.0, 2.0 * x.numel() * x.element_size()
+                                                 + 8.0 * c)
+    return _check_row("group_norm_silu", row, err, tol)
+
+
+def _wino_case(b, h, w, c, o, gen, timed):
+    import torch
+    import torch.nn.functional as F
+
+    from d3roma_tpu_torch.ops.kernels import (
+        conv3x3_winograd,
+        conv3x3_winograd_plain,
+        winograd_weight,
+    )
+
+    x = torch.randn((b, h, w, c), generator=gen, device="cuda").to(torch.bfloat16)
+    wt = (torch.randn((o, c, 3, 3), generator=gen, device="cuda")
+          * (9 * c) ** -0.5).to(torch.bfloat16)
+    bias = (torch.randn((o,), generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+    u = winograd_weight(wt)
+    out = conv3x3_winograd(x, u, torch.bfloat16, bias)
+    ref = conv3x3_winograd_plain(x, u, torch.bfloat16, bias).float()
+    _sync()
+    err = (out.float() - ref).abs().max().item()
+    tol = REL_TOL * ref.abs().max().item()
+    row = {"shape": [b, h, w, c, o], "max_abs_err": err, "tol": tol,
+           "max_abs_out": ref.abs().max().item()}
+    if timed:
+        xc = x.permute(0, 3, 1, 2)
+        wc = wt.contiguous(memory_format=torch.channels_last)
+        row["ms"] = time_ms(lambda: conv3x3_winograd(x, u, torch.bfloat16, bias))
+        row["plain_ms"] = time_ms(lambda: conv3x3_winograd_plain(x, u, torch.bfloat16, bias),
+                                  reps=3, warmup=1)
+        row["library_ms"] = time_ms(lambda: F.conv2d(xc, wc, bias, 1, 1))
+        row["library_call"] = "F.conv2d (bf16, cuDNN, channels_last)"
+        th, tw = (h + 1) // 2, (w + 1) // 2
+        ops = 2.0 * 16 * b * th * tw * c * o
+        nbytes = 2.0 * (b * h * w * c + 16 * o * c + o + b * h * w * o)
+        row["bound_ms"], row["bound_by"] = bound(ops, nbytes)
+    return _check_row("winograd", row, err, tol)
+
+
+def _fused_attention_operands(c, gen):
+    import torch
+
+    from d3roma_tpu_torch.ops.quant import quantize_weight
+
+    ws = [(torch.randn((c, c), generator=gen, device="cuda") * c ** -0.5).to(torch.bfloat16)
+          for _ in range(4)]
+    qs = [quantize_weight(w) for w in ws[:3]]
+    bo = torch.randn((c,), generator=gen, device="cuda") * 0.1
+    return (torch.cat([q for q, _ in qs]).contiguous(), torch.cat([s for _, s in qs]).contiguous(),
+            ws[3], bo), ws
+
+
+def _attention_fused_case(b, n, c, gen, timed):
+    import torch
+    import torch.nn.functional as F
+
+    from d3roma_tpu_torch.ops.kernels import (
+        fused_self_attention_int8,
+        fused_self_attention_int8_plain,
+    )
+    from d3roma_tpu_torch.ops.quant import fp32
+
+    heads = c // 64
+    x = torch.randn((b, n, c), generator=gen, device="cuda").to(torch.bfloat16)
+    ops_in, ws = _fused_attention_operands(c, gen)
+    act = fp32(x.float().abs().max().item() * 1.25 / 127)
+    out = fused_self_attention_int8(x, *ops_in, heads, act)
+    ref = fused_self_attention_int8_plain(x, *ops_in, heads, act).float()
+    _sync()
+    err = (out.float() - ref).abs().max().item()
+    tol = REL_TOL * ref.abs().max().item()
+    row = {"shape": [b, n, c, heads], "max_abs_err": err, "tol": tol,
+           "max_abs_out": ref.abs().max().item()}
+    if timed:
+        bo16 = ops_in[3].to(torch.bfloat16)
+
+        def library():
+            q, k, v = (F.linear(x, w).view(b, n, heads, 64).transpose(1, 2) for w in ws[:3])
+            o = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(b, n, c)
+            return F.linear(o, ws[3], bo16)
+
+        row["ms"] = time_ms(lambda: fused_self_attention_int8(x, *ops_in, heads, act))
+        row["plain_ms"] = time_ms(
+            lambda: fused_self_attention_int8_plain(x, *ops_in, heads, act), reps=3, warmup=1)
+        row["library_ms"] = time_ms(library)
+        row["library_call"] = "4 F.linear + F.scaled_dot_product_attention (bf16)"
+        # int8: the QKV projection and both attention products; bf16: the
+        # output projection
+        t_ops = (b * (6.0 * n * c * c + 4.0 * n * n * c) / H100_INT8_OPS
+                 + b * 2.0 * n * c * c / H100_BF16_FLOPS) * 1e3
+        nbytes = 2.0 * 2 * b * n * c + 3.0 * c * c + 2.0 * c * c + 4.0 * 4 * c
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        row["bound_ms"], row["bound_by"] = ((t_ops, "operations") if t_ops >= t_bytes
+                                            else (t_bytes, "bytes"))
+    return _check_row("attention_fused_int8", row, err, tol)
+
+
+def opt_in_kernel_phase():
+    """The opt-in configuration's kernels against their plain versions at
+    its shapes (timed) and ragged ones (checked only)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(5678)
+    rows = {"groupnorm_silu": [_gn_case(s, gen, True) for s in (
+        (BATCH, 45, 80, 320), (BATCH, 23, 40, 1920), (BATCH, 12, 20, 1280),
+        (2 * BATCH, 45, 80, 512))]}
+    for shape, dtype in (((1, 5, 7, 64), "float32"), ((1, 3, 3, 2560), "bfloat16"),
+                         ((2, 9, 11, 96), "bfloat16"), ((1, 6, 10, 2560), "float32")):
+        _gn_case(shape, gen, False, dtype)
+    rows["winograd"] = [_wino_case(*s, gen, True) for s in (
+        (BATCH, 45, 80, 320, 320), (BATCH, 45, 80, 640, 320), (BATCH, 23, 40, 640, 640),
+        (2 * BATCH, 45, 80, 512, 512), (2 * BATCH, 180, 320, 128, 256))]
+    for shape in ((1, 7, 9, 32, 40), (1, 5, 3, 64, 8), (2, 13, 20, 96, 136), (1, 1, 1, 32, 32)):
+        _wino_case(*shape, gen, False)
+    rows["attention_fused_int8"] = [_attention_fused_case(BATCH, n, c, gen, True) for n, c in (
+        (3600, 320), (920, 640), (240, 1280), (60, 1280))]
+    for n, c in ((300, 128), (65, 64), (1000, 320), (257, 192)):
+        _attention_fused_case(1, n, c, gen, False)
     _sync()
     return rows
 
@@ -532,8 +676,11 @@ def pipeline_phase():
 def _int8_launches():
     from d3roma_tpu_torch.ops.kernels import (
         conv2d_int8,
+        conv3x3_winograd,
+        fused_self_attention_int8,
         geglu_ff,
         geglu_ff_int8,
+        group_norm_silu,
         mha_attention,
         mha_attention_int8,
         quantize_int8_scalar,
@@ -542,35 +689,48 @@ def _int8_launches():
     return {"attention": mha_attention.launches, "geglu": geglu_ff.launches,
             "attention_int8": mha_attention_int8.launches,
             "geglu_int8": geglu_ff_int8.launches, "conv2d_int8": conv2d_int8.launches,
-            "quantize": quantize_int8_scalar.launches}
+            "quantize": quantize_int8_scalar.launches,
+            "attention_fused_int8": fused_self_attention_int8.launches,
+            "winograd": conv3x3_winograd.launches, "groupnorm_silu": group_norm_silu.launches}
 
 
 def _zero_launches():
     from d3roma_tpu_torch.ops import kernels
 
     for fn in (kernels.mha_attention, kernels.geglu_ff, kernels.mha_attention_int8,
-               kernels.geglu_ff_int8, kernels.conv2d_int8, kernels.quantize_int8_scalar):
+               kernels.geglu_ff_int8, kernels.conv2d_int8, kernels.quantize_int8_scalar,
+               kernels.fused_self_attention_int8, kernels.conv3x3_winograd,
+               kernels.group_norm_silu):
         fn.launches = 0
 
 
 def _plain_int8_forward(fn, attention: bool = True):
     """fn() with the int8 kernel wrappers (the attention one too, unless
     attention=False) replaced by their plain versions: the same arithmetic
-    in PyTorch ops, on the card."""
+    in PyTorch ops, on the card. With attention, the opt-in configuration's
+    fused attention, Winograd and fused GroupNorm wrappers are replaced too;
+    without it they stay kernels, like the attention (of the wrappers the
+    forward reaches, the conv and GEGLU kernels are bit-equal to their plain
+    versions, the others are not)."""
     from d3roma_tpu_torch.models import layers
-    from d3roma_tpu_torch.ops import kernels, quant
+    from d3roma_tpu_torch.ops import kernels, quant, winograd
 
     saved = (layers.mha_attention_int8, layers.geglu_ff_int8, layers.conv2d_int8,
-             quant.conv2d_int8)
+             quant.conv2d_int8, layers.fused_self_attention_int8, layers.group_norm_silu,
+             winograd.conv3x3_winograd)
     if attention:
         layers.mha_attention_int8 = kernels.mha_attention_int8_plain
+        layers.fused_self_attention_int8 = kernels.fused_self_attention_int8_plain
+        layers.group_norm_silu = kernels.group_norm_silu_plain
+        winograd.conv3x3_winograd = kernels.conv3x3_winograd_plain
     layers.geglu_ff_int8 = kernels.geglu_ff_int8_plain
     layers.conv2d_int8 = quant.conv2d_int8 = kernels.conv2d_int8_plain
     try:
         return fn()
     finally:
         (layers.mha_attention_int8, layers.geglu_ff_int8, layers.conv2d_int8,
-         quant.conv2d_int8) = saved
+         quant.conv2d_int8, layers.fused_self_attention_int8, layers.group_norm_silu,
+         winograd.conv3x3_winograd) = saved
 
 
 def bench_default_phase(pipe, inputs):
@@ -699,11 +859,192 @@ def bench_default_phase(pipe, inputs):
     return counts, ms_per_frame
 
 
+def _routing_dry_pass(pipe, run):
+    """One call with a hook on every Winograd-capable conv and every
+    GroupNormSiLU that records the port's own routing decisions (the
+    wino_static route, the fused GroupNorm gate) without counting launches.
+    Returns (Winograd calls, fused GroupNorm calls, {site: route})."""
+    from d3roma_tpu_torch.models.layers import Conv2d, GroupNormSiLU
+    from d3roma_tpu_torch.ops.kernels import group_norm_silu_supported
+    from d3roma_tpu_torch.ops.winograd import conv_hwio_shape, wino_static_route
+
+    calls = {"winograd": 0, "groupnorm_silu": 0}
+    table = {}
+
+    def conv_hook(mod, args):
+        shape = tuple(args[0].shape)
+        pad = ((mod.padding[0],) * 2, (mod.padding[1],) * 2)
+        chunk = wino_static_route(shape, conv_hwio_shape(mod.weight), mod.stride, pad)
+        if chunk is not None:
+            calls["winograd"] += -(-shape[0] // chunk)
+        table[("conv", mod.kernel_size[0]) + shape + (mod.weight.shape[0], mod.stride[0])] = (
+            "static int8" if chunk is None else f"winograd (chunk {chunk})")
+
+    def gn_hook(mod, args):
+        ok = group_norm_silu_supported(args[0].shape, args[0].dtype)
+        calls["groupnorm_silu"] += int(ok)
+        table[("groupnorm",) + tuple(args[0].shape)] = "fused" if ok else "unfused"
+
+    hooks = []
+    for m in list(pipe.unet.modules()) + list(pipe.vae.modules()):
+        if isinstance(m, Conv2d) and m.quant == "wino_static":
+            hooks.append(m.register_forward_pre_hook(conv_hook))
+        elif isinstance(m, GroupNormSiLU) and m.fused:
+            hooks.append(m.register_forward_pre_hook(gn_hook))
+    try:
+        run()
+        _sync()
+    finally:
+        for hk in hooks:
+            hk.remove()
+    return calls["winograd"], calls["groupnorm_silu"], table
+
+
+def opt_in_phase(pipe, inputs):
+    """The JAX package's opt-in kernel configuration on the same models
+    (the JAX bench's BENCH_QUANT=wino_static BENCH_FUSED_GN=1 BENCH_FLASH=4):
+    fast_inference("wino").fuse_norms(), the fused self-attention, DeepCache
+    interval 2 at depth 2, calibrated on one batch. Returns the launch counts
+    of one call and the median ms/frame."""
+    import torch
+
+    from d3roma_tpu_torch.ops.quant import replay_act_scales
+    from d3roma_tpu_torch.pipelines.sampling import uniform_cache_schedule
+
+    rgb, raw, gen = inputs
+    t0 = time.perf_counter()
+    logs = {}
+    pipe.fast_inference("wino").fuse_norms()
+    pipe.unet.set_kernels(use_flash_attention="fused")
+    pipe.deepcache(2, depth=2).calibrate(
+        gen, [dict(rgb_images=rgb, sim_disp=raw)], cond_channels="rgb+raw",
+        num_inference_steps=STEPS, shape_logs=logs)
+    _sync()
+    kinds = {k: {kd: sum(1 for kind, _ in v if kind == kd) for kd in ("dot", "conv", "attn",
+                                                                      "geglu")}
+             for k, v in logs.items()}
+    print(f"opt-in: calibrated in {time.perf_counter() - t0:.2f}s; taps by kind {kinds}",
+          flush=True)
+    pattern = uniform_cache_schedule(2, STEPS)
+
+    def run():
+        return pipe(num_inference_steps=STEPS, num_intermediate_images=1,
+                    cond_channels="rgb+raw", rgb_images=rgb, sim_disp=raw,
+                    generator=torch.Generator(device="cuda").manual_seed(7))
+
+    t0 = time.perf_counter()
+    wino_calls, gn_calls, table = _routing_dry_pass(pipe, run)
+    print(f"opt-in: routing dry pass (first call, {time.perf_counter() - t0:.2f}s): "
+          f"{wino_calls} Winograd and {gn_calls} fused GroupNorm calls", flush=True)
+    for site, route in sorted(table.items(), key=str):
+        print(f"  route {site}: {route}", flush=True)
+    convs = {k: v["conv"] + v["dot"] for k, v in kinds.items()}
+    expected = {
+        # every self-attention site (16 per full pass, 10 in the depth-2
+        # shallow pass) takes the fused kernel; the VAE's mid attention
+        # (encode and decode) the whole-row int8 kernel
+        "attention_fused_int8": 16 * pattern.count("F") + 10 * pattern.count("S"),
+        "attention_int8": 2,
+        "geglu_int8": 16 * pattern.count("F") + 10 * pattern.count("S"),
+        "conv2d_int8": (convs["vae_encode"] + convs["unet"] * pattern.count("F")
+                        + convs["unet_cached"] * pattern.count("S") + convs["vae_decode"]),
+        "winograd": wino_calls,
+        "groupnorm_silu": gn_calls,
+    }
+    if (expected["attention_fused_int8"], expected["geglu_int8"]) != (130, 130):
+        raise AssertionError(f"expected launches {expected} for pattern {pattern}")
+    # one activation quantization in front of each int8 conv, dense, GEGLU
+    # and fused attention
+    expected["quantize"] = (expected["conv2d_int8"] + expected["geglu_int8"]
+                            + expected["attention_fused_int8"])
+
+    _zero_launches()
+    t0 = time.perf_counter()
+    out = run()
+    _sync()
+    walls = [time.perf_counter() - t0]
+    counts = _int8_launches()
+    for _ in range(2):
+        t0 = time.perf_counter()
+        run()
+        _sync()
+        walls.append(time.perf_counter() - t0)
+    ms_per_frame = sorted(walls)[1] * 1e3 / BATCH
+    disp = pipe.normalizer.denormalize(out.images.float())
+    print(f"opt-in: {counts} launches in one call (expected {expected}); "
+          f"{ms_per_frame:.2f} ms/frame, median of "
+          f"{[round(w * 1e3 / BATCH, 2) for w in walls]} (batch {BATCH}, {STEPS} steps, "
+          f"pattern {pattern}, {H}x{W}); images {tuple(out.images.shape)} in "
+          f"[{out.images.min().item():.4f}, {out.images.max().item():.4f}], disparity in "
+          f"[{disp.min().item():.3f}, {disp.max().item():.3f}]", flush=True)
+    if tuple(out.images.shape) != (BATCH, H, W, 1):
+        raise AssertionError(f"images shape {tuple(out.images.shape)}")
+    if not (torch.isfinite(out.images).all() and torch.isfinite(disp).all()):
+        raise AssertionError("non-finite pipeline output")
+    if any(counts[k] != v for k, v in expected.items()) or min(expected.values()) <= 0:
+        raise AssertionError(f"kernel launches {counts}, expected {expected}")
+
+    profile_phase(run, "opt-in")
+
+    # One full and one shallow UNet forward, each replaying its table,
+    # through the kernels against the same forwards through their plain
+    # versions, as in the bench-default phase: (1) with only the bit-equal
+    # kernels (conv, GEGLU) swapped, the forwards must agree to 1e-3 of
+    # max |out| (expected: equal); (2) with every kernel swapped, within
+    # twice the int8 noise, the same forward's distance from its bf16
+    # version (int8 off, the whole-row bf16 attention kernel at the
+    # self-attention sites, the fused GroupNorm and Winograd gone with the
+    # int8 mode only where they depend on it: the GroupNorm stays fused).
+    unet = pipe.unet
+    x = torch.randn((BATCH, H // 8, W // 8, unet.in_channels), generator=gen, device="cuda")
+    ctx = torch.zeros((BATCH, 2, 1024), device="cuda")
+
+    def forwards(quant="wino_static"):
+        with torch.no_grad():
+            if quant != "wino_static":
+                full, trunk = unet(x, 981, ctx, return_trunk=True)
+                return full, unet(x, 881, ctx, cached_trunk=trunk)
+            with replay_act_scales(pipe.act_scales["unet"]):
+                full, trunk = unet(x, 981, ctx, return_trunk=True)
+            with replay_act_scales(pipe.act_scales["unet_cached"]):
+                shallow = unet(x, 881, ctx, cached_trunk=trunk)
+        return full, shallow
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    fast = forwards()
+    same_kernels = _plain_int8_forward(forwards, attention=False)
+    plain = _plain_int8_forward(forwards)
+    unet.set_quant(False)
+    unet.set_kernels(use_flash_attention="pallas-self")
+    bf16 = forwards(quant=False)
+    unet.set_quant("wino_static")
+    unet.set_kernels(use_flash_attention="fused")
+    for i, name in enumerate(("full", "shallow")):
+        r1, r2, noise = rel(fast[i], same_kernels[i]), rel(fast[i], plain[i]), rel(
+            fast[i], bf16[i])
+        print(f"unet {name} pass (opt-in), max err / max |out|: kernels vs plain versions "
+              f"of the bit-equal kernels {r1:.3e} (tol 1e-3); all plain {r2:.3e} (tol: "
+              f"twice the int8 noise, {noise:.3e} from the bf16 forward)", flush=True)
+        if not (r1 <= 1e-3 and r2 <= 2 * noise):
+            raise AssertionError(f"UNet {name} pass: kernel path differs from the plain "
+                                 f"versions: {r1}, {r2} (int8 noise {noise})")
+    _sync()
+    return counts, ms_per_frame
+
+
 _KERNEL_GROUPS = (
     # the port's own kernels first, so that no library group takes one of them
+    ("winograd kernel", ("wino_kernel",)),
+    ("group_norm_silu kernels (stats, fold, apply)",
+     ("gn_stats_kernel", "gn_fold_kernel", "gn_apply_kernel")),
+    ("attention_fused_int8 kernels (QKV projection, quantize, output projection)",
+     ("qkv_int8_kernel", "quantize_qkv_kernel", "out_proj_kernel")),
     ("conv2d_int8 kernel", ("conv_int8_kernel",)),
     ("geglu_ff_int8 kernel", ("geglu_int8_kernel",)),
-    ("mha_attention_int8 kernels (quantize heads, attention)",
+    # the rows kernel is also the fused attention's core (head width 64)
+    ("int8 whole-row attention kernels (mha_attention_int8; the fused attention's core)",
      ("mha_int8_rows_kernel", "mha_int8_wide_kernel", "absmax_kernel",
       "quantize_heads_kernel")),
     ("quantize_int8 kernel", ("quantize_bf16_vec8", "quantize_scalar")),
@@ -773,8 +1114,10 @@ def main() -> int:
     build_phase()
     attn_rows, geglu_rows = kernel_phase()
     int8_rows = int8_kernel_phase()
+    opt_rows = opt_in_kernel_phase()
     pipe, inputs, counts, ms_per_frame = pipeline_phase()
     bench_counts, bench_ms_per_frame = bench_default_phase(pipe, inputs)
+    opt_counts, opt_ms_per_frame = opt_in_phase(pipe, inputs)
 
     import torch
 
@@ -797,11 +1140,21 @@ def main() -> int:
         _kernel_entry("quantize_int8", "d3roma_tpu_torch/csrc/quantize.cu",
                       "d3roma_tpu/ops/quant.py:64", int8_rows["quantize"],
                       bench_counts["quantize"]),
+        _kernel_entry("groupnorm_silu", "d3roma_tpu_torch/csrc/groupnorm_silu.cu",
+                      "d3roma_tpu/ops/pallas/groupnorm.py:58", opt_rows["groupnorm_silu"],
+                      opt_counts["groupnorm_silu"]),
+        _kernel_entry("attention_fused_int8", "d3roma_tpu_torch/csrc/attention_fused_int8.cu",
+                      "d3roma_tpu/ops/pallas/attention_fused.py:80",
+                      opt_rows["attention_fused_int8"], opt_counts["attention_fused_int8"]),
+        _kernel_entry("winograd_fused", "d3roma_tpu_torch/csrc/winograd_fused.cu",
+                      "d3roma_tpu/ops/pallas/winograd_fused.py:147", opt_rows["winograd"],
+                      opt_counts["winograd"]),
     ]
     # the card again, so that the end of a long log still names it
     print(card, flush=True)
     print(json.dumps({"pipeline_ms_per_frame": {"latency": ms_per_frame,
-                                                "bench_default": bench_ms_per_frame},
+                                                "bench_default": bench_ms_per_frame,
+                                                "opt_in": opt_ms_per_frame},
                       "batch": BATCH, "steps": STEPS}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

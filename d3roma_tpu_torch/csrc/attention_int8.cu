@@ -37,13 +37,9 @@
 // int32 accumulation). The int32 sums cannot overflow: at most 127^2 * D
 // for Q K^T and 127^2 * M for P V.
 //
-// Head widths up to 128 (the UNet): a block takes 64 query rows with 4
-// warps, and each warp owns 16 rows outright: their scores, row maxima and
-// denominators stay in its registers (a row's 64 keys live in one quad of
-// lanes), its P rows go through its own slice of shared memory (the
-// accumulator layout of one m16n8k32 is not the A layout of the next), and
-// its [16, D] int32 output stays in registers. K and V tiles are
-// double-buffered by cp.async, so the block meets one barrier per key tile.
+// Head widths up to 128 (the UNet): the kernel of attention_int8_rows.cuh
+// (shared with the fused self-attention), where each of 4 warps owns 16
+// query rows outright and K and V tiles are double-buffered by cp.async.
 //
 // Head width 512 (the VAE): a warp's [16, 512] int32 output would take 256
 // registers per thread, so the block takes 32 query rows with 8 warps and
@@ -58,6 +54,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_int8_rows.cuh"
 #include "int8_mma.cuh"
 
 namespace {
@@ -65,21 +62,9 @@ namespace {
 using bf16 = __nv_bfloat16;
 using d3r::cp_async_16;
 
-constexpr int kBK = 64;  // keys per tile
-
-struct AttnArgs {
-  const int8_t* q;   // [B, N, H, D]
-  const int8_t* k;   // [B, M, H, D]
-  const int8_t* vt;  // [B, H, D, Mp]
-  const unsigned int* amax;  // [3, B, H]: absmax bits of q, k, v
-  bf16* o;           // [B, N, H, D]
-  int B, N, M, Mp, H;
-  float scale;
-};
-
-__device__ __forceinline__ float head_scale(const unsigned int* amax, int i) {
-  return __fdiv_rn(fmaxf(__uint_as_float(amax[i]), 1e-6f), 127.f);
-}
+constexpr int kBK = d3r::kAttnKeyTile;  // keys per tile
+using d3r::AttnArgs;
+using d3r::head_scale;
 
 // --------------------------------------------------------------------------
 // The per-(batch, head) quantization.
@@ -152,182 +137,6 @@ __global__ void quantize_heads_kernel(QuantArgs a) {
 }
 
 // --------------------------------------------------------------------------
-// Head widths up to 128: each warp owns 16 query rows.
-
-template <int D>
-struct RowsCfg {
-  static constexpr int kWarps = 4;
-  static constexpr int kThreads = 32 * kWarps;
-  static constexpr int kBQ = 16 * kWarps;
-  static constexpr int kLdq = D + 16;    // Q and K rows, bytes
-  static constexpr int kLdv = kBK + 16;  // V^T rows (one per d), bytes
-  static constexpr int kLdp = kBK + 16;  // P rows, bytes
-  static constexpr size_t q = 0;
-  static constexpr size_t k = q + (size_t)kBQ * kLdq;    // 2 buffers
-  static constexpr size_t v = k + 2 * (size_t)kBK * kLdq;  // 2 buffers
-  static constexpr size_t p = v + 2 * (size_t)D * kLdv;    // one slice per warp
-  static constexpr size_t bytes = p + (size_t)kWarps * 16 * kLdp;
-  static_assert(D % 32 == 0 && D <= 128, "head width");
-};
-
-template <int D>
-__global__ void __launch_bounds__(RowsCfg<D>::kThreads) mha_int8_rows_kernel(AttnArgs a) {
-  using C = RowsCfg<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  int8_t* qs = reinterpret_cast<int8_t*>(smem + C::q);
-  int8_t* ks = reinterpret_cast<int8_t*>(smem + C::k);
-  int8_t* vs = reinterpret_cast<int8_t*>(smem + C::v);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t4 = lane % 4;
-  int8_t* pw = reinterpret_cast<int8_t*>(smem + C::p) + warp * 16 * C::kLdp;
-
-  const int q0 = blockIdx.x * C::kBQ, h = blockIdx.y, b = blockIdx.z;
-  const int bh = b * a.H + h, BH = a.B * a.H;
-  const float c = __fmul_rn(__fmul_rn(a.scale, head_scale(a.amax, bh)),
-                            head_scale(a.amax, BH + bh));
-  const long long row_stride = (long long)a.H * D;
-  const int8_t* qb = a.q + ((long long)b * a.N * a.H + h) * D;
-  const int8_t* kb = a.k + ((long long)b * a.M * a.H + h) * D;
-  const int8_t* vb = a.vt + (long long)bh * D * a.Mp;
-  constexpr int kVecD = D / 16, kVecK = kBK / 16;
-
-  auto load_tile = [&](int t, int buf, bool with_v) {
-    for (int i = tid; i < kBK * kVecD; i += C::kThreads) {
-      const int r = i / kVecD, cc = (i % kVecD) * 16;
-      const int key = t * kBK + r;
-      const bool ok = key < a.M;
-      cp_async_16(ks + (buf * kBK + r) * C::kLdq + cc, ok ? kb + key * row_stride + cc : a.k,
-                  ok ? 16 : 0);
-    }
-    if (with_v) {
-      for (int i = tid; i < D * kVecK; i += C::kThreads) {
-        const int d = i / kVecK, cc = (i % kVecK) * 16;
-        cp_async_16(vs + (buf * D + d) * C::kLdv + cc, vb + (long long)d * a.Mp + t * kBK + cc,
-                    16);
-      }
-    }
-  };
-
-  for (int i = tid; i < C::kBQ * kVecD; i += C::kThreads) {
-    const int r = i / kVecD, cc = (i % kVecD) * 16;
-    const bool ok = q0 + r < a.N;
-    cp_async_16(qs + r * C::kLdq + cc, ok ? qb + (q0 + r) * row_stride + cc : a.q, ok ? 16 : 0);
-  }
-  load_tile(0, 0, false);
-  d3r::cp_async_commit();
-
-  const int n_tiles = (a.M + kBK - 1) / kBK;
-  int run_max[2] = {INT_MIN, INT_MIN};  // rows g and g + 8 of this warp
-  float m_row[2] = {0.f, 0.f}, l_row[2] = {0.f, 0.f};
-  int acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
-  uint32_t qf[D / 32][4];
-
-  for (int it = 0; it < 2 * n_tiles; ++it) {
-    const bool pass2 = it >= n_tiles;
-    const int t = pass2 ? it - n_tiles : it;
-    const int buf = it & 1;
-    d3r::cp_async_wait<0>();
-    __syncthreads();  // tile `it` has landed; every warp is done with tile it - 1
-    if (it == 0) {
-#pragma unroll
-      for (int kk = 0; kk < D / 32; ++kk) d3r::load_a(qf[kk], qs, C::kLdq, warp * 16, kk * 32, lane);
-    }
-    if (it + 1 < 2 * n_tiles) {
-      const int next = it + 1 >= n_tiles ? it + 1 - n_tiles : it + 1;
-      load_tile(next, buf ^ 1, it + 1 >= n_tiles);
-    }
-    d3r::cp_async_commit();
-
-    const int8_t* kt = ks + buf * kBK * C::kLdq;
-    int s[kBK / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0;
-#pragma unroll
-      for (int kk = 0; kk < D / 32; ++kk) {
-        uint32_t b0, b1;
-        d3r::load_b(b0, b1, kt, C::kLdq, j * 8, kk * 32, lane);
-        d3r::mma_s8(s[j], qf[kk], b0, b1);
-      }
-    }
-    const int key0 = t * kBK + 2 * t4;  // key of s[j][0] is key0 + 8 j; s[j][1] the next
-    if (!pass2) {
-#pragma unroll
-      for (int j = 0; j < kBK / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (key0 + 8 * j + (e & 1) < a.M) run_max[e >> 1] = max(run_max[e >> 1], s[j][e]);
-        }
-      }
-      if (it == n_tiles - 1) {  // a row's keys live in one quad of lanes
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          run_max[r] = max(run_max[r], __shfl_xor_sync(0xffffffffu, run_max[r], 1));
-          run_max[r] = max(run_max[r], __shfl_xor_sync(0xffffffffu, run_max[r], 2));
-          m_row[r] = __fmul_rn((float)run_max[r], c);
-        }
-      }
-      continue;
-    }
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        uint32_t pair = 0;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float p = 0.f;
-          if (key0 + 8 * j + e < a.M) {
-            p = expf(__fsub_rn(__fmul_rn((float)s[j][2 * r + e], c), m_row[r]));
-          }
-          l_row[r] = __fadd_rn(l_row[r], p);
-          // p in [0, 1]: round(127 p) in [0, 127]
-          pair |= (uint32_t)rintf(__fmul_rn(p, 127.f)) << (8 * e);
-        }
-        *reinterpret_cast<uint16_t*>(pw + (g + 8 * r) * C::kLdp + 8 * j + 2 * t4) =
-            (uint16_t)pair;
-      }
-    }
-    __syncwarp();
-    const int8_t* vtile = vs + buf * D * C::kLdv;
-#pragma unroll
-    for (int kk = 0; kk < kBK / 32; ++kk) {
-      uint32_t af[4];
-      d3r::load_a(af, pw, C::kLdp, 0, kk * 32, lane);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t b0, b1;
-        d3r::load_b(b0, b1, vtile, C::kLdv, n * 8, kk * 32, lane);
-        d3r::mma_s8(acc[n], af, b0, b1);
-      }
-    }
-    __syncwarp();  // the next tile's P overwrites this warp's slice
-  }
-  d3r::cp_async_wait<0>();
-
-  const float sv127 = __fdiv_rn(head_scale(a.amax, 2 * BH + bh), 127.f);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_row[r] = __fadd_rn(l_row[r], __shfl_xor_sync(0xffffffffu, l_row[r], 1));
-    l_row[r] = __fadd_rn(l_row[r], __shfl_xor_sync(0xffffffffu, l_row[r], 2));
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int n = q0 + warp * 16 + g + 8 * r;
-    if (n >= a.N) continue;
-    bf16* orow = a.o + (((long long)b * a.N + n) * a.H + h) * D;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const float v0 = __fdiv_rn(__fmul_rn((float)acc[j][2 * r], sv127), l_row[r]);
-      const float v1 = __fdiv_rn(__fmul_rn((float)acc[j][2 * r + 1], sv127), l_row[r]);
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t4) = __floats2bfloat162_rn(v0, v1);
-    }
-  }
-}
-
-// --------------------------------------------------------------------------
 // Head widths 256 and 512: the warps split D and share the score and P tiles.
 
 template <int D, int BQ, int WARPS>
@@ -368,9 +177,9 @@ __global__ void __launch_bounds__(32 * WARPS) mha_int8_wide_kernel(AttnArgs a) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t4 = lane % 4;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int bh = b * a.H + h, BH = a.B * a.H;
-  const float c = __fmul_rn(__fmul_rn(a.scale, head_scale(a.amax, bh)),
-                            head_scale(a.amax, BH + bh));
+  const int bh = b * a.H + h;
+  const float c = __fmul_rn(__fmul_rn(a.scale, head_scale(a.amax_q, d3r::q_scale_index(a, b, h, q0))),
+                            head_scale(a.amax_k, bh));
   const long long row_stride = (long long)a.H * D;
   const int8_t* qb = a.q + ((long long)b * a.N * a.H + h) * D;
   const int8_t* kb = a.k + ((long long)b * a.M * a.H + h) * D;
@@ -484,7 +293,7 @@ __global__ void __launch_bounds__(32 * WARPS) mha_int8_wide_kernel(AttnArgs a) {
   if (tid % C::kTpr == 0) lsum[row] = l_part;
   __syncthreads();
 
-  const float sv127 = __fdiv_rn(head_scale(a.amax, 2 * BH + bh), 127.f);
+  const float sv127 = __fdiv_rn(head_scale(a.amax_v, bh), 127.f);
 #pragma unroll
   for (int i = 0; i < C::kOPerWarp; ++i) {
     const int ti = warp + i * WARPS;
@@ -503,27 +312,16 @@ __global__ void __launch_bounds__(32 * WARPS) mha_int8_wide_kernel(AttnArgs a) {
   }
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, size_t bytes, int threads, int bq, const AttnArgs& a,
-                   cudaStream_t stream) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.N + bq - 1) / bq, a.H, a.B);
-  kernel<<<grid, threads, bytes, stream>>>(a);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_rows(const AttnArgs& a, cudaStream_t st) {
-  using C = RowsCfg<D>;
-  return launch(mha_int8_rows_kernel<D>, C::bytes, C::kThreads, C::kBQ, a, st);
-}
-
 template <int D, int BQ, int WARPS>
 cudaError_t launch_wide(const AttnArgs& a, cudaStream_t st) {
   using C = WideCfg<D, BQ, WARPS>;
-  return launch(mha_int8_wide_kernel<D, BQ, WARPS>, C::bytes, C::kThreads, BQ, a, st);
+  cudaError_t err = cudaFuncSetAttribute(mha_int8_wide_kernel<D, BQ, WARPS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)C::bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.N + BQ - 1) / BQ, a.H, a.B);
+  mha_int8_wide_kernel<D, BQ, WARPS><<<grid, C::kThreads, C::bytes, st>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -551,14 +349,16 @@ extern "C" int d3r_mha_attention_int8(const void* q, const void* k, const void* 
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   quantize_heads_kernel<<<dim3(132 * 4, 1, 3), 256, 0, st>>>(qa);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  // one q scale per (batch, head): q_rows = N
+  const unsigned int* am = static_cast<const unsigned int*>(amax);
   AttnArgs a{static_cast<const int8_t*>(qq), static_cast<const int8_t*>(kq),
-             static_cast<const int8_t*>(vt), static_cast<const unsigned int*>(amax),
-             static_cast<bf16*>(o), B, N, M, Mp, H, scale};
+             static_cast<const int8_t*>(vt), am, am + B * H, am + 2 * B * H,
+             static_cast<bf16*>(o), B, N, M, Mp, H, N, scale};
   switch (D) {
-    case 32: return (int)launch_rows<32>(a, st);
-    case 64: return (int)launch_rows<64>(a, st);
-    case 96: return (int)launch_rows<96>(a, st);
-    case 128: return (int)launch_rows<128>(a, st);
+    case 32: return (int)d3r::launch_rows<32>(a, st);
+    case 64: return (int)d3r::launch_rows<64>(a, st);
+    case 96: return (int)d3r::launch_rows<96>(a, st);
+    case 128: return (int)d3r::launch_rows<128>(a, st);
     case 256: return (int)launch_wide<256, 32, 8>(a, st);
     case 512: return (int)launch_wide<512, 32, 8>(a, st);
     default: return (int)cudaErrorInvalidValue;

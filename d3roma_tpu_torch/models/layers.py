@@ -26,6 +26,15 @@ the dense as a 1x1 conv); the attention sites that take the whole-row kernel tak
 version, and the fused feed-forward the int8 GEGLU kernel. Under a capture
 context (calibration) every such site records its tap and runs in float, and
 the attention kernels are skipped, as in the JAX package.
+`quant="wino_static"` is the same, except that every stride-1 3x3 conv that
+`ops/winograd.py` routes to Winograd runs the bf16 Winograd kernel and takes
+no scale.
+
+Two further kernels of the JAX package's opt-in configuration: the fused
+GroupNorm + SiLU (`GroupNormSiLU.fused`, `set_kernels(fused_norm=True)`) at
+shapes its gate admits, and the fused self-attention
+(`use_flash="fused"`), whose int8 body serves every self-attention site the
+gate admits under static int8 and takes one scale of kind "attn".
 """
 
 from __future__ import annotations
@@ -39,26 +48,35 @@ from torch import nn
 
 from d3roma_tpu_torch.ops.kernels import (
     conv2d_int8,
+    fused_attention_supported,
+    fused_self_attention_int8,
     geglu_ff,
     geglu_ff_int8,
     geglu_supported,
+    group_norm_silu,
+    group_norm_silu_supported,
     mha_attention,
     mha_attention_int8,
     mha_supported,
+    winograd_weight,
 )
 from d3roma_tpu_torch.ops.quant import (
     QUANT_MODES,
+    STATIC_MODES,
     act_ctx_mode,
     consume_act_scale,
     fp32,
     int8_linear,
     quantize_weight,
 )
+from d3roma_tpu_torch.ops.winograd import conv_hwio_shape, winograd_conv, wino_static_route
 
 # use_flash values ported so far: False (plain attention everywhere),
-# "pallas" (the whole-row kernel at every site with >= 512 keys) and
-# "pallas-self" (the kernel at such self-attention sites only)
-ATTENTION_ROUTES = (False, "pallas", "pallas-self")
+# "pallas" (the whole-row kernel at every site with >= 512 keys),
+# "pallas-self" (the kernel at such self-attention sites only) and "fused"
+# (the fused self-attention kernel, int8 body only, at every self-attention
+# site its gate admits; cross-attention unfused)
+ATTENTION_ROUTES = (False, "pallas", "pallas-self", "fused")
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, flip_sin_to_cos: bool = True,
@@ -84,21 +102,32 @@ def _weight_key(*params) -> tuple:
                  if p is not None)
 
 
-class _Int8Weight:
-    """The int8 weight [Cout, ...] and fp32 scales [Cout] of a module's
-    weight, made once and kept until the weight changes."""
+class _Cached:
+    """Operands made once from a set of weights by `make(*weights)` and kept
+    until a weight changes."""
 
-    def __init__(self):
-        self._cache = None
+    def __init__(self, make):
+        self._make, self._cache = make, None
 
-    def get(self, weight: torch.Tensor, layout=None):
-        key = _weight_key(weight)
+    def get(self, *weights):
+        key = _weight_key(*weights)
         if self._cache is None or self._cache[0] != key:
             with torch.no_grad():
-                w = weight if layout is None else layout(weight)
-                wq, ws = quantize_weight(w)
-            self._cache = (key, wq.contiguous(), ws.contiguous())
-        return self._cache[1], self._cache[2]
+                self._cache = (key, self._make(*weights))
+        return self._cache[1]
+
+
+def _int8_weight(w: torch.Tensor):
+    """The int8 weight [Cout, ...] and fp32 scales [Cout] of a weight,
+    contiguous."""
+    wq, ws = quantize_weight(w)
+    return wq.contiguous(), ws.contiguous()
+
+
+def _int8_conv_weight(w: torch.Tensor):
+    """`_int8_weight` of a conv weight laid out [Cout, KH, KW, Cin]:
+    K-contiguous rows, as the int8 conv kernel takes them."""
+    return _int8_weight(w.permute(0, 2, 3, 1))
 
 
 class Linear(nn.Linear):
@@ -109,11 +138,11 @@ class Linear(nn.Linear):
     def __init__(self, in_features: int, out_features: int, bias: bool = True):
         super().__init__(in_features, out_features, bias=bias)
         self.quant = False
-        self._int8 = _Int8Weight()
+        self._int8 = _Cached(_int8_weight)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.weight.dtype)
-        if self.quant == "static":
+        if self.quant in STATIC_MODES:
             mode, scale = consume_act_scale(x, "dot")
             if mode == "int8":
                 wq, ws = self._int8.get(self.weight)
@@ -127,7 +156,12 @@ class Conv2d(nn.Conv2d):
     `compute_dtype` None computes in the weight's dtype (a Flax Conv with
     dtype=the model's dtype); a torch dtype fixes it (the fp32 conv_out
     sites); "promote" takes the promoted type of input and weight (a Flax
-    Conv without a dtype, as the VAE's quant convs)."""
+    Conv without a dtype, as the VAE's quant convs).
+
+    quant="wino_static" sends the convs `wino_static_route` admits to the
+    Winograd kernel (U = winograd_weight(w), made once per weight; the bias
+    added after the output's rounding, as Flax adds it) and the rest to the
+    static int8 conv."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0,
@@ -136,7 +170,8 @@ class Conv2d(nn.Conv2d):
                          padding=padding)
         self.compute_dtype = compute_dtype
         self.quant = False
-        self._int8 = _Int8Weight()
+        self._int8 = _Cached(_int8_conv_weight)
+        self._wino = _Cached(winograd_weight)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.compute_dtype is None:
@@ -146,16 +181,20 @@ class Conv2d(nn.Conv2d):
         else:
             dt = self.compute_dtype
         x = x.to(dt)
-        if self.quant == "static":
+        bias = None if self.bias is None else self.bias.to(dt)
+        if self.quant == "wino_static":
+            pad = ((self.padding[0],) * 2, (self.padding[1],) * 2)
+            chunk = wino_static_route(tuple(x.shape), conv_hwio_shape(self.weight),
+                                      self.stride, pad)
+            if chunk is not None:
+                return winograd_conv(x, self._wino.get(self.weight.to(dt)), dt, bias, chunk)
+        if self.quant in STATIC_MODES:
             mode, scale = consume_act_scale(x, "conv")
             if mode == "int8":
-                # [Cout, Cin, KH, KW] -> [Cout, KH, KW, Cin]: K-contiguous rows
-                wq, ws = self._int8.get(self.weight, lambda w: w.permute(0, 2, 3, 1))
-                return conv2d_int8(x, wq, ws, fp32(scale),
-                                   None if self.bias is None else self.bias.to(dt),
-                                   self.stride[0], self.padding[0])
-        y = self._conv_forward(x.permute(0, 3, 1, 2), self.weight.to(dt),
-                               None if self.bias is None else self.bias.to(dt))
+                wq, ws = self._int8.get(self.weight)
+                return conv2d_int8(x, wq, ws, fp32(scale), bias, self.stride[0],
+                                   self.padding[0])
+        y = self._conv_forward(x.permute(0, 3, 1, 2), self.weight.to(dt), bias)
         return y.permute(0, 2, 3, 1)
 
 
@@ -180,17 +219,25 @@ class GroupNormSiLU(nn.Module):
     """GroupNorm (+ optional SiLU) with the JAX package's XLA arithmetic:
     fp32 statistics with the variance as E[x^2] - E[x]^2, folded with the
     affine into a per-(batch, channel) scale and shift, then one normalize
-    in the compute dtype (not F.group_norm's arithmetic)."""
+    in the compute dtype (not F.group_norm's arithmetic).
+
+    With `fused` (`set_kernels(fused_norm=True)`), a shape the fused
+    kernel's gate admits in x's own dtype takes the fused GroupNorm + SiLU
+    kernel instead: the normalize and the SiLU in fp32, the output in x's
+    dtype, as the JAX package's TPU branch."""
 
     def __init__(self, channels: int, groups: int = 32, eps: float = 1e-5,
                  apply_silu: bool = True):
         super().__init__()
         self.groups, self.eps, self.apply_silu = groups, eps, apply_silu
+        self.fused = False
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt, g = self.weight.dtype, self.groups
+        if self.fused and group_norm_silu_supported(x.shape, x.dtype):
+            return group_norm_silu(x, self.weight, self.bias, g, self.eps, self.apply_silu)
         mean, var = _group_stats(x, g)
         scale = torch.rsqrt(var + self.eps)[..., None] * self.weight.view(g, -1)
         shift = self.bias.view(g, -1) - mean[..., None] * scale
@@ -307,7 +354,7 @@ class SelfAttention2D(nn.Module):
         d = C // self.num_heads
         # the int8 whole-row kernel (the VAE's single 512-wide head) under
         # quant, outside calibration captures, at >= 512 tokens
-        if (self.quant == "static" and act_ctx_mode() != "capture" and H * W >= 512
+        if (self.quant in STATIC_MODES and act_ctx_mode() != "capture" and H * W >= 512
                 and d >= 64 and mha_supported(H * W, d, itemsize=1)):
             attn = mha_attention_int8(q, k, v)
         else:
@@ -319,8 +366,10 @@ class SelfAttention2D(nn.Module):
 class CrossAttention(nn.Module):
     """Multi-head attention over [B, N, C] queries with an optional
     [B, M, D] context (self-attention when it is None). `use_flash` is one
-    of ATTENTION_ROUTES; the kernel serves sites with >= 512 keys that
-    `mha_supported` admits, as in the JAX package."""
+    of ATTENTION_ROUTES; the whole-row kernel serves sites with >= 512 keys
+    that `mha_supported` admits, as in the JAX package; "fused" sends the
+    self-attention sites `fused_attention_supported` admits to the fused
+    kernel."""
 
     def __init__(self, query_dim: int, heads: int, head_dim: int,
                  context_dim: Optional[int] = None, use_flash=False):
@@ -333,9 +382,51 @@ class CrossAttention(nn.Module):
         self.to_k = Linear(context_dim or query_dim, inner, bias=False)
         self.to_v = Linear(context_dim or query_dim, inner, bias=False)
         self.to_out = nn.ModuleList([Linear(inner, query_dim)])
+        self._fused_operands = _Cached(self._make_fused_operands)
+
+    @staticmethod
+    def _make_fused_operands(wq, wk, wv, wo, bo):
+        """The fused int8 kernel's operands: Wq, Wk, Wv quantized per output
+        column (the JAX wrapper's per-(head, column) scales) and stacked
+        [3C, C] with their scales [3C]; Wo [C, C] and bo in fp32."""
+        (q, sq), (k, sk), (v, sv) = (quantize_weight(w) for w in (wq, wk, wv))
+        return (torch.cat([q, k, v]).contiguous(), torch.cat([sq, sk, sv]).contiguous(),
+                wo.contiguous(), bo.float().contiguous())
+
+    def _fused(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+        """The "fused" route of a self-attention site, or None where the gate
+        refuses it (the site then runs unfused). Under static int8 it takes
+        one scale of kind "attn" on x; a capture pass or a pinned index runs
+        the float math inline (bf16 projections, dot_product_attention, the
+        output projection), as the JAX package does."""
+        B, N, C = x.shape
+        inner = self.heads * self.head_dim
+        aq = self.quant in STATIC_MODES
+        itemsize = 1 if aq else self.to_q.weight.element_size()
+        if not (C == inner and self.to_q.in_features == inner
+                and fused_attention_supported(N, inner, self.head_dim, itemsize)):
+            return None
+        if not aq:
+            raise NotImplementedError(
+                "the bf16 fused self-attention (use_flash_attention='fused' without static "
+                "int8) is not ported yet")
+        wq, wk, wv = self.to_q.weight, self.to_k.weight, self.to_v.weight
+        wo, bo = self.to_out[0].weight, self.to_out[0].bias
+        x = x.to(wq.dtype)
+        mode, scale = consume_act_scale(x, "attn")
+        if mode == "float":
+            heads = (B, N, self.heads, self.head_dim)
+            q, k, v = (F.linear(x, w).reshape(heads) for w in (wq, wk, wv))
+            return F.linear(dot_product_attention(q, k, v).reshape(B, N, inner), wo, bo)
+        return fused_self_attention_int8(x, *self._fused_operands.get(wq, wk, wv, wo, bo),
+                                         self.heads, scale)
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
         is_self = context is None
+        if self.use_flash == "fused" and is_self:
+            out = self._fused(x)
+            if out is not None:
+                return out
         context = x if is_self else context
         B, N, _ = x.shape
         M = context.shape[1]
@@ -347,7 +438,7 @@ class CrossAttention(nn.Module):
         # the kernels take no tap, so a calibration capture skips them
         if (use_kernel and M >= 512 and mha_supported(M, self.head_dim)
                 and act_ctx_mode() != "capture"):
-            attn = (mha_attention_int8 if self.quant == "static" else mha_attention)(q, k, v)
+            attn = (mha_attention_int8 if self.quant in STATIC_MODES else mha_attention)(q, k, v)
         else:
             attn = dot_product_attention(q, k, v)
         return self.to_out[0](attn.reshape(B, N, self.heads * self.head_dim))
@@ -379,37 +470,27 @@ class FeedForward(nn.Module):
         self.quant = False
         self.net = nn.ModuleList([GEGLU(dim, self.hidden), nn.Identity(),
                                   Linear(self.hidden, dim)])
-        self._kernel_operands = None
-        self._int8_operands = None
+        self._int8 = _Cached(self._make_int8_operands)
+        self._operands = _Cached(self._make_operands)
 
-    def _int8(self):
+    @staticmethod
+    def _make_int8_operands(w1, b1, w2, b2):
         """The int8 kernel's operands: W1h, W1g [F, C] and W2 [C, F] int8
         with per-column fp32 scales (the JAX wrapper's absmax_scale over the
-        contracted axis), fp32 biases; kept until a weight changes."""
-        proj, out = self.net[0].proj, self.net[2]
-        key = _weight_key(proj.weight, proj.bias, out.weight, out.bias)
-        if self._int8_operands is None or self._int8_operands[0] != key:
-            f = self.hidden
-            with torch.no_grad():
-                (w1hq, s1h), (w1gq, s1g), (w2q, s2) = (
-                    quantize_weight(w) for w in (proj.weight[:f], proj.weight[f:], out.weight))
-                ops = (w1hq, w1gq, w2q, s1h, s1g, s2, proj.bias[:f].float().contiguous(),
-                       proj.bias[f:].float().contiguous(), out.bias.float().contiguous())
-            self._int8_operands = (key, ops)
-        return self._int8_operands[1]
+        contracted axis), fp32 biases."""
+        f = w1.shape[0] // 2
+        (w1hq, s1h), (w1gq, s1g), (w2q, s2) = (quantize_weight(w) for w in (w1[:f], w1[f:], w2))
+        return (w1hq, w1gq, w2q, s1h, s1g, s2, b1[:f].float().contiguous(),
+                b1[f:].float().contiguous(), b2.float().contiguous())
 
-    def _operands(self):
-        proj, out = self.net[0].proj, self.net[2]
-        key = _weight_key(proj.weight, proj.bias, out.weight, out.bias)
-        if self._kernel_operands is None or self._kernel_operands[0] != key:
-            f = self.hidden
-            with torch.no_grad():
-                w1 = proj.weight.t()  # [C, 2F]
-                ops = (w1[:, :f].contiguous(), w1[:, f:].contiguous(),
-                       out.weight.t().contiguous(), proj.bias[:f].float().contiguous(),
-                       proj.bias[f:].float().contiguous(), out.bias.float().contiguous())
-            self._kernel_operands = (key, ops)
-        return self._kernel_operands[1]
+    @staticmethod
+    def _make_operands(w1, b1, w2, b2):
+        """The bf16 kernel's operands: W1h, W1g [C, F], W2 [F, C], fp32 biases."""
+        f = w1.shape[0] // 2
+        w1t = w1.t()  # [C, 2F]
+        return (w1t[:, :f].contiguous(), w1t[:, f:].contiguous(), w2.t().contiguous(),
+                b1[:f].float().contiguous(), b1[f:].float().contiguous(),
+                b2.float().contiguous())
 
     def _inline(self, x: torch.Tensor) -> torch.Tensor:
         """The fused branch's math in plain ops on the weights (the JAX
@@ -421,13 +502,15 @@ class FeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.fused and geglu_supported(self.dim, self.hidden):
-            dt = self.net[0].proj.weight.dtype
-            if self.quant == "static":
+            proj, out = self.net[0].proj, self.net[2]
+            weights = (proj.weight, proj.bias, out.weight, out.bias)
+            dt = proj.weight.dtype
+            if self.quant in STATIC_MODES:
                 mode, scale = consume_act_scale(x, "geglu")
                 if mode == "float":
                     return self._inline(x.to(dt))
-                return geglu_ff_int8(x.to(dt), *self._int8(), scale)
-            w1h, w1g, w2, b1h, b1g, b2 = self._operands()
+                return geglu_ff_int8(x.to(dt), *self._int8.get(*weights), scale)
+            w1h, w1g, w2, b1h, b1g, b2 = self._operands.get(*weights)
             return geglu_ff(x.to(w1h.dtype), w1h, w1g, w2, b1h, b1g, b2)
         return self.net[2](self.net[0](x))
 
@@ -509,7 +592,7 @@ class Upsample2D(nn.Module):
 
 
 def set_quant(module: nn.Module, quant) -> None:
-    """Set the int8 mode (False or "static") of every site under `module`
+    """Set the int8 mode (one of QUANT_MODES) of every site under `module`
     that the JAX package quantizes: the convolutions of resnets (not their
     time_emb_proj) and resamplers, the dense layers of attention blocks,
     transformer projections and feed-forwards, and the attention and
@@ -535,9 +618,10 @@ def set_quant(module: nn.Module, quant) -> None:
                 site.quant = quant
 
 
-def set_kernels(module: nn.Module, use_flash_attention=None, fused_ff=None) -> None:
-    """Route every CrossAttention and FeedForward under `module` (None
-    leaves a setting as it is)."""
+def set_kernels(module: nn.Module, use_flash_attention=None, fused_ff=None,
+                fused_norm=None) -> None:
+    """Route every CrossAttention, FeedForward and GroupNormSiLU under
+    `module` (None leaves a setting as it is)."""
     if use_flash_attention is not None and use_flash_attention not in ATTENTION_ROUTES:
         raise NotImplementedError(
             f"use_flash_attention={use_flash_attention!r} is not ported; "
@@ -547,3 +631,5 @@ def set_kernels(module: nn.Module, use_flash_attention=None, fused_ff=None) -> N
             m.use_flash = use_flash_attention
         elif isinstance(m, FeedForward) and fused_ff is not None:
             m.fused = bool(fused_ff)
+        elif isinstance(m, GroupNormSiLU) and fused_norm is not None:
+            m.fused = bool(fused_norm)

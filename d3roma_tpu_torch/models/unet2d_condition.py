@@ -2,8 +2,9 @@
 geometry), NHWC.
 
 Port of `d3roma_tpu/models/unet2d_condition.py`: the full pass, the
-DeepCache passes (`cache_depth`, `return_trunk`, `cached_trunk`) and the
-static int8 mode (`quant`); the fused-GroupNorm option is not offered yet.
+DeepCache passes (`cache_depth`, `return_trunk`, `cached_trunk`), the
+static int8 modes (`quant`) and the fused GroupNorm + SiLU (`fused_norm`: the
+resnets' norms and conv_norm_out).
 Parameter names follow diffusers
 (`down_blocks.0.attentions.0.transformer_blocks.0...`).
 """
@@ -37,9 +38,10 @@ class _Block(nn.Module):
 
 class UNet2DCondition(nn.Module):
     """Built on `device` (CUDA unless the caller names another), in fp32.
-    `use_flash_attention` and `fused_ff` route the attention and feed-forward
-    sites to the kernels; `set_kernels` changes them after construction, and
-    `set_quant` sets the int8 mode (False, the default, or "static").
+    `use_flash_attention`, `fused_ff` and `fused_norm` route the attention,
+    feed-forward and GroupNorm + SiLU sites to the kernels; `set_kernels`
+    changes them after construction, and `set_quant` sets the int8 mode
+    (False, the default, "static" or "wino_static").
 
     `cache_depth` is the DeepCache shallow pass's depth: how many trailing
     up blocks (and the matching leading down blocks) the cached pass
@@ -63,6 +65,7 @@ class UNet2DCondition(nn.Module):
         norm_groups: int = 32,
         use_flash_attention: Union[bool, str] = False,
         fused_ff: bool = False,
+        fused_norm: bool = False,
         cache_depth: int = 1,
         flip_sin_to_cos: bool = True,
         freq_shift: float = 0.0,
@@ -130,7 +133,7 @@ class UNet2DCondition(nn.Module):
             self.conv_norm_out = GroupNormSiLU(c0, norm_groups, 1e-5)
             self.conv_out = Conv2d(c0, out_channels, 3, padding=1,
                                    compute_dtype=torch.float32)
-        self.set_kernels(use_flash_attention, fused_ff)
+        self.set_kernels(use_flash_attention, fused_ff, fused_norm)
         self.quant = False
         self.cache_depth = cache_depth
 
@@ -147,20 +150,23 @@ class UNet2DCondition(nn.Module):
         self._cache_depth = int(depth)
 
     def set_quant(self, quant) -> None:
-        """Set the int8 mode (False or "static") of every site the JAX
-        package quantizes; conv_in, the time embedding and the fp32
+        """Set the int8 mode (False, "static" or "wino_static") of every site
+        the JAX package quantizes; conv_in, the time embedding and the fp32
         conv_out stay in float."""
         set_quant(self, quant)
         self.quant = quant
 
-    def set_kernels(self, use_flash_attention=None, fused_ff=None) -> None:
-        """Route the attention (False / "pallas" / "pallas-self") and the
-        feed-forward (fused or not) sites; None keeps a setting."""
-        set_kernels(self, use_flash_attention, fused_ff)
+    def set_kernels(self, use_flash_attention=None, fused_ff=None, fused_norm=None) -> None:
+        """Route the attention (one of layers.ATTENTION_ROUTES), the
+        feed-forward and the GroupNorm + SiLU (fused or not) sites; None
+        keeps a setting."""
+        set_kernels(self, use_flash_attention, fused_ff, fused_norm)
         if use_flash_attention is not None:
             self.use_flash_attention = use_flash_attention
         if fused_ff is not None:
             self.fused_ff = bool(fused_ff)
+        if fused_norm is not None:
+            self.fused_norm = bool(fused_norm)
 
     def _up_block(self, blk, x, skips, t_emb, context, upsample: bool):
         attns = getattr(blk, "attentions", None)

@@ -1,8 +1,10 @@
 """AutoencoderKL (the Stable Diffusion VAE), NHWC.
 
-Port of `d3roma_tpu/models/vae.py`, with its static int8 mode (`quant`:
+Port of `d3roma_tpu/models/vae.py`, with its static int8 modes (`quant`:
 every resnet conv, resampler conv and mid-attention projection; conv_in,
-conv_out and the quant convs stay in float). Parameter names follow
+conv_out and the quant convs stay in float) and the fused GroupNorm + SiLU
+of its resnets (`fused_norm`; conv_norm_out and the attention's norm stay
+unfused, as in the JAX package). Parameter names follow
 diffusers' AutoencoderKL (`encoder.down_blocks.0.resnets.0.conv1.weight`,
 `decoder.up_blocks.0.upsamplers.0.conv.weight`, `quant_conv.weight`, ...).
 """
@@ -23,6 +25,7 @@ from d3roma_tpu_torch.models.layers import (
     ResnetBlock2D,
     SelfAttention2D,
     Upsample2D,
+    set_kernels,
     set_quant,
 )
 
@@ -131,7 +134,8 @@ class AutoencoderKL(nn.Module):
     def __init__(self, in_channels: int = 3, out_channels: int = 3,
                  latent_channels: int = 4,
                  block_out_channels: Tuple[int, ...] = (128, 256, 512, 512),
-                 norm_groups: int = 32, device: DeviceLike = None):
+                 norm_groups: int = 32, fused_norm: bool = False,
+                 device: DeviceLike = None):
         super().__init__()
         self.latent_channels = latent_channels
         self.block_out_channels = tuple(block_out_channels)
@@ -147,12 +151,20 @@ class AutoencoderKL(nn.Module):
             self.post_quant_conv = Conv2d(latent_channels, latent_channels, 1,
                                           compute_dtype="promote")
         self.quant = False
+        self.set_kernels(fused_norm)
 
     def set_quant(self, quant) -> None:
-        """Set the int8 mode (False or "static") of every site the JAX
-        package quantizes."""
+        """Set the int8 mode (False, "static" or "wino_static") of every site
+        the JAX package quantizes."""
         set_quant(self, quant)
         self.quant = quant
+
+    def set_kernels(self, fused_norm=None) -> None:
+        """Route the resnets' GroupNorm + SiLU to the fused kernel or not;
+        None keeps the setting."""
+        set_kernels(self, fused_norm=fused_norm)
+        if fused_norm is not None:
+            self.fused_norm = bool(fused_norm)
 
     def encode(self, x: torch.Tensor) -> GaussianPosterior:
         mean, logvar = self.quant_conv(self.encoder(x)).chunk(2, dim=-1)

@@ -8,11 +8,21 @@ version, its applicability gate and its launch counter.
 - `conv2d.conv2d_int8`            <- d3roma_tpu/ops/pallas/conv2d.py::conv3x3_flat
                                      (quant="static"), at every static int8 conv
 - `quantize.quantize_int8_scalar` <- the XLA quantization in front of the int8 ops
+- `groupnorm.group_norm_silu`     <- d3roma_tpu/ops/pallas/groupnorm.py::fused_group_norm_silu
+- `winograd.conv3x3_winograd`     <- d3roma_tpu/ops/pallas/winograd_fused.py::conv3x3_wino_fused
+- `attention_fused.fused_self_attention_int8`
+                                  <- d3roma_tpu/ops/pallas/attention_fused.py::fused_self_attention
+                                     (quant="static")
 
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises.
 """
 
+from d3roma_tpu_torch.ops.kernels.attention_fused import (  # noqa: F401
+    fused_attention_supported,
+    fused_self_attention_int8,
+    fused_self_attention_int8_plain,
+)
 from d3roma_tpu_torch.ops.kernels.attention import (  # noqa: F401
     mha_attention,
     mha_attention_int8,
@@ -31,10 +41,20 @@ from d3roma_tpu_torch.ops.kernels.geglu import (  # noqa: F401
     geglu_ff_plain,
     geglu_supported,
 )
+from d3roma_tpu_torch.ops.kernels.groupnorm import (  # noqa: F401
+    group_norm_silu,
+    group_norm_silu_plain,
+    group_norm_silu_supported,
+)
 from d3roma_tpu_torch.ops.kernels.quantize import (  # noqa: F401
     quantize_int8_plain,
     quantize_int8_scalar,
 )
+from d3roma_tpu_torch.ops.kernels.winograd import (  # noqa: F401
+    conv3x3_winograd,
+    conv3x3_winograd_plain,
+    winograd_weight,
+)
 
 KERNEL_SOURCES = ("attention", "geglu", "attention_int8", "geglu_int8", "conv2d_int8",
-                  "quantize")
+                  "quantize", "groupnorm_silu", "winograd_fused", "attention_fused_int8")

@@ -40,7 +40,11 @@ from d3roma_tpu_torch.ops.kernels.quantize import quantize_int8_plain as quantiz
 EPS = 1e-8
 # the uncalibrated activation scale: normalized activations rarely exceed ~8
 STATIC_ACT_SCALE = 8.0 / 127.0
-QUANT_MODES = (False, "static")
+QUANT_MODES = (False, "static", "wino_static")
+# the modes whose int8 sites take static (calibrated) activation scales;
+# "wino_static" differs from "static" only at the convolutions that
+# ops/winograd.py routes to Winograd, which take no scale
+STATIC_MODES = ("static", "wino_static")
 
 
 def absmax_scale(x: torch.Tensor, dims) -> torch.Tensor:
@@ -102,7 +106,7 @@ def act_ctx_mode() -> Optional[str]:
 def capture_act_scales(taps: list, shape_log: Optional[list] = None):
     """Context: every static int8 op appends absmax(x)/127 (a 0-d fp32
     tensor) to `taps` and computes in float; with `shape_log`, also appends
-    (kind, shape) per call, kind one of "dot", "conv", "geglu"."""
+    (kind, shape) per call, kind one of "dot", "conv", "attn", "geglu"."""
     return _ScaleCtxManager("capture", taps, shape_log=shape_log)
 
 

@@ -4,11 +4,12 @@ embedding + sampler + normalizer.
 Port of `d3roma_tpu/pipelines/pipeline.py::GuidedLatentDiffusionPipeline`:
 `__call__`, `half_precision`, `fast_inference("latency")` (bf16 weights,
 the whole-row attention kernel at self-attention sites of >= 512 tokens, the
-fused GEGLU kernel) and `fast_inference("throughput")` (the same with the
-static int8 mode in the UNet and the VAE), `deepcache` and `calibrate`
-(without quantiles). Guidance, the other int8 modes, split programs / scan
-chunks and the compiled-program cache are not ported yet and raise
-NotImplementedError.
+fused GEGLU kernel), `fast_inference("throughput")` (the same with the
+static int8 mode in the UNet and the VAE), `fast_inference("wino")` (the
+same with the "wino_static" mode: Winograd at the convs it routes there),
+`fuse_norms`, `deepcache` and `calibrate` (without quantiles). Guidance, the
+other int8 modes, split programs / scan chunks and the compiled-program
+cache are not ported yet and raise NotImplementedError.
 
 Unlike the JAX package's, whose methods return a replaced copy, this
 pipeline's configuration methods change the pipeline (and its models) in
@@ -31,7 +32,12 @@ from d3roma_tpu_torch.device import DeviceLike, resolve_device
 from d3roma_tpu_torch.models.unet2d_condition import UNet2DCondition
 from d3roma_tpu_torch.models.vae import AutoencoderKL, decode_latent, encode_image_to_latent
 from d3roma_tpu_torch.ops.normalizer import Normalizer
-from d3roma_tpu_torch.ops.quant import capture_act_scales, replay_act_scales, stack_taps
+from d3roma_tpu_torch.ops.quant import (
+    STATIC_MODES,
+    capture_act_scales,
+    replay_act_scales,
+    stack_taps,
+)
 from d3roma_tpu_torch.ops.scheduler_step import ddim_step
 from d3roma_tpu_torch.ops.schedules import set_timesteps
 from d3roma_tpu_torch.pipelines.sampling import (
@@ -90,7 +96,8 @@ class GuidedLatentDiffusionPipeline:
         return self
 
     def set_quant(self, quant) -> "GuidedLatentDiffusionPipeline":
-        """The int8 mode (False or "static") of the UNet and the VAE."""
+        """The int8 mode (False, "static" or "wino_static") of the UNet and
+        the VAE."""
         self.unet.set_quant(quant)
         self.vae.set_quant(quant)
         return self
@@ -100,17 +107,28 @@ class GuidedLatentDiffusionPipeline:
         self-attention sites of >= 512 tokens, the fused GEGLU kernel in
         every transformer block, no int8. "throughput": the same with the
         static int8 mode in the UNet and the VAE (the int8 attention, GEGLU
-        and conv kernels). "off" returns the pipeline unchanged. "dense" and
-        "wino" are not ported yet."""
+        and conv kernels). "wino": the same with the "wino_static" mode (the
+        Winograd kernel at the stride-1 3x3 convs ops/winograd.py routes
+        there, static int8 elsewhere). "off" returns the pipeline unchanged.
+        "dense" is not ported yet."""
         if mode in ("off", "", None):
             return self
-        if mode in ("dense", "wino"):
+        if mode == "dense":
             raise NotImplementedError(f"fast_inference({mode!r}) is not ported yet")
-        if mode not in ("latency", "throughput"):
+        quant = {"latency": False, "throughput": "static", "wino": "wino_static"}.get(mode, None)
+        if quant is None:
             raise ValueError(f"unknown fast_inference mode {mode!r}")
         pipe = self.half_precision()
         pipe.unet.set_kernels(use_flash_attention="pallas-self", fused_ff=True)
-        return pipe.set_quant("static" if mode == "throughput" else False)
+        return pipe.set_quant(quant)
+
+    def fuse_norms(self) -> "GuidedLatentDiffusionPipeline":
+        """The fused GroupNorm + SiLU kernel at the resnets' norms (and the
+        UNet's conv_norm_out) of the UNet and the VAE, where its gate admits
+        the shape."""
+        self.unet.set_kernels(fused_norm=True)
+        self.vae.set_kernels(fused_norm=True)
+        return self
 
     def deepcache(self, interval=2, depth: Optional[int] = None) -> "GuidedLatentDiffusionPipeline":
         """Enable DeepCache: each group of `interval` denoise steps runs one
@@ -160,7 +178,7 @@ class GuidedLatentDiffusionPipeline:
         if not self.cache_active:
             return None, None
         tabs = self.act_scales or {}
-        if tabs.get("unet") and self.unet.quant == "static" and not tabs.get("unet_cached"):
+        if tabs.get("unet") and self.unet.quant in STATIC_MODES and not tabs.get("unet_cached"):
             raise ValueError(
                 "deepcache with calibrated static int8 needs the 'unet_cached' scale "
                 "table: re-run calibrate() (it captures both passes); replaying the "
@@ -181,7 +199,7 @@ class GuidedLatentDiffusionPipeline:
                   shape_logs: Optional[Dict[str, list]] = None) -> "GuidedLatentDiffusionPipeline":
         """Calibrate the static int8 activation scales and keep them in
         `act_scales` (the UNet and the VAE are switched to quant="static"
-        first if they are not).
+        first if they are in no static mode).
 
         Capture passes record absmax(x)/127 at every quantized site, in call
         order, with the ops in float: one stacked VAE encode of the
@@ -197,7 +215,7 @@ class GuidedLatentDiffusionPipeline:
         initial noise (else drawn from `generator`, fp32). `shape_logs`, a
         dict, receives each table's (kind, shape) per call of the first
         batch."""
-        if self.unet.quant != "static":
+        if self.unet.quant not in STATIC_MODES:
             self.set_quant("static")
         tabs: Dict[str, Optional[np.ndarray]] = {k: None for k in ACT_TABLES}
 

@@ -65,6 +65,22 @@ out = bench(num_inference_steps=2, num_intermediate_images=1, cond_channels="rgb
             generator=torch.Generator().manual_seed(1), **batch)
 assert tuple(out.images.shape) == (1, 32, 64, 1) and torch.isfinite(out.images).all()
 
+# the opt-in configuration (Winograd, fused GroupNorm, fused int8 attention)
+from d3roma_tpu_torch.ops.kernels import (
+    conv3x3_winograd, fused_self_attention_int8, group_norm_silu)
+opt = GuidedLatentDiffusionPipeline(
+    unet=UNet2DCondition(**dict(unet_kw, block_out_channels=(64, 128), attention_head_dim=64),
+                         device="cpu"),
+    vae=AutoencoderKL(**vae_kw, device="cpu"), text_embed=torch.zeros(1, 2, 16), spec=spec,
+    normalizer=norm, device="cpu").fast_inference("wino").fuse_norms()
+opt.unet.set_kernels(use_flash_attention="fused")
+opt.deepcache(2).calibrate(torch.Generator().manual_seed(0), [batch], num_inference_steps=2)
+out = opt(num_inference_steps=2, num_intermediate_images=1, cond_channels="rgb+raw",
+          generator=torch.Generator().manual_seed(1), **batch)
+assert tuple(out.images.shape) == (1, 32, 64, 1) and torch.isfinite(out.images).all()
+assert min(f.launches for f in (conv3x3_winograd, fused_self_attention_int8,
+                                group_norm_silu)) > 0
+
 if not torch.cuda.is_available():
     cpu_unet = UNet2DCondition(**unet_kw, device="cpu")
     for make in (lambda: UNet2DCondition(**unet_kw), lambda: AutoencoderKL(**vae_kw),

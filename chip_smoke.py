@@ -12,7 +12,9 @@ failing the run on its own error:
 3. kernels: each hand-written kernel against its plain PyTorch version at
    the main paths' shapes and a few ragged ones, with the stated tolerance;
    time kernel, plain version and one library call, and compute the bound
-   (bf16 peak for the bf16 kernels, int8 peak for the int8 ones);
+   (bf16 peak for the bf16 kernels, int8 peak for the int8 ones); the int8
+   conv kernel in each of its three epilogues through the JAX entry points
+   (conv3x3_flat, conv3x3_rowtap, conv3x3_halo), bit-equal;
 4. latency path: GuidedLatentDiffusionPipeline.fast_inference("latency")
    at the full SD2.1 geometry (random seeded weights held in bf16), batch
    2, RGB + raw at 640x360, 10 DDIM steps; the launch counts of one call
@@ -20,13 +22,25 @@ failing the run on its own error:
    calls; one more call is profiled (device time by kernel group, idle
    share); one UNet forward with the kernels must agree with the same
    forward through the plain torch paths;
-5. bench-default path on the same models: fast_inference("throughput")
+5. latency-fused path on the same models: the same with the fused
+   self-attention (set_kernels(use_flash_attention="fused")); the launch
+   counts of one call must be 50 bf16 fused attention (the 920-token
+   sites), 50 whole-row bf16 attention (the 3600-token sites' flash route)
+   and 160 GEGLU; ms/frame, the profile, and one UNet forward through the
+   kernels against the same forward through their plain versions;
+6. bench-default path on the same models: fast_inference("throughput")
    (static int8), deepcache(2, depth=2), calibrate on one batch; the launch
    counts of one call must be 102 int8 attention, 130 int8 GEGLU and one
    int8 conv per quantized conv site the capture logs list; ms/frame, the
    profile, and one full and one shallow UNet forward through the int8
    kernels against the same forwards through the kernels' plain versions;
-6. opt-in path on the same models: fast_inference("wino").fuse_norms(), the
+7. conv routes on the bench default's calibrated models: set_quant("halo"),
+   then set_quant("mxu"); a dry pass logs each conv's route; the int8 conv
+   launches of one call must split into the mode's epilogue (the gate's
+   sites) and the static one, summing to the bench default's count, with
+   the bench default's attention, GEGLU and quantize counts; ms/frame, the
+   profile and the full and shallow forwards as in phase 6;
+8. opt-in path on the same models: fast_inference("wino").fuse_norms(), the
    fused self-attention (set_kernels(use_flash_attention="fused")),
    deepcache(2, depth=2), calibrate on one batch; a dry pass logs the
    port's routing (Winograd or static int8 per conv, fused GroupNorm or not
@@ -35,7 +49,7 @@ failing the run on its own error:
    conv or dense site of the capture logs and the Winograd and fused
    GroupNorm calls of the dry pass; ms/frame, the profile, and one full and
    one shallow UNet forward through the kernels against their plain versions;
-7. a JSON line of per-kernel numbers, then the JSON result as the last line.
+9. a JSON line of per-kernel numbers, then the JSON result as the last line.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -44,6 +58,7 @@ from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -564,6 +579,165 @@ def opt_in_kernel_phase():
     return rows
 
 
+def _attention_fused_bf16_case(b, n, c, gen, timed):
+    import torch
+    import torch.nn.functional as F
+
+    from d3roma_tpu_torch.ops.kernels import (
+        fused_self_attention_bf16,
+        fused_self_attention_bf16_plain,
+    )
+
+    heads = c // 64
+    x = torch.randn((b, n, c), generator=gen, device="cuda").to(torch.bfloat16)
+    ws = [(torch.randn((c, c), generator=gen, device="cuda") * c ** -0.5).to(torch.bfloat16)
+          for _ in range(4)]
+    bo = torch.randn((c,), generator=gen, device="cuda") * 0.1
+    wqkv = torch.cat(ws[:3]).contiguous()
+    out = fused_self_attention_bf16(x, wqkv, ws[3], bo, heads)
+    ref = fused_self_attention_bf16_plain(x, wqkv, ws[3], bo, heads).float()
+    _sync()
+    err = (out.float() - ref).abs().max().item()
+    tol = REL_TOL * ref.abs().max().item()
+    row = {"shape": [b, n, c, heads], "max_abs_err": err, "tol": tol,
+           "max_abs_out": ref.abs().max().item()}
+    if timed:
+        bo16 = bo.to(torch.bfloat16)
+
+        def library():
+            q, k, v = (F.linear(x, w).view(b, n, heads, 64).transpose(1, 2) for w in ws[:3])
+            o = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(b, n, c)
+            return F.linear(o, ws[3], bo16)
+
+        row["ms"] = time_ms(lambda: fused_self_attention_bf16(x, wqkv, ws[3], bo, heads))
+        row["plain_ms"] = time_ms(
+            lambda: fused_self_attention_bf16_plain(x, wqkv, ws[3], bo, heads), reps=5)
+        row["library_ms"] = time_ms(library)
+        row["library_call"] = "4 F.linear + F.scaled_dot_product_attention (bf16)"
+        flops = b * (8.0 * n * c * c + 4.0 * n * n * c)
+        nbytes = 2.0 * 2 * b * n * c + 2.0 * 4 * c * c + 4.0 * c
+        row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
+    return _check_row("attention_fused_bf16", row, err, tol)
+
+
+def _conv_bf16_case(b, h, w, cin, cout, gen, timed, halo=False):
+    """conv3x3_flat(quant=None), or conv3x3_halo(quant=None) with `halo`,
+    against the bf16 conv's plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    from d3roma_tpu_torch.ops.kernels import conv2d_bf16, conv2d_bf16_plain, conv3x3_flat
+    from d3roma_tpu_torch.ops.kernels import conv3x3_halo
+
+    x = torch.randn((b, h, w, cin), generator=gen, device="cuda").to(torch.bfloat16)
+    wt = (torch.randn((3, 3, cin, cout), generator=gen, device="cuda")
+          * (9 * cin) ** -0.5).to(torch.bfloat16)  # HWIO
+    wk = wt.permute(3, 0, 1, 2).contiguous()
+    out = conv3x3_halo(x, wt, None) if halo else conv3x3_flat(x, wt)
+    ref = conv2d_bf16_plain(x, wk, 1, 1, torch.float32)
+    _sync()
+    err = (out.float() - ref).abs().max().item()
+    tol = REL_TOL * ref.abs().max().item()
+    row = {"shape": [b, h, w, cin, cout], "entry": "conv3x3_halo" if halo else "conv3x3_flat",
+           "max_abs_err": err, "tol": tol, "max_abs_out": ref.abs().max().item()}
+    if timed:
+        xc = x.permute(0, 3, 1, 2)
+        wc = wk.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        row["ms"] = time_ms(lambda: conv2d_bf16(x, wk, 1, 1))
+        row["plain_ms"] = time_ms(lambda: conv2d_bf16_plain(x, wk, 1, 1), reps=5)
+        row["library_ms"] = time_ms(lambda: F.conv2d(xc, wc, None, 1, 1))
+        row["library_call"] = "F.conv2d (bf16, cuDNN, channels_last)"
+        flops = 2.0 * b * h * w * cout * 9 * cin
+        nbytes = 2.0 * (b * h * w * cin + 9 * cin * cout + b * h * w * cout)
+        row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
+    return _check_row("conv2d_bf16", row, err, tol)
+
+
+def _conv_epilogue_case(name, epilogue, b, h, w, cin, cout, gen, timed, saturate=False):
+    """One of the JAX 3x3 int8 entry points (conv3x3_flat, conv3x3_rowtap,
+    conv3x3_halo), served by the int8 conv kernel in its epilogue, against
+    the kernel's plain version: bit-equal (tolerance 0). `saturate` feeds
+    values near the int8 limits at Cin >= 512, where a row of taps' int32
+    partial passes 2^24 and the "halo" and "tpu" orders differ."""
+    import torch
+    import torch.nn.functional as F
+
+    from d3roma_tpu_torch.ops.kernels import conv2d_int8, conv2d_int8_plain
+    from d3roma_tpu_torch.ops.kernels import conv2d as kconv
+    from d3roma_tpu_torch.ops.quant import fp32, quantize_weight
+
+    x = torch.randn((b, h, w, cin), generator=gen, device="cuda")
+    wt = torch.randn((3, 3, cin, cout), generator=gen, device="cuda") * (9 * cin) ** -0.5
+    if saturate:
+        x, wt = 4.0 + 0.2 * x, (9 * cin) ** -0.5 * (1.0 + 0.05 * wt)
+    x, wt = x.to(torch.bfloat16), wt.to(torch.bfloat16)
+    act = fp32(x.float().abs().max().item() / 127)
+    # fp32 outputs where the orders must be told apart: a bf16 rounding of
+    # the output would hide a difference of a few fp32 ulps
+    odt = torch.float32 if saturate else torch.bfloat16
+    entry = {"conv3x3_flat": lambda: kconv.conv3x3_flat(x, wt, "static", act, odt),
+             "conv3x3_rowtap": lambda: kconv.conv3x3_rowtap(x, wt, act, odt),
+             "conv3x3_halo": lambda: kconv.conv3x3_halo(x, wt, "static", act, odt)}[name]
+    out = entry()
+    wq, ws = quantize_weight(wt.permute(3, 0, 1, 2))
+    ref = conv2d_int8_plain(x, wq, ws, act, None, 1, 1, epilogue, odt).float()
+    _sync()
+    err = (out.float() - ref).abs().max().item()
+    row = {"shape": [b, h, w, cin, cout], "entry": name, "epilogue": epilogue,
+           "max_abs_err": err, "tol": 0.0, "max_abs_out": ref.abs().max().item()}
+    if saturate:
+        other = conv2d_int8_plain(x, wq, ws, act, None, 1, 1, "tpu", odt)
+        row["differs_from_tpu_order"] = bool((other != ref).any().item())
+        if not row["differs_from_tpu_order"]:
+            raise AssertionError(f"{name} {row['shape']}: the saturated case does not tell "
+                                 f"the halo order from the tpu order")
+    if timed:
+        xc = x.permute(0, 3, 1, 2)
+        wc = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        row["ms"] = time_ms(lambda: conv2d_int8(x, wq, ws, act, None, 1, 1, epilogue))
+        row["plain_ms"] = time_ms(
+            lambda: conv2d_int8_plain(x, wq, ws, act, None, 1, 1, epilogue), reps=3, warmup=1)
+        row["library_ms"] = time_ms(lambda: F.conv2d(xc, wc, None, 1, 1))
+        row["library_call"] = "F.conv2d (bf16, cuDNN, channels_last)"
+        ops = 2.0 * b * h * w * cout * 9 * cin
+        nbytes = 2.0 * b * h * w * cin + 9.0 * cin * cout + 4.0 * cout + 2.0 * b * h * w * cout
+        row["bound_ms"], row["bound_by"] = bound(ops, nbytes, H100_INT8_OPS)
+    return _check_row(f"{name} ({epilogue})", row, err, 0.0)
+
+
+def conv_and_fused_bf16_kernel_phase():
+    """The bf16 fused attention, the bf16 conv and the int8 conv kernel in
+    the TPU kernels' epilogues, through the JAX entry points, against their
+    plain versions at the two new paths' shapes (timed) and ragged ones."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(8765)
+    rows = {"attention_fused_bf16": [_attention_fused_bf16_case(BATCH, 920, 640, gen, True)]}
+    for b, n, c in ((1, 1000, 128), (1, 65, 64), (2, 300, 192)):
+        _attention_fused_bf16_case(b, n, c, gen, False)
+    rows["conv2d_bf16"] = [_conv_bf16_case(*s, gen, True) for s in (
+        (BATCH, 45, 80, 320, 320), (BATCH, 23, 40, 640, 640), (BATCH, 12, 20, 1280, 1280))]
+    rows["conv2d_bf16"].append(_conv_bf16_case(BATCH, 23, 40, 640, 640, gen, True, halo=True))
+    for shape in ((1, 7, 9, 32, 34), (2, 13, 17, 96, 130)):
+        _conv_bf16_case(*shape, gen, False)
+        _conv_bf16_case(*shape, gen, False, halo=True)
+    rows["conv3x3_flat_tpu"] = [_conv_epilogue_case("conv3x3_flat", "tpu", *s, gen, True)
+                                for s in ((BATCH, 45, 80, 320, 320), (BATCH, 23, 40, 1920, 640),
+                                          (2 * BATCH, 45, 80, 512, 512))]
+    rows["conv3x3_rowtap"] = [_conv_epilogue_case("conv3x3_rowtap", "tpu", BATCH, 45, 80, 320,
+                                                  320, gen, True)]
+    rows["conv3x3_halo"] = [_conv_epilogue_case("conv3x3_halo", "halo", *s, gen, True)
+                            for s in ((BATCH, 45, 80, 320, 320), (BATCH, 23, 40, 640, 640),
+                                      (2 * BATCH, H, W, 128, 128), (BATCH, 90, 160, 512, 512))]
+    for name, epi in (("conv3x3_flat", "tpu"), ("conv3x3_rowtap", "tpu"),
+                      ("conv3x3_halo", "halo")):
+        _conv_epilogue_case(name, epi, 1, 7, 9, 32, 34, gen, False)
+    rows["conv3x3_halo"].append(
+        _conv_epilogue_case("conv3x3_halo", "halo", 1, 6, 10, 1280, 64, gen, False, True))
+    _sync()
+    return rows
+
+
 def _schedule():
     from d3roma_tpu_torch.ops.schedules import ScheduleConfig
 
@@ -571,6 +745,59 @@ def _schedule():
         num_train_timesteps=1000, beta_schedule="scaled_linear",
         beta_start=0.00085, beta_end=0.012, prediction_type="v_prediction",
         clip_sample=False, timestep_spacing="leading", steps_offset=1)
+
+
+def _run_call(pipe, rgb, raw):
+    import torch
+
+    def run():
+        return pipe(num_inference_steps=STEPS, num_intermediate_images=1,
+                    cond_channels="rgb+raw", rgb_images=rgb, sim_disp=raw,
+                    generator=torch.Generator(device="cuda").manual_seed(7))
+    return run
+
+
+def _timed_calls(pipe, run, label):
+    """Zero the launch counts, make one call (its counts and output are
+    kept), then two more: the host's share of a call varies from machine to
+    machine, so the median of three is the number kept. Checks the output's
+    shape and that it and its disparity are finite. Returns (counts,
+    ms/frame)."""
+    import torch
+
+    _zero_launches()
+    t0 = time.perf_counter()
+    out = run()
+    _sync()
+    walls = [time.perf_counter() - t0]
+    counts = _int8_launches()
+    for _ in range(2):
+        t0 = time.perf_counter()
+        run()
+        _sync()
+        walls.append(time.perf_counter() - t0)
+    ms_per_frame = sorted(walls)[1] * 1e3 / BATCH
+    disp = pipe.normalizer.denormalize(out.images.float())
+    print(f"{label}: {ms_per_frame:.2f} ms/frame, median of "
+          f"{[round(w * 1e3 / BATCH, 2) for w in walls]} (batch {BATCH}, {STEPS} steps, "
+          f"{H}x{W}); images {tuple(out.images.shape)} in [{out.images.min().item():.4f}, "
+          f"{out.images.max().item():.4f}], disparity in [{disp.min().item():.3f}, "
+          f"{disp.max().item():.3f}]", flush=True)
+    if tuple(out.images.shape) != (BATCH, H, W, 1):
+        raise AssertionError(f"{label}: images shape {tuple(out.images.shape)}")
+    if not (torch.isfinite(out.images).all() and torch.isfinite(disp).all()):
+        raise AssertionError(f"{label}: non-finite pipeline output")
+    return counts, ms_per_frame
+
+
+def _check_counts(label, counts, expected):
+    """Print one call's launch counts; fail unless every expected count is
+    met and no other kernel launched."""
+    others = {k: v for k, v in counts.items() if k not in expected and v}
+    print(f"{label}: launches in one call {counts} (expected {expected}, no other)",
+          flush=True)
+    if any(counts[k] != v for k, v in expected.items()) or others:
+        raise AssertionError(f"{label}: kernel launches {counts}, expected {expected}")
 
 
 def pipeline_phase():
@@ -584,7 +811,6 @@ def pipeline_phase():
         init_random_,
         widened_in_channels,
     )
-    from d3roma_tpu_torch.ops.kernels import geglu_ff, mha_attention
     from d3roma_tpu_torch.ops.normalizer import Normalizer
     from d3roma_tpu_torch.pipelines import GuidedLatentDiffusionPipeline, SamplerSpec
 
@@ -610,45 +836,13 @@ def pipeline_phase():
 
     rgb = torch.randn((BATCH, H, W, 3), generator=gen, device="cuda") * 0.5
     raw = torch.randn((BATCH, H, W, 1), generator=gen, device="cuda").abs() * 0.5
-
-    def run():
-        return pipe(num_inference_steps=STEPS, num_intermediate_images=1,
-                    cond_channels="rgb+raw", rgb_images=rgb, sim_disp=raw,
-                    generator=torch.Generator(device="cuda").manual_seed(7))
-
+    run = _run_call(pipe, rgb, raw)
     t0 = time.perf_counter()
     run()
     _sync()
     print(f"pipeline: first call {time.perf_counter() - t0:.2f}s", flush=True)
-
-    _zero_launches()
-    t0 = time.perf_counter()
-    out = run()
-    _sync()
-    seconds = time.perf_counter() - t0
-    counts = {"attention": mha_attention.launches, "geglu": geglu_ff.launches}
-    # two more calls: the host's share of a call varies from machine to
-    # machine, so the median of three is the number kept
-    walls = [seconds]
-    for _ in range(2):
-        t0 = time.perf_counter()
-        run()
-        _sync()
-        walls.append(time.perf_counter() - t0)
-    ms_per_frame = sorted(walls)[1] * 1e3 / BATCH
-    disp = pipe.normalizer.denormalize(out.images.float())
-    print(f"pipeline: {counts} launches in one call; {ms_per_frame:.2f} ms/frame, median "
-          f"of {[round(w * 1e3 / BATCH, 2) for w in walls]} "
-          f"(batch {BATCH}, {STEPS} steps, {H}x{W}); images {tuple(out.images.shape)} "
-          f"in [{out.images.min().item():.4f}, {out.images.max().item():.4f}], "
-          f"disparity in [{disp.min().item():.3f}, {disp.max().item():.3f}]", flush=True)
-    if tuple(out.images.shape) != (BATCH, H, W, 1):
-        raise AssertionError(f"images shape {tuple(out.images.shape)}")
-    if not (torch.isfinite(out.images).all() and torch.isfinite(disp).all()):
-        raise AssertionError("non-finite pipeline output")
-    if counts != {"attention": 10 * STEPS, "geglu": 16 * STEPS}:
-        raise AssertionError(f"kernel launches {counts}, expected "
-                             f"{{'attention': {10 * STEPS}, 'geglu': {16 * STEPS}}}")
+    counts, ms_per_frame = _timed_calls(pipe, run, "latency")
+    _check_counts("latency", counts, {"attention": 10 * STEPS, "geglu": 16 * STEPS})
 
     profile_phase(run, "latency")
 
@@ -675,8 +869,10 @@ def pipeline_phase():
 
 def _int8_launches():
     from d3roma_tpu_torch.ops.kernels import (
+        conv2d_bf16,
         conv2d_int8,
         conv3x3_winograd,
+        fused_self_attention_bf16,
         fused_self_attention_int8,
         geglu_ff,
         geglu_ff_int8,
@@ -689,19 +885,24 @@ def _int8_launches():
     return {"attention": mha_attention.launches, "geglu": geglu_ff.launches,
             "attention_int8": mha_attention_int8.launches,
             "geglu_int8": geglu_ff_int8.launches, "conv2d_int8": conv2d_int8.launches,
+            **{f"conv2d_int8_{k}": v for k, v in conv2d_int8.epilogue_launches.items()},
             "quantize": quantize_int8_scalar.launches,
             "attention_fused_int8": fused_self_attention_int8.launches,
+            "attention_fused_bf16": fused_self_attention_bf16.launches,
+            "conv2d_bf16": conv2d_bf16.launches,
             "winograd": conv3x3_winograd.launches, "groupnorm_silu": group_norm_silu.launches}
 
 
 def _zero_launches():
     from d3roma_tpu_torch.ops import kernels
+    from d3roma_tpu_torch.ops.kernels.conv2d import reset_conv2d_int8_launches
 
     for fn in (kernels.mha_attention, kernels.geglu_ff, kernels.mha_attention_int8,
-               kernels.geglu_ff_int8, kernels.conv2d_int8, kernels.quantize_int8_scalar,
-               kernels.fused_self_attention_int8, kernels.conv3x3_winograd,
-               kernels.group_norm_silu):
+               kernels.geglu_ff_int8, kernels.quantize_int8_scalar,
+               kernels.fused_self_attention_int8, kernels.fused_self_attention_bf16,
+               kernels.conv2d_bf16, kernels.conv3x3_winograd, kernels.group_norm_silu):
         fn.launches = 0
+    reset_conv2d_int8_launches()
 
 
 def _plain_int8_forward(fn, attention: bool = True):
@@ -715,8 +916,8 @@ def _plain_int8_forward(fn, attention: bool = True):
     from d3roma_tpu_torch.models import layers
     from d3roma_tpu_torch.ops import kernels, quant, winograd
 
-    saved = (layers.mha_attention_int8, layers.geglu_ff_int8, layers.conv2d_int8,
-             quant.conv2d_int8, layers.fused_self_attention_int8, layers.group_norm_silu,
+    saved = (layers.mha_attention_int8, layers.geglu_ff_int8, quant.conv2d_int8,
+             layers.fused_self_attention_int8, layers.group_norm_silu,
              winograd.conv3x3_winograd)
     if attention:
         layers.mha_attention_int8 = kernels.mha_attention_int8_plain
@@ -724,22 +925,20 @@ def _plain_int8_forward(fn, attention: bool = True):
         layers.group_norm_silu = kernels.group_norm_silu_plain
         winograd.conv3x3_winograd = kernels.conv3x3_winograd_plain
     layers.geglu_ff_int8 = kernels.geglu_ff_int8_plain
-    layers.conv2d_int8 = quant.conv2d_int8 = kernels.conv2d_int8_plain
+    quant.conv2d_int8 = kernels.conv2d_int8_plain
     try:
         return fn()
     finally:
-        (layers.mha_attention_int8, layers.geglu_ff_int8, layers.conv2d_int8,
-         quant.conv2d_int8, layers.fused_self_attention_int8, layers.group_norm_silu,
+        (layers.mha_attention_int8, layers.geglu_ff_int8, quant.conv2d_int8,
+         layers.fused_self_attention_int8, layers.group_norm_silu,
          winograd.conv3x3_winograd) = saved
 
 
 def bench_default_phase(pipe, inputs):
     """The JAX package's bench default on the same models: static int8 in
     the UNet and the VAE, DeepCache interval 2 at depth 2, calibrated on one
-    batch. Returns the launch counts of one call and the median ms/frame."""
-    import torch
-
-    from d3roma_tpu_torch.ops.quant import replay_act_scales
+    batch. Returns the launch counts of one call, the median ms/frame and
+    the launch counts expected of one call."""
     from d3roma_tpu_torch.pipelines.sampling import uniform_cache_schedule
 
     rgb, raw, gen = inputs
@@ -768,66 +967,51 @@ def bench_default_phase(pipe, inputs):
     if (expected["attention_int8"], expected["geglu_int8"]) != (102, 130):
         raise AssertionError(f"expected launches {expected} for pattern {pattern}")
 
-    def run():
-        return pipe(num_inference_steps=STEPS, num_intermediate_images=1,
-                    cond_channels="rgb+raw", rgb_images=rgb, sim_disp=raw,
-                    generator=torch.Generator(device="cuda").manual_seed(7))
-
+    run = _run_call(pipe, rgb, raw)
     t0 = time.perf_counter()
     run()
     _sync()
-    print(f"bench default: first call {time.perf_counter() - t0:.2f}s", flush=True)
-    _zero_launches()
-    t0 = time.perf_counter()
-    out = run()
-    _sync()
-    walls = [time.perf_counter() - t0]
-    counts = _int8_launches()
-    for _ in range(2):
-        t0 = time.perf_counter()
-        run()
-        _sync()
-        walls.append(time.perf_counter() - t0)
-    ms_per_frame = sorted(walls)[1] * 1e3 / BATCH
-    disp = pipe.normalizer.denormalize(out.images.float())
-    print(f"bench default: {counts} launches in one call (expected {expected}); "
-          f"{ms_per_frame:.2f} ms/frame, median of "
-          f"{[round(w * 1e3 / BATCH, 2) for w in walls]} (batch {BATCH}, {STEPS} steps, "
-          f"pattern {pattern}, {H}x{W}); images {tuple(out.images.shape)} in "
-          f"[{out.images.min().item():.4f}, {out.images.max().item():.4f}], disparity in "
-          f"[{disp.min().item():.3f}, {disp.max().item():.3f}]", flush=True)
-    if tuple(out.images.shape) != (BATCH, H, W, 1):
-        raise AssertionError(f"images shape {tuple(out.images.shape)}")
-    if not (torch.isfinite(out.images).all() and torch.isfinite(disp).all()):
-        raise AssertionError("non-finite pipeline output")
+    print(f"bench default: first call {time.perf_counter() - t0:.2f}s (pattern {pattern})",
+          flush=True)
     # one activation quantization in front of each int8 conv, dense and GEGLU
     expected["quantize"] = expected["conv2d_int8"] + expected["geglu_int8"]
-    if any(counts[k] != v for k, v in expected.items()):
-        raise AssertionError(f"kernel launches {counts}, expected {expected}")
+    counts, ms_per_frame = _timed_calls(pipe, run, "bench default")
+    _check_counts("bench default", counts,
+                  dict(expected, conv2d_int8_xla=expected["conv2d_int8"]))
 
     profile_phase(run, "bench default")
+    _compare_int8_forwards(pipe, gen, "static", "int8")
+    return counts, ms_per_frame, expected
 
-    # One full and one shallow UNet forward, each replaying its table,
-    # through the int8 kernels against the same forwards through their plain
-    # versions. The conv (and dense), GEGLU and quantize kernels are
-    # bit-equal to their plain versions; the attention kernel is not (its
-    # denominator sums in another order, expf rounds in the last place), and
-    # a last-place difference before a quantization moves that value by one
-    # int8 quantum, which the following layers amplify to the level of the
-    # int8 noise itself. So: (1) with the attention kernel on both sides, the
-    # forwards must agree to 1e-3 of max |out| (expected: equal); (2) with
-    # all four plain, the difference must stay within the int8 noise: two
-    # int8 forwards whose roundings have come apart differ by up to ~sqrt(2)
-    # times the distance of one from the float forward, so no more than
-    # twice the same forward's distance from its bf16 version (the latency
-    # path's kernels, no int8).
+
+def _compare_int8_forwards(pipe, gen, quant, label):
+    """One full and one shallow UNet forward under `quant`, each replaying
+    its table, through the kernels against the same forwards through their
+    plain versions. The conv (and dense), GEGLU and quantize kernels are
+    bit-equal to their plain versions; the attention kernels (and the
+    opt-in path's Winograd and fused GroupNorm) are not (sums in another
+    order, expf in the last place), and a last-place difference before a
+    quantization moves that value by one int8 quantum, which the following
+    layers amplify to the level of the int8 noise itself. So: (1) with only
+    the bit-equal kernels swapped, the forwards must agree to 1e-3 of
+    max |out| (expected: equal); (2) with every kernel swapped, the
+    difference must stay within the int8 noise: two int8 forwards whose
+    roundings have come apart differ by up to ~sqrt(2) times the distance
+    of one from the float forward, so no more than twice the same forward's
+    distance from its bf16 version (int8 off, the other kernels as set,
+    except that the fused self-attention route is swapped for "pallas-self",
+    so that no kernel checked here sets its own yardstick)."""
+    import torch
+
+    from d3roma_tpu_torch.ops.quant import replay_act_scales
+
     unet = pipe.unet
     x = torch.randn((BATCH, H // 8, W // 8, unet.in_channels), generator=gen, device="cuda")
     ctx = torch.zeros((BATCH, 2, 1024), device="cuda")
 
-    def forwards(quant="static"):
+    def forwards(replay=True):
         with torch.no_grad():
-            if quant != "static":
+            if not replay:
                 full, trunk = unet(x, 981, ctx, return_trunk=True)
                 return full, unet(x, 881, ctx, cached_trunk=trunk)
             with replay_act_scales(pipe.act_scales["unet"]):
@@ -842,21 +1026,160 @@ def bench_default_phase(pipe, inputs):
     fast = forwards()
     same_attention = _plain_int8_forward(forwards, attention=False)
     plain = _plain_int8_forward(forwards)
+    route = unet.use_flash_attention
     unet.set_quant(False)
-    bf16 = forwards(quant=False)
-    unet.set_quant("static")
+    unet.set_kernels(use_flash_attention="pallas-self" if route == "fused" else route)
+    bf16 = forwards(replay=False)
+    unet.set_quant(quant)
+    unet.set_kernels(use_flash_attention=route)
     for i, name in enumerate(("full", "shallow")):
         r1, r2, noise = rel(fast[i], same_attention[i]), rel(fast[i], plain[i]), rel(
             fast[i], bf16[i])
-        print(f"unet {name} pass (int8), max err / max |out|: kernels vs plain versions "
-              f"with the attention kernel on both sides {r1:.3e} (tol 1e-3); all plain "
-              f"{r2:.3e} (tol: twice the int8 noise, {noise:.3e} from the bf16 forward)",
-              flush=True)
+        print(f"unet {name} pass ({label}), max err / max |out|: kernels vs plain versions "
+              f"of the bit-equal kernels {r1:.3e} (tol 1e-3); all plain {r2:.3e} (tol: "
+              f"twice the int8 noise, {noise:.3e} from the bf16 forward)", flush=True)
         if not (r1 <= 1e-3 and r2 <= 2 * noise):
-            raise AssertionError(f"UNet {name} pass: kernel path differs from the plain "
-                                 f"versions: {r1}, {r2} (int8 noise {noise})")
+            raise AssertionError(f"UNet {name} pass ({label}): kernel path differs from the "
+                                 f"plain versions: {r1}, {r2} (int8 noise {noise})")
+    _sync()
+
+
+def latency_fused_phase(pipe, inputs):
+    """The latency path with the fused self-attention (the JAX bench's
+    BENCH_QUANT=0 BENCH_FLASH=4): fast_inference("latency"), then
+    set_kernels(use_flash_attention="fused"). The bf16 fused kernel takes
+    the 920-token sites, the only ones its gate admits at itemsize 2; the
+    3600-token sites take the flash route (the whole-row bf16 kernel); the
+    240- and 60-token sites stay plain. Returns the launch counts of one
+    call and the median ms/frame."""
+    import torch
+
+    from d3roma_tpu_torch.models import layers
+    from d3roma_tpu_torch.ops import kernels
+
+    rgb, raw, gen = inputs
+    pipe.fast_inference("latency")
+    pipe.unet.set_kernels(use_flash_attention="fused")
+    run = _run_call(pipe, rgb, raw)
+    t0 = time.perf_counter()
+    run()
+    _sync()
+    print(f"latency-fused: first call {time.perf_counter() - t0:.2f}s", flush=True)
+    counts, ms_per_frame = _timed_calls(pipe, run, "latency-fused")
+    # per pass: 5 self-attention sites of 920 tokens (down block 1, up block
+    # 2), 5 of 3600 (down block 0, up block 3), 16 GEGLUs; no DeepCache
+    _check_counts("latency-fused", counts, {"attention_fused_bf16": 5 * STEPS,
+                                            "attention": 5 * STEPS, "geglu": 16 * STEPS})
+    # The host's share of a call moves more from run to run than between
+    # the two paths, so latency and latency-fused are also timed in turns
+    # on the same models (L F F L L F F L); only these medians compare them.
+    turns = {"pallas-self": [], "fused": []}
+    for route in ("pallas-self", "fused", "fused", "pallas-self") * 2:
+        pipe.unet.set_kernels(use_flash_attention=route)
+        t0 = time.perf_counter()
+        run()
+        _sync()
+        turns[route].append((time.perf_counter() - t0) * 1e3 / BATCH)
+    for route, label in (("pallas-self", "latency"), ("fused", "latency-fused")):
+        print(f"in turns: {label} {statistics.median(turns[route]):.2f} ms/frame, median of "
+              f"{[round(t, 2) for t in turns[route]]}", flush=True)
+
+    profile_phase(run, "latency-fused")
+
+    # One UNet forward through the kernels against the same forward through
+    # their plain versions (the same arithmetic in PyTorch ops).
+    unet = pipe.unet
+    x = torch.randn((BATCH, H // 8, W // 8, unet.in_channels), generator=gen, device="cuda")
+    ctx = torch.zeros((BATCH, 2, 1024), device="cuda")
+    saved = (layers.fused_self_attention_bf16, layers.mha_attention, layers.geglu_ff)
+    with torch.no_grad():
+        fast = unet(x, 981, ctx)
+        (layers.fused_self_attention_bf16, layers.mha_attention,
+         layers.geglu_ff) = (kernels.fused_self_attention_bf16_plain,
+                             kernels.mha_attention_plain, kernels.geglu_ff_plain)
+        try:
+            plain = unet(x, 981, ctx)
+        finally:
+            layers.fused_self_attention_bf16, layers.mha_attention, layers.geglu_ff = saved
+    rel = ((fast - plain).abs().max() / plain.abs().max()).item()
+    print(f"unet forward (latency-fused): kernels vs plain versions max err / max |out| = "
+          f"{rel:.3e} (tol {UNET_REL_TOL})", flush=True)
+    if not rel <= UNET_REL_TOL:
+        raise AssertionError(f"latency-fused UNet kernel path differs from plain: {rel}")
+    pipe.unet.set_kernels(use_flash_attention="pallas-self")
     _sync()
     return counts, ms_per_frame
+
+
+def _conv_route_dry_pass(pipe, run, mode):
+    """One call with a hook on every quantized conv that records the port's
+    route under `mode` (the gate of ops/quant.py's int8_conv_mxu or
+    int8_conv_halo) without counting launches. Returns (admitted, refused,
+    {site: route})."""
+    import torch
+
+    from d3roma_tpu_torch.models.layers import Conv2d
+    from d3roma_tpu_torch.ops.kernels import conv3x3_supported, halo_conv_supported
+    from d3roma_tpu_torch.ops.winograd import conv_hwio_shape
+
+    calls = {"kernel": 0, "static": 0}
+    table = {}
+
+    def hook(mod, args):
+        shape = tuple(args[0].shape)
+        pad = ((mod.padding[0],) * 2, (mod.padding[1],) * 2)
+        gate = (conv3x3_supported(shape, conv_hwio_shape(mod.weight), mod.stride, pad,
+                                  torch.int8) if mode == "mxu" else
+                halo_conv_supported(shape, conv_hwio_shape(mod.weight), mod.stride, pad))
+        calls["kernel" if gate else "static"] += 1
+        table[("conv", mod.kernel_size[0]) + shape + (mod.weight.shape[0], mod.stride[0])] = (
+            f"{mode} kernel" if gate else "static int8")
+
+    hooks = [m.register_forward_pre_hook(hook)
+             for m in list(pipe.unet.modules()) + list(pipe.vae.modules())
+             if isinstance(m, Conv2d) and m.quant == mode]
+    try:
+        run()
+        _sync()
+    finally:
+        for hk in hooks:
+            hk.remove()
+    return calls["kernel"], calls["static"], table
+
+
+def conv_routes_phase(pipe, inputs, bench_expected):
+    """The JAX bench's BENCH_QUANT=halo and BENCH_QUANT=mxu on the bench
+    default's calibrated models: set_quant("halo"), then set_quant("mxu"),
+    on the UNet and the VAE, replaying the bench default's tables (neither
+    route changes the taps' call order). A dry pass logs each conv's route;
+    the int8 conv launches of one call must split into the mode's epilogue
+    (the sites its gate admits) and "xla" (the rest, the dense sites
+    included), summing to the bench default's count; the attention, GEGLU
+    and quantize launches are the bench default's. Returns {mode: (counts,
+    ms/frame)}."""
+    rgb, raw, gen = inputs
+    results = {}
+    for mode, epilogue in (("halo", "halo"), ("mxu", "tpu")):
+        pipe.set_quant(mode)
+        run = _run_call(pipe, rgb, raw)
+        t0 = time.perf_counter()
+        admitted, refused, table = _conv_route_dry_pass(pipe, run, mode)
+        print(f"{mode}: routing dry pass (first call, {time.perf_counter() - t0:.2f}s): "
+              f"{admitted} conv visits on the {mode} kernel, {refused} on the static conv",
+              flush=True)
+        for site, route in sorted(table.items(), key=str):
+            print(f"  route {site}: {route}", flush=True)
+        if admitted <= 0:
+            raise AssertionError(f"{mode}: no conv visit takes the {mode} kernel")
+        counts, ms_per_frame = _timed_calls(pipe, run, mode)
+        _check_counts(mode, counts, dict(
+            bench_expected, **{f"conv2d_int8_{epilogue}": admitted,
+                               "conv2d_int8_xla": bench_expected["conv2d_int8"] - admitted}))
+        profile_phase(run, mode)
+        _compare_int8_forwards(pipe, gen, mode, mode)
+        results[mode] = (counts, ms_per_frame)
+    pipe.set_quant("static")
+    return results
 
 
 def _routing_dry_pass(pipe, run):
@@ -906,9 +1229,6 @@ def opt_in_phase(pipe, inputs):
     fast_inference("wino").fuse_norms(), the fused self-attention, DeepCache
     interval 2 at depth 2, calibrated on one batch. Returns the launch counts
     of one call and the median ms/frame."""
-    import torch
-
-    from d3roma_tpu_torch.ops.quant import replay_act_scales
     from d3roma_tpu_torch.pipelines.sampling import uniform_cache_schedule
 
     rgb, raw, gen = inputs
@@ -927,11 +1247,7 @@ def opt_in_phase(pipe, inputs):
           flush=True)
     pattern = uniform_cache_schedule(2, STEPS)
 
-    def run():
-        return pipe(num_inference_steps=STEPS, num_intermediate_images=1,
-                    cond_channels="rgb+raw", rgb_images=rgb, sim_disp=raw,
-                    generator=torch.Generator(device="cuda").manual_seed(7))
-
+    run = _run_call(pipe, rgb, raw)
     t0 = time.perf_counter()
     wino_calls, gn_calls, table = _routing_dry_pass(pipe, run)
     print(f"opt-in: routing dry pass (first call, {time.perf_counter() - t0:.2f}s): "
@@ -958,79 +1274,13 @@ def opt_in_phase(pipe, inputs):
     expected["quantize"] = (expected["conv2d_int8"] + expected["geglu_int8"]
                             + expected["attention_fused_int8"])
 
-    _zero_launches()
-    t0 = time.perf_counter()
-    out = run()
-    _sync()
-    walls = [time.perf_counter() - t0]
-    counts = _int8_launches()
-    for _ in range(2):
-        t0 = time.perf_counter()
-        run()
-        _sync()
-        walls.append(time.perf_counter() - t0)
-    ms_per_frame = sorted(walls)[1] * 1e3 / BATCH
-    disp = pipe.normalizer.denormalize(out.images.float())
-    print(f"opt-in: {counts} launches in one call (expected {expected}); "
-          f"{ms_per_frame:.2f} ms/frame, median of "
-          f"{[round(w * 1e3 / BATCH, 2) for w in walls]} (batch {BATCH}, {STEPS} steps, "
-          f"pattern {pattern}, {H}x{W}); images {tuple(out.images.shape)} in "
-          f"[{out.images.min().item():.4f}, {out.images.max().item():.4f}], disparity in "
-          f"[{disp.min().item():.3f}, {disp.max().item():.3f}]", flush=True)
-    if tuple(out.images.shape) != (BATCH, H, W, 1):
-        raise AssertionError(f"images shape {tuple(out.images.shape)}")
-    if not (torch.isfinite(out.images).all() and torch.isfinite(disp).all()):
-        raise AssertionError("non-finite pipeline output")
-    if any(counts[k] != v for k, v in expected.items()) or min(expected.values()) <= 0:
-        raise AssertionError(f"kernel launches {counts}, expected {expected}")
+    if min(expected.values()) <= 0:
+        raise AssertionError(f"opt-in: expected launches {expected}")
+    counts, ms_per_frame = _timed_calls(pipe, run, "opt-in")
+    _check_counts("opt-in", counts, dict(expected, conv2d_int8_xla=expected["conv2d_int8"]))
 
     profile_phase(run, "opt-in")
-
-    # One full and one shallow UNet forward, each replaying its table,
-    # through the kernels against the same forwards through their plain
-    # versions, as in the bench-default phase: (1) with only the bit-equal
-    # kernels (conv, GEGLU) swapped, the forwards must agree to 1e-3 of
-    # max |out| (expected: equal); (2) with every kernel swapped, within
-    # twice the int8 noise, the same forward's distance from its bf16
-    # version (int8 off, the whole-row bf16 attention kernel at the
-    # self-attention sites, the fused GroupNorm and Winograd gone with the
-    # int8 mode only where they depend on it: the GroupNorm stays fused).
-    unet = pipe.unet
-    x = torch.randn((BATCH, H // 8, W // 8, unet.in_channels), generator=gen, device="cuda")
-    ctx = torch.zeros((BATCH, 2, 1024), device="cuda")
-
-    def forwards(quant="wino_static"):
-        with torch.no_grad():
-            if quant != "wino_static":
-                full, trunk = unet(x, 981, ctx, return_trunk=True)
-                return full, unet(x, 881, ctx, cached_trunk=trunk)
-            with replay_act_scales(pipe.act_scales["unet"]):
-                full, trunk = unet(x, 981, ctx, return_trunk=True)
-            with replay_act_scales(pipe.act_scales["unet_cached"]):
-                shallow = unet(x, 881, ctx, cached_trunk=trunk)
-        return full, shallow
-
-    def rel(a, b):
-        return ((a - b).abs().max() / b.abs().max()).item()
-
-    fast = forwards()
-    same_kernels = _plain_int8_forward(forwards, attention=False)
-    plain = _plain_int8_forward(forwards)
-    unet.set_quant(False)
-    unet.set_kernels(use_flash_attention="pallas-self")
-    bf16 = forwards(quant=False)
-    unet.set_quant("wino_static")
-    unet.set_kernels(use_flash_attention="fused")
-    for i, name in enumerate(("full", "shallow")):
-        r1, r2, noise = rel(fast[i], same_kernels[i]), rel(fast[i], plain[i]), rel(
-            fast[i], bf16[i])
-        print(f"unet {name} pass (opt-in), max err / max |out|: kernels vs plain versions "
-              f"of the bit-equal kernels {r1:.3e} (tol 1e-3); all plain {r2:.3e} (tol: "
-              f"twice the int8 noise, {noise:.3e} from the bf16 forward)", flush=True)
-        if not (r1 <= 1e-3 and r2 <= 2 * noise):
-            raise AssertionError(f"UNet {name} pass: kernel path differs from the plain "
-                                 f"versions: {r1}, {r2} (int8 noise {noise})")
-    _sync()
+    _compare_int8_forwards(pipe, gen, "wino_static", "opt-in")
     return counts, ms_per_frame
 
 
@@ -1039,8 +1289,13 @@ _KERNEL_GROUPS = (
     ("winograd kernel", ("wino_kernel",)),
     ("group_norm_silu kernels (stats, fold, apply)",
      ("gn_stats_kernel", "gn_fold_kernel", "gn_apply_kernel")),
-    ("attention_fused_int8 kernels (QKV projection, quantize, output projection)",
-     ("qkv_int8_kernel", "quantize_qkv_kernel", "out_proj_kernel")),
+    ("attention_fused_int8 kernels (QKV projection, quantize)",
+     ("qkv_int8_kernel", "quantize_qkv_kernel")),
+    ("fused attention output projection (int8 and bf16 bodies)", ("out_proj_kernel",)),
+    ("conv2d_bf16 kernel (the bf16 fused attention's QKV projection)", ("conv_bf16_kernel",)),
+    ("conv2d_int8 kernel (xla epilogue)", ("conv_int8_kernel<0>",)),
+    ("conv2d_int8 kernel (tpu epilogue)", ("conv_int8_kernel<1>",)),
+    ("conv2d_int8 kernel (halo epilogue)", ("conv_int8_kernel<2>",)),
     ("conv2d_int8 kernel", ("conv_int8_kernel",)),
     ("geglu_ff_int8 kernel", ("geglu_int8_kernel",)),
     # the rows kernel is also the fused attention's core (head width 64)
@@ -1049,7 +1304,7 @@ _KERNEL_GROUPS = (
       "quantize_heads_kernel")),
     ("quantize_int8 kernel", ("quantize_bf16_vec8", "quantize_scalar")),
     ("geglu_ff kernel", ("geglu_kernel", "geglu_reduce")),
-    ("mha_attention kernel", ("mha_kernel",)),
+    ("mha_attention kernel (bf16; the bf16 fused attention's core)", ("mha_kernel",)),
     ("convolution", ("conv", "cudnn", "xmma_fprop", "implicit_gemm", "nhwc", "winograd")),
     ("matmul", ("gemm", "cutlass", "cublas", "sm90_xmma", "splitk")),
     ("normalization and softmax", ("norm", "softmax", "reduce")),
@@ -1095,9 +1350,9 @@ def profile_phase(run, label: str = "pipeline") -> None:
         print(f"  top: {ms:8.2f} ms  x{count:<5d} {name[:110]}", flush=True)
 
 
-def _kernel_entry(name, source, replaces, rows, launches):
+def _kernel_entry(name, source, replaces, rows, launches, note=None):
     first = rows[0]
-    return {
+    entry = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": first["ms"], "kernel_ms": first["ms"], "plain_ms": first["plain_ms"],
@@ -1106,6 +1361,9 @@ def _kernel_entry(name, source, replaces, rows, launches):
         "library_call": first["library_call"],
         "shapes": rows,
     }
+    if note:
+        entry["launches_note"] = note
+    return entry
 
 
 def main() -> int:
@@ -1115,8 +1373,11 @@ def main() -> int:
     attn_rows, geglu_rows = kernel_phase()
     int8_rows = int8_kernel_phase()
     opt_rows = opt_in_kernel_phase()
+    new_rows = conv_and_fused_bf16_kernel_phase()
     pipe, inputs, counts, ms_per_frame = pipeline_phase()
-    bench_counts, bench_ms_per_frame = bench_default_phase(pipe, inputs)
+    fused_counts, fused_ms_per_frame = latency_fused_phase(pipe, inputs)
+    bench_counts, bench_ms_per_frame, bench_expected = bench_default_phase(pipe, inputs)
+    routes = conv_routes_phase(pipe, inputs, bench_expected)
     opt_counts, opt_ms_per_frame = opt_in_phase(pipe, inputs)
 
     import torch
@@ -1149,11 +1410,32 @@ def main() -> int:
         _kernel_entry("winograd_fused", "d3roma_tpu_torch/csrc/winograd_fused.cu",
                       "d3roma_tpu/ops/pallas/winograd_fused.py:147", opt_rows["winograd"],
                       opt_counts["winograd"]),
+        _kernel_entry("attention_fused_bf16", "d3roma_tpu_torch/csrc/attention_fused_bf16.cu",
+                      "d3roma_tpu/ops/pallas/attention_fused.py:145",
+                      new_rows["attention_fused_bf16"], fused_counts["attention_fused_bf16"]),
+        # conv3x3_flat's and conv3x3_halo's bf16 bodies: no path of the port
+        # calls them (the fused attention's projection uses the kernel
+        # inside its own launch)
+        _kernel_entry("conv2d_bf16", "d3roma_tpu_torch/csrc/conv2d_bf16.cu",
+                      "d3roma_tpu/ops/pallas/conv2d.py:103", new_rows["conv2d_bf16"],
+                      fused_counts["conv2d_bf16"], "kernel phase only"),
+        _kernel_entry("conv3x3_flat_int8 (tpu epilogue)", "d3roma_tpu_torch/csrc/conv2d_int8.cu",
+                      "d3roma_tpu/ops/pallas/conv2d.py:80", new_rows["conv3x3_flat_tpu"],
+                      routes["mxu"][0]["conv2d_int8_tpu"]),
+        _kernel_entry("conv3x3_rowtap (tpu epilogue)", "d3roma_tpu_torch/csrc/conv2d_int8.cu",
+                      "d3roma_tpu/ops/pallas/conv2d.py:215", new_rows["conv3x3_rowtap"], 0,
+                      "kernel phase only"),
+        _kernel_entry("conv3x3_halo (halo epilogue)", "d3roma_tpu_torch/csrc/conv2d_int8.cu",
+                      "d3roma_tpu/ops/pallas/conv2d_halo.py:92", new_rows["conv3x3_halo"],
+                      routes["halo"][0]["conv2d_int8_halo"]),
     ]
     # the card again, so that the end of a long log still names it
     print(card, flush=True)
     print(json.dumps({"pipeline_ms_per_frame": {"latency": ms_per_frame,
+                                                "latency_fused": fused_ms_per_frame,
                                                 "bench_default": bench_ms_per_frame,
+                                                "halo": routes["halo"][1],
+                                                "mxu": routes["mxu"][1],
                                                 "opt_in": opt_ms_per_frame},
                       "batch": BATCH, "steps": STEPS}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -41,7 +41,8 @@
 //   3. mha_int8_rows_kernel<64> (attention_int8_rows.cuh): the two passes
 //      over the keys that quantize P against the true row max, writing o_h
 //      as bf16 [B, N, H * 64].
-//   4. out_proj_kernel: the output projection [B N, C] x [C, C] in bf16
+//   4. out_proj_kernel (attention_out_proj.cuh, shared with the bf16 fused
+//      self-attention): the output projection [B N, C] x [C, C] in bf16
 //      (mma.sync m16n8k16) in 128 x 128 tiles, one 64-wide k step per head
 //      into a fresh fp32 partial that is added to the accumulator (started
 //      at bo) in head order, as the TPU kernel adds its per-head products.
@@ -54,6 +55,7 @@
 #include <stdint.h>
 
 #include "attention_int8_rows.cuh"
+#include "attention_out_proj.cuh"
 #include "bf16_mma.cuh"
 #include "int8_mma.cuh"
 
@@ -212,113 +214,6 @@ __global__ void quantize_qkv_kernel(FusedArgs a) {
   }
 }
 
-// --------------------------------------------------------------------------
-// 4. The output projection.
-
-struct OutArgs {
-  const bf16* o;    // [rows, C]
-  const bf16* wo;   // [C, C]: output column, then input (k-contiguous)
-  const float* bo;  // [C]
-  bf16* out;        // [rows, C]
-  int rows, C, H;
-};
-
-constexpr int kLdo = kHeadDim + 8;  // shared row pitch, bf16 (144 bytes)
-constexpr size_t kStageO = (size_t)(kBM + kBN) * kLdo * sizeof(bf16);
-constexpr size_t kSmemO = 2 * kStageO;
-
-// grid (ceil(rows / 128), ceil(C / 128)); each warp 32 rows x 64 columns.
-__global__ void __launch_bounds__(kThreads) out_proj_kernel(OutArgs a) {
-  extern __shared__ __align__(128) unsigned char smemo[];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-
-  auto load_head = [&](int buf, int h) {
-    bf16* as = reinterpret_cast<bf16*>(smemo + buf * kStageO);
-    bf16* bs = as + kBM * kLdo;
-    for (int i = tid; i < (kBM + kBN) * (kHeadDim / 8); i += kThreads) {
-      const int r = i / (kHeadDim / 8), v = (i % (kHeadDim / 8)) * 8;
-      if (r < kBM) {
-        const bool ok = m0 + r < a.rows;
-        cp_async_16(as + r * kLdo + v,
-                    ok ? a.o + (long long)(m0 + r) * a.C + h * kHeadDim + v : a.o, ok ? 16 : 0);
-      } else {
-        const int rr = r - kBM;
-        const bool ok = n0 + rr < a.C;
-        cp_async_16(bs + rr * kLdo + v,
-                    ok ? a.wo + (long long)(n0 + rr) * a.C + h * kHeadDim + v : a.wo,
-                    ok ? 16 : 0);
-      }
-    }
-  };
-
-  const int wm = (warp % 4) * 32, wn = (warp / 4) * 64;
-  const int g = lane / 4, t = lane % 4;
-  float acc[2][8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int col = n0 + wn + j * 8 + 2 * t;
-    const float b0 = col < a.C ? a.bo[col] : 0.f, b1 = col + 1 < a.C ? a.bo[col + 1] : 0.f;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      acc[i][j][0] = acc[i][j][2] = b0;
-      acc[i][j][1] = acc[i][j][3] = b1;
-    }
-  }
-
-  load_head(0, 0);
-  d3r::cp_async_commit();
-  for (int h = 0; h < a.H; ++h) {
-    d3r::cp_async_wait<0>();
-    __syncthreads();  // head h has landed; every warp is done with head h - 1
-    if (h + 1 < a.H) load_head((h + 1) & 1, h + 1);
-    d3r::cp_async_commit();
-    const bf16* as = reinterpret_cast<const bf16*>(smemo + (h & 1) * kStageO);
-    const bf16* bs = as + kBM * kLdo;
-    float part[2][8][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) part[i][j][0] = part[i][j][1] = part[i][j][2] = part[i][j][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < kHeadDim / 16; ++ks) {
-      uint32_t af[2][4];
-      d3r::load_a_bf16(af[0], as, kLdo, wm, ks * 16, lane);
-      d3r::load_a_bf16(af[1], as, kLdo, wm + 16, ks * 16, lane);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        uint32_t b0, b1;
-        d3r::load_b_bf16(b0, b1, bs, kLdo, wn + j * 8, ks * 16, lane);
-        d3r::mma_bf16(part[0][j], af[0], b0, b1);
-        d3r::mma_bf16(part[1][j], af[1], b0, b1);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = __fadd_rn(acc[i][j][e], part[i][j][e]);
-  }
-  d3r::cp_async_wait<0>();
-
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int col = n0 + wn + j * 8 + 2 * t;
-    if (col >= a.C) continue;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int row = m0 + wm + i * 16 + g + 8 * hh;
-        if (row >= a.rows) continue;
-        *reinterpret_cast<__nv_bfloat162*>(a.out + (long long)row * a.C + col) =
-            __floats2bfloat162_rn(acc[i][j][2 * hh], acc[i][j][2 * hh + 1]);
-      }
-    }
-  }
-}
-
 }  // namespace
 
 // xq [B, N, C] int8 (x quantized at the act scale), w [3C, C] int8 (the rows
@@ -361,12 +256,7 @@ extern "C" int d3r_fused_self_attention_int8(
                    static_cast<bf16*>(o), B, N, N, Mp, H, kQBlock, scale};
   if ((err = d3r::launch_rows<kHeadDim>(at, st)) != cudaSuccess) return (int)err;
 
-  if ((err = cudaFuncSetAttribute(out_proj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)kSmemO)) != cudaSuccess)
-    return (int)err;
-  OutArgs oa{static_cast<const bf16*>(o), static_cast<const bf16*>(wo),
-             static_cast<const float*>(bo), static_cast<bf16*>(out), B * N, C, H};
-  out_proj_kernel<<<dim3((B * N + kBM - 1) / kBM, (C + kBN - 1) / kBN), kThreads, kSmemO, st>>>(
-      oa);
-  return (int)cudaGetLastError();
+  d3r::OutProjArgs oa{static_cast<const bf16*>(o), static_cast<const bf16*>(wo),
+                      static_cast<const float*>(bo), static_cast<bf16*>(out), B * N, C, H};
+  return (int)d3r::launch_out_proj(oa, st);
 }

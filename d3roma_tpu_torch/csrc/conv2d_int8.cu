@@ -1,21 +1,35 @@
 // int8 implicit-GEMM convolution for Hopper (sm_90a), NHWC, with the
 // dequantization and the bias in the epilogue:
-//   out[b, oy, ox, co] = bf16(bf16(acc * act_scale * ws[co]) + bias[co])
+//   out[b, oy, ox, co] = bf16(bf16(deq(acc)) + bias[co])   (bf16 output), or
+//   out[b, oy, ox, co] = deq(acc)                          (fp32 output, no bias)
 //   acc = sum over (ky, kx, ci) of xq[b, oy*s + ky - pt, ox*s + kx - pl, ci]
 //                                  * wq[co, ky, kx, ci]          (exact int32)
+// in one of three epilogues, each the order of arithmetic of one reference:
+//   "xla"  (0): deq = (acc * act_scale) * ws[co], the XLA int8 convolution of
+//               the JAX package's quant="static" mode
+//               (ops/quant.py::int8_conv_general_dilated_static);
+//   "tpu"  (1): deq = acc * (act_scale * ws[co]), the Pallas kernels
+//               conv2d.py::conv3x3_flat (_kernel_int8, quant="mxu") and
+//               conv2d.py::conv3x3_rowtap (_kernel_rowtap_int8);
+//   "halo" (2): as "tpu", but the sum is taken as conv2d_halo.py::_kernel
+//               takes it: one exact int32 partial per row of taps (ky), each
+//               converted to fp32 and added to an fp32 sum in ky order. It
+//               differs from "tpu" once a partial or the sum passes 2^24.
 //
 // Replaces: d3roma_tpu/ops/pallas/conv2d.py::conv3x3_flat, its int8 path
-// (kernel body _kernel_int8), and with it the XLA int8 convolution that the
-// JAX package's quant="static" mode runs at every quantized site
-// (ops/quant.py::int8_conv_general_dilated_static): the 3x3 stride-1 convs
-// of the resnets and upsamplers, the stride-2 downsamplers (UNet: padding 1;
-// VAE: padding (0, 1) and VALID) and the 1x1 conv_shortcut. Both compute the
-// same integers: per-output-channel weight scales over all KH*KW*Cin taps,
-// activations quantized with one static scale, exact int32 sums. The TPU
-// kernel runs a stride-1 3x3 conv as 9 GEMMs over row-shifted views of one
-// whole padded frame held in VMEM; a Hopper block cannot hold a frame (the
-// VAE's full-resolution frames are 29 MB each), so this kernel gathers its
-// input patches itself (implicit GEMM) and tiles over pixels.
+// (kernel body _kernel_int8), conv2d.py::conv3x3_rowtap and
+// conv2d_halo.py::conv3x3_halo (int8 body), and with them the XLA int8
+// convolution that the JAX package's static modes run at every other
+// quantized site: the 3x3 stride-1 convs of the resnets and upsamplers, the
+// stride-2 downsamplers (UNet: padding 1; VAE: padding (0, 1) and VALID) and
+// the 1x1 conv_shortcut. All compute the same integers: per-output-channel
+// weight scales over all KH*KW*Cin taps (zero channels that the TPU kernels
+// pad on change neither the scales nor the sums), activations quantized with
+// one static scale, exact int32 sums. The TPU kernels hold a whole padded
+// frame (or a window of rows) in VMEM and run the taps as row-shifted GEMMs;
+// a Hopper block cannot hold a frame (the VAE's full-resolution frames are
+// 29 MB each), so this kernel gathers its input patches itself (implicit
+// GEMM) and tiles over pixels.
 //
 // What bounds it on the H100: operations. Each input element takes part in
 // 2*Cout*KH*KW/stride^2 operations: 2304 at the VAE's full-resolution
@@ -33,7 +47,10 @@
 // channel's 32 weights) into shared memory with cp.async, four chunks in
 // flight. So x is read once per tap and per column tile from L2, and no
 // im2col buffer or padded copy is made. Weights are [Cout, KH, KW, Cin] so
-// that B is K-contiguous, as the int8 mma needs.
+// that B is K-contiguous, as the int8 mma needs. K runs tap by tap in (ky,
+// kx) order, so the "halo" epilogue converts the int32 registers to its fp32
+// sum (and clears them) after the last chunk of each ky row. The epilogue is
+// a template parameter: the other two keep no fp32 sum.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,12 +76,16 @@ struct ConvArgs {
   const int8_t* x;
   const int8_t* w;
   const float* ws;
-  const bf16* bias;  // may be null
-  bf16* out;
+  const bf16* bias;  // may be null; bf16 output only
+  void* out;         // bf16, or fp32 with out_f32
   int B, H, W, Cin, OH, OW, Cout, KH, KW, stride, pad_t, pad_l;
   float act_scale;
+  int out_f32;
 };
 
+enum Epilogue { kXla = 0, kTpu = 1, kHalo = 2 };
+
+template <int kEpi>
 __global__ void __launch_bounds__(kThreads) conv_int8_kernel(ConvArgs a) {
   extern __shared__ __align__(128) int8_t smem[];
   const int tid = threadIdx.x;
@@ -73,6 +94,7 @@ __global__ void __launch_bounds__(kThreads) conv_int8_kernel(ConvArgs a) {
   const int K = a.KH * a.KW * a.Cin;
   const int chunks_per_tap = a.Cin / kBK;
   const int n_chunks = a.KH * a.KW * chunks_per_tap;
+  const int chunks_per_row = a.KW * chunks_per_tap;  // one ky row of taps
   const int m0 = blockIdx.x * kBM;
   const int n0 = blockIdx.y * kBN;
 
@@ -114,6 +136,15 @@ __global__ void __launch_bounds__(kThreads) conv_int8_kernel(ConvArgs a) {
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
+  // "halo": the fp32 sum of the finished ky rows' int32 partials
+  float facc[2][8][4];
+  if (kEpi == kHalo) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        facc[i][j][0] = facc[i][j][1] = facc[i][j][2] = facc[i][j][3] = 0.f;
+  }
 
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
@@ -139,16 +170,28 @@ __global__ void __launch_bounds__(kThreads) conv_int8_kernel(ConvArgs a) {
       d3r::mma_s8(acc[0][j], af[0], b0, b1);
       d3r::mma_s8(acc[1][j], af[1], b0, b1);
     }
+    if (kEpi == kHalo && (kc + 1) % chunks_per_row == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            facc[i][j][e] = __fadd_rn(facc[i][j][e], __int2float_rn(acc[i][j][e]));
+            acc[i][j][e] = 0;
+          }
+    }
   }
   d3r::cp_async_wait<0>();
 
-  // Epilogue: (acc * act_scale) * ws in fp32, cast, + bias in bf16.
+  // Epilogue: the dequantization in fp32, cast, + bias in bf16.
   const int g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int col = n0 + wn + j * 8 + 2 * t;
     if (col >= a.Cout) continue;
-    const float s0 = a.ws[col], s1 = a.ws[col + 1];
+    const float s0 = kEpi == kXla ? a.ws[col] : __fmul_rn(a.act_scale, a.ws[col]);
+    const float s1 = kEpi == kXla ? a.ws[col + 1] : __fmul_rn(a.act_scale, a.ws[col + 1]);
     const float bias0 = a.bias ? __bfloat162float(a.bias[col]) : 0.f;
     const float bias1 = a.bias ? __bfloat162float(a.bias[col + 1]) : 0.f;
 #pragma unroll
@@ -157,39 +200,72 @@ __global__ void __launch_bounds__(kThreads) conv_int8_kernel(ConvArgs a) {
       for (int h = 0; h < 2; ++h) {
         const int row = m0 + wm + i * 16 + g + 8 * h;
         if (row >= M) continue;
-        float v0 = __fmul_rn(__fmul_rn((float)acc[i][j][2 * h], a.act_scale), s0);
-        float v1 = __fmul_rn(__fmul_rn((float)acc[i][j][2 * h + 1], a.act_scale), s1);
+        float v0, v1;
+        if (kEpi == kXla) {
+          v0 = __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j][2 * h]), a.act_scale), s0);
+          v1 = __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j][2 * h + 1]), a.act_scale), s1);
+        } else {
+          const float p0 = kEpi == kHalo ? facc[i][j][2 * h]
+                                         : __int2float_rn(acc[i][j][2 * h]);
+          const float p1 = kEpi == kHalo ? facc[i][j][2 * h + 1]
+                                         : __int2float_rn(acc[i][j][2 * h + 1]);
+          v0 = __fmul_rn(p0, s0);
+          v1 = __fmul_rn(p1, s1);
+        }
+        const long long at = (long long)row * a.Cout + col;
+        if (a.out_f32) {
+          *reinterpret_cast<float2*>(static_cast<float*>(a.out) + at) = make_float2(v0, v1);
+          continue;
+        }
         if (a.bias) {
           v0 = __fadd_rn(__bfloat162float(__float2bfloat16_rn(v0)), bias0);
           v1 = __fadd_rn(__bfloat162float(__float2bfloat16_rn(v1)), bias1);
         }
-        *reinterpret_cast<__nv_bfloat162*>(a.out + (long long)row * a.Cout + col) =
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(a.out) + at) =
             __floats2bfloat162_rn(v0, v1);
       }
     }
   }
 }
 
+template <int kEpi>
+cudaError_t launch(const ConvArgs& a, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      conv_int8_kernel<kEpi>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const long long M = (long long)a.B * a.OH * a.OW;
+  const dim3 grid((unsigned)((M + kBM - 1) / kBM), (unsigned)((a.Cout + kBN - 1) / kBN));
+  conv_int8_kernel<kEpi><<<grid, kThreads, kSmemBytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x [B, H, W, Cin] int8, w [Cout, KH, KW, Cin] int8, ws [Cout] fp32, bias
-// [Cout] bf16 or null, out [B, OH, OW, Cout] bf16; all contiguous and
-// 16-byte aligned. Cin % 32 == 0, Cout % 2 == 0. Returns cudaGetLastError().
+// [Cout] bf16 or null, out [B, OH, OW, Cout] bf16 (fp32 with out_f32, then
+// bias null); all contiguous and 16-byte aligned. Cin % 32 == 0, Cout % 2 ==
+// 0. epilogue: 0 "xla", 1 "tpu", 2 "halo" (see the top of this file).
+// Returns cudaGetLastError().
 extern "C" int d3r_conv2d_int8(const void* x, const void* w, const void* ws, const void* bias,
                                void* out, int B, int H, int W, int Cin, int OH, int OW,
                                int Cout, int KH, int KW, int stride, int pad_t, int pad_l,
-                               float act_scale, void* stream) {
-  if (B <= 0 || OH <= 0 || OW <= 0 || Cin % kBK != 0 || Cout % 2 != 0 || stride <= 0)
+                               float act_scale, int epilogue, int out_f32, void* stream) {
+  if (B <= 0 || OH <= 0 || OW <= 0 || Cin % kBK != 0 || Cout % 2 != 0 || stride <= 0 ||
+      (out_f32 && bias))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      conv_int8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
   ConvArgs a{static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
              static_cast<const float*>(ws), static_cast<const bf16*>(bias),
-             static_cast<bf16*>(out), B, H, W, Cin, OH, OW, Cout, KH, KW, stride, pad_t,
-             pad_l, act_scale};
-  const long long M = (long long)B * OH * OW;
-  const dim3 grid((unsigned)((M + kBM - 1) / kBM), (unsigned)((Cout + kBN - 1) / kBN));
-  conv_int8_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+             out, B, H, W, Cin, OH, OW, Cout, KH, KW, stride, pad_t, pad_l, act_scale,
+             out_f32};
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (epilogue) {
+    case kXla:
+      return (int)launch<kXla>(a, st);
+    case kTpu:
+      return (int)launch<kTpu>(a, st);
+    case kHalo:
+      return (int)launch<kHalo>(a, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

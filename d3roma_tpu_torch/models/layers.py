@@ -28,13 +28,19 @@ context (calibration) every such site records its tap and runs in float, and
 the attention kernels are skipped, as in the JAX package.
 `quant="wino_static"` is the same, except that every stride-1 3x3 conv that
 `ops/winograd.py` routes to Winograd runs the bf16 Winograd kernel and takes
-no scale.
+no scale. `quant="mxu"` and `quant="halo"` are "static" with the stride-1
+3x3 convs their TPU kernel's gate admits dequantized in that kernel's order
+(`ops/quant.py::int8_conv_mxu`, `int8_conv_halo`).
 
 Two further kernels of the JAX package's opt-in configuration: the fused
 GroupNorm + SiLU (`GroupNormSiLU.fused`, `set_kernels(fused_norm=True)`) at
 shapes its gate admits, and the fused self-attention
 (`use_flash="fused"`), whose int8 body serves every self-attention site the
-gate admits under static int8 and takes one scale of kind "attn".
+gate admits under static int8 and takes one scale of kind "attn", and whose
+bf16 body serves the sites the gate admits at itemsize 2 without int8. A
+truthy `use_flash` also sends the self-attention sites of >= FLASH_MIN_SEQ
+tokens that took no other kernel to the whole-row bf16 kernel, where the
+JAX package takes the TPU library's flash attention.
 """
 
 from __future__ import annotations
@@ -47,8 +53,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from d3roma_tpu_torch.ops.kernels import (
-    conv2d_int8,
     fused_attention_supported,
+    fused_self_attention_bf16,
     fused_self_attention_int8,
     geglu_ff,
     geglu_ff_int8,
@@ -61,22 +67,27 @@ from d3roma_tpu_torch.ops.kernels import (
     winograd_weight,
 )
 from d3roma_tpu_torch.ops.quant import (
+    INT8_CONV_ROUTES,
     QUANT_MODES,
     STATIC_MODES,
     act_ctx_mode,
     consume_act_scale,
-    fp32,
     int8_linear,
     quantize_weight,
 )
 from d3roma_tpu_torch.ops.winograd import conv_hwio_shape, winograd_conv, wino_static_route
 
-# use_flash values ported so far: False (plain attention everywhere),
-# "pallas" (the whole-row kernel at every site with >= 512 keys),
-# "pallas-self" (the kernel at such self-attention sites only) and "fused"
-# (the fused self-attention kernel, int8 body only, at every self-attention
-# site its gate admits; cross-attention unfused)
-ATTENTION_ROUTES = (False, "pallas", "pallas-self", "fused")
+# use_flash values ported so far: False (plain attention everywhere), True
+# (the whole-row kernel at self-attention sites of >= FLASH_MIN_SEQ tokens,
+# the JAX package's TPU flash route), "pallas" (the whole-row kernel at every
+# site with >= 512 keys), "pallas-self" (the kernel at such self-attention
+# sites only) and "fused" (the fused self-attention kernel at every
+# self-attention site its gate admits; cross-attention unfused). Every truthy
+# value takes the flash route at the long self-attention sites the others
+# leave.
+ATTENTION_ROUTES = (False, True, "pallas", "pallas-self", "fused")
+# the JAX CrossAttention's default `flash_min_seq`, which its UNet keeps
+FLASH_MIN_SEQ = 1024
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, flip_sin_to_cos: bool = True,
@@ -117,17 +128,10 @@ class _Cached:
         return self._cache[1]
 
 
-def _int8_weight(w: torch.Tensor):
-    """The int8 weight [Cout, ...] and fp32 scales [Cout] of a weight,
-    contiguous."""
-    wq, ws = quantize_weight(w)
-    return wq.contiguous(), ws.contiguous()
-
-
 def _int8_conv_weight(w: torch.Tensor):
-    """`_int8_weight` of a conv weight laid out [Cout, KH, KW, Cin]:
+    """`quantize_weight` of a conv weight laid out [Cout, KH, KW, Cin]:
     K-contiguous rows, as the int8 conv kernel takes them."""
-    return _int8_weight(w.permute(0, 2, 3, 1))
+    return quantize_weight(w.permute(0, 2, 3, 1))
 
 
 class Linear(nn.Linear):
@@ -138,7 +142,7 @@ class Linear(nn.Linear):
     def __init__(self, in_features: int, out_features: int, bias: bool = True):
         super().__init__(in_features, out_features, bias=bias)
         self.quant = False
-        self._int8 = _Cached(_int8_weight)
+        self._int8 = _Cached(quantize_weight)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.weight.dtype)
@@ -161,7 +165,8 @@ class Conv2d(nn.Conv2d):
     quant="wino_static" sends the convs `wino_static_route` admits to the
     Winograd kernel (U = winograd_weight(w), made once per weight; the bias
     added after the output's rounding, as Flax adds it) and the rest to the
-    static int8 conv."""
+    static int8 conv; the other static modes take their int8 conv route
+    (`INT8_CONV_ROUTES`)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0,
@@ -188,14 +193,16 @@ class Conv2d(nn.Conv2d):
                                       self.stride, pad)
             if chunk is not None:
                 return winograd_conv(x, self._wino.get(self.weight.to(dt)), dt, bias, chunk)
+
+        def float_conv():
+            y = self._conv_forward(x.permute(0, 3, 1, 2), self.weight.to(dt), bias)
+            return y.permute(0, 2, 3, 1)
+
         if self.quant in STATIC_MODES:
-            mode, scale = consume_act_scale(x, "conv")
-            if mode == "int8":
-                wq, ws = self._int8.get(self.weight)
-                return conv2d_int8(x, wq, ws, fp32(scale), bias, self.stride[0],
-                                   self.padding[0])
-        y = self._conv_forward(x.permute(0, 3, 1, 2), self.weight.to(dt), bias)
-        return y.permute(0, 2, 3, 1)
+            wq, ws = self._int8.get(self.weight)
+            return INT8_CONV_ROUTES[self.quant](x, wq, ws, bias, self.stride[0], self.padding[0],
+                                                float_conv)
+        return float_conv()
 
 
 def _group_stats(x: torch.Tensor, groups: int):
@@ -369,7 +376,8 @@ class CrossAttention(nn.Module):
     of ATTENTION_ROUTES; the whole-row kernel serves sites with >= 512 keys
     that `mha_supported` admits, as in the JAX package; "fused" sends the
     self-attention sites `fused_attention_supported` admits to the fused
-    kernel."""
+    kernel; any truthy value sends the other self-attention sites of >=
+    FLASH_MIN_SEQ tokens to the whole-row kernel."""
 
     def __init__(self, query_dim: int, heads: int, head_dim: int,
                  context_dim: Optional[int] = None, use_flash=False):
@@ -383,6 +391,13 @@ class CrossAttention(nn.Module):
         self.to_v = Linear(context_dim or query_dim, inner, bias=False)
         self.to_out = nn.ModuleList([Linear(inner, query_dim)])
         self._fused_operands = _Cached(self._make_fused_operands)
+        self._fused_bf16_operands = _Cached(self._make_fused_bf16_operands)
+
+    @staticmethod
+    def _make_fused_bf16_operands(wq, wk, wv, wo, bo):
+        """The fused bf16 kernel's operands: Wq, Wk, Wv stacked [3C, C], Wo
+        [C, C], bo in fp32."""
+        return torch.cat([wq, wk, wv]).contiguous(), wo.contiguous(), bo.float().contiguous()
 
     @staticmethod
     def _make_fused_operands(wq, wk, wv, wo, bo):
@@ -398,7 +413,8 @@ class CrossAttention(nn.Module):
         refuses it (the site then runs unfused). Under static int8 it takes
         one scale of kind "attn" on x; a capture pass or a pinned index runs
         the float math inline (bf16 projections, dot_product_attention, the
-        output projection), as the JAX package does."""
+        output projection), as the JAX package does. Without int8 it runs
+        the bf16 body, gated at the weights' itemsize."""
         B, N, C = x.shape
         inner = self.heads * self.head_dim
         aq = self.quant in STATIC_MODES
@@ -406,13 +422,12 @@ class CrossAttention(nn.Module):
         if not (C == inner and self.to_q.in_features == inner
                 and fused_attention_supported(N, inner, self.head_dim, itemsize)):
             return None
-        if not aq:
-            raise NotImplementedError(
-                "the bf16 fused self-attention (use_flash_attention='fused' without static "
-                "int8) is not ported yet")
         wq, wk, wv = self.to_q.weight, self.to_k.weight, self.to_v.weight
         wo, bo = self.to_out[0].weight, self.to_out[0].bias
         x = x.to(wq.dtype)
+        if not aq:
+            return fused_self_attention_bf16(
+                x, *self._fused_bf16_operands.get(wq, wk, wv, wo, bo), self.heads)
         mode, scale = consume_act_scale(x, "attn")
         if mode == "float":
             heads = (B, N, self.heads, self.head_dim)
@@ -435,10 +450,14 @@ class CrossAttention(nn.Module):
         v = self.to_v(context).reshape(B, M, self.heads, self.head_dim)
         use_kernel = self.use_flash == "pallas" or (self.use_flash == "pallas-self"
                                                     and is_self)
-        # the kernels take no tap, so a calibration capture skips them
-        if (use_kernel and M >= 512 and mha_supported(M, self.head_dim)
-                and act_ctx_mode() != "capture"):
+        # the whole-row kernels take no tap, so a calibration capture skips
+        # them; the flash route, as the JAX package's, runs under capture too
+        capture = act_ctx_mode() == "capture"
+        if use_kernel and M >= 512 and mha_supported(M, self.head_dim) and not capture:
             attn = (mha_attention_int8 if self.quant in STATIC_MODES else mha_attention)(q, k, v)
+        elif (self.use_flash and is_self and N >= FLASH_MIN_SEQ
+              and mha_supported(N, self.head_dim)):
+            attn = mha_attention(q, k, v)
         else:
             attn = dot_product_attention(q, k, v)
         return self.to_out[0](attn.reshape(B, N, self.heads * self.head_dim))

@@ -41,7 +41,8 @@ class UNet2DCondition(nn.Module):
     `use_flash_attention`, `fused_ff` and `fused_norm` route the attention,
     feed-forward and GroupNorm + SiLU sites to the kernels; `set_kernels`
     changes them after construction, and `set_quant` sets the int8 mode
-    (False, the default, "static" or "wino_static").
+    (one of ops/quant.py's QUANT_MODES: False, the default, "static",
+    "mxu", "halo" or "wino_static").
 
     `cache_depth` is the DeepCache shallow pass's depth: how many trailing
     up blocks (and the matching leading down blocks) the cached pass
@@ -150,8 +151,8 @@ class UNet2DCondition(nn.Module):
         self._cache_depth = int(depth)
 
     def set_quant(self, quant) -> None:
-        """Set the int8 mode (False, "static" or "wino_static") of every site
-        the JAX package quantizes; conv_in, the time embedding and the fp32
+        """Set the int8 mode (False or a static mode of ops/quant.py) of
+        every site the JAX package quantizes; conv_in, the time embedding and the fp32
         conv_out stay in float."""
         set_quant(self, quant)
         self.quant = quant

@@ -154,8 +154,8 @@ class AutoencoderKL(nn.Module):
         self.set_kernels(fused_norm)
 
     def set_quant(self, quant) -> None:
-        """Set the int8 mode (False, "static" or "wino_static") of every site
-        the JAX package quantizes."""
+        """Set the int8 mode (False or a static mode of ops/quant.py) of
+        every site the JAX package quantizes."""
         set_quant(self, quant)
         self.quant = quant
 

@@ -1,16 +1,19 @@
-"""Fused int8 self-attention (QKV projection, whole-row attention, output
-projection): the CUDA kernel, its plain PyTorch version, its gate and its
-launch counter.
+"""Fused self-attention (QKV projection, whole-row attention, output
+projection): the CUDA kernels of both bodies, their plain PyTorch versions,
+the gate and the launch counters.
 
-Port of `d3roma_tpu/ops/pallas/attention_fused.py::fused_self_attention`,
-its int8 body (`quant="static"`, kernel body `_kernel_int8`): x quantized at
-the static activation scale; int8 weights with per-(head, column) scales;
+Port of `d3roma_tpu/ops/pallas/attention_fused.py::fused_self_attention`.
+The int8 body (`quant="static"`, kernel body `_kernel_int8`) is
+`fused_self_attention_int8` over `csrc/attention_fused_int8.cu`: x quantized
+at the static activation scale; int8 weights with per-(head, column) scales;
 k and v re-quantized per (batch, head) over all rows, q per (256-row block,
 head); P quantized at 127 against the true row max; the output projection in
-bf16 with fp32 sums over the heads, starting from the bias. The kernel is
-`csrc/attention_fused_int8.cu`; its source note says what bounds it on the
-H100 and how it is built around that. The bf16 body (`_kernel_bf16`) is not
-ported yet.
+bf16 with fp32 sums over the heads, starting from the bias. The bf16 body
+(`quant=None`, `_kernel_bf16`) is `fused_self_attention_bf16` over
+`csrc/attention_fused_bf16.cu`: q, k, v rounded to x's type from fp32 sums,
+the whole-row softmax of `mha_attention`, the same output projection. Each
+source note says what bounds the kernel on the H100 and how it is built
+around that.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import Optional
 import torch
 
 from d3roma_tpu_torch.ops.kernels import _build
+from d3roma_tpu_torch.ops.kernels.attention import mha_attention_plain
 from d3roma_tpu_torch.ops.kernels.quantize import (
     fp32,
     ieee_div,
@@ -96,10 +100,20 @@ def fused_self_attention_int8_plain(x: torch.Tensor, wqkv: torch.Tensor, ws: tor
     denom = p.sum(dim=-1, keepdim=True)
     pv = _exact_matmul(torch.round(p * 127.0), vq.transpose(1, 2))
     o = (pv * ieee_div(sv, 127.0)[..., None, None] / denom).to(torch.bfloat16)
+    return _out_projection(o.transpose(1, 2), wo, bo, heads).to(x.dtype)
+
+
+def _out_projection(o: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor,
+                    heads: int) -> torch.Tensor:
+    """The TPU kernel's output projection, fp32: bo plus, in head order, each
+    head's o_h [B, N, d] times its slice of Wo [C, C] (output column, then
+    input)."""
+    b, n, c = o.shape[0], o.shape[1], wo.shape[0]
+    d = c // heads
     out = bo.float().expand(b, n, c)
     for h in range(heads):
-        out = out + torch.matmul(o[:, h].float(), wo[:, h * d:(h + 1) * d].float().t())
-    return out.to(x.dtype)
+        out = out + torch.matmul(o[:, :, h].float(), wo[:, h * d:(h + 1) * d].float().t())
+    return out
 
 
 def _library() -> ctypes.CDLL:
@@ -178,3 +192,84 @@ def fused_self_attention_int8(x: torch.Tensor, wqkv: torch.Tensor, ws: torch.Ten
 
 
 fused_self_attention_int8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# bf16 body
+
+
+def fused_self_attention_bf16_plain(x: torch.Tensor, wqkv: torch.Tensor, wo: torch.Tensor,
+                                    bo: torch.Tensor, heads: int,
+                                    sm_scale: Optional[float] = None) -> torch.Tensor:
+    """The TPU bf16 kernel's arithmetic in PyTorch. x [B, N, C]; wqkv [3C, C]
+    (the rows of Wq, Wk, Wv, one per output column) and wo [C, C] in x's
+    type; bo [C] -> [B, N, C] in x's type. q, k, v: fp32 sums rounded to x's
+    type; the whole-row attention of mha_attention_plain (P rounded to x's
+    type for the PV product, o_h rounded to it); the output projection in
+    fp32 from the bias, in head order."""
+    b, n, c = x.shape
+    qkv = torch.matmul(x.float(), wqkv.float().t()).to(x.dtype)
+    q, k, v = (t.reshape(b, n, heads, c // heads) for t in qkv.split(c, dim=-1))
+    o = mha_attention_plain(q, k, v, sm_scale)
+    return _out_projection(o, wo, bo, heads).to(x.dtype)
+
+
+def _library_bf16() -> ctypes.CDLL:
+    lib = _build.load("attention_fused_bf16")
+    fn = lib.d3r_fused_self_attention_bf16
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def fused_self_attention_bf16(x: torch.Tensor, wqkv: torch.Tensor, wo: torch.Tensor,
+                              bo: torch.Tensor, heads: int,
+                              sm_scale: Optional[float] = None) -> torch.Tensor:
+    """softmax((x Wq)(x Wk)^T / sqrt(d)) (x Wv) Wo + bo per head, with the
+    TPU kernel's bf16 arithmetic; see fused_self_attention_bf16_plain for
+    the operands.
+
+    CUDA tensors go to the Hopper kernels (bf16 x, wqkv and wo, head_dim 64):
+    three launches in one call; or raise. CPU tensors take the plain
+    version. `fused_self_attention_bf16.launches` counts the calls."""
+    if x.ndim != 3:
+        raise ValueError(f"fused_self_attention_bf16 takes x [B, N, C], got {tuple(x.shape)}")
+    b, n, c = x.shape
+    if c % heads or wqkv.shape != (3 * c, c) or wo.shape != (c, c) or bo.shape != (c,):
+        raise ValueError(f"operand shapes do not fit x {tuple(x.shape)} and {heads} heads")
+    for name, t in (("wqkv", wqkv), ("wo", wo), ("bo", bo)):
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    if x.device.type == "cpu":
+        fused_self_attention_bf16.launches += 1
+        return fused_self_attention_bf16_plain(x, wqkv, wo, bo, heads, sm_scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_self_attention_bf16 runs on CUDA or the CPU, got {x.device}")
+    if c != _HEAD_DIM * heads:
+        raise ValueError(f"the CUDA fused attention kernel takes head_dim 64, got {c // heads}")
+    if not (x.dtype == wqkv.dtype == wo.dtype == torch.bfloat16):
+        raise TypeError("the CUDA bf16 fused attention kernel takes bf16 x, wqkv and wo")
+    for name, t in (("wqkv", wqkv), ("wo", wo)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if b * n * 3 * c > 2**31 - 1:
+        raise ValueError("x is too large for the kernel's 32-bit indices")
+    scale = fp32(sm_scale if sm_scale is not None else 1.0 / math.sqrt(_HEAD_DIM))
+    dev = x.device
+    x = x.contiguous()
+    qkv = torch.empty((b, n, 3 * c), dtype=torch.bfloat16, device=dev)
+    o = torch.empty((b, n, c), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((b, n, c), dtype=torch.bfloat16, device=dev)
+    bo32 = bo.float().contiguous()
+    with torch.cuda.device(dev):
+        err = _library_bf16().d3r_fused_self_attention_bf16(
+            x.data_ptr(), wqkv.data_ptr(), wo.data_ptr(), bo32.data_ptr(), qkv.data_ptr(),
+            o.data_ptr(), out.data_ptr(), b, n, c, heads, scale, _build.current_stream(dev))
+    _build.check(err, "fused_self_attention_bf16")
+    fused_self_attention_bf16.launches += 1
+    return out
+
+
+fused_self_attention_bf16.launches = 0

@@ -1,5 +1,6 @@
 """Static int8 quantization of an activation: the CUDA kernel, its plain
-PyTorch version and its launch counter.
+PyTorch version and its launch counter; and the per-output-channel weight
+quantization every int8 op of the port shares.
 
 The JAX package leaves this elementwise step to XLA
 (`d3roma_tpu/ops/quant.py::quantize_int8`), which fuses it into the op that
@@ -10,6 +11,7 @@ of every static int8 dense, convolution and fused GEGLU of the port.
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -37,6 +39,22 @@ def quantize_int8_plain(x: torch.Tensor, scale) -> torch.Tensor:
     q = torch.round(torch.div(xf, scale) if isinstance(scale, torch.Tensor)
                     else ieee_div(xf, scale))
     return torch.clamp(q, -127.0, 127.0).to(torch.int8)
+
+
+def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-channel (dim 0) int8 weights and their fp32 scales [Cout],
+    both contiguous: the scale is the absmax over every other axis times
+    fp32(1/127), >= 1e-8. The JAX package divides the absmax by 127 (over
+    all but the last axis of its [..., Cout] kernels); inside its jitted
+    forward, the form its bench runs, XLA turns that division by a constant
+    into this product with the fp32 reciprocal (an eager JAX call divides,
+    and can differ in the last place)."""
+    w = w.detach()
+    m = w.float().abs().amax(dim=tuple(range(1, w.ndim)))
+    inv = torch.tensor(fp32(1.0 / 127.0), dtype=torch.float32, device=w.device)
+    s = torch.clamp_min(m * inv, 1e-8)
+    wq = quantize_int8_plain(w, s.reshape((-1,) + (1,) * (w.ndim - 1)))
+    return wq.contiguous(), s.contiguous()
 
 
 def _library() -> ctypes.CDLL:

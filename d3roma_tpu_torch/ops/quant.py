@@ -1,12 +1,21 @@
 """Static int8: per-call activation scales (capture and replay), weight
-quantization, and the int8 dense and convolution of the `"static"` mode
-(both served on CUDA by the int8 conv kernel, the dense as a 1x1 conv).
+quantization, and the int8 dense and convolutions of the static modes
+(all served on CUDA by the int8 conv kernel, the dense as a 1x1 conv).
 
-Port of `d3roma_tpu/ops/quant.py` (`absmax_scale`, `quantize_int8`,
-`STATIC_ACT_SCALE`, the act-scale context, `consume_act_scale`,
-`int8_dot_general_static`, `int8_conv_general_dilated_static`). The
-percentile-clipping half (quantiles, `with_act_clipping`, call maps, kind
-pins) is not ported yet.
+Port of `d3roma_tpu/ops/quant.py` (`absmax_scale` of a weight as
+`quantize_weight`, `quantize_int8`, `STATIC_ACT_SCALE`, the act-scale
+context, `consume_act_scale`, `int8_dot_general_static`,
+`int8_conv_general_dilated_static`, `int8_conv_mxu`, `int8_conv_halo`).
+The percentile-clipping half (quantiles, `with_act_clipping`, call maps,
+kind pins) is not ported yet.
+
+The static modes differ only at the convolutions: "static" runs each in the
+XLA conv's order of arithmetic; "mxu" and "halo" send the stride-1 SAME 3x3
+convs that their TPU kernel's gate admits (`conv3x3_supported` at int8,
+`halo_conv_supported`) to the int8 conv kernel in that TPU kernel's order
+("tpu", "halo" epilogue) and the rest to the static conv; "wino_static"
+sends some 3x3 convs to Winograd (ops/winograd.py). Every int8 conv takes
+one "conv" tap whichever route it takes, so all four replay one table.
 
 The static int8 ops take their activation scale in call order: each
 quantized dense or convolution calls `consume_act_scale` once per forward.
@@ -20,37 +29,30 @@ JSON form, so a table captured by either package replays in the other.
 
 Arithmetic, as in the JAX package: clip(round_half_even(x / scale), -127,
 127) with an IEEE division by an fp32 scale; per-output-channel weight
-scales absmax/127 (>= 1e-8); exact int32 sums; the dequantization
-acc * act_scale * weight_scale in fp32, in that order, then one cast to the
-input type, and the bias added in that type.
+scales absmax * fp32(1/127) (>= 1e-8), the JAX division as its jitted
+forward computes it (ops/kernels/quantize.py::quantize_weight); exact
+int32 sums; the dequantization acc * act_scale * weight_scale in fp32, in
+that order, then one cast to the input type, and the bias added in that
+type.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from d3roma_tpu_torch.ops.kernels import conv2d_int8
-from d3roma_tpu_torch.ops.kernels.quantize import fp32, ieee_div
+from d3roma_tpu_torch.ops.kernels import conv2d_int8, conv3x3_supported, halo_conv_supported
+from d3roma_tpu_torch.ops.kernels.quantize import fp32, ieee_div, quantize_weight
 from d3roma_tpu_torch.ops.kernels.quantize import quantize_int8_plain as quantize_int8
 
-EPS = 1e-8
 # the uncalibrated activation scale: normalized activations rarely exceed ~8
 STATIC_ACT_SCALE = 8.0 / 127.0
-QUANT_MODES = (False, "static", "wino_static")
-# the modes whose int8 sites take static (calibrated) activation scales;
-# "wino_static" differs from "static" only at the convolutions that
-# ops/winograd.py routes to Winograd, which take no scale
-STATIC_MODES = ("static", "wino_static")
-
-
-def absmax_scale(x: torch.Tensor, dims) -> torch.Tensor:
-    """Symmetric absmax scale over `dims`, kept dims, fp32, >= 1e-8."""
-    m = x.float().abs().amax(dim=dims, keepdim=True)
-    return torch.clamp_min(ieee_div(m, 127.0), EPS)
+QUANT_MODES = (False, "static", "mxu", "halo", "wino_static")
+# the modes whose int8 sites take static (calibrated) activation scales
+STATIC_MODES = ("static", "mxu", "halo", "wino_static")
 
 
 class _ActScaleCtx(threading.local):
@@ -140,15 +142,6 @@ def consume_act_scale(x: torch.Tensor, kind: str) -> Tuple[str, Optional[float]]
     return "int8", STATIC_ACT_SCALE
 
 
-def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-output-channel (dim 0) int8 weights and their fp32 scales [Cout]:
-    the absmax over every other axis, as the JAX package takes it over all
-    but the last axis of its [..., Cout] kernels."""
-    dims = tuple(range(1, w.ndim))
-    s = absmax_scale(w.detach(), dims)
-    return quantize_int8(w.detach(), s), s.reshape(-1)
-
-
 def _int_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Exact int8 [m, k] @ [k, n] -> int32, through float64 (exact below
     2^53; fp32 stops being exact past 2^24)."""
@@ -176,6 +169,60 @@ def int8_linear(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor, act_scale: 
     if b is not None:
         out = out + b
     return out.reshape(lead + (n,))
+
+
+def int8_conv_static(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
+                     bias: Optional[torch.Tensor], stride: int, padding: int,
+                     float_conv: Callable[[], torch.Tensor],
+                     epilogue: str = "xla") -> torch.Tensor:
+    """One static int8 convolution site: one "conv" tap on x; under capture
+    (or at a pinned index) `float_conv()`, else the int8 conv of x (NHWC, in
+    the compute type) with wq [Cout, KH, KW, Cin] int8, ws [Cout] fp32 and
+    the bias added after the cast, in x's type, with `epilogue`'s order of
+    arithmetic."""
+    mode, scale = consume_act_scale(x, "conv")
+    if mode == "float":
+        return float_conv()
+    return conv2d_int8(x, wq, ws, fp32(scale), bias, stride, padding, epilogue)
+
+
+def _conv_geometry(wq: torch.Tensor, stride: int, padding: int):
+    """The HWIO weight shape, strides and padding of a port conv, in the
+    form the JAX gates take them."""
+    return ((wq.shape[1], wq.shape[2], wq.shape[3], wq.shape[0]), (stride, stride),
+            ((padding, padding), (padding, padding)))
+
+
+def int8_conv_mxu(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
+                  bias: Optional[torch.Tensor], stride: int, padding: int,
+                  float_conv: Callable[[], torch.Tensor]) -> torch.Tensor:
+    """quant="mxu": a stride-1 SAME 3x3 conv whose int8 frame the TPU
+    kernel's gate admits takes the int8 kernel in `conv3x3_flat`'s order,
+    acc * (act_scale * ws); any other conv the static conv. One "conv" tap
+    either way."""
+    hwio, strides, pad = _conv_geometry(wq, stride, padding)
+    ok = conv3x3_supported(tuple(x.shape), hwio, strides, pad, torch.int8)
+    return int8_conv_static(x, wq, ws, bias, stride, padding, float_conv,
+                            "tpu" if ok else "xla")
+
+
+def int8_conv_halo(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
+                   bias: Optional[torch.Tensor], stride: int, padding: int,
+                   float_conv: Callable[[], torch.Tensor]) -> torch.Tensor:
+    """quant="halo": a stride-1 SAME 3x3 conv the halo kernel's gate admits
+    takes the int8 kernel in `conv3x3_halo`'s order (an int32 partial per
+    row of taps, added in fp32, times act_scale * ws); any other conv the
+    static conv. One "conv" tap either way."""
+    hwio, strides, pad = _conv_geometry(wq, stride, padding)
+    ok = halo_conv_supported(tuple(x.shape), hwio, strides, pad)
+    return int8_conv_static(x, wq, ws, bias, stride, padding, float_conv,
+                            "halo" if ok else "xla")
+
+
+# the int8 conv route of each static mode (Winograd sites of "wino_static"
+# are routed before it)
+INT8_CONV_ROUTES = {"static": int8_conv_static, "wino_static": int8_conv_static,
+                    "mxu": int8_conv_mxu, "halo": int8_conv_halo}
 
 
 def stack_taps(taps: List[torch.Tensor]) -> np.ndarray:

@@ -96,8 +96,8 @@ class GuidedLatentDiffusionPipeline:
         return self
 
     def set_quant(self, quant) -> "GuidedLatentDiffusionPipeline":
-        """The int8 mode (False, "static" or "wino_static") of the UNet and
-        the VAE."""
+        """The int8 mode (False, "static", "mxu", "halo" or "wino_static") of
+        the UNet and the VAE."""
         self.unet.set_quant(quant)
         self.vae.set_quant(quant)
         return self

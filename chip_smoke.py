@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase
+    python3 chip_smoke.py --geglu    # device, build and the two GEGLU kernels' cases only
 
 Run from the repository root, on a machine with a CUDA GPU and nvcc (the
 kernels build from d3roma_tpu_torch/csrc/ at first use). Phases, each
@@ -14,7 +15,10 @@ failing the run on its own error:
    time kernel, plain version and one library call, and compute the bound
    (bf16 peak for the bf16 kernels, int8 peak for the int8 ones); the int8
    conv kernel in each of its three epilogues through the JAX entry points
-   (conv3x3_flat, conv3x3_rowtap, conv3x3_halo), bit-equal;
+   (conv3x3_flat, conv3x3_rowtap, conv3x3_halo), bit-equal; the two GEGLU
+   kernels at the UNet's four levels at batch 2 and 16, timed in turns with
+   their library call (K L L K), with their host and device ms per call,
+   the int8 one bit-equal;
 4. latency path: GuidedLatentDiffusionPipeline.fast_inference("latency")
    at the full SD2.1 geometry (random seeded weights held in bf16), batch
    2, RGB + raw at 640x360, 10 DDIM steps; the launch counts of one call
@@ -187,48 +191,122 @@ def _attention_case(b, n, m, h, d, gen, timed):
     return _check_row("attention", row, err, tol)
 
 
+def time_in_turns(kernel, library):
+    """Kernel and library call timed in turns (K L L K): the mean ms of
+    each."""
+    k1, l1, l2, k2 = (time_ms(fn) for fn in (kernel, library, library, kernel))
+    return (k1 + k2) / 2, (l1 + l2) / 2
+
+
+def _plan_fields(rows, c, f, int8):
+    from d3roma_tpu_torch.ops.kernels import geglu
+
+    plan = geglu.geglu_plan(rows, c, f, int8, geglu._sm_count(0))
+    return {"gate_cols": geglu.GATE_COLS, "out_cols": plan.out_cols, "splits": plan.splits,
+            "workspace_mb": plan.workspace_bytes / 1e6}
+
+
+def host_and_device_ms(fn, calls: int = 20):
+    """Host time to issue one call of fn (the mean over `calls` issued right
+    after a synchronize: too few for the launch queue to fill, so the device
+    never holds the host back) and device time of one call (its kernels'
+    time summed by torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_ms = (time.perf_counter() - t0) / calls * 1e3
+    _sync()
+    for _ in range(2):  # the first session of a process can miss early kernels
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            _sync()
+    device_us = 0.0
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0.0)
+        if us > 0 and getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            device_us += us
+    return host_ms, device_us / calls / 1e3
+
+
+def _timed_against_library(row, kernel, library):
+    """ms and library_ms in turns, their ratio, the bound's share of ms, and
+    the kernel's host and device ms per call (ms is about the larger)."""
+    row["ms"], row["library_ms"] = time_in_turns(kernel, library)
+    row["ratio_to_library"] = row["ms"] / row["library_ms"]
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    row["host_ms"], row["device_ms"] = host_and_device_ms(kernel)
+
+
 def _geglu_case(rows, c, f, gen, timed):
     import torch
     import torch.nn.functional as F
 
-    from d3roma_tpu_torch.ops.kernels import geglu
     from d3roma_tpu_torch.ops.kernels import geglu_ff, geglu_ff_plain
 
     def rnd(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device="cuda") * scale
 
     x = rnd(1, rows, c).to(torch.bfloat16)
-    w1h, w1g = (rnd(c, f, scale=c ** -0.5).to(torch.bfloat16) for _ in range(2))
-    w2 = rnd(f, c, scale=f ** -0.5).to(torch.bfloat16)
+    # K-major weights, as FeedForward hands them over: transposed views
+    w1h_t, w1g_t = (rnd(f, c, scale=c ** -0.5).to(torch.bfloat16) for _ in range(2))
+    w2_t = rnd(c, f, scale=f ** -0.5).to(torch.bfloat16)
+    w1h, w1g, w2 = w1h_t.t(), w1g_t.t(), w2_t.t()
     b1h, b1g, b2 = rnd(f, scale=0.1), rnd(f, scale=0.1), rnd(c, scale=0.1)
     out = geglu_ff(x, w1h, w1g, w2, b1h, b1g, b2)
     ref = geglu_ff_plain(x.float(), w1h.float(), w1g.float(), w2.float(), b1h, b1g, b2)
     _sync()
     err = (out.float() - ref).abs().max().item()
-    cb = geglu._output_chunk(c)
     tol = REL_TOL * ref.abs().max().item()
     row = {"shape": [rows, c, f], "max_abs_err": err, "tol": tol,
-           "max_abs_out": ref.abs().max().item(), "column_chunk": cb,
-           "hidden_splits": geglu._hidden_splits(rows, c, f, cb, x.device.index)}
+           "max_abs_out": ref.abs().max().item(), **_plan_fields(rows, c, f, False)}
     if timed:
-        w1 = torch.cat([w1h, w1g], dim=1).t().contiguous()
+        w1 = torch.cat([w1h_t, w1g_t]).contiguous()
         b1 = torch.cat([b1h, b1g]).to(torch.bfloat16)
-        w2t = w2.t().contiguous()
         b2l = b2.to(torch.bfloat16)
 
         def library():
             hh, gg = F.linear(x, w1, b1).chunk(2, dim=-1)
-            return F.linear(hh * F.gelu(gg, approximate="tanh"), w2t, b2l)
+            return F.linear(hh * F.gelu(gg, approximate="tanh"), w2_t, b2l)
 
-        row["ms"] = time_ms(lambda: geglu_ff(x, w1h, w1g, w2, b1h, b1g, b2))
-        row["plain_ms"] = time_ms(lambda: geglu_ff_plain(x, w1h, w1g, w2, b1h, b1g, b2),
-                                  reps=5)
-        row["library_ms"] = time_ms(library)
-        row["library_call"] = "F.linear(x, W1) -> gelu -> F.linear(y, W2) (bf16)"
         flops = 6.0 * rows * c * f
         nbytes = 2.0 * (2 * rows * c + 3 * c * f) + 4.0 * (2 * f + c)
         row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
+        _timed_against_library(row, lambda: geglu_ff(x, w1h, w1g, w2, b1h, b1g, b2), library)
+        row["plain_ms"] = time_ms(lambda: geglu_ff_plain(x, w1h, w1g, w2, b1h, b1g, b2),
+                                  reps=5)
+        row["library_call"] = "F.linear(x, W1) -> gelu -> F.linear(y, W2) (bf16)"
     return _check_row("geglu", row, err, tol)
+
+
+# (rows, C, F) of the UNet's four levels (3600, 920, 240, 60 tokens) at
+# batch 2, then at the benchmark's batch 16
+GEGLU_SHAPES = tuple((bt * t, c, 4 * c) for bt in (BATCH, 16)
+                     for t, c in ((3600, 320), (920, 640), (240, 1280), (60, 1280)))
+
+
+def geglu_cases(gen):
+    """The bf16 GEGLU at its flagship shapes (timed) and ragged ones."""
+    rows = [_geglu_case(*shape, gen, True) for shape in GEGLU_SHAPES]
+    for shape in ((100, 64, 256), (33, 1280, 5120), (7, 32, 128), (50, 1920, 7680)):
+        _geglu_case(*shape, gen, False)
+    return rows
+
+
+def geglu_int8_cases(gen):
+    """The int8 GEGLU at its flagship shapes (timed) and ragged ones."""
+    rows = [_geglu_int8_case(*shape, gen, True) for shape in GEGLU_SHAPES]
+    for shape in ((100, 64, 256), (33, 1280, 5120), (300, 320, 1280), (50, 1920, 7680),
+                  (1000, 640, 2560)):
+        _geglu_int8_case(*shape, gen, False)
+    return rows
 
 
 def kernel_phase():
@@ -242,12 +320,7 @@ def kernel_phase():
     for shape in ((1, 600, 600, 2, 64), (2, 300, 77, 3, 32), (1, 100, 130, 2, 128),
                   (1, 70, 50, 1, 48)):
         _attention_case(*shape, gen, False)
-    geglu = [_geglu_case(BATCH * 3600, 320, 1280, gen, True),
-             _geglu_case(BATCH * 920, 640, 2560, gen, True),
-             _geglu_case(BATCH * 240, 1280, 5120, gen, True),
-             _geglu_case(BATCH * 60, 1280, 5120, gen, True)]
-    for shape in ((100, 64, 256), (33, 1280, 5120), (7, 32, 128), (50, 1920, 7680)):
-        _geglu_case(*shape, gen, False)
+    geglu = geglu_cases(gen)
     _sync()
     return attn, geglu
 
@@ -298,7 +371,6 @@ def _geglu_int8_case(rows, c, f, gen, timed):
     import torch.nn.functional as F
 
     from d3roma_tpu_torch.ops.kernels import geglu_ff_int8, geglu_ff_int8_plain
-    from d3roma_tpu_torch.ops.kernels.geglu import int8_output_chunk
     from d3roma_tpu_torch.ops.quant import fp32, quantize_int8
 
     x = torch.randn((1, rows, c), generator=gen, device="cuda").to(torch.bfloat16)
@@ -308,9 +380,10 @@ def _geglu_int8_case(rows, c, f, gen, timed):
     ref = geglu_ff_int8_plain(x, *ops_in, act).float()
     _sync()
     err = (out.float() - ref).abs().max().item()
-    tol = REL_TOL * ref.abs().max().item()
-    row = {"shape": [rows, c, f], "max_abs_err": err, "tol": tol,
-           "max_abs_out": ref.abs().max().item(), "column_chunk": int8_output_chunk(c)}
+    # bit-equal: the kernels take the plain version's fp32 operations in its
+    # order, and the int32 sums are exact
+    row = {"shape": [rows, c, f], "max_abs_err": err, "tol": 0.0,
+           "max_abs_out": ref.abs().max().item(), **_plan_fields(rows, c, f, True)}
     if timed:
         w1hq, w1gq, w2q = ops_in[:3]
         w1t = torch.cat([w1hq, w1gq]).t()  # [C, 2F], column-major
@@ -322,15 +395,14 @@ def _geglu_int8_case(rows, c, f, gen, timed):
             y = hg[:, :f] * F.gelu(hg[:, f:], approximate="tanh")
             return torch._int_mm(y.to(torch.int8), w2t)
 
-        row["ms"] = time_ms(lambda: geglu_ff_int8(x, *ops_in, act))
-        row["plain_ms"] = time_ms(lambda: geglu_ff_int8_plain(x, *ops_in, act), reps=3,
-                                  warmup=1)
-        row["library_ms"] = time_ms(library)
-        row["library_call"] = "torch._int_mm(xq, W1) -> gelu -> torch._int_mm(y, W2)"
         ops = 6.0 * rows * c * f
         nbytes = 2.0 * 2 * rows * c + 3.0 * c * f + 4.0 * (4 * f + 2 * c)
         row["bound_ms"], row["bound_by"] = bound(ops, nbytes, H100_INT8_OPS)
-    return _check_row("geglu_int8", row, err, tol)
+        _timed_against_library(row, lambda: geglu_ff_int8(x, *ops_in, act), library)
+        row["plain_ms"] = time_ms(lambda: geglu_ff_int8_plain(x, *ops_in, act), reps=3,
+                                  warmup=1)
+        row["library_call"] = "torch._int_mm(xq, W1) -> gelu -> torch._int_mm(y, W2)"
+    return _check_row("geglu_int8", row, err, 0.0)
 
 
 def _conv_int8_case(b, h, w, cin, cout, k, stride, padding, gen, timed):
@@ -409,14 +481,7 @@ def int8_kernel_phase():
     for shape in ((1, 600, 600, 2, 64), (2, 300, 77, 3, 64), (1, 100, 130, 2, 128),
                   (1, 70, 50, 1, 32), (1, 200, 150, 1, 512), (1, 90, 90, 2, 256)):
         _attention_int8_case(*shape, gen, False)
-    rows["geglu_int8"] = [
-        _geglu_int8_case(BATCH * 3600, 320, 1280, gen, True),
-        _geglu_int8_case(BATCH * 920, 640, 2560, gen, True),
-        _geglu_int8_case(BATCH * 240, 1280, 5120, gen, True),
-        _geglu_int8_case(BATCH * 60, 1280, 5120, gen, True)]
-    for shape in ((100, 64, 256), (33, 1280, 5120), (300, 320, 1280), (50, 1920, 7680),
-                  (1000, 640, 2560)):
-        _geglu_int8_case(*shape, gen, False)
+    rows["geglu_int8"] = geglu_int8_cases(gen)
     rows["conv2d_int8"] = [
         _conv_int8_case(BATCH, 23, 40, 1920, 640, 3, 1, 1, gen, True),   # UNet up block 2
         _conv_int8_case(2 * BATCH, H, W, 128, 128, 3, 1, 1, gen, True),  # VAE encoder
@@ -1084,6 +1149,7 @@ def latency_fused_phase(pipe, inputs):
         print(f"in turns: {label} {statistics.median(turns[route]):.2f} ms/frame, median of "
               f"{[round(t, 2) for t in turns[route]]}", flush=True)
 
+    pipe.unet.set_kernels(use_flash_attention="fused")  # the turns end on latency's route
     profile_phase(run, "latency-fused")
 
     # One UNet forward through the kernels against the same forward through
@@ -1297,13 +1363,14 @@ _KERNEL_GROUPS = (
     ("conv2d_int8 kernel (tpu epilogue)", ("conv_int8_kernel<1>",)),
     ("conv2d_int8 kernel (halo epilogue)", ("conv_int8_kernel<2>",)),
     ("conv2d_int8 kernel", ("conv_int8_kernel",)),
-    ("geglu_ff_int8 kernel", ("geglu_int8_kernel",)),
+    ("geglu_ff_int8 kernels (table clear, absmax, requantize, output, split sum)",
+     ("geglu_int8_",)),
     # the rows kernel is also the fused attention's core (head width 64)
     ("int8 whole-row attention kernels (mha_attention_int8; the fused attention's core)",
      ("mha_int8_rows_kernel", "mha_int8_wide_kernel", "absmax_kernel",
       "quantize_heads_kernel")),
     ("quantize_int8 kernel", ("quantize_bf16_vec8", "quantize_scalar")),
-    ("geglu_ff kernel", ("geglu_kernel", "geglu_reduce")),
+    ("geglu_ff kernels (gate, output, split sum)", ("geglu_bf16_",)),
     ("mha_attention kernel (bf16; the bf16 fused attention's core)", ("mha_kernel",)),
     ("convolution", ("conv", "cudnn", "xmma_fprop", "implicit_gemm", "nhwc", "winograd")),
     ("matmul", ("gemm", "cutlass", "cublas", "sm90_xmma", "splitk")),
@@ -1370,6 +1437,15 @@ def main() -> int:
     pin_one_card()
     card = device_phase()
     build_phase()
+    if sys.argv[1:] == ["--geglu"]:
+        import torch
+
+        gen = torch.Generator(device="cuda").manual_seed(1234)
+        geglu_cases(gen)
+        geglu_int8_cases(gen)
+        _sync()
+        print("GEGLU cases passed", flush=True)
+        return 0
     attn_rows, geglu_rows = kernel_phase()
     int8_rows = int8_kernel_phase()
     opt_rows = opt_in_kernel_phase()

@@ -1,9 +1,10 @@
-// Fused GEGLU feed-forward for Hopper (sm_90a) with both products in int8:
+// GEGLU feed-forward for Hopper (sm_90a) with both products in int8:
 //   h = (xq . W1h) * d1h + b1h,  g = (xq . W1g) * d1g + b1g     (fp32)
 //   y = h * gelu_tanh(g);  yq = round(y / sy)   (sy per tile, see below)
 //   out = bf16(b2 + sum over F chunks of (yq . W2) * (sy * s2))
 // with x quantized by the wrapper at the static activation scale, the
-// weights per column (d1h = act_scale * s1h, d1g likewise).
+// weights per column (d1h = s1h * act_scale, d1g likewise, one fp32
+// product each, taken in the kernel).
 //
 // Replaces: d3roma_tpu/ops/pallas/geglu.py::geglu_ff, its int8 path (kernel
 // body _kernel_int8). That TPU kernel walks row blocks of 2048 (C <= 640) or
@@ -12,78 +13,62 @@
 // (sub_rows 512 or 256; blk_cols 640 at F = 1280 and 2560, 1024 at
 // F = 5120). The zero-padded rows reach that absmax too, as b1h * gelu(b1g).
 //
-// What bounds it on the H100: operations. Per row the two products do
-// 6*C*F int8 operations against the weights (3*C*F bytes), read once per
-// row tile; at the flagship widths (C, F) = (320, 1280), (640, 2560),
-// (1280, 5120) and 120-7200 rows the products dominate.
+// What bounds it on the H100: operations at the flagship widths (C, F) =
+// (320, 1280), (640, 2560), (1280, 5120) from 480 rows up (6*C*F int8
+// operations a row); at 120 rows, the weight bytes (3*C*F, 20 MB at
+// C = 1280).
 //
-// Design: a Hopper block of 32 rows cannot see the absmax of a 512-row
-// tile, so the scale grid is computed first, in its own pass:
-//   pass 1: one block per (32 rows, 32 columns of F) computes h, g and y and
-//           folds max |y| into the table [ceil(rows/sub_rows), F/blk_cols]
-//           with atomicMax on the bit pattern (non-negative floats order as
-//           their bits do). Its rows run up to the end of the last sub_rows
-//           tile that holds a real row, with zero x past the real rows, so
-//           the padded rows the TPU kernel sees are seen here;
-//   pass 2: one block per (32 rows, Cb output columns) walks F in chunks of
-//           32: h, g and y again, yq = round(y / sy) into shared memory, then
-//           yq . W2 into int32 registers; at the end of each blk_cols chunk
-//           the int32 sum is scaled by sy * s2 into the fp32 accumulator, as
-//           the TPU kernel does, and the output is cast once.
-// That computes the first product twice: 4CF + (4CF + 2CF) = 10CF operations
-// instead of 6CF, 1.67x. Pass 2 also recomputes the first product for each
-// of its C / Cb column chunks (Cb = the widest multiple of 64 up to 320 that
-// divides C: 1x at C = 320, 2x at 640, 4x at 1280), which keeps the int32
-// and fp32 accumulators [32, Cb] in registers (40 + 40 per thread). All
-// products are mma.sync m16n8k32 (int8, int32 accumulation) from shared
-// memory; W1 arrives as [F, C] rows and W2 as [C, F] rows, so that B is
-// k-contiguous. Tiles are loaded by cp.async and waited for (no double
-// buffering yet).
+// Design: three GEMMs on the building blocks of sm90_gemm.cuh (TMA ring,
+// int8 wgmma with int32 sums in registers, persistent blocks of 128-row
+// tiles). A tile's scale sy is known only once the whole sub_rows x
+// blk_cols tile's |y| is seen, and y must be fp32 for round(y / sy) to
+// match, so the first product runs twice (recomputing it, 4*rows*C*F
+// operations, is cheaper than storing and reading fp32 y, 8*rows*F bytes):
+//   pass 1 (geglu_int8_gate_kernel<0>): xq . [W1h | W1g] (a stage holds
+//     64 rows of W1h over 64 rows of W1g, so h and the gate of a column sit
+//     in one thread); the epilogue computes h, g and y and folds
+//     max |y| into the table [ceil(rows / sub_rows), F / blk_cols] with
+//     atomicMax on the bit pattern (non-negative floats order as their bits
+//     do). Rows past the last real one come in as zeros (TMA fills them), so
+//     they give h = b1h and g = b1g exactly, as the TPU kernel's padded rows
+//     do; the blocks of the last row tile also fold b1h * gelu(b1g) in when
+//     the last sub_rows tile is padded, since a row tile can end before it;
+//   pass 2 (geglu_int8_gate_kernel<1>): the same products and y again; the
+//     epilogue stores yq = round(y / sy) as int8 [rows, F];
+//   pass 3 (geglu_int8_out_kernel): yq . W2 chunk by chunk of blk_cols; at
+//     each chunk's end the int32 sums are scaled by sy * s2 into fp32 sums
+//     that start at b2, in chunk order, as the TPU kernel's grid runs. Where
+//     rows are few, each chunk goes to its own block, which writes its
+//     scaled term to partial [chunks, rows, C], and
+//     geglu_int8_reduce_kernel adds b2 and the terms in chunk order, so the
+//     result stays bit-equal.
+// Operations: 4CF + 4CF + 2CF = 10CF a row, against 6CF without the
+// recompute. Int8 wgmma takes only K-major operands: W1h, W1g [F, C] and W2
+// [C, F] are K-major for their products as they come. Device operations per
+// call: the wrapper's quantization of x, the table clear, the three passes,
+// and the split sum where split: 5 or 6. Pass 3's tile width and the split
+// come from the wrapper's plan (ops/kernels/geglu.py::geglu_plan). ptxas
+// (sm_90a): 168 registers per thread at launch for every GEMM instance (the
+// consumers raise theirs to 232 with setmaxnreg), no spills. Passes 1-2 are
+// bound by their epilogue's fp32 work (tanhf and, in pass 2, the IEEE
+// division: bit-equality rules out the hardware's approximations), not by
+// the tensor cores.
 //
 // Numerics: h, g, y, the table, sy and the accumulation use the TPU kernel's
 // fp32 operations in its order (no fused multiply-adds), so the result
-// differs from it only where tanhf and expf differ from XLA's by an ulp.
+// differs from it only where tanhf differs from XLA's tanh by an ulp.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "int8_mma.cuh"
+#include "sm90_gemm.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using d3r::cp_async_16;
-
-constexpr int kRows = 32;   // rows per block
-constexpr int kFs = 32;     // F columns per step
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kLdy = kFs + 16;
-
-struct GegluArgs {
-  const int8_t* x;    // [rows, C]
-  const int8_t* w1h;  // [F, C]
-  const int8_t* w1g;  // [F, C]
-  const int8_t* w2;   // [C, F]
-  const float* d1h;
-  const float* d1g;
-  const float* b1h;
-  const float* b1g;   // [F]
-  const float* s2;
-  const float* b2;    // [C]
-  unsigned int* tab;  // [ceil(rows / sub_rows), F / blk_cols], float bits
-  bf16* out;          // [rows, C]
-  int rows, C, F, sub_rows, blk_cols, cb;
-};
-
-__host__ __device__ inline size_t smem_bytes(int C, int cb, bool pass2) {
-  const size_t ldx = C + 16;
-  size_t bytes = 3 * (size_t)kRows * ldx;  // x tile, W1h and W1g chunks
-  if (pass2) bytes += (size_t)cb * kLdy + (size_t)kRows * kLdy;  // W2 chunk, yq
-  return bytes;
-}
+using namespace d3r::sm90;
 
 __device__ __forceinline__ float gelu_tanh(float g) {
   // jax.nn.gelu(approximate=True): x * (0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 x^3))))
@@ -93,199 +78,309 @@ __device__ __forceinline__ float gelu_tanh(float g) {
   return __fmul_rn(g, cdf);
 }
 
-template <bool kPass2, int NT>
-__global__ void __launch_bounds__(kThreads) geglu_int8_kernel(GegluArgs a) {
-  extern __shared__ __align__(128) int8_t smem[];
-  const int ldx = a.C + 16;
-  int8_t* xs = smem;
-  int8_t* w1hs = xs + kRows * ldx;
-  int8_t* w1gs = w1hs + kFs * ldx;
-  int8_t* w2s = w1gs + kFs * ldx;          // pass 2: [cb, 32]
-  int8_t* ys = w2s + a.cb * kLdy;          // pass 2: [32, 32]
+__device__ __forceinline__ float geglu(int h_sum, int g_sum, float dh, float dg, float bh,
+                                       float bg) {
+  // TPU order: h = acc * (act_scale * s1h) + b1h, g likewise, y = h * gelu(g)
+  const float h = __fadd_rn(__fmul_rn(__int2float_rn(h_sum), dh), bh);
+  const float g = __fadd_rn(__fmul_rn(__int2float_rn(g_sum), dg), bg);
+  return __fmul_rn(h, gelu_tanh(g));
+}
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g4 = lane / 4, t4 = lane % 4;
-  const int row0 = blockIdx.x * kRows;
-  const int vec_c = a.C / 16;
+// sy of a scale tile from its table entry (the bits of max |y|)
+__device__ __forceinline__ float scale_of(unsigned int absmax) {
+  return __fdiv_rn(fmaxf(__uint_as_float(absmax), 1e-6f), 127.f);
+}
+
+struct GateArgs {
+  const float* s1h;
+  const float* s1g;
+  const float* b1h;
+  const float* b1g;   // [F]
+  unsigned int* tab;  // [ceil(rows / sub_rows), F / blk_cols], float bits
+  int8_t* yq;         // [rows, F]
+  float act_scale;
+  int rows, C, F, sub_rows, blk_cols;
+};
+
+// Pass 1 (kQuant false) and pass 2 (true), in tiles of kGateCols hidden
+// columns (a B stage of kGateBN = 2 kGateCols rows; 32 columns a tile was
+// slower at every flagship shape). Pass 2 stages each warpgroup's 64 rows of
+// yq in shared memory (kGatePitch bytes a row) and stores them with 16-byte
+// writes.
+constexpr int kGateCols = 64, kGateBN = 2 * kGateCols, kGatePitch = kGateCols + 16;
+constexpr size_t kGateSmem = Stages<kGateBN>::kSmemBytes + kConsumers * 64 * kGatePitch;
+
+template <bool kQuant>
+__global__ void __launch_bounds__(kThreads, 1)
+    geglu_int8_gate_kernel(const __grid_constant__ CUtensorMap x_map,
+                           const __grid_constant__ CUtensorMap wh_map,
+                           const __grid_constant__ CUtensorMap wg_map, const GateArgs a) {
+  extern __shared__ uint8_t smem[];
+  const Stages<kGateBN> st(smem);
+  if (threadIdx.x == 0) st.init();
+  __syncthreads();
+  const int m_tiles = (a.rows + kBlockRows - 1) / kBlockRows;
+  const int tiles = m_tiles * (a.F / kGateCols);
+  const int k_tiles = (a.C + 127) / 128;
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    regs_dealloc<40>();
+    if (threadIdx.x == kConsumers * 128) {
+      Ring ring;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = (t % m_tiles) * kBlockRows, f0 = (t / m_tiles) * kGateCols;
+        for (int kt = 0; kt < k_tiles; ++kt) {
+          st.load(ring, &x_map, m0, &wh_map, f0, &wg_map, f0, kt * 128);
+        }
+      }
+    }
+  } else {
+    regs_alloc<232>();
+    const int n_chunks = a.F / a.blk_cols;
+    const bool padded = a.rows % a.sub_rows != 0;
+    uint8_t* staged = smem + Stages<kGateBN>::kSmemBytes + wg * 64 * kGatePitch;
+    Ring ring;
+    int acc[kGateBN / 2];
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int mt = t % m_tiles, m0 = mt * kBlockRows, f0 = (t / m_tiles) * kGateCols;
+      // one scale tile holds this tile: 128 divides sub_rows and blk_cols
+      const int cell = (m0 / a.sub_rows) * n_chunks + f0 / a.blk_cols;
+      // the epilogue's per-column operands (and pass 2's scale), loaded
+      // while the products run
+      float2 s1h[kGateCols / 8], s1g[kGateCols / 8], b1h[kGateCols / 8], b1g[kGateCols / 8];
+#pragma unroll
+      for (int j = 0; j < kGateCols / 8; ++j) {
+        const int f = f0 + frag_col(j, 0);
+        s1h[j] = *reinterpret_cast<const float2*>(a.s1h + f);
+        s1g[j] = *reinterpret_cast<const float2*>(a.s1g + f);
+        b1h[j] = *reinterpret_cast<const float2*>(a.b1h + f);
+        b1g[j] = *reinterpret_cast<const float2*>(a.b1g + f);
+      }
+      const unsigned int absmax = kQuant ? a.tab[cell] : 0u;
+      st.mma(ring, wg, acc, k_tiles);
+      if (kQuant) warpgroup_sync(wg);  // the last tile's rows have left the staging area
+      const int r0 = m0 + wg * 64;
+      float mx = 0.f;
+      const float sy = scale_of(absmax);
+#pragma unroll
+      for (int j = 0; j < kGateCols / 8; ++j) {
+        const int f = f0 + frag_col(j, 0);
+        const float dh[2] = {__fmul_rn(s1h[j].x, a.act_scale), __fmul_rn(s1h[j].y, a.act_scale)};
+        const float dg[2] = {__fmul_rn(s1g[j].x, a.act_scale), __fmul_rn(s1g[j].y, a.act_scale)};
+        const float bh[2] = {b1h[j].x, b1h[j].y}, bg[2] = {b1g[j].x, b1g[j].y};
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int ih = 4 * j + 2 * half, ig = ih + kGateCols / 2;
+          float y[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            y[e] = geglu(acc[ih + e], acc[ig + e], dh[e], dg[e], bh[e], bg[e]);
+          }
+          if (!kQuant) {
+            mx = fmaxf(mx, fmaxf(fabsf(y[0]), fabsf(y[1])));
+            continue;
+          }
+          char2 q;
+          q.x = static_cast<signed char>(rintf(__fdiv_rn(y[0], sy)));
+          q.y = static_cast<signed char>(rintf(__fdiv_rn(y[1], sy)));
+          *reinterpret_cast<char2*>(staged + frag_row(2 * half) * kGatePitch + (f - f0)) = q;
+        }
+        if (!kQuant && padded && mt == m_tiles - 1) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            mx = fmaxf(mx, fabsf(geglu(0, 0, dh[e], dg[e], bh[e], bg[e])));
+          }
+        }
+      }
+      if (kQuant) {
+        warpgroup_sync(wg);
+        store_tile(staged, kGatePitch, kGateCols,
+                   reinterpret_cast<uint8_t*>(a.yq + (long long)r0 * a.F + f0), a.F, a.rows - r0);
+      } else {
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        if (threadIdx.x % 32 == 0) atomicMax(a.tab + cell, __float_as_uint(mx));
+      }
+    }
+  }
+}
+
+struct OutArgs {
+  const unsigned int* tab;
+  const float* s2;
+  const float* b2;   // [C]
+  bf16* out;         // [rows, C]
+  float* partial;    // [chunks, rows, C] when split
+  int rows, C, F, sub_rows, blk_cols, splits;
+};
+
+// Pass 3: splits is 1 (a block walks every chunk) or the number of chunks
+// (a block takes one).
+template <int kBN>
+__global__ void __launch_bounds__(kThreads, 1)
+    geglu_int8_out_kernel(const __grid_constant__ CUtensorMap y_map,
+                          const __grid_constant__ CUtensorMap w2_map, const OutArgs a) {
+  extern __shared__ uint8_t smem[];
+  const Stages<kBN> st(smem);
+  if (threadIdx.x == 0) st.init();
+  __syncthreads();
+  const int m_tiles = (a.rows + kBlockRows - 1) / kBlockRows;
+  const int n_tiles = (a.C + kBN - 1) / kBN;
+  const int tiles = m_tiles * n_tiles * a.splits;
   const int n_chunks = a.F / a.blk_cols;
-  const unsigned int* tab_row = a.tab + (row0 / a.sub_rows) * n_chunks;
-
-  for (int i = tid; i < kRows * vec_c; i += kThreads) {
-    const int r = i / vec_c, cc = (i % vec_c) * 16;
-    const bool ok = row0 + r < a.rows;
-    cp_async_16(xs + r * ldx + cc, ok ? a.x + (long long)(row0 + r) * a.C + cc : a.x,
-                ok ? 16 : 0);
-  }
-
-  // First product: this warp's (16 x 8) fragment of h and of g.
-  const int mt = warp / 4, nt = warp % 4;
-  const int c0 = kPass2 ? blockIdx.y * a.cb : 0;  // pass 2: output columns
-  const int cw = a.cb / kWarps;                   // pass 2: columns per warp
-  int acc_i[2][NT][4];
-  float acc_f[2][NT][4];
-  if (kPass2) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int col = c0 + warp * cw + j * 8 + 2 * t4;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        acc_i[i][j][0] = acc_i[i][j][1] = acc_i[i][j][2] = acc_i[i][j][3] = 0;
-        acc_f[i][j][0] = acc_f[i][j][2] = a.b2[col];
-        acc_f[i][j][1] = acc_f[i][j][3] = a.b2[col + 1];
+  const int chunk_tiles = a.blk_cols / 128;
+  const int own_chunks = n_chunks / a.splits;
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    regs_dealloc<40>();
+    if (threadIdx.x == kConsumers * 128) {
+      Ring ring;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = (t % m_tiles) * kBlockRows;
+        const int n0 = (t / m_tiles % n_tiles) * kBN, s = t / m_tiles / n_tiles;
+        for (int kt = 0; kt < own_chunks * chunk_tiles; ++kt) {
+          st.load(ring, &y_map, m0, &w2_map, n0, nullptr, 0,
+                  (s * own_chunks * chunk_tiles + kt) * 128);
+        }
       }
     }
-  }
-
-  const int f_begin = kPass2 ? 0 : blockIdx.y * kFs;
-  const int f_end = kPass2 ? a.F : f_begin + kFs;
-  for (int f0 = f_begin; f0 < f_end; f0 += kFs) {
-    for (int i = tid; i < kFs * vec_c; i += kThreads) {
-      const int r = i / vec_c, cc = (i % vec_c) * 16;
-      cp_async_16(w1hs + r * ldx + cc, a.w1h + (long long)(f0 + r) * a.C + cc, 16);
-      cp_async_16(w1gs + r * ldx + cc, a.w1g + (long long)(f0 + r) * a.C + cc, 16);
-    }
-    if (kPass2) {
-      for (int i = tid; i < a.cb * 2; i += kThreads) {
-        const int r = i / 2, cc = (i % 2) * 16;
-        cp_async_16(w2s + r * kLdy + cc, a.w2 + (long long)(c0 + r) * a.F + f0 + cc, 16);
+  } else {
+    regs_alloc<232>();
+    Ring ring;
+    int acc[kBN / 2];
+    float sum[kBN / 2];
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = (t % m_tiles) * kBlockRows;
+      const int n0 = (t / m_tiles % n_tiles) * kBN, s = t / m_tiles / n_tiles;
+      const int r0 = m0 + wg * 64;
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+        const int col = n0 + frag_col(j, 0);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sum[4 * j + e] = col < a.C ? a.b2[col + (e & 1)] : 0.f;
       }
-    }
-    d3r::cp_async_commit();
-    d3r::cp_async_wait<0>();
-    __syncthreads();
-
-    int hacc[4] = {0, 0, 0, 0}, gacc[4] = {0, 0, 0, 0};
-    for (int kk = 0; kk < a.C / 32; ++kk) {
-      uint32_t af[4], b0, b1;
-      d3r::load_a(af, xs, ldx, mt * 16, kk * 32, lane);
-      d3r::load_b(b0, b1, w1hs, ldx, nt * 8, kk * 32, lane);
-      d3r::mma_s8(hacc, af, b0, b1);
-      d3r::load_b(b0, b1, w1gs, ldx, nt * 8, kk * 32, lane);
-      d3r::mma_s8(gacc, af, b0, b1);
-    }
-    float y[4];
+      for (int c = s * own_chunks; c < (s + 1) * own_chunks; ++c) {
+        st.mma(ring, wg, acc, chunk_tiles);
+        const float sy = scale_of(a.tab[(m0 / a.sub_rows) * n_chunks + c]);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int f = f0 + nt * 8 + 2 * t4 + (e & 1);
-      const float h = __fadd_rn(__fmul_rn((float)hacc[e], a.d1h[f]), a.b1h[f]);
-      const float g = __fadd_rn(__fmul_rn((float)gacc[e], a.d1g[f]), a.b1g[f]);
-      y[e] = __fmul_rn(h, gelu_tanh(g));
-    }
-
-    if (!kPass2) {
-      float m = fmaxf(fmaxf(fabsf(y[0]), fabsf(y[1])), fmaxf(fabsf(y[2]), fabsf(y[3])));
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-      if (lane == 0) atomicMax(a.tab + (row0 / a.sub_rows) * n_chunks + f0 / a.blk_cols,
-                               __float_as_uint(m));
-      __syncthreads();
-      continue;
-    }
-
-    const int chunk = f0 / a.blk_cols;
-    const float sy = __fdiv_rn(fmaxf(__uint_as_float(tab_row[chunk]), 1e-6f), 127.f);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = mt * 16 + g4 + 8 * (e >> 1);
-      const int fc = nt * 8 + 2 * t4 + (e & 1);
-      ys[r * kLdy + fc] = static_cast<int8_t>(rintf(__fdiv_rn(y[e], sy)));
-    }
-    __syncthreads();
-
-    // Second product: yq [32, 32] . W2 chunk -> this warp's cw output columns.
-    uint32_t af[2][4];
-    d3r::load_a(af[0], ys, kLdy, 0, 0, lane);
-    d3r::load_a(af[1], ys, kLdy, 16, 0, lane);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      uint32_t b0, b1;
-      d3r::load_b(b0, b1, w2s, kLdy, warp * cw + j * 8, 0, lane);
-      d3r::mma_s8(acc_i[0][j], af[0], b0, b1);
-      d3r::mma_s8(acc_i[1][j], af[1], b0, b1);
-    }
-    if ((f0 + kFs) % a.blk_cols == 0) {  // end of a scale chunk: fold it in
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int col = c0 + warp * cw + j * 8 + 2 * t4;
-        const float k0 = __fmul_rn(sy, a.s2[col]), k1 = __fmul_rn(sy, a.s2[col + 1]);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
+        for (int j = 0; j < kBN / 8; ++j) {
+          const int col = n0 + frag_col(j, 0);
+          if (col >= a.C) continue;
+          const float k0 = __fmul_rn(sy, a.s2[col]), k1 = __fmul_rn(sy, a.s2[col + 1]);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            acc_f[i][j][e] = __fadd_rn(acc_f[i][j][e], __fmul_rn((float)acc_i[i][j][e],
-                                                                  (e & 1) ? k1 : k0));
-            acc_i[i][j][e] = 0;
+            const float term = __fmul_rn(__int2float_rn(acc[4 * j + e]), (e & 1) ? k1 : k0);
+            if (a.splits == 1) {
+              sum[4 * j + e] = __fadd_rn(sum[4 * j + e], term);
+            } else {
+              sum[4 * j + e] = term;
+            }
+          }
+        }
+        if (a.splits == 1 && c + 1 < (s + 1) * own_chunks) continue;
+        // the tile's result: out (unsplit) or chunk c's term (split)
+#pragma unroll
+        for (int j = 0; j < kBN / 8; ++j) {
+          const int col = n0 + frag_col(j, 0);
+          if (col >= a.C) continue;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int row = r0 + frag_row(2 * half);
+            if (row >= a.rows) continue;
+            const float v0 = sum[4 * j + 2 * half], v1 = sum[4 * j + 2 * half + 1];
+            const long long o = (long long)row * a.C + col;
+            if (a.splits == 1) {
+              *reinterpret_cast<__nv_bfloat162*>(a.out + o) = __floats2bfloat162_rn(v0, v1);
+            } else {
+              *reinterpret_cast<float2*>(a.partial + (long long)c * a.rows * a.C + o) =
+                  make_float2(v0, v1);
+            }
           }
         }
       }
     }
-    __syncthreads();  // the next chunk's copies overwrite W1, W2 and yq
-  }
-
-  if (kPass2) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int col = c0 + warp * cw + j * 8 + 2 * t4;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int r = row0 + i * 16 + g4 + 8 * hh;
-          if (r >= a.rows) continue;
-          *reinterpret_cast<__nv_bfloat162*>(a.out + (long long)r * a.C + col) =
-              __floats2bfloat162_rn(acc_f[i][j][2 * hh], acc_f[i][j][2 * hh + 1]);
-        }
-      }
-    }
   }
 }
 
-template <bool kPass2, int NT>
-cudaError_t launch_one(const GegluArgs& a, dim3 grid, cudaStream_t st) {
-  const size_t bytes = smem_bytes(a.C, a.cb, kPass2);
-  cudaError_t err = cudaFuncSetAttribute(
-      geglu_int8_kernel<kPass2, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  geglu_int8_kernel<kPass2, NT><<<grid, kThreads, bytes, st>>>(a);
-  return cudaGetLastError();
+// Zero the scale table before pass 1 (a kernel, not a memset, so that a
+// profile puts its time with the GEGLU's).
+__global__ void geglu_int8_clear_kernel(unsigned int* __restrict__ tab, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) tab[i] = 0u;
+}
+
+__global__ void geglu_int8_reduce_kernel(const float* __restrict__ partial,
+                                         const float* __restrict__ b2, bf16* __restrict__ out,
+                                         long long n, int C, int splits) {
+  sum_partials(partial, b2, out, n, C, splits);
+}
+
+template <bool kQuant>
+cudaError_t launch_gate(const CUtensorMap& x, const CUtensorMap& wh, const CUtensorMap& wg,
+                        const GateArgs& a, cudaStream_t st) {
+  const int tiles = (a.rows + kBlockRows - 1) / kBlockRows * (a.F / kGateCols);
+  return launch<geglu_int8_gate_kernel<kQuant>>(tiles, kGateSmem, st, x, wh, wg, a);
+}
+
+template <int kBN>
+cudaError_t launch_out(const CUtensorMap& y, const CUtensorMap& w2, const OutArgs& a,
+                       cudaStream_t st) {
+  const int tiles = (a.rows + kBlockRows - 1) / kBlockRows * ((a.C + kBN - 1) / kBN) * a.splits;
+  return launch<geglu_int8_out_kernel<kBN>>(tiles, Stages<kBN>::kSmemBytes, st, y, w2, a);
 }
 
 }  // namespace
 
-// xq [rows, C], w1hq/w1gq [F, C], w2q [C, F] int8; d1h, d1g, b1h, b1g [F],
-// s2, b2 [C] fp32; tab [ceil(rows/sub_rows) * F/blk_cols] uint32 scratch;
-// out [rows, C] bf16. All contiguous, 16-byte aligned. C % 64 == 0, F % 32
-// == 0, blk_cols % 32 == 0 and divides F, sub_rows % 32 == 0, cb % 64 == 0,
-// cb <= 320 and divides C. Returns cudaGetLastError().
+// xq [rows, C], w1hq/w1gq [F, C], w2q [C, F] int8; s1h, s1g, b1h, b1g [F],
+// s2, b2 [C] fp32; act_scale the scale xq was quantized at;
+// tab [ceil(rows / sub_rows) * F / blk_cols] uint32 and
+// yq [rows, F] int8 scratch; out [rows, C] bf16. All contiguous, 16-byte
+// aligned. C % 16 == 0, F % 128 == 0; blk_cols % 128 == 0 and divides F;
+// sub_rows % 128 == 0. out_cols (64 or 128) output columns per tile of
+// pass 3;
+// splits is 1 or F / blk_cols, and with splits > 1 partial is fp32
+// [splits, rows, C] scratch. Returns a CUDA error code.
 extern "C" int d3r_geglu_ff_int8(const void* xq, const void* w1hq, const void* w1gq,
-                                 const void* w2q, const void* d1h, const void* d1g,
+                                 const void* w2q, const void* s1h, const void* s1g,
                                  const void* b1h, const void* b1g, const void* s2,
-                                 const void* b2, void* tab, void* out, int rows, int C, int F,
-                                 int sub_rows, int blk_cols, int cb, void* stream) {
-  if (rows <= 0 || C % 64 || F % kFs || blk_cols % kFs || F % blk_cols || sub_rows % kRows ||
-      cb % 64 || cb > 320 || C % cb)
+                                 const void* b2, void* tab, void* yq, void* partial, void* out,
+                                 float act_scale, int rows, int C, int F, int sub_rows,
+                                 int blk_cols, int out_cols, int splits, void* stream) {
+  if (rows <= 0 || C <= 0 || C % 16 || F <= 0 || F % 128 || blk_cols <= 0 || blk_cols % 128 ||
+      F % blk_cols || sub_rows <= 0 || sub_rows % kBlockRows ||
+      (out_cols != 64 && out_cols != 128) ||
+      (splits != 1 && splits != F / blk_cols) || (splits > 1 && partial == nullptr)) {
     return (int)cudaErrorInvalidValue;
-  auto st = static_cast<cudaStream_t>(stream);
-  GegluArgs a{static_cast<const int8_t*>(xq), static_cast<const int8_t*>(w1hq),
-              static_cast<const int8_t*>(w1gq), static_cast<const int8_t*>(w2q),
-              static_cast<const float*>(d1h), static_cast<const float*>(d1g),
-              static_cast<const float*>(b1h), static_cast<const float*>(b1g),
-              static_cast<const float*>(s2), static_cast<const float*>(b2),
-              static_cast<unsigned int*>(tab), static_cast<bf16*>(out),
-              rows, C, F, sub_rows, blk_cols, cb};
-  const int sub_tiles = (rows + sub_rows - 1) / sub_rows;
-  cudaError_t err = cudaMemsetAsync(tab, 0, sizeof(unsigned int) * sub_tiles * (F / blk_cols), st);
-  if (err != cudaSuccess) return (int)err;
-  const int cover = sub_tiles * sub_rows;  // rows up to the end of the last tile
-  err = launch_one<false, 1>(a, dim3(cover / kRows, F / kFs), st);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid2((rows + kRows - 1) / kRows, C / cb);
-  switch (cb / 64) {
-    case 1: return (int)launch_one<true, 1>(a, grid2, st);
-    case 2: return (int)launch_one<true, 2>(a, grid2, st);
-    case 3: return (int)launch_one<true, 3>(a, grid2, st);
-    case 4: return (int)launch_one<true, 4>(a, grid2, st);
-    case 5: return (int)launch_one<true, 5>(a, grid2, st);
-    default: return (int)cudaErrorInvalidValue;
   }
+  auto st = static_cast<cudaStream_t>(stream);
+  CUtensorMap x_map, wh_map, wg_map, y_map, w2_map;
+  cudaError_t err = tensor_map(&x_map, xq, 1, rows, C, C, kBlockRows);
+  if (err == cudaSuccess) err = tensor_map(&wh_map, w1hq, 1, F, C, C, kGateCols);
+  if (err == cudaSuccess) err = tensor_map(&wg_map, w1gq, 1, F, C, C, kGateCols);
+  if (err == cudaSuccess) err = tensor_map(&y_map, yq, 1, rows, F, F, kBlockRows);
+  if (err == cudaSuccess) err = tensor_map(&w2_map, w2q, 1, C, F, F, out_cols);
+  if (err != cudaSuccess) return (int)err;
+
+  const int sub_tiles = (rows + sub_rows - 1) / sub_rows;
+  geglu_int8_clear_kernel<<<1, 256, 0, st>>>(static_cast<unsigned int*>(tab),
+                                             sub_tiles * (F / blk_cols));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const GateArgs g{static_cast<const float*>(s1h), static_cast<const float*>(s1g),
+                   static_cast<const float*>(b1h), static_cast<const float*>(b1g),
+                   static_cast<unsigned int*>(tab), static_cast<int8_t*>(yq), act_scale,
+                   rows, C, F, sub_rows, blk_cols};
+  err = launch_gate<false>(x_map, wh_map, wg_map, g, st);
+  if (err == cudaSuccess) err = launch_gate<true>(x_map, wh_map, wg_map, g, st);
+  if (err != cudaSuccess) return (int)err;
+
+  const OutArgs o{static_cast<const unsigned int*>(tab), static_cast<const float*>(s2),
+                  static_cast<const float*>(b2), static_cast<bf16*>(out),
+                  static_cast<float*>(partial), rows, C, F, sub_rows, blk_cols, splits};
+  err = out_cols == 128 ? launch_out<128>(y_map, w2_map, o, st)
+                        : launch_out<64>(y_map, w2_map, o, st);
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const long long n = (long long)rows * C;
+  geglu_int8_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+      o.partial, o.b2, o.out, n, C, splits);
+  return (int)cudaGetLastError();
 }

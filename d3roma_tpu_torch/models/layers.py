@@ -478,8 +478,8 @@ class FeedForward(nn.Module):
     fused=True and a shape
     `geglu_supported` admits, the whole proj -> gelu-gate -> out-proj runs
     in the fused GEGLU kernel; the parameters are the same either way. The
-    kernel's operands (W1 split into its h and gate halves and transposed,
-    W2 transposed, fp32 biases) are prepared once per set of weights and
+    kernel's operands (W1 split into its h and gate halves, both weights as
+    transposed views, fp32 biases) are prepared once per set of weights and
     kept until a weight changes. The fused path is inference-only: the
     kernel has no backward."""
 
@@ -504,10 +504,12 @@ class FeedForward(nn.Module):
 
     @staticmethod
     def _make_operands(w1, b1, w2, b2):
-        """The bf16 kernel's operands: W1h, W1g [C, F], W2 [F, C], fp32 biases."""
+        """The bf16 kernel's operands, JAX-named: W1h, W1g [C, F] and W2
+        [F, C] as transposed views of the weights' halves (the K-major
+        layout the kernel reads, no copy of a contiguous weight), fp32
+        biases."""
         f = w1.shape[0] // 2
-        w1t = w1.t()  # [C, 2F]
-        return (w1t[:, :f].contiguous(), w1t[:, f:].contiguous(), w2.t().contiguous(),
+        return (w1[:f].contiguous().t(), w1[f:].contiguous().t(), w2.contiguous().t(),
                 b1[:f].float().contiguous(), b1[f:].float().contiguous(),
                 b2.float().contiguous())
 

@@ -99,8 +99,9 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def current_stream(device) -> int:
-    """The raw handle of PyTorch's current CUDA stream on `device`."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of PyTorch's current CUDA stream on `device` (the
+    binding PyTorch's compiled kernels use: no Stream object is built)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(err: int, kernel: str) -> None:

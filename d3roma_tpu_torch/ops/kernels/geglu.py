@@ -1,17 +1,19 @@
-"""Fused GEGLU feed-forward: the CUDA kernel, its plain PyTorch version, its
-gate and its launch counter.
+"""GEGLU feed-forward: the CUDA kernels, their plain PyTorch versions, the
+gate, the host-side plan of a call and the launch counters.
 
 Port of `d3roma_tpu/ops/pallas/geglu.py::geglu_ff`: the bf16 path (kernel
 body `_kernel_bf16`) is `geglu_ff` over `csrc/geglu.cu`; the static int8
 path (`_kernel_int8`, with the wrapper's quantization of x and of the
-weights) is `geglu_ff_int8` over `csrc/geglu_int8.cu`. Each source note says
-what bounds the kernel on the H100 and how it is built around that.
+weights) is `geglu_ff_int8` over `csrc/geglu_int8.cu`. Both are GEMMs on
+the TMA + wgmma building blocks of `csrc/sm90_gemm.cuh`; each source note
+says what bounds the kernel on the H100 and how it is built around that.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -25,8 +27,12 @@ from d3roma_tpu_torch.ops.kernels.quantize import (
     quantize_int8_scalar,
 )
 
-# widest output-column chunk one block accumulates in shared memory
-_MAX_COLS = 640
+# rows of a tile of the CUDA kernels (csrc/sm90_gemm.cuh: kBlockRows), and
+# hidden columns of a tile of their first product (csrc/geglu*.cu:
+# kGateCols; 32 was slower at every flagship shape)
+BLOCK_ROWS = 128
+GATE_COLS = 64
+H100_SMS = 132
 
 
 def geglu_supported(c: int, f: int) -> bool:
@@ -54,58 +60,110 @@ def geglu_ff_plain(x, w1h, w1g, w2, b1h=None, b1g=None, b2=None) -> torch.Tensor
     return out.to(dt).reshape(b, n, c)
 
 
-def _output_chunk(c: int) -> int:
-    """Output columns per block: all of C up to 640, else the widest
-    multiple of 16 that divides C and is at most 640."""
-    for cb in range(min(c, _MAX_COLS) // 16 * 16, 0, -16):
-        if c % cb == 0:
-            return cb
-    raise ValueError(f"no output chunk for C={c}")
-
-
 def _library() -> ctypes.CDLL:
     lib = _build.load("geglu")
-    if lib.d3r_geglu_ff_bf16.argtypes is None:
-        lib.d3r_geglu_ff_bf16.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-                                          + [ctypes.c_void_p])
-        lib.d3r_geglu_ff_bf16.restype = ctypes.c_int
-        lib.d3r_geglu_ff_splits.argtypes = [ctypes.c_int] * 4
-        lib.d3r_geglu_ff_splits.restype = ctypes.c_int
+    fn = lib.d3r_geglu_ff_bf16
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
+@dataclass(frozen=True)
+class GegluPlan:
+    """How the CUDA kernels cut one call. out_cols: output columns per tile
+    of the second product (64 or 128); splits: blocks that share the second
+    product's contraction axis F, cut at the TPU kernel's blk_cols chunks
+    (1, or one per chunk); workspace_bytes: the one scratch buffer the
+    wrapper allocates, laid out as `_workspace` cuts it."""
+    out_cols: int
+    splits: int
+    workspace_bytes: int
+
+
+# geglu_plan's model of the second product, fitted to the kernels' times on
+# the H100 at the flagship shapes (chip_smoke.py's GEGLU cases). A tile
+# costs its stages, plus _TILE_STAGES for the fill and the epilogue, times
+# the rows it loads a stage (128 of A and out_cols of B, 128 bytes each:
+# the L2 feed bounds these GEMMs). A split adds its partial sums' round
+# trip, one such unit per _SPLIT_BYTES_PER_UNIT bytes, and a launch.
+_TILE_STAGES = 6
+_SPLIT_BYTES_PER_UNIT = 6800
+_SPLIT_LAUNCH_UNITS = 500
+
+
 @functools.lru_cache(maxsize=256)
-def _hidden_splits(rows: int, c: int, f: int, cb: int, device_index: int) -> int:
-    """How many blocks share the hidden axis F at this shape on this card
-    (csrc/geglu.cu: d3r_geglu_ff_splits, from the SM count and the kernel's
-    occupancy)."""
-    with torch.cuda.device(device_index):
-        splits = _library().d3r_geglu_ff_splits(rows, c, f, cb)
-    if splits < 1:
-        raise RuntimeError(f"geglu_ff: CUDA error {-splits} choosing the F split")
-    return splits
+def geglu_plan(rows: int, c: int, f: int, int8: bool, sms: int = H100_SMS) -> GegluPlan:
+    """The second product's tiles in one call on a card with `sms` SMs: the
+    output width (128 or 64) and split of F (none, or one block per
+    blk_cols chunk) with the least modelled time, waves of tiles times a
+    tile's bytes, a split paying for its partial sums."""
+    m_tiles = -(-rows // BLOCK_ROWS)
+    blk_cols = pick_cols(f)
+    chunks = f // blk_cols if f % blk_cols == 0 and blk_cols % 64 == 0 else 1
+    k_stages = f // (128 if int8 else 64)
+
+    def cost(plan):
+        cols, splits = plan
+        waves = -(-m_tiles * -(-c // cols) * splits // sms)
+        partial = ((splits + 1) * 4 * rows * c / _SPLIT_BYTES_PER_UNIT + _SPLIT_LAUNCH_UNITS
+                   if splits > 1 else 0)
+        return waves * (k_stages // splits + _TILE_STAGES) * (128 + cols) + partial, splits
+
+    out_cols, splits = min(((cols, s) for s in sorted({1, chunks}) for cols in (128, 64)),
+                           key=cost)
+    partial = 4 * splits * rows * c if splits > 1 else 0
+    if int8:
+        table = 4 * -(-rows // pick_rows(c)[1]) * chunks
+        return GegluPlan(out_cols, splits, rows * f + partial + table)
+    return GegluPlan(out_cols, splits, 2 * rows * f + partial)
+
+
+def _workspace(plan: GegluPlan, rows: int, c: int, f: int, int8: bool, device):
+    """The plan's scratch, one allocation: y (bf16 [rows, F]; int8: yq
+    [rows, F]), then the split partial sums (fp32 [splits, rows, C]), then,
+    for int8, the scale table. Returns the addresses of the three parts
+    (0 for one that is absent); each starts 16-byte aligned, as F % 64 == 0
+    and C % 16 == 0."""
+    ws = torch.empty(plan.workspace_bytes, dtype=torch.uint8, device=device)
+    y = ws.data_ptr()
+    partial = y + (1 if int8 else 2) * rows * f
+    table = partial + (4 * plan.splits * rows * c if plan.splits > 1 else 0)
+    return ws, y, partial if plan.splits > 1 else 0, table if int8 else 0
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def _check_cuda(x, w1h, w1g, w2, biases) -> None:
+    """What the kernels take: bf16 x and weights, fp32 biases, C % 16 == 0,
+    F % 64 == 0; x and the biases contiguous, each weight the transpose of
+    a contiguous tensor (the kernels read the contraction axis
+    contiguously, as FeedForward's operands lay it out); all on x's
+    device; x and the weights 16-byte aligned (TMA reads them)."""
     c = x.shape[-1]
     f = w1h.shape[1]
     if c % 16 or f % 64:
         raise ValueError(f"the CUDA GEGLU kernel takes C % 16 == 0 and F % 64 == 0, "
                          f"got C={c}, F={f}")
-    for name, t in (("x", x), ("w1h", w1h), ("w1g", w1g), ("w2", w2)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"the CUDA GEGLU kernel takes bfloat16 {name}, got {t.dtype}")
-    for name, t in (("x", x), ("w1h", w1h), ("w1g", w1g), ("w2", w2),
-                    ("b1h", biases[0]), ("b1g", biases[1]), ("b2", biases[2])):
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-        if t.numel() > 2**31 - 1:
-            raise ValueError(f"{name} is too large for the kernel's 32-bit indices")
-    for name, t in (("b1h", biases[0]), ("b1g", biases[1]), ("b2", biases[2])):
-        if t.dtype != torch.float32:
-            raise TypeError(f"the CUDA GEGLU kernel takes float32 {name}, got {t.dtype}")
+    weights = (w1h, w1g, w2)
+    if x.dtype != torch.bfloat16 or any(w.dtype != torch.bfloat16 for w in weights):
+        raise TypeError(f"the CUDA GEGLU kernel takes bfloat16 x and weights, got "
+                        f"{[t.dtype for t in (x, *weights)]}")
+    if any(t.dtype != torch.float32 for t in biases):
+        raise TypeError(f"the CUDA GEGLU kernel takes float32 biases, got "
+                        f"{[t.dtype for t in biases]}")
+    if any(w.stride() != (1, w.shape[0]) for w in weights):
+        raise ValueError(f"the CUDA GEGLU kernel takes each weight as the transpose of a "
+                         f"contiguous tensor, got strides {[w.stride() for w in weights]}")
+    if not (x.is_contiguous() and all(t.is_contiguous() for t in biases)):
+        raise ValueError("x and the biases must be contiguous")
+    if any(t.device != x.device for t in (*weights, *biases)):
+        raise ValueError(f"every operand must be on x's device {x.device}")
+    if any(t.data_ptr() % 16 for t in (x, *weights)):
+        raise ValueError("x and the weights must be 16-byte aligned")
 
 
 def geglu_ff(x: torch.Tensor, w1h: torch.Tensor, w1g: torch.Tensor,
@@ -114,10 +172,11 @@ def geglu_ff(x: torch.Tensor, w1h: torch.Tensor, w1g: torch.Tensor,
              b2: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x [B, N, C]; w1h/w1g [C, F]; w2 [F, C]; biases [F]/[F]/[C] -> [B, N, C].
 
-    CUDA tensors go to the Hopper kernel (bf16 x and weights, fp32 biases,
-    C % 16 == 0, F % 64 == 0, all contiguous) or raise; CPU tensors take the
-    plain version. `geglu_ff.launches` counts the calls that went through
-    this wrapper."""
+    CUDA tensors go to the Hopper kernels (bf16 x and weights, fp32
+    biases, C % 16 == 0, F % 64 == 0; x contiguous, each weight the
+    transpose of a contiguous tensor, as FeedForward's operands are) or
+    raise; CPU tensors take the plain version. `geglu_ff.launches` counts
+    the calls that went through this wrapper."""
     if x.ndim != 3 or w1h.ndim != 2 or w1g.shape != w1h.shape or w2.ndim != 2:
         raise ValueError("geglu_ff takes x [B, N, C], w1h/w1g [C, F], w2 [F, C]")
     b, n, c = x.shape
@@ -136,17 +195,14 @@ def geglu_ff(x: torch.Tensor, w1h: torch.Tensor, w1g: torch.Tensor,
               zeros(c, dtype=torch.float32) if b2 is None else b2)
     _check_cuda(x, w1h, w1g, w2, biases)
     rows = b * n
-    cb = _output_chunk(c)
-    splits = _hidden_splits(rows, c, f, cb, x.device.index)
+    plan = geglu_plan(rows, c, f, False, _sm_count(x.device.index))
     out = torch.empty((b, n, c), dtype=x.dtype, device=x.device)
-    workspace = (torch.empty((splits, rows, c), dtype=torch.float32, device=x.device)
-                 if splits > 1 else None)
+    ws, y, partial, _ = _workspace(plan, rows, c, f, False, x.device)
     with torch.cuda.device(x.device):
         err = _library().d3r_geglu_ff_bf16(
             x.data_ptr(), w1h.data_ptr(), w1g.data_ptr(), w2.data_ptr(),
-            *(t.data_ptr() for t in biases), out.data_ptr(),
-            None if workspace is None else workspace.data_ptr(),
-            rows, c, f, cb, splits, _build.current_stream(x.device))
+            *(t.data_ptr() for t in biases), y, partial, out.data_ptr(),
+            rows, c, f, plan.out_cols, plan.splits, _build.current_stream(x.device))
     _build.check(err, "geglu_ff")
     geglu_ff.launches += 1
     return out
@@ -155,6 +211,7 @@ def geglu_ff(x: torch.Tensor, w1h: torch.Tensor, w1g: torch.Tensor,
 geglu_ff.launches = 0
 
 
+@functools.lru_cache(maxsize=64)
 def pick_cols(f: int) -> int:
     """The TPU kernel's F chunk (`_pick_cols`), which is also the width of
     its scale grid: the largest multiple of 128 up to 1024 dividing F."""
@@ -164,6 +221,7 @@ def pick_cols(f: int) -> int:
     return min(1024, f)
 
 
+@functools.lru_cache(maxsize=64)
 def pick_rows(c: int):
     """The TPU kernel's (row block, row sub-chunk) (`_pick_rows`); the
     sub-chunk is the height of its scale grid."""
@@ -213,20 +271,12 @@ def geglu_ff_int8_plain(x, w1hq, w1gq, w2q, s1h, s1g, s2, b1h, b1g, b2,
     return acc[:rows].to(x.dtype).reshape(b, n, c)
 
 
-def int8_output_chunk(c: int) -> int:
-    """Output columns per block of the int8 kernel's second pass: the
-    widest multiple of 64 up to 320 that divides C."""
-    for cb in range(min(c, 320) // 64 * 64, 0, -64):
-        if c % cb == 0:
-            return cb
-    raise ValueError(f"no int8 output chunk for C={c}")
-
-
 def _library_int8() -> ctypes.CDLL:
     lib = _build.load("geglu_int8")
     fn = lib.d3r_geglu_ff_int8
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_float] + [ctypes.c_int] * 7
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
@@ -239,24 +289,28 @@ def _check_int8(x, w1hq, w1gq, w2q, scales, biases) -> None:
     if w1hq.shape[1] != c or tuple(w2q.shape) != (c, f):
         raise ValueError(f"shape mismatch: x {tuple(x.shape)}, w1hq {tuple(w1hq.shape)}, "
                          f"w2q {tuple(w2q.shape)}")
-    for name, t in (("w1hq", w1hq), ("w1gq", w1gq), ("w2q", w2q)):
-        if t.dtype != torch.int8:
-            raise TypeError(f"geglu_ff_int8 takes int8 {name}, got {t.dtype}")
-    for t in (*scales, *biases):
-        if t.dtype != torch.float32 or t.device != x.device:
-            raise TypeError("geglu_ff_int8 takes fp32 scales and biases on x's device")
+    if any(t.dtype != torch.int8 for t in (w1hq, w1gq, w2q)):
+        raise TypeError("geglu_ff_int8 takes int8 weights")
+    if any(t.dtype != torch.float32 or t.device != x.device for t in (*scales, *biases)):
+        raise TypeError("geglu_ff_int8 takes fp32 scales and biases on x's device")
 
 
-def _check_cuda_int8(x, tensors) -> None:
-    c, f = x.shape[-1], tensors[0].shape[0]
+def _check_cuda_int8(x, weights, vectors) -> None:
+    """What the kernels take beyond _check_int8: bf16 x, C % 16 == 0,
+    F % 128 == 0; the weights contiguous, 16-byte aligned (TMA reads them)
+    and on x's device; the scales and biases contiguous."""
+    c, f = x.shape[-1], weights[0].shape[0]
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the CUDA int8 GEGLU kernel takes bf16 x, got {x.dtype}")
-    if c % 64 or f % 128:
-        raise ValueError(f"the CUDA int8 GEGLU kernel takes C % 64 == 0 and F % 128 == 0, "
+    if c % 16 or f % 128:
+        raise ValueError(f"the CUDA int8 GEGLU kernel takes C % 16 == 0 and F % 128 == 0, "
                          f"got C={c}, F={f}")
-    for t in tensors:
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("the int8 GEGLU operands must be contiguous and 16-byte aligned")
+    if any(t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16
+           for t in weights):
+        raise ValueError("the int8 GEGLU weights must be contiguous, 16-byte aligned and on "
+                         "x's device")
+    if not all(t.is_contiguous() for t in vectors):
+        raise ValueError("the int8 GEGLU scales and biases must be contiguous")
 
 
 def geglu_ff_int8(x: torch.Tensor, w1hq: torch.Tensor, w1gq: torch.Tensor,
@@ -267,8 +321,8 @@ def geglu_ff_int8(x: torch.Tensor, w1hq: torch.Tensor, w1gq: torch.Tensor,
     quant="static"): x [B, N, C] is quantized at `act_scale`; see
     geglu_ff_int8_plain for the operands and the arithmetic.
 
-    CUDA tensors go to the Hopper kernel (bf16 x, C % 64 == 0, F % 128 == 0)
-    or raise; CPU tensors take the plain version.
+    CUDA tensors go to the Hopper kernels (bf16 x, C % 16 == 0,
+    F % 128 == 0) or raise; CPU tensors take the plain version.
     `geglu_ff_int8.launches` counts the calls that went through this
     wrapper."""
     act_scale = fp32(act_scale)
@@ -283,18 +337,18 @@ def geglu_ff_int8(x: torch.Tensor, w1hq: torch.Tensor, w1gq: torch.Tensor,
     rows = b * n
     _, sub_rows = pick_rows(c)
     blk_cols = pick_cols(f)
-    d1h, d1g = (s1h * act_scale).contiguous(), (s1g * act_scale).contiguous()
-    operands = (w1hq, w1gq, w2q, d1h, d1g, b1h, b1g, s2, b2)
-    _check_cuda_int8(x, operands)
-    xq = quantize_int8_scalar(x.reshape(rows, c), act_scale)
-    table = torch.empty(-(-rows // sub_rows) * (f // blk_cols), dtype=torch.int32,
-                        device=x.device)
+    vectors = (s1h, s1g, b1h, b1g, s2, b2)
+    _check_cuda_int8(x, (w1hq, w1gq, w2q), vectors)
+    xq = quantize_int8_scalar(x, act_scale)
+    plan = geglu_plan(rows, c, f, True, _sm_count(x.device.index))
+    ws, yq, partial, table = _workspace(plan, rows, c, f, True, x.device)
     out = torch.empty((b, n, c), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = _library_int8().d3r_geglu_ff_int8(
-            xq.data_ptr(), *(t.data_ptr() for t in operands), table.data_ptr(),
-            out.data_ptr(), rows, c, f, sub_rows, blk_cols, int8_output_chunk(c),
-            _build.current_stream(x.device))
+            xq.data_ptr(), w1hq.data_ptr(), w1gq.data_ptr(), w2q.data_ptr(),
+            *(t.data_ptr() for t in vectors), table, yq, partial,
+            out.data_ptr(), act_scale, rows, c, f, sub_rows, blk_cols, plan.out_cols,
+            plan.splits, _build.current_stream(x.device))
     _build.check(err, "geglu_ff_int8")
     geglu_ff_int8.launches += 1
     return out

@@ -65,31 +65,69 @@ def test_gate_matches_jax():
     assert all(port_geglu.geglu_supported(c, 4 * c) for c in (320, 640, 1280))
 
 
-@pytest.mark.parametrize("case", ["fp32_x", "bf16_bias", "c_24", "f_96", "strided_w"])
-def test_cuda_checks_refuse_what_the_kernel_cannot_take(case):
-    """The checks a CUDA call meets before the launch (dtype, shape,
-    contiguity; CPU tensors exercise them here)."""
-    c, f = (24 if case == "c_24" else 32), (96 if case == "f_96" else 128)
+def _cuda_check_operands(c, f):
+    """Operands the CUDA checks accept: bf16 x, K-major bf16 weights (the
+    transposes of contiguous tensors), fp32 biases."""
     bf = torch.bfloat16
     x = torch.zeros(1, 4, c, dtype=bf)
-    w1h, w1g, w2 = torch.zeros(c, f, dtype=bf), torch.zeros(c, f, dtype=bf), torch.zeros(f, c, dtype=bf)
-    biases = [torch.zeros(f), torch.zeros(f), torch.zeros(c)]
+    w1h, w1g = torch.zeros(f, c, dtype=bf).t(), torch.zeros(f, c, dtype=bf).t()
+    w2 = torch.zeros(c, f, dtype=bf).t()
+    return x, w1h, w1g, w2, [torch.zeros(f), torch.zeros(f), torch.zeros(c)]
+
+
+@pytest.mark.parametrize("case", ["fp32_x", "bf16_bias", "c_24", "f_96", "strided_w"])
+def test_cuda_checks_refuse_what_the_kernel_cannot_take(case):
+    """The checks a CUDA call meets before the launch (dtype, shape, the
+    weights' K-major layout; CPU tensors exercise them here)."""
+    c, f = (24 if case == "c_24" else 32), (96 if case == "f_96" else 128)
+    x, w1h, w1g, w2, biases = _cuda_check_operands(c, f)
     err = ValueError
     if case == "fp32_x":
         x, err = x.float(), TypeError
     elif case == "bf16_bias":
-        biases[2], err = biases[2].to(bf), TypeError
+        biases[2], err = biases[2].to(torch.bfloat16), TypeError
     elif case == "strided_w":
-        w1h = torch.zeros(f, c, dtype=bf).t()
+        w1h = w1h.contiguous()  # the JAX layout in memory: F contiguous, not C
     with pytest.raises(err):
         port_geglu._check_cuda(x, w1h, w1g, w2, biases)
 
 
-def test_output_chunk_fits_shared_memory():
-    """The CUDA launcher's column chunk: all of C up to 640, else the widest
-    multiple of 16 dividing C (1280 -> 640, so two chunks)."""
-    assert [port_geglu._output_chunk(c) for c in (32, 320, 640, 1280, 1920, 2048)] == [
-        32, 320, 640, 640, 640, 512]
+def test_cuda_checks_take_k_major_operands():
+    port_geglu._check_cuda(*_cuda_check_operands(32, 128))
+    port_geglu._check_cuda(*_cuda_check_operands(1280, 5120))
+
+
+# (rows, C, F) of the four UNet levels at batch 2 and at the benchmark's
+# batch 16 -> the bf16 and the int8 plan (out_cols, splits, workspace
+# bytes) on a card of 132 SMs; the widths and splits are the
+# fastest of those timed on the H100 at each shape
+_PLANS = {
+    (7200, 320, 1280): ((128, 1, 7200 * 1280 * 2), (128, 1, 7200 * 1280 + 15 * 2 * 4)),
+    (1840, 640, 2560): ((128, 1, 1840 * 2560 * 2), (128, 1, 1840 * 2560 + 4 * 4 * 4)),
+    (480, 1280, 5120): ((128, 5, 480 * 5120 * 2 + 5 * 480 * 1280 * 4),
+                        (64, 1, 480 * 5120 + 2 * 5 * 4)),
+    (120, 1280, 5120): ((64, 5, 120 * 5120 * 2 + 5 * 120 * 1280 * 4),
+                        (64, 5, 120 * 5120 + 5 * 120 * 1280 * 4 + 1 * 5 * 4)),
+    (57600, 320, 1280): ((128, 1, 57600 * 1280 * 2),
+                         (128, 1, 57600 * 1280 + 113 * 2 * 4)),
+    (14720, 640, 2560): ((128, 1, 14720 * 2560 * 2),
+                         (128, 1, 14720 * 2560 + 29 * 4 * 4)),
+    (3840, 1280, 5120): ((128, 1, 3840 * 5120 * 2), (128, 1, 3840 * 5120 + 15 * 5 * 4)),
+    (960, 1280, 5120): ((128, 1, 960 * 5120 * 2), (128, 1, 960 * 5120 + 4 * 5 * 4)),
+}
+
+
+@pytest.mark.parametrize("shape", list(_PLANS))
+def test_plan_at_flagship_shapes(shape):
+    """The host-side plan of a call: tile widths, splits of the second
+    product (only at the TPU kernel's blk_cols chunks, 5 at F = 5120) and
+    the scratch bytes the wrappers allocate (y or yq, the split partial
+    sums, the int8 scale table), for both kernels."""
+    rows, c, f = shape
+    for int8, expected in zip((False, True), _PLANS[shape]):
+        plan = port_geglu.geglu_plan(rows, c, f, int8)
+        assert plan == port_geglu.GegluPlan(*expected)
+        assert plan.splits in (1, f // port_geglu.pick_cols(f))
 
 
 def _int8_operands(c, f, rows, padded_dominates=False):
@@ -153,5 +191,33 @@ def test_int8_scale_grid_matches_jax():
         assert port_geglu.pick_rows(c) == jax_geglu._pick_rows(c)
     for f in (128, 256, 1280, 2560, 5120, 7680):
         assert port_geglu.pick_cols(f) == jax_geglu._pick_cols(f)
-    assert [port_geglu.int8_output_chunk(c) for c in (64, 320, 640, 1280, 1920, 512)] == [
-        64, 320, 320, 320, 320, 256]
+    # the second product splits F only at the scale grid's column chunks,
+    # so each split's sums take one chunk's scale and stay bit-equal
+    for rows in (16, 120, 480, 7200):
+        for c, f in ((320, 1280), (640, 2560), (1280, 5120), (1920, 7680)):
+            plan = port_geglu.geglu_plan(rows, c, f, True)
+            assert plan.splits in (1, f // port_geglu.pick_cols(f))
+
+
+def test_feedforward_operands_hold_the_jax_named_weights():
+    """FeedForward's bf16 operands are the JAX-named W1h, W1g [C, F] and W2
+    [F, C] with their values, laid out K-major (each the transpose of a
+    contiguous tensor, as the kernel reads it) and sharing the parameters'
+    memory (no copy)."""
+    from d3roma_tpu_torch.models.layers import FeedForward
+
+    torch.manual_seed(0)
+    ff = FeedForward(32).to(torch.bfloat16)
+    proj, out = ff.net[0].proj, ff.net[2]
+    w1h, w1g, w2, b1h, b1g, b2 = ff._make_operands(proj.weight, proj.bias, out.weight,
+                                                   out.bias)
+    f = ff.hidden
+    assert torch.equal(w1h, proj.weight.t()[:, :f]) and torch.equal(w1g, proj.weight.t()[:, f:])
+    assert torch.equal(w2, out.weight.t())
+    assert tuple(w1h.shape) == (32, f) and tuple(w2.shape) == (f, 32)
+    for w in (w1h, w1g, w2):
+        assert w.t().is_contiguous()
+    assert w1h.data_ptr() == proj.weight.data_ptr() and w2.data_ptr() == out.weight.data_ptr()
+    assert torch.equal(b1h, proj.bias[:f].float()) and torch.equal(b2, out.bias.float())
+    port_geglu._check_cuda(torch.zeros(1, 4, 32, dtype=torch.bfloat16), w1h, w1g, w2,
+                           (b1h, b1g, b2))

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --geglu    # device, build and the two GEGLU kernels' cases only
+    python3 chip_smoke.py --conv     # device, build and the conv kernels' cases only
 
 Run from the repository root, on a machine with a CUDA GPU and nvcc (the
 kernels build from d3roma_tpu_torch/csrc/ at first use). Phases, each
@@ -15,10 +16,12 @@ failing the run on its own error:
    time kernel, plain version and one library call, and compute the bound
    (bf16 peak for the bf16 kernels, int8 peak for the int8 ones); the int8
    conv kernel in each of its three epilogues through the JAX entry points
-   (conv3x3_flat, conv3x3_rowtap, conv3x3_halo), bit-equal; the two GEGLU
-   kernels at the UNet's four levels at batch 2 and 16, timed in turns with
-   their library call (K L L K), with their host and device ms per call,
-   the int8 one bit-equal;
+   (conv3x3_flat, conv3x3_rowtap, conv3x3_halo), bit-equal, and at the
+   int8 dense layers' shapes; the two GEGLU kernels at the UNet's four
+   levels at batch 2 and 16, the int8 one bit-equal; the GEGLU, conv and
+   dense cases and the bf16 fused attention timed in turns with their
+   library call (K L L K), with their host and device ms per call and the
+   host plan of the call;
 4. latency path: GuidedLatentDiffusionPipeline.fast_inference("latency")
    at the full SD2.1 geometry (random seeded weights held in bf16), batch
    2, RGB + raw at 640x360, 10 DDIM steps; the launch counts of one call
@@ -199,10 +202,21 @@ def time_in_turns(kernel, library):
 
 
 def _plan_fields(rows, c, f, int8):
-    from d3roma_tpu_torch.ops.kernels import geglu
+    from d3roma_tpu_torch.ops.kernels import _build, geglu
 
-    plan = geglu.geglu_plan(rows, c, f, int8, geglu._sm_count(0))
+    plan = geglu.geglu_plan(rows, c, f, int8, _build.sm_count(0))
     return {"gate_cols": geglu.GATE_COLS, "out_cols": plan.out_cols, "splits": plan.splits,
+            "workspace_mb": plan.workspace_bytes / 1e6}
+
+
+def _conv_plan_fields(b, h, w, cin, cout, k, stride, padding, itemsize, epilogue):
+    import torch
+
+    from d3roma_tpu_torch.ops.kernels import conv2d
+
+    plan, _ = conv2d.launch_ints(b, h, w, cin, cout, k, k, stride, padding, itemsize, epilogue,
+                                 False, torch.device("cuda", 0))
+    return {"box": list(plan.box), "bn": plan.bn, "splits": plan.splits,
             "workspace_mb": plan.workspace_bytes / 1e6}
 
 
@@ -423,22 +437,81 @@ def _conv_int8_case(b, h, w, cin, cout, k, stride, padding, gen, timed):
     ref = conv2d_int8_plain(x, wq, ws, act, bias, stride, padding).float()
     _sync()
     err = (out.float() - ref).abs().max().item()
-    tol = REL_TOL * ref.abs().max().item()
-    row = {"shape": [b, h, w, cin, cout, k, stride, padding], "max_abs_err": err,
-           "tol": tol, "max_abs_out": ref.abs().max().item()}
+    # bit-equal: exact int32 sums, the plain version's fp32 operations
+    row = {"shape": [b, h, w, cin, cout, k, stride, padding], "max_abs_err": err, "tol": 0.0,
+           "max_abs_out": ref.abs().max().item(),
+           **_conv_plan_fields(b, h, w, cin, cout, k, stride, padding, 1, "xla")}
     if timed:
         xc = x.permute(0, 3, 1, 2)  # NCHW view, channels_last in memory
         wc = wt.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        row["ms"] = time_ms(lambda: conv2d_int8(x, wq, ws, act, bias, stride, padding))
-        row["plain_ms"] = time_ms(
-            lambda: conv2d_int8_plain(x, wq, ws, act, bias, stride, padding), reps=3, warmup=1)
-        row["library_ms"] = time_ms(lambda: F.conv2d(xc, wc, bias, stride, padding))
-        row["library_call"] = "F.conv2d (bf16, cuDNN, channels_last)"
         oh, ow = conv_out_hw(h, w, k, stride, padding)
         ops = 2.0 * b * oh * ow * cout * k * k * cin
         nbytes = 2.0 * b * h * w * cin + 1.0 * cout * k * k * cin + 6.0 * cout + 2.0 * b * oh * ow * cout
         row["bound_ms"], row["bound_by"] = bound(ops, nbytes, H100_INT8_OPS)
-    return _check_row("conv2d_int8", row, err, tol)
+        _timed_against_library(row, lambda: conv2d_int8(x, wq, ws, act, bias, stride, padding),
+                               lambda: F.conv2d(xc, wc, bias, stride, padding))
+        row["plain_ms"] = time_ms(
+            lambda: conv2d_int8_plain(x, wq, ws, act, bias, stride, padding), reps=3, warmup=1)
+        row["library_call"] = "F.conv2d (bf16, cuDNN, channels_last)"
+    return _check_row("conv2d_int8", row, err, 0.0)
+
+
+def _dense_int8_case(rows, c, n, gen, timed):
+    """An int8 dense layer (ops/quant.py::int8_linear: the int8 conv kernel
+    as a 1x1 convolution over the rows, "xla" epilogue) against the
+    kernel's plain version: bit-equal."""
+    import torch
+    import torch.nn.functional as F
+
+    from d3roma_tpu_torch.ops.kernels import conv2d_int8_plain
+    from d3roma_tpu_torch.ops.quant import fp32, int8_linear, quantize_weight
+
+    x = torch.randn((BATCH, rows // BATCH, c), generator=gen, device="cuda").to(torch.bfloat16)
+    wt = (torch.randn((n, c), generator=gen, device="cuda") * c ** -0.5).to(torch.bfloat16)
+    bias = (torch.randn((n,), generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+    wq, ws = quantize_weight(wt)
+    act = fp32(x.float().abs().max().item() * 1.25 / 127)
+    out = int8_linear(x, wq, ws, act, bias)
+    ref = conv2d_int8_plain(x.reshape(1, 1, rows, c), wq.view(n, 1, 1, c), ws, act, bias, 1,
+                            0).reshape(out.shape).float()
+    _sync()
+    err = (out.float() - ref).abs().max().item()
+    row = {"shape": [rows, c, n], "site": "dense", "max_abs_err": err, "tol": 0.0,
+           "max_abs_out": ref.abs().max().item(),
+           **_conv_plan_fields(1, 1, rows, c, n, 1, 1, 0, 1, "xla")}
+    if timed:
+        ops = 2.0 * rows * c * n
+        nbytes = 2.0 * rows * c + 1.0 * n * c + 6.0 * n + 2.0 * rows * n
+        row["bound_ms"], row["bound_by"] = bound(ops, nbytes, H100_INT8_OPS)
+        _timed_against_library(row, lambda: int8_linear(x, wq, ws, act, bias),
+                               lambda: F.linear(x, wt, bias))
+        row["plain_ms"] = time_ms(lambda: conv2d_int8_plain(
+            x.reshape(1, 1, rows, c), wq.view(n, 1, 1, c), ws, act, bias, 1, 0), reps=3,
+            warmup=1)
+        row["library_call"] = "F.linear (bf16)"
+    return _check_row("conv2d_int8 (dense)", row, err, 0.0)
+
+
+def conv_int8_cases(gen):
+    """The int8 conv kernel in its "xla" epilogue at the bench-default
+    path's conv and dense shapes (timed) and ragged ones (checked only)."""
+    rows = [
+        _conv_int8_case(BATCH, 23, 40, 1920, 640, 3, 1, 1, gen, True),   # UNet up block 2
+        _conv_int8_case(2 * BATCH, H, W, 128, 128, 3, 1, 1, gen, True),  # VAE encoder
+        _conv_int8_case(2 * BATCH, H + 1, W + 1, 128, 128, 3, 2, 0, gen, True),  # VAE down
+        _conv_int8_case(BATCH, H, W, 256, 128, 1, 1, 0, gen, True),      # VAE 1x1 shortcut
+        _conv_int8_case(BATCH, 45, 80, 320, 320, 3, 2, 1, gen, True)]    # UNet downsampler
+    # the dense layers of the UNet's three transformer widths (batch 2)
+    rows += [_dense_int8_case(r, c, c, gen, True) for r, c in ((7200, 320), (1840, 640),
+                                                                (480, 1280))]
+    for shape in ((1, 7, 9, 32, 64, 3, 1, 1), (1, 5, 6, 64, 96, 3, 2, 1),
+                  (2, 9, 11, 32, 130, 1, 1, 0), (1, 13, 17, 96, 34, 3, 2, 0),
+                  (BATCH, 6, 10, 1280, 1280, 3, 1, 1), (3, 5, 7, 160, 200, 3, 1, 1)):
+        _conv_int8_case(*shape, gen, False)
+    for r, c, n in ((120, 1280, 1280), (2 * 77, 1024, 640), (2, 1280, 320), (100, 64, 8)):
+        _dense_int8_case(r, c, n, gen, False)
+    _sync()
+    return rows
 
 
 def _quantize_case(shape, gen, timed):
@@ -482,16 +555,7 @@ def int8_kernel_phase():
                   (1, 70, 50, 1, 32), (1, 200, 150, 1, 512), (1, 90, 90, 2, 256)):
         _attention_int8_case(*shape, gen, False)
     rows["geglu_int8"] = geglu_int8_cases(gen)
-    rows["conv2d_int8"] = [
-        _conv_int8_case(BATCH, 23, 40, 1920, 640, 3, 1, 1, gen, True),   # UNet up block 2
-        _conv_int8_case(2 * BATCH, H, W, 128, 128, 3, 1, 1, gen, True),  # VAE encoder
-        _conv_int8_case(2 * BATCH, H + 1, W + 1, 128, 128, 3, 2, 0, gen, True),  # VAE down
-        _conv_int8_case(BATCH, H, W, 256, 128, 1, 1, 0, gen, True)]      # VAE 1x1 shortcut
-    for shape in ((BATCH, 45, 80, 320, 320, 3, 2, 1), (1, 7, 9, 32, 64, 3, 1, 1),
-                  (1, 5, 6, 64, 96, 3, 2, 1), (2, 9, 11, 32, 130, 1, 1, 0),
-                  (1, 13, 17, 96, 34, 3, 2, 0)):
-        _conv_int8_case(*shape, gen, False)
-    _sync()
+    rows["conv2d_int8"] = conv_int8_cases(gen)
     return rows
 
 
@@ -665,7 +729,8 @@ def _attention_fused_bf16_case(b, n, c, gen, timed):
     err = (out.float() - ref).abs().max().item()
     tol = REL_TOL * ref.abs().max().item()
     row = {"shape": [b, n, c, heads], "max_abs_err": err, "tol": tol,
-           "max_abs_out": ref.abs().max().item()}
+           "max_abs_out": ref.abs().max().item(),
+           "qkv_plan": _conv_plan_fields(1, 1, b * n, c, 3 * c, 1, 1, 0, 2, "bf16")}
     if timed:
         bo16 = bo.to(torch.bfloat16)
 
@@ -674,14 +739,14 @@ def _attention_fused_bf16_case(b, n, c, gen, timed):
             o = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(b, n, c)
             return F.linear(o, ws[3], bo16)
 
-        row["ms"] = time_ms(lambda: fused_self_attention_bf16(x, wqkv, ws[3], bo, heads))
-        row["plain_ms"] = time_ms(
-            lambda: fused_self_attention_bf16_plain(x, wqkv, ws[3], bo, heads), reps=5)
-        row["library_ms"] = time_ms(library)
-        row["library_call"] = "4 F.linear + F.scaled_dot_product_attention (bf16)"
         flops = b * (8.0 * n * c * c + 4.0 * n * n * c)
         nbytes = 2.0 * 2 * b * n * c + 2.0 * 4 * c * c + 4.0 * c
         row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
+        _timed_against_library(row, lambda: fused_self_attention_bf16(x, wqkv, ws[3], bo, heads),
+                               library)
+        row["plain_ms"] = time_ms(
+            lambda: fused_self_attention_bf16_plain(x, wqkv, ws[3], bo, heads), reps=5)
+        row["library_call"] = "4 F.linear + F.scaled_dot_product_attention (bf16)"
     return _check_row("attention_fused_bf16", row, err, tol)
 
 
@@ -704,17 +769,18 @@ def _conv_bf16_case(b, h, w, cin, cout, gen, timed, halo=False):
     err = (out.float() - ref).abs().max().item()
     tol = REL_TOL * ref.abs().max().item()
     row = {"shape": [b, h, w, cin, cout], "entry": "conv3x3_halo" if halo else "conv3x3_flat",
-           "max_abs_err": err, "tol": tol, "max_abs_out": ref.abs().max().item()}
+           "max_abs_err": err, "tol": tol, "max_abs_out": ref.abs().max().item(),
+           **_conv_plan_fields(b, h, w, cin, cout, 3, 1, 1, 2, "bf16")}
     if timed:
         xc = x.permute(0, 3, 1, 2)
         wc = wk.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        row["ms"] = time_ms(lambda: conv2d_bf16(x, wk, 1, 1))
-        row["plain_ms"] = time_ms(lambda: conv2d_bf16_plain(x, wk, 1, 1), reps=5)
-        row["library_ms"] = time_ms(lambda: F.conv2d(xc, wc, None, 1, 1))
-        row["library_call"] = "F.conv2d (bf16, cuDNN, channels_last)"
         flops = 2.0 * b * h * w * cout * 9 * cin
         nbytes = 2.0 * (b * h * w * cin + 9 * cin * cout + b * h * w * cout)
         row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
+        _timed_against_library(row, lambda: conv2d_bf16(x, wk, 1, 1),
+                               lambda: F.conv2d(xc, wc, None, 1, 1))
+        row["plain_ms"] = time_ms(lambda: conv2d_bf16_plain(x, wk, 1, 1), reps=5)
+        row["library_call"] = "F.conv2d (bf16, cuDNN, channels_last)"
     return _check_row("conv2d_bf16", row, err, tol)
 
 
@@ -749,7 +815,8 @@ def _conv_epilogue_case(name, epilogue, b, h, w, cin, cout, gen, timed, saturate
     _sync()
     err = (out.float() - ref).abs().max().item()
     row = {"shape": [b, h, w, cin, cout], "entry": name, "epilogue": epilogue,
-           "max_abs_err": err, "tol": 0.0, "max_abs_out": ref.abs().max().item()}
+           "max_abs_err": err, "tol": 0.0, "max_abs_out": ref.abs().max().item(),
+           **_conv_plan_fields(b, h, w, cin, cout, 3, 1, 1, 1, epilogue)}
     if saturate:
         other = conv2d_int8_plain(x, wq, ws, act, None, 1, 1, "tpu", odt)
         row["differs_from_tpu_order"] = bool((other != ref).any().item())
@@ -759,15 +826,56 @@ def _conv_epilogue_case(name, epilogue, b, h, w, cin, cout, gen, timed, saturate
     if timed:
         xc = x.permute(0, 3, 1, 2)
         wc = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-        row["ms"] = time_ms(lambda: conv2d_int8(x, wq, ws, act, None, 1, 1, epilogue))
-        row["plain_ms"] = time_ms(
-            lambda: conv2d_int8_plain(x, wq, ws, act, None, 1, 1, epilogue), reps=3, warmup=1)
-        row["library_ms"] = time_ms(lambda: F.conv2d(xc, wc, None, 1, 1))
-        row["library_call"] = "F.conv2d (bf16, cuDNN, channels_last)"
         ops = 2.0 * b * h * w * cout * 9 * cin
         nbytes = 2.0 * b * h * w * cin + 9.0 * cin * cout + 4.0 * cout + 2.0 * b * h * w * cout
         row["bound_ms"], row["bound_by"] = bound(ops, nbytes, H100_INT8_OPS)
+        _timed_against_library(row, lambda: conv2d_int8(x, wq, ws, act, None, 1, 1, epilogue),
+                               lambda: F.conv2d(xc, wc, None, 1, 1))
+        row["plain_ms"] = time_ms(
+            lambda: conv2d_int8_plain(x, wq, ws, act, None, 1, 1, epilogue), reps=3, warmup=1)
+        row["library_call"] = "F.conv2d (bf16, cuDNN, channels_last)"
     return _check_row(f"{name} ({epilogue})", row, err, 0.0)
+
+
+def tma_map_host_cost():
+    """Host time of one int8 conv launch through its C launcher alone, with
+    the activation's TMA map found in the launcher's cache (the same
+    pointer every call, as the caching allocator mostly hands back) against
+    encoded anew (a new pointer every call): the difference is the host cost
+    of encoding a map. A 1x1 conv over 64 pixels keeps each launch's device
+    work to a few us, so the loop measures the host."""
+    import torch
+
+    from d3roma_tpu_torch.ops.kernels import _build
+    from d3roma_tpu_torch.ops.kernels import conv2d as kconv
+
+    n, pixels, c = 256, 64, 64
+    dev = torch.device("cuda", 0)
+    pool = torch.zeros((16 * (n + 1) + pixels * c,), dtype=torch.int8, device=dev)
+    wq = torch.zeros((c, 1, 1, c), dtype=torch.int8, device=dev)
+    ws = torch.ones(c, device=dev)
+    out = torch.empty((pixels, c), dtype=torch.bfloat16, device=dev)
+    _, ints = kconv.launch_ints(1, 1, pixels, c, c, 1, 1, 1, 0, 1, "xla", False, dev)
+    lib, stream = kconv._library(), _build.current_stream(dev)
+
+    def per_call_us(ptrs):
+        _sync()
+        t0 = time.perf_counter()
+        for p in ptrs:
+            _build.check(lib.d3r_conv2d_int8(p, wq.data_ptr(), ws.data_ptr(), None,
+                                             out.data_ptr(), None, ints, 0.05, stream),
+                         "conv2d_int8")
+        us = (time.perf_counter() - t0) / len(ptrs) * 1e6
+        _sync()
+        return us
+
+    base = pool.data_ptr()
+    per_call_us([base] * 16)  # warm: the weight's map and the cached activation map
+    cached = per_call_us([base] * n)
+    fresh = per_call_us([base + 16 * (i + 1) for i in range(n)])
+    row = {"cached_us": cached, "encoded_us": fresh, "encode_us": fresh - cached}
+    print(f"  tma map host cost per launch {row}", flush=True)
+    return row
 
 
 def conv_and_fused_bf16_kernel_phase():
@@ -797,8 +905,10 @@ def conv_and_fused_bf16_kernel_phase():
     for name, epi in (("conv3x3_flat", "tpu"), ("conv3x3_rowtap", "tpu"),
                       ("conv3x3_halo", "halo")):
         _conv_epilogue_case(name, epi, 1, 7, 9, 32, 34, gen, False)
+        _conv_epilogue_case(name, epi, BATCH, 6, 10, 1280, 200, gen, False)  # split K
     rows["conv3x3_halo"].append(
         _conv_epilogue_case("conv3x3_halo", "halo", 1, 6, 10, 1280, 64, gen, False, True))
+    rows["tma_map_host_cost"] = tma_map_host_cost()
     _sync()
     return rows
 
@@ -1358,11 +1468,14 @@ _KERNEL_GROUPS = (
     ("attention_fused_int8 kernels (QKV projection, quantize)",
      ("qkv_int8_kernel", "quantize_qkv_kernel")),
     ("fused attention output projection (int8 and bf16 bodies)", ("out_proj_kernel",)),
-    ("conv2d_bf16 kernel (the bf16 fused attention's QKV projection)", ("conv_bf16_kernel",)),
-    ("conv2d_int8 kernel (xla epilogue)", ("conv_int8_kernel<0>",)),
-    ("conv2d_int8 kernel (tpu epilogue)", ("conv_int8_kernel<1>",)),
-    ("conv2d_int8 kernel (halo epilogue)", ("conv_int8_kernel<2>",)),
-    ("conv2d_int8 kernel", ("conv_int8_kernel",)),
+    ("conv2d_bf16 kernels (the bf16 fused attention's QKV projection; split sum)",
+     ("conv_bf16_sm90_kernel", "conv_bf16_reduce_kernel")),
+    ("conv2d_int8 kernels (xla epilogue; split sum)",
+     ("conv_int8_sm90_kernel<0", "conv_int8_reduce_kernel<0")),
+    ("conv2d_int8 kernels (tpu epilogue; split sum)",
+     ("conv_int8_sm90_kernel<1", "conv_int8_reduce_kernel<1")),
+    ("conv2d_int8 kernels (halo epilogue; split sum)",
+     ("conv_int8_sm90_kernel<2", "conv_int8_reduce_kernel<2")),
     ("geglu_ff_int8 kernels (table clear, absmax, requantize, output, split sum)",
      ("geglu_int8_",)),
     # the rows kernel is also the fused attention's core (head width 64)
@@ -1446,6 +1559,13 @@ def main() -> int:
         _sync()
         print("GEGLU cases passed", flush=True)
         return 0
+    if sys.argv[1:] == ["--conv"]:
+        import torch
+
+        conv_int8_cases(torch.Generator(device="cuda").manual_seed(4321))
+        conv_and_fused_bf16_kernel_phase()
+        print("conv cases passed", flush=True)
+        return 0
     attn_rows, geglu_rows = kernel_phase()
     int8_rows = int8_kernel_phase()
     opt_rows = opt_in_kernel_phase()
@@ -1470,9 +1590,10 @@ def main() -> int:
         _kernel_entry("geglu_ff_int8", "d3roma_tpu_torch/csrc/geglu_int8.cu",
                       "d3roma_tpu/ops/pallas/geglu.py:71", int8_rows["geglu_int8"],
                       bench_counts["geglu_int8"]),
-        _kernel_entry("conv2d_int8", "d3roma_tpu_torch/csrc/conv2d_int8.cu",
-                      "d3roma_tpu/ops/pallas/conv2d.py:80", int8_rows["conv2d_int8"],
-                      bench_counts["conv2d_int8"]),
+        dict(_kernel_entry("conv2d_int8", "d3roma_tpu_torch/csrc/conv2d_int8.cu",
+                           "d3roma_tpu/ops/pallas/conv2d.py:80", int8_rows["conv2d_int8"],
+                           bench_counts["conv2d_int8"]),
+             tma_map_host_cost=new_rows["tma_map_host_cost"]),
         # no Pallas kernel: the XLA quantization in front of the int8 ops
         _kernel_entry("quantize_int8", "d3roma_tpu_torch/csrc/quantize.cu",
                       "d3roma_tpu/ops/quant.py:64", int8_rows["quantize"],

@@ -20,11 +20,13 @@
 // not memory, become the limit.
 //
 // Design. Hopper blocks run in no order and share nothing, so the sweep
-// becomes three launches on the caller's stream, each a kernel the port's
-// other kernels use too:
-//   1. conv_bf16_kernel (conv2d_bf16.cuh) as a 1x1 convolution over the
-//      B N rows: [B N, C] x [C, 3C] in 128 x 128 tiles, fp32 sums, one
-//      rounding, into a [B, N, 3C] bf16 workspace;
+// becomes three launches (four with a split projection) on the caller's
+// stream, each a kernel the port's other kernels use too:
+//   1. conv_bf16_sm90_kernel (sm90_conv.cuh, the TMA + wgmma convolution)
+//      as a 1x1 convolution over the B N rows: [B N, C] x [C, 3C], fp32
+//      sums, one rounding, into a [B, N, 3C] bf16 workspace, in the tiles of
+//      the wrapper's plan (ops/kernels/conv2d.py::conv_plan; with a split
+//      of K, one more launch adds the fp32 partials);
 //   2. mha_kernel<64> (attention_bf16_rows.cuh) on q, k and v read in place
 //      from that workspace through their strides, writing o [B, N, H, 64]:
 //      the row-1 kernel, whose arithmetic is that of this body's attention
@@ -40,24 +42,31 @@
 
 #include "attention_bf16_rows.cuh"
 #include "attention_out_proj.cuh"
-#include "conv2d_bf16.cuh"
+#include "sm90_conv.cuh"
 
 // x [B, N, C] bf16, wqkv [3C, C] bf16 (the rows of Wq, Wk, Wv: one per output
 // column), wo [C, C] bf16 (output column, then input), bo [C] fp32; out
-// [B, N, C] bf16. Scratch: qkv [B, N, 3C] bf16, o [B, N, C] bf16. All
-// contiguous and 16-byte aligned; C = 64 H. Returns the first CUDA error of
-// the three launches.
+// [B, N, C] bf16. Scratch: qkv [B, N, 3C] bf16, o [B, N, C] bf16, and
+// partial [splits, B N, 3C] fp32 when the projection's plan splits K.
+// proj_shape: the projection as a 1x1 convolution over the B N rows, the
+// int array of sm90_conv.cuh's call_of (the wrapper's conv2d.launch_ints).
+// All contiguous and 16-byte aligned; C = 64 H. Returns the first CUDA error
+// of the launches.
 extern "C" int d3r_fused_self_attention_bf16(const void* x, const void* wqkv, const void* wo,
                                              const void* bo, void* qkv, void* o, void* out,
-                                             int B, int N, int C, int H, float scale,
-                                             void* stream) {
+                                             void* partial, const int* proj_shape, int B, int N,
+                                             int C, int H, float scale, void* stream) {
   using d3r::bf16;
-  if (B <= 0 || N <= 0 || H <= 0 || C != d3r::kOpHeadDim * H) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || N <= 0 || H <= 0 || C != d3r::kOpHeadDim * H || proj_shape[2] != B * N ||
+      proj_shape[3] != C || proj_shape[6] != 3 * C || proj_shape[18] != d3r::conv::kBf16) {
+    return (int)cudaErrorInvalidValue;
+  }
   auto st = static_cast<cudaStream_t>(stream);
   auto* w = static_cast<bf16*>(qkv);
-  d3r::ConvBf16Args proj{static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv), w,
-                         1, 1, B * N, C, 1, B * N, 3 * C, 1, 1, 1, 0, 0};
-  cudaError_t err = d3r::launch_conv_bf16(proj, st);
+  d3r::conv::Call proj = d3r::conv::call_of(x, wqkv, proj_shape);
+  proj.out = qkv;
+  proj.partial = partial;
+  cudaError_t err = d3r::conv::run<bf16>(proj, d3r::conv::kBf16, st);
   if (err != cudaSuccess) return (int)err;
 
   const int s_b = N * 3 * C, s_n = 3 * C, s_h = d3r::kOpHeadDim;

@@ -1,7 +1,7 @@
 // Building blocks of the port's Hopper GEMMs (sm_90a), generic in the
 // operand type (bf16 with fp32 sums, int8 with int32 sums) and in what the
 // caller does with the sums (its epilogue). Used by geglu.cu and
-// geglu_int8.cu.
+// geglu_int8.cu, and by the implicit-GEMM convolution (sm90_conv.cuh).
 //
 // A block is three warpgroups: two consumers and one producer. The producer
 // keeps a ring of kStages shared-memory stages filled by TMA
@@ -20,8 +20,10 @@
 // tile is 128 bytes, 8 rows form a 1024-byte swizzle atom (the stride byte
 // offset), the tile starts on a 1024-byte boundary, and a k step of 32
 // bytes (16 bf16 or 32 int8) adds 32 bytes to the start address. The TMA
-// box of every map is (128 bytes of K) x (box rows), with
-// CU_TENSOR_MAP_SWIZZLE_128B to match. Reads past the matrix's edge fill
+// box of every map is 128 bytes of K innermost, with
+// CU_TENSOR_MAP_SWIZZLE_128B to match; a box of more dimensions (the
+// convolution's pixel rectangles) lands as its rows in order, each 128
+// bytes, swizzled by the same rule. Reads past the tensor's edge fill
 // zeros, so the K tail of a stage and the rows past the last one add
 // nothing to the sums.
 //
@@ -82,36 +84,59 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+constexpr int kMaxRank = 5;
+
 struct MapKey {
   const void* ptr;
-  uint64_t rows, cols, stride;
-  uint32_t box_rows, elem_bytes;
+  uint32_t rank, elem_bytes;
+  uint64_t dims[kMaxRank], strides[kMaxRank - 1];
+  uint32_t box[kMaxRank], steps[kMaxRank];
   bool operator==(const MapKey& o) const {
-    return ptr == o.ptr && rows == o.rows && cols == o.cols && stride == o.stride &&
-           box_rows == o.box_rows && elem_bytes == o.elem_bytes;
+    if (ptr != o.ptr || rank != o.rank || elem_bytes != o.elem_bytes) return false;
+    for (int i = 0; i < kMaxRank; ++i) {
+      if (dims[i] != o.dims[i] || box[i] != o.box[i] || steps[i] != o.steps[i]) return false;
+      if (i + 1 < kMaxRank && strides[i] != o.strides[i]) return false;
+    }
+    return true;
   }
 };
 
 struct MapKeyHash {
   size_t operator()(const MapKey& k) const {
-    size_t h = std::hash<const void*>()(k.ptr);
-    for (uint64_t v : {k.rows, k.cols, k.stride, (uint64_t)k.box_rows, (uint64_t)k.elem_bytes}) {
-      h = h * 1000003u ^ std::hash<uint64_t>()(v);
+    size_t h = std::hash<const void*>()(k.ptr) ^ (size_t(k.rank) << 8 | k.elem_bytes);
+    for (int i = 0; i < kMaxRank; ++i) {
+      for (uint64_t v : {k.dims[i], (uint64_t)k.box[i], (uint64_t)k.steps[i],
+                         i + 1 < kMaxRank ? k.strides[i] : 0}) {
+        h = h * 1000003u ^ std::hash<uint64_t>()(v);
+      }
     }
     return h;
   }
 };
 
-// The TMA map of a row-major matrix [rows, cols] of bf16 (elem_bytes 2) or
-// int8 (1) elements at ptr, rows `stride` bytes apart, read in boxes of 128
-// bytes x box_rows with the 128-byte swizzle. A map is a pure function of
-// its arguments, so the cache never serves a stale one.
-inline cudaError_t tensor_map(CUtensorMap* map, const void* ptr, uint32_t elem_bytes,
-                              uint64_t rows, uint64_t cols, uint64_t stride,
-                              uint32_t box_rows) {
+// The TMA map of a tensor of bf16 (elem_bytes 2) or int8 (1) elements at
+// ptr: `rank` dimensions, innermost first, of sizes dims, the outer ones
+// strides[i - 1] bytes apart; read in boxes of box[i] elements that take
+// every steps[i]-th element (TMA's element strides: a box then lands
+// box[i] / steps[i] elements along dimension i), with the 128-byte swizzle,
+// so box[0] must cover 128 bytes. A map is a pure function of its
+// arguments, so the cache never serves a stale one.
+inline cudaError_t tensor_map_nd(CUtensorMap* map, const void* ptr, uint32_t elem_bytes,
+                                 uint32_t rank, const uint64_t* dims, const uint64_t* strides,
+                                 const uint32_t* box, const uint32_t* steps) {
   static std::mutex mu;
   static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> cache;
-  const MapKey key{ptr, rows, cols, stride, box_rows, elem_bytes};
+  if (rank < 1 || rank > (uint32_t)kMaxRank) return cudaErrorInvalidValue;
+  MapKey key{};
+  key.ptr = ptr;
+  key.rank = rank;
+  key.elem_bytes = elem_bytes;
+  for (uint32_t i = 0; i < rank; ++i) {
+    key.dims[i] = dims[i];
+    key.box[i] = box[i];
+    key.steps[i] = steps[i];
+    if (i > 0) key.strides[i - 1] = strides[i - 1];
+  }
   {
     std::lock_guard<std::mutex> lock(mu);
     const auto it = cache.find(key);
@@ -122,13 +147,17 @@ inline cudaError_t tensor_map(CUtensorMap* map, const void* ptr, uint32_t elem_b
   }
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {stride};
-  const cuuint32_t box[2] = {kKBytes / elem_bytes, box_rows};
-  const cuuint32_t steps[2] = {1, 1};
+  cuuint64_t d[kMaxRank], st[kMaxRank - 1];
+  cuuint32_t b[kMaxRank], e[kMaxRank];
+  for (uint32_t i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    b[i] = box[i];
+    e[i] = steps[i];
+    if (i > 0) st[i - 1] = strides[i - 1];
+  }
   const CUresult r = encode(
       map, elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
-      2, const_cast<void*>(ptr), dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      rank, const_cast<void*>(ptr), d, st, b, e, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
@@ -138,13 +167,30 @@ inline cudaError_t tensor_map(CUtensorMap* map, const void* ptr, uint32_t elem_b
   return cudaSuccess;
 }
 
+// The TMA map of a row-major matrix [rows, cols] at ptr, rows `stride`
+// bytes apart, read in boxes of 128 bytes x box_rows.
+inline cudaError_t tensor_map(CUtensorMap* map, const void* ptr, uint32_t elem_bytes,
+                              uint64_t rows, uint64_t cols, uint64_t stride,
+                              uint32_t box_rows) {
+  const uint64_t dims[2] = {cols, rows};
+  const uint64_t strides[1] = {stride};
+  const uint32_t box[2] = {kKBytes / elem_bytes, box_rows};
+  const uint32_t steps[2] = {1, 1};
+  return tensor_map_nd(map, ptr, elem_bytes, 2, dims, strides, box, steps);
+}
+
 constexpr int kMaxDevices = 64;
 
 // Launch kKernel on a persistent grid over `tiles` tiles (one block per SM
 // at most) with `smem` bytes of dynamic shared memory. The SM count and the
-// shared-memory attribute are looked up once per device.
+// shared-memory attribute are looked up once per device. Internal linkage
+// (static): the statics must belong to one library's kernel. Two libraries
+// built from this header can instantiate `launch` for kernels of the same
+// name (sm90_conv.cuh's), and with external linkage the dynamic linker
+// merges such statics across the process, so the second library would skip
+// setting its own kernel's shared-memory attribute.
 template <auto kKernel, typename... Args>
-cudaError_t launch(int tiles, size_t smem, cudaStream_t st, const Args&... args) {
+static cudaError_t launch(int tiles, size_t smem, cudaStream_t st, const Args&... args) {
   static std::atomic<int> sms[kMaxDevices];
   static std::atomic<bool> smem_set[kMaxDevices];
   int dev = 0;
@@ -215,6 +261,25 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
       : "memory");
 }
 
@@ -356,6 +421,64 @@ __device__ __forceinline__ void wgmma<int, 128>(int (&d)[64], uint64_t a, uint64
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+template <>
+__device__ __forceinline__ void wgmma<float, 160>(float (&d)[80], uint64_t a, uint64_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+      "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, %80, %81, "
+      "p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]),
+        "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]),
+        "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]),
+        "+f"(d[79])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<int, 160>(int (&d)[80], uint64_t a, uint64_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+      "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, %80, %81, "
+      "p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]),
+        "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]),
+        "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),
+        "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]),
+        "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]),
+        "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]),
+        "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]),
+        "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]), "+r"(d[66]),
+        "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]), "+r"(d[72]),
+        "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]),
+        "+r"(d[79])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // Row within the warpgroup's 64 and column within its N of sum 4j + e.
 __device__ __forceinline__ int frag_row(int e) {
   return (threadIdx.x % 128) / 32 * 16 + (threadIdx.x % 32) / 4 + 8 * (e >> 1);
@@ -407,13 +530,20 @@ struct Stages {
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
 
+  // Producer (one thread): wait until stage r.stage is free and arm its
+  // full barrier for `bytes` bytes of TMA loads, which the caller issues
+  // (each box counts whole, its zero-filled part included) before r.next().
+  __device__ void acquire(const Ring& r, uint32_t bytes) const {
+    mbar_wait(&empty[r.stage], r.phase ^ 1);
+    mbar_expect_tx(&full[r.stage], bytes);
+  }
+
   // Producer (one thread): the next stage gets the A tile at (k, a_row) and
   // the B tile at (k, b_row) of b_map, or, with b2_map, kBN / 2 rows at
   // b_row of b_map over kBN / 2 rows at b2_row of b2_map. k in elements.
   __device__ void load(Ring& r, const CUtensorMap* a_map, int a_row, const CUtensorMap* b_map,
                        int b_row, const CUtensorMap* b2_map, int b2_row, int k) const {
-    mbar_wait(&empty[r.stage], r.phase ^ 1);
-    mbar_expect_tx(&full[r.stage], kStageBytes);
+    acquire(r, kStageBytes);
     tma_load(a(r.stage), a_map, &full[r.stage], k, a_row);
     tma_load(b(r.stage), b_map, &full[r.stage], k, b_row);
     if (b2_map != nullptr) {

@@ -11,6 +11,7 @@ nvcc process each, and waits for all of them.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -96,6 +97,12 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib
+
+
+@functools.lru_cache(maxsize=8)
+def sm_count(device_index: int) -> int:
+    """The SM count of a CUDA device (the plans size their grids by it)."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def current_stream(device) -> int:

@@ -24,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from d3roma_tpu_torch.ops.kernels import _build
+from d3roma_tpu_torch.ops.kernels import _build, conv2d
 from d3roma_tpu_torch.ops.kernels.attention import mha_attention_plain
 from d3roma_tpu_torch.ops.kernels.quantize import (
     fp32,
@@ -218,8 +218,8 @@ def _library_bf16() -> ctypes.CDLL:
     lib = _build.load("attention_fused_bf16")
     fn = lib.d3r_fused_self_attention_bf16
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_int)]
+                       + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
@@ -263,10 +263,14 @@ def fused_self_attention_bf16(x: torch.Tensor, wqkv: torch.Tensor, wo: torch.Ten
     o = torch.empty((b, n, c), dtype=torch.bfloat16, device=dev)
     out = torch.empty((b, n, c), dtype=torch.bfloat16, device=dev)
     bo32 = bo.float().contiguous()
+    # the QKV projection: a 1x1 convolution over the B N rows
+    plan, proj = conv2d.launch_ints(1, 1, b * n, c, 3 * c, 1, 1, 1, 0, 2, "bf16", False, dev)
+    work = conv2d.plan_workspace(plan, dev)
     with torch.cuda.device(dev):
         err = _library_bf16().d3r_fused_self_attention_bf16(
             x.data_ptr(), wqkv.data_ptr(), wo.data_ptr(), bo32.data_ptr(), qkv.data_ptr(),
-            o.data_ptr(), out.data_ptr(), b, n, c, heads, scale, _build.current_stream(dev))
+            o.data_ptr(), out.data_ptr(), None if work is None else work.data_ptr(), proj, b,
+            n, c, heads, scale, _build.current_stream(dev))
     _build.check(err, "fused_self_attention_bf16")
     fused_self_attention_bf16.launches += 1
     return out

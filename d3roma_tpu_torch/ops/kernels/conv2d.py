@@ -1,19 +1,25 @@
 """Implicit-GEMM convolutions: the int8 and the bf16 CUDA kernels, their
-plain PyTorch versions, their gates and their launch counters, and the JAX
-package's three 3x3 convolution entry points on top of them.
+plain PyTorch versions, their gates, the host-side plan of a call and the
+launch counters, and the JAX package's three 3x3 convolution entry points on
+top of them.
 
 - `conv2d_int8` (`csrc/conv2d_int8.cu`) computes the int8 convolution of
   every static int8 mode in one of three epilogues, each the order of
   arithmetic of one reference: "xla", (acc * act_scale) * ws, the XLA int8
   convolution of quant="static" (`d3roma_tpu/ops/quant.py::
-  int8_conv_general_dilated_static`), at 3x3 stride 1 and 2 and 1x1;
-  "tpu", acc * (act_scale * ws), the Pallas kernels `conv3x3_flat`
+  int8_conv_general_dilated_static`), at 3x3 stride 1 and 2 and 1x1, and
+  the int8 dense layers as 1x1 convolutions over their rows; "tpu",
+  acc * (act_scale * ws), the Pallas kernels `conv3x3_flat`
   (`_kernel_int8`) and `conv3x3_rowtap` (`_kernel_rowtap_int8`); "halo",
   the same with the sum taken as `conv2d_halo.py::_kernel` takes it, one
   int32 partial per row of taps added in fp32.
 - `conv2d_bf16` (`csrc/conv2d_bf16.cu`) is the bf16 convolution of
   `conv3x3_flat`'s `_kernel_bf16` and of `conv3x3_halo`'s bf16 body:
   bf16 products, fp32 sums, one rounding.
+- Both are one TMA + wgmma implicit GEMM, `csrc/sm90_conv.cuh`, in two
+  operand types; `conv_plan` cuts a call into its tiles (a box of output
+  pixels by bn output channels) and splits K where the tiles are too few
+  for the SMs.
 - `conv3x3_flat`, `conv3x3_rowtap` and `conv3x3_halo` take the JAX
   functions' arguments (NHWC x, HWIO w, the weight quantized per output
   channel inside the call) and launch those two kernels; their gates
@@ -28,12 +34,20 @@ built around that.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from d3roma_tpu_torch.ops.kernels import _build
+from d3roma_tpu_torch.ops.kernels.geglu import (
+    H100_SMS,
+    SPLIT_BYTES_PER_UNIT,
+    SPLIT_LAUNCH_UNITS,
+    TILE_STAGES,
+)
 from d3roma_tpu_torch.ops.kernels.quantize import (
     fp32,
     quantize_int8_plain,
@@ -49,6 +63,120 @@ EPILOGUES = ("xla", "tpu", "halo")
 
 def conv_out_hw(h: int, w: int, k: int, stride: int, padding: int):
     return (h + 2 * padding - k) // stride + 1, (w + 2 * padding - k) // stride + 1
+
+
+# ---------------------------------------------------------------------------
+# The plan of a CUDA call (csrc/sm90_conv.cuh)
+
+# rows of an A tile (two wgmma warpgroups of 64), bytes of K a k step, and
+# the kernels' tile widths: wgmma N of their instantiations ("halo" keeps a
+# second accumulator, so not 160)
+BLOCK_ROWS = 128
+K_STEP_BYTES = 128
+TILE_COLS = (64, 128, 160)
+HALO_TILE_COLS = (64, 128)
+SPLITS = (1, 2, 3, 4, 6, 8)
+
+
+@dataclass(frozen=True)
+class ConvPlan:
+    """How the CUDA kernel cuts one call. box: (width, height, batch) of the
+    output pixels of a tile (at most BLOCK_ROWS); bn: output channels of a
+    tile; splits: blocks that share K, `per` k steps each (the last one may
+    have fewer), each k step 128 bytes of Cin of one tap, taps in (ky, kx)
+    order; k_steps: all of them; workspace_bytes: the partial sums
+    [splits, pixels, Cout] (int32 or fp32) when split, else 0."""
+    box: Tuple[int, int, int]
+    bn: int
+    splits: int
+    per: int
+    k_steps: int
+    workspace_bytes: int
+
+
+def flat_view(b: int, h: int, w: int, kh: int, kw: int, stride: int, padding: int):
+    """The (B, H, W) the kernel sees: a 1x1 stride-1 convolution without
+    padding (and so every dense layer) is one row of B*H*W pixels, which
+    TMA boxes of 128 pixels cover without ragged rows."""
+    if kh == kw == 1 and stride == 1 and padding == 0:
+        return 1, 1, b * h * w
+    return b, h, w
+
+
+@functools.lru_cache(maxsize=256)
+def conv_box(b: int, oh: int, ow: int, stride: int) -> Tuple[int, int, int]:
+    """The output box of a tile, (bw, bh, bb) with bw * bh * bb <= 128 and
+    bw * stride, bh * stride <= 256 (TMA's box limit): the one with the
+    fewest tiles over [b, oh, ow] (so the fewest wasted rows), then the
+    fewest pixels a box (TMA's bytes), then the widest (contiguous
+    pixels)."""
+    best = None
+    for bw in range(1, min(ow, BLOCK_ROWS, 256 // stride) + 1):
+        for bh in range(1, min(oh, BLOCK_ROWS // bw, 256 // stride) + 1):
+            bb = min(b, BLOCK_ROWS // (bw * bh))
+            tiles = -(-ow // bw) * -(-oh // bh) * -(-b // bb)
+            key = (tiles, bw * bh * bb, -bw)
+            if best is None or key < best[0]:
+                best = (key, (bw, bh, bb))
+    return best[1]
+
+
+@functools.lru_cache(maxsize=1024)
+def conv_plan(b: int, oh: int, ow: int, cin: int, cout: int, kh: int, kw: int, stride: int,
+              itemsize: int, epilogue: str, sms: int = H100_SMS) -> ConvPlan:
+    """The tiles of one call on a card with `sms` SMs, over the output
+    [b, oh, ow, cout] of the view the kernel sees (flat_view): the box
+    (conv_box), and the tile width and split of K with the least modelled
+    time. The model is geglu_plan's, whose GEMMs share the mainloop: a tile
+    costs its k steps, plus TILE_STAGES for the fill and the epilogue, times
+    the rows it loads a step (BLOCK_ROWS of A and bn of B, 128 bytes each),
+    by waves of tiles over the SMs; a split adds its partial sums' round
+    trip and a launch. epilogue: "xla", "tpu", "halo" (int8, itemsize 1) or
+    "bf16" (itemsize 2). "halo" splits only at rows of taps (ky), so that
+    each split's fp32 partial is its rows' sum and the splits add up in ky
+    order."""
+    bw, bh, bb = conv_box(b, oh, ow, stride)
+    m_tiles = -(-ow // bw) * -(-oh // bh) * -(-b // bb)
+    kc = -(-cin * itemsize // K_STEP_BYTES)
+    row_steps = kw * kc
+    k_steps = kh * row_steps
+    pixels = b * oh * ow
+    halo = epilogue == "halo"
+
+    options = []
+    for s in SPLITS:
+        per = row_steps * -(-kh // s) if halo else -(-k_steps // s)
+        if (s - 1) * per >= k_steps:
+            continue  # a split would be empty
+        for bn in (HALO_TILE_COLS if halo else TILE_COLS):
+            tiles = m_tiles * -(-cout // bn) * s
+            waves = -(-tiles // sms)
+            split = ((s + 1) * 4 * pixels * cout / SPLIT_BYTES_PER_UNIT + SPLIT_LAUNCH_UNITS
+                     if s > 1 else 0)
+            cost = waves * (per + TILE_STAGES) * (BLOCK_ROWS + bn) + split
+            options.append(((cost, s, -bn), (bn, s, per)))
+    bn, splits, per = min(options)[1]
+    return ConvPlan((bw, bh, bb), bn, splits, per, k_steps,
+                    4 * splits * pixels * cout if splits > 1 else 0)
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_ints(b, h, w, cin, cout, kh, kw, stride, padding, itemsize, epilogue, out_f32,
+                device):
+    """A call's plan and the int array the C launchers take
+    (csrc/sm90_conv.cuh::call_of): the geometry of the view the kernel sees
+    (flat_view), the plan and the epilogue ("xla", "tpu", "halo" or
+    "bf16"), built once per call signature: one ctypes argument instead of
+    twenty, whose conversions cost more host time than the rest of a
+    call's Python."""
+    vb, vh, vw = flat_view(b, h, w, kh, kw, stride, padding)
+    oh, ow = conv_out_hw(vh, vw, kh, stride, padding)
+    plan = conv_plan(vb, oh, ow, cin, cout, kh, kw, stride, itemsize, epilogue,
+                     _build.sm_count(device.index))
+    values = (vb, vh, vw, cin, oh, ow, cout, kh, kw, stride, padding, padding, *plan.box,
+              plan.bn, plan.splits, plan.per, (*EPILOGUES, "bf16").index(epilogue),
+              int(out_f32))
+    return plan, (ctypes.c_int * len(values))(*values)
 
 
 def conv2d_int8_acc_plain(xq: torch.Tensor, wq: torch.Tensor, stride: int,
@@ -96,8 +224,8 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("conv2d_int8")
     fn = lib.d3r_conv2d_int8
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 12
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 6
+                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
@@ -157,18 +285,28 @@ def conv2d_int8(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor, act_scale: 
     b, h, w, cin = x.shape
     cout, kh, kw, _ = wq.shape
     oh, ow = conv_out_hw(h, w, kh, stride, padding)
+    out_dtype = out_dtype or x.dtype
+    plan, ints = launch_ints(b, h, w, cin, cout, kh, kw, stride, padding, 1, epilogue,
+                             out_dtype == torch.float32, x.device)
     xq = quantize_int8_scalar(x, act_scale)
-    out = torch.empty((b, oh, ow, cout), dtype=out_dtype or x.dtype, device=x.device)
+    out = torch.empty((b, oh, ow, cout), dtype=out_dtype, device=x.device)
+    work = plan_workspace(plan, x.device)
     with torch.cuda.device(x.device):
         err = _library().d3r_conv2d_int8(
             xq.data_ptr(), wq.data_ptr(), ws.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(),
-            b, h, w, cin, oh, ow, cout, kh, kw, stride, padding, padding,
-            act_scale, EPILOGUES.index(epilogue), int(out.dtype == torch.float32),
+            None if work is None else work.data_ptr(), ints, act_scale,
             _build.current_stream(x.device))
     _build.check(err, "conv2d_int8")
     _count(epilogue)
     return out
+
+
+def plan_workspace(plan: ConvPlan, device) -> Optional[torch.Tensor]:
+    """The partial sums of a split call (None when unsplit)."""
+    if not plan.workspace_bytes:
+        return None
+    return torch.empty(plan.workspace_bytes, dtype=torch.uint8, device=device)
 
 
 def _count(epilogue: str) -> None:
@@ -209,7 +347,7 @@ def _library_bf16() -> ctypes.CDLL:
     lib = _build.load("conv2d_bf16")
     fn = lib.d3r_conv2d_bf16
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -224,6 +362,8 @@ def _check_cuda_bf16(x, w, out_dtype) -> None:
                          f"got Cin={x.shape[3]}, Cout={w.shape[0]}")
     if not w.is_contiguous() or w.data_ptr() % 16:
         raise ValueError("w must be contiguous and 16-byte aligned")
+    if x.is_contiguous() and x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned (TMA reads it)")
     if x.numel() > 2**31 - 1:
         raise ValueError("x is too large for the kernel's 32-bit pixel index")
 
@@ -247,16 +387,19 @@ def conv2d_bf16(x: torch.Tensor, w: torch.Tensor, stride: int = 1, padding: int 
         return conv2d_bf16_plain(x, w, stride, padding, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"conv2d_bf16 runs on CUDA or the CPU, got {x.device}")
-    _check_cuda_bf16(x, w, out_dtype)
     x = x.contiguous()
+    _check_cuda_bf16(x, w, out_dtype)
     b, h, wd, cin = x.shape
     cout, kh, kw, _ = w.shape
     oh, ow = conv_out_hw(h, wd, kh, stride, padding)
+    plan, ints = launch_ints(b, h, wd, cin, cout, kh, kw, stride, padding, 2, "bf16", False,
+                             x.device)
     out = torch.empty((b, oh, ow, cout), dtype=torch.bfloat16, device=x.device)
+    work = plan_workspace(plan, x.device)
     with torch.cuda.device(x.device):
         err = _library_bf16().d3r_conv2d_bf16(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), b, h, wd, cin, oh, ow, cout, kh, kw,
-            stride, padding, padding, _build.current_stream(x.device))
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), None if work is None else work.data_ptr(),
+            ints, _build.current_stream(x.device))
     _build.check(err, "conv2d_bf16")
     conv2d_bf16.launches += 1
     return out

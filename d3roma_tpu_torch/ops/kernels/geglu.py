@@ -83,13 +83,13 @@ class GegluPlan:
 
 # geglu_plan's model of the second product, fitted to the kernels' times on
 # the H100 at the flagship shapes (chip_smoke.py's GEGLU cases). A tile
-# costs its stages, plus _TILE_STAGES for the fill and the epilogue, times
+# costs its stages, plus TILE_STAGES for the fill and the epilogue, times
 # the rows it loads a stage (128 of A and out_cols of B, 128 bytes each:
 # the L2 feed bounds these GEMMs). A split adds its partial sums' round
-# trip, one such unit per _SPLIT_BYTES_PER_UNIT bytes, and a launch.
-_TILE_STAGES = 6
-_SPLIT_BYTES_PER_UNIT = 6800
-_SPLIT_LAUNCH_UNITS = 500
+# trip, one such unit per SPLIT_BYTES_PER_UNIT bytes, and a launch.
+TILE_STAGES = 6
+SPLIT_BYTES_PER_UNIT = 6800
+SPLIT_LAUNCH_UNITS = 500
 
 
 @functools.lru_cache(maxsize=256)
@@ -106,9 +106,9 @@ def geglu_plan(rows: int, c: int, f: int, int8: bool, sms: int = H100_SMS) -> Ge
     def cost(plan):
         cols, splits = plan
         waves = -(-m_tiles * -(-c // cols) * splits // sms)
-        partial = ((splits + 1) * 4 * rows * c / _SPLIT_BYTES_PER_UNIT + _SPLIT_LAUNCH_UNITS
+        partial = ((splits + 1) * 4 * rows * c / SPLIT_BYTES_PER_UNIT + SPLIT_LAUNCH_UNITS
                    if splits > 1 else 0)
-        return waves * (k_stages // splits + _TILE_STAGES) * (128 + cols) + partial, splits
+        return waves * (k_stages // splits + TILE_STAGES) * (128 + cols) + partial, splits
 
     out_cols, splits = min(((cols, s) for s in sorted({1, chunks}) for cols in (128, 64)),
                            key=cost)
@@ -130,11 +130,6 @@ def _workspace(plan: GegluPlan, rows: int, c: int, f: int, int8: bool, device):
     partial = y + (1 if int8 else 2) * rows * f
     table = partial + (4 * plan.splits * rows * c if plan.splits > 1 else 0)
     return ws, y, partial if plan.splits > 1 else 0, table if int8 else 0
-
-
-@functools.lru_cache(maxsize=8)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def _check_cuda(x, w1h, w1g, w2, biases) -> None:
@@ -195,7 +190,7 @@ def geglu_ff(x: torch.Tensor, w1h: torch.Tensor, w1g: torch.Tensor,
               zeros(c, dtype=torch.float32) if b2 is None else b2)
     _check_cuda(x, w1h, w1g, w2, biases)
     rows = b * n
-    plan = geglu_plan(rows, c, f, False, _sm_count(x.device.index))
+    plan = geglu_plan(rows, c, f, False, _build.sm_count(x.device.index))
     out = torch.empty((b, n, c), dtype=x.dtype, device=x.device)
     ws, y, partial, _ = _workspace(plan, rows, c, f, False, x.device)
     with torch.cuda.device(x.device):
@@ -340,7 +335,7 @@ def geglu_ff_int8(x: torch.Tensor, w1hq: torch.Tensor, w1gq: torch.Tensor,
     vectors = (s1h, s1g, b1h, b1g, s2, b2)
     _check_cuda_int8(x, (w1hq, w1gq, w2q), vectors)
     xq = quantize_int8_scalar(x, act_scale)
-    plan = geglu_plan(rows, c, f, True, _sm_count(x.device.index))
+    plan = geglu_plan(rows, c, f, True, _build.sm_count(x.device.index))
     ws, yq, partial, table = _workspace(plan, rows, c, f, True, x.device)
     out = torch.empty((b, n, c), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):

@@ -4,12 +4,15 @@
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --geglu    # device, build and the two GEGLU kernels' cases only
     python3 chip_smoke.py --conv     # device, build and the conv kernels' cases only
+    python3 chip_smoke.py --winograd # device, build and the Winograd kernel's cases only
+    python3 chip_smoke.py --attention  # device, build and the int8 attention cases only
 
 Run from the repository root, on a machine with a CUDA GPU and nvcc (the
 kernels build from d3roma_tpu_torch/csrc/ at first use). Phases, each
 failing the run on its own error:
 
-1. device: require CUDA; print the card's name and power limit;
+1. device: require CUDA; print the card's name and power limit, and its
+   maximum SM clock (the exponentials' bound of the attention rows);
 2. build: compile the kernels, one nvcc per source, all at once;
 3. kernels: each hand-written kernel against its plain PyTorch version at
    the main paths' shapes and a few ragged ones, with the stated tolerance;
@@ -73,6 +76,10 @@ import time
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
 H100_INT8_OPS = 1979e12  # dense int8 tensor-core peak, H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3 bandwidth, H100 SXM data sheet
+# exponentials a clock on one SM (the SFU's ex2 rate, Hopper's 16 a clock
+# per SM); times the SM count and the maximum SM clock read by device_phase
+EXP_PER_CLOCK_PER_SM = 16
+_CARD = {"max_sm_clock_mhz": None}
 # Kernels against their plain versions: max |err| <= REL_TOL * max |ref|.
 # bf16 rounding of the output (2^-9 relative) and of P or of the gated
 # product keeps the measured ratio near 4e-3 for the bf16 kernels; the int8
@@ -110,13 +117,25 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(flops: float, nbytes: float, peak: float = H100_BF16_FLOPS):
-    """Least time on the card (ms) and what sets it: the larger of the
-    operations over `peak` (bf16, or H100_INT8_OPS for the int8 kernels) and
-    the bytes over the memory rate."""
-    t_ops = flops / peak * 1e3
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+def exp_rate() -> float:
+    """Exponentials a second the card's SFUs can take at its maximum SM
+    clock."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return EXP_PER_CLOCK_PER_SM * sms * _CARD["max_sm_clock_mhz"] * 1e6
+
+
+def bound(flops: float, nbytes: float, peak: float = H100_BF16_FLOPS, exps: float = 0.0):
+    """Least time on the card (ms) and what sets it: the largest of the
+    operations over `peak` (bf16, or H100_INT8_OPS for the int8 kernels), the
+    bytes over the memory rate and, for a softmax, its `exps` exponentials
+    over the SFUs' rate."""
+    times = {"operations": flops / peak * 1e3, "bytes": nbytes / H100_BYTES_PER_S * 1e3}
+    if exps:
+        times["exponentials"] = exps / exp_rate() * 1e3
+    by = max(times, key=times.get)
+    return times[by], by
 
 
 def _check_row(name, row, err, tol):
@@ -146,6 +165,11 @@ def device_phase() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(smi.splitlines()[0], flush=True)
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    _CARD["max_sm_clock_mhz"] = float(clock.splitlines()[0])
+    print(f"max SM clock {_CARD['max_sm_clock_mhz']:.0f} MHz", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}",
           flush=True)
@@ -190,7 +214,7 @@ def _attention_case(b, n, m, h, d, gen, timed):
         row["library_call"] = "F.scaled_dot_product_attention (bf16)"
         flops = 4.0 * b * h * n * m * d
         nbytes = 2.0 * (2 * b * n * h * d + 2 * b * m * h * d)
-        row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
+        row["bound_ms"], row["bound_by"] = bound(flops, nbytes, exps=float(b * h * n * m))
     return _check_row("attention", row, err, tol)
 
 
@@ -223,8 +247,9 @@ def _conv_plan_fields(b, h, w, cin, cout, k, stride, padding, itemsize, epilogue
 def host_and_device_ms(fn, calls: int = 20):
     """Host time to issue one call of fn (the mean over `calls` issued right
     after a synchronize: too few for the launch queue to fill, so the device
-    never holds the host back) and device time of one call (its kernels'
-    time summed by torch.profiler)."""
+    never holds the host back), device time of one call (its kernels' time
+    summed by torch.profiler) and that time by device op (kernel or memset
+    name -> ms a call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -240,23 +265,26 @@ def host_and_device_ms(fn, calls: int = 20):
             for _ in range(calls):
                 fn()
             _sync()
-    device_us = 0.0
+    split = {}
     for evt in prof.key_averages():
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = getattr(evt, "self_cuda_time_total", 0.0)
         if us > 0 and getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA:
-            device_us += us
-    return host_ms, device_us / calls / 1e3
+            split[evt.key[:80]] = split.get(evt.key[:80], 0.0) + us / calls / 1e3
+    return host_ms, sum(split.values()), split
 
 
-def _timed_against_library(row, kernel, library):
+def _timed_against_library(row, kernel, library, split=False):
     """ms and library_ms in turns, their ratio, the bound's share of ms, and
-    the kernel's host and device ms per call (ms is about the larger)."""
+    the kernel's host and device ms per call (ms is about the larger); with
+    `split`, the device ms of each of the call's device ops too."""
     row["ms"], row["library_ms"] = time_in_turns(kernel, library)
     row["ratio_to_library"] = row["ms"] / row["library_ms"]
     row["bound_share"] = row["bound_ms"] / row["ms"]
-    row["host_ms"], row["device_ms"] = host_and_device_ms(kernel)
+    row["host_ms"], row["device_ms"], by_op = host_and_device_ms(kernel)
+    if split:
+        row["device_ms_by_launch"] = by_op
 
 
 def _geglu_case(rows, c, f, gen, timed):
@@ -356,13 +384,14 @@ def _attention_int8_case(b, n, m, h, d, gen, timed):
            "max_abs_out": ref.abs().max().item()}
     if timed:
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        row["ms"] = time_ms(lambda: mha_attention_int8(q, k, v))
-        row["plain_ms"] = time_ms(lambda: mha_attention_int8_plain(q, k, v), reps=3, warmup=1)
-        row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
-        row["library_call"] = "F.scaled_dot_product_attention (bf16)"
         ops = 4.0 * b * h * n * m * d
         nbytes = 2.0 * (2 * b * n * h * d + 2 * b * m * h * d)
-        row["bound_ms"], row["bound_by"] = bound(ops, nbytes, H100_INT8_OPS)
+        row["bound_ms"], row["bound_by"] = bound(ops, nbytes, H100_INT8_OPS,
+                                                 exps=float(b * h * n * m))
+        _timed_against_library(row, lambda: mha_attention_int8(q, k, v),
+                               lambda: F.scaled_dot_product_attention(qt, kt, vt), split=True)
+        row["plain_ms"] = time_ms(lambda: mha_attention_int8_plain(q, k, v), reps=3, warmup=1)
+        row["library_call"] = "F.scaled_dot_product_attention (bf16)"
     return _check_row("attention_int8", row, err, tol)
 
 
@@ -537,6 +566,21 @@ def _quantize_case(shape, gen, timed):
     return _check_row("quantize_int8", row, float(err), 0.0)
 
 
+def attention_int8_cases(gen):
+    """The int8 whole-row attention at the bench-default path's shapes
+    (timed) and ragged ones (checked only): every head width, N and M off
+    the 128-row and 128-key tiles."""
+    rows = [_attention_int8_case(BATCH, 3600, 3600, 5, 64, gen, True),
+            _attention_int8_case(BATCH, 920, 920, 10, 64, gen, True),
+            _attention_int8_case(2 * BATCH, 3600, 3600, 1, 512, gen, True),  # VAE encode
+            _attention_int8_case(BATCH, 3600, 3600, 1, 512, gen, True)]      # VAE decode
+    for shape in ((1, 600, 600, 2, 64), (2, 300, 77, 3, 64), (1, 100, 130, 2, 128),
+                  (1, 70, 50, 1, 32), (1, 200, 150, 1, 512), (1, 90, 90, 2, 256),
+                  (1, 300, 1000, 2, 96), (2, 1000, 300, 1, 64), (1, 129, 1, 1, 128)):
+        _attention_int8_case(*shape, gen, False)
+    return rows
+
+
 def int8_kernel_phase():
     """The int8 kernels against their plain versions at the bench-default
     path's shapes (timed) and ragged ones (checked only)."""
@@ -546,14 +590,7 @@ def int8_kernel_phase():
     rows = {"quantize": [_quantize_case((BATCH, 3600, 320), gen, True)]}
     for shape in ((7,), (3, 5, 33)):
         _quantize_case(shape, gen, False)
-    rows["attention_int8"] = [
-        _attention_int8_case(BATCH, 3600, 3600, 5, 64, gen, True),
-        _attention_int8_case(BATCH, 920, 920, 10, 64, gen, True),
-        _attention_int8_case(2 * BATCH, 3600, 3600, 1, 512, gen, True),  # VAE encode
-        _attention_int8_case(BATCH, 3600, 3600, 1, 512, gen, True)]      # VAE decode
-    for shape in ((1, 600, 600, 2, 64), (2, 300, 77, 3, 64), (1, 100, 130, 2, 128),
-                  (1, 70, 50, 1, 32), (1, 200, 150, 1, 512), (1, 90, 90, 2, 256)):
-        _attention_int8_case(*shape, gen, False)
+    rows["attention_int8"] = attention_int8_cases(gen)
     rows["geglu_int8"] = geglu_int8_cases(gen)
     rows["conv2d_int8"] = conv_int8_cases(gen)
     return rows
@@ -613,15 +650,15 @@ def _wino_case(b, h, w, c, o, gen, timed):
     if timed:
         xc = x.permute(0, 3, 1, 2)
         wc = wt.contiguous(memory_format=torch.channels_last)
-        row["ms"] = time_ms(lambda: conv3x3_winograd(x, u, torch.bfloat16, bias))
-        row["plain_ms"] = time_ms(lambda: conv3x3_winograd_plain(x, u, torch.bfloat16, bias),
-                                  reps=3, warmup=1)
-        row["library_ms"] = time_ms(lambda: F.conv2d(xc, wc, bias, 1, 1))
-        row["library_call"] = "F.conv2d (bf16, cuDNN, channels_last)"
         th, tw = (h + 1) // 2, (w + 1) // 2
         ops = 2.0 * 16 * b * th * tw * c * o
         nbytes = 2.0 * (b * h * w * c + 16 * o * c + o + b * h * w * o)
         row["bound_ms"], row["bound_by"] = bound(ops, nbytes)
+        _timed_against_library(row, lambda: conv3x3_winograd(x, u, torch.bfloat16, bias),
+                               lambda: F.conv2d(xc, wc, bias, 1, 1), split=True)
+        row["plain_ms"] = time_ms(lambda: conv3x3_winograd_plain(x, u, torch.bfloat16, bias),
+                                  reps=3, warmup=1)
+        row["library_call"] = "F.conv2d (bf16, cuDNN, channels_last)"
     return _check_row("winograd", row, err, tol)
 
 
@@ -667,19 +704,19 @@ def _attention_fused_case(b, n, c, gen, timed):
             o = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(b, n, c)
             return F.linear(o, ws[3], bo16)
 
-        row["ms"] = time_ms(lambda: fused_self_attention_int8(x, *ops_in, heads, act))
+        # int8: the QKV projection and both attention products; bf16: the
+        # output projection (its operations counted at the int8 peak's
+        # equivalent: twice the bf16 time's worth)
+        ops = b * (6.0 * n * c * c + 4.0 * n * n * c) + b * 2.0 * n * c * c * (
+            H100_INT8_OPS / H100_BF16_FLOPS)
+        nbytes = 2.0 * 2 * b * n * c + 3.0 * c * c + 2.0 * c * c + 4.0 * 4 * c
+        row["bound_ms"], row["bound_by"] = bound(ops, nbytes, H100_INT8_OPS,
+                                                 exps=float(b * heads * n * n))
+        _timed_against_library(row, lambda: fused_self_attention_int8(x, *ops_in, heads, act),
+                               library, split=True)
         row["plain_ms"] = time_ms(
             lambda: fused_self_attention_int8_plain(x, *ops_in, heads, act), reps=3, warmup=1)
-        row["library_ms"] = time_ms(library)
         row["library_call"] = "4 F.linear + F.scaled_dot_product_attention (bf16)"
-        # int8: the QKV projection and both attention products; bf16: the
-        # output projection
-        t_ops = (b * (6.0 * n * c * c + 4.0 * n * n * c) / H100_INT8_OPS
-                 + b * 2.0 * n * c * c / H100_BF16_FLOPS) * 1e3
-        nbytes = 2.0 * 2 * b * n * c + 3.0 * c * c + 2.0 * c * c + 4.0 * 4 * c
-        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-        row["bound_ms"], row["bound_by"] = ((t_ops, "operations") if t_ops >= t_bytes
-                                            else (t_bytes, "bytes"))
     return _check_row("attention_fused_int8", row, err, tol)
 
 
@@ -695,16 +732,33 @@ def opt_in_kernel_phase():
     for shape, dtype in (((1, 5, 7, 64), "float32"), ((1, 3, 3, 2560), "bfloat16"),
                          ((2, 9, 11, 96), "bfloat16"), ((1, 6, 10, 2560), "float32")):
         _gn_case(shape, gen, False, dtype)
-    rows["winograd"] = [_wino_case(*s, gen, True) for s in (
+    rows["winograd"] = winograd_cases(gen)
+    rows["attention_fused_int8"] = attention_fused_int8_cases(gen)
+    _sync()
+    return rows
+
+
+def winograd_cases(gen):
+    """The Winograd conv at the opt-in path's shapes (timed) and ragged ones
+    (checked only)."""
+    rows = [_wino_case(*s, gen, True) for s in (
         (BATCH, 45, 80, 320, 320), (BATCH, 45, 80, 640, 320), (BATCH, 23, 40, 640, 640),
         (2 * BATCH, 45, 80, 512, 512), (2 * BATCH, 180, 320, 128, 256))]
-    for shape in ((1, 7, 9, 32, 40), (1, 5, 3, 64, 8), (2, 13, 20, 96, 136), (1, 1, 1, 32, 32)):
+    # ragged: odd H and W with the taps split (the small ones) and not
+    # (4, 45, 81, 96, 136: 90 tiles), channel tiles past O
+    for shape in ((1, 7, 9, 32, 40), (1, 5, 3, 64, 8), (2, 13, 20, 96, 136), (1, 1, 1, 32, 32),
+                  (4, 45, 81, 96, 136)):
         _wino_case(*shape, gen, False)
-    rows["attention_fused_int8"] = [_attention_fused_case(BATCH, n, c, gen, True) for n, c in (
+    return rows
+
+
+def attention_fused_int8_cases(gen):
+    """The fused int8 self-attention at the opt-in path's four levels (timed)
+    and ragged ones (checked only)."""
+    rows = [_attention_fused_case(BATCH, n, c, gen, True) for n, c in (
         (3600, 320), (920, 640), (240, 1280), (60, 1280))]
     for n, c in ((300, 128), (65, 64), (1000, 320), (257, 192)):
         _attention_fused_case(1, n, c, gen, False)
-    _sync()
     return rows
 
 
@@ -741,7 +795,7 @@ def _attention_fused_bf16_case(b, n, c, gen, timed):
 
         flops = b * (8.0 * n * c * c + 4.0 * n * n * c)
         nbytes = 2.0 * 2 * b * n * c + 2.0 * 4 * c * c + 4.0 * c
-        row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
+        row["bound_ms"], row["bound_by"] = bound(flops, nbytes, exps=float(b * heads * n * n))
         _timed_against_library(row, lambda: fused_self_attention_bf16(x, wqkv, ws[3], bo, heads),
                                library)
         row["plain_ms"] = time_ms(
@@ -1462,7 +1516,7 @@ def opt_in_phase(pipe, inputs):
 
 _KERNEL_GROUPS = (
     # the port's own kernels first, so that no library group takes one of them
-    ("winograd kernel", ("wino_kernel",)),
+    ("winograd kernels (input transform, tap GEMMs, split sum)", ("wino_",)),
     ("group_norm_silu kernels (stats, fold, apply)",
      ("gn_stats_kernel", "gn_fold_kernel", "gn_apply_kernel")),
     ("attention_fused_int8 kernels (QKV projection, quantize)",
@@ -1565,6 +1619,22 @@ def main() -> int:
         conv_int8_cases(torch.Generator(device="cuda").manual_seed(4321))
         conv_and_fused_bf16_kernel_phase()
         print("conv cases passed", flush=True)
+        return 0
+    if sys.argv[1:] == ["--winograd"]:
+        import torch
+
+        winograd_cases(torch.Generator(device="cuda").manual_seed(5678))
+        _sync()
+        print("Winograd cases passed", flush=True)
+        return 0
+    if sys.argv[1:] == ["--attention"]:
+        import torch
+
+        gen = torch.Generator(device="cuda").manual_seed(4321)
+        attention_int8_cases(gen)
+        attention_fused_int8_cases(gen)
+        _sync()
+        print("int8 attention cases passed", flush=True)
         return 0
     attn_rows, geglu_rows = kernel_phase()
     int8_rows = int8_kernel_phase()

@@ -38,9 +38,10 @@
 //      the attention block's 64 rows, is a table like the others.
 //   2. quantize_qkv_kernel: q and k to int8 in their [B, N, H, 64] layout, v
 //      to [B, H, 64, N_pad] (keys contiguous for the int8 mma, zero past N).
-//   3. mha_int8_rows_kernel<64> (attention_int8_rows.cuh): the two passes
-//      over the keys that quantize P against the true row max, writing o_h
-//      as bf16 [B, N, H * 64].
+//   3. mha_int8_rows_kernel<64> (attention_int8_rows.cuh, TMA + int8
+//      wgmma): the two passes over the keys that quantize P against the
+//      true row max, writing o_h as bf16 [B, N, H * 64]; its 128-row blocks
+//      lie inside one 256-row q scale block.
 //   4. out_proj_kernel (attention_out_proj.cuh, shared with the bf16 fused
 //      self-attention): the output projection [B N, C] x [C, C] in bf16
 //      (mma.sync m16n8k16) in 128 x 128 tiles, one 64-wide k step per head

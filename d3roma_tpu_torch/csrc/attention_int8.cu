@@ -20,33 +20,36 @@
 // Design. One call runs four launches on the caller's stream: zero the
 // absmax table; absmax of q, k and v per (batch, head) (atomicMax on the bit
 // pattern of non-negative floats); quantize q and k in place of layout and v
-// into [B, H, D, M_pad] (keys contiguous: the int8 mma takes its B operand
-// as k-contiguous rows; zero past M); the attention kernel.
+// into [B, H, D, M_pad] (keys contiguous: int8 mma and wgmma take their B
+// operand K-major; zero past M); the attention kernel. The two quantization
+// launches read q, k and v in loads of consecutive addresses (a head's rows
+// are strided by H * D) and write whole 16-byte pieces, so they move about
+// the tensors' bytes.
 //
 // A Hopper block cannot hold a [64, 3600] score row, and an online softmax
 // only knows a running max, so it could not quantize P against the true
-// row max as the TPU kernel does. The attention kernel therefore walks the
-// keys twice, in tiles of 64:
+// row max as the TPU kernel does. The attention kernels therefore walk the
+// keys twice:
 //   pass 1: S = Q K^T (int32), keeping each row's largest integer score; the
 //           row max of the fp32 scores is that integer times
 //           scale * sq * sk (the conversion and the product are monotonic);
 //   pass 2: S again; p = exp(s - max) into the fp32 denominator, unrounded;
 //           round(127 p) into an int8 P tile; O += P V (int32).
 // That costs the first product twice (1.5x the operations), for numerics
-// that are the TPU kernel's. Both products are mma.sync m16n8k32 (int8,
-// int32 accumulation). The int32 sums cannot overflow: at most 127^2 * D
-// for Q K^T and 127^2 * M for P V.
+// that are the TPU kernel's. The int32 sums cannot overflow: at most
+// 127^2 * D for Q K^T and 127^2 * M for P V.
 //
 // Head widths up to 128 (the UNet): the kernel of attention_int8_rows.cuh
-// (shared with the fused self-attention), where each of 4 warps owns 16
-// query rows outright and K and V tiles are double-buffered by cp.async.
+// (shared with the fused self-attention): TMA + int8 wgmma, 128 query rows
+// and 128-key tiles a block; its note says what bounds it.
 //
-// Head width 512 (the VAE): a warp's [16, 512] int32 output would take 256
-// registers per thread, so the block takes 32 query rows with 8 warps and
-// splits D across them (each warp owns 16 of the 128 output fragments of
-// [32, 512]); the scores go through shared memory, every warp reads the
-// shared P tile, and the K and V tiles (33 and 40 KB) are loaded and waited
-// for (no double buffering at this width).
+// Head width 512 (the VAE): mma.sync m16n8k32 (int8, int32 accumulation). A
+// warp's [16, 512] int32 output would take 256 registers per thread, so the
+// block takes 32 query rows with 8 warps and splits D across them (each
+// warp owns 16 of the 128 output fragments of [32, 512]); the scores go
+// through shared memory, every warp reads the shared P tile, and the K and
+// V tiles (33 and 40 KB, 64 keys) are loaded and waited for (no double
+// buffering at this width).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,62 +81,97 @@ struct QuantArgs {
   int B, H, D, Mp;
 };
 
-constexpr int kAbsRows = 64;
+constexpr int kAbsRows = 32;  // token rows of an absmax block
+constexpr int kVKeys = 32;    // keys a thread writes to a row of vt (Mp is a multiple)
 
-// grid (ceil(max L / 64), B * H, 3): one block per (64 rows, batch and head,
-// tensor).
-__global__ void absmax_kernel(QuantArgs a) {
-  const int z = blockIdx.z, bh = blockIdx.y;
-  const int L = a.L[z];
-  const int b = bh / a.H, h = bh % a.H;
+// grid (ceil(max L / 32), B, 3), H * 4 bytes of dynamic shared memory: block
+// (x, b, z) reads rows 32 x .. 32 x + 31 of batch item b of tensor z, every
+// head, in 16-byte loads of consecutive addresses; a thread keeps its max
+// while its chunks stay in one head, and each head's max goes through
+// shared memory and then to amax[z][b][h] (atomicMax on the bit pattern of
+// non-negative floats).
+__global__ void __launch_bounds__(256) absmax_kernel(QuantArgs a) {
+  extern __shared__ unsigned int head_max[];
+  const int z = blockIdx.z, b = blockIdx.y, L = a.L[z];
   const int r0 = blockIdx.x * kAbsRows;
-  const int vec = a.D / 8;
+  for (int h = threadIdx.x; h < a.H; h += blockDim.x) head_max[h] = 0u;
+  __syncthreads();
+  const int chunks = a.H * a.D / 8;  // 16-byte chunks of a row; each in one head
+  const int n = r0 < L ? min(kAbsRows, L - r0) * chunks : 0;
+  const uint4* src =
+      reinterpret_cast<const uint4*>(a.x[z] + ((long long)b * L + r0) * a.H * a.D);
+  int head = -1;
   float m = 0.f;
-  for (int i = threadIdx.x; i < kAbsRows * vec; i += blockDim.x) {
-    const int r = r0 + i / vec;
-    if (r >= L) break;
-    const uint4 v = *reinterpret_cast<const uint4*>(
-        a.x[z] + (((long long)b * L + r) * a.H + h) * a.D + (i % vec) * 8);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int hi = i % chunks * 8 / a.D;
+    if (hi != head) {
+      if (head >= 0) atomicMax(&head_max[head], __float_as_uint(m));
+      head = hi;
+      m = 0.f;
+    }
+    const uint4 v = src[i];
     const bf16* e = reinterpret_cast<const bf16*>(&v);
 #pragma unroll
     for (int j = 0; j < 8; ++j) m = fmaxf(m, fabsf(__bfloat162float(e[j])));
   }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  if (threadIdx.x % 32 == 0) atomicMax(a.amax + z * a.B * a.H + bh, __float_as_uint(m));
+  if (head >= 0) atomicMax(&head_max[head], __float_as_uint(m));
+  __syncthreads();
+  for (int h = threadIdx.x; h < a.H; h += blockDim.x) {
+    atomicMax(a.amax + (z * a.B + b) * a.H + h, head_max[h]);
+  }
 }
 
-// grid (blocks, 1, 3): z = 0, 1 quantize q and k in their own layout, z = 2
-// writes v transposed to [B, H, D, Mp], zero past M.
-__global__ void quantize_heads_kernel(QuantArgs a) {
-  const int z = blockIdx.z;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long start = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const unsigned int* amax = a.amax + z * a.B * a.H;
-  if (z < 2) {
-    const long long n = (long long)a.B * a.L[z] * a.H * a.D;
-    for (long long i = start; i < n; i += stride) {
-      const int h = (int)((i / a.D) % a.H);
-      const int b = (int)(i / ((long long)a.L[z] * a.H * a.D));
-      const float s = head_scale(amax, b * a.H + h);
-      a.xq[z][i] = (int8_t)rintf(__fdiv_rn(__bfloat162float(a.x[z][i]), s));
-    }
-  } else {
-    const int L = a.L[2];
-    const long long n = (long long)a.B * a.H * a.D * a.Mp;
-    for (long long i = start; i < n; i += stride) {
-      const int l = (int)(i % a.Mp);
-      const int d = (int)((i / a.Mp) % a.D);
-      const int bh = (int)(i / ((long long)a.Mp * a.D));
-      int8_t q = 0;
-      if (l < L) {
-        const int b = bh / a.H, h = bh % a.H;
-        const float x = __bfloat162float(a.x[2][(((long long)b * L + l) * a.H + h) * a.D + d]);
-        q = (int8_t)rintf(__fdiv_rn(x, head_scale(amax, bh)));
+// 8 values x / s, rounded half to even, no clip.
+__device__ __forceinline__ uint2 quantize8(const uint4& v, float s) {
+  const bf16* e = reinterpret_cast<const bf16*>(&v);
+  uint2 out;
+  int8_t* o = reinterpret_cast<int8_t*>(&out);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) o[j] = (int8_t)rintf(__fdiv_rn(__bfloat162float(e[j]), s));
+  return out;
+}
+
+// The first qk_blocks blocks quantize q and k in their own layout, 8 values
+// a thread (16-byte loads, 8-byte stores). The blocks after them write vt
+// [B, H, D, Mp], zero past M: a warp takes 32 values of d of one head and 32
+// keys, a lane one d, reading its head's row of each key (the warp's loads
+// are consecutive) and writing its 32 keys as two 16-byte stores.
+__global__ void __launch_bounds__(256) quantize_heads_kernel(QuantArgs a, int qk_blocks) {
+  if (blockIdx.x < qk_blocks) {
+    const long long stride = (long long)qk_blocks * blockDim.x;
+    for (int z = 0; z < 2; ++z) {
+      const unsigned int* amax = a.amax + z * a.B * a.H;
+      const long long per_item = (long long)a.L[z] * a.H * a.D;
+      const long long n8 = a.B * per_item / 8;
+      for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n8; i += stride) {
+        const long long e = 8 * i;
+        const int h = (int)((e / a.D) % a.H), b = (int)(e / per_item);
+        reinterpret_cast<uint2*>(a.xq[z])[i] = quantize8(
+            reinterpret_cast<const uint4*>(a.x[z])[i], head_scale(amax, b * a.H + h));
       }
-      a.vt[i] = q;
     }
+    return;
   }
+  const long long task = ((long long)blockIdx.x - qk_blocks) * (blockDim.x / 32) + threadIdx.x / 32;
+  const int key_groups = a.Mp / kVKeys, d_groups = a.D / 32;
+  if (task >= (long long)a.B * a.H * d_groups * key_groups) return;
+  const int l0 = (int)(task % key_groups) * kVKeys;
+  const int d = (int)(task / key_groups % d_groups) * 32 + threadIdx.x % 32;
+  const int bh = (int)(task / ((long long)key_groups * d_groups));
+  const int b = bh / a.H, h = bh % a.H, L = a.L[2];
+  const float s = head_scale(a.amax + 2 * a.B * a.H, bh);
+  uint4 q[kVKeys / 16];
+  int8_t* qb = reinterpret_cast<int8_t*>(q);
+  const bf16* src = a.x[2] + (((long long)b * L + l0) * a.H + h) * a.D + d;
+#pragma unroll
+  for (int k = 0; k < kVKeys; ++k) {
+    qb[k] = l0 + k < L
+                ? (int8_t)rintf(__fdiv_rn(__bfloat162float(src[(long long)k * a.H * a.D]), s))
+                : (int8_t)0;
+  }
+  uint4* dst = reinterpret_cast<uint4*>(a.vt + ((long long)bh * a.D + d) * a.Mp + l0);
+#pragma unroll
+  for (int k = 0; k < kVKeys / 16; ++k) dst[k] = q[k];
 }
 
 // --------------------------------------------------------------------------
@@ -345,9 +383,13 @@ extern "C" int d3r_mha_attention_int8(const void* q, const void* k, const void* 
                {static_cast<int8_t*>(qq), static_cast<int8_t*>(kq)},
                static_cast<int8_t*>(vt), static_cast<unsigned int*>(amax), B, H, D, Mp};
   const int max_l = N > M ? N : M;
-  absmax_kernel<<<dim3((max_l + kAbsRows - 1) / kAbsRows, B * H, 3), 256, 0, st>>>(qa);
+  absmax_kernel<<<dim3((max_l + kAbsRows - 1) / kAbsRows, B, 3), 256, H * sizeof(unsigned int),
+                  st>>>(qa);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  quantize_heads_kernel<<<dim3(132 * 4, 1, 3), 256, 0, st>>>(qa);
+  const long long n8 = (long long)B * (N > M ? N : M) * H * D / 8;
+  const int qk_blocks = (int)std::min<long long>((n8 + 255) / 256, 132 * 4);
+  const long long v_tasks = (long long)B * H * (D / 32) * (Mp / kVKeys);  // 8 a block
+  quantize_heads_kernel<<<qk_blocks + (int)((v_tasks + 7) / 8), 256, 0, st>>>(qa, qk_blocks);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   // one q scale per (batch, head): q_rows = N
   const unsigned int* am = static_cast<const unsigned int*>(amax);

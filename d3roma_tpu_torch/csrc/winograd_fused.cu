@@ -18,128 +18,104 @@
 // operations per byte at the UNet's 320-640 channels, above the ~295 per
 // byte where the bf16 tensor cores become the limit.
 //
-// Design: one block of 8 warps computes 32 tiles x 32 output channels, with
-// all 16 taps' [32, 32] fp32 accumulators live in registers (each warp owns
-// two taps: 2 x 2 x 4 m16n8 fragments, 64 registers a thread). The input
-// channels are walked in chunks of 32: each thread holds the 4x4 patch of
-// one tile for 4 channels in registers (8-byte loads along C, zero outside
-// the frame: the SAME padding and the odd H or W edge), applies B^T d B in
-// fp32 and stores each tap's 4 V values, rounded to bf16, as one 8-byte
-// store into 16 [32 tiles, 32 channels] shared tiles; the 16 [32 o, 32 c]
-// tiles of U arrive by cp.async, double-buffered. The next chunk's patch
-// is loaded while the tensor cores run this chunk's 16 tap GEMMs
-// (mma.sync m16n8k16, bf16, fp32 accumulation), so neither copy waits.
-// After the last chunk the accumulators go through shared memory (the 16
-// taps of one (tile, o) sit in 8 warps), and each thread applies A^T M A to
-// four (tile, o) pairs and writes the 2x2 outputs.
+// Design: two launches on the caller's stream (three when the taps are
+// split).
+//   1. wino_input_kernel: the input transform, once per call. A thread takes
+//      one tile and 4 channels: the 4x4 patch in 8-byte loads (zero outside
+//      the frame: the SAME padding and the odd H or W edge), B^T d B in fp32,
+//      and one 8-byte store of bf16 per tap into V [16, Mt, C] (Mt =
+//      B * ceil(H/2) * ceil(W/2) tiles, C contiguous: each tap's V_t is the
+//      K-major A operand of a GEMM). Memory-bound: it reads x about 4 times
+//      (from L2; neighbouring patches overlap) and writes 4x x's bytes.
+//   2. wino_gemm_kernel: the 16 tap GEMMs on the TMA + wgmma mainloop of
+//      sm90_gemm.cuh (two consumer warpgroups, one producer, a 4-stage ring
+//      of 128 bytes of C a stage, persistent blocks). A tile is 128 Winograd
+//      tiles x 64 output channels (x a group of taps when split). The
+//      producer walks the tile's taps and, per tap, C in boxes of 64
+//      channels from two 3D maps, V (C, Mt, 16) and U (C, O, 16): a box past
+//      C reads zeros, not the next tap's channels. After each tap the
+//      consumers fold the tap's fp32 sums M_t into four output accumulators
+//      Y[u][v] += A^T[u][x] A^T[v][y] M_t (t = 4x + y; coefficients +1, -1
+//      or 0: A^T M A is linear in M). Registers: the tap's sums and the four
+//      Y, 5 x 32 fp32 a thread at 64 channels (so the tile is 64 wide, not
+//      128). After the last tap the epilogue rounds each Y[u][v] to bf16,
+//      adds the bias, and writes output pixel (2 ty + u, 2 tx + v), staged in
+//      shared memory for 16-byte stores; pixels past the odd H or W edge and
+//      channels past O are not written. Tiles are ordered channel block
+//      fastest, so the blocks in flight share their V rows through L2 while
+//      U stays there.
+//   3. Where the tiles are too few for the SMs, the host's plan
+//      (ops/kernels/winograd.py::wino_plan) splits the 16 taps into 2 or 4
+//      groups: each writes its fp32 Y to a partial buffer [splits, B*H*W, O]
+//      and wino_reduce_kernel adds them in split order, rounds and adds the
+//      bias.
+// The fold adds the taps' M in tap order, and a split's partials in split
+// order, where the TPU kernel adds f = (m0 + m1) + m2 per row of taps and
+// then y = (f0 + f1) + f2; V, U, the bf16 products and the roundings are
+// the same. The difference is fp32 rounding before the bf16 rounding of the
+// output, well inside the check's 1e-2 x max |ref|.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "bf16_mma.cuh"
-#include "int8_mma.cuh"
+#include "sm90_conv.cuh"
+#include "sm90_gemm.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+namespace sm90 = d3r::sm90;
 
-constexpr int kTM = 32;       // tiles per block
-constexpr int kTO = 32;       // output channels per block
-constexpr int kKC = 32;       // input channels per chunk
-constexpr int kLd = kKC + 8;  // shared row pitch, bf16 (80 bytes)
-constexpr int kLdm = kTO + 1; // fp32 pitch of the staged accumulators
-constexpr int kThreads = 256;
-constexpr size_t kVBytes = (size_t)16 * kTM * kLd * sizeof(bf16);
-constexpr size_t kUBytes = (size_t)2 * 16 * kTO * kLd * sizeof(bf16);  // 2 buffers
-constexpr size_t kMBytes = (size_t)16 * kTM * kLdm * sizeof(float);
-constexpr size_t kSmemBytes = (kVBytes + kUBytes) > kMBytes ? (kVBytes + kUBytes) : kMBytes;
+constexpr int kBN = 64;                      // output channels of a tile
+constexpr int kTaps = 16;
+constexpr int kKElems = sm90::kKBytes / 2;   // channels of a k step
+using Staging = d3r::conv::Smem<kBN>;        // the ring, then the output staging
 
-struct WinoArgs {
-  const bf16* x;     // [B, H, W, C]
-  const bf16* u;     // [16, O, C]
-  const bf16* bias;  // [O] or null
-  bf16* out;         // [B, H, W, O]
-  int B, H, W, C, O, Th, Tw;
+// --------------------------------------------------------------------------
+// 1. The input transform.
+
+struct InArgs {
+  const bf16* x;  // [B, H, W, C]
+  bf16* v;        // [16, Mt, C]
+  int B, H, W, C, Th, Tw, Mt;
 };
 
-__global__ void __launch_bounds__(kThreads) wino_kernel(WinoArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* vs = reinterpret_cast<bf16*>(smem);
-  bf16* us = reinterpret_cast<bf16*>(smem + kVBytes);
-  float* ms = reinterpret_cast<float*>(smem);
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int n_tiles = a.B * a.Th * a.Tw;
-  const int m0 = blockIdx.x * kTM, o0 = blockIdx.y * kTO;
-
-  // this thread's input patch: tile lt, channels 4 cg .. 4 cg + 3 of a chunk
-  const int lt = tid / 8, cg = tid % 8;
-  const int m = m0 + lt;
-  const bool m_ok = m < n_tiles;
-  int pb = 0, ty = 0, tx = 0;
-  if (m_ok) {
-    pb = m / (a.Th * a.Tw);
-    const int r = m % (a.Th * a.Tw);
-    ty = r / a.Tw;
-    tx = r % a.Tw;
-  }
-  const bf16* xb = a.x + (long long)pb * a.H * a.W * a.C;
-
-  float acc[2][2][4][4];  // [tap of this warp][m fragment][n fragment][4]
+__global__ void __launch_bounds__(256) wino_input_kernel(const InArgs a) {
+  const int groups = a.C / 4;
+  const int per_image = a.Th * a.Tw;
+  const long long n = (long long)a.Mt * groups;
+  const long long tap_stride = (long long)a.Mt * a.C;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int m = (int)(i / groups), c0 = (int)(i - (long long)m * groups) * 4;
+    const int b = m / per_image, r = m - b * per_image;
+    const int ty = r / a.Tw, tx = r - ty * a.Tw;
+    const bf16* xb = a.x + (long long)b * a.H * a.W * a.C + c0;
+    uint2 raw[16];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+    for (int p = 0; p < 4; ++p) {
+      const int iy = 2 * ty - 1 + p;
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int n = 0; n < 4; ++n) acc[i][j][n][0] = acc[i][j][n][1] = acc[i][j][n][2] = acc[i][j][n][3] = 0.f;
-
-  // U of chunk kc into buffer buf: 16 taps x 32 o x 32 c, 16 bytes a copy
-  auto load_u = [&](int kc, int buf) {
-    bf16* ub = us + buf * 16 * kTO * kLd;
-    for (int i = tid; i < 16 * kTO * (kKC / 8); i += kThreads) {
-      const int t = i / (kTO * (kKC / 8)), rem = i % (kTO * (kKC / 8));
-      const int lo = rem / (kKC / 8), v = rem % (kKC / 8);
-      const bool ok = o0 + lo < a.O;
-      d3r::cp_async_16(ub + (t * kTO + lo) * kLd + v * 8,
-                       ok ? a.u + ((long long)t * a.O + o0 + lo) * a.C + kc * kKC + v * 8 : a.u,
-                       ok ? 16 : 0);
-    }
-  };
-  // this thread's 4x4 input patch of chunk kc, 4 channels per position
-  // (zero outside the frame)
-  uint2 raw[16];
-  auto load_patch = [&](int kc) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int iy = 2 * ty - 1 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int ix = 2 * tx - 1 + j;
-        raw[i * 4 + j] = make_uint2(0u, 0u);
-        if (m_ok && iy >= 0 && iy < a.H && ix >= 0 && ix < a.W) {
-          raw[i * 4 + j] = *reinterpret_cast<const uint2*>(
-              xb + ((long long)iy * a.W + ix) * a.C + kc * kKC + 4 * cg);
+      for (int q = 0; q < 4; ++q) {
+        const int ix = 2 * tx - 1 + q;
+        raw[p * 4 + q] = make_uint2(0u, 0u);
+        if (iy >= 0 && iy < a.H && ix >= 0 && ix < a.W) {
+          raw[p * 4 + q] =
+              *reinterpret_cast<const uint2*>(xb + ((long long)iy * a.W + ix) * a.C);
         }
       }
     }
-  };
-
-  const int n_chunks = a.C / kKC;
-  load_patch(0);
-  load_u(0, 0);
-  d3r::cp_async_commit();
-  for (int kc = 0; kc < n_chunks; ++kc) {
-    // V = B^T d B for the 4 channels of this thread's tile, packed per tap
     uint2 packed[16];
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       float d[4][4];
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        d[i / 4][i % 4] = __bfloat162float(reinterpret_cast<const bf16*>(&raw[i])[c]);
+      for (int k = 0; k < 16; ++k) {
+        d[k / 4][k % 4] = __bfloat162float(reinterpret_cast<const bf16*>(&raw[k])[c]);
       }
-      float e[4][4];  // rows combined: e[j][x]
+      float e[4][4];  // B^T over the rows of the patch: e[column][x]
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         e[j][0] = __fsub_rn(d[0][j], d[2][j]);
@@ -157,113 +133,235 @@ __global__ void __launch_bounds__(kThreads) wino_kernel(WinoArgs a) {
         }
       }
     }
+    bf16* vm = a.v + (long long)m * a.C + c0;
 #pragma unroll
-    for (int t = 0; t < 16; ++t) {
-      *reinterpret_cast<uint2*>(vs + (t * kTM + lt) * kLd + 4 * cg) = packed[t];
-    }
-    // U of the next chunk into the other buffer (its last readers, the
-    // previous chunk's products, finished before the barrier ending it)
-    if (kc + 1 < n_chunks) load_u(kc + 1, (kc + 1) & 1);
-    d3r::cp_async_commit();
-    d3r::cp_async_wait<1>();  // U of this chunk has landed
-    __syncthreads();          // V and U of this chunk are visible to every warp
-    // the next chunk's input patch is in flight while the tensor cores run
-    if (kc + 1 < n_chunks) load_patch(kc + 1);
+    for (int t = 0; t < kTaps; ++t) *reinterpret_cast<uint2*>(vm + t * tap_stride) = packed[t];
+  }
+}
 
-    const bf16* ub = us + (kc & 1) * 16 * kTO * kLd;
-#pragma unroll
-    for (int tt = 0; tt < 2; ++tt) {
-      const int t = 2 * warp + tt;
-      const bf16* vt = vs + t * kTM * kLd;
-      const bf16* ut = ub + t * kTO * kLd;
-#pragma unroll
-      for (int ks = 0; ks < kKC / 16; ++ks) {
-        uint32_t af[2][4];
-        d3r::load_a_bf16(af[0], vt, kLd, 0, ks * 16, lane);
-        d3r::load_a_bf16(af[1], vt, kLd, 16, ks * 16, lane);
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          uint32_t b0, b1;
-          d3r::load_b_bf16(b0, b1, ut, kLd, n * 8, ks * 16, lane);
-          d3r::mma_bf16(acc[tt][0][n], af[0], b0, b1);
-          d3r::mma_bf16(acc[tt][1][n], af[1], b0, b1);
+// --------------------------------------------------------------------------
+// 2. The tap GEMMs with the output transform in the epilogue.
+
+struct GemmArgs {
+  int B, H, W, O, Th, Tw, Mt;
+  int m_tiles, n_tiles, splits, taps, kc;  // taps a split, k steps a tap
+  const bf16* bias;                        // [O] or null
+  bf16* out;                               // [B, H, W, O]
+  float* partial;                          // [splits, B*H*W, O] when split
+};
+
+struct Tile {
+  int m0, n0, s;
+};
+
+// Tile t: the channel block varies fastest, then the split, then the rows.
+__device__ __forceinline__ Tile tile_of(const GemmArgs& a, int t) {
+  Tile r;
+  r.n0 = t % a.n_tiles * kBN;
+  const int rest = t / a.n_tiles;
+  r.s = rest % a.splits;
+  r.m0 = rest / a.splits * sm90::kBlockRows;
+  return r;
+}
+
+// A^T = [[1, 1, 1, 0], [0, 1, -1, -1]]
+__device__ __forceinline__ int at(int u, int x) {
+  return u == 0 ? (x < 3 ? 1 : 0) : (x == 0 ? 0 : (x == 1 ? 1 : -1));
+}
+
+// The flat output pixel (b * H + oy) * W + ox of output (u, v) of Winograd
+// tile m, or -1 past the last tile or the frame's odd edge.
+__device__ __forceinline__ long long pixel_of(const GemmArgs& a, int m, int u, int v) {
+  if (m >= a.Mt) return -1;
+  const int per_image = a.Th * a.Tw;
+  const int b = m / per_image, r = m - b * per_image;
+  const int oy = 2 * (r / a.Tw) + u, ox = 2 * (r % a.Tw) + v;
+  if (oy >= a.H || ox >= a.W) return -1;
+  return ((long long)b * a.H + oy) * a.W + ox;
+}
+
+__global__ void __launch_bounds__(sm90::kThreads, 1)
+    wino_gemm_kernel(const __grid_constant__ CUtensorMap v_map,
+                     const __grid_constant__ CUtensorMap u_map, const GemmArgs a) {
+  extern __shared__ __align__(16) uint8_t wino_smem[];
+  const sm90::Stages<kBN> st(wino_smem);
+  if (threadIdx.x == 0) st.init();
+  __syncthreads();
+  const int tiles = a.m_tiles * a.n_tiles * a.splits;
+  const int wg = threadIdx.x / 128;
+  if (wg == sm90::kConsumers) {
+    sm90::regs_dealloc<40>();
+    if (threadIdx.x == sm90::kConsumers * 128) {
+      sm90::Ring ring;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const Tile tl = tile_of(a, t);
+        for (int tap = tl.s * a.taps; tap < (tl.s + 1) * a.taps; ++tap) {
+          for (int k = 0; k < a.kc; ++k) {
+            st.acquire(ring, sm90::Stages<kBN>::kStageBytes);
+            sm90::tma_load_3d(st.a(ring.stage), &v_map, &st.full[ring.stage], k * kKElems,
+                              tl.m0, tap);
+            sm90::tma_load_3d(st.b(ring.stage), &u_map, &st.full[ring.stage], k * kKElems,
+                              tl.n0, tap);
+            ring.next();
+          }
         }
       }
     }
-    __syncthreads();  // every warp is done with this chunk's V and U
+    return;
   }
-  d3r::cp_async_wait<0>();
-  // the V and U tiles are dead: stage the accumulators
 
-  const int g = lane / 4, t4 = lane % 4;
+  sm90::regs_alloc<232>();
+  uint8_t* staging = wino_smem + sm90::Stages<kBN>::kSmemBytes + wg * Staging::kStaging;
+  long long* row_pix = reinterpret_cast<long long*>(staging + 64 * Staging::kPitch);
+  const int lt = threadIdx.x % 128, r0 = wg * 64;
+  const long long pixels = (long long)a.B * a.H * a.W;
+  sm90::Ring ring;
+  float acc[kBN / 2];
+  float y[4][kBN / 2];  // Y[u][v] at [2 u + v]
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const Tile tl = tile_of(a, t);
 #pragma unroll
-  for (int tt = 0; tt < 2; ++tt) {
-    float* mt = ms + (2 * warp + tt) * kTM * kLdm;
+    for (int uv = 0; uv < 4; ++uv)
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < kBN / 2; ++i) y[uv][i] = 0.f;
+    for (int tap = tl.s * a.taps; tap < (tl.s + 1) * a.taps; ++tap) {
+      st.mma(ring, wg, acc, a.kc);
 #pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        const int row = i * 16 + g, col = n * 8 + 2 * t4;
-        mt[row * kLdm + col] = acc[tt][i][n][0];
-        mt[row * kLdm + col + 1] = acc[tt][i][n][1];
-        mt[(row + 8) * kLdm + col] = acc[tt][i][n][2];
-        mt[(row + 8) * kLdm + col + 1] = acc[tt][i][n][3];
+      for (int uv = 0; uv < 4; ++uv) {
+        const int cf = at(uv >> 1, tap >> 2) * at(uv & 1, tap & 3);
+        if (cf > 0) {
+#pragma unroll
+          for (int i = 0; i < kBN / 2; ++i) y[uv][i] = __fadd_rn(y[uv][i], acc[i]);
+        } else if (cf < 0) {
+#pragma unroll
+          for (int i = 0; i < kBN / 2; ++i) y[uv][i] = __fsub_rn(y[uv][i], acc[i]);
+        }
       }
-  }
-  __syncthreads();
-
-  for (int idx = tid; idx < kTM * kTO; idx += kThreads) {
-    const int r = idx / kTO, lo = idx % kTO;
-    const int mm = m0 + r, o = o0 + lo;
-    if (mm >= n_tiles || o >= a.O) continue;
-    float mv[4][4];
-#pragma unroll
-    for (int x = 0; x < 4; ++x)
-#pragma unroll
-      for (int y = 0; y < 4; ++y) mv[x][y] = ms[((x * 4 + y) * kTM + r) * kLdm + lo];
-    float f[2][4];  // A^T over the rows: f[u][y]
-#pragma unroll
-    for (int y = 0; y < 4; ++y) {
-      f[0][y] = __fadd_rn(__fadd_rn(mv[0][y], mv[1][y]), mv[2][y]);
-      f[1][y] = __fsub_rn(__fsub_rn(mv[1][y], mv[2][y]), mv[3][y]);
     }
-    const int b = mm / (a.Th * a.Tw), rr = mm % (a.Th * a.Tw);
-    const int oy0 = 2 * (rr / a.Tw), ox0 = 2 * (rr % a.Tw);
-    const float bias = a.bias ? __bfloat162float(a.bias[o]) : 0.f;
+
+    if (a.splits > 1) {
+      // the split's fp32 partial, straight from the registers
+      float* part = a.partial + (long long)tl.s * pixels * a.O;
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const float y0 = __fadd_rn(__fadd_rn(f[u][0], f[u][1]), f[u][2]);
-      const float y1 = __fsub_rn(__fsub_rn(f[u][1], f[u][2]), f[u][3]);
-      const float yv[2] = {y0, y1};
+      for (int uv = 0; uv < 4; ++uv) {
 #pragma unroll
-      for (int v = 0; v < 2; ++v) {
-        const int oy = oy0 + u, ox = ox0 + v;
-        if (oy >= a.H || ox >= a.W) continue;
-        bf16 val = __float2bfloat16_rn(yv[v]);
-        if (a.bias) val = __float2bfloat16_rn(__fadd_rn(__bfloat162float(val), bias));
-        a.out[(((long long)b * a.H + oy) * a.W + ox) * a.O + o] = val;
+        for (int h = 0; h < 2; ++h) {
+          const long long pix =
+              pixel_of(a, tl.m0 + r0 + sm90::frag_row(2 * h), uv >> 1, uv & 1);
+          if (pix < 0) continue;
+#pragma unroll
+          for (int j = 0; j < kBN / 8; ++j) {
+            const int col = tl.n0 + sm90::frag_col(j, 0);
+            if (col >= a.O) continue;
+            *reinterpret_cast<float2*>(part + pix * a.O + col) =
+                make_float2(y[uv][4 * j + 2 * h], y[uv][4 * j + 2 * h + 1]);
+          }
+        }
       }
+      continue;
+    }
+
+#pragma unroll
+    for (int uv = 0; uv < 4; ++uv) {
+      sm90::warpgroup_sync(wg);  // the last stores have left the staging area
+      if (lt < 64) row_pix[lt] = pixel_of(a, tl.m0 + r0 + lt, uv >> 1, uv & 1);
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+        const int cl = sm90::frag_col(j, 0), col = tl.n0 + cl;
+        if (col >= a.O) continue;
+        float2 b2 = make_float2(0.f, 0.f);
+        if (a.bias != nullptr) {
+          b2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a.bias + col));
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float v0 = y[uv][4 * j + 2 * h], v1 = y[uv][4 * j + 2 * h + 1];
+          if (a.bias != nullptr) {
+            v0 = d3r::conv::add_bias(v0, b2.x);
+            v1 = d3r::conv::add_bias(v1, b2.y);
+          }
+          *reinterpret_cast<__nv_bfloat162*>(staging + sm90::frag_row(2 * h) * Staging::kPitch +
+                                             2 * cl) = __floats2bfloat162_rn(v0, v1);
+        }
+      }
+      sm90::warpgroup_sync(wg);
+      d3r::conv::store_rows(staging, Staging::kPitch, row_pix, a.out + tl.n0, a.O,
+                            min(kBN, a.O - tl.n0));
     }
   }
 }
 
+// --------------------------------------------------------------------------
+// 3. The split sums: out[i] = bf16(sum over s of partial[s][i]) (+ bias).
+
+__global__ void wino_reduce_kernel(const GemmArgs a) {
+  const long long n = (long long)a.B * a.H * a.W * a.O;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    float v = 0.f;
+    for (int s = 0; s < a.splits; ++s) v = __fadd_rn(v, a.partial[s * n + i]);
+    if (a.bias != nullptr) v = d3r::conv::add_bias(v, __bfloat162float(a.bias[i % a.O]));
+    a.out[i] = __float2bfloat16_rn(v);
+  }
+}
+
+int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
+
 }  // namespace
 
 // x [B, H, W, C] bf16, u [16, O, C] bf16, bias [O] bf16 or null, out
-// [B, H, W, O] bf16; all contiguous, x and u 16-byte aligned. C % 32 == 0,
-// O % 8 == 0. Returns cudaGetLastError().
+// [B, H, W, O] bf16; v [16, Mt, C] bf16 scratch (Mt = B ceil(H/2) ceil(W/2));
+// partial [splits, B H W, O] fp32 scratch when splits > 1. All contiguous,
+// x, u and v 16-byte aligned. C % 32 == 0, O % 8 == 0, splits in {1, 2, 4}
+// (the host's plan). Returns the first CUDA error of the launches.
 extern "C" int d3r_conv3x3_winograd(const void* x, const void* u, const void* bias, void* out,
-                                    int B, int H, int W, int C, int O, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || C % kKC != 0 || C <= 0 || O <= 0 || O % 8 != 0)
+                                    void* v, void* partial, int B, int H, int W, int C, int O,
+                                    int splits, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % 32 != 0 || O <= 0 || O % 8 != 0 ||
+      (splits != 1 && splits != 2 && splits != 4) || (splits > 1 && partial == nullptr))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(wino_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)kSmemBytes);
+  auto st = static_cast<cudaStream_t>(stream);
+  const int th = (H + 1) / 2, tw = (W + 1) / 2, mt = B * th * tw;
+
+  const InArgs ia{static_cast<const bf16*>(x), static_cast<bf16*>(v), B, H, W, C, th, tw, mt};
+  const int in_blocks = std::max(1, std::min(ceil_div((long long)mt * (C / 4), 256), 132 * 32));
+  wino_input_kernel<<<in_blocks, 256, 0, st>>>(ia);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int th = (H + 1) / 2, tw = (W + 1) / 2;
-  WinoArgs a{static_cast<const bf16*>(x), static_cast<const bf16*>(u),
-             static_cast<const bf16*>(bias), static_cast<bf16*>(out), B, H, W, C, O, th, tw};
-  const long long tiles = (long long)B * th * tw;
-  const dim3 grid((unsigned)((tiles + kTM - 1) / kTM), (unsigned)((O + kTO - 1) / kTO));
-  wino_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(a);
+
+  const uint64_t c_bytes = (uint64_t)C * 2;
+  const uint64_t v_dims[3] = {(uint64_t)C, (uint64_t)mt, kTaps};
+  const uint64_t v_strides[2] = {c_bytes, c_bytes * mt};
+  const uint32_t v_box[3] = {kKElems, sm90::kBlockRows, 1};
+  const uint64_t u_dims[3] = {(uint64_t)C, (uint64_t)O, kTaps};
+  const uint64_t u_strides[2] = {c_bytes, c_bytes * O};
+  const uint32_t u_box[3] = {kKElems, kBN, 1};
+  const uint32_t steps[3] = {1, 1, 1};
+  CUtensorMap v_map, u_map;
+  err = sm90::tensor_map_nd(&v_map, v, 2, 3, v_dims, v_strides, v_box, steps);
+  if (err == cudaSuccess) err = sm90::tensor_map_nd(&u_map, u, 2, 3, u_dims, u_strides, u_box, steps);
+  if (err != cudaSuccess) return (int)err;
+
+  GemmArgs a{};
+  a.B = B;
+  a.H = H;
+  a.W = W;
+  a.O = O;
+  a.Th = th;
+  a.Tw = tw;
+  a.Mt = mt;
+  a.m_tiles = ceil_div(mt, sm90::kBlockRows);
+  a.n_tiles = ceil_div(O, kBN);
+  a.splits = splits;
+  a.taps = kTaps / splits;
+  a.kc = ceil_div(c_bytes, sm90::kKBytes);
+  a.bias = static_cast<const bf16*>(bias);
+  a.out = static_cast<bf16*>(out);
+  a.partial = static_cast<float*>(partial);
+  err = sm90::launch<wino_gemm_kernel>(a.m_tiles * a.n_tiles * splits, Staging::kBytes, st,
+                                       v_map, u_map, a);
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const long long n = (long long)B * H * W * O;
+  wino_reduce_kernel<<<std::max(1, std::min(ceil_div(n, 256), 132 * 16)), 256, 0, st>>>(a);
   return (int)cudaGetLastError();
 }

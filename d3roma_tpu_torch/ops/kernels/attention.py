@@ -12,8 +12,10 @@ the H100 and how it is built around that.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
@@ -128,9 +130,56 @@ def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 mha_attention.launches = 0
 
-# head widths the int8 kernel is built for
+# head widths the int8 kernels are built for: the rows kernel
+# (csrc/attention_int8_rows.cuh) up to 128, the wide kernel above
 INT8_HEAD_DIMS = (32, 64, 96, 128, 256, 512)
+ROWS_HEAD_DIMS = (32, 64, 96, 128)
+# keys of vt's padding (and of the wide kernel's tiles)
 _INT8_KEY_TILE = 64
+# the rows kernel's tiles: 128 query rows a block (two wgmma warpgroups of
+# 64), 128 keys a tile, TMA boxes of 128 bytes (a head of D < 128 bytes
+# reads TMA's zero fill past D)
+ROWS_BLOCK = 128
+ROWS_KEYS = 128
+ROWS_BOX_BYTES = 128
+
+
+@dataclass(frozen=True)
+class RowsPlan:
+    """How the int8 rows kernel cuts one call. grid: (query blocks, H, B);
+    key_tiles: tiles of ROWS_KEYS keys each pass walks; last_keys: the
+    valid keys of the last tile (the only one masked); q_map, k_map: the
+    TMA maps of q [B, N, H, D] and k [B, M, H, D] as (D, H, B L), and v_map
+    of vt [B H D, Mp], each (dims, box), innermost first; q_scales: the q
+    scales of a (batch, head), one per q_rows query rows."""
+    grid: Tuple[int, int, int]
+    key_tiles: int
+    last_keys: int
+    q_map: Tuple[Tuple[int, ...], Tuple[int, ...]]
+    k_map: Tuple[Tuple[int, ...], Tuple[int, ...]]
+    v_map: Tuple[Tuple[int, ...], Tuple[int, ...]]
+    q_scales: int
+
+
+@functools.lru_cache(maxsize=256)
+def rows_plan(b: int, n: int, m: int, h: int, d: int, q_rows: int, m_pad: int) -> RowsPlan:
+    """The rows kernel's plan of one call, with the checks its launcher
+    (launch_rows) makes: D in ROWS_HEAD_DIMS, vt's padded key count m_pad
+    at least M and a multiple of 16 (TMA's row pitch), and q_rows (the query
+    rows that share one q scale) a multiple of ROWS_BLOCK or at least N, so
+    that no block straddles two q scales."""
+    if d not in ROWS_HEAD_DIMS:
+        raise ValueError(f"the int8 rows kernel takes head_dim in {ROWS_HEAD_DIMS}, got {d}")
+    if min(b, n, m, h) <= 0 or m_pad < m or m_pad % 16:
+        raise ValueError(f"bad int8 attention call: B={b}, N={n}, M={m}, H={h}, Mp={m_pad}")
+    if q_rows <= 0 or (q_rows < n and q_rows % ROWS_BLOCK):
+        raise ValueError(f"q_rows={q_rows}: a block of {ROWS_BLOCK} query rows would straddle "
+                         f"two q scales (N={n})")
+    key_tiles = -(-m // ROWS_KEYS)
+    box = (ROWS_BOX_BYTES, 1, ROWS_BLOCK)
+    return RowsPlan((-(-n // ROWS_BLOCK), h, b), key_tiles, m - (key_tiles - 1) * ROWS_KEYS,
+                    ((d, h, b * n), box), ((d, h, b * m), box),
+                    ((m_pad, b * h * d), (ROWS_KEYS, d)), -(-n // q_rows))
 
 
 def quantize_per_head(x: torch.Tensor):
@@ -187,7 +236,8 @@ def mha_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CUDA tensors go to the Hopper kernels (bf16, head_dim in
     INT8_HEAD_DIMS): the per-(batch, head) quantization of q, k and v and
-    the attention, in one call; or raise. CPU tensors take the plain
+    the attention (the rows kernel, planned by rows_plan, up to head_dim
+    128), in one call; or raise. CPU tensors take the plain
     version. `mha_attention_int8.launches` counts the calls."""
     _check(q, k, v)
     if q.device.type == "cpu":
@@ -201,10 +251,12 @@ def mha_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = k.shape[1]
     scale = fp32(sm_scale if sm_scale is not None else 1.0 / math.sqrt(d))
     m_pad = _round_up(m, _INT8_KEY_TILE)
+    if d in ROWS_HEAD_DIMS:
+        rows_plan(b, n, m, h, d, n, m_pad)  # one q scale per (batch, head)
     dev = q.device
     qq = torch.empty(q.shape, dtype=torch.int8, device=dev)
     kq = torch.empty(k.shape, dtype=torch.int8, device=dev)
-    # v quantized with keys contiguous, as the int8 mma takes its B operand
+    # v quantized with keys contiguous, as int8 wgmma and mma take their B operand
     vt = torch.empty((b, h, d, m_pad), dtype=torch.int8, device=dev)
     amax = torch.empty((3, b, h), dtype=torch.int32, device=dev)
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=dev)

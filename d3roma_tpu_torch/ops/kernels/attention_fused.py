@@ -25,7 +25,7 @@ from typing import Optional
 import torch
 
 from d3roma_tpu_torch.ops.kernels import _build, conv2d
-from d3roma_tpu_torch.ops.kernels.attention import mha_attention_plain
+from d3roma_tpu_torch.ops.kernels.attention import mha_attention_plain, rows_plan
 from d3roma_tpu_torch.ops.kernels.quantize import (
     fp32,
     ieee_div,
@@ -170,8 +170,9 @@ def fused_self_attention_int8(x: torch.Tensor, wqkv: torch.Tensor, ws: torch.Ten
         raise ValueError("x is too large for the kernel's 32-bit indices")
     scale = fp32(sm_scale if sm_scale is not None else 1.0 / math.sqrt(_HEAD_DIM))
     dev = x.device
-    xq = quantize_int8_scalar(x.contiguous(), act_scale)
     m_pad = _round_up(n, _KEY_TILE)
+    rows_plan(b, n, n, heads, _HEAD_DIM, _BLK_Q, m_pad)  # 256-row q scale blocks
+    xq = quantize_int8_scalar(x.contiguous(), act_scale)
     n_amax = b * (-(-n // _BLK_Q)) * heads + 2 * b * heads
     f = torch.empty((b, n, 3 * c), dtype=torch.float32, device=dev)
     amax = torch.empty((n_amax,), dtype=torch.int32, device=dev)

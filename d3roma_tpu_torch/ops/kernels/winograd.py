@@ -7,8 +7,10 @@ Port of `d3roma_tpu/ops/pallas/winograd_fused.py::conv3x3_wino_fused`
 fp32, V rounded to bf16; U = G g G^T from the fp32 weight, rounded to bf16;
 16 bf16 tap GEMMs with fp32 accumulation; the output transform A^T M A in
 fp32; the output in the promoted type of x and w. The kernel is
-`csrc/winograd_fused.cu`; its source note says what bounds it on the H100
-and how it is built around that.
+`csrc/winograd_fused.cu`: an input transform into V [16, Mt, C], then the
+16 tap GEMMs on the TMA + wgmma mainloop with the output transform in their
+epilogue; `wino_plan` is the host's plan of a call. Its source note says
+what bounds it on the H100 and how it is built around that.
 
 `_round_up`, `_block_budget`, `pick_block_tr`, `pick_config` and
 `wino_fused_supported` are the TPU kernel's VMEM arithmetic, copied
@@ -22,11 +24,19 @@ share.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
 from d3roma_tpu_torch.ops.kernels import _build
+from d3roma_tpu_torch.ops.kernels.geglu import (
+    H100_SMS,
+    SPLIT_BYTES_PER_UNIT,
+    SPLIT_LAUNCH_UNITS,
+    TILE_STAGES,
+)
 
 _LANES = 128
 _SUBL = 8  # bf16 sublane tile
@@ -98,8 +108,8 @@ def wino_fused_supported(x_shape, w_shape, strides, padding) -> bool:
 
 def winograd_weight(w: torch.Tensor) -> torch.Tensor:
     """U = G g G^T of a [O, C, 3, 3] weight: fp32 products, rounded to bf16,
-    as [16, O, C] (tap 4 x + y; C contiguous, as the kernel's bf16 mma takes
-    its B operand)."""
+    as [16, O, C] (tap 4 x + y; C contiguous: each tap is the K-major B
+    operand of the kernel's wgmma)."""
     g = torch.tensor(_G, dtype=torch.float32, device=w.device)
     u = torch.einsum("xi,ocij,yj->xyoc", g, w.float(), g)
     return u.reshape(16, w.shape[0], w.shape[1]).to(torch.bfloat16).contiguous()
@@ -140,11 +150,71 @@ def conv3x3_winograd_plain(x: torch.Tensor, u: torch.Tensor, out_dtype: torch.dt
     return y if bias is None else y + bias.to(out_dtype)
 
 
+# The CUDA kernel's tiles (csrc/winograd_fused.cu): 128 Winograd tiles (two
+# wgmma warpgroups of 64 GEMM rows) by 64 output channels (the tap's fp32
+# sums and the four output accumulators take 5 x 32 registers a thread at
+# 64), 64 channels of C a k step (128 bytes of bf16), and the groups the 16
+# taps may be split into.
+TILE_ROWS = 128
+TILE_COLS = 64
+K_STEP = 64
+TAPS = 16
+TAP_SPLITS = (1, 2, 4)
+
+
+@dataclass(frozen=True)
+class WinoPlan:
+    """How the CUDA kernel cuts one call. th, tw: Winograd tiles down and
+    across an image; tiles: Mt = B th tw, the GEMM rows, and the rows of
+    V [16, Mt, C]; m_tiles, n_tiles: block tiles over Mt (TILE_ROWS) and O
+    (TILE_COLS); splits: groups of TAPS / splits taps, one block tile each;
+    kc: k steps a tap; grid: the persistent blocks; v_map, u_map: the 3D
+    TMA maps of V and U, (dims, box), innermost first; workspace_bytes: the
+    fp32 partial outputs [splits, B H W, O] when split, else 0."""
+    th: int
+    tw: int
+    tiles: int
+    m_tiles: int
+    n_tiles: int
+    splits: int
+    kc: int
+    grid: int
+    v_map: Tuple[Tuple[int, int, int], Tuple[int, int, int]]
+    u_map: Tuple[Tuple[int, int, int], Tuple[int, int, int]]
+    workspace_bytes: int
+
+
+@functools.lru_cache(maxsize=256)
+def wino_plan(b: int, h: int, w: int, c: int, o: int, sms: int = H100_SMS) -> WinoPlan:
+    """The tiles of one call on a card with `sms` SMs: the split of the taps
+    with the least modelled time (geglu_plan's model, whose GEMMs share the
+    mainloop: a tile costs its k steps plus TILE_STAGES, times the rows it
+    loads a step, by waves of tiles over the SMs; a split adds its partial
+    sums' round trip and a launch), the fewest splits on a tie."""
+    th, tw = (h + 1) // 2, (w + 1) // 2
+    tiles = b * th * tw
+    m_tiles, n_tiles = -(-tiles // TILE_ROWS), -(-o // TILE_COLS)
+    kc = -(-c // K_STEP)
+
+    def cost(s):
+        waves = -(-(m_tiles * n_tiles * s) // sms)
+        split = ((s + 1) * 4 * b * h * w * o / SPLIT_BYTES_PER_UNIT + SPLIT_LAUNCH_UNITS
+                 if s > 1 else 0)
+        return waves * (TAPS // s * kc + TILE_STAGES) * (TILE_ROWS + TILE_COLS) + split
+
+    splits = min(TAP_SPLITS, key=lambda s: (cost(s), s))
+    return WinoPlan(th, tw, tiles, m_tiles, n_tiles, splits, kc,
+                    min(m_tiles * n_tiles * splits, sms),
+                    ((c, tiles, TAPS), (K_STEP, TILE_ROWS, 1)),
+                    ((c, o, TAPS), (K_STEP, TILE_COLS, 1)),
+                    4 * splits * b * h * w * o if splits > 1 else 0)
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.load("winograd_fused")
     fn = lib.d3r_conv3x3_winograd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -155,8 +225,10 @@ def conv3x3_winograd(x: torch.Tensor, u: torch.Tensor, out_dtype: torch.dtype,
     [B, H, W, C] -> [B, H, W, O] in `out_dtype`, with U = winograd_weight(w)
     [16, O, C] and an optional bias added after the output's rounding.
 
-    CUDA tensors go to the Hopper kernel (bf16 U and output, C % 32 == 0,
-    O % 8 == 0) or raise; CPU tensors take the plain version.
+    CUDA tensors go to the Hopper kernels (bf16 U and output, C % 32 == 0,
+    O % 8 == 0: the input transform, the tap GEMMs and, where wino_plan
+    splits the taps, their sum, in one call) or raise; CPU tensors take the
+    plain version.
     `conv3x3_winograd.launches` counts the calls."""
     if x.ndim != 4 or u.ndim != 3 or u.shape[0] != 16 or u.shape[2] != x.shape[3]:
         raise ValueError(f"conv3x3_winograd takes NHWC x and U [16, O, C], got "
@@ -180,13 +252,18 @@ def conv3x3_winograd(x: torch.Tensor, u: torch.Tensor, out_dtype: torch.dtype,
     if not u.is_contiguous() or u.device != x.device:
         raise ValueError("U must be contiguous and on x's device")
     xb = x.to(torch.bfloat16).contiguous()
-    if xb.numel() > 2**31 - 1 or b * h * w * o > 2**31 - 1:
+    plan = wino_plan(b, h, w, c, o, _build.sm_count(x.device.index))
+    if plan.tiles > 2**31 - 1 or b * h * w * o > 2**31 - 1:
         raise ValueError("x is too large for the kernel's 32-bit indices")
     out = torch.empty((b, h, w, o), dtype=torch.bfloat16, device=x.device)
+    v = torch.empty((TAPS, plan.tiles, c), dtype=torch.bfloat16, device=x.device)
+    partial = (torch.empty((plan.workspace_bytes // 4,), dtype=torch.float32, device=x.device)
+               if plan.splits > 1 else None)
     with torch.cuda.device(x.device):
         err = _library().d3r_conv3x3_winograd(
             xb.data_ptr(), u.data_ptr(), None if bias is None else bias.data_ptr(),
-            out.data_ptr(), b, h, w, c, o, _build.current_stream(x.device))
+            out.data_ptr(), v.data_ptr(), None if partial is None else partial.data_ptr(),
+            b, h, w, c, o, plan.splits, _build.current_stream(x.device))
     _build.check(err, "conv3x3_winograd")
     conv3x3_winograd.launches += 1
     return out

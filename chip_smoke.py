@@ -5,7 +5,8 @@
     python3 chip_smoke.py --geglu    # device, build and the two GEGLU kernels' cases only
     python3 chip_smoke.py --conv     # device, build and the conv kernels' cases only
     python3 chip_smoke.py --winograd # device, build and the Winograd kernel's cases only
-    python3 chip_smoke.py --attention  # device, build and the int8 attention cases only
+    python3 chip_smoke.py --attention  # device, build and the attention cases only (bf16
+                                       # and int8, whole-row and fused)
 
 Run from the repository root, on a machine with a CUDA GPU and nvcc (the
 kernels build from d3roma_tpu_torch/csrc/ at first use). Phases, each
@@ -187,35 +188,72 @@ def build_phase() -> None:
         log = (_build.BUILD_DIR / f"{name}.log")
         if log.exists():
             for ln in log.read_text().splitlines():
-                if "registers" in ln or "spill" in ln:
+                if "registers" in ln or "spill" in ln or "entry function" in ln:
                     print(f"  ptxas {name}: {ln.strip()}", flush=True)
 
 
-def _attention_case(b, n, m, h, d, gen, timed):
+def _attention_case(b, n, m, h, d, gen, timed, layout="contiguous"):
+    """The bf16 whole-row attention against its plain version. layout:
+    "contiguous" q, k, v [B, L, H, D]; "workspace", q, k and v read in
+    place from one [B, N, 3 H D] projection (M = N), as the fused bf16
+    attention reads them; "padded", heads D + 16 apart; "transposed",
+    [B, H, L, D] tensors seen as [B, L, H, D] (strides a TMA map cannot
+    take: the wrapper copies them first)."""
     import torch
     import torch.nn.functional as F
 
+    from d3roma_tpu_torch.ops.kernels import attention as kattn
     from d3roma_tpu_torch.ops.kernels import mha_attention, mha_attention_plain
 
-    q, k, v = (torch.randn((b, length, h, d), generator=gen, device="cuda").to(torch.bfloat16)
-               for length in (n, m, m))
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    if layout == "workspace":
+        w = rnd(b, n, 3 * h * d).view(b, n, 3, h, d)
+        q, k, v = w[:, :, 0], w[:, :, 1], w[:, :, 2]
+    elif layout == "padded":
+        q, k, v = (rnd(b, length, h, d + 16)[..., :d] for length in (n, m, m))
+    elif layout == "transposed":
+        q, k, v = (rnd(b, h, length, d).transpose(1, 2) for length in (n, m, m))
+    else:
+        q, k, v = (rnd(b, length, h, d) for length in (n, m, m))
     out = mha_attention(q, k, v)
     ref = mha_attention_plain(q.float(), k.float(), v.float())
     _sync()
     err = (out.float() - ref).abs().max().item()
     tol = REL_TOL * ref.abs().max().item()
-    row = {"shape": [b, n, m, h, d], "max_abs_err": err, "tol": tol,
-           "max_abs_out": ref.abs().max().item()}
+    strides = [kattn.tma_head_strides(t.shape, t.stride()) for t in (q, k, v)]
+    plan = kattn.bf16_plan(b, n, m, h, d, *strides)
+    row = {"shape": [b, n, m, h, d], "layout": layout, "max_abs_err": err, "tol": tol,
+           "max_abs_out": ref.abs().max().item(),
+           "plan": {"width": plan.width, "stages": plan.stages, "grid": list(plan.grid),
+                    "smem_bytes": plan.smem_bytes}}
     if timed:
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        row["ms"] = time_ms(lambda: mha_attention(q, k, v))
-        row["plain_ms"] = time_ms(lambda: mha_attention_plain(q, k, v), reps=5)
-        row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
-        row["library_call"] = "F.scaled_dot_product_attention (bf16)"
         flops = 4.0 * b * h * n * m * d
         nbytes = 2.0 * (2 * b * n * h * d + 2 * b * m * h * d)
         row["bound_ms"], row["bound_by"] = bound(flops, nbytes, exps=float(b * h * n * m))
+        _timed_against_library(row, lambda: mha_attention(q, k, v),
+                               lambda: F.scaled_dot_product_attention(qt, kt, vt), split=True)
+        row["plain_ms"] = time_ms(lambda: mha_attention_plain(q, k, v), reps=5)
+        row["library_call"] = "F.scaled_dot_product_attention (bf16)"
     return _check_row("attention", row, err, tol)
+
+
+def attention_bf16_cases(gen):
+    """The bf16 whole-row attention at the latency path's shapes (timed) and
+    ragged and strided ones (checked only): N and M off the 64- and 128-row
+    blocks and the 128-key tiles, M = 1, head widths under and over the
+    64-column box, q, k, v read through their strides."""
+    rows = [_attention_case(BATCH, 3600, 3600, 5, 64, gen, True),
+            _attention_case(BATCH, 920, 920, 10, 64, gen, True)]
+    for shape in ((1, 600, 600, 2, 64), (2, 300, 77, 3, 32), (1, 100, 130, 2, 128),
+                  (1, 70, 50, 1, 48), (1, 129, 1, 1, 96), (3, 70, 700, 1, 16)):
+        _attention_case(*shape, gen, False)
+    for shape, layout in (((2, 200, 200, 3, 64), "workspace"), ((2, 920, 920, 10, 64), "workspace"),
+                          ((1, 300, 250, 2, 80), "padded"), ((1, 140, 300, 4, 64), "transposed")):
+        _attention_case(*shape, gen, False, layout)
+    return rows
 
 
 def time_in_turns(kernel, library):
@@ -357,11 +395,7 @@ def kernel_phase():
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    attn = [_attention_case(BATCH, 3600, 3600, 5, 64, gen, True),
-            _attention_case(BATCH, 920, 920, 10, 64, gen, True)]
-    for shape in ((1, 600, 600, 2, 64), (2, 300, 77, 3, 32), (1, 100, 130, 2, 128),
-                  (1, 70, 50, 1, 48)):
-        _attention_case(*shape, gen, False)
+    attn = attention_bf16_cases(gen)
     geglu = geglu_cases(gen)
     _sync()
     return attn, geglu
@@ -371,6 +405,7 @@ def _attention_int8_case(b, n, m, h, d, gen, timed):
     import torch
     import torch.nn.functional as F
 
+    from d3roma_tpu_torch.ops.kernels import attention as kattn
     from d3roma_tpu_torch.ops.kernels import mha_attention_int8, mha_attention_int8_plain
 
     q, k, v = (torch.randn((b, length, h, d), generator=gen, device="cuda").to(torch.bfloat16)
@@ -382,6 +417,10 @@ def _attention_int8_case(b, n, m, h, d, gen, timed):
     tol = REL_TOL * ref.abs().max().item()
     row = {"shape": [b, n, m, h, d], "max_abs_err": err, "tol": tol,
            "max_abs_out": ref.abs().max().item()}
+    if d in kattn.WIDE_HEAD_DIMS:
+        plan = kattn.wide_plan(b, n, m, h, d, -(-m // 64) * 64)
+        row["plan"] = {"grid": list(plan.grid), "groups": plan.groups, "threads": plan.threads,
+                       "slots": plan.slots, "smem_bytes": plan.smem_bytes}
     if timed:
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         ops = 4.0 * b * h * n * m * d
@@ -558,11 +597,30 @@ def _quantize_case(shape, gen, timed):
     row = {"shape": list(shape), "max_abs_err": float(err), "tol": 0.0}
     if timed:
         n = x.numel()
-        row["ms"] = time_ms(lambda: quantize_int8_scalar(x, scale))
-        row["plain_ms"] = time_ms(lambda: quantize_int8_plain(x, scale))
-        row["library_ms"] = None
-        row["library_call"] = None
         row["bound_ms"], row["bound_by"] = bound(0.0, 3.0 * n)
+        row["plain_ms"] = time_ms(lambda: quantize_int8_plain(x, scale))
+        # the library call is a yardstick only where it gives the kernel's
+        # int8 values (half to even after an IEEE division, clipped to +-127)
+        xf = x.float()
+
+        def library():
+            return torch.quantize_per_tensor(xf, scale, 0, torch.qint8)
+
+        lib_q = library().int_repr()
+        _sync()
+        row["library_mismatches"] = int((lib_q != out).sum().item())
+        row["library_max_diff"] = int((lib_q.int() - out.int()).abs().max().item())
+        if row["library_mismatches"] == 0:
+            _timed_against_library(row, lambda: quantize_int8_scalar(x, scale), library,
+                                   split=True)
+            row["library_call"] = "torch.quantize_per_tensor(x.float(), s, 0, torch.qint8)"
+        else:
+            row["ms"] = time_ms(lambda: quantize_int8_scalar(x, scale))
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            row["host_ms"], row["device_ms"], row["device_ms_by_launch"] = host_and_device_ms(
+                lambda: quantize_int8_scalar(x, scale))
+            row["library_ms"] = None
+            row["library_call"] = None
     return _check_row("quantize_int8", row, float(err), 0.0)
 
 
@@ -576,7 +634,8 @@ def attention_int8_cases(gen):
             _attention_int8_case(BATCH, 3600, 3600, 1, 512, gen, True)]      # VAE decode
     for shape in ((1, 600, 600, 2, 64), (2, 300, 77, 3, 64), (1, 100, 130, 2, 128),
                   (1, 70, 50, 1, 32), (1, 200, 150, 1, 512), (1, 90, 90, 2, 256),
-                  (1, 300, 1000, 2, 96), (2, 1000, 300, 1, 64), (1, 129, 1, 1, 128)):
+                  (1, 300, 1000, 2, 96), (2, 1000, 300, 1, 64), (1, 129, 1, 1, 128),
+                  (1, 129, 1, 1, 512), (2, 65, 200, 1, 256), (1, 64, 129, 2, 512)):
         _attention_int8_case(*shape, gen, False)
     return rows
 
@@ -616,12 +675,12 @@ def _gn_case(shape, gen, timed, dtype="bfloat16"):
     if timed:
         xc = x.permute(0, 3, 1, 2)  # NCHW view, channels_last in memory
         gb, bb = gamma.to(x.dtype), beta.to(x.dtype)
-        row["ms"] = time_ms(lambda: group_norm_silu(x, gamma, beta, 32, 1e-5))
-        row["plain_ms"] = time_ms(lambda: group_norm_silu_plain(x, gamma, beta, 32, 1e-5))
-        row["library_ms"] = time_ms(lambda: F.silu(F.group_norm(xc, 32, gb, bb, 1e-5)))
-        row["library_call"] = "F.silu(F.group_norm(x)) (bf16, channels_last)"
         row["bound_ms"], row["bound_by"] = bound(0.0, 2.0 * x.numel() * x.element_size()
                                                  + 8.0 * c)
+        _timed_against_library(row, lambda: group_norm_silu(x, gamma, beta, 32, 1e-5),
+                               lambda: F.silu(F.group_norm(xc, 32, gb, bb, 1e-5)), split=True)
+        row["plain_ms"] = time_ms(lambda: group_norm_silu_plain(x, gamma, beta, 32, 1e-5))
+        row["library_call"] = "F.silu(F.group_norm(x)) (bf16, channels_last)"
     return _check_row("group_norm_silu", row, err, tol)
 
 
@@ -797,11 +856,20 @@ def _attention_fused_bf16_case(b, n, c, gen, timed):
         nbytes = 2.0 * 2 * b * n * c + 2.0 * 4 * c * c + 4.0 * c
         row["bound_ms"], row["bound_by"] = bound(flops, nbytes, exps=float(b * heads * n * n))
         _timed_against_library(row, lambda: fused_self_attention_bf16(x, wqkv, ws[3], bo, heads),
-                               library)
+                               library, split=True)
         row["plain_ms"] = time_ms(
             lambda: fused_self_attention_bf16_plain(x, wqkv, ws[3], bo, heads), reps=5)
         row["library_call"] = "4 F.linear + F.scaled_dot_product_attention (bf16)"
     return _check_row("attention_fused_bf16", row, err, tol)
+
+
+def attention_fused_bf16_cases(gen):
+    """The bf16 fused self-attention at the latency-fused path's shape
+    (timed) and ragged ones (checked only)."""
+    rows = [_attention_fused_bf16_case(BATCH, 920, 640, gen, True)]
+    for b, n, c in ((1, 1000, 128), (1, 65, 64), (2, 300, 192), (2, 3600, 320)):
+        _attention_fused_bf16_case(b, n, c, gen, False)
+    return rows
 
 
 def _conv_bf16_case(b, h, w, cin, cout, gen, timed, halo=False):
@@ -939,9 +1007,7 @@ def conv_and_fused_bf16_kernel_phase():
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(8765)
-    rows = {"attention_fused_bf16": [_attention_fused_bf16_case(BATCH, 920, 640, gen, True)]}
-    for b, n, c in ((1, 1000, 128), (1, 65, 64), (2, 300, 192)):
-        _attention_fused_bf16_case(b, n, c, gen, False)
+    rows = {"attention_fused_bf16": attention_fused_bf16_cases(gen)}
     rows["conv2d_bf16"] = [_conv_bf16_case(*s, gen, True) for s in (
         (BATCH, 45, 80, 320, 320), (BATCH, 23, 40, 640, 640), (BATCH, 12, 20, 1280, 1280))]
     rows["conv2d_bf16"].append(_conv_bf16_case(BATCH, 23, 40, 640, 640, gen, True, halo=True))
@@ -1630,11 +1696,13 @@ def main() -> int:
     if sys.argv[1:] == ["--attention"]:
         import torch
 
+        attention_bf16_cases(torch.Generator(device="cuda").manual_seed(1234))
+        attention_fused_bf16_cases(torch.Generator(device="cuda").manual_seed(8765))
         gen = torch.Generator(device="cuda").manual_seed(4321)
         attention_int8_cases(gen)
         attention_fused_int8_cases(gen)
         _sync()
-        print("int8 attention cases passed", flush=True)
+        print("attention cases passed", flush=True)
         return 0
     attn_rows, geglu_rows = kernel_phase()
     int8_rows = int8_kernel_phase()

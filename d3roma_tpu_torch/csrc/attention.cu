@@ -5,30 +5,32 @@
 // [block_q, M] fp32 score row in VMEM and takes one max-then-exp softmax per
 // row; keys are padded to 128 and masked at -1e30.
 //
-// What bounds it on the H100: operations. At the UNet's flagship sites
-// (N = M = 3600, H = 5, D = 64 and N = M = 920, H = 10, D = 64) the two
-// products do 4*N*M*D flops per (batch, head) against 8*N*D bytes of q, k,
-// v and o, i.e. ~M/2 = 1800 flops per byte, far above the ~295 flops per byte
-// where the bf16 tensor cores, not memory, become the limit.
+// What bounds it on the H100: operations, with the softmax close behind.
+// At the UNet's flagship sites (N = M = 3600, H = 5, D = 64 and N = M = 920,
+// H = 10, D = 64) the two products do 4*N*M*D flops per (batch, head)
+// against 8*N*D bytes of q, k, v and o, i.e. ~M/2 = 1800 flops per byte,
+// far above the ~295 flops per byte where the bf16 tensor cores, not
+// memory, become the limit; the softmax's one exponential a score on the
+// SFUs (16 a clock per SM) takes about as long as the products at peak, and
+// its ~5-6 other instructions a score issue beside them.
 //
 // Design (the kernel is in attention_bf16_rows.cuh, which the bf16 fused
-// self-attention shares): one block of 4 warps per (query tile of 64 rows,
-// head, batch); each warp owns 16 query rows. A Hopper block cannot hold a [64, 3600] fp32
-// score row (900 KB) in its 227 KB of shared memory, so the block walks the
-// keys in tiles of 64 with an online softmax: running row max and
-// denominator in fp32, the output rescaled by exp(m_old - m_new) as the max
-// grows. Both products run on the tensor cores as mma.sync m16n8k16 (bf16
-// operands, fp32 accumulation) with every accumulator in registers: the
-// warp's [16, 64] score tile, its [16, D] output, and its q fragments, which
-// are loaded once. The score accumulator's register layout is the A-operand
-// layout of the PV product, so P goes from scores to the second product
-// without touching shared memory. K and V tiles are staged in shared memory
-// by cp.async, double-buffered, so the next tile's loads overlap this tile's
-// products; fragments come from shared memory through ldmatrix (V
-// transposed). q, k and v are read through their strides ([B, N, H, D] with
-// any batch, token and head stride), so no transpose or padding copy is
-// made; the ragged query and key edges are zero-filled and masked here
-// instead of padded.
+// self-attention shares): TMA + wgmma, 64 query rows a block of one
+// warpgroup, three blocks an SM, each refilling its own ring of K and V
+// tiles of 128 keys (host plan: ops/kernels/attention.py::bf16_plan). A
+// Hopper block cannot hold a [64, 3600] fp32 score row (900 KB) in its
+// 227 KB of shared memory, so the block walks the keys with an online
+// softmax: running row max and denominator in fp32, the output rescaled by
+// exp(m_old - m_new) as the max grows. S = Q K^T is a wgmma with both
+// operands in shared memory; the score accumulator's register layout is the
+// A-operand layout of the P V wgmma, so P goes from scores to the second
+// product in registers, and V is read as it lies (MN-major, the wgmma
+// transpose bit). The P V of one tile runs on the tensor cores while the
+// next tile's S is issued, and the blocks of an SM take turns at the
+// softmax. q, k and v are read through their strides by 4-D TMA maps ([B,
+// N, H, D] with nested batch, token and head strides), so no transpose or
+// padding copy is made; TMA's zero fill covers the ragged query and key
+// edges, and the keys past M are masked in the last tile.
 //
 // Numerics against the TPU kernel: P = exp(s - m) is cast to bf16 for the PV
 // product while the denominator sums the fp32 P, as there; m is the running
@@ -39,34 +41,17 @@
 #include "attention_bf16_rows.cuh"
 
 // q [B, N, H, D], k and v [B, M, H, D] (bf16, unit stride along D, other
-// strides in elements and multiples of 8, 16-byte aligned); o [B, N, H, D]
-// contiguous. D is a multiple of 16 up to 128. Returns cudaGetLastError().
+// strides in elements, multiples of 8 and nested as launch_mha_bf16 says,
+// 16-byte aligned); o [B, N, H, D] contiguous. D is a multiple of 16 up to
+// 128. Returns the first CUDA error.
 extern "C" int d3r_mha_attention_bf16(const void* q, const void* k, const void* v, void* o,
-                                      int B, int N, int M, int H, int D, int sqb, int sqn,
-                                      int sqh, int skb, int skm, int skh, int svb, int svm,
-                                      int svh, float scale, void* stream) {
-  if (B <= 0 || N <= 0 || M <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+                                      int B, int N, int M, int H, int D, long long sqb,
+                                      long long sqn, long long sqh, long long skb, long long skm,
+                                      long long skh, long long svb, long long svm, long long svh,
+                                      float scale, void* stream) {
   using d3r::bf16;
-  const auto* qq = static_cast<const bf16*>(q);
-  const auto* kk = static_cast<const bf16*>(k);
-  const auto* vv = static_cast<const bf16*>(v);
-  auto* oo = static_cast<bf16*>(o);
-  auto st = static_cast<cudaStream_t>(stream);
-#define D3R_MHA_CASE(DIM)                                                                     \
-  case DIM:                                                                                   \
-    return (int)d3r::launch_mha_bf16<DIM>(qq, kk, vv, oo, B, N, M, H, sqb, sqn, sqh, skb, skm, \
-                                          skh, svb, svm, svh, scale, st);
-  switch (D) {
-    D3R_MHA_CASE(16)
-    D3R_MHA_CASE(32)
-    D3R_MHA_CASE(48)
-    D3R_MHA_CASE(64)
-    D3R_MHA_CASE(80)
-    D3R_MHA_CASE(96)
-    D3R_MHA_CASE(112)
-    D3R_MHA_CASE(128)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef D3R_MHA_CASE
+  const long long sq[3] = {sqb, sqn, sqh}, sk[3] = {skb, skm, skh}, sv[3] = {svb, svm, svh};
+  return (int)d3r::launch_mha_bf16(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                                   static_cast<const bf16*>(v), static_cast<bf16*>(o), B, N, M,
+                                   H, D, sq, sk, sv, scale, static_cast<cudaStream_t>(stream));
 }

@@ -27,8 +27,9 @@
 //      sums, one rounding, into a [B, N, 3C] bf16 workspace, in the tiles of
 //      the wrapper's plan (ops/kernels/conv2d.py::conv_plan; with a split
 //      of K, one more launch adds the fp32 partials);
-//   2. mha_kernel<64> (attention_bf16_rows.cuh) on q, k and v read in place
-//      from that workspace through their strides, writing o [B, N, H, 64]:
+//   2. mha_kernel (attention_bf16_rows.cuh) on q, k and v read in place
+//      from that workspace through their strides by TMA, writing o [B, N,
+//      H, 64]:
 //      the row-1 kernel, whose arithmetic is that of this body's attention
 //      (P rounded to bf16 for the PV product, the denominator summing the
 //      fp32 P; an online softmax over key tiles instead of the whole row
@@ -69,9 +70,9 @@ extern "C" int d3r_fused_self_attention_bf16(const void* x, const void* wqkv, co
   cudaError_t err = d3r::conv::run<bf16>(proj, d3r::conv::kBf16, st);
   if (err != cudaSuccess) return (int)err;
 
-  const int s_b = N * 3 * C, s_n = 3 * C, s_h = d3r::kOpHeadDim;
-  err = d3r::launch_mha_bf16<64>(w, w + C, w + 2 * C, static_cast<bf16*>(o), B, N, N, H, s_b,
-                                 s_n, s_h, s_b, s_n, s_h, s_b, s_n, s_h, scale, st);
+  const long long s[3] = {(long long)N * 3 * C, 3 * C, d3r::kOpHeadDim};
+  err = d3r::launch_mha_bf16(w, w + C, w + 2 * C, static_cast<bf16*>(o), B, N, N, H,
+                             d3r::kOpHeadDim, s, s, s, scale, st);
   if (err != cudaSuccess) return (int)err;
 
   d3r::OutProjArgs oa{static_cast<const bf16*>(o), static_cast<const bf16*>(wo),

@@ -20,7 +20,7 @@
 // Design. One call runs four launches on the caller's stream: zero the
 // absmax table; absmax of q, k and v per (batch, head) (atomicMax on the bit
 // pattern of non-negative floats); quantize q and k in place of layout and v
-// into [B, H, D, M_pad] (keys contiguous: int8 mma and wgmma take their B
+// into [B, H, D, M_pad] (keys contiguous: int8 wgmma takes its B
 // operand K-major; zero past M); the attention kernel. The two quantization
 // launches read q, k and v in loads of consecutive addresses (a head's rows
 // are strided by H * D) and write whole 16-byte pieces, so they move about
@@ -43,13 +43,17 @@
 // (shared with the fused self-attention): TMA + int8 wgmma, 128 query rows
 // and 128-key tiles a block; its note says what bounds it.
 //
-// Head width 512 (the VAE): mma.sync m16n8k32 (int8, int32 accumulation). A
-// warp's [16, 512] int32 output would take 256 registers per thread, so the
-// block takes 32 query rows with 8 warps and splits D across them (each
-// warp owns 16 of the 128 output fragments of [32, 512]); the scores go
-// through shared memory, every warp reads the shared P tile, and the K and
-// V tiles (33 and 40 KB, 64 keys) are loaded and waited for (no double
-// buffering at this width).
+// Head widths 256 and 512 (the VAE's one head of 512): the wide kernel
+// below, on the same TMA + int8 wgmma pieces. What bounds it is the int8
+// tensor cores, not the softmax: each score feeds 2 D = 1024 int8
+// operations per product (3072 over the three), against ~15 instructions of
+// softmax. Its design answers the registers: a [64, 512] int32 output is 256
+// registers a thread, so D is split into 128-wide slices, one consumer
+// warpgroup each, and the keys of a tile are split among the same
+// warpgroups for the scores, whose round(127 p) meet in one shared P tile.
+// The int8 P V^T runs while the next tile's scores are issued; the K and V
+// tiles come through a ring of five (D 512) or eight (D 256) units of
+// 64 D bytes, each refilled by the last warpgroup to hand it back.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,14 +62,11 @@
 #include <stdint.h>
 
 #include "attention_int8_rows.cuh"
-#include "int8_mma.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using d3r::cp_async_16;
-
-constexpr int kBK = d3r::kAttnKeyTile;  // keys per tile
+constexpr int kBK = d3r::kAttnKeyTile;  // vt's key padding
 using d3r::AttnArgs;
 using d3r::head_scale;
 
@@ -175,190 +176,296 @@ __global__ void __launch_bounds__(256) quantize_heads_kernel(QuantArgs a, int qk
 }
 
 // --------------------------------------------------------------------------
-// Head widths 256 and 512: the warps split D and share the score and P tiles.
+// Head widths 256 and 512: the wide kernel. A block owns 64 query rows of
+// one (batch, head) and runs D / 128 warpgroups, each the owner of a
+// 128-wide slice of O (64 int32 sums a thread: the whole [64, 512] would
+// take 256). The scores contract over all of D, so the warpgroups split the
+// keys of a tile instead: warpgroup w takes keys [w 128 / (D / 128), ...)
+// of each 128-key tile (32 keys at D = 512, 64 at D = 256), writes its
+// round(127 p) into a P tile [64, 128] that every warpgroup then reads as
+// the A operand of its O slice += P V^T. Each product is then done once,
+// split four (or two) ways, with no score recomputed.
+//
+// The K and V tiles come through a ring of kSlots units of 64 D bytes: per
+// key tile, pass 1 reads two K halves (keys 0-63 and 64-127, [64 keys, D]
+// as D / 128 boxes of [64, 128 bytes]); pass 2 the two K halves and the two
+// V halves (rows 0 .. D / 2 - 1 and D / 2 .. D - 1 of the head's V^T, 128
+// keys a row, one box). D / 256 warpgroups read each unit. The block has no
+// producer warp: a seventeenth warp would leave the SM's four schedulers
+// 102 registers a thread for five warps (96 after rounding), and the
+// consumers spilled and had their wgmmas serialized. Instead the warpgroup
+// that hands a unit back last (a shared counter per slot) loads unit
+// u + kSlots into its slot; thread 0 loads Q and the first kSlots units.
+// Per tile of pass 2, a warpgroup: S of its keys (wgmma m64n{32,64}k32 over
+// D / 32 k steps, Q read from shared memory); waits for the last tile's
+// P V^T and hands back its V unit, then for S and hands back its K unit;
+// writes its P columns into one of two P tiles (the other may still be
+// read by products in flight); meets the other warpgroups on a barrier; and
+// issues O += P V^T (wgmma m64n128k32, 4 k steps), which runs while the
+// next tile's S is issued. Pass 1's row max and the denominator are
+// combined across the warpgroups through shared memory.
 
-template <int D, int BQ, int WARPS>
-struct WideCfg {
-  static constexpr int kThreads = 32 * WARPS;
-  static constexpr int kLdq = D + 16;    // Q and K rows, bytes
-  static constexpr int kLdv = kBK + 16;  // V^T rows (one per d), bytes
-  static constexpr int kLds = kBK + 4;   // score rows, int32
-  static constexpr int kLdp = kBK + 16;  // P rows, bytes
-  static constexpr int kTpr = kThreads / BQ;  // threads per score row
-  static constexpr int kKpt = kBK / kTpr;     // keys per thread
-  static constexpr int kSTiles = (BQ / 16) * (kBK / 8);
-  static constexpr int kOTiles = (BQ / 16) * (D / 8);
-  static constexpr int kOPerWarp = kOTiles / WARPS;
-  static constexpr size_t q = 0;
-  static constexpr size_t k = q + (size_t)BQ * kLdq;
-  static constexpr size_t v = k + (size_t)kBK * kLdq;
-  static constexpr size_t s = v + (size_t)D * kLdv;
-  static constexpr size_t p = s + sizeof(int) * BQ * kLds;
-  static constexpr size_t l = p + (size_t)BQ * kLdp;
-  static constexpr size_t bytes = l + sizeof(float) * BQ;
-  static_assert(D % 32 == 0 && BQ % 16 == 0, "tile shapes");
-  static_assert(kThreads % BQ == 0 && 32 % kTpr == 0 && kKpt % 4 == 0, "row split");
-  static_assert(kOTiles % WARPS == 0, "output fragments per warp");
+namespace wide {
+
+namespace sm90 = d3r::sm90;
+
+constexpr int kRows = 64;          // query rows of a block
+constexpr int kKeys = 128;         // keys of a tile
+constexpr int kChunk = 64 * 128;   // a [64 rows, 128 bytes] box: of Q, or of a K half
+constexpr int kPBytes = 64 * 128;  // a P tile [64 rows, 128 keys]
+
+template <int D>
+struct Cfg {
+  static constexpr int kGroups = D / 128;         // warpgroups
+  static constexpr int kThreads = 128 * kGroups;
+  static constexpr int kReaders = kGroups / 2;    // warpgroups that read a unit
+  static constexpr int kWgKeys = kKeys / kGroups;  // a warpgroup's keys of a tile
+  static constexpr int kUnitBytes = 64 * D;        // a K half or a V half
+  static constexpr int kSlots = D == 512 ? 5 : 8;
+  static constexpr size_t kQ = 0;
+  static constexpr size_t kP = kQ + (size_t)kRows * D;
+  static constexpr size_t kRing = kP + 2 * kPBytes;
+  static constexpr size_t kMax = kRing + (size_t)kSlots * kUnitBytes;  // int [kGroups][64]
+  static constexpr size_t kSum = kMax + sizeof(int) * kGroups * kRows;  // float [kGroups][64]
+  static constexpr size_t kCount = kSum + sizeof(float) * kGroups * kRows;  // int [kSlots]
+  static constexpr size_t kBars = kCount + sizeof(int) * 8;
+  static constexpr size_t kBytes = 1024 + kBars + (kSlots + 1) * 8;
+  static_assert(D == 256 || D == 512, "head width");
+  static_assert(kSlots <= 8, "slot counters");
+  static_assert(kBytes <= 232448, "shared memory of a block");
 };
 
-template <int D, int BQ, int WARPS>
-__global__ void __launch_bounds__(32 * WARPS) mha_int8_wide_kernel(AttnArgs a) {
-  using C = WideCfg<D, BQ, WARPS>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  int8_t* qs = reinterpret_cast<int8_t*>(smem + C::q);
-  int8_t* ks = reinterpret_cast<int8_t*>(smem + C::k);
-  int8_t* vs = reinterpret_cast<int8_t*>(smem + C::v);
-  int* ss = reinterpret_cast<int*>(smem + C::s);
-  int8_t* ps = reinterpret_cast<int8_t*>(smem + C::p);
-  float* lsum = reinterpret_cast<float*>(smem + C::l);
+// Barrier 1 of the block's threads.
+template <int kThreads>
+__device__ __forceinline__ void block_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
+}
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+// Unit u of the ring into its slot (one thread): pass 1's units are the two
+// K halves of each tile, pass 2's the two K halves and the two V halves.
+template <int D>
+__device__ __forceinline__ void load_unit(int u, int n_tiles, uint8_t* ring, uint64_t* full,
+                                          const CUtensorMap* k_map, const CUtensorMap* v_map,
+                                          int h, int b, int bh, int M) {
+  using C = Cfg<D>;
+  const int slot = u % C::kSlots;
+  uint8_t* dst = ring + slot * C::kUnitBytes;
+  const bool pass2 = u >= 2 * n_tiles;
+  const int r = pass2 ? u - 2 * n_tiles : u;
+  const int t = pass2 ? r / 4 : r / 2, part = pass2 ? r % 4 : r % 2;
+  sm90::mbar_expect_tx(&full[slot], C::kUnitBytes);
+  if (part < 2) {
+    for (int c = 0; c < D / 128; ++c) {
+      sm90::tma_load_3d(dst + c * kChunk, k_map, &full[slot], 128 * c, h,
+                        b * M + t * kKeys + 64 * part);
+    }
+  } else {
+    sm90::tma_load(dst, v_map, &full[slot], t * kKeys, bh * D + D / 2 * (part - 2));
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
+    mha_int8_wide_kernel(const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map, const AttnArgs a) {
+  using C = Cfg<D>;
+  constexpr int S = C::kSlots;
+  extern __shared__ __align__(16) uint8_t wide_smem[];
+  uint8_t* base = wide_smem + ((1024 - (sm90::smem_u32(wide_smem) & 1023)) & 1023);
+  uint8_t* ring = base + C::kRing;
+  int* red_max = reinterpret_cast<int*>(base + C::kMax);
+  float* red_sum = reinterpret_cast<float*>(base + C::kSum);
+  int* count = reinterpret_cast<int*>(base + C::kCount);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + C::kBars);
+  uint64_t* q_full = full + S;
+  const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
   const int bh = b * a.H + h;
-  const float c = __fmul_rn(__fmul_rn(a.scale, head_scale(a.amax_q, d3r::q_scale_index(a, b, h, q0))),
-                            head_scale(a.amax_k, bh));
-  const long long row_stride = (long long)a.H * D;
-  const int8_t* qb = a.q + ((long long)b * a.N * a.H + h) * D;
-  const int8_t* kb = a.k + ((long long)b * a.M * a.H + h) * D;
-  const int8_t* vb = a.vt + (long long)bh * D * a.Mp;
-
-  constexpr int kVecD = D / 16;
-  for (int i = tid; i < BQ * kVecD; i += C::kThreads) {
-    const int r = i / kVecD, cc = (i % kVecD) * 16;
-    const bool ok = q0 + r < a.N;
-    cp_async_16(qs + r * C::kLdq + cc, ok ? qb + (q0 + r) * row_stride + cc : a.q, ok ? 16 : 0);
-  }
-  d3r::cp_async_commit();
-
-  const int row = tid / C::kTpr;                 // this thread's score row
-  const int key_lo = (tid % C::kTpr) * C::kKpt;  // and its keys in a tile
-  int run_max = INT_MIN;
-  float m_row = 0.f, l_part = 0.f;
-  int acc[C::kOPerWarp][4];
-#pragma unroll
-  for (int i = 0; i < C::kOPerWarp; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0;
-  const int n_tiles = (a.M + kBK - 1) / kBK;
-
-  for (int pass = 0; pass < 2; ++pass) {
-    for (int t = 0; t < n_tiles; ++t) {
-      for (int i = tid; i < kBK * kVecD; i += C::kThreads) {
-        const int r = i / kVecD, cc = (i % kVecD) * 16;
-        const int key = t * kBK + r;
-        const bool ok = key < a.M;
-        cp_async_16(ks + r * C::kLdq + cc, ok ? kb + key * row_stride + cc : a.k, ok ? 16 : 0);
-      }
-      if (pass == 1) {
-        constexpr int kVecK = kBK / 16;
-        for (int i = tid; i < D * kVecK; i += C::kThreads) {
-          const int d = i / kVecK, cc = (i % kVecK) * 16;
-          cp_async_16(vs + d * C::kLdv + cc, vb + (long long)d * a.Mp + t * kBK + cc, 16);
-        }
-      }
-      d3r::cp_async_commit();
-      d3r::cp_async_wait<0>();
-      __syncthreads();
-
-      // S = Q K^T: the (16 x 8) score fragments are dealt out to the warps.
-      for (int ti = warp; ti < C::kSTiles; ti += WARPS) {
-        const int mt = ti / (kBK / 8), nt = ti % (kBK / 8);
-        int s[4] = {0, 0, 0, 0};
-#pragma unroll
-        for (int kk = 0; kk < D / 32; ++kk) {
-          uint32_t af[4], b0, b1;
-          d3r::load_a(af, qs, C::kLdq, mt * 16, kk * 32, lane);
-          d3r::load_b(b0, b1, ks, C::kLdq, nt * 8, kk * 32, lane);
-          d3r::mma_s8(s, af, b0, b1);
-        }
-        int* dst = ss + (mt * 16 + g) * C::kLds + nt * 8 + 2 * t4;
-        *reinterpret_cast<int2*>(dst) = make_int2(s[0], s[1]);
-        *reinterpret_cast<int2*>(dst + 8 * C::kLds) = make_int2(s[2], s[3]);
-      }
-      __syncthreads();
-
-      const int* srow = ss + row * C::kLds + key_lo;
-      const int key0 = t * kBK + key_lo;
-      if (pass == 0) {
-#pragma unroll
-        for (int j = 0; j < C::kKpt; ++j) {
-          if (key0 + j < a.M) run_max = max(run_max, srow[j]);
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < C::kKpt; j += 4) {
-          uint32_t packed = 0;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            float p = 0.f;
-            if (key0 + j + e < a.M) {
-              p = expf(__fsub_rn(__fmul_rn((float)srow[j + e], c), m_row));
-            }
-            l_part = __fadd_rn(l_part, p);
-            // p in [0, 1]: round(127 p) in [0, 127]
-            packed |= (uint32_t)rintf(__fmul_rn(p, 127.f)) << (8 * e);
-          }
-          *reinterpret_cast<uint32_t*>(ps + row * C::kLdp + key_lo + j) = packed;
-        }
-        __syncthreads();
-        // O += P V: this warp's output fragments.
-#pragma unroll
-        for (int i = 0; i < C::kOPerWarp; ++i) {
-          const int ti = warp + i * WARPS;
-          const int mt = ti / (D / 8), nt = ti % (D / 8);
-#pragma unroll
-          for (int kk = 0; kk < kBK / 32; ++kk) {
-            uint32_t af[4], b0, b1;
-            d3r::load_a(af, ps, C::kLdp, mt * 16, kk * 32, lane);
-            d3r::load_b(b0, b1, vs, C::kLdv, nt * 8, kk * 32, lane);
-            d3r::mma_s8(acc[i], af, b0, b1);
-          }
-        }
-      }
-      __syncthreads();  // the next tile's copies overwrite K, V, S and P
+  const int n_tiles = (a.M + kKeys - 1) / kKeys;
+  const int units = 6 * n_tiles;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      count[s] = 0;
     }
-    if (pass == 0) {
-#pragma unroll
-      for (int o = 1; o < C::kTpr; o <<= 1) {
-        run_max = max(run_max, __shfl_xor_sync(0xffffffffu, run_max, o));
-      }
-      m_row = __fmul_rn((float)run_max, c);
+    sm90::mbar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    sm90::mbar_expect_tx(q_full, kRows * D);
+    for (int c = 0; c < D / 128; ++c) {
+      sm90::tma_load_3d(base + C::kQ + c * kChunk, &q_map, q_full, 128 * c, h, b * a.N + q0);
+    }
+    for (int u = 0; u < S && u < units; ++u) {
+      load_unit<D>(u, n_tiles, ring, full, &k_map, &v_map, h, b, bh, a.M);
     }
   }
-#pragma unroll
-  for (int o = 1; o < C::kTpr; o <<= 1) {
-    l_part = __fadd_rn(l_part, __shfl_xor_sync(0xffffffffu, l_part, o));
-  }
-  if (tid % C::kTpr == 0) lsum[row] = l_part;
   __syncthreads();
 
+  const int wg = threadIdx.x / 128, lt = threadIdx.x % 128;
+  const int half = wg / C::kReaders;                // the K and V halves it reads
+  const int key_off = wg * C::kWgKeys;              // its keys in a tile
+  const int in_half = key_off - 64 * half;          // and in its K half
+  const int v_off = (wg % C::kReaders) * 128 * 128;  // its 128 rows of its V half
+  const float sq = head_scale(a.amax_q, d3r::q_scale_index(a, b, h, q0));
+  const float c = __fmul_rn(__fmul_rn(a.scale, sq), head_scale(a.amax_k, bh));
+
+  // Hand unit u back (one thread of the warpgroup, after the wgmmas that
+  // read it are done); the last of its readers loads unit u + S.
+  auto release = [&](int u) {
+    if (lt != 0) return;
+    __threadfence_block();
+    if (atomicAdd(&count[u % S], 1) == C::kReaders - 1) {
+      count[u % S] = 0;
+      __threadfence_block();
+      if (u + S < units) load_unit<D>(u + S, n_tiles, ring, full, &k_map, &v_map, h, b, bh, a.M);
+    }
+  };
+
+  sm90::mbar_wait(q_full, 0);
+  int s[C::kWgKeys / 2];
+
+  // S of this warpgroup's keys, from the K half in unit u's slot
+  auto scores = [&](int u) {
+    const uint8_t* kh = ring + (u % S) * C::kUnitBytes + in_half * 128;
+    sm90::fence_sums(s);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int ch = 0; ch < D / 128; ++ch) {
+      const uint64_t dq = sm90::smem_desc(base + C::kQ + ch * kChunk);
+      const uint64_t dk = sm90::smem_desc(kh + ch * kChunk);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        sm90::wgmma<int, C::kWgKeys>(s, dq + 2 * k, dk + 2 * k, ch > 0 || k > 0);
+      }
+    }
+    sm90::wgmma_commit();
+  };
+
+  // pass 1: the rows' integer max (rows frag_row(0) and frag_row(2))
+  int run_max[2] = {INT_MIN, INT_MIN};
+  for (int t = 0; t < n_tiles; ++t) {
+    const int u = 2 * t + half;
+    sm90::mbar_wait(&full[u % S], (u / S) & 1);
+    scores(u);
+    sm90::wgmma_wait<0>();
+    sm90::fence_sums(s);
+    release(u);
+    const int valid = a.M - t * kKeys - key_off;
+    if (valid >= C::kWgKeys) {
+      d3r::rows::row_max<false>(s, run_max, valid);
+    } else {
+      d3r::rows::row_max<true>(s, run_max, valid);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {  // a row's keys live in one quad of lanes
+    run_max[i] = max(run_max[i], __shfl_xor_sync(0xffffffffu, run_max[i], 1));
+    run_max[i] = max(run_max[i], __shfl_xor_sync(0xffffffffu, run_max[i], 2));
+    if (lt % 4 == 0) red_max[wg * kRows + sm90::frag_row(2 * i)] = run_max[i];
+  }
+  block_sync<C::kThreads>();
+  float m_row[2], l_row[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    int mx = INT_MIN;
+#pragma unroll
+    for (int g = 0; g < C::kGroups; ++g) mx = max(mx, red_max[g * kRows + sm90::frag_row(2 * i)]);
+    m_row[i] = __fmul_rn((float)mx, c);
+  }
+
+  // pass 2: P and O += P V^T
+  int o[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = 0;
+  sm90::fence_sums(o);  // the zeros stay ahead of the first wgmma (else ptxas serializes)
+  const int u2 = 2 * n_tiles;  // pass 2's first unit
+  for (int t = 0; t < n_tiles; ++t) {
+    const int uk = u2 + 4 * t + half, uv = uk + 2;
+    sm90::mbar_wait(&full[uk % S], (uk / S) & 1);
+    scores(uk);
+    sm90::wgmma_wait<1>();  // the last tile's P V^T
+    sm90::fence_sums(o);
+    if (t > 0) release(uv - 4);
+    sm90::wgmma_wait<0>();  // this tile's S
+    sm90::fence_sums(s);
+    release(uk);
+    uint8_t* pt = base + C::kP + (t & 1) * kPBytes;
+    const int valid = a.M - t * kKeys - key_off;
+    if (valid >= C::kWgKeys) {
+      d3r::rows::softmax_tile<false>(s, c, m_row, l_row, pt, valid, key_off);
+    } else {
+      d3r::rows::softmax_tile<true>(s, c, m_row, l_row, pt, valid, key_off);
+    }
+    sm90::fence_proxy_async();
+    block_sync<C::kThreads>();  // every warpgroup's columns of the P tile are written
+    sm90::mbar_wait(&full[uv % S], (uv / S) & 1);
+    const uint64_t dp = sm90::smem_desc(pt);
+    const uint64_t dv = sm90::smem_desc(ring + (uv % S) * C::kUnitBytes + v_off);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < kKeys / 32; ++k) sm90::wgmma<int, 128>(o, dp + 2 * k, dv + 2 * k, 1);
+    sm90::wgmma_commit();
+  }
+  sm90::wgmma_wait<0>();
+  sm90::fence_sums(o);
+  release(u2 + 4 * (n_tiles - 1) + half + 2);
+
+  // the denominators: the quad's keys, then the warpgroups' in order
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l_row[i] = __fadd_rn(l_row[i], __shfl_xor_sync(0xffffffffu, l_row[i], 1));
+    l_row[i] = __fadd_rn(l_row[i], __shfl_xor_sync(0xffffffffu, l_row[i], 2));
+    if (lt % 4 == 0) red_sum[wg * kRows + sm90::frag_row(2 * i)] = l_row[i];
+  }
+  block_sync<C::kThreads>();
   const float sv127 = __fdiv_rn(head_scale(a.amax_v, bh), 127.f);
 #pragma unroll
-  for (int i = 0; i < C::kOPerWarp; ++i) {
-    const int ti = warp + i * WARPS;
-    const int mt = ti / (D / 8), nt = ti % (D / 8);
-    const int d = nt * 8 + 2 * t4;
+  for (int i = 0; i < 2; ++i) {
+    const int r = sm90::frag_row(2 * i);
+    float l = 0.f;
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int r = mt * 16 + g + 8 * hh;
-      const int n = q0 + r;
-      if (n >= a.N) continue;
-      const float v0 = __fdiv_rn(__fmul_rn((float)acc[i][2 * hh], sv127), lsum[r]);
-      const float v1 = __fdiv_rn(__fmul_rn((float)acc[i][2 * hh + 1], sv127), lsum[r]);
-      *reinterpret_cast<__nv_bfloat162*>(a.o + (((long long)b * a.N + n) * a.H + h) * D + d) =
+    for (int g = 0; g < C::kGroups; ++g) l = __fadd_rn(l, red_sum[g * kRows + r]);
+    const int n = q0 + r;
+    if (n >= a.N) continue;
+    __nv_bfloat16* orow = a.o + (((long long)b * a.N + n) * a.H + h) * D + 128 * wg;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float v0 = __fdiv_rn(__fmul_rn((float)o[4 * j + 2 * i], sv127), l);
+      const float v1 = __fdiv_rn(__fmul_rn((float)o[4 * j + 2 * i + 1], sv127), l);
+      *reinterpret_cast<__nv_bfloat162*>(orow + sm90::frag_col(j, 0)) =
           __floats2bfloat162_rn(v0, v1);
     }
   }
 }
 
-template <int D, int BQ, int WARPS>
+}  // namespace wide
+
+// Launch the wide kernel on grid (ceil(N / 64), H, B): the TMA maps of q
+// and k ([B, L, H, D] as (D, H, B L), boxes of 128 bytes x 1 head x 64 rows)
+// and of vt ([B H D, Mp], boxes of 128 keys x D / 2 rows). One q scale per
+// (batch, head): q_rows must be at least N.
+template <int D>
 cudaError_t launch_wide(const AttnArgs& a, cudaStream_t st) {
-  using C = WideCfg<D, BQ, WARPS>;
-  cudaError_t err = cudaFuncSetAttribute(mha_int8_wide_kernel<D, BQ, WARPS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)C::bytes);
+  using C = wide::Cfg<D>;
+  if (a.q_rows < a.N || a.Mp < a.M || a.Mp % 16 != 0) return cudaErrorInvalidValue;
+  const uint32_t box[3] = {128, 1, wide::kRows};
+  const uint32_t steps[3] = {1, 1, 1};
+  const uint64_t strides[2] = {D, (uint64_t)a.H * D};
+  const uint64_t q_dims[3] = {D, (uint64_t)a.H, (uint64_t)a.B * a.N};
+  const uint64_t k_dims[3] = {D, (uint64_t)a.H, (uint64_t)a.B * a.M};
+  CUtensorMap q_map, k_map, v_map;
+  cudaError_t err = d3r::sm90::tensor_map_nd(&q_map, a.q, 1, 3, q_dims, strides, box, steps);
+  if (err == cudaSuccess) {
+    err = d3r::sm90::tensor_map_nd(&k_map, a.k, 1, 3, k_dims, strides, box, steps);
+  }
+  if (err == cudaSuccess) {
+    err = d3r::sm90::tensor_map(&v_map, a.vt, 1, (uint64_t)a.B * a.H * D, a.Mp, a.Mp, D / 2);
+  }
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.N + BQ - 1) / BQ, a.H, a.B);
-  mha_int8_wide_kernel<D, BQ, WARPS><<<grid, C::kThreads, C::bytes, st>>>(a);
+  err = cudaFuncSetAttribute(wide::mha_int8_wide_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.N + wide::kRows - 1) / wide::kRows, a.H, a.B);
+  wide::mha_int8_wide_kernel<D><<<grid, C::kThreads, C::kBytes, st>>>(q_map, k_map, v_map, a);
   return cudaGetLastError();
 }
 
@@ -401,8 +508,8 @@ extern "C" int d3r_mha_attention_int8(const void* q, const void* k, const void* 
     case 64: return (int)d3r::launch_rows<64>(a, st);
     case 96: return (int)d3r::launch_rows<96>(a, st);
     case 128: return (int)d3r::launch_rows<128>(a, st);
-    case 256: return (int)launch_wide<256, 32, 8>(a, st);
-    case 512: return (int)launch_wide<512, 32, 8>(a, st);
+    case 256: return (int)launch_wide<256>(a, st);
+    case 512: return (int)launch_wide<512>(a, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -66,8 +66,7 @@
 
 namespace d3r {
 
-// vt's key padding (Mp is a multiple of it) and the D = 256 / 512 kernel's
-// key tile (attention_int8.cu).
+// vt's key padding: Mp is a multiple of it (attention_int8.cu).
 constexpr int kAttnKeyTile = 64;
 
 struct AttnArgs {
@@ -128,16 +127,17 @@ __device__ __forceinline__ int swizzled(int row, int col) {
   return row * kRowBytes + ((((col >> 4) ^ row) & 7) << 4) + (col & 15);
 }
 
-// The rows' P for one tile: p = exp(s - m) into the denominators l, and
-// round(127 p) (p in [0, 1]) as int8 into the warpgroup's P tile; with
-// kMask, the keys from `valid` on give p = 0. round(127 p) + 1.5 * 2^23 holds
-// the integer in its low byte; one byte permute packs a pair of keys.
-template <bool kMask>
-__device__ __forceinline__ void softmax_tile(const int (&s)[kKeys / 2], float c,
-                                             const float (&m)[2], float (&l)[2], uint8_t* pw,
-                                             int valid) {
+// The rows' P for one tile of 2 kHalf keys (the sums of wgmma m64n(2 kHalf)):
+// p = exp(s - m) into the denominators l, and round(127 p) (p in [0, 1]) as
+// int8 into a P tile, at columns col0 on; with kMask, the keys from `valid`
+// on give p = 0. round(127 p) + 1.5 * 2^23 holds the integer in its low
+// byte; one byte permute packs a pair of keys.
+template <bool kMask, int kHalf>
+__device__ __forceinline__ void softmax_tile(const int (&s)[kHalf], float c, const float (&m)[2],
+                                             float (&l)[2], uint8_t* pw, int valid,
+                                             int col0 = 0) {
 #pragma unroll
-  for (int j = 0; j < kKeys / 8; ++j) {
+  for (int j = 0; j < kHalf / 4; ++j) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       uint32_t q[2];
@@ -148,18 +148,18 @@ __device__ __forceinline__ void softmax_tile(const int (&s)[kKeys / 2], float c,
         l[r] = __fadd_rn(l[r], p);
         q[e] = __float_as_uint(__fadd_rn(__fmul_rn(p, 127.f), kMagic));
       }
-      *reinterpret_cast<uint16_t*>(pw + swizzled(sm90::frag_row(2 * r), sm90::frag_col(j, 0))) =
-          (uint16_t)__byte_perm(q[0], q[1], 0x0040);
+      const int at = swizzled(sm90::frag_row(2 * r), col0 + sm90::frag_col(j, 0));
+      *reinterpret_cast<uint16_t*>(pw + at) = (uint16_t)__byte_perm(q[0], q[1], 0x0040);
     }
   }
 }
 
-// The rows' integer max over one tile's scores; with kMask, of the keys
-// before `valid` only. Three-way max: one instruction per two scores.
-template <bool kMask>
-__device__ __forceinline__ void row_max(const int (&s)[kKeys / 2], int (&m)[2], int valid) {
+// The rows' integer max over one tile's 2 kHalf scores; with kMask, of the
+// keys before `valid` only. Three-way max: one instruction per two scores.
+template <bool kMask, int kHalf>
+__device__ __forceinline__ void row_max(const int (&s)[kHalf], int (&m)[2], int valid) {
 #pragma unroll
-  for (int j = 0; j < kKeys / 8; ++j) {
+  for (int j = 0; j < kHalf / 4; ++j) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       int x0 = s[4 * j + 2 * r], x1 = s[4 * j + 2 * r + 1];

@@ -7,6 +7,9 @@
     python3 chip_smoke.py --winograd # device, build and the Winograd kernel's cases only
     python3 chip_smoke.py --attention  # device, build and the attention cases only (bf16
                                        # and int8, whole-row and fused)
+    python3 chip_smoke.py --quant    # device, build, the quantize kernel's cases and the
+                                     # int8 consumers' back-to-back (PDL race) cases only
+    python3 chip_smoke.py --groupnorm  # device, build and the fused GroupNorm's cases only
 
 Run from the repository root, on a machine with a CUDA GPU and nvcc (the
 kernels build from d3roma_tpu_torch/csrc/ at first use). Phases, each
@@ -25,7 +28,15 @@ failing the run on its own error:
    levels at batch 2 and 16, the int8 one bit-equal; the GEGLU, conv and
    dense cases and the bf16 fused attention timed in turns with their
    library call (K L L K), with their host and device ms per call and the
-   host plan of the call;
+   host plan of the call; every int8 op that quantizes its input in its own
+   launch (the int8 conv in each epilogue, split and not, the int8 dense,
+   the int8 GEGLU, the fused int8 attention) run back to back on two
+   distinct inputs after a third, through the one reused int8 workspace,
+   both results bit-equal to the plain version (a consumer that read the
+   workspace before its quantize finished would return the input before's
+   result); the fused GroupNorm at one device op a call, bit-identical
+   across two calls, within tolerance of its plain version at the opt-in
+   path's shapes, the gate's 4 MiB edge and ragged ones, with its plan;
 4. latency path: GuidedLatentDiffusionPipeline.fast_inference("latency")
    at the full SD2.1 geometry (random seeded weights held in bf16), batch
    2, RGB + raw at 640x360, 10 DDIM steps; the launch counts of one call
@@ -311,6 +322,28 @@ def host_and_device_ms(fn, calls: int = 20):
         if us > 0 and getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA:
             split[evt.key[:80]] = split.get(evt.key[:80], 0.0) + us / calls / 1e3
     return host_ms, sum(split.values()), split
+
+
+def device_ops_per_call(fn, calls: int = 10, sessions: int = 3) -> float:
+    """Device operations (kernels, memsets, copies) one call of fn runs, as
+    torch.profiler counts them over `calls` calls: the most of `sessions`
+    sessions, since a session can miss a kernel (one of ten GroupNorm
+    launches once went uncounted) but never counts one that did not run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    _sync()
+    counts = []
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            _sync()
+        counts.append(sum(evt.count for evt in prof.key_averages()
+                          if getattr(evt, "device_type", None)
+                          == torch.autograd.DeviceType.CUDA) / calls)
+    return max(counts)
 
 
 def _timed_against_library(row, kernel, library, split=False):
@@ -624,6 +657,93 @@ def _quantize_case(shape, gen, timed):
     return _check_row("quantize_int8", row, float(err), 0.0)
 
 
+def _back_to_back(name, shape, consumer, expected, inputs):
+    """consumer(x) for the three inputs back to back, with no synchronize
+    between them, each call quantizing its x into the one reused int8
+    workspace; the second and third results against `expected` (theirs),
+    bit-equal. A consumer kernel that read the workspace before its own
+    quantize had finished would see the call before's values (the first
+    call's are there for the second)."""
+    consumer(inputs[0])
+    outs = [consumer(x) for x in inputs[1:]]
+    _sync()
+    errs = [(o.float() - r.float()).abs().max().item() for o, r in zip(outs, expected)]
+    row = {"shape": list(shape), "max_abs_err": max(errs),
+           "inputs_differ": bool((expected[0] != expected[1]).any().item())}
+    print(f"  back to back {name} {row}", flush=True)
+    if max(errs) != 0.0 or not row["inputs_differ"]:
+        raise AssertionError(f"back to back {name} {list(shape)}: {row}")
+    return row
+
+
+def pdl_race_cases(gen):
+    """Each int8 op whose C entry point quantizes its input and launches its
+    first kernel as a dependent launch on that quantize, back to back on
+    three distinct inputs through the one reused workspace (_back_to_back):
+    the int8 conv in each epilogue, split and not, two dense layers and the
+    int8 GEGLU (split and not) against their plain versions; the fused int8
+    self-attention, which differs from its plain version by one bf16
+    rounding, against its own results of the same inputs taken one at a
+    time after a synchronize (those within REL_TOL of the plain version)."""
+    import torch
+
+    from d3roma_tpu_torch.ops.kernels import (
+        conv2d_int8,
+        conv2d_int8_plain,
+        fused_self_attention_int8,
+        fused_self_attention_int8_plain,
+        geglu_ff_int8,
+        geglu_ff_int8_plain,
+    )
+    from d3roma_tpu_torch.ops.quant import fp32, quantize_weight
+
+    def inputs(shape):
+        xs = [torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+              for _ in range(3)]
+        return xs, fp32(xs[1].float().abs().max().item() * 1.25 / 127)
+
+    rows = []
+    for b, h, w, cin, cout, k, stride, pad, epi in (
+            (BATCH, 23, 40, 1920, 640, 3, 1, 1, "xla"),   # K split 2
+            (BATCH, 45, 80, 320, 320, 3, 2, 1, "xla"),    # stride 2, K split 4
+            (BATCH, 45, 80, 320, 320, 3, 1, 1, "tpu"),
+            (BATCH, 23, 40, 640, 640, 3, 1, 1, "halo"),
+            (1, 1, 7200, 320, 320, 1, 1, 0, "xla"),       # the dense layers: one row of pixels
+            (1, 1, 480, 1280, 1280, 1, 1, 0, "xla")):
+        xs, act = inputs((b, h, w, cin))
+        wq, ws = quantize_weight((torch.randn((cout, k, k, cin), generator=gen, device="cuda")
+                                  * (k * k * cin) ** -0.5).to(torch.bfloat16))
+        bias = (torch.randn((cout,), generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+        rows.append(_back_to_back(
+            f"conv2d_int8 ({epi})", (b, h, w, cin, cout, k, stride, pad),
+            lambda x: conv2d_int8(x, wq, ws, act, bias, stride, pad, epi),
+            [conv2d_int8_plain(x, wq, ws, act, bias, stride, pad, epi) for x in xs[1:]], xs))
+    for rows_, c, f in ((BATCH * 3600, 320, 1280), (BATCH * 60, 1280, 5120)):
+        xs, act = inputs((1, rows_, c))
+        ops_in = _int8_ff_operands(c, f, gen)
+        rows.append(_back_to_back("geglu_ff_int8", (rows_, c, f),
+                                  lambda x: geglu_ff_int8(x, *ops_in, act),
+                                  [geglu_ff_int8_plain(x, *ops_in, act) for x in xs[1:]], xs))
+    for n, c in ((920, 640), (3600, 320)):
+        xs, act = inputs((BATCH, n, c))
+        ops_in, _ = _fused_attention_operands(c, gen)
+        heads = c // 64
+        alone = []
+        for x in xs[1:]:
+            alone.append(fused_self_attention_int8(x, *ops_in, heads, act))
+            _sync()
+        rows.append(_back_to_back("fused_self_attention_int8", (BATCH, n, c),
+                                  lambda x: fused_self_attention_int8(x, *ops_in, heads, act),
+                                  alone, xs))
+        ref = fused_self_attention_int8_plain(xs[2], *ops_in, heads, act).float()
+        err = (alone[1].float() - ref).abs().max().item()
+        _check_row("fused_self_attention_int8 (alone, against plain)",
+                   {"shape": [BATCH, n, c], "max_abs_err": err}, err,
+                   REL_TOL * ref.abs().max().item())
+    _sync()
+    return rows
+
+
 def attention_int8_cases(gen):
     """The int8 whole-row attention at the bench-default path's shapes
     (timed) and ragged ones (checked only): every head width, N and M off
@@ -652,36 +772,85 @@ def int8_kernel_phase():
     rows["attention_int8"] = attention_int8_cases(gen)
     rows["geglu_int8"] = geglu_int8_cases(gen)
     rows["conv2d_int8"] = conv_int8_cases(gen)
+    rows["back_to_back"] = pdl_race_cases(gen)
     return rows
 
 
-def _gn_case(shape, gen, timed, dtype="bfloat16"):
+def _gn_case(shape, gen, timed, dtype="bfloat16", groups=32, param_dtype="bfloat16"):
+    """The fused GroupNorm against its plain version (gamma and beta in
+    `param_dtype`, as the models hold them): one device op a call, the
+    output bit-identical across two calls, within REL_TOL of the plain
+    version."""
     import torch
     import torch.nn.functional as F
 
     from d3roma_tpu_torch.ops.kernels import group_norm_silu, group_norm_silu_plain
+    from d3roma_tpu_torch.ops.kernels import groupnorm as kgn
 
     c = shape[-1]
     x = (torch.randn(shape, generator=gen, device="cuda") * 2.0 + 0.5).to(getattr(torch, dtype))
-    gamma = 1.0 + 0.1 * torch.randn((c,), generator=gen, device="cuda")
-    beta = 0.1 * torch.randn((c,), generator=gen, device="cuda")
-    out = group_norm_silu(x, gamma, beta, 32, 1e-5)
-    ref = group_norm_silu_plain(x, gamma, beta, 32, 1e-5).float()
+    gamma = (1.0 + 0.1 * torch.randn((c,), generator=gen, device="cuda")).to(
+        getattr(torch, param_dtype))
+    beta = (0.1 * torch.randn((c,), generator=gen, device="cuda")).to(getattr(torch, param_dtype))
+    out = group_norm_silu(x, gamma, beta, groups, 1e-5)
+    again = group_norm_silu(x, gamma, beta, groups, 1e-5)
+    ref = group_norm_silu_plain(x, gamma, beta, groups, 1e-5).float()
     _sync()
     err = (out.float() - ref).abs().max().item()
     tol = REL_TOL * ref.abs().max().item()
-    row = {"shape": list(shape), "dtype": dtype, "max_abs_err": err, "tol": tol,
-           "max_abs_out": ref.abs().max().item()}
+    plan = kgn.gn_plan(shape[0], shape[1] * shape[2], c, groups, x.element_size(),
+                       torch.cuda.get_device_properties(0).multi_processor_count)
+    row = {"shape": list(shape), "dtype": dtype, "groups": groups, "max_abs_err": err,
+           "tol": tol, "max_abs_out": ref.abs().max().item(),
+           "repeats_bitwise": bool(torch.equal(out, again)),
+           "device_ops_per_call": device_ops_per_call(
+               lambda: group_norm_silu(x, gamma, beta, groups, 1e-5)),
+           "plan": {"k": plan.k, "band": plan.band, "cluster": plan.cluster, "per": plan.per,
+                    "resident": plan.resident, "smem_bytes": plan.smem_bytes,
+                    "ctas": plan.ctas}}
+    if not row["repeats_bitwise"] or row["device_ops_per_call"] != 1:
+        raise AssertionError(f"group_norm_silu {list(shape)}: {row}")
     if timed:
         xc = x.permute(0, 3, 1, 2)  # NCHW view, channels_last in memory
         gb, bb = gamma.to(x.dtype), beta.to(x.dtype)
         row["bound_ms"], row["bound_by"] = bound(0.0, 2.0 * x.numel() * x.element_size()
-                                                 + 8.0 * c)
-        _timed_against_library(row, lambda: group_norm_silu(x, gamma, beta, 32, 1e-5),
-                               lambda: F.silu(F.group_norm(xc, 32, gb, bb, 1e-5)), split=True)
-        row["plain_ms"] = time_ms(lambda: group_norm_silu_plain(x, gamma, beta, 32, 1e-5))
+                                                 + 2.0 * c * gamma.element_size())
+        _timed_against_library(row, lambda: group_norm_silu(x, gamma, beta, groups, 1e-5),
+                               lambda: F.silu(F.group_norm(xc, groups, gb, bb, 1e-5)),
+                               split=True)
+        row["plain_ms"] = time_ms(lambda: group_norm_silu_plain(x, gamma, beta, groups, 1e-5))
         row["library_call"] = "F.silu(F.group_norm(x)) (bf16, channels_last)"
     return _check_row("group_norm_silu", row, err, tol)
+
+
+# the opt-in path's fused GroupNorm sites (its routing dry pass), timed
+GN_SHAPES = ((BATCH, 45, 80, 320), (BATCH, 23, 40, 1920), (BATCH, 12, 20, 1280),
+             (2 * BATCH, 45, 80, 512))
+
+
+def groupnorm_cases(gen):
+    """The fused GroupNorm at the opt-in path's shapes (timed), at every other
+    site the routing dry pass admits, at the gate's 4 MiB edge (bf16 and
+    fp32; in one group, where no cluster holds a band: the second read of x
+    from L2), with a cluster of 16 (one group, 2 MiB), and ragged ones."""
+    rows = [_gn_case(s, gen, True) for s in GN_SHAPES]
+    for shape in ((BATCH, 12, 20, 640), (BATCH, 12, 20, 1920), (BATCH, 12, 20, 2560),
+                  (BATCH, 23, 40, 320), (BATCH, 23, 40, 640), (BATCH, 23, 40, 960),
+                  (BATCH, 23, 40, 1280), (BATCH, 45, 80, 512), (BATCH, 6, 10, 1280),
+                  (BATCH, 6, 10, 2560)):
+        _gn_case(shape, gen, False)
+    for shape, dtype, groups, pdt in (((1, 64, 64, 512), "bfloat16", 32, "bfloat16"),
+                                      ((1, 64, 64, 256), "float32", 32, "float32"),
+                                      ((1, 64, 64, 512), "bfloat16", 1, "float32"),
+                                      ((1, 32, 64, 512), "bfloat16", 1, "bfloat16"),
+                                      ((1, 5, 7, 64), "float32", 32, "float32"),
+                                      ((1, 3, 3, 2560), "bfloat16", 32, "bfloat16"),
+                                      ((2, 9, 11, 96), "bfloat16", 32, "float32"),
+                                      ((1, 6, 10, 2560), "float32", 32, "bfloat16"),
+                                      ((3, 7, 5, 200), "bfloat16", 8, "bfloat16")):
+        _gn_case(shape, gen, False, dtype, groups, pdt)
+    _sync()
+    return rows
 
 
 def _wino_case(b, h, w, c, o, gen, timed):
@@ -785,12 +954,7 @@ def opt_in_kernel_phase():
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(5678)
-    rows = {"groupnorm_silu": [_gn_case(s, gen, True) for s in (
-        (BATCH, 45, 80, 320), (BATCH, 23, 40, 1920), (BATCH, 12, 20, 1280),
-        (2 * BATCH, 45, 80, 512))]}
-    for shape, dtype in (((1, 5, 7, 64), "float32"), ((1, 3, 3, 2560), "bfloat16"),
-                         ((2, 9, 11, 96), "bfloat16"), ((1, 6, 10, 2560), "float32")):
-        _gn_case(shape, gen, False, dtype)
+    rows = {"groupnorm_silu": groupnorm_cases(gen)}
     rows["winograd"] = winograd_cases(gen)
     rows["attention_fused_int8"] = attention_fused_int8_cases(gen)
     _sync()
@@ -960,12 +1124,12 @@ def _conv_epilogue_case(name, epilogue, b, h, w, cin, cout, gen, timed, saturate
 
 
 def tma_map_host_cost():
-    """Host time of one int8 conv launch through its C launcher alone, with
-    the activation's TMA map found in the launcher's cache (the same
-    pointer every call, as the caching allocator mostly hands back) against
-    encoded anew (a new pointer every call): the difference is the host cost
-    of encoding a map. A 1x1 conv over 64 pixels keeps each launch's device
-    work to a few us, so the loop measures the host."""
+    """Host time of one int8 conv call through its C launcher alone (the
+    quantize and the conv), with the int8 activation's TMA map found in the
+    launcher's cache (the same workspace every call, as the wrappers pass
+    it) against encoded anew (a new pointer every call): the difference is
+    the host cost of encoding a map. A 1x1 conv over 64 pixels keeps each
+    call's device work to a few us, so the loop measures the host."""
     import torch
 
     from d3roma_tpu_torch.ops.kernels import _build
@@ -973,7 +1137,10 @@ def tma_map_host_cost():
 
     n, pixels, c = 256, 64, 64
     dev = torch.device("cuda", 0)
+    # the int8 activation (the quantize's output, the map's tensor) at a new
+    # 16-byte offset of the pool for each call, or at the same one
     pool = torch.zeros((16 * (n + 1) + pixels * c,), dtype=torch.int8, device=dev)
+    x = torch.zeros((pixels, c), dtype=torch.bfloat16, device=dev)
     wq = torch.zeros((c, 1, 1, c), dtype=torch.int8, device=dev)
     ws = torch.ones(c, device=dev)
     out = torch.empty((pixels, c), dtype=torch.bfloat16, device=dev)
@@ -984,8 +1151,8 @@ def tma_map_host_cost():
         _sync()
         t0 = time.perf_counter()
         for p in ptrs:
-            _build.check(lib.d3r_conv2d_int8(p, wq.data_ptr(), ws.data_ptr(), None,
-                                             out.data_ptr(), None, ints, 0.05, stream),
+            _build.check(lib.d3r_conv2d_int8(x.data_ptr(), p, wq.data_ptr(), ws.data_ptr(),
+                                             None, out.data_ptr(), None, ints, 0.05, stream),
                          "conv2d_int8")
         us = (time.perf_counter() - t0) / len(ptrs) * 1e6
         _sync()
@@ -1583,8 +1750,7 @@ def opt_in_phase(pipe, inputs):
 _KERNEL_GROUPS = (
     # the port's own kernels first, so that no library group takes one of them
     ("winograd kernels (input transform, tap GEMMs, split sum)", ("wino_",)),
-    ("group_norm_silu kernels (stats, fold, apply)",
-     ("gn_stats_kernel", "gn_fold_kernel", "gn_apply_kernel")),
+    ("group_norm_silu kernel (one launch on clusters)", ("gn_silu_cluster_kernel",)),
     ("attention_fused_int8 kernels (QKV projection, quantize)",
      ("qkv_int8_kernel", "quantize_qkv_kernel")),
     ("fused attention output projection (int8 and bf16 bodies)", ("out_proj_kernel",)),
@@ -1602,7 +1768,8 @@ _KERNEL_GROUPS = (
     ("int8 whole-row attention kernels (mha_attention_int8; the fused attention's core)",
      ("mha_int8_rows_kernel", "mha_int8_wide_kernel", "absmax_kernel",
       "quantize_heads_kernel")),
-    ("quantize_int8 kernel", ("quantize_bf16_vec8", "quantize_scalar")),
+    ("quantize_int8 kernel (standalone and in the int8 ops' entry points)",
+     ("act_quantize_kernel",)),
     ("geglu_ff kernels (gate, output, split sum)", ("geglu_bf16_",)),
     ("mha_attention kernel (bf16; the bf16 fused attention's core)", ("mha_kernel",)),
     ("convolution", ("conv", "cudnn", "xmma_fprop", "implicit_gemm", "nhwc", "winograd")),
@@ -1692,6 +1859,23 @@ def main() -> int:
         winograd_cases(torch.Generator(device="cuda").manual_seed(5678))
         _sync()
         print("Winograd cases passed", flush=True)
+        return 0
+    if sys.argv[1:] == ["--quant"]:
+        import torch
+
+        gen = torch.Generator(device="cuda").manual_seed(4321)
+        _quantize_case((BATCH, 3600, 320), gen, True)
+        for shape in ((7,), (3, 5, 33), (1, 1, 4103)):
+            _quantize_case(shape, gen, False)
+        pdl_race_cases(gen)
+        tma_map_host_cost()
+        print("quantize and back-to-back cases passed", flush=True)
+        return 0
+    if sys.argv[1:] == ["--groupnorm"]:
+        import torch
+
+        groupnorm_cases(torch.Generator(device="cuda").manual_seed(5678))
+        print("GroupNorm cases passed", flush=True)
         return 0
     if sys.argv[1:] == ["--attention"]:
         import torch

@@ -1,0 +1,147 @@
+// Static int8 quantization of an activation tensor for Hopper (sm_90a):
+//   q = clip(round_half_even(x / scale), -127, 127)
+// with one fp32 scale for the whole tensor, x bf16 or fp32.
+//
+// Replaces: the elementwise quantize_int8 that the JAX package leaves to XLA
+// (d3roma_tpu/ops/quant.py:64, fused there into the producing op) in front of
+// every static int8 dense, convolution, fused GEGLU and fused self-attention.
+// There is no Pallas kernel behind it.
+//
+// What bounds it on the H100: bytes (2 read and 1 written per bf16 element)
+// and, at the int8 ops' sizes (0.1-15 MB), its launch: a host call of its
+// own costs more than its bytes take on the device. So the int8 ops' C
+// entry points launch it themselves, into a workspace the wrapper reuses,
+// and launch their first kernel right after it as a dependent launch
+// (pdl.cuh): the quantize issues launch_dependents after its stores, and
+// the consumer's prologue overlaps its tail. The standalone entry point is
+// quantize.cu.
+//
+// Design: one wave of 256-thread blocks (at most 8 an SM), a grid-stride
+// loop of 16 elements a thread a step: two 16-byte loads of bf16 (four of
+// fp32) and one 16-byte store of int8, where x and q are 16-byte aligned;
+// the elements past the last multiple of 16 (all of them when either pointer
+// is not aligned) one at a time. The division is IEEE (__fdiv_rn), not a
+// multiply by the reciprocal, and rintf rounds half to even, as jnp.round
+// does, so the result is bit-equal to the JAX package's and to the plain
+// PyTorch version's.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include <algorithm>
+#include <atomic>
+
+#include "pdl.cuh"
+
+namespace d3r {
+namespace actq {
+
+constexpr int kThreads = 256;
+constexpr int kBlocksPerSm = 8;  // 2048 threads an SM: 32 registers a thread
+constexpr int kVec = 16;         // elements a thread a step
+
+__device__ __forceinline__ int8_t quant1(float x, float scale) {
+  const float q = rintf(__fdiv_rn(x, scale));
+  return static_cast<int8_t>(fminf(fmaxf(q, -127.f), 127.f));
+}
+
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(float x) { return x; }
+
+// The 16 elements at p (16-byte aligned) as raw 32-bit words: two 16-byte
+// loads of bf16, four of fp32, all in flight before any is converted.
+template <typename T>
+struct Raw16 {
+  static constexpr int kWords = kVec * (int)sizeof(T) / 4;
+  uint32_t w[kWords];
+  __device__ __forceinline__ explicit Raw16(const T* p) {
+#pragma unroll
+    for (int h = 0; h < kWords / 4; ++h) {
+      const uint4 u = reinterpret_cast<const uint4*>(p)[h];
+      w[4 * h] = u.x;
+      w[4 * h + 1] = u.y;
+      w[4 * h + 2] = u.z;
+      w[4 * h + 3] = u.w;
+    }
+  }
+  // element j as a float
+  __device__ __forceinline__ float at(int j) const {
+    if constexpr (sizeof(T) == 2) {
+      const uint32_t word = w[j / 2];
+      return __uint_as_float(j % 2 ? word & 0xffff0000u : word << 16);
+    } else {
+      return __uint_as_float(w[j]);
+    }
+  }
+};
+
+// n16 vectors of 16 elements, then the scalar tail [16 n16, n). The 16
+// elements are converted and quantized four at a time from their raw
+// words, so the thread holds the loads' 8 (bf16) or 16 (fp32) words and
+// one output word at a time: 32 registers, no spill.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+    act_quantize_kernel(const T* __restrict__ x, int8_t* __restrict__ q, long long n,
+                        long long n16, float scale) {
+  const long long stride = (long long)gridDim.x * kThreads;
+  const long long first = (long long)blockIdx.x * kThreads + threadIdx.x;
+  for (long long i = first; i < n16; i += stride) {
+    const Raw16<T> raw(x + i * kVec);
+    uint32_t out[4];
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      uint32_t word = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        word |= (uint32_t)(uint8_t)quant1(raw.at(4 * w + j), scale) << (8 * j);
+      }
+      out[w] = word;
+    }
+    reinterpret_cast<uint4*>(q)[i] = make_uint4(out[0], out[1], out[2], out[3]);
+  }
+  for (long long i = n16 * kVec + first; i < n; i += stride) q[i] = quant1(to_float(x[i]), scale);
+  pdl::launch_dependents();
+}
+
+// The SM count of the current device, looked up once per device. Internal
+// linkage: each library that includes this header keeps its own table.
+static int sm_count() {
+  static std::atomic<int> sms[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  int n = sms[dev].load();
+  if (n == 0) {
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) n = 132;
+    sms[dev].store(n);
+  }
+  return n;
+}
+
+// Launch the quantization of x (n elements, bf16 or fp32, contiguous) into
+// q on st; returns the launch's error.
+static cudaError_t quantize(const void* x, void* q, long long n, bool bf16, float scale,
+                            cudaStream_t st) {
+  if (n <= 0 || x == nullptr || q == nullptr) return cudaErrorInvalidValue;
+  const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  const long long n16 = vec ? n / kVec : 0;
+  const long long work = std::max(n16, n - n16 * kVec);
+  const long long blocks = std::min<long long>((work + kThreads - 1) / kThreads,
+                                               (long long)sm_count() * kBlocksPerSm);
+  const unsigned grid = (unsigned)std::max<long long>(blocks, 1);
+  if (bf16) {
+    act_quantize_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(q), n, n16, scale);
+  } else {
+    act_quantize_kernel<float><<<grid, kThreads, 0, st>>>(static_cast<const float*>(x),
+                                                          static_cast<int8_t*>(q), n, n16, scale);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace actq
+}  // namespace d3r

@@ -1,7 +1,7 @@
 // Fused int8 self-attention for Hopper (sm_90a): QKV projection, whole-row
 // attention and output projection of one transformer self-attention site,
 // with the arithmetic of the TPU kernel's int8 body:
-//   xq = quantize(x, act_scale)                        (the wrapper)
+//   xq = quantize(x, act_scale)                        (act_quantize.cuh)
 //   [q_f | k_f | v_f] = (xq . Wqkv) * (act_scale * sw)  int32 sums, fp32,
 //       per-column weight scales sw
 //   sk, sv = max(absmax, 1e-6) / 127 per (batch, head) over all rows;
@@ -26,7 +26,11 @@
 //
 // Design. Hopper blocks run in no order and share nothing, so the TPU
 // kernel's sweep becomes four launches on the caller's stream, each a
-// kernel of this file or of attention_int8_rows.cuh:
+// kernel of this file or of attention_int8_rows.cuh, after a memset of the
+// absmax tables and the quantization of x into the wrapper's int8
+// workspace (act_quantize.cuh), of which launch 1 is a dependent launch
+// (pdl.cuh): its threads issue the weight rows of their first stages, then
+// wait on the quantize before their first xq row:
 //   1. qkv_int8_kernel: the projection as one int8 GEMM [B N, C] x [C, 3C]
 //      in 128 x 128 tiles (mma.sync m16n8k32, four cp.async stages, as the
 //      int8 conv kernel), the epilogue writing the fp32 q_f, k_f and v_f to a
@@ -55,6 +59,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "act_quantize.cuh"
 #include "attention_int8_rows.cuh"
 #include "attention_out_proj.cuh"
 #include "bf16_mma.cuh"
@@ -104,9 +109,12 @@ __global__ void __launch_bounds__(kThreads) qkv_int8_kernel(FusedArgs a) {
   const int8_t* brow = a.w + (long long)(n_ok ? n0 + lrow : 0) * a.C + lhalf;
   const int n_chunks = a.C / kBK;
 
-  auto load_chunk = [&](int slot, int kc) {
+  auto load_a = [&](int slot, int kc) {
     int8_t* st = smem8 + slot * kStage8;
     cp_async_16(st + lrow * kLd8 + lhalf, m_ok ? arow + kc * kBK : a.xq, m_ok ? 16 : 0);
+  };
+  auto load_b = [&](int slot, int kc) {
+    int8_t* st = smem8 + slot * kStage8;
     cp_async_16(st + (kBM + lrow) * kLd8 + lhalf, n_ok ? brow + kc * kBK : a.w, n_ok ? 16 : 0);
   };
 
@@ -117,16 +125,27 @@ __global__ void __launch_bounds__(kThreads) qkv_int8_kernel(FusedArgs a) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
 
+  // The weight rows of the first stages do not depend on the quantize
+  // before this kernel (a dependent launch): they go out before the wait,
+  // uncommitted, so they join the first stage's group.
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n_chunks) load_chunk(s, s);
+    if (s < n_chunks) load_b(s, s);
+  }
+  d3r::pdl::wait();
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_chunks) load_a(s, s);
     d3r::cp_async_commit();
   }
   for (int kc = 0; kc < n_chunks; ++kc) {
     d3r::cp_async_wait<kStages - 2>();
     __syncthreads();
     const int next = kc + kStages - 1;
-    if (next < n_chunks) load_chunk(next % kStages, next);
+    if (next < n_chunks) {
+      load_a(next % kStages, next);
+      load_b(next % kStages, next);
+    }
     d3r::cp_async_commit();
     const int8_t* as = smem8 + (kc % kStages) * kStage8;
     const int8_t* bs = as + kBM * kLd8;
@@ -217,24 +236,28 @@ __global__ void quantize_qkv_kernel(FusedArgs a) {
 
 }  // namespace
 
-// xq [B, N, C] int8 (x quantized at the act scale), w [3C, C] int8 (the rows
-// of Wq, Wk, Wv: one per output column), ws [3C] fp32 (their scales), wo
-// [C, C] bf16 (output column, then input),
-// bo [C] fp32; out [B, N, C] bf16. Scratch: f [B, N, 3C] fp32, amax
+// x [B, N, C] bf16, quantized at act_scale into xq (int8 workspace of
+// B N C bytes), w [3C, C] int8 (the rows of Wq, Wk, Wv: one per output
+// column), ws [3C] fp32 (their scales), wo [C, C] bf16 (output column, then
+// input), bo [C] fp32; out [B, N, C] bf16. Scratch: f [B, N, 3C] fp32, amax
 // [B * ceil(N / 256) * H + 2 * B * H] uint32, qq and kq [B, N, C] int8, vt
 // [B, H, 64, Mp] int8 (Mp a multiple of 64, at least N), o [B, N, C] bf16.
-// All contiguous and 16-byte aligned; C = 64 H. Returns the first CUDA error
-// of the memset and the four launches.
+// All contiguous, all but x 16-byte aligned; C = 64 H. Returns the first
+// CUDA error of the memset, the quantize and the four launches.
 extern "C" int d3r_fused_self_attention_int8(
-    const void* xq, const void* w, const void* ws, const void* wo, const void* bo, void* f,
-    void* amax, void* qq, void* kq, void* vt, void* o, void* out, int B, int N, int C, int H,
-    int Mp, float act_scale, float scale, void* stream) {
-  if (B <= 0 || N <= 0 || H <= 0 || C != kHeadDim * H || Mp % d3r::kAttnKeyTile != 0 || Mp < N)
+    const void* x, void* xq, const void* w, const void* ws, const void* wo, const void* bo,
+    void* f, void* amax, void* qq, void* kq, void* vt, void* o, void* out, int B, int N, int C,
+    int H, int Mp, float act_scale, float scale, void* stream) {
+  if (B <= 0 || N <= 0 || H <= 0 || C != kHeadDim * H || Mp % d3r::kAttnKeyTile != 0 || Mp < N ||
+      reinterpret_cast<uintptr_t>(xq) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   const int qblocks = (N + kQBlock - 1) / kQBlock;
   const size_t n_amax = (size_t)B * qblocks * H + 2 * (size_t)B * H;
   cudaError_t err = cudaMemsetAsync(amax, 0, sizeof(unsigned int) * n_amax, st);
+  if (err == cudaSuccess) {
+    err = d3r::actq::quantize(x, xq, (long long)B * N * C, true, act_scale, st);
+  }
   if (err != cudaSuccess) return (int)err;
   unsigned int* am = static_cast<unsigned int*>(amax);
   FusedArgs fa{static_cast<const int8_t*>(xq), static_cast<const int8_t*>(w),
@@ -246,9 +269,10 @@ extern "C" int d3r_fused_self_attention_int8(
   if ((err = cudaFuncSetAttribute(qkv_int8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)kSmem8)) != cudaSuccess)
     return (int)err;
-  qkv_int8_kernel<<<dim3((N + kBM - 1) / kBM, (3 * C + kBN - 1) / kBN, B), kThreads, kSmem8,
-                    st>>>(fa);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const dim3 qkv_grid((N + kBM - 1) / kBM, (3 * C + kBN - 1) / kBN, B);
+  if ((err = d3r::pdl::launch(qkv_int8_kernel, qkv_grid, dim3(kThreads), kSmem8, st, true, fa)) !=
+      cudaSuccess)
+    return (int)err;
 
   quantize_qkv_kernel<<<dim3(132 * 4, 1, 2), kThreads, 0, st>>>(fa);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;

@@ -27,7 +27,7 @@
 // the same integers: per-output-channel weight scales over all KH*KW*Cin
 // taps (zero channels that the TPU kernels pad on change neither the
 // scales nor the sums), activations quantized with one static scale (the
-// wrapper's quantize launch), exact int32 sums. The TPU kernels hold a whole
+// entry point's quantize launch), exact int32 sums. The TPU kernels hold a whole
 // padded frame (or a window of rows) in VMEM and run the taps as
 // row-shifted GEMMs; a Hopper block cannot hold a frame (the VAE's
 // full-resolution frames are 29 MB each), so the kernel loads, per k step,
@@ -44,32 +44,42 @@
 // a K split with exact int32 partials where tiles are few); the epilogue is
 // a template parameter of its kernel (conv_int8_sm90_kernel<epilogue, N>),
 // "halo" keeping a second, fp32 accumulator. The tiles and the split come
-// from the wrapper's plan (ops/kernels/conv2d.py::conv_plan).
+// from the wrapper's plan (ops/kernels/conv2d.py::conv_plan). The entry
+// point quantizes x itself (act_quantize.cuh) into the wrapper's int8
+// workspace and launches the tiles as a dependent launch on that quantize
+// (pdl.cuh): one host call per convolution or dense layer.
 
+#include "act_quantize.cuh"
 #include "sm90_conv.cuh"
 
-// x [B, H, W, Cin] int8, w [Cout, KH, KW, Cin] int8, ws [Cout] fp32, bias
-// [Cout] bf16 or null, out [B, OH, OW, Cout] bf16 (fp32 with out_f32, then
-// bias null); all contiguous and 16-byte aligned. Cin % 32 == 0, Cout % 2 ==
+// x [B, H, W, Cin] bf16, quantized at act_scale into xq (int8 workspace of
+// B H W Cin bytes, 16-byte aligned), w [Cout, KH, KW, Cin] int8, ws [Cout]
+// fp32, bias [Cout] bf16 or null, out [B, OH, OW, Cout] bf16 (fp32 with
+// out_f32, then bias null); all contiguous, all but x 16-byte aligned. Cin % 32 == 0, Cout % 2 ==
 // 0. shape: the int array of sm90_conv.cuh's call_of, [B, H, W, Cin, OH, OW,
 // Cout, KH, KW, stride, pad_t, pad_l, bw, bh, bb, bn, splits, per, epilogue,
 // out_f32], with the plan's output box bw x bh x bb, bn output channels a
 // tile and K in `splits` splits of `per` k steps, and epilogue 0 "xla", 1
 // "tpu", 2 "halo" (see the top of this file). partial: [splits, B OH OW,
-// Cout] int32 (fp32 for "halo") scratch when splits > 1. Returns a CUDA
-// error code.
-extern "C" int d3r_conv2d_int8(const void* x, const void* w, const void* ws, const void* bias,
-                               void* out, void* partial, const int* shape, float act_scale,
-                               void* stream) {
+// Cout] int32 (fp32 for "halo") scratch when splits > 1. Returns the first
+// CUDA error of the quantize and the conv's launches.
+extern "C" int d3r_conv2d_int8(const void* x, void* xq, const void* w, const void* ws,
+                               const void* bias, void* out, void* partial, const int* shape,
+                               float act_scale, void* stream) {
   const int epilogue = shape[18];
-  if (epilogue < d3r::conv::kXla || epilogue > d3r::conv::kHalo) {
+  if (epilogue < d3r::conv::kXla || epilogue > d3r::conv::kHalo ||
+      reinterpret_cast<uintptr_t>(xq) % 16 != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  d3r::conv::Call c = d3r::conv::call_of(x, w, shape);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const long long n = (long long)shape[0] * shape[1] * shape[2] * shape[3];
+  const cudaError_t err = d3r::actq::quantize(x, xq, n, true, act_scale, st);
+  if (err != cudaSuccess) return (int)err;
+  d3r::conv::Call c = d3r::conv::call_of(xq, w, shape);
   c.ws = static_cast<const float*>(ws);
   c.bias = static_cast<const __nv_bfloat16*>(bias);
   c.out = out;
   c.partial = partial;
   c.act_scale = act_scale;
-  return (int)d3r::conv::run<int8_t>(c, epilogue, static_cast<cudaStream_t>(stream));
+  return (int)d3r::conv::run<int8_t>(c, epilogue, st);
 }

@@ -2,7 +2,7 @@
 //   h = (xq . W1h) * d1h + b1h,  g = (xq . W1g) * d1g + b1g     (fp32)
 //   y = h * gelu_tanh(g);  yq = round(y / sy)   (sy per tile, see below)
 //   out = bf16(b2 + sum over F chunks of (yq . W2) * (sy * s2))
-// with x quantized by the wrapper at the static activation scale, the
+// with x quantized by the entry point at the static activation scale, the
 // weights per column (d1h = s1h * act_scale, d1g likewise, one fp32
 // product each, taken in the kernel).
 //
@@ -45,8 +45,12 @@
 // Operations: 4CF + 4CF + 2CF = 10CF a row, against 6CF without the
 // recompute. Int8 wgmma takes only K-major operands: W1h, W1g [F, C] and W2
 // [C, F] are K-major for their products as they come. Device operations per
-// call: the wrapper's quantization of x, the table clear, the three passes,
-// and the split sum where split: 5 or 6. Pass 3's tile width and the split
+// call: the table clear, the quantization of x (act_quantize.cuh, into the
+// wrapper's int8 workspace), the three passes, and the split sum where
+// split: 5 or 6. Pass 1 is a dependent launch on the quantize (pdl.cuh):
+// its producer issues the weight boxes of its first stages, then waits on
+// the quantize before its first xq box; the clear runs before the quantize,
+// so the table is zero when pass 1 starts. Pass 3's tile width and the split
 // come from the wrapper's plan (ops/kernels/geglu.py::geglu_plan). ptxas
 // (sm_90a): 168 registers per thread at launch for every GEMM instance (the
 // consumers raise theirs to 232 with setmaxnreg), no spills. Passes 1-2 are
@@ -63,6 +67,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "act_quantize.cuh"
 #include "sm90_gemm.cuh"
 
 namespace {
@@ -126,11 +131,30 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (wg == kConsumers) {
     regs_dealloc<40>();
     if (threadIdx.x == kConsumers * 128) {
+      prefetch_map(&x_map);
+      prefetch_map(&wh_map);
+      prefetch_map(&wg_map);
       Ring ring;
+      // the weight boxes of the first tile's first stages before the wait
+      // on the quantize (pass 1 is its dependent launch); `pre` counts them
+      int pre = 0;
+      {
+        Ring r = ring;
+        const int f0 = (blockIdx.x / m_tiles) * kGateCols;
+        for (; pre < kStages && pre < k_tiles; ++pre) {
+          st.load_b(r, &wh_map, f0, &wg_map, f0, pre * 128);
+        }
+      }
+      d3r::pdl::wait();
       for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
         const int m0 = (t % m_tiles) * kBlockRows, f0 = (t / m_tiles) * kGateCols;
         for (int kt = 0; kt < k_tiles; ++kt) {
-          st.load(ring, &x_map, m0, &wh_map, f0, &wg_map, f0, kt * 128);
+          if (pre > 0) {
+            --pre;
+            st.load_a(ring, &x_map, m0, kt * 128);
+          } else {
+            st.load(ring, &x_map, m0, &wh_map, f0, &wg_map, f0, kt * 128);
+          }
         }
       }
     }
@@ -314,11 +338,12 @@ __global__ void geglu_int8_reduce_kernel(const float* __restrict__ partial,
   sum_partials(partial, b2, out, n, C, splits);
 }
 
+// Pass 1 is the quantize's dependent launch.
 template <bool kQuant>
 cudaError_t launch_gate(const CUtensorMap& x, const CUtensorMap& wh, const CUtensorMap& wg,
                         const GateArgs& a, cudaStream_t st) {
   const int tiles = (a.rows + kBlockRows - 1) / kBlockRows * (a.F / kGateCols);
-  return launch<geglu_int8_gate_kernel<kQuant>>(tiles, kGateSmem, st, x, wh, wg, a);
+  return launch<geglu_int8_gate_kernel<kQuant>, !kQuant>(tiles, kGateSmem, st, x, wh, wg, a);
 }
 
 template <int kBN>
@@ -330,16 +355,16 @@ cudaError_t launch_out(const CUtensorMap& y, const CUtensorMap& w2, const OutArg
 
 }  // namespace
 
-// xq [rows, C], w1hq/w1gq [F, C], w2q [C, F] int8; s1h, s1g, b1h, b1g [F],
-// s2, b2 [C] fp32; act_scale the scale xq was quantized at;
-// tab [ceil(rows / sub_rows) * F / blk_cols] uint32 and
-// yq [rows, F] int8 scratch; out [rows, C] bf16. All contiguous, 16-byte
-// aligned. C % 16 == 0, F % 128 == 0; blk_cols % 128 == 0 and divides F;
-// sub_rows % 128 == 0. out_cols (64 or 128) output columns per tile of
-// pass 3;
+// x [rows, C] bf16, quantized at act_scale into xq (int8 workspace of
+// rows C bytes); w1hq/w1gq [F, C], w2q [C, F] int8; s1h, s1g, b1h, b1g
+// [F], s2, b2 [C] fp32; tab [ceil(rows / sub_rows) * F / blk_cols] uint32
+// and yq [rows, F] int8 scratch; out [rows, C] bf16. All contiguous, all
+// but x 16-byte aligned. C % 16 == 0, F % 128 == 0; blk_cols % 128 == 0
+// and divides F; sub_rows % 128 == 0. out_cols (64 or 128) output columns
+// per tile of pass 3;
 // splits is 1 or F / blk_cols, and with splits > 1 partial is fp32
-// [splits, rows, C] scratch. Returns a CUDA error code.
-extern "C" int d3r_geglu_ff_int8(const void* xq, const void* w1hq, const void* w1gq,
+// [splits, rows, C] scratch. Returns the first CUDA error of the launches.
+extern "C" int d3r_geglu_ff_int8(const void* x, void* xq, const void* w1hq, const void* w1gq,
                                  const void* w2q, const void* s1h, const void* s1g,
                                  const void* b1h, const void* b1g, const void* s2,
                                  const void* b2, void* tab, void* yq, void* partial, void* out,
@@ -348,7 +373,8 @@ extern "C" int d3r_geglu_ff_int8(const void* xq, const void* w1hq, const void* w
   if (rows <= 0 || C <= 0 || C % 16 || F <= 0 || F % 128 || blk_cols <= 0 || blk_cols % 128 ||
       F % blk_cols || sub_rows <= 0 || sub_rows % kBlockRows ||
       (out_cols != 64 && out_cols != 128) ||
-      (splits != 1 && splits != F / blk_cols) || (splits > 1 && partial == nullptr)) {
+      (splits != 1 && splits != F / blk_cols) || (splits > 1 && partial == nullptr) ||
+      reinterpret_cast<uintptr_t>(xq) % 16 != 0) {
     return (int)cudaErrorInvalidValue;
   }
   auto st = static_cast<cudaStream_t>(stream);
@@ -364,6 +390,9 @@ extern "C" int d3r_geglu_ff_int8(const void* xq, const void* w1hq, const void* w
   geglu_int8_clear_kernel<<<1, 256, 0, st>>>(static_cast<unsigned int*>(tab),
                                              sub_tiles * (F / blk_cols));
   err = cudaGetLastError();
+  if (err == cudaSuccess) {
+    err = d3r::actq::quantize(x, xq, (long long)rows * C, true, act_scale, st);
+  }
   if (err != cudaSuccess) return (int)err;
   const GateArgs g{static_cast<const float*>(s1h), static_cast<const float*>(s1g),
                    static_cast<const float*>(b1h), static_cast<const float*>(b1g),

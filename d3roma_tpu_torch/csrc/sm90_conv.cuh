@@ -29,6 +29,10 @@
 //   B: a 3D TMA map (Cin, KH * KW, Cout) of w [Cout, KH, KW, Cin], box
 //      (128 bytes, 1, kBN), so a box past the end of Cin reads zeros, not the
 //      next tap's weights.
+// The int8 kernels run as dependent launches (pdl.cuh) right after the
+// quantize of x that conv2d_int8.cu launches: the producer prefetches the
+// two maps and issues the weight boxes of its first tile's first stages,
+// then waits on the quantize before its first x box.
 // Blocks are persistent (sm90::launch); a tile is (pixel box, kBN output
 // channels, split of K). Where tiles are too few for the SMs the plan splits
 // K: each split writes its sums to a partial buffer [splits, M, Cout] and
@@ -221,18 +225,39 @@ __device__ __forceinline__ void conv_body(const CUtensorMap& x_map, const CUtens
   if (wg == kConsumers) {
     sm90::regs_dealloc<40>();
     if (threadIdx.x == kConsumers * 128) {
+      sm90::prefetch_map(&x_map);
+      sm90::prefetch_map(&w_map);
       Ring ring;
       const uint32_t bytes = a.a_bytes + Stages<kBN>::kBBytes;
+      // The weight boxes of the first tile's first stages go out before the
+      // wait on the kernel that writes x (the int8 entry point's quantize,
+      // a dependent launch: pdl.cuh); `pre` counts them.
+      int pre = 0;
+      {
+        const Tile tl = tile_of<kBN>(a, blockIdx.x);
+        Ring r = ring;
+        for (int ks = tl.k0; ks < tl.k1 && pre < sm90::kStages; ++ks, ++pre) {
+          const int tap = ks / a.kc, c = (ks - tap * a.kc) * kK;
+          st.acquire(r, bytes);
+          sm90::tma_load_3d(st.b(r.stage), &w_map, &st.full[r.stage], c, tap, tl.n0);
+          r.next();
+        }
+      }
+      pdl::wait();
       for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
         const Tile tl = tile_of<kBN>(a, t);
         const int x0 = tl.ox0 * a.stride - a.pad_l, y0 = tl.oy0 * a.stride - a.pad_t;
         for (int ks = tl.k0; ks < tl.k1; ++ks) {
           const int tap = ks / a.kc, c = (ks - tap * a.kc) * kK;
           const int ky = tap / a.KW, kx = tap - ky * a.KW;
-          st.acquire(ring, bytes);
+          if (pre > 0) {
+            --pre;  // armed, its weight box on the way
+          } else {
+            st.acquire(ring, bytes);
+            sm90::tma_load_3d(st.b(ring.stage), &w_map, &st.full[ring.stage], c, tap, tl.n0);
+          }
           sm90::tma_load_4d(st.a(ring.stage), &x_map, &st.full[ring.stage], c, x0 + kx, y0 + ky,
                             tl.b0);
-          sm90::tma_load_3d(st.b(ring.stage), &w_map, &st.full[ring.stage], c, tap, tl.n0);
           ring.next();
         }
       }
@@ -393,12 +418,15 @@ __global__ void conv_bf16_reduce_kernel(const Args a) { reduce_body<bf16, kBf16>
 
 // ------------------------------------------------------------------ host
 
+// The int8 kernels as dependent launches on the quantize before them
+// (conv2d_int8.cu), the bf16 ones as plain launches.
 template <typename T, int kEpi, int kBN>
 cudaError_t launch_tiles(const CUtensorMap& x, const CUtensorMap& w, const Args& a,
                          cudaStream_t st) {
   const int tiles = a.m_tiles * a.n_tiles * a.splits;
   if constexpr (sizeof(T) == 1) {
-    return sm90::launch<conv_int8_sm90_kernel<kEpi, kBN>>(tiles, Smem<kBN>::kBytes, st, x, w, a);
+    return sm90::launch<conv_int8_sm90_kernel<kEpi, kBN>, true>(tiles, Smem<kBN>::kBytes, st, x,
+                                                                w, a);
   } else {
     return sm90::launch<conv_bf16_sm90_kernel<kBN>>(tiles, Smem<kBN>::kBytes, st, x, w, a);
   }
@@ -425,7 +453,9 @@ inline int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
 // Check the call against what the kernels take, build the two TMA maps
 // (cached by their arguments: a weight's is built once) and launch the
 // tiles, then the split sums where the plan splits K. epilogue: kXla, kTpu
-// or kHalo for int8 T, kBf16 for bf16. Returns the first CUDA error.
+// or kHalo for int8 T, kBf16 for bf16. The int8 tiles are a dependent
+// launch: the caller has launched the kernel that writes x right before.
+// Returns the first CUDA error.
 template <typename T>
 cudaError_t run(const Call& c, int epilogue, cudaStream_t st) {
   constexpr int es = (int)sizeof(T);

@@ -51,6 +51,8 @@
 #include <mutex>
 #include <unordered_map>
 
+#include "pdl.cuh"
+
 namespace d3r {
 namespace sm90 {
 
@@ -184,14 +186,15 @@ inline cudaError_t tensor_map(CUtensorMap* map, const void* ptr, uint32_t elem_b
 constexpr int kMaxDevices = 64;
 
 // Launch kKernel on a persistent grid over `tiles` tiles (one block per SM
-// at most) with `smem` bytes of dynamic shared memory. The SM count and the
-// shared-memory attribute are looked up once per device. Internal linkage
-// (static): the statics must belong to one library's kernel. Two libraries
-// built from this header can instantiate `launch` for kernels of the same
-// name (sm90_conv.cuh's), and with external linkage the dynamic linker
-// merges such statics across the process, so the second library would skip
-// setting its own kernel's shared-memory attribute.
-template <auto kKernel, typename... Args>
+// at most) with `smem` bytes of dynamic shared memory; with kDependent, as a
+// dependent launch (pdl.cuh) on the kernel before it on the stream. The SM
+// count and the shared-memory attribute are looked up once per device.
+// Internal linkage (static): the statics must belong to one library's
+// kernel. Two libraries built from this header can instantiate `launch` for
+// kernels of the same name (sm90_conv.cuh's), and with external linkage the
+// dynamic linker merges such statics across the process, so the second
+// library would skip setting its own kernel's shared-memory attribute.
+template <auto kKernel, bool kDependent = false, typename... Args>
 static cudaError_t launch(int tiles, size_t smem, cudaStream_t st, const Args&... args) {
   static std::atomic<int> sms[kMaxDevices];
   static std::atomic<bool> smem_set[kMaxDevices];
@@ -211,8 +214,12 @@ static cudaError_t launch(int tiles, size_t smem, cudaStream_t st, const Args&..
     smem_set[dev].store(true);
   }
   const int blocks = std::max(1, std::min(tiles, sms[dev].load()));
-  kKernel<<<blocks, kThreads, smem, st>>>(args...);
-  return cudaGetLastError();
+  if constexpr (kDependent) {
+    return pdl::launch(kKernel, dim3(blocks), dim3(kThreads), smem, st, true, args...);
+  } else {
+    kKernel<<<blocks, kThreads, smem, st>>>(args...);
+    return cudaGetLastError();
+  }
 }
 
 // ---------------------------------------------------------------- device
@@ -283,6 +290,12 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// Bring a TMA map (a __grid_constant__ kernel parameter) into the cache
+// before its first use.
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
 // wgmma descriptor of a K-major tile with the 128-byte swizzle (see above).
@@ -592,6 +605,26 @@ struct Stages {
     if (b2_map != nullptr) {
       tma_load(b(r.stage) + kBBytes / 2, b2_map, &full[r.stage], k, b2_row);
     }
+    r.next();
+  }
+
+  // Producer (one thread), for a dependent launch whose A operand the
+  // kernel before it writes: load_b arms the next stage for the whole stage
+  // and loads only its B tile(s), before the wait (pdl.cuh); load_a, after
+  // the wait, loads the A tile of the stage that load_b armed at the same
+  // position of the ring. Together they do what load does.
+  __device__ void load_b(Ring& r, const CUtensorMap* b_map, int b_row, const CUtensorMap* b2_map,
+                         int b2_row, int k) const {
+    acquire(r, kStageBytes);
+    tma_load(b(r.stage), b_map, &full[r.stage], k, b_row);
+    if (b2_map != nullptr) {
+      tma_load(b(r.stage) + kBBytes / 2, b2_map, &full[r.stage], k, b2_row);
+    }
+    r.next();
+  }
+
+  __device__ void load_a(Ring& r, const CUtensorMap* a_map, int a_row, int k) const {
+    tma_load(a(r.stage), a_map, &full[r.stage], k, a_row);
     r.next();
   }
 

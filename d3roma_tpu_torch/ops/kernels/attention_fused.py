@@ -27,6 +27,7 @@ import torch
 from d3roma_tpu_torch.ops.kernels import _build, conv2d
 from d3roma_tpu_torch.ops.kernels.attention import mha_attention_plain, rows_plan
 from d3roma_tpu_torch.ops.kernels.quantize import (
+    act_workspace,
     fp32,
     ieee_div,
     quantize_int8_plain,
@@ -120,7 +121,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("attention_fused_int8")
     fn = lib.d3r_fused_self_attention_int8
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
                        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
@@ -149,12 +150,14 @@ def fused_self_attention_int8(x: torch.Tensor, wqkv: torch.Tensor, ws: torch.Ten
     the operands.
 
     CUDA tensors go to the Hopper kernels (bf16 x and wo, head_dim 64): the
-    quantization of x and the fused kernel's four launches, in one call; or
-    raise. CPU tensors take the plain version.
-    `fused_self_attention_int8.launches` counts the calls."""
+    quantization of x into the stream's int8 workspace (act_workspace) and
+    the fused kernel's four launches, in one call; or raise. CPU tensors take
+    the plain version. `fused_self_attention_int8.launches` counts the calls,
+    `quantize_int8_scalar.launches` their quantizations of x."""
     _check(x, wqkv, ws, wo, bo, heads)
     if x.device.type == "cpu":
         fused_self_attention_int8.launches += 1
+        quantize_int8_scalar.launches += 1
         return fused_self_attention_int8_plain(x, wqkv, ws, wo, bo, heads, act_scale, sm_scale)
     if x.device.type != "cuda":
         raise ValueError(f"fused_self_attention_int8 runs on CUDA or the CPU, got {x.device}")
@@ -172,7 +175,7 @@ def fused_self_attention_int8(x: torch.Tensor, wqkv: torch.Tensor, ws: torch.Ten
     dev = x.device
     m_pad = _round_up(n, _KEY_TILE)
     rows_plan(b, n, n, heads, _HEAD_DIM, _BLK_Q, m_pad)  # 256-row q scale blocks
-    xq = quantize_int8_scalar(x.contiguous(), act_scale)
+    x = x.contiguous()
     n_amax = b * (-(-n // _BLK_Q)) * heads + 2 * b * heads
     f = torch.empty((b, n, 3 * c), dtype=torch.float32, device=dev)
     amax = torch.empty((n_amax,), dtype=torch.int32, device=dev)
@@ -181,14 +184,16 @@ def fused_self_attention_int8(x: torch.Tensor, wqkv: torch.Tensor, ws: torch.Ten
     o = torch.empty((b, n, c), dtype=torch.bfloat16, device=dev)
     out = torch.empty((b, n, c), dtype=torch.bfloat16, device=dev)
     bo32 = bo.float().contiguous()
+    stream = _build.current_stream(dev)
     with torch.cuda.device(dev):
         err = _library().d3r_fused_self_attention_int8(
-            xq.data_ptr(), wqkv.data_ptr(), ws.data_ptr(), wo.data_ptr(), bo32.data_ptr(),
-            f.data_ptr(), amax.data_ptr(), qk[0].data_ptr(), qk[1].data_ptr(), vt.data_ptr(),
-            o.data_ptr(), out.data_ptr(), b, n, c, heads, m_pad, fp32(act_scale), scale,
-            _build.current_stream(dev))
+            x.data_ptr(), act_workspace(dev, stream, x.numel()), wqkv.data_ptr(), ws.data_ptr(),
+            wo.data_ptr(), bo32.data_ptr(), f.data_ptr(), amax.data_ptr(), qk[0].data_ptr(),
+            qk[1].data_ptr(), vt.data_ptr(), o.data_ptr(), out.data_ptr(), b, n, c, heads, m_pad,
+            fp32(act_scale), scale, stream)
     _build.check(err, "fused_self_attention_int8")
     fused_self_attention_int8.launches += 1
+    quantize_int8_scalar.launches += 1
     return out
 
 

@@ -49,6 +49,7 @@ from d3roma_tpu_torch.ops.kernels.geglu import (
     TILE_STAGES,
 )
 from d3roma_tpu_torch.ops.kernels.quantize import (
+    act_workspace,
     fp32,
     quantize_int8_plain,
     quantize_int8_scalar,
@@ -224,7 +225,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("conv2d_int8")
     fn = lib.d3r_conv2d_int8
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 7
                        + [ctypes.POINTER(ctypes.c_int), ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
@@ -270,10 +271,13 @@ def conv2d_int8(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor, act_scale: 
     order of arithmetic of `epilogue` (one of EPILOGUES).
 
     CUDA tensors go to the Hopper kernel (bf16 x and bias, a bf16 output or
-    an fp32 one without bias, Cin % 32 == 0, Cout % 2 == 0) or raise; CPU
-    tensors take the plain version.
+    an fp32 one without bias, Cin % 32 == 0, Cout % 2 == 0), whose C entry
+    point quantizes x into the stream's int8 workspace (act_workspace) and
+    then runs the convolution, in one call; or raise. CPU tensors take the
+    plain version.
     `conv2d_int8.launches` counts the calls that went through this wrapper,
-    `conv2d_int8.epilogue_launches[epilogue]` those of each epilogue."""
+    `conv2d_int8.epilogue_launches[epilogue]` those of each epilogue, and
+    `quantize_int8_scalar.launches` their quantizations."""
     _check(x, wq, ws, bias, epilogue)
     if x.device.type == "cpu":
         _count(epilogue)
@@ -282,21 +286,21 @@ def conv2d_int8(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor, act_scale: 
     if x.device.type != "cuda":
         raise ValueError(f"conv2d_int8 runs on CUDA or the CPU, got {x.device}")
     _check_cuda(x, wq, ws, bias, out_dtype)
+    x = x.contiguous()
     b, h, w, cin = x.shape
     cout, kh, kw, _ = wq.shape
     oh, ow = conv_out_hw(h, w, kh, stride, padding)
     out_dtype = out_dtype or x.dtype
     plan, ints = launch_ints(b, h, w, cin, cout, kh, kw, stride, padding, 1, epilogue,
                              out_dtype == torch.float32, x.device)
-    xq = quantize_int8_scalar(x, act_scale)
     out = torch.empty((b, oh, ow, cout), dtype=out_dtype, device=x.device)
     work = plan_workspace(plan, x.device)
+    stream = _build.current_stream(x.device)
     with torch.cuda.device(x.device):
         err = _library().d3r_conv2d_int8(
-            xq.data_ptr(), wq.data_ptr(), ws.data_ptr(),
-            None if bias is None else bias.data_ptr(), out.data_ptr(),
-            None if work is None else work.data_ptr(), ints, act_scale,
-            _build.current_stream(x.device))
+            x.data_ptr(), act_workspace(x.device, stream, x.numel()), wq.data_ptr(),
+            ws.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
+            None if work is None else work.data_ptr(), ints, act_scale, stream)
     _build.check(err, "conv2d_int8")
     _count(epilogue)
     return out
@@ -312,6 +316,7 @@ def plan_workspace(plan: ConvPlan, device) -> Optional[torch.Tensor]:
 def _count(epilogue: str) -> None:
     conv2d_int8.launches += 1
     conv2d_int8.epilogue_launches[epilogue] += 1
+    quantize_int8_scalar.launches += 1
 
 
 def reset_conv2d_int8_launches() -> None:

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from d3roma_tpu_torch.ops.kernels import _build
 from d3roma_tpu_torch.ops.kernels.quantize import (
+    act_workspace,
     fp32,
     ieee_div,
     quantize_int8_plain,
@@ -270,7 +271,7 @@ def _library_int8() -> ctypes.CDLL:
     lib = _build.load("geglu_int8")
     fn = lib.d3r_geglu_ff_int8
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_float] + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_float] + [ctypes.c_int] * 7
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
@@ -317,13 +318,16 @@ def geglu_ff_int8(x: torch.Tensor, w1hq: torch.Tensor, w1gq: torch.Tensor,
     geglu_ff_int8_plain for the operands and the arithmetic.
 
     CUDA tensors go to the Hopper kernels (bf16 x, C % 16 == 0,
-    F % 128 == 0) or raise; CPU tensors take the plain version.
-    `geglu_ff_int8.launches` counts the calls that went through this
-    wrapper."""
+    F % 128 == 0), whose C entry point quantizes x into the stream's int8
+    workspace (act_workspace) and runs the passes, in one call; or raise.
+    CPU tensors take the plain version. `geglu_ff_int8.launches` counts the
+    calls that went through this wrapper, `quantize_int8_scalar.launches`
+    their quantizations."""
     act_scale = fp32(act_scale)
     _check_int8(x, w1hq, w1gq, w2q, (s1h, s1g, s2), (b1h, b1g, b2))
     if x.device.type == "cpu":
         geglu_ff_int8.launches += 1
+        quantize_int8_scalar.launches += 1
         return geglu_ff_int8_plain(x, w1hq, w1gq, w2q, s1h, s1g, s2, b1h, b1g, b2, act_scale)
     if x.device.type != "cuda":
         raise ValueError(f"geglu_ff_int8 runs on CUDA or the CPU, got {x.device}")
@@ -334,18 +338,20 @@ def geglu_ff_int8(x: torch.Tensor, w1hq: torch.Tensor, w1gq: torch.Tensor,
     blk_cols = pick_cols(f)
     vectors = (s1h, s1g, b1h, b1g, s2, b2)
     _check_cuda_int8(x, (w1hq, w1gq, w2q), vectors)
-    xq = quantize_int8_scalar(x, act_scale)
+    x = x.contiguous()
     plan = geglu_plan(rows, c, f, True, _build.sm_count(x.device.index))
     ws, yq, partial, table = _workspace(plan, rows, c, f, True, x.device)
     out = torch.empty((b, n, c), dtype=x.dtype, device=x.device)
+    stream = _build.current_stream(x.device)
     with torch.cuda.device(x.device):
         err = _library_int8().d3r_geglu_ff_int8(
-            xq.data_ptr(), w1hq.data_ptr(), w1gq.data_ptr(), w2q.data_ptr(),
-            *(t.data_ptr() for t in vectors), table, yq, partial,
-            out.data_ptr(), act_scale, rows, c, f, sub_rows, blk_cols, plan.out_cols,
-            plan.splits, _build.current_stream(x.device))
+            x.data_ptr(), act_workspace(x.device, stream, rows * c), w1hq.data_ptr(),
+            w1gq.data_ptr(), w2q.data_ptr(), *(t.data_ptr() for t in vectors), table, yq,
+            partial, out.data_ptr(), act_scale, rows, c, f, sub_rows, blk_cols, plan.out_cols,
+            plan.splits, stream)
     _build.check(err, "geglu_ff_int8")
     geglu_ff_int8.launches += 1
+    quantize_int8_scalar.launches += 1
     return out
 
 

@@ -1,17 +1,23 @@
 """Static int8 quantization of an activation: the CUDA kernel, its plain
-PyTorch version and its launch counter; and the per-output-channel weight
-quantization every int8 op of the port shares.
+PyTorch version, its launch counter and the int8 workspace the consumers
+quantize into; and the per-output-channel weight quantization every int8 op
+of the port shares.
 
 The JAX package leaves this elementwise step to XLA
 (`d3roma_tpu/ops/quant.py::quantize_int8`), which fuses it into the op that
-produces the activation; the kernel is `csrc/quantize.cu`. It runs in front
-of every static int8 dense, convolution and fused GEGLU of the port.
+produces the activation. The kernel is `csrc/act_quantize.cuh`. It runs in
+front of every static int8 dense, convolution, fused GEGLU and fused
+self-attention of the port, launched by those ops' own C entry points
+(their first kernel a dependent launch on it), so a consumer makes one host
+call; `quantize_int8_scalar` is its standalone entry (`csrc/quantize.cu`).
+Every int8 op counts its quantize on `quantize_int8_scalar.launches`, on the
+card and on the CPU alike.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -92,3 +98,23 @@ def quantize_int8_scalar(x: torch.Tensor, scale: float) -> torch.Tensor:
 
 
 quantize_int8_scalar.launches = 0
+
+# (device index, stream) -> (buffer, its bytes, its address)
+_workspaces: Dict[Tuple[int, int], Tuple[torch.Tensor, int, int]] = {}
+
+
+def act_workspace(device: torch.device, stream: int, nbytes: int) -> int:
+    """The address of an int8 buffer of at least `nbytes` bytes on `device`
+    for the int8 ops on `stream` (the raw handle) to quantize their
+    activation into: one buffer a stream, reused by every call (in stream
+    order, a call's quantize runs after the kernels of the call before have
+    read it), grown to the next power of two (at least 1 MiB) when a call
+    needs more. The old buffer goes back to PyTorch's caching allocator,
+    which hands it out again only in that stream's order."""
+    entry = _workspaces.get((device.index, stream))
+    if entry is None or entry[1] < nbytes:
+        size = 1 << max(20, (nbytes - 1).bit_length())
+        buf = torch.empty(size, dtype=torch.int8, device=device)
+        entry = (buf, size, buf.data_ptr())
+        _workspaces[(device.index, stream)] = entry
+    return entry[2]

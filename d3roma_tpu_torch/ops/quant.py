@@ -45,7 +45,12 @@ import numpy as np
 import torch
 
 from d3roma_tpu_torch.ops.kernels import conv2d_int8, conv3x3_supported, halo_conv_supported
-from d3roma_tpu_torch.ops.kernels.quantize import fp32, ieee_div, quantize_weight
+from d3roma_tpu_torch.ops.kernels.quantize import (
+    fp32,
+    ieee_div,
+    quantize_int8_scalar,
+    quantize_weight,
+)
 from d3roma_tpu_torch.ops.kernels.quantize import quantize_int8_plain as quantize_int8
 
 # the uncalibrated activation scale: normalized activations rarely exceed ~8
@@ -154,16 +159,18 @@ def int8_linear(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor, act_scale: 
     wq [N, K] int8, ws [N] fp32.
 
     On CUDA this is the int8 conv kernel as a 1x1 convolution over the rows
-    (its epilogue is the dense's dequantization and bias), which takes two
-    launches (quantize, product) where XLA's int8 dot plus PyTorch's
-    elementwise dequantization would take seven; on the CPU the same
-    arithmetic in plain ops."""
+    (its epilogue is the dense's dequantization and bias), which takes one
+    host call and two launches (quantize, product) where XLA's int8 dot plus
+    PyTorch's elementwise dequantization would take seven; on the CPU the
+    same arithmetic in plain ops. Either way the quantization is counted on
+    quantize_int8_scalar.launches."""
     ls = fp32(act_scale)
     lead, k, n = x.shape[:-1], x.shape[-1], wq.shape[0]
     b = None if bias is None else bias.to(x.dtype)
     if x.device.type == "cuda":
         out = conv2d_int8(x.reshape(1, 1, -1, k), wq.view(n, 1, 1, k), ws, ls, b, 1, 0)
         return out.reshape(lead + (n,))
+    quantize_int8_scalar.launches += 1  # the CUDA path's quantize, counted alike
     acc = _int_matmul_plain(quantize_int8(x.reshape(-1, k), ls), wq.t())
     out = (acc.float() * ls * ws).to(x.dtype)
     if b is not None:

@@ -10,6 +10,7 @@
     python3 chip_smoke.py --quant    # device, build, the quantize kernel's cases and the
                                      # int8 consumers' back-to-back (PDL race) cases only
     python3 chip_smoke.py --groupnorm  # device, build and the fused GroupNorm's cases only
+    python3 chip_smoke.py --dynamic  # device, build and the dynamic int8 conv's cases only
 
 Run from the repository root, on a machine with a CUDA GPU and nvcc (the
 kernels build from d3roma_tpu_torch/csrc/ at first use). Phases, each
@@ -30,9 +31,10 @@ failing the run on its own error:
    library call (K L L K), with their host and device ms per call and the
    host plan of the call; every int8 op that quantizes its input in its own
    launch (the int8 conv in each epilogue, split and not, the int8 dense,
-   the int8 GEGLU, the fused int8 attention) run back to back on two
-   distinct inputs after a third, through the one reused int8 workspace,
-   both results bit-equal to the plain version (a consumer that read the
+   the int8 GEGLU, the fused int8 attention, and the dynamic int8 conv and
+   dense, whose scales the call computes on the device) run back to back
+   on two distinct inputs after a third, through the one reused int8
+   workspace, both results bit-equal to the plain version (a consumer that read the
    workspace before its quantize finished would return the input before's
    result); the fused GroupNorm at one device op a call, bit-identical
    across two calls, within tolerance of its plain version at the opt-in
@@ -62,7 +64,21 @@ failing the run on its own error:
    sites) and the static one, summing to the bench default's count, with
    the bench default's attention, GEGLU and quantize counts; ms/frame, the
    profile and the full and shallow forwards as in phase 6;
-8. opt-in path on the same models: fast_inference("wino").fuse_norms(), the
+8. dynamic and Winograd paths on the same models (the JAX bench's
+   BENCH_QUANT=1, dense and wino), the bench's kernels and deepcache(2,
+   depth=2), no calibration: launch counts of one call (the dynamic int8
+   conv kernel once per dense and conv visit, two per feed-forward; the
+   int8 whole-row attention under "all", 102; the bf16 one under "dense"
+   and "wino", 100; under "wino" the Winograd kernel at every visit a dry
+   pass routes to Winograd), one "all" call under
+   torch.cuda.set_sync_debug_mode("error") (no host synchronization),
+   ms/frame, the profile and the full and shallow UNet forwards through the
+   kernels against their plain versions;
+9. vae8 on the same models: a float UNet and a static VAE, calibrated
+   (which makes the UNet static, as in the JAX package): the bench
+   default's launch counts from this calibration's logs, ms/frame, the
+   forwards;
+10. opt-in path on the same models: fast_inference("wino").fuse_norms(), the
    fused self-attention (set_kernels(use_flash_attention="fused")),
    deepcache(2, depth=2), calibrate on one batch; a dry pass logs the
    port's routing (Winograd or static int8 per conv, fused GroupNorm or not
@@ -71,7 +87,11 @@ failing the run on its own error:
    conv or dense site of the capture logs and the Winograd and fused
    GroupNorm calls of the dry pass; ms/frame, the profile, and one full and
    one shallow UNet forward through the kernels against their plain versions;
-9. a JSON line of per-kernel numbers, then the JSON result as the last line.
+11. the torch bench, `python -m d3roma_tpu_torch.bench`, in its own process
+    at batch 2 with 3 timed calls (records and scales in a temporary
+    directory), at the default setting and at BENCH_CLIP_PCT=0.999: its
+    JSON line must carry every key of the JAX bench's, value > 0;
+12. a JSON line of per-kernel numbers, then the JSON result as the last line.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -744,6 +764,168 @@ def pdl_race_cases(gen):
     return rows
 
 
+def _dynamic_operands(b, h, w, cin, cout, k, gen, zero_item=False):
+    """x [b, h, w, cin] bf16 whose batch items (rows, for a dense: h = 1) have
+    different absmax (item i scaled by 1 + i, one item all zeros with
+    zero_item), a weight quantized as the port quantizes it, and a bias."""
+    import torch
+
+    from d3roma_tpu_torch.ops.quant import quantize_weight
+
+    x = torch.randn((b, h, w, cin), generator=gen, device="cuda")
+    x = x * torch.arange(1, b + 1, device="cuda").view(b, 1, 1, 1)
+    if zero_item:
+        x[-1] = 0.0
+    wt = (torch.randn((cout, k, k, cin), generator=gen, device="cuda")
+          * (k * k * cin) ** -0.5).to(torch.bfloat16)
+    bias = (torch.randn((cout,), generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+    return x.to(torch.bfloat16), wt, *quantize_weight(wt), bias
+
+
+def _dynamic_case(b, h, w, cin, cout, k, stride, padding, gen, timed, zero_item=False):
+    """The dynamic int8 conv kernel (per-batch-item scales computed on the
+    device, "xla" order) against its plain version: bit-equal."""
+    import torch
+    import torch.nn.functional as F
+
+    from d3roma_tpu_torch.ops.kernels import conv2d_int8_dynamic, conv2d_int8_dynamic_plain
+    from d3roma_tpu_torch.ops.kernels.conv2d import conv_out_hw
+
+    x, wt, wq, ws, bias = _dynamic_operands(b, h, w, cin, cout, k, gen, zero_item)
+    out = conv2d_int8_dynamic(x, wq, ws, bias, stride, padding)
+    ref = conv2d_int8_dynamic_plain(x, wq, ws, bias, stride, padding).float()
+    _sync()
+    err = (out.float() - ref).abs().max().item()
+    row = {"shape": [b, h, w, cin, cout, k, stride, padding], "zero_item": zero_item,
+           "max_abs_err": err, "tol": 0.0, "max_abs_out": ref.abs().max().item(),
+           **_conv_plan_fields(b, h, w, cin, cout, k, stride, padding, 1, "xla")}
+    if timed:
+        xc = x.permute(0, 3, 1, 2)  # NCHW view, channels_last in memory
+        wc = wt.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        oh, ow = conv_out_hw(h, w, k, stride, padding)
+        ops = 2.0 * b * oh * ow * cout * k * k * cin
+        nbytes = 2.0 * b * h * w * cin + 1.0 * cout * k * k * cin + 6.0 * cout + 2.0 * b * oh * ow * cout
+        row["bound_ms"], row["bound_by"] = bound(ops, nbytes, H100_INT8_OPS)
+        _timed_against_library(row, lambda: conv2d_int8_dynamic(x, wq, ws, bias, stride, padding),
+                               lambda: F.conv2d(xc, wc, bias, stride, padding), split=True)
+        row["plain_ms"] = time_ms(
+            lambda: conv2d_int8_dynamic_plain(x, wq, ws, bias, stride, padding), reps=3,
+            warmup=1)
+        row["library_call"] = "F.conv2d (bf16, cuDNN, channels_last)"
+    return _check_row("conv2d_int8_dynamic", row, err, 0.0)
+
+
+def _int_mm_dense(x2, wq, ws, bias):
+    """The dynamic dense as PyTorch calls: per-row scales, quantize,
+    torch._int_mm (cuBLASLt int8), then the dequantization and the bias."""
+    import torch
+
+    from d3roma_tpu_torch.ops.kernels.quantize import INV127
+
+    s = torch.clamp_min(x2.float().abs().amax(dim=1, keepdim=True) * INV127, 1e-8)
+    xq = torch.clamp(torch.round(x2.float() / s), -127, 127).to(torch.int8)
+    return (torch._int_mm(xq, wq.t()).float() * s * ws).to(torch.bfloat16) + bias
+
+
+def _dynamic_dense_case(rows, c, n, gen, timed, zero_item=False):
+    """A dynamic int8 dense (ops/quant.py::int8_linear_dynamic: the dynamic
+    kernel as a 1x1 convolution, one scale a row) against the plain
+    version: bit-equal. Its library call is torch._int_mm with the scaling
+    around it, where cuBLASLt takes the shape; where it refuses (16 rows or
+    fewer), bf16 F.linear, as the conv rows take bf16 F.conv2d."""
+    import torch.nn.functional as F
+
+    from d3roma_tpu_torch.ops.kernels import conv2d_int8_dynamic_plain
+    from d3roma_tpu_torch.ops.quant import int8_linear_dynamic
+
+    x4, wt, wq, ws, bias = _dynamic_operands(rows, 1, 1, c, n, 1, gen, zero_item)
+    x = x4.view(rows, c)
+    wq, ws = wq.view(n, c), ws
+    out = int8_linear_dynamic(x, wq, ws, bias)
+    ref = conv2d_int8_dynamic_plain(x.view(1, 1, rows, c), wq.view(n, 1, 1, c), ws, bias, 1, 0,
+                                    per_row=True).view(rows, n).float()
+    _sync()
+    err = (out.float() - ref).abs().max().item()
+    row = {"shape": [rows, c, n], "site": "dense", "zero_item": zero_item, "max_abs_err": err,
+           "tol": 0.0, "max_abs_out": ref.abs().max().item(),
+           **_conv_plan_fields(1, 1, rows, c, n, 1, 1, 0, 1, "xla")}
+    if timed:
+        ops = 2.0 * rows * c * n
+        nbytes = 2.0 * rows * c + 1.0 * n * c + 6.0 * n + 2.0 * rows * n
+        row["bound_ms"], row["bound_by"] = bound(ops, nbytes, H100_INT8_OPS)
+        kernel = lambda: int8_linear_dynamic(x, wq, ws, bias)  # noqa: E731
+        try:
+            lib = _int_mm_dense(x, wq, ws, bias)
+            _sync()
+            row["library_max_diff"] = (lib.float() - ref).abs().max().item()
+        except RuntimeError as e:  # cuBLASLt's shape limits
+            row["library_refused"] = str(e)[:120]
+        if "library_refused" in row:
+            w2 = wt.view(n, c)
+            _timed_against_library(row, kernel, lambda: F.linear(x, w2, bias), split=True)
+            row["library_call"] = "F.linear (bf16, cuBLAS; torch._int_mm refuses the shape)"
+        else:
+            _timed_against_library(row, kernel, lambda: _int_mm_dense(x, wq, ws, bias),
+                                   split=True)
+            row["library_call"] = "torch._int_mm + per-row absmax, quantize, dequantize"
+        row["plain_ms"] = time_ms(lambda: conv2d_int8_dynamic_plain(
+            x.view(1, 1, rows, c), wq.view(n, 1, 1, c), ws, bias, 1, 0, per_row=True), reps=3,
+            warmup=1)
+    return _check_row("conv2d_int8_dynamic (dense)", row, err, 0.0)
+
+
+def dynamic_int8_cases(gen):
+    """The dynamic int8 conv kernel at the "all" path's conv and dense
+    shapes (batch 2; timed), ragged ones and all-zero items (checked only),
+    and back to back on three inputs of different absmax through the reused
+    workspace (the quantize reads the scales the absmax kernel wrote, the
+    conv's epilogue reads them again: a stale or early read shows)."""
+    import torch
+
+    from d3roma_tpu_torch.ops.kernels import conv2d_int8_dynamic, conv2d_int8_dynamic_plain
+    from d3roma_tpu_torch.ops.quant import int8_linear_dynamic
+
+    rows = [
+        _dynamic_case(BATCH, 45, 80, 320, 320, 3, 1, 1, gen, True),      # UNet down block 0
+        _dynamic_case(BATCH, 23, 40, 1920, 640, 3, 1, 1, gen, True),     # UNet up block 2
+        _dynamic_case(BATCH, 45, 80, 320, 320, 3, 2, 1, gen, True),      # UNet downsampler
+        _dynamic_case(2 * BATCH, H, W, 128, 128, 3, 1, 1, gen, True),    # VAE encoder
+        _dynamic_case(2 * BATCH, H + 1, W + 1, 128, 128, 3, 2, 0, gen, True),  # VAE down
+        _dynamic_case(BATCH, H, W, 256, 128, 1, 1, 0, gen, True)]        # VAE 1x1 shortcut
+    # the transformers' dense layers (batch 2) and the cross-attention's
+    # key and value projections of the 2-token context (4 rows)
+    rows += [_dynamic_dense_case(r, c, n, gen, True)
+             for r, c, n in ((7200, 320, 320), (1840, 640, 640), (480, 1280, 1280),
+                             (2 * BATCH, 1024, 320))]
+    for shape in ((1, 7, 9, 32, 64, 3, 1, 1), (3, 5, 6, 64, 96, 3, 2, 1),
+                  (2, 9, 11, 32, 130, 1, 1, 0), (5, 13, 17, 96, 34, 3, 2, 0),
+                  (3, 6, 10, 1280, 1280, 3, 1, 1)):
+        _dynamic_case(*shape, gen, False)
+    _dynamic_case(3, 12, 20, 64, 64, 3, 1, 1, gen, False, zero_item=True)
+    _dynamic_dense_case(100, 64, 8, gen, False, zero_item=True)
+    _dynamic_dense_case(3, 96, 40, gen, False)
+
+    b2b = []
+    for b, h, w, cin, cout, k, stride, pad in ((BATCH, 23, 40, 1920, 640, 3, 1, 1),  # split
+                                               (2 * BATCH, 90, 160, 256, 256, 3, 2, 1),
+                                               (1, 1, 7200, 320, 320, 1, 1, 0)):
+        per_row = b == 1
+        xs = [_dynamic_operands(b, h, w, cin, cout, k, gen)[0] * f for f in (1.0, 3.0, 0.5)]
+        _, _, wq, ws, bias = _dynamic_operands(1, 1, 1, cin, cout, k, gen)
+        if per_row:
+            consumer = lambda x: int8_linear_dynamic(x.view(w, cin), wq.view(cout, cin), ws,  # noqa: E731
+                                                     bias)
+            expected = [conv2d_int8_dynamic_plain(x, wq, ws, bias, 1, 0, per_row=True)
+                        .view(w, cout) for x in xs[1:]]
+        else:
+            consumer = lambda x: conv2d_int8_dynamic(x, wq, ws, bias, stride, pad)  # noqa: E731
+            expected = [conv2d_int8_dynamic_plain(x, wq, ws, bias, stride, pad) for x in xs[1:]]
+        b2b.append(_back_to_back("conv2d_int8_dynamic", (b, h, w, cin, cout, k, stride, pad),
+                                 consumer, expected, xs))
+    _sync()
+    return rows, b2b
+
+
 def attention_int8_cases(gen):
     """The int8 whole-row attention at the bench-default path's shapes
     (timed) and ragged ones (checked only): every head width, N and M off
@@ -773,6 +955,7 @@ def int8_kernel_phase():
     rows["geglu_int8"] = geglu_int8_cases(gen)
     rows["conv2d_int8"] = conv_int8_cases(gen)
     rows["back_to_back"] = pdl_race_cases(gen)
+    rows["conv2d_int8_dynamic"], rows["back_to_back_dynamic"] = dynamic_int8_cases(gen)
     return rows
 
 
@@ -1333,6 +1516,7 @@ def _int8_launches():
     from d3roma_tpu_torch.ops.kernels import (
         conv2d_bf16,
         conv2d_int8,
+        conv2d_int8_dynamic,
         conv3x3_winograd,
         fused_self_attention_bf16,
         fused_self_attention_int8,
@@ -1347,6 +1531,7 @@ def _int8_launches():
     return {"attention": mha_attention.launches, "geglu": geglu_ff.launches,
             "attention_int8": mha_attention_int8.launches,
             "geglu_int8": geglu_ff_int8.launches, "conv2d_int8": conv2d_int8.launches,
+            "conv2d_int8_dynamic": conv2d_int8_dynamic.launches,
             **{f"conv2d_int8_{k}": v for k, v in conv2d_int8.epilogue_launches.items()},
             "quantize": quantize_int8_scalar.launches,
             "attention_fused_int8": fused_self_attention_int8.launches,
@@ -1362,38 +1547,42 @@ def _zero_launches():
     for fn in (kernels.mha_attention, kernels.geglu_ff, kernels.mha_attention_int8,
                kernels.geglu_ff_int8, kernels.quantize_int8_scalar,
                kernels.fused_self_attention_int8, kernels.fused_self_attention_bf16,
-               kernels.conv2d_bf16, kernels.conv3x3_winograd, kernels.group_norm_silu):
+               kernels.conv2d_bf16, kernels.conv3x3_winograd, kernels.group_norm_silu,
+               kernels.conv2d_int8_dynamic):
         fn.launches = 0
     reset_conv2d_int8_launches()
 
 
 def _plain_int8_forward(fn, attention: bool = True):
-    """fn() with the int8 kernel wrappers (the attention one too, unless
+    """fn() with the int8 kernel wrappers (the attention ones too, unless
     attention=False) replaced by their plain versions: the same arithmetic
     in PyTorch ops, on the card. With attention, the opt-in configuration's
-    fused attention, Winograd and fused GroupNorm wrappers are replaced too;
-    without it they stay kernels, like the attention (of the wrappers the
-    forward reaches, the conv and GEGLU kernels are bit-equal to their plain
-    versions, the others are not)."""
+    fused attention, Winograd and fused GroupNorm wrappers and the bf16
+    whole-row attention are replaced too; without it they stay kernels,
+    like the int8 attention (of the wrappers the forward reaches, the
+    static and dynamic conv and the GEGLU kernels are bit-equal to their
+    plain versions, the others are not)."""
     from d3roma_tpu_torch.models import layers
     from d3roma_tpu_torch.ops import kernels, quant, winograd
 
     saved = (layers.mha_attention_int8, layers.geglu_ff_int8, quant.conv2d_int8,
              layers.fused_self_attention_int8, layers.group_norm_silu,
-             winograd.conv3x3_winograd)
+             winograd.conv3x3_winograd, quant.conv2d_int8_dynamic, layers.mha_attention)
     if attention:
         layers.mha_attention_int8 = kernels.mha_attention_int8_plain
         layers.fused_self_attention_int8 = kernels.fused_self_attention_int8_plain
         layers.group_norm_silu = kernels.group_norm_silu_plain
         winograd.conv3x3_winograd = kernels.conv3x3_winograd_plain
+        layers.mha_attention = kernels.mha_attention_plain
     layers.geglu_ff_int8 = kernels.geglu_ff_int8_plain
     quant.conv2d_int8 = kernels.conv2d_int8_plain
+    quant.conv2d_int8_dynamic = kernels.conv2d_int8_dynamic_plain
     try:
         return fn()
     finally:
         (layers.mha_attention_int8, layers.geglu_ff_int8, quant.conv2d_int8,
          layers.fused_self_attention_int8, layers.group_norm_silu,
-         winograd.conv3x3_winograd) = saved
+         winograd.conv3x3_winograd, quant.conv2d_int8_dynamic, layers.mha_attention) = saved
 
 
 def bench_default_phase(pipe, inputs):
@@ -1443,7 +1632,17 @@ def bench_default_phase(pipe, inputs):
 
     profile_phase(run, "bench default")
     _compare_int8_forwards(pipe, gen, "static", "int8")
-    return counts, ms_per_frame, expected
+    return counts, ms_per_frame, expected, _site_visits(logs, pattern)
+
+
+def _site_visits(logs, pattern):
+    """Visits of one call to the quantized sites of each kind ("dot",
+    "conv", "attn", "geglu"), from the capture logs of a calibration with
+    the call's F/S pattern."""
+    passes = {"vae_encode": 1, "unet": pattern.count("F"), "unet_cached": pattern.count("S"),
+              "vae_decode": 1}
+    return {kd: sum(n * sum(1 for kind, _ in logs[t] if kind == kd) for t, n in passes.items())
+            for kd in ("dot", "conv", "attn", "geglu")}
 
 
 def _compare_int8_forwards(pipe, gen, quant, label):
@@ -1470,15 +1669,17 @@ def _compare_int8_forwards(pipe, gen, quant, label):
     unet = pipe.unet
     x = torch.randn((BATCH, H // 8, W // 8, unet.in_channels), generator=gen, device="cuda")
     ctx = torch.zeros((BATCH, 2, 1024), device="cuda")
+    tables = pipe.act_scales if pipe.act_scales and unet.quant in ("static", "mxu", "halo",
+                                                                   "wino_static") else None
 
     def forwards(replay=True):
         with torch.no_grad():
-            if not replay:
+            if not (replay and tables):
                 full, trunk = unet(x, 981, ctx, return_trunk=True)
                 return full, unet(x, 881, ctx, cached_trunk=trunk)
-            with replay_act_scales(pipe.act_scales["unet"]):
+            with replay_act_scales(tables["unet"]):
                 full, trunk = unet(x, 981, ctx, return_trunk=True)
-            with replay_act_scales(pipe.act_scales["unet_cached"]):
+            with replay_act_scales(tables["unet_cached"]):
                 shallow = unet(x, 881, ctx, cached_trunk=trunk)
         return full, shallow
 
@@ -1645,6 +1846,219 @@ def conv_routes_phase(pipe, inputs, bench_expected):
     return results
 
 
+def _wino_dry_pass(pipe, run):
+    """One call with a hook on every conv under quant="wino" that records
+    the port's route (ops/winograd.py: the Winograd kernel, once per batch
+    chunk of wino_eligible, inside the liveness cap; the float conv outside
+    it). Returns ({route: visits}, {site: route})."""
+    from d3roma_tpu_torch.models.layers import Conv2d
+    from d3roma_tpu_torch.ops.winograd import conv_hwio_shape, wino_eligible
+
+    calls = {"kernel": 0, "float": 0}
+    table = {}
+
+    def hook(mod, args):
+        shape = tuple(args[0].shape)
+        pad = ((mod.padding[0],) * 2, (mod.padding[1],) * 2)
+        chunk = wino_eligible(shape, conv_hwio_shape(mod.weight), mod.stride, pad)
+        if chunk is None:
+            calls["float"] += 1
+        else:
+            calls["kernel"] += -(-shape[0] // chunk)
+        table[("conv", mod.kernel_size[0]) + shape + (mod.weight.shape[0], mod.stride[0])] = (
+            "float" if chunk is None else f"kernel (chunk {chunk})")
+
+    hooks = [m.register_forward_pre_hook(hook)
+             for m in list(pipe.unet.modules()) + list(pipe.vae.modules())
+             if isinstance(m, Conv2d) and m.quant == "wino"]
+    try:
+        run()
+        _sync()
+    finally:
+        for hk in hooks:
+            hk.remove()
+    return calls, table
+
+
+def dynamic_paths_phase(pipe, inputs, visits):
+    """The JAX bench's BENCH_QUANT=1 (quantize_int8(): dynamic int8 in the
+    UNet and the VAE), BENCH_QUANT=dense and BENCH_QUANT=wino on the same
+    models, with the bench's kernels (whole-row attention at self-attention
+    sites, fused GEGLU, DeepCache interval 2 at depth 2), no calibration.
+    The dynamic paths take the unfused feed-forward (two dense layers
+    where the static path runs one fused GEGLU), so their expected dynamic
+    int8 launches come from the bench default's capture logs (`visits`):
+    every dense and conv visit, plus two per GEGLU visit ("all"), or the
+    dense ones only ("dense"). One "all" call runs under
+    torch.cuda.set_sync_debug_mode("error"): a host synchronization in a
+    dynamic op (or anywhere in the call) fails it. Returns {mode: (counts,
+    ms/frame)}."""
+    import torch
+
+    from d3roma_tpu_torch.pipelines.sampling import uniform_cache_schedule
+
+    rgb, raw, gen = inputs
+    pattern = uniform_cache_schedule(2, STEPS)
+    pipe.act_scales = None
+    pipe.unet.set_kernels(use_flash_attention="pallas-self", fused_ff=True, fused_norm=False)
+    pipe.vae.set_kernels(fused_norm=False)
+    pipe.deepcache(2, depth=2)
+    attention = 10 * pattern.count("F") + 10 * pattern.count("S")  # the UNet's sites
+    results = {}
+    for mode, label in ((True, "all"), ("dense", "dense"), ("wino", "wino")):
+        if mode is True:
+            pipe.quantize_int8()
+        else:
+            pipe.set_quant(mode)
+        run = _run_call(pipe, rgb, raw)
+        t0 = time.perf_counter()
+        if mode == "wino":
+            routes, table = _wino_dry_pass(pipe, run)
+            print(f"wino: routing dry pass (first call, {time.perf_counter() - t0:.2f}s): "
+                  f"{routes}", flush=True)
+            for site, route in sorted(table.items(), key=str):
+                print(f"  route {site}: {route}", flush=True)
+            if routes["kernel"] <= 0:
+                raise AssertionError("wino: no conv visit takes the Winograd kernel")
+            expected = {"attention": attention, "winograd": routes["kernel"]}
+        else:
+            run()
+            _sync()
+            print(f"{label}: first call {time.perf_counter() - t0:.2f}s", flush=True)
+            dense = visits["dot"] + 2 * visits["geglu"]
+            if mode is True:
+                expected = {"attention_int8": attention + 2,
+                            "conv2d_int8_dynamic": dense + visits["conv"]}
+            else:
+                expected = {"attention": attention, "conv2d_int8_dynamic": dense}
+        if mode is True:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                run()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            _sync()
+            print("all: one call under set_sync_debug_mode('error'): no host synchronization",
+                  flush=True)
+        counts, ms_per_frame = _timed_calls(pipe, run, label)
+        _check_counts(label, counts, expected)
+        profile_phase(run, label)
+        if mode == "wino":
+            _compare_float_forwards(pipe, gen, label)
+        else:
+            _compare_int8_forwards(pipe, gen, mode, label)
+        results[label] = (counts, ms_per_frame)
+    return results
+
+
+def _compare_float_forwards(pipe, gen, label):
+    """One full and one shallow UNet forward through the kernels against the
+    same forwards through their plain versions (no int8 on the path: the
+    Winograd and bf16 attention kernels against their plain versions,
+    UNET_REL_TOL)."""
+    import torch
+
+    unet = pipe.unet
+    x = torch.randn((BATCH, H // 8, W // 8, unet.in_channels), generator=gen, device="cuda")
+    ctx = torch.zeros((BATCH, 2, 1024), device="cuda")
+
+    def forwards():
+        with torch.no_grad():
+            full, trunk = unet(x, 981, ctx, return_trunk=True)
+            return full, unet(x, 881, ctx, cached_trunk=trunk)
+
+    fast = forwards()
+    plain = _plain_int8_forward(forwards)
+    for i, name in enumerate(("full", "shallow")):
+        rel = ((fast[i] - plain[i]).abs().max() / plain[i].abs().max()).item()
+        print(f"unet {name} pass ({label}): kernel path vs plain path max err / max |out| = "
+              f"{rel:.3e} (tol {UNET_REL_TOL})", flush=True)
+        if not rel <= UNET_REL_TOL:
+            raise AssertionError(f"UNet {name} pass ({label}) differs from the plain path: {rel}")
+    _sync()
+
+
+def vae8_phase(pipe, inputs):
+    """The JAX bench's BENCH_QUANT=vae8 on the same models: a bf16 UNet and a
+    static int8 VAE, DeepCache interval 2 at depth 2, calibrated. As in the
+    JAX package, calibrate() switches a UNet in no static mode to "static"
+    (with the VAE), so the calibrated path is the bench default's: its
+    launch counts, from this calibration's own capture logs. Returns
+    (counts, ms/frame)."""
+    from d3roma_tpu_torch.pipelines.sampling import uniform_cache_schedule
+
+    rgb, raw, gen = inputs
+    pipe.act_scales = None
+    pipe.set_quant(False)
+    pipe.vae.set_quant("static")
+    logs = {}
+    t0 = time.perf_counter()
+    pipe.deepcache(2, depth=2).calibrate(
+        gen, [dict(rgb_images=rgb, sim_disp=raw)], cond_channels="rgb+raw",
+        num_inference_steps=STEPS, shape_logs=logs)
+    _sync()
+    print(f"vae8: calibrated in {time.perf_counter() - t0:.2f}s; UNet quant after calibrate "
+          f"{pipe.unet.quant!r}, VAE {pipe.vae.quant!r}", flush=True)
+    if (pipe.unet.quant, pipe.vae.quant) != ("static", "static"):
+        raise AssertionError("vae8: calibrate() left the UNet or the VAE out of static int8")
+    pattern = uniform_cache_schedule(2, STEPS)
+    v = _site_visits(logs, pattern)
+    expected = {"attention_int8": 10 * pattern.count("F") + 10 * pattern.count("S") + 2,
+                "geglu_int8": v["geglu"], "conv2d_int8": v["conv"] + v["dot"]}
+    expected.update(quantize=expected["conv2d_int8"] + expected["geglu_int8"],
+                    conv2d_int8_xla=expected["conv2d_int8"])
+    run = _run_call(pipe, rgb, raw)
+    run()
+    _sync()
+    counts, ms_per_frame = _timed_calls(pipe, run, "vae8")
+    _check_counts("vae8", counts, expected)
+    _compare_int8_forwards(pipe, gen, "static", "vae8")
+    return counts, ms_per_frame
+
+
+# the keys of the JAX bench's line (BENCH_r05.json) at the default setting,
+# and the torch bench's own
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "config", "batch", "ms_per_frame",
+              "quant", "deepcache_interval", "deepcache_depth", "tflop_per_frame",
+              "tflops_sustained", "mfu_bf16_peak", "mfu_int8_peak", "device")
+
+
+def bench_phase():
+    """`python -m d3roma_tpu_torch.bench` as a user runs it, at batch 2 with
+    3 timed calls, its records and calibrated scales in a temporary
+    directory: at the default setting (static int8, 2d2, calibrated) and
+    with BENCH_CLIP_PCT=0.999 (quantile calibration, clipped scales). Each
+    must exit 0 and print one JSON line with every key of the JAX bench's
+    (and act_clip_pct with the clipping), value > 0. Returns the lines."""
+    import tempfile
+
+    lines = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, extra in (("default", {}), ("clip 0.999", {"BENCH_CLIP_PCT": "0.999"})):
+            env = dict(os.environ, BENCH_BATCH=str(BATCH), BENCH_REPS="3",
+                       BENCH_CACHE_DIR=tmp, **extra)
+            for k in ("BENCH_QUANT", "BENCH_DEEPCACHE", "BENCH_CALIB", "BENCH_STEPS",
+                      "BENCH_RECORDS"):
+                env.pop(k, None)
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "d3roma_tpu_torch.bench"], env=env,
+                                  capture_output=True, text=True, timeout=600)
+            out = proc.stdout.strip().splitlines()
+            print(f"bench ({label}): exit {proc.returncode} in {time.perf_counter() - t0:.1f}s; "
+                  f"{out[-1] if out else ''}", flush=True)
+            for ln in proc.stderr.strip().splitlines()[-3:]:
+                print(f"  stderr: {ln}", flush=True)
+            if proc.returncode != 0 or not out:
+                raise AssertionError(f"bench ({label}) failed: {proc.stderr[-2000:]}")
+            line = json.loads(out[-1])
+            keys = BENCH_KEYS + (("act_clip_pct",) if extra else ())
+            missing = [k for k in keys if k not in line]
+            if missing or not line["value"] > 0 or line["batch"] != BATCH:
+                raise AssertionError(f"bench ({label}): missing {missing} or bad line {line}")
+            lines[label] = line
+    return lines
+
+
 def _routing_dry_pass(pipe, run):
     """One call with a hook on every Winograd-capable conv and every
     GroupNormSiLU that records the port's own routing decisions (the
@@ -1768,6 +2182,8 @@ _KERNEL_GROUPS = (
     ("int8 whole-row attention kernels (mha_attention_int8; the fused attention's core)",
      ("mha_int8_rows_kernel", "mha_int8_wide_kernel", "absmax_kernel",
       "quantize_heads_kernel")),
+    ("dynamic int8 scales (per-group absmax, quantize at the groups' scales)",
+     ("absmax_groups_kernel", "act_quantize_groups_kernel")),
     ("quantize_int8 kernel (standalone and in the int8 ops' entry points)",
      ("act_quantize_kernel",)),
     ("geglu_ff kernels (gate, output, split sum)", ("geglu_bf16_",)),
@@ -1860,6 +2276,12 @@ def main() -> int:
         _sync()
         print("Winograd cases passed", flush=True)
         return 0
+    if sys.argv[1:] == ["--dynamic"]:
+        import torch
+
+        dynamic_int8_cases(torch.Generator(device="cuda").manual_seed(2468))
+        print("dynamic int8 cases passed", flush=True)
+        return 0
     if sys.argv[1:] == ["--quant"]:
         import torch
 
@@ -1894,11 +2316,17 @@ def main() -> int:
     new_rows = conv_and_fused_bf16_kernel_phase()
     pipe, inputs, counts, ms_per_frame = pipeline_phase()
     fused_counts, fused_ms_per_frame = latency_fused_phase(pipe, inputs)
-    bench_counts, bench_ms_per_frame, bench_expected = bench_default_phase(pipe, inputs)
+    bench_counts, bench_ms_per_frame, bench_expected, visits = bench_default_phase(pipe, inputs)
     routes = conv_routes_phase(pipe, inputs, bench_expected)
+    dynamic = dynamic_paths_phase(pipe, inputs, visits)
+    vae8_counts, vae8_ms_per_frame = vae8_phase(pipe, inputs)
     opt_counts, opt_ms_per_frame = opt_in_phase(pipe, inputs)
 
     import torch
+
+    del pipe, inputs
+    torch.cuda.empty_cache()  # the bench's own process builds its own models
+    bench_lines = bench_phase()
 
     kernels = [
         _kernel_entry("mha_attention", "d3roma_tpu_torch/csrc/attention.cu",
@@ -1916,6 +2344,13 @@ def main() -> int:
                            "d3roma_tpu/ops/pallas/conv2d.py:80", int8_rows["conv2d_int8"],
                            bench_counts["conv2d_int8"]),
              tma_map_host_cost=new_rows["tma_map_host_cost"]),
+        # no Pallas kernel: the XLA int8 conv and dot of the dynamic modes
+        dict(_kernel_entry("conv2d_int8_dynamic", "d3roma_tpu_torch/csrc/conv2d_int8.cu",
+                           "d3roma_tpu/ops/quant.py:370", int8_rows["conv2d_int8_dynamic"],
+                           dynamic["all"][0]["conv2d_int8_dynamic"],
+                           f"the \"all\" path; {dynamic['dense'][0]['conv2d_int8_dynamic']} on "
+                           f"\"dense\""),
+             back_to_back=int8_rows["back_to_back_dynamic"]),
         # no Pallas kernel: the XLA quantization in front of the int8 ops
         _kernel_entry("quantize_int8", "d3roma_tpu_torch/csrc/quantize.cu",
                       "d3roma_tpu/ops/quant.py:64", int8_rows["quantize"],
@@ -1928,7 +2363,8 @@ def main() -> int:
                       opt_rows["attention_fused_int8"], opt_counts["attention_fused_int8"]),
         _kernel_entry("winograd_fused", "d3roma_tpu_torch/csrc/winograd_fused.cu",
                       "d3roma_tpu/ops/pallas/winograd_fused.py:147", opt_rows["winograd"],
-                      opt_counts["winograd"]),
+                      opt_counts["winograd"],
+                      f"the opt-in path; {dynamic['wino'][0]['winograd']} on \"wino\""),
         _kernel_entry("attention_fused_bf16", "d3roma_tpu_torch/csrc/attention_fused_bf16.cu",
                       "d3roma_tpu/ops/pallas/attention_fused.py:145",
                       new_rows["attention_fused_bf16"], fused_counts["attention_fused_bf16"]),
@@ -1955,8 +2391,13 @@ def main() -> int:
                                                 "bench_default": bench_ms_per_frame,
                                                 "halo": routes["halo"][1],
                                                 "mxu": routes["mxu"][1],
+                                                **{k: v[1] for k, v in dynamic.items()},
+                                                "vae8": vae8_ms_per_frame,
                                                 "opt_in": opt_ms_per_frame},
+                      "launches_per_call": {k: {n: c for n, c in v[0].items() if c}
+                                            for k, v in dynamic.items()},
                       "batch": BATCH, "steps": STEPS}), flush=True)
+    print(json.dumps({"torch_bench": bench_lines}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -48,6 +48,16 @@
 // point quantizes x itself (act_quantize.cuh) into the wrapper's int8
 // workspace and launches the tiles as a dependent launch on that quantize
 // (pdl.cuh): one host call per convolution or dense layer.
+//
+// The dynamic int8 modes (quant=True / "all" / "dense": the XLA int8
+// convolution and dot of d3roma_tpu/ops/quant.py::int8_conv_general_dilated
+// and int8_dot_general, which have no Pallas kernel) take the second entry
+// point: the scale of each batch item (convolution) or row (dense) is its
+// absmax / 127, computed on the device (act_quantize.cuh::quantize_groups:
+// a memset and an absmax kernel, then the quantize as a dependent launch),
+// and the "xla" epilogue dequantizes each output row at its group's scale,
+// (acc * s[g]) * ws[co]. The scales never leave the device: the call makes
+// no host synchronization.
 
 #include "act_quantize.cuh"
 #include "sm90_conv.cuh"
@@ -82,4 +92,35 @@ extern "C" int d3r_conv2d_int8(const void* x, void* xq, const void* w, const voi
   c.partial = partial;
   c.act_scale = act_scale;
   return (int)d3r::conv::run<int8_t>(c, epilogue, st);
+}
+
+// The dynamic-scale call: x as above, quantized into xq at per-group
+// scales whose absmax amax [B H W Cin / group_elems] (fp32 bits, 4-byte
+// aligned) the call computes first. group_elems: elements of x a group
+// (H W Cin for a convolution's batch item, Cin for a dense layer's row, a
+// multiple of 16); group_pixels: the output pixels of a group (OH OW, or
+// 1). The epilogue must be "xla". Returns the first CUDA error of the
+// memset, absmax, quantize and conv launches.
+extern "C" int d3r_conv2d_int8_dynamic(const void* x, void* xq, void* amax, const void* w,
+                                       const void* ws, const void* bias, void* out,
+                                       void* partial, const int* shape, long long group_elems,
+                                       long long group_pixels, void* stream) {
+  if (shape[18] != d3r::conv::kXla || reinterpret_cast<uintptr_t>(xq) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(amax) % 4 != 0 || group_pixels <= 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const auto st = static_cast<cudaStream_t>(stream);
+  const long long n = (long long)shape[0] * shape[1] * shape[2] * shape[3];
+  const cudaError_t err =
+      d3r::actq::quantize_groups(x, xq, static_cast<unsigned*>(amax), n, group_elems, st);
+  if (err != cudaSuccess) return (int)err;
+  d3r::conv::Call c = d3r::conv::call_of(xq, w, shape);
+  c.ws = static_cast<const float*>(ws);
+  c.bias = static_cast<const __nv_bfloat16*>(bias);
+  c.out = out;
+  c.partial = partial;
+  c.act_scale = 0.f;
+  c.act_amax = static_cast<const unsigned*>(amax);
+  c.group_pixels = group_pixels;
+  return (int)d3r::conv::run<int8_t>(c, d3r::conv::kXla, st);
 }

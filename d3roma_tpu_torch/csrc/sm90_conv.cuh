@@ -50,6 +50,12 @@
 //              consumers drain the wgmma pipeline at the end of each ky row
 //              and fold the registers into fsum
 //   kBf16 (3): v = acc (fp32)
+// With per-group activation scales (the dynamic int8 modes: act_amax set,
+// conv2d_int8.cu's dynamic entry point), act_scale is replaced, in kXla's
+// order, by the scale of the output row's group, s[g] =
+// act_quantize.cuh::group_scale(act_amax[g]) with g = pixel / group_pixels
+// (a batch item of a convolution, a row of a dense layer): read per row,
+// since one tile's box may span two batch items.
 // then bf16(bf16(v) + bias[co]) with a bias, bf16(v) without, or v itself
 // for an fp32 output (int8 only, no bias): the orders of the references
 // (conv2d_int8.cu's note), with no fused multiply-add. A bf16 output tile is
@@ -67,6 +73,7 @@
 #include <algorithm>
 #include <type_traits>
 
+#include "act_quantize.cuh"
 #include "sm90_gemm.cuh"
 
 namespace d3r {
@@ -95,6 +102,8 @@ struct Call {
   void* partial;      // [splits, B * OH * OW, Cout] int32 / fp32, when splits > 1
   float act_scale;
   int out_f32;
+  const unsigned* act_amax;  // per-group activation absmax (fp32 bits), or null
+  long long group_pixels;    // output pixels of a scale group, with act_amax
 };
 
 // The call's geometry, plan and epilogue from the int array the C entry
@@ -127,7 +136,16 @@ struct Args {
   void* partial;
   float act_scale;
   int out_f32;
+  const unsigned* act_amax;
+  long long group_pixels;
 };
+
+// The activation scale of output pixel p (p >= 0): the call's static scale,
+// or its group's dynamic one.
+__device__ __forceinline__ float act_of(const Args& a, long long p) {
+  return a.act_amax == nullptr ? a.act_scale
+                               : actq::group_scale(a.act_amax[p / a.group_pixels]);
+}
 
 // Dynamic shared memory: the ring, then per consumer warpgroup a staging
 // area for its 64 rows of bf16 output (kPitch bytes a row: 16 more than the
@@ -266,6 +284,9 @@ __device__ __forceinline__ void conv_body(const CUtensorMap& x_map, const CUtens
   }
 
   sm90::regs_alloc<232>();
+  // the dynamic scales come from the kernels before the quantize: wait, as
+  // the producer does, before the epilogue reads them
+  if (a.act_amax != nullptr) pdl::wait();
   uint8_t* staging = conv_smem + Stages<kBN>::kSmemBytes + wg * Smem<kBN>::kStaging;
   long long* row_pix = reinterpret_cast<long long*>(staging + 64 * Smem<kBN>::kPitch);
   const int lt = threadIdx.x % 128, r0 = wg * 64;
@@ -319,9 +340,10 @@ __device__ __forceinline__ void conv_body(const CUtensorMap& x_map, const CUtens
                   make_float2(sum(i), sum(i + 1));
             }
           } else if constexpr (kInt8) {
+            const float act = act_of(a, pix[h]);
             *reinterpret_cast<float2*>(static_cast<float*>(a.out) + o) =
-                make_float2(dequant<kEpi>(sum(i), a.act_scale, a.ws[col]),
-                            dequant<kEpi>(sum(i + 1), a.act_scale, a.ws[col + 1]));
+                make_float2(dequant<kEpi>(sum(i), act, a.ws[col]),
+                            dequant<kEpi>(sum(i + 1), act, a.ws[col + 1]));
           }
         }
       }
@@ -331,6 +353,14 @@ __device__ __forceinline__ void conv_body(const CUtensorMap& x_map, const CUtens
     // bf16 output, staged: wait until the last tile's rows have left
     sm90::warpgroup_sync(wg);
     if (lt < 64) row_pix[lt] = pixel_of(a, tl, r0 + lt);
+    float act[2] = {a.act_scale, a.act_scale};
+    if (kInt8 && a.act_amax != nullptr) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long p = pixel_of(a, tl, r0 + sm90::frag_row(2 * h));
+        act[h] = p < 0 ? 0.f : act_of(a, p);
+      }
+    }
 #pragma unroll
     for (int j = 0; j < kBN / 8; ++j) {
       const int cl = sm90::frag_col(j, 0), col = tl.n0 + cl;
@@ -347,8 +377,8 @@ __device__ __forceinline__ void conv_body(const CUtensorMap& x_map, const CUtens
         const int i = 4 * j + 2 * h;
         float v0 = sum(i), v1 = sum(i + 1);
         if constexpr (kInt8) {
-          v0 = dequant<kEpi>(v0, a.act_scale, w2.x);
-          v1 = dequant<kEpi>(v1, a.act_scale, w2.y);
+          v0 = dequant<kEpi>(v0, act[h], w2.x);
+          v1 = dequant<kEpi>(v1, act[h], w2.y);
           if (a.bias != nullptr) {
             v0 = add_bias(v0, b2.x);
             v1 = add_bias(v1, b2.y);
@@ -392,13 +422,13 @@ __device__ __forceinline__ void reduce_body(const Args& a) {
     if constexpr (sizeof(T) == 1 && kEpi != kHalo) {
       int s32 = 0;
       for (int s = 0; s < a.splits; ++s) s32 += static_cast<const int*>(a.partial)[s * n + i];
-      v = dequant<kEpi>(__int2float_rn(s32), a.act_scale, a.ws[col]);
+      v = dequant<kEpi>(__int2float_rn(s32), act_of(a, i / a.Cout), a.ws[col]);
     } else {
       float f = 0.f;
       for (int s = 0; s < a.splits; ++s) {
         f = __fadd_rn(f, static_cast<const float*>(a.partial)[s * n + i]);
       }
-      v = kEpi == kBf16 ? f : dequant<kEpi>(f, a.act_scale, a.ws[col]);
+      v = kEpi == kBf16 ? f : dequant<kEpi>(f, act_of(a, i / a.Cout), a.ws[col]);
     }
     if (a.out_f32) {
       static_cast<float*>(a.out)[i] = v;
@@ -466,6 +496,7 @@ cudaError_t run(const Call& c, int epilogue, cudaStream_t st) {
       c.bw * c.stride > 256 || c.bh * c.stride > 256 || c.bb > 256 || c.splits < 1 ||
       c.per < 1 || (c.splits > 1 && c.partial == nullptr) ||
       (c.out_f32 && (es != 1 || c.bias != nullptr)) ||
+      (c.act_amax != nullptr && (epilogue != kXla || c.group_pixels <= 0)) ||
       (es == 1) != (epilogue != kBf16) || epilogue < kXla || epilogue > kBf16) {
     return cudaErrorInvalidValue;
   }
@@ -498,6 +529,8 @@ cudaError_t run(const Call& c, int epilogue, cudaStream_t st) {
   a.partial = c.partial;
   a.act_scale = c.act_scale;
   a.out_f32 = c.out_f32;
+  a.act_amax = c.act_amax;
+  a.group_pixels = c.group_pixels;
   // every split non-empty; "halo" splits only at rows of taps
   if ((long long)(c.splits - 1) * c.per >= a.k_steps || (long long)c.splits * c.per < a.k_steps ||
       (halo && c.per % a.row_steps != 0)) {

@@ -32,6 +32,17 @@ no scale. `quant="mxu"` and `quant="halo"` are "static" with the stride-1
 3x3 convs their TPU kernel's gate admits dequantized in that kernel's order
 (`ops/quant.py::int8_conv_mxu`, `int8_conv_halo`).
 
+The dynamic modes take no scale: under `quant=True` / `"all"` every dense
+layer and convolution of those sites runs the dynamic int8 kernel (each
+row's or batch item's own scale, on the device) and the whole-row attention
+sites take the int8 kernel; under `"dense"` only the dense layers do, and
+the attention sites take the bf16 kernel. `"wino"` runs the stride-1 3x3
+convs inside Winograd's liveness cap by Winograd (`ops/winograd.py::
+winograd_conv`: the kernel on the card), the rest and the dense layers in
+float. Under every truthy non-static mode the fused self-attention
+and the fused GEGLU fall back to their unfused sites, as the JAX package's
+gates do (their kernels have a static int8 and a bf16 body only).
+
 Two further kernels of the JAX package's opt-in configuration: the fused
 GroupNorm + SiLU (`GroupNormSiLU.fused`, `set_kernels(fused_norm=True)`) at
 shapes its gate admits, and the fused self-attention
@@ -67,15 +78,25 @@ from d3roma_tpu_torch.ops.kernels import (
     winograd_weight,
 )
 from d3roma_tpu_torch.ops.quant import (
+    DYNAMIC_CONV_MODES,
+    DYNAMIC_DENSE_MODES,
+    INT8_ATTENTION_MODES,
     INT8_CONV_ROUTES,
     QUANT_MODES,
     STATIC_MODES,
     act_ctx_mode,
     consume_act_scale,
+    int8_conv_dynamic,
     int8_linear,
+    int8_linear_dynamic,
     quantize_weight,
 )
-from d3roma_tpu_torch.ops.winograd import conv_hwio_shape, winograd_conv, wino_static_route
+from d3roma_tpu_torch.ops.winograd import (
+    conv_hwio_shape,
+    wino_eligible,
+    wino_static_route,
+    winograd_conv,
+)
 
 # use_flash values ported so far: False (plain attention everywhere), True
 # (the whole-row kernel at self-attention sites of >= FLASH_MIN_SEQ tokens,
@@ -136,8 +157,9 @@ def _int8_conv_weight(w: torch.Tensor):
 
 class Linear(nn.Linear):
     """nn.Linear that computes in its weight's dtype (Flax Dense casts its
-    input to the module dtype the same way). With quant="static" it takes
-    one activation tap on that cast input and runs the static int8 dense."""
+    input to the module dtype the same way). With a static mode it takes one
+    activation tap on that cast input and runs the static int8 dense; with
+    True, "all" or "dense" the dynamic int8 dense."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True):
         super().__init__(in_features, out_features, bias=bias)
@@ -151,6 +173,8 @@ class Linear(nn.Linear):
             if mode == "int8":
                 wq, ws = self._int8.get(self.weight)
                 return int8_linear(x, wq, ws, scale, self.bias)
+        elif self.quant in DYNAMIC_DENSE_MODES:
+            return int8_linear_dynamic(x, *self._int8.get(self.weight), self.bias)
         return F.linear(x, self.weight, self.bias)
 
 
@@ -166,7 +190,9 @@ class Conv2d(nn.Conv2d):
     Winograd kernel (U = winograd_weight(w), made once per weight; the bias
     added after the output's rounding, as Flax adds it) and the rest to the
     static int8 conv; the other static modes take their int8 conv route
-    (`INT8_CONV_ROUTES`)."""
+    (`INT8_CONV_ROUTES`). quant="wino" sends the convs `wino_eligible`
+    admits to Winograd (`winograd_conv`) and the rest to the float conv; True
+    and "all" run the dynamic int8 conv."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0,
@@ -193,6 +219,15 @@ class Conv2d(nn.Conv2d):
                                       self.stride, pad)
             if chunk is not None:
                 return winograd_conv(x, self._wino.get(self.weight.to(dt)), dt, bias, chunk)
+        elif self.quant == "wino":
+            pad = ((self.padding[0],) * 2, (self.padding[1],) * 2)
+            chunk = wino_eligible(tuple(x.shape), conv_hwio_shape(self.weight), self.stride,
+                                  pad)
+            if chunk is not None:
+                return winograd_conv(x, self._wino.get(self.weight.to(dt)), dt, bias, chunk)
+        elif self.quant in DYNAMIC_CONV_MODES:
+            wq, ws = self._int8.get(self.weight)
+            return int8_conv_dynamic(x, wq, ws, bias, self.stride[0], self.padding[0])
 
         def float_conv():
             y = self._conv_forward(x.permute(0, 3, 1, 2), self.weight.to(dt), bias)
@@ -360,8 +395,10 @@ class SelfAttention2D(nn.Module):
         v = self.to_v(h).reshape(heads)
         d = C // self.num_heads
         # the int8 whole-row kernel (the VAE's single 512-wide head) under
-        # quant, outside calibration captures, at >= 512 tokens
-        if (self.quant in STATIC_MODES and act_ctx_mode() != "capture" and H * W >= 512
+        # the int8 modes but "dense", outside calibration captures, at >= 512
+        # tokens
+        if (self.quant in INT8_ATTENTION_MODES and act_ctx_mode() != "capture"
+                and H * W >= 512
                 and d >= 64 and mha_supported(H * W, d, itemsize=1)):
             attn = mha_attention_int8(q, k, v)
         else:
@@ -418,6 +455,8 @@ class CrossAttention(nn.Module):
         B, N, C = x.shape
         inner = self.heads * self.head_dim
         aq = self.quant in STATIC_MODES
+        if self.quant and not aq:
+            return None  # no dynamic-scale (or Winograd-mode) body: the unfused path
         itemsize = 1 if aq else self.to_q.weight.element_size()
         if not (C == inner and self.to_q.in_features == inner
                 and fused_attention_supported(N, inner, self.head_dim, itemsize)):
@@ -454,7 +493,8 @@ class CrossAttention(nn.Module):
         # them; the flash route, as the JAX package's, runs under capture too
         capture = act_ctx_mode() == "capture"
         if use_kernel and M >= 512 and mha_supported(M, self.head_dim) and not capture:
-            attn = (mha_attention_int8 if self.quant in STATIC_MODES else mha_attention)(q, k, v)
+            attn = (mha_attention_int8 if self.quant in INT8_ATTENTION_MODES
+                    else mha_attention)(q, k, v)
         elif (self.use_flash and is_self and N >= FLASH_MIN_SEQ
               and mha_supported(N, self.head_dim)):
             attn = mha_attention(q, k, v)
@@ -522,7 +562,10 @@ class FeedForward(nn.Module):
         return F.linear(h * F.gelu(gate, approximate="tanh"), out.weight, out.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.fused and geglu_supported(self.dim, self.hidden):
+        # the fused kernel has a static int8 and a bf16 body: the other int8
+        # modes take the unfused path (its dense layers in their mode)
+        if (self.fused and (self.quant in STATIC_MODES or not self.quant)
+                and geglu_supported(self.dim, self.hidden)):
             proj, out = self.net[0].proj, self.net[2]
             weights = (proj.weight, proj.bias, out.weight, out.bias)
             dt = proj.weight.dtype

@@ -41,8 +41,7 @@ class UNet2DCondition(nn.Module):
     `use_flash_attention`, `fused_ff` and `fused_norm` route the attention,
     feed-forward and GroupNorm + SiLU sites to the kernels; `set_kernels`
     changes them after construction, and `set_quant` sets the int8 mode
-    (one of ops/quant.py's QUANT_MODES: False, the default, "static",
-    "mxu", "halo" or "wino_static").
+    (one of ops/quant.py's QUANT_MODES; False, the default, is float).
 
     `cache_depth` is the DeepCache shallow pass's depth: how many trailing
     up blocks (and the matching leading down blocks) the cached pass
@@ -151,7 +150,7 @@ class UNet2DCondition(nn.Module):
         self._cache_depth = int(depth)
 
     def set_quant(self, quant) -> None:
-        """Set the int8 mode (False or a static mode of ops/quant.py) of
+        """Set the int8 mode (one of ops/quant.py's QUANT_MODES) of
         every site the JAX package quantizes; conv_in, the time embedding and the fp32
         conv_out stay in float."""
         set_quant(self, quant)
@@ -193,6 +192,8 @@ class UNet2DCondition(nn.Module):
         across steps."""
         dtype = self.conv_in.weight.dtype
         B = sample.shape[0]
+        if isinstance(timesteps, int):  # filled on the device: no host-to-device copy
+            timesteps = torch.full((B,), timesteps, device=sample.device)
         timesteps = torch.as_tensor(timesteps, device=sample.device)
         if timesteps.ndim == 0:
             timesteps = timesteps.expand(B)

@@ -154,7 +154,7 @@ class AutoencoderKL(nn.Module):
         self.set_kernels(fused_norm)
 
     def set_quant(self, quant) -> None:
-        """Set the int8 mode (False or a static mode of ops/quant.py) of
+        """Set the int8 mode (one of ops/quant.py's QUANT_MODES) of
         every site the JAX package quantizes."""
         set_quant(self, quant)
         self.quant = quant

@@ -10,6 +10,9 @@ version, its applicability gate and its launch counter.
                                      conv2d_halo.py::conv3x3_halo (int8), at
                                      every static int8 conv (epilogues "xla",
                                      "tpu", "halo")
+- `conv2d.conv2d_int8_dynamic`    <- no Pallas kernel: the XLA int8 convolution and dot of
+                                     the dynamic modes (d3roma_tpu/ops/quant.py::
+                                     int8_conv_general_dilated, int8_dot_general)
 - `conv2d.conv2d_bf16`            <- the same conv3x3_flat and conv3x3_halo, bf16
 - `conv2d.conv3x3_flat`, `conv3x3_rowtap`, `conv3x3_halo`
                                   <- the JAX entry points of those kernels
@@ -44,6 +47,8 @@ from d3roma_tpu_torch.ops.kernels.conv2d import (  # noqa: F401
     conv2d_bf16,
     conv2d_bf16_plain,
     conv2d_int8,
+    conv2d_int8_dynamic,
+    conv2d_int8_dynamic_plain,
     conv2d_int8_plain,
     conv3x3_flat,
     conv3x3_halo,

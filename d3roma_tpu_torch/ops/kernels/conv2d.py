@@ -13,6 +13,12 @@ top of them.
   (`_kernel_int8`) and `conv3x3_rowtap` (`_kernel_rowtap_int8`); "halo",
   the same with the sum taken as `conv2d_halo.py::_kernel` takes it, one
   int32 partial per row of taps added in fp32.
+- `conv2d_int8_dynamic` (the same source's second entry point) is the int8
+  convolution and dense layer of the dynamic modes (quant=True / "all" /
+  "dense"; `d3roma_tpu/ops/quant.py::int8_conv_general_dilated` and
+  `int8_dot_general`, XLA ops there): the activation scale of each batch
+  item (each row, for a dense) computed on the device, the "xla" order with
+  that scale.
 - `conv2d_bf16` (`csrc/conv2d_bf16.cu`) is the bf16 convolution of
   `conv3x3_flat`'s `_kernel_bf16` and of `conv3x3_halo`'s bf16 body:
   bf16 products, fp32 sums, one rounding.
@@ -50,6 +56,7 @@ from d3roma_tpu_torch.ops.kernels.geglu import (
 )
 from d3roma_tpu_torch.ops.kernels.quantize import (
     act_workspace,
+    dynamic_scale_plain,
     fp32,
     quantize_int8_plain,
     quantize_int8_scalar,
@@ -304,6 +311,79 @@ def conv2d_int8(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor, act_scale: 
     _build.check(err, "conv2d_int8")
     _count(epilogue)
     return out
+
+
+def conv2d_int8_dynamic_plain(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
+                              bias: Optional[torch.Tensor], stride: int, padding: int,
+                              per_row: bool = False) -> torch.Tensor:
+    """The dynamic kernel's arithmetic in PyTorch: the scale s of each batch
+    item of x (of each pixel, with per_row) from dynamic_scale_plain, x
+    quantized at it (IEEE division), exact int32 sums, (acc * s) * ws in
+    fp32, one cast to x's type, the bias added in that type."""
+    s = dynamic_scale_plain(x, (3,) if per_row else (1, 2, 3))
+    acc = conv2d_int8_acc_plain(quantize_int8_plain(x, s), wq, stride, padding).float()
+    out = (acc * s * ws).to(x.dtype)
+    return out if bias is None else out + bias.to(out.dtype)
+
+
+def _library_dynamic() -> ctypes.CDLL:
+    lib = _library()
+    fn = lib.d3r_conv2d_int8_dynamic
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_int)]
+                       + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def conv2d_int8_dynamic(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
+                        bias: Optional[torch.Tensor] = None, stride: int = 1, padding: int = 0,
+                        per_row: bool = False) -> torch.Tensor:
+    """Dynamic int8 convolution, NHWC x [B, H, W, Cin] -> [B, OH, OW, Cout]
+    in x's type: each batch item of x (each pixel, with per_row: a dense
+    layer's rows, as a 1x1 convolution without padding) quantized at its
+    own scale max(absmax * fp32(1/127), 1e-8), the output dequantized as
+    (acc * s) * ws[co] (the "xla" order), the bias added after the cast.
+
+    CUDA tensors go to the kernel (bf16 x and bias, Cin % 32 == 0, Cout % 2
+    == 0): its C entry point computes the scales on the device (memset,
+    absmax), quantizes x into the stream's int8 workspace, and runs the
+    convolution, in one call with no host synchronization; or raise. CPU
+    tensors take the plain version. `conv2d_int8_dynamic.launches` counts
+    the calls."""
+    _check(x, wq, ws, bias, "xla")
+    if per_row and (wq.shape[1:3] != (1, 1) or stride != 1 or padding != 0):
+        raise ValueError("per_row takes a 1x1 convolution of stride 1 without padding")
+    if x.device.type == "cpu":
+        conv2d_int8_dynamic.launches += 1
+        return conv2d_int8_dynamic_plain(x, wq, ws, bias, stride, padding, per_row)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv2d_int8_dynamic runs on CUDA or the CPU, got {x.device}")
+    _check_cuda(x, wq, ws, bias)
+    x = x.contiguous()
+    b, h, w, cin = x.shape
+    cout, kh, kw, _ = wq.shape
+    oh, ow = conv_out_hw(h, w, kh, stride, padding)
+    plan, ints = launch_ints(b, h, w, cin, cout, kh, kw, stride, padding, 1, "xla", False,
+                             x.device)
+    out = torch.empty((b, oh, ow, cout), dtype=x.dtype, device=x.device)
+    work = plan_workspace(plan, x.device)
+    stream = _build.current_stream(x.device)
+    group_elems, group_pixels = (cin, 1) if per_row else (h * w * cin, oh * ow)
+    # the workspace: x's int8 copy, then the groups' absmax (fp32 bits)
+    amax_at = -(-x.numel() // 128) * 128
+    base = act_workspace(x.device, stream, amax_at + 4 * (x.numel() // group_elems))
+    with torch.cuda.device(x.device):
+        err = _library_dynamic().d3r_conv2d_int8_dynamic(
+            x.data_ptr(), base, base + amax_at, wq.data_ptr(), ws.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(),
+            None if work is None else work.data_ptr(), ints, group_elems, group_pixels, stream)
+    _build.check(err, "conv2d_int8_dynamic")
+    conv2d_int8_dynamic.launches += 1
+    return out
+
+
+conv2d_int8_dynamic.launches = 0
 
 
 def plan_workspace(plan: ConvPlan, device) -> Optional[torch.Tensor]:

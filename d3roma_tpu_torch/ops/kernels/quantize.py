@@ -47,6 +47,20 @@ def quantize_int8_plain(x: torch.Tensor, scale) -> torch.Tensor:
     return torch.clamp(q, -127.0, 127.0).to(torch.int8)
 
 
+# fp32(1/127): the jitted JAX form of absmax / 127 multiplies by it
+INV127 = fp32(1.0 / 127.0)
+
+
+def dynamic_scale_plain(x: torch.Tensor, dims) -> torch.Tensor:
+    """The dynamic int8 modes' activation scale of each group of x (the
+    elements sharing every index outside `dims`), kept-dims fp32:
+    max(absmax * fp32(1/127), 1e-8), as the JAX package's jitted
+    `absmax_scale` computes it (XLA turns its division by 127 into this
+    product)."""
+    m = x.detach().float().abs().amax(dim=tuple(dims), keepdim=True)
+    return torch.clamp_min(m * INV127, 1e-8)
+
+
 def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-output-channel (dim 0) int8 weights and their fp32 scales [Cout],
     both contiguous: the scale is the absmax over every other axis times
@@ -57,8 +71,7 @@ def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     and can differ in the last place)."""
     w = w.detach()
     m = w.float().abs().amax(dim=tuple(range(1, w.ndim)))
-    inv = torch.tensor(fp32(1.0 / 127.0), dtype=torch.float32, device=w.device)
-    s = torch.clamp_min(m * inv, 1e-8)
+    s = torch.clamp_min(m * INV127, 1e-8)
     wq = quantize_int8_plain(w, s.reshape((-1,) + (1,) * (w.ndim - 1)))
     return wq.contiguous(), s.contiguous()
 

@@ -124,17 +124,19 @@ def _at(a):
 
 
 def conv3x3_winograd_plain(x: torch.Tensor, u: torch.Tensor, out_dtype: torch.dtype,
-                           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                           bias: Optional[torch.Tensor] = None,
+                           round_x: bool = True) -> torch.Tensor:
     """The TPU kernel's arithmetic in PyTorch (the `ops/winograd.py::
-    winograd_conv3x3` formulation): x [B, H, W, C] cast to bf16, the SAME
-    halo and the tile grid's tail zero-padded; V = B^T d B per 4x4 tile in
-    fp32, rounded to bf16; M = V U per tap with fp32 sums (one batched
-    matmul); Y = A^T M A in fp32, cast to `out_dtype`; then `bias` added in
-    that type. u: winograd_weight(w)."""
+    winograd_conv3x3` formulation): x [B, H, W, C] cast to bf16 (as it is
+    with round_x=False, the XLA formulation's fp32 input), the SAME halo and
+    the tile grid's tail zero-padded; V = B^T d B per 4x4 tile in fp32,
+    rounded to bf16; M = V U per tap with fp32 sums (one batched matmul);
+    Y = A^T M A in fp32, cast to `out_dtype`; then `bias` added in that
+    type. u: winograd_weight(w)."""
     b, h, w, c = x.shape
     o = u.shape[1]
     th, tw = (h + 1) // 2, (w + 1) // 2
-    xp = torch.nn.functional.pad(x.to(torch.bfloat16).float(),
+    xp = torch.nn.functional.pad(x.to(torch.bfloat16).float() if round_x else x.float(),
                                  (0, 0, 1, 2 * tw + 1 - w, 1, 2 * th + 1 - h))
     d = [[xp[:, i:i + 2 * th - 1:2, j:j + 2 * tw - 1:2, :] for j in range(4)]
          for i in range(4)]

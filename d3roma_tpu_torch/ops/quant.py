@@ -1,13 +1,24 @@
-"""Static int8: per-call activation scales (capture and replay), weight
-quantization, and the int8 dense and convolutions of the static modes
-(all served on CUDA by the int8 conv kernel, the dense as a 1x1 conv).
+"""int8: per-call activation scales (capture, with optional |x| quantiles,
+and replay), weight quantization, and the int8 dense layers and
+convolutions of the static and the dynamic modes (all served on CUDA by the
+int8 conv kernel, the dense as a 1x1 conv).
 
-Port of `d3roma_tpu/ops/quant.py` (`absmax_scale` of a weight as
+Port of `d3roma_tpu/ops/quant.py` (`absmax_scale`, of a weight as
 `quantize_weight`, `quantize_int8`, `STATIC_ACT_SCALE`, the act-scale
-context, `consume_act_scale`, `int8_dot_general_static`,
-`int8_conv_general_dilated_static`, `int8_conv_mxu`, `int8_conv_halo`).
-The percentile-clipping half (quantiles, `with_act_clipping`, call maps,
-kind pins) is not ported yet.
+context with its quantile taps, `consume_act_scale`,
+`int8_dot_general_static`, `int8_conv_general_dilated_static`,
+`int8_conv_mxu`, `int8_conv_halo`, and the dynamic `int8_dot_general` and
+`int8_conv_general_dilated`).
+
+The modes (QUANT_MODES), as the JAX package's `_dense_q` / `_conv_q` and
+attention gates read them: False (float); True and "all" (dynamic int8 at
+the dense layers and convolutions: each row's or batch item's own absmax
+scale, computed on the device; the whole-row attention in int8); "dense"
+(dynamic int8 at the dense layers only, float convolutions, the bf16
+whole-row attention); "wino" (bf16 Winograd at the stride-1 3x3 convs
+ops/winograd.py admits, float elsewhere, float dense layers); and the
+static modes below. The dynamic modes take no scale from the tables, so a
+capture or replay context leaves them as they are.
 
 The static modes differ only at the convolutions: "static" runs each in the
 XLA conv's order of arithmetic; "mxu" and "halo" send the stride-1 SAME 3x3
@@ -44,7 +55,12 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from d3roma_tpu_torch.ops.kernels import conv2d_int8, conv3x3_supported, halo_conv_supported
+from d3roma_tpu_torch.ops.kernels import (
+    conv2d_int8,
+    conv2d_int8_dynamic,
+    conv3x3_supported,
+    halo_conv_supported,
+)
 from d3roma_tpu_torch.ops.kernels.quantize import (
     fp32,
     ieee_div,
@@ -55,9 +71,15 @@ from d3roma_tpu_torch.ops.kernels.quantize import quantize_int8_plain as quantiz
 
 # the uncalibrated activation scale: normalized activations rarely exceed ~8
 STATIC_ACT_SCALE = 8.0 / 127.0
-QUANT_MODES = (False, "static", "mxu", "halo", "wino_static")
+QUANT_MODES = (False, True, "all", "dense", "static", "mxu", "halo", "wino", "wino_static")
 # the modes whose int8 sites take static (calibrated) activation scales
 STATIC_MODES = ("static", "mxu", "halo", "wino_static")
+# the modes with dynamic int8 convolutions, and with dynamic int8 dense layers
+DYNAMIC_CONV_MODES = (True, "all")
+DYNAMIC_DENSE_MODES = (True, "all", "dense")
+# the modes whose whole-row attention sites take the int8 kernel
+INT8_ATTENTION_MODES = DYNAMIC_CONV_MODES + STATIC_MODES
+
 
 
 class _ActScaleCtx(threading.local):
@@ -66,6 +88,7 @@ class _ActScaleCtx(threading.local):
     def __init__(self):
         self.mode = None
         self.taps = None
+        self.quantiles = None
         self.shape_log = None
         self.scales = None
         self.idx = 0
@@ -76,9 +99,10 @@ _ACTX = _ActScaleCtx()
 
 
 class _ScaleCtxManager:
-    def __init__(self, mode: str, payload, pins=(), shape_log=None):
+    def __init__(self, mode: str, payload, pins=(), shape_log=None, quantiles=None):
         self.mode, self.payload = mode, payload
         self.pins, self.shape_log = pins, shape_log
+        self.quantiles = tuple(float(q) for q in quantiles) if quantiles else None
 
     def __enter__(self):
         if _ACTX.mode is not None:
@@ -87,6 +111,7 @@ class _ScaleCtxManager:
         if self.mode == "capture":
             _ACTX.taps = self.payload
             _ACTX.shape_log = self.shape_log
+            _ACTX.quantiles = self.quantiles
         else:
             _ACTX.scales = [float(s) for s in self.payload]
             _ACTX.idx = 0
@@ -110,11 +135,13 @@ def act_ctx_mode() -> Optional[str]:
     return _ACTX.mode
 
 
-def capture_act_scales(taps: list, shape_log: Optional[list] = None):
+def capture_act_scales(taps: list, shape_log: Optional[list] = None, quantiles=None):
     """Context: every static int8 op appends absmax(x)/127 (a 0-d fp32
-    tensor) to `taps` and computes in float; with `shape_log`, also appends
-    (kind, shape) per call, kind one of "dot", "conv", "attn", "geglu"."""
-    return _ScaleCtxManager("capture", taps, shape_log=shape_log)
+    tensor) to `taps` and computes in float; with `quantiles` (e.g.
+    (0.999,)) each tap is the vector [absmax, q...]/127 of |x|'s quantiles
+    (abs_quantiles); with `shape_log`, also appends (kind, shape) per call,
+    kind one of "dot", "conv", "attn", "geglu"."""
+    return _ScaleCtxManager("capture", taps, shape_log=shape_log, quantiles=quantiles)
 
 
 def replay_act_scales(scales: Sequence[float], pins=()):
@@ -130,7 +157,10 @@ def consume_act_scale(x: torch.Tensor, kind: str) -> Tuple[str, Optional[float]]
     if _ACTX.mode == "capture":
         if _ACTX.shape_log is not None:
             _ACTX.shape_log.append((kind, tuple(int(d) for d in x.shape)))
-        m = x.detach().float().abs().amax()
+        ax = x.detach().float().abs()
+        m = ax.amax()
+        if _ACTX.quantiles:
+            m = torch.cat([m[None], abs_quantiles(ax, _ACTX.quantiles)])
         _ACTX.taps.append(ieee_div(m, 127.0))
         return "float", None
     if _ACTX.mode == "replay":
@@ -145,6 +175,42 @@ def consume_act_scale(x: torch.Tensor, kind: str) -> Tuple[str, Optional[float]]
             return "float", None
         return "int8", _ACTX.scales[i]
     return "int8", STATIC_ACT_SCALE
+
+
+def abs_quantiles(ax: torch.Tensor, quantiles: Sequence[float]) -> torch.Tensor:
+    """jnp.quantile(ax.ravel(), quantiles) (method "linear") of a tensor of
+    |x| values, fp32 [len(quantiles)]: the position q * (n - 1) in fp32 (n
+    converted to fp32, as JAX converts it), the order statistics at its
+    floor and ceiling, a[lo] * (1 - w) + a[hi] * w with w the position's
+    fraction (in the jitted form's order of arithmetic). torch.quantile refuses tensors of more than 2^24 elements
+    (the VAE's sites hold ~1e9 at batch 16): the two order statistics come
+    from one torch.topk from the nearer end (k = n * (1 - q) + 1 elements
+    for a high quantile), the positions from the shape alone, so nothing is
+    read back to the host."""
+    flat = ax.reshape(-1)
+    count = flat.numel()
+    n = np.float32(count)
+    out = []
+    for q in quantiles:
+        pos = np.float32(np.float32(q) * (n - np.float32(1.0)))
+        lo, hi = np.floor(pos), np.ceil(pos)
+        w_hi = np.float32(pos - lo)
+        w_lo = np.float32(np.float32(1.0) - w_hi)
+        # clamped to n - 1 in fp32 (n itself rounded past 2^24), then to the
+        # last element, as JAX's gather clamps an index past the end
+        lo = min(int(min(max(lo, 0.0), n - 1)), count - 1)
+        hi = min(int(min(max(hi, 0.0), n - 1)), count - 1)
+        if count - lo <= hi + 1:  # the largest count - lo values, descending
+            top = torch.topk(flat, count - lo, largest=True, sorted=True).values
+            a_lo, a_hi = top[count - 1 - lo], top[count - 1 - hi]
+        else:  # the smallest hi + 1 values, ascending
+            top = torch.topk(flat, hi + 1, largest=False, sorted=True).values
+            a_lo, a_hi = top[lo], top[hi]
+        # a_lo * w_lo + round(a_hi * w_hi) with one rounding of the sum (the
+        # fused multiply-add the jitted JAX form compiles to; exact products
+        # in fp64)
+        out.append((a_lo.double() * float(w_lo) + (a_hi * float(w_hi)).double()).float())
+    return torch.stack(out)
 
 
 def _int_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -176,6 +242,29 @@ def int8_linear(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor, act_scale: 
     if b is not None:
         out = out + b
     return out.reshape(lead + (n,))
+
+
+def int8_linear_dynamic(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
+                        bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The dynamic int8 dense (`int8_dot_general`): each row of x [..., K]
+    quantized at its own scale max(absmax * fp32(1/127), 1e-8), exact int32
+    sums with wq [N, K], (acc * s_row) * ws in fp32, one cast to x's type,
+    the bias added in that type. The dynamic int8 conv kernel as a 1x1
+    convolution over the rows, each row a scale group."""
+    lead, k, n = x.shape[:-1], x.shape[-1], wq.shape[0]
+    b = None if bias is None else bias.to(x.dtype)
+    out = conv2d_int8_dynamic(x.reshape(1, 1, -1, k), wq.view(n, 1, 1, k), ws, b, 1, 0,
+                              per_row=True)
+    return out.reshape(lead + (n,))
+
+
+def int8_conv_dynamic(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
+                      bias: Optional[torch.Tensor], stride: int, padding: int) -> torch.Tensor:
+    """The dynamic int8 convolution (`int8_conv_general_dilated`): each
+    batch item of x (NHWC, the compute type) quantized at its own scale,
+    exact int32 sums with wq [Cout, KH, KW, Cin], (acc * s_item) * ws, one
+    cast, the bias (in x's type) added after it."""
+    return conv2d_int8_dynamic(x, wq, ws, bias, stride, padding)
 
 
 def int8_conv_static(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
@@ -232,8 +321,9 @@ INT8_CONV_ROUTES = {"static": int8_conv_static, "wino_static": int8_conv_static,
                     "mxu": int8_conv_mxu, "halo": int8_conv_halo}
 
 
-def stack_taps(taps: List[torch.Tensor]) -> np.ndarray:
-    """The captured taps of one pass as an fp32 numpy vector."""
+def stack_taps(taps: List[torch.Tensor], width: int = 1) -> np.ndarray:
+    """The captured taps of one pass as fp32 numpy: a vector of scalar taps,
+    or [calls, width] rows of quantile taps."""
     if not taps:
-        return np.zeros((0,), np.float32)
+        return np.zeros((0,) if width == 1 else (0, width), np.float32)
     return torch.stack([t.float() for t in taps]).cpu().numpy().astype(np.float32)

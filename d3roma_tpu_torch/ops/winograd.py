@@ -1,11 +1,14 @@
-"""The "wino_static" routing of convolutions: Winograd F(2x2, 3x3) where the
-JAX package's fused TPU kernel would take the shape, the static int8 conv
-everywhere else.
+"""The Winograd routing of convolutions. "wino_static": Winograd F(2x2, 3x3)
+where the JAX package's fused TPU kernel would take the shape, the static
+int8 conv everywhere else. "wino": Winograd at every stride-1 SAME 3x3 conv
+inside the liveness cap, the float conv outside it. On the card both run
+the Winograd kernel at every Winograd site (`winograd_conv`).
 
 Port of `d3roma_tpu/ops/winograd.py`: `winograd_supported`,
-`_wino_eligible` (the batch-dependent liveness cap, with
-`D3ROMA_WINO_SLAB_MB` and `D3ROMA_WINO_CHUNK`), `_wino_or_fallback` with
-`require_fused=True` and `wino_static_conv_general_dilated`. The routing is
+`winograd_conv3x3`, `_wino_eligible` (the batch-dependent liveness cap,
+with `D3ROMA_WINO_SLAB_MB` and `D3ROMA_WINO_CHUNK`), `_wino_dispatch`,
+`_wino_or_fallback`, `wino_conv_general_dilated` and
+`wino_static_conv_general_dilated`. The routing is
 shape arithmetic only, the same in capture and replay and on every device,
 so a Winograd site consumes no activation scale in either package and the
 calibrated tables keep the JAX call order. A chunked site (D3ROMA_WINO_CHUNK=1
@@ -14,8 +17,9 @@ each, as the JAX package maps over them.
 
 `D3ROMA_WINO_FUSED` has no counterpart here: on the TPU it chooses between
 two implementations of the same arithmetic (the fused Pallas kernel and an
-XLA formulation); the port has one, the Winograd kernel on CUDA and its
-plain version on the CPU.
+XLA formulation); on CUDA the port has one, the Winograd kernel. On the CPU
+its plain version and the XLA formulation split the sites as the JAX
+package's CPU run does, so the tests can hold one against the other.
 """
 
 from __future__ import annotations
@@ -25,7 +29,12 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from d3roma_tpu_torch.ops.kernels.winograd import conv3x3_winograd, pick_config
+from d3roma_tpu_torch.ops.kernels.winograd import (
+    conv3x3_winograd,
+    conv3x3_winograd_plain,
+    pick_config,
+)
+from d3roma_tpu_torch.ops.quant import act_ctx_mode
 
 # estimated V + M liveness, MB, of the JAX package's XLA formulation
 _WINO_LIVENESS_CAP_MB = 3072
@@ -84,10 +93,33 @@ def conv_hwio_shape(weight: torch.Tensor) -> Tuple[int, int, int, int]:
     return (kh, kw, c, o)
 
 
+def winograd_conv3x3(x: torch.Tensor, u: torch.Tensor, out_dtype: torch.dtype,
+                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The JAX package's XLA formulation of Winograd F(2x2, 3x3), as plain
+    torch ops (the JAX package leaves it to XLA): x in fp32 as it is, V in
+    fp32 rounded to bf16, U = winograd_weight(w) in bf16, the 16 tap
+    products with fp32 sums, the output transform in fp32, one cast to
+    `out_dtype`; `bias` added in that type."""
+    return conv3x3_winograd_plain(x, u, out_dtype, bias, round_x=False)
+
+
 def winograd_conv(x: torch.Tensor, u: torch.Tensor, out_dtype: torch.dtype,
                   bias: Optional[torch.Tensor], chunk: int) -> torch.Tensor:
-    """The Winograd conv of a routed site, over batch chunks of `chunk`."""
+    """The Winograd conv of a routed site ("wino_static" or "wino"), over
+    batch chunks of `chunk`. CUDA tensors take the Winograd kernel at every
+    site. Elsewhere the JAX package's own split is kept: on the CPU the
+    kernel's plain version where `pick_config` admits the chunk's shape (the
+    fused TPU kernel's sites) outside a calibration capture, the XLA
+    formulation at the other sites, under a capture and on the meta device
+    (quant_call_map's trace). The two differ only in rounding x to bf16,
+    which a bf16 model's x already is."""
+    if x.device.type == "cuda":
+        conv = conv3x3_winograd
+    elif (x.device.type == "cpu" and act_ctx_mode() != "capture"
+          and pick_config((chunk,) + tuple(x.shape[1:])) is not None):
+        conv = conv3x3_winograd
+    else:
+        conv = winograd_conv3x3
     if chunk >= x.shape[0]:
-        return conv3x3_winograd(x, u, out_dtype, bias)
-    return torch.cat([conv3x3_winograd(xc, u, out_dtype, bias)
-                      for xc in x.split(chunk)], dim=0)
+        return conv(x, u, out_dtype, bias)
+    return torch.cat([conv(xc, u, out_dtype, bias) for xc in x.split(chunk)], dim=0)

@@ -2,33 +2,44 @@
 embedding + sampler + normalizer.
 
 Port of `d3roma_tpu/pipelines/pipeline.py::GuidedLatentDiffusionPipeline`:
-`__call__`, `half_precision`, `fast_inference("latency")` (bf16 weights,
-the whole-row attention kernel at self-attention sites of >= 512 tokens, the
-fused GEGLU kernel), `fast_inference("throughput")` (the same with the
-static int8 mode in the UNet and the VAE), `fast_inference("wino")` (the
-same with the "wino_static" mode: Winograd at the convs it routes there),
-`fuse_norms`, `deepcache` and `calibrate` (without quantiles). Guidance, the
-other int8 modes, split programs / scan chunks and the compiled-program
-cache are not ported yet and raise NotImplementedError.
+`__call__`, `half_precision`, `quantize_int8` (dynamic int8 in the UNet and
+the VAE), `fast_inference("latency")` (bf16 weights, the whole-row
+attention kernel at self-attention sites of >= 512 tokens, the fused GEGLU
+kernel), `fast_inference("throughput")` (the same with the static int8 mode
+in the UNet and the VAE), `fast_inference("dense")` (the same with dynamic
+int8 at the dense layers only), `fast_inference("wino")` (the same with the
+"wino_static" mode: Winograd at the convs it routes there), `fuse_norms`,
+`deepcache`, `calibrate` (with optional |activation| quantiles),
+`quant_call_map`, `kind_pins` and `with_act_clipping`. Guidance, split
+programs / scan chunks and the compiled-program cache are not ported yet
+and raise NotImplementedError.
 
 Unlike the JAX package's, whose methods return a replaced copy, this
-pipeline's configuration methods change the pipeline (and its models) in
-place and return it.
+pipeline's configuration methods (`half_precision`, `quantize_int8`,
+`set_quant`, `fast_inference`, `fuse_norms`, `deepcache`, `calibrate`,
+`with_act_clipping`) change the pipeline (and its models) in place and
+return it: a caller that derives several configurations from one base
+pipeline copies it first. `quant_call_map` and `kind_pins` change nothing.
 
 `act_scales` keeps the JAX package's JSON form: tables "unet",
 "unet_cached", "vae_encode", "vae_decode" (and "<table>@pins"), lists of
-floats in call order. Each forward replays its table in its own context.
+floats in call order; after `calibrate(quantiles=...)` also "<table>@q"
+(each call's [absmax, q...]/127) and "@quantiles". Each forward replays its
+table in its own context.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Dict, List, Optional
+import itertools
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from d3roma_tpu_torch.device import DeviceLike, resolve_device
+from d3roma_tpu_torch.models.layers import _Cached
 from d3roma_tpu_torch.models.unet2d_condition import UNet2DCondition
 from d3roma_tpu_torch.models.vae import AutoencoderKL, decode_latent, encode_image_to_latent
 from d3roma_tpu_torch.ops.normalizer import Normalizer
@@ -73,7 +84,7 @@ class GuidedLatentDiffusionPipeline:
     device: DeviceLike = None
     guidance: Optional[GuidanceConfig] = None
     # calibrated static-int8 activation scales (see the module docstring)
-    act_scales: Optional[Dict[str, List[float]]] = None
+    act_scales: Optional[Dict[str, list]] = None
     # DeepCache: groups of one full and cache_interval - 1 shallow passes,
     # or an explicit F/S step pattern (which overrides the interval)
     cache_interval: int = 1
@@ -96,11 +107,18 @@ class GuidedLatentDiffusionPipeline:
         return self
 
     def set_quant(self, quant) -> "GuidedLatentDiffusionPipeline":
-        """The int8 mode (False, "static", "mxu", "halo" or "wino_static") of
-        the UNet and the VAE."""
+        """The int8 mode (one of ops/quant.py's QUANT_MODES) of the UNet and
+        the VAE."""
         self.unet.set_quant(quant)
         self.vae.set_quant(quant)
         return self
+
+    def quantize_int8(self) -> "GuidedLatentDiffusionPipeline":
+        """Dynamic int8 (quant=True) in the UNet and the VAE: every dense
+        layer and convolution of their quantized sites takes its own
+        per-row or per-batch-item activation scale, computed on the device;
+        the whole-row attention sites run the int8 kernel. In place."""
+        return self.set_quant(True)
 
     def fast_inference(self, mode: str = "throughput") -> "GuidedLatentDiffusionPipeline":
         """"latency": bf16 weights, the whole-row attention kernel at the
@@ -109,13 +127,14 @@ class GuidedLatentDiffusionPipeline:
         static int8 mode in the UNet and the VAE (the int8 attention, GEGLU
         and conv kernels). "wino": the same with the "wino_static" mode (the
         Winograd kernel at the stride-1 3x3 convs ops/winograd.py routes
-        there, static int8 elsewhere). "off" returns the pipeline unchanged.
-        "dense" is not ported yet."""
+        there, static int8 elsewhere). "dense": the latency kernels with
+        dynamic int8 at the dense layers only (the attention sites take the
+        bf16 kernel, the feed-forwards run unfused). "off" returns the
+        pipeline unchanged."""
         if mode in ("off", "", None):
             return self
-        if mode == "dense":
-            raise NotImplementedError(f"fast_inference({mode!r}) is not ported yet")
-        quant = {"latency": False, "throughput": "static", "wino": "wino_static"}.get(mode, None)
+        quant = {"latency": False, "throughput": "static", "wino": "wino_static",
+                 "dense": "dense"}.get(mode, None)
         if quant is None:
             raise ValueError(f"unknown fast_inference mode {mode!r}")
         pipe = self.half_precision()
@@ -195,11 +214,13 @@ class GuidedLatentDiffusionPipeline:
 
     def calibrate(self, generator: Optional[torch.Generator], batches,
                   cond_channels: str = "rgb+raw", num_inference_steps: int = 10,
-                  margin: float = 1.25,
+                  margin: float = 1.25, quantiles: Optional[Sequence[float]] = None,
                   shape_logs: Optional[Dict[str, list]] = None) -> "GuidedLatentDiffusionPipeline":
         """Calibrate the static int8 activation scales and keep them in
         `act_scales` (the UNet and the VAE are switched to quant="static"
-        first if they are in no static mode).
+        first if the UNet is in no static mode, as the JAX package does:
+        so a pipeline with a bf16 UNet and a static VAE, the JAX bench's
+        "vae8", runs static int8 in both after calibration).
 
         Capture passes record absmax(x)/127 at every quantized site, in call
         order, with the ops in float: one stacked VAE encode of the
@@ -210,6 +231,12 @@ class GuidedLatentDiffusionPipeline:
         the decode of the final x_hat0 and of the raw condition's latent.
         Each table is the maximum over `batches` times `margin`.
 
+        `quantiles` (e.g. (0.999,)): each tap also records those quantiles
+        of |x| (ops/quant.py::abs_quantiles); the tables stay absmax-based,
+        and the raw per-call [absmax, q...]/127 rows are kept under
+        "<table>@q", the quantiles under "@quantiles", for
+        `with_act_clipping`.
+
         `batches`: dicts with the __call__ condition tensors (rgb_images,
         left_images, right_images, sim_disp) and optionally `latents`, the
         initial noise (else drawn from `generator`, fp32). `shape_logs`, a
@@ -218,15 +245,16 @@ class GuidedLatentDiffusionPipeline:
         if self.unet.quant not in STATIC_MODES:
             self.set_quant("static")
         tabs: Dict[str, Optional[np.ndarray]] = {k: None for k in ACT_TABLES}
+        width = 1 + len(quantiles or ())
 
         def capture(table, fn, *args):
             taps: list = []
             log = [] if shape_logs is not None and table not in shape_logs else None
-            with capture_act_scales(taps, shape_log=log):
+            with capture_act_scales(taps, shape_log=log, quantiles=quantiles):
                 out = fn(*args)
             if log is not None:
                 shape_logs[table] = log
-            arr = stack_taps(taps)
+            arr = stack_taps(taps, width)
             tabs[table] = arr if tabs[table] is None else np.maximum(tabs[table], arr)
             return out
 
@@ -274,8 +302,97 @@ class GuidedLatentDiffusionPipeline:
                 if "raw" in lat:  # intermediates also decode the condition's latent
                     capture("vae_decode", decode, lat["raw"])
 
-        self.act_scales = {k: [float(max(v * margin, 1e-8)) for v in tab]
-                           for k, tab in tabs.items() if tab is not None and tab.size}
+        act_scales: Dict[str, list] = {}
+        for k, tab in tabs.items():
+            if tab is None or not tab.size:
+                continue
+            absmax = tab[:, 0] if quantiles else tab
+            act_scales[k] = [float(max(v * margin, 1e-8)) for v in absmax]
+            if quantiles:
+                act_scales[k + "@q"] = [[float(x) for x in row] for row in tab]
+        if quantiles:
+            act_scales["@quantiles"] = [float(q) for q in quantiles]
+        self.act_scales = act_scales
+        return self
+
+    def quant_call_map(self, batch: int = 16, height: int = 360,
+                       width: int = 640) -> Dict[str, list]:
+        """The static-int8 call order, {"unet": [(kind, shape), ...],
+        "unet_cached": [...]}, kind one of "dot", "conv", "attn", "geglu":
+        which layer each index of a replay table belongs to, for a call at
+        `batch` x `height` x `width` (the gates are shape-dependent: give
+        the deployment's shapes, as to calibrate()).
+
+        From an abstract capture trace of a full and a shallow UNet pass:
+        a replica of the UNet on the meta device (no weight copied, no data
+        read, nothing launched), switched to "static" if the UNet is in no
+        static mode, as the JAX package's `jax.eval_shape` trace is. The
+        replica's attention and GroupNorm sites take their plain versions
+        (their kernels take no tap, so the call order is the same; the
+        fused self-attention, which takes one, runs its capture math
+        inline, as it does under calibration). The pipeline is not
+        changed."""
+        unet = _meta_replica(self.unet)
+        if unet.quant not in STATIC_MODES:
+            unet.set_quant("static")
+        route = unet.use_flash_attention
+        unet.set_kernels(use_flash_attention="fused" if route == "fused" else False,
+                         fused_norm=False)
+        dt = unet.conv_in.weight.dtype
+        x = torch.empty((batch, height // 8, width // 8, unet.in_channels), dtype=dt,
+                        device="meta")
+        t = torch.empty((batch,), dtype=torch.int32, device="meta")
+        ctx = torch.empty((batch,) + tuple(self.text_embed.shape[1:]), dtype=dt,
+                          device="meta")
+        logs: Dict[str, list] = {"unet": [], "unet_cached": []}
+        with torch.no_grad():
+            with capture_act_scales([], shape_log=logs["unet"]):
+                _, trunk = unet(x, t, ctx, return_trunk=True)
+            with capture_act_scales([], shape_log=logs["unet_cached"]):
+                unet(x, t, ctx, cached_trunk=trunk)
+        return logs
+
+    def kind_pins(self, kinds, batch: int = 16, height: int = 360,
+                  width: int = 640) -> Dict[str, List[int]]:
+        """The pins ({table: [call indices]}, `with_act_clipping`'s form)
+        of every "unet" and "unet_cached" call whose kind is in `kinds`
+        ("dot", "conv", "attn", "geglu"): those calls then run in float at
+        replay (a per-layer-class ablation of the int8 drift)."""
+        kinds = frozenset(kinds)
+        return {tab: [i for i, (kind, _) in enumerate(log) if kind in kinds]
+                for tab, log in self.quant_call_map(batch, height, width).items()}
+
+    def with_act_clipping(self, percentile: Optional[float] = None, margin: float = 1.25,
+                          pins: Optional[Dict[str, Sequence[int]]] = None
+                          ) -> "GuidedLatentDiffusionPipeline":
+        """Re-derive the replay tables from a quantile-recording calibration
+        (calibrate(quantiles=...)), without a new capture. `percentile`: one
+        of the captured quantiles to set each scale at (times `margin`), or
+        None for absmax; with None and a margin other than 1.25, the tables
+        are re-derived from the recorded absmax at that margin. `pins`:
+        {table: [call indices]} to run in float at replay, kept as
+        "<table>@pins" (earlier pins are dropped). In place."""
+        if not self.act_scales:
+            raise ValueError("calibrate() first")
+        new = {k: v for k, v in self.act_scales.items() if not k.endswith("@pins")}
+        has_q = any(k.endswith("@q") for k in new)
+        if percentile is not None:
+            qlist = [float(q) for q in self.act_scales.get("@quantiles") or ()]
+            if float(percentile) not in qlist:
+                raise ValueError(f"percentile {percentile} not captured; available: {qlist} "
+                                 f"(re-run calibrate(quantiles=...))")
+            col = 1 + qlist.index(float(percentile))
+        elif has_q and margin != 1.25:
+            col = 0
+        else:
+            col = None
+        if col is not None:
+            for k in [k for k in new if k.endswith("@q")]:
+                new[k[:-2]] = [float(max(row[col] * margin, 1e-8)) for row in new[k]]
+        for name, idx in (pins or {}).items():
+            if new.get(name):
+                new[name + "@pins"] = sorted(int(i) for i in idx)
+        self.act_scales = new
         return self
 
     def __call__(
@@ -327,3 +444,19 @@ class GuidedLatentDiffusionPipeline:
                 cache_schedule=self.cache_schedule)
             return latent_decode_images(
                 self._replayed(lambda z: decode_latent(self.vae, z), "vae_decode"), kept)
+
+
+def _meta_replica(module: torch.nn.Module) -> torch.nn.Module:
+    """A copy of `module` whose parameters and buffers are meta tensors of
+    the same shapes and dtypes (no data copied) and whose cached kernel
+    operands start empty: forwards through it compute shapes only."""
+    memo = {}
+    for t in itertools.chain(module.parameters(), module.buffers()):
+        meta = t.detach().to("meta")
+        memo[id(t)] = torch.nn.Parameter(meta, requires_grad=False) \
+            if isinstance(t, torch.nn.Parameter) else meta
+    for m in module.modules():
+        for v in vars(m).values():
+            if isinstance(v, _Cached):
+                memo[id(v)] = _Cached(v._make)
+    return copy.deepcopy(module, memo)

@@ -255,7 +255,8 @@ def latent_denoise(
         cache_interval=cache_interval, model_fn_trunk=model_fn_trunk,
         model_fn_cached=model_fn_cached, cache_schedule=cache_schedule)
     kept = _kept_indices(num_inference_steps, num_intermediate_images)
-    return x0_stack[torch.as_tensor(kept, device=x0_stack.device)]
+    # views stacked, not an index tensor: no host-to-device copy, no sync
+    return torch.stack([x0_stack[int(i)] for i in kept])
 
 
 def latent_decode_images(vae_decode: Callable[[torch.Tensor], torch.Tensor],

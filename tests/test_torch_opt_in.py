@@ -143,8 +143,8 @@ def test_configuration():
     assert all(m.fused for m in list(unet.modules()) + list(vae.modules())
                if isinstance(m, GroupNormSiLU))
     assert unet.use_flash_attention == "pallas-self" and unet.fused_ff
-    with pytest.raises(NotImplementedError, match="dense"):
-        pipe.fast_inference("dense")
+    # "dense" is ported since the bench's slice: dynamic int8 at the dense layers
+    assert pipe.fast_inference("dense") is pipe and unet.quant == vae.quant == "dense"
 
 
 def test_calibration_matches_jax(opt_in):

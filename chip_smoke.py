@@ -32,11 +32,17 @@ failing the run on its own error:
    host plan of the call; every int8 op that quantizes its input in its own
    launch (the int8 conv in each epilogue, split and not, the int8 dense,
    the int8 GEGLU, the fused int8 attention, and the dynamic int8 conv and
-   dense, whose scales the call computes on the device) run back to back
-   on two distinct inputs after a third, through the one reused int8
-   workspace, both results bit-equal to the plain version (a consumer that read the
-   workspace before its quantize finished would return the input before's
-   result); the fused GroupNorm at one device op a call, bit-identical
+   dense, whose scales the call computes on the device, on each of its four
+   routes) run back to back on two distinct inputs after a third, through
+   the one reused int8 workspace, both results bit-equal to the plain
+   version (a consumer that read the workspace before its quantize finished
+   would return the input before's result); the dynamic int8 conv and dense
+   bit-equal at the "all" path's batch-2 conv and dense shapes (timed), at
+   the batch-16 dense shapes and ragged and all-zero ones, the 1x1 and
+   stride-2 convolutions on both the loader-quantize and the separate
+   route, convolutions of 130 and 300 batch items (launched in chunks of at
+   most 128), each case at the device ops its plan states and with no
+   memset; the fused GroupNorm at one device op a call, bit-identical
    across two calls, within tolerance of its plain version at the opt-in
    path's shapes, the gate's 4 MiB edge and ragged ones, with its plan;
 4. latency path: GuidedLatentDiffusionPipeline.fast_inference("latency")
@@ -764,16 +770,18 @@ def pdl_race_cases(gen):
     return rows
 
 
-def _dynamic_operands(b, h, w, cin, cout, k, gen, zero_item=False):
+def _dynamic_operands(b, h, w, cin, cout, k, gen, zero_item=False, spread=True):
     """x [b, h, w, cin] bf16 whose batch items (rows, for a dense: h = 1) have
-    different absmax (item i scaled by 1 + i, one item all zeros with
-    zero_item), a weight quantized as the port quantizes it, and a bias."""
+    different absmax (item i scaled by 1 + i, with `spread`; one item all
+    zeros with zero_item), a weight quantized as the port quantizes it, and a
+    bias."""
     import torch
 
     from d3roma_tpu_torch.ops.quant import quantize_weight
 
     x = torch.randn((b, h, w, cin), generator=gen, device="cuda")
-    x = x * torch.arange(1, b + 1, device="cuda").view(b, 1, 1, 1)
+    if spread:
+        x = x * torch.arange(1, b + 1, device="cuda").view(b, 1, 1, 1)
     if zero_item:
         x[-1] = 0.0
     wt = (torch.randn((cout, k, k, cin), generator=gen, device="cuda")
@@ -782,23 +790,80 @@ def _dynamic_operands(b, h, w, cin, cout, k, gen, zero_item=False):
     return x.to(torch.bfloat16), wt, *quantize_weight(wt), bias
 
 
-def _dynamic_case(b, h, w, cin, cout, k, stride, padding, gen, timed, zero_item=False):
-    """The dynamic int8 conv kernel (per-batch-item scales computed on the
-    device, "xla" order) against its plain version: bit-equal."""
+def _dynamic_plan_fields(b, h, w, cin, cout, k, stride, padding, per_row, route=None):
+    """The plan of one launch (dynamic_plan's, or route_plan's on `route`)
+    and its fields for a row."""
+    import torch
+
+    from d3roma_tpu_torch.ops.kernels import _build, conv2d
+
+    if route is None:
+        plan, _, _ = conv2d.dynamic_launch_ints(b, h, w, cin, cout, k, k, stride, padding,
+                                                per_row, torch.device("cuda", 0))
+    else:
+        plan = conv2d.route_plan(route, b, h, w, cin, cout, k, k, stride, padding,
+                                 _build.sm_count(0))
+    fields = {"route": plan.route, "chunks": plan.chunks, "team": plan.team,
+              "smem_bytes": plan.smem_bytes, "planned_ops": plan.device_ops}
+    if plan.conv is not None:
+        fields.update(box=list(plan.conv.box), bn=plan.conv.bn, splits=plan.conv.splits)
+    return plan, fields
+
+
+def _check_dynamic_ops(name, row, plan, fn, sessions: int = 3):
+    """The device ops of one call: each of a dynamic call's launches is a
+    kernel of its own, so the distinct device activities of calls of fn
+    (torch.profiler, the union over `sessions` sessions of two calls: a busy
+    session can drop an event, never add one) must be the plan's count,
+    with no memset; a dense at most 2 (3 with a split), 1 on the small
+    route; a loader convolution at most 2 plus a split sum."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    _sync()
+    names = set()
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            fn()
+            _sync()
+        names |= {evt.key for evt in prof.key_averages()
+                  if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA}
+    row["device_ops"] = len(names)
+    split = plan.conv is not None and plan.conv.splits > 1
+    limit = {"small": 1, "rows": 2, "loader": 2, "separate": 3}[plan.route] + split
+    memsets = [n for n in names if "memset" in n.lower()]
+    if len(names) != plan.device_ops or len(names) > limit or memsets:
+        raise AssertionError(f"{name} {row['shape']}: {len(names)} device ops a call (plan "
+                             f"{plan.device_ops}, at most {limit}), memsets {memsets}: "
+                             f"{sorted(names)}")
+
+
+def _dynamic_case(b, h, w, cin, cout, k, stride, padding, gen, timed, zero_item=False,
+                  route=None):
+    """The dynamic int8 conv kernels (per-batch-item scales computed on the
+    device, "xla" order) on the plan's route (or `route`) against their
+    plain version: bit-equal, with the device ops of a call checked."""
     import torch
     import torch.nn.functional as F
 
     from d3roma_tpu_torch.ops.kernels import conv2d_int8_dynamic, conv2d_int8_dynamic_plain
-    from d3roma_tpu_torch.ops.kernels.conv2d import conv_out_hw
+    from d3roma_tpu_torch.ops.kernels.conv2d import _dynamic_on_route, conv_out_hw
 
     x, wt, wq, ws, bias = _dynamic_operands(b, h, w, cin, cout, k, gen, zero_item)
-    out = conv2d_int8_dynamic(x, wq, ws, bias, stride, padding)
+    if route is None:
+        kernel = lambda: conv2d_int8_dynamic(x, wq, ws, bias, stride, padding)  # noqa: E731
+    else:
+        kernel = lambda: _dynamic_on_route(route, x, wq, ws, bias, stride, padding)  # noqa: E731
+    out = kernel()
     ref = conv2d_int8_dynamic_plain(x, wq, ws, bias, stride, padding).float()
     _sync()
     err = (out.float() - ref).abs().max().item()
+    plan, fields = _dynamic_plan_fields(b, h, w, cin, cout, k, stride, padding, False, route)
     row = {"shape": [b, h, w, cin, cout, k, stride, padding], "zero_item": zero_item,
-           "max_abs_err": err, "tol": 0.0, "max_abs_out": ref.abs().max().item(),
-           **_conv_plan_fields(b, h, w, cin, cout, k, stride, padding, 1, "xla")}
+           "max_abs_err": err, "tol": 0.0, "max_abs_out": ref.abs().max().item(), **fields}
+    _check_dynamic_ops("conv2d_int8_dynamic", row, plan, kernel)
     if timed:
         xc = x.permute(0, 3, 1, 2)  # NCHW view, channels_last in memory
         wc = wt.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
@@ -806,8 +871,8 @@ def _dynamic_case(b, h, w, cin, cout, k, stride, padding, gen, timed, zero_item=
         ops = 2.0 * b * oh * ow * cout * k * k * cin
         nbytes = 2.0 * b * h * w * cin + 1.0 * cout * k * k * cin + 6.0 * cout + 2.0 * b * oh * ow * cout
         row["bound_ms"], row["bound_by"] = bound(ops, nbytes, H100_INT8_OPS)
-        _timed_against_library(row, lambda: conv2d_int8_dynamic(x, wq, ws, bias, stride, padding),
-                               lambda: F.conv2d(xc, wc, bias, stride, padding), split=True)
+        _timed_against_library(row, kernel, lambda: F.conv2d(xc, wc, bias, stride, padding),
+                               split=True)
         row["plain_ms"] = time_ms(
             lambda: conv2d_int8_dynamic_plain(x, wq, ws, bias, stride, padding), reps=3,
             warmup=1)
@@ -829,10 +894,11 @@ def _int_mm_dense(x2, wq, ws, bias):
 
 def _dynamic_dense_case(rows, c, n, gen, timed, zero_item=False):
     """A dynamic int8 dense (ops/quant.py::int8_linear_dynamic: the dynamic
-    kernel as a 1x1 convolution, one scale a row) against the plain
-    version: bit-equal. Its library call is torch._int_mm with the scaling
-    around it, where cuBLASLt takes the shape; where it refuses (16 rows or
-    fewer), bf16 F.linear, as the conv rows take bf16 F.conv2d."""
+    kernels over the rows, one scale a row) against the plain version:
+    bit-equal, with the device ops of a call checked. Its library call is
+    one bf16 F.linear, as the static dense rows have it; where cuBLASLt
+    takes the shape, the int8 composite (torch._int_mm with the per-row
+    scaling around it, four calls) is timed beside it as a note."""
     import torch.nn.functional as F
 
     from d3roma_tpu_torch.ops.kernels import conv2d_int8_dynamic_plain
@@ -841,77 +907,136 @@ def _dynamic_dense_case(rows, c, n, gen, timed, zero_item=False):
     x4, wt, wq, ws, bias = _dynamic_operands(rows, 1, 1, c, n, 1, gen, zero_item)
     x = x4.view(rows, c)
     wq, ws = wq.view(n, c), ws
-    out = int8_linear_dynamic(x, wq, ws, bias)
+    kernel = lambda: int8_linear_dynamic(x, wq, ws, bias)  # noqa: E731
+    out = kernel()
     ref = conv2d_int8_dynamic_plain(x.view(1, 1, rows, c), wq.view(n, 1, 1, c), ws, bias, 1, 0,
                                     per_row=True).view(rows, n).float()
     _sync()
     err = (out.float() - ref).abs().max().item()
+    plan, fields = _dynamic_plan_fields(1, 1, rows, c, n, 1, 1, 0, True)
     row = {"shape": [rows, c, n], "site": "dense", "zero_item": zero_item, "max_abs_err": err,
-           "tol": 0.0, "max_abs_out": ref.abs().max().item(),
-           **_conv_plan_fields(1, 1, rows, c, n, 1, 1, 0, 1, "xla")}
+           "tol": 0.0, "max_abs_out": ref.abs().max().item(), **fields}
+    _check_dynamic_ops("conv2d_int8_dynamic (dense)", row, plan, kernel)
     if timed:
         ops = 2.0 * rows * c * n
         nbytes = 2.0 * rows * c + 1.0 * n * c + 6.0 * n + 2.0 * rows * n
         row["bound_ms"], row["bound_by"] = bound(ops, nbytes, H100_INT8_OPS)
-        kernel = lambda: int8_linear_dynamic(x, wq, ws, bias)  # noqa: E731
+        w2 = wt.view(n, c)
+        _timed_against_library(row, kernel, lambda: F.linear(x, w2, bias), split=True)
+        row["library_call"] = "F.linear (bf16, cuBLAS)"
         try:
             lib = _int_mm_dense(x, wq, ws, bias)
             _sync()
-            row["library_max_diff"] = (lib.float() - ref).abs().max().item()
-        except RuntimeError as e:  # cuBLASLt's shape limits
-            row["library_refused"] = str(e)[:120]
-        if "library_refused" in row:
-            w2 = wt.view(n, c)
-            _timed_against_library(row, kernel, lambda: F.linear(x, w2, bias), split=True)
-            row["library_call"] = "F.linear (bf16, cuBLAS; torch._int_mm refuses the shape)"
-        else:
-            _timed_against_library(row, kernel, lambda: _int_mm_dense(x, wq, ws, bias),
-                                   split=True)
-            row["library_call"] = "torch._int_mm + per-row absmax, quantize, dequantize"
+            row["composite_max_diff"] = (lib.float() - ref).abs().max().item()
+            row["composite_ms"] = time_ms(lambda: _int_mm_dense(x, wq, ws, bias))
+        except RuntimeError as e:  # cuBLASLt's shape limits (16 rows or fewer)
+            row["composite_refused"] = str(e)[:120]
         row["plain_ms"] = time_ms(lambda: conv2d_int8_dynamic_plain(
             x.view(1, 1, rows, c), wq.view(n, 1, 1, c), ws, bias, 1, 0, per_row=True), reps=3,
             warmup=1)
     return _check_row("conv2d_int8_dynamic (dense)", row, err, 0.0)
 
 
+# The "all" path's dynamic conv sites at batch 2 (timed): the UNet's 3x3
+# (down block 0, up block 2), stride-2 downsampler and 1x1 shortcut, the VAE
+# encoder's 3x3 and stride-2 downsampler (both conditions: batch 4), the
+# VAE's 1x1 shortcut
+DYNAMIC_CONV_SHAPES = ((BATCH, 45, 80, 320, 320, 3, 1, 1), (BATCH, 23, 40, 1920, 640, 3, 1, 1),
+                       (BATCH, 45, 80, 320, 320, 3, 2, 1), (BATCH, 45, 80, 640, 320, 1, 1, 0),
+                       (2 * BATCH, H, W, 128, 128, 3, 1, 1),
+                       (2 * BATCH, H + 1, W + 1, 128, 128, 3, 2, 0),
+                       (BATCH, H, W, 256, 128, 1, 1, 0))
+# The transformers' dense layers at batch 2 (timed) and the cross-attention's
+# key and value projections of the 2-token context (4 rows); then batch 16:
+# at each UNet level (3600, 920, 240, 60 tokens at 320, 640, 1280, 1280
+# channels) the attention projections (C -> C), the unfused feed-forward's
+# two denses (C -> 8C, 4C -> C) and the key and value projections (32 rows,
+# 1024 -> C), as chip_smoke's "all" routing dry pass logs them
+DYNAMIC_DENSE_SHAPES = ((7200, 320, 320), (1840, 640, 640), (480, 1280, 1280),
+                        (2 * BATCH, 1024, 320))
+DYNAMIC_DENSE_SHAPES_B16 = tuple(
+    shape for t, c in ((3600, 320), (920, 640), (240, 1280), (60, 1280))
+    for shape in ((16 * t, c, c), (16 * t, c, 8 * c), (16 * t, 4 * c, c))) + tuple(
+        (32, 1024, c) for c in (320, 640, 1280))
+
+
+def _dynamic_many_items_case(b, h, w, cin, cout, k, stride, padding, gen):
+    """A dynamic convolution of more batch items than one launch's table of
+    scales holds (MAX_GROUPS): the call launches its chunks
+    (dynamic_chunks) and must be bit-equal to the plain version over the
+    whole batch, one call counted."""
+    from d3roma_tpu_torch.ops.kernels import conv2d_int8_dynamic, conv2d_int8_dynamic_plain
+    from d3roma_tpu_torch.ops.kernels.conv2d import dynamic_chunks, dynamic_plan
+
+    x, _, wq, ws, bias = _dynamic_operands(b, h, w, cin, cout, k, gen, zero_item=True)
+    before = conv2d_int8_dynamic.launches
+    out = conv2d_int8_dynamic(x, wq, ws, bias, stride, padding)
+    calls = conv2d_int8_dynamic.launches - before
+    ref = conv2d_int8_dynamic_plain(x, wq, ws, bias, stride, padding).float()
+    _sync()
+    err = (out.float() - ref).abs().max().item()
+    chunks = dynamic_chunks(b, False)
+    row = {"shape": [b, h, w, cin, cout, k, stride, padding], "zero_item": True,
+           "max_abs_err": err, "tol": 0.0, "chunks": [j - i for i, j in chunks],
+           "routes": [dynamic_plan(j - i, h, w, cin, cout, k, k, stride, padding, False).route
+                      for i, j in chunks], "calls_counted": calls}
+    if len(chunks) < 2 or calls != 1:
+        raise AssertionError(f"many items: {row}")
+    return _check_row("conv2d_int8_dynamic (chunks of items)", row, err, 0.0)
+
+
 def dynamic_int8_cases(gen):
-    """The dynamic int8 conv kernel at the "all" path's conv and dense
-    shapes (batch 2; timed), ragged ones and all-zero items (checked only),
-    and back to back on three inputs of different absmax through the reused
-    workspace (the quantize reads the scales the absmax kernel wrote, the
-    conv's epilogue reads them again: a stale or early read shows)."""
+    """The dynamic int8 kernels at the "all" path's conv and dense shapes
+    (batch 2; timed) and at the batch-16 dense shapes (checked only;
+    scripts/time_dynamic.py times them), each route's ragged shapes and
+    all-zero items (checked only), the 1x1 and stride-2 sites on both
+    convolution routes, a convolution of more batch items than one launch
+    takes, and each route back to back on three inputs of different absmax
+    through the reused workspace (the kernels read the scales the call
+    before them wrote: a stale or early read shows)."""
     import torch
 
     from d3roma_tpu_torch.ops.kernels import conv2d_int8_dynamic, conv2d_int8_dynamic_plain
     from d3roma_tpu_torch.ops.quant import int8_linear_dynamic
 
-    rows = [
-        _dynamic_case(BATCH, 45, 80, 320, 320, 3, 1, 1, gen, True),      # UNet down block 0
-        _dynamic_case(BATCH, 23, 40, 1920, 640, 3, 1, 1, gen, True),     # UNet up block 2
-        _dynamic_case(BATCH, 45, 80, 320, 320, 3, 2, 1, gen, True),      # UNet downsampler
-        _dynamic_case(2 * BATCH, H, W, 128, 128, 3, 1, 1, gen, True),    # VAE encoder
-        _dynamic_case(2 * BATCH, H + 1, W + 1, 128, 128, 3, 2, 0, gen, True),  # VAE down
-        _dynamic_case(BATCH, H, W, 256, 128, 1, 1, 0, gen, True)]        # VAE 1x1 shortcut
-    # the transformers' dense layers (batch 2) and the cross-attention's
-    # key and value projections of the 2-token context (4 rows)
-    rows += [_dynamic_dense_case(r, c, n, gen, True)
-             for r, c, n in ((7200, 320, 320), (1840, 640, 640), (480, 1280, 1280),
-                             (2 * BATCH, 1024, 320))]
+    rows = [_dynamic_case(*shape, gen, True) for shape in DYNAMIC_CONV_SHAPES]
+    rows += [_dynamic_dense_case(*shape, gen, True) for shape in DYNAMIC_DENSE_SHAPES]
+    b16 = [_dynamic_dense_case(*shape, gen, False) for shape in DYNAMIC_DENSE_SHAPES_B16]
+    for shape in DYNAMIC_CONV_SHAPES:  # the other route of the 1x1 and stride-2 sites
+        if shape[5] == 1 or shape[6] == 2:
+            for route in ("loader", "separate"):
+                _dynamic_case(*shape, gen, False, route=route)
     for shape in ((1, 7, 9, 32, 64, 3, 1, 1), (3, 5, 6, 64, 96, 3, 2, 1),
                   (2, 9, 11, 32, 130, 1, 1, 0), (5, 13, 17, 96, 34, 3, 2, 0),
-                  (3, 6, 10, 1280, 1280, 3, 1, 1)):
-        _dynamic_case(*shape, gen, False)
+                  (3, 6, 10, 1280, 1280, 3, 1, 1), (2, 9, 11, 96, 66, 1, 1, 0)):
+        for route in (None, "loader", "separate"):
+            _dynamic_case(*shape, gen, False, route=route)
+    for route in ("loader", "separate"):
+        _dynamic_case(3, 12, 20, 64, 64, 3, 2, 1, gen, False, zero_item=True, route=route)
+        _dynamic_case(3, 12, 20, 64, 64, 1, 1, 0, gen, False, zero_item=True, route=route)
     _dynamic_case(3, 12, 20, 64, 64, 3, 1, 1, gen, False, zero_item=True)
-    _dynamic_dense_case(100, 64, 8, gen, False, zero_item=True)
+    for r, c, n in ((100, 64, 8), (5, 96, 40), (64, 2048, 64), (65, 1024, 320),
+                    (300, 5120, 1280), (7, 320, 1280)):
+        _dynamic_dense_case(r, c, n, gen, False, zero_item=True)
     _dynamic_dense_case(3, 96, 40, gen, False)
+    for shape in ((130, 6, 10, 64, 64, 3, 2, 1), (130, 6, 10, 64, 64, 1, 1, 0),
+                  (300, 5, 7, 32, 64, 3, 1, 1)):
+        rows.append(_dynamic_many_items_case(*shape, gen))
 
     b2b = []
-    for b, h, w, cin, cout, k, stride, pad in ((BATCH, 23, 40, 1920, 640, 3, 1, 1),  # split
+    for b, h, w, cin, cout, k, stride, pad in ((BATCH, 23, 40, 1920, 640, 3, 1, 1),  # separate, split
                                                (2 * BATCH, 90, 160, 256, 256, 3, 2, 1),
-                                               (1, 1, 7200, 320, 320, 1, 1, 0)):
+                                               (BATCH, 45, 80, 320, 320, 3, 2, 1),
+                                               (BATCH, 90, 160, 256, 128, 1, 1, 0),  # loader
+                                               (BATCH, 45, 80, 640, 320, 1, 1, 0),
+                                               (1, 1, 7200, 320, 320, 1, 1, 0),     # rows
+                                               (1, 1, 960, 5120, 1280, 1, 1, 0),
+                                               (1, 1, 2 * BATCH, 1024, 320, 1, 1, 0),  # small
+                                               (1, 1, 32, 1024, 1280, 1, 1, 0)):
         per_row = b == 1
         xs = [_dynamic_operands(b, h, w, cin, cout, k, gen)[0] * f for f in (1.0, 3.0, 0.5)]
         _, _, wq, ws, bias = _dynamic_operands(1, 1, 1, cin, cout, k, gen)
+        plan, _ = _dynamic_plan_fields(b, h, w, cin, cout, k, stride, pad, per_row)
         if per_row:
             consumer = lambda x: int8_linear_dynamic(x.view(w, cin), wq.view(cout, cin), ws,  # noqa: E731
                                                      bias)
@@ -920,10 +1045,14 @@ def dynamic_int8_cases(gen):
         else:
             consumer = lambda x: conv2d_int8_dynamic(x, wq, ws, bias, stride, pad)  # noqa: E731
             expected = [conv2d_int8_dynamic_plain(x, wq, ws, bias, stride, pad) for x in xs[1:]]
-        b2b.append(_back_to_back("conv2d_int8_dynamic", (b, h, w, cin, cout, k, stride, pad),
-                                 consumer, expected, xs))
+        row = _back_to_back(f"conv2d_int8_dynamic ({plan.route})",
+                            (b, h, w, cin, cout, k, stride, pad), consumer, expected, xs)
+        b2b.append(dict(row, route=plan.route))
+    routes = {r["route"] for r in b2b}
+    if routes != {"small", "rows", "loader", "separate"}:
+        raise AssertionError(f"back to back: routes {routes}, want all four")
     _sync()
-    return rows, b2b
+    return rows, b2b, b16
 
 
 def attention_int8_cases(gen):
@@ -955,7 +1084,8 @@ def int8_kernel_phase():
     rows["geglu_int8"] = geglu_int8_cases(gen)
     rows["conv2d_int8"] = conv_int8_cases(gen)
     rows["back_to_back"] = pdl_race_cases(gen)
-    rows["conv2d_int8_dynamic"], rows["back_to_back_dynamic"] = dynamic_int8_cases(gen)
+    (rows["conv2d_int8_dynamic"], rows["back_to_back_dynamic"],
+     rows["conv2d_int8_dynamic_b16"]) = dynamic_int8_cases(gen)
     return rows
 
 
@@ -2182,8 +2312,12 @@ _KERNEL_GROUPS = (
     ("int8 whole-row attention kernels (mha_attention_int8; the fused attention's core)",
      ("mha_int8_rows_kernel", "mha_int8_wide_kernel", "absmax_kernel",
       "quantize_heads_kernel")),
-    ("dynamic int8 scales (per-group absmax, quantize at the groups' scales)",
-     ("absmax_groups_kernel", "act_quantize_groups_kernel")),
+    ("dynamic int8 absmax slots (convolutions' batch items)", ("absmax_slots_kernel",)),
+    ("dynamic int8 groups quantize (3x3 stride-1 convolutions)", ("act_quantize_groups_kernel",)),
+    ("dynamic int8 row quantize (dense layers)", ("row_quantize_kernel",)),
+    ("dynamic int8 small dense (one launch)", ("dense_small_int8_kernel",)),
+    ("conv2d_int8 loader-quantize kernels (dynamic 1x1 and stride 2)",
+     ("conv_int8_loadq_sm90_kernel",)),
     ("quantize_int8 kernel (standalone and in the int8 ops' entry points)",
      ("act_quantize_kernel",)),
     ("geglu_ff kernels (gate, output, split sum)", ("geglu_bf16_",)),
@@ -2350,7 +2484,8 @@ def main() -> int:
                            dynamic["all"][0]["conv2d_int8_dynamic"],
                            f"the \"all\" path; {dynamic['dense'][0]['conv2d_int8_dynamic']} on "
                            f"\"dense\""),
-             back_to_back=int8_rows["back_to_back_dynamic"]),
+             back_to_back=int8_rows["back_to_back_dynamic"],
+             batch16_dense=int8_rows["conv2d_int8_dynamic_b16"]),
         # no Pallas kernel: the XLA quantization in front of the int8 ops
         _kernel_entry("quantize_int8", "d3roma_tpu_torch/csrc/quantize.cu",
                       "d3roma_tpu/ops/quant.py:64", int8_rows["quantize"],

@@ -544,17 +544,19 @@ __device__ __forceinline__ int frag_col(int j, int e) {
   return 8 * j + 2 * (threadIdx.x % 4) + (e & 1);
 }
 
-// Position in the ring of stages; both sides walk the same sequence.
-struct Ring {
+// Position in a ring of kN stages; both sides walk the same sequence.
+template <int kN = kStages>
+struct RingN {
   int stage = 0;
   uint32_t phase = 0;
   __device__ __forceinline__ void next() {
-    if (++stage == kStages) {
+    if (++stage == kN) {
       stage = 0;
       phase ^= 1;
     }
   }
 };
+using Ring = RingN<>;
 
 // The ring in dynamic shared memory: kStages x (A tile, B tile of kBN
 // rows), each 1024-byte aligned, then the full and empty barriers.

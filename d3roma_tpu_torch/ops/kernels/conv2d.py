@@ -18,7 +18,9 @@ top of them.
   "dense"; `d3roma_tpu/ops/quant.py::int8_conv_general_dilated` and
   `int8_dot_general`, XLA ops there): the activation scale of each batch
   item (each row, for a dense) computed on the device, the "xla" order with
-  that scale.
+  that scale; `dynamic_plan` picks each call's route (one launch for the
+  small dense layers, a fused row quantize for the others, the quantize in
+  the convolution's loader or in a pass of its own).
 - `conv2d_bf16` (`csrc/conv2d_bf16.cu`) is the bf16 convolution of
   `conv3x3_flat`'s `_kernel_bf16` and of `conv3x3_halo`'s bf16 body:
   bf16 products, fp32 sums, one rounding.
@@ -93,13 +95,15 @@ class ConvPlan:
     tile; splits: blocks that share K, `per` k steps each (the last one may
     have fewer), each k step 128 bytes of Cin of one tap, taps in (ky, kx)
     order; k_steps: all of them; workspace_bytes: the partial sums
-    [splits, pixels, Cout] (int32 or fp32) when split, else 0."""
+    [splits, pixels, Cout] (int32 or fp32) when split, else 0; cost: its
+    modelled time (conv_plan's units)."""
     box: Tuple[int, int, int]
     bn: int
     splits: int
     per: int
     k_steps: int
     workspace_bytes: int
+    cost: float = 0.0
 
 
 def flat_view(b: int, h: int, w: int, kh: int, kw: int, stride: int, padding: int):
@@ -129,9 +133,23 @@ def conv_box(b: int, oh: int, ow: int, stride: int) -> Tuple[int, int, int]:
     return best[1]
 
 
+def plan_cost(b: int, oh: int, ow: int, cout: int, box: Tuple[int, int, int], bn: int,
+              splits: int, per: int, launch_units: float = SPLIT_LAUNCH_UNITS,
+              convert_units: int = 0, sms: int = H100_SMS) -> float:
+    """conv_plan's modelled time of one plan, in its units (see there)."""
+    bw, bh, bb = box
+    tiles = -(-ow // bw) * -(-oh // bh) * -(-b // bb) * -(-cout // bn) * splits
+    split = (splits + 1) * 4 * b * oh * ow * cout / SPLIT_BYTES_PER_UNIT + launch_units \
+        if splits > 1 else 0
+    step = BLOCK_ROWS + bn
+    k_step = max(2 * BLOCK_ROWS + bn, convert_units) if convert_units else step
+    return -(-tiles // sms) * (per * k_step + TILE_STAGES * step) + split
+
+
 @functools.lru_cache(maxsize=1024)
 def conv_plan(b: int, oh: int, ow: int, cin: int, cout: int, kh: int, kw: int, stride: int,
-              itemsize: int, epilogue: str, sms: int = H100_SMS) -> ConvPlan:
+              itemsize: int, epilogue: str, sms: int = H100_SMS,
+              launch_units: float = SPLIT_LAUNCH_UNITS, convert_units: int = 0) -> ConvPlan:
     """The tiles of one call on a card with `sms` SMs, over the output
     [b, oh, ow, cout] of the view the kernel sees (flat_view): the box
     (conv_box), and the tile width and split of K with the least modelled
@@ -139,12 +157,16 @@ def conv_plan(b: int, oh: int, ow: int, cin: int, cout: int, kh: int, kw: int, s
     costs its k steps, plus TILE_STAGES for the fill and the epilogue, times
     the rows it loads a step (BLOCK_ROWS of A and bn of B, 128 bytes each),
     by waves of tiles over the SMs; a split adds its partial sums' round
-    trip and a launch. epilogue: "xla", "tpu", "halo" (int8, itemsize 1) or
-    "bf16" (itemsize 2). "halo" splits only at rows of taps (ky), so that
-    each split's fp32 partial is its rows' sum and the splits add up in ky
-    order."""
-    bw, bh, bb = conv_box(b, oh, ow, stride)
-    m_tiles = -(-ow // bw) * -(-oh // bh) * -(-b // bb)
+    trip and a launch (`launch_units`: the device's cost of one by default;
+    the dynamic calls, whose small sites the host bounds, pass the host's,
+    DYNAMIC_LAUNCH_UNITS). With `convert_units` (the dynamic loader quantize,
+    CONVERT_STEP_UNITS) A is loaded in bf16, twice the rows' bytes, and a k
+    step (not the fill or the epilogue) costs at least its conversions.
+    epilogue: "xla", "tpu", "halo"
+    (int8, itemsize 1) or "bf16" (itemsize 2). "halo" splits only at rows of
+    taps (ky), so that each split's fp32 partial is its rows' sum and the
+    splits add up in ky order."""
+    box = conv_box(b, oh, ow, stride)
     kc = -(-cin * itemsize // K_STEP_BYTES)
     row_steps = kw * kc
     k_steps = kh * row_steps
@@ -157,15 +179,11 @@ def conv_plan(b: int, oh: int, ow: int, cin: int, cout: int, kh: int, kw: int, s
         if (s - 1) * per >= k_steps:
             continue  # a split would be empty
         for bn in (HALO_TILE_COLS if halo else TILE_COLS):
-            tiles = m_tiles * -(-cout // bn) * s
-            waves = -(-tiles // sms)
-            split = ((s + 1) * 4 * pixels * cout / SPLIT_BYTES_PER_UNIT + SPLIT_LAUNCH_UNITS
-                     if s > 1 else 0)
-            cost = waves * (per + TILE_STAGES) * (BLOCK_ROWS + bn) + split
+            cost = plan_cost(b, oh, ow, cout, box, bn, s, per, launch_units, convert_units, sms)
             options.append(((cost, s, -bn), (bn, s, per)))
-    bn, splits, per = min(options)[1]
-    return ConvPlan((bw, bh, bb), bn, splits, per, k_steps,
-                    4 * splits * pixels * cout if splits > 1 else 0)
+    (cost, _, _), (bn, splits, per) = min(options)
+    return ConvPlan(box, bn, splits, per, k_steps,
+                    4 * splits * pixels * cout if splits > 1 else 0, cost)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -185,6 +203,243 @@ def launch_ints(b, h, w, cin, cout, kh, kw, stride, padding, itemsize, epilogue,
               plan.bn, plan.splits, plan.per, (*EPILOGUES, "bf16").index(epilogue),
               int(out_f32))
     return plan, (ctypes.c_int * len(values))(*values)
+
+
+# ---------------------------------------------------------------------------
+# The plan of a dynamic call (csrc/conv2d_int8.cu's second entry point)
+
+ROUTES = ("small", "rows", "loader", "separate")
+# csrc/act_quantize.cuh: absmax slots a group, groups a convolution's table,
+# threads of the row quantize's block, its 16-byte vectors a thread
+MAX_CHUNKS = 64
+MAX_GROUPS = 128
+ROW_THREADS = 256
+ROW_MAX_VECS = 8
+ABSMAX_THREADS = 256
+# csrc/conv2d_int8.cu: the small dense's rows (one wgmma M), columns a
+# block and K (a row in a warp's registers, eight 16-byte vectors a lane);
+# csrc/sm90_conv.cuh: the stages of the int8 and the loader quantize's rings
+SMALL_ROWS = 64
+SMALL_BN = 32
+SMALL_MAX_K = 2048
+STAGES = 4
+LOADQ_STAGES = 3
+SMEM_LIMIT = 232448  # bytes of shared memory a block may use on the H100
+# What a launch costs the host, in conv_plan's units (one per
+# SPLIT_BYTES_PER_UNIT bytes at the card's memory rate, about 2 ns): ~4 us,
+# against the device's ~1 us (SPLIT_LAUNCH_UNITS). At the dynamic calls'
+# small sites the host issues the launches slower than the device runs them
+# (PERF.md section 6: 0.046-0.061 host ms a call against 0.010-0.026 device
+# ms), so a split's sum launch or a quantize pass of its own costs that.
+DYNAMIC_LAUNCH_UNITS = 2000
+# The loader quantize's k step in conv_plan's units: it loads A in bf16 and
+# converts the block's 128 x 128 values into wgmma register fragments.
+# Measured on the H100 (PERF.md section 6), the loader's conv against
+# the int8 conv over the same tiles: 0.236 against 0.139 ms at the VAE's B4
+# 361x641 128 stride 2 (nine k steps a tile), 0.234 against 0.165 at its B2
+# 1x1 256 -> 128 (two), 0.909 against 0.433 at its B4 360x640 128 3x3
+# (nine): 550-700 units a k step against 256. The quantize pass moves 3
+# bytes an element (2 read, 1 written).
+CONVERT_STEP_UNITS = 600
+QUANTIZE_BYTES = 3
+# The loader quantize serves only sites whose input elements the taps load
+# at most this often (1x1: 1, 3x3 stride 2: 2.25; 3x3 stride 1: 9)
+LOADER_MAX_TAP_LOADS = 2.25
+
+
+@dataclass(frozen=True)
+class DynamicPlan:
+    """How one dynamic int8 call runs. route: "small" (a dense layer of at
+    most SMALL_ROWS rows: one launch that quantizes its rows in shared memory
+    and runs the GEMM), "rows" (a dense layer: the row quantize, then the
+    GEMM), "loader" (a convolution: the absmax slots, then the convolution
+    quantizing bf16 x in its loader) or "separate" (a convolution: the
+    absmax slots, the quantize at the items' scales, the convolution). conv:
+    the GEMM's tiles (None for "small"). groups, group_elems, group_pixels:
+    the scale groups (rows or batch items), their elements of x and their
+    output pixels. chunk, chunks: a convolution's absmax slots (chunks a
+    group, chunk elements each). team, vecs: the row quantize's threads a
+    row and 16-byte vectors a thread. smem_bytes: the shared memory of the
+    call's largest block. workspace_bytes: the int8 workspace (x's int8
+    copy and the absmax slots). device_ops: launches a call."""
+    route: str
+    conv: Optional[ConvPlan]
+    groups: int
+    group_elems: int
+    group_pixels: int
+    chunk: int
+    chunks: int
+    team: int
+    vecs: int
+    smem_bytes: int
+    workspace_bytes: int
+    device_ops: int
+
+
+def small_smem_bytes(k: int) -> int:
+    """csrc/conv2d_int8.cu::dense::small_smem_bytes: the A and B tiles of
+    every k step, the rows' scales, the mbarrier."""
+    k_steps = -(-k // K_STEP_BYTES)
+    return 1024 + k_steps * (SMALL_ROWS + SMALL_BN) * K_STEP_BYTES + SMALL_ROWS * 4 + 8
+
+
+def conv_smem_bytes(bn: int, loadq: bool) -> int:
+    """csrc/sm90_conv.cuh::Smem<bn, loadq>::kBytes: the ring (A and B tiles
+    a stage, 1024-aligned; the loader quantize's A is two bf16 boxes, in a
+    stage fewer), the barriers, the two warpgroups' output staging, the
+    table of scales."""
+    a_bytes = (2 if loadq else 1) * BLOCK_ROWS * K_STEP_BYTES
+    stages = LOADQ_STAGES if loadq else STAGES
+    ring = 1024 + stages * (a_bytes + bn * K_STEP_BYTES) + 2 * stages * 8
+    return ring + 2 * (64 * (2 * bn + 16) + 64 * 8) + 4 * MAX_GROUPS
+
+
+def row_team(k: int) -> Tuple[int, int]:
+    """The row quantize's threads a row (a warp, or 2-8 warps where the row
+    has more 16-byte vectors than a warp holds at ROW_MAX_VECS a thread) and
+    vectors a thread."""
+    nv = k // 8
+    team = 32
+    while -(-nv // team) > ROW_MAX_VECS:
+        team *= 2
+    if team > ROW_THREADS:
+        raise ValueError(f"a dense row of {k} elements is more than the row quantize takes")
+    return team, -(-nv // team)
+
+
+def absmax_chunks(groups: int, group_elems: int, sms: int) -> Tuple[int, int]:
+    """(chunk, chunks): a convolution's absmax as about 2 blocks an SM, at
+    most MAX_CHUNKS a group, a chunk a multiple of the block's 2048-element
+    sweep (256 threads x 8)."""
+    want = max(1, min(MAX_CHUNKS, -(-2 * sms // groups)))
+    sweep = ABSMAX_THREADS * 8
+    chunk = -(-(-(-group_elems // want)) // sweep) * sweep
+    return chunk, -(-group_elems // chunk)
+
+
+def route_costs(vb: int, oh: int, ow: int, cin: int, cout: int, kh: int, kw: int,
+                stride: int, n: int, sms: int = H100_SMS):
+    """A convolution's two routes, each its GEMM plan and modelled time in
+    conv_plan's units: "loader", the tiles planned with the conversions
+    (CONVERT_STEP_UNITS a k step) and bf16 A; "separate", the int8 tiles plus
+    the quantize pass's bytes (QUANTIZE_BYTES an element of x) and its launch
+    at the host's cost."""
+    loader = conv_plan(vb, oh, ow, cin, cout, kh, kw, stride, 1, "xla", sms,
+                       DYNAMIC_LAUNCH_UNITS, CONVERT_STEP_UNITS)
+    separate = conv_plan(vb, oh, ow, cin, cout, kh, kw, stride, 1, "xla", sms,
+                         DYNAMIC_LAUNCH_UNITS)
+    return {"loader": (loader, loader.cost),
+            "separate": (separate, separate.cost + QUANTIZE_BYTES * n / SPLIT_BYTES_PER_UNIT
+                         + DYNAMIC_LAUNCH_UNITS)}
+
+
+def route_plan(route: str, b: int, h: int, w: int, cin: int, cout: int, kh: int, kw: int,
+               stride: int, padding: int, sms: int = H100_SMS) -> DynamicPlan:
+    """The DynamicPlan of one launch on `route` (one of ROUTES; "small" and
+    "rows" take a dense layer, x [1, 1, rows, K] as a 1x1 convolution, the
+    others a convolution of at most MAX_GROUPS batch items). dynamic_plan
+    picks the route; chip_smoke.py and scripts/time_dynamic.py build the
+    others too, to check and time every route at one shape."""
+    vb, vh, vw = flat_view(b, h, w, kh, kw, stride, padding)
+    oh, ow = conv_out_hw(vh, vw, kh, stride, padding)
+    n = b * h * w * cin
+    if route in ("small", "rows"):
+        rows = b * h * w
+        if route == "small":
+            if rows > SMALL_ROWS or cin > SMALL_MAX_K:
+                raise ValueError(f"the small route takes at most {SMALL_ROWS} rows of at most "
+                                 f"{SMALL_MAX_K}, got {rows} of {cin}")
+            return DynamicPlan("small", None, rows, cin, 1, 0, 0, 0, 0, small_smem_bytes(cin),
+                               0, 1)
+        team, vecs = row_team(cin)
+        plan = conv_plan(vb, oh, ow, cin, cout, kh, kw, stride, 1, "xla", sms,
+                         DYNAMIC_LAUNCH_UNITS)
+        return DynamicPlan("rows", plan, rows, cin, 1, 0, 0, team, vecs,
+                           conv_smem_bytes(plan.bn, False), -(-n // 128) * 128 + 4 * rows,
+                           2 + (plan.splits > 1))
+    if route not in ("loader", "separate"):
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+    if b > MAX_GROUPS:
+        raise ValueError(f"one launch of a dynamic convolution takes at most {MAX_GROUPS} batch "
+                         f"items, got {b} (dynamic_chunks cuts a call)")
+    plan = route_costs(vb, oh, ow, cin, cout, kh, kw, stride, n, sms)[route][0]
+    chunk, chunks = absmax_chunks(b, h * w * cin, sms)
+    oh_, ow_ = conv_out_hw(h, w, kh, stride, padding)
+    slots = 4 * b * chunks
+    if route == "loader":
+        return DynamicPlan("loader", plan, b, h * w * cin, oh_ * ow_, chunk, chunks, 0, 0,
+                           conv_smem_bytes(plan.bn, True), slots, 2 + (plan.splits > 1))
+    return DynamicPlan("separate", plan, b, h * w * cin, oh_ * ow_, chunk, chunks, 0, 0,
+                       conv_smem_bytes(plan.bn, False), -(-n // 128) * 128 + slots,
+                       3 + (plan.splits > 1))
+
+
+@functools.lru_cache(maxsize=1024)
+def dynamic_plan(b: int, h: int, w: int, cin: int, cout: int, kh: int, kw: int, stride: int,
+                 padding: int, per_row: bool, sms: int = H100_SMS) -> DynamicPlan:
+    """The route of one launch of a dynamic call over x [b, h, w, cin] (a
+    dense layer: per_row, x [1, 1, rows, K]; a convolution: at most
+    MAX_GROUPS items, see dynamic_chunks) and its parameters (route_plan).
+
+    Dense layers: at most SMALL_ROWS rows (the cross-attention's key and
+    value projections: 4 rows at batch 2, 32 at 16; the time embeddings)
+    take "small" while their K fits shared memory (K <= 2048), the others
+    "rows". Convolutions: the 3x3 stride-1 ones take "separate" (each input
+    element is loaded nine times a tile of output channels); the 1x1 and
+    stride-2 ones take the route route_costs models faster. With the costs
+    measured on the H100 that is "loader" at the flagship's 1x1 shortcuts
+    (the UNet's 640 -> 320, the VAE's 256 -> 128 and 512 -> 256) and at the
+    VAE's 128-channel stride 2, at batch 2 and 16, and at the UNet's
+    640-channel stride 2 at batch 2 (its loader plan has one launch fewer);
+    "separate" at the UNet's other stride-2 convs and the VAE's 256- and
+    512-channel ones (an element loaded 2.25 times by each of two or more
+    tiles of output channels: the conversions cost more than the pass). The
+    GEMM's tiles come from conv_plan with a launch at the host's cost, so a
+    split must save more than its sum launch costs the host."""
+    if per_row:
+        route = "small" if b * h * w <= SMALL_ROWS and cin <= SMALL_MAX_K else "rows"
+    else:
+        vb, vh, vw = flat_view(b, h, w, kh, kw, stride, padding)
+        oh, ow = conv_out_hw(vh, vw, kh, stride, padding)
+        costs = route_costs(vb, oh, ow, cin, cout, kh, kw, stride, b * h * w * cin, sms)
+        route = "loader" if kh * kw / stride ** 2 <= LOADER_MAX_TAP_LOADS and \
+            costs["loader"][1] < costs["separate"][1] else "separate"
+    return route_plan(route, b, h, w, cin, cout, kh, kw, stride, padding, sms)
+
+
+@functools.lru_cache(maxsize=256)
+def dynamic_chunks(b: int, per_row: bool) -> Tuple[Tuple[int, int], ...]:
+    """The batch items [start, stop) of each launch of a dynamic call. A
+    convolution's launch keeps its items' scales in a table of MAX_GROUPS in
+    shared memory (csrc/sm90_conv.cuh, csrc/act_quantize.cuh), and its items
+    are independent scale groups, so a larger batch runs as consecutive
+    launches of at most MAX_GROUPS items; a dense layer's rows keep their
+    scales in global memory and go in one."""
+    step = b if per_row else MAX_GROUPS
+    return tuple((i, min(i + step, b)) for i in range(0, b, step))
+
+
+def _dynamic_ints(plan: DynamicPlan, b, h, w, cin, cout, kh, kw, stride, padding):
+    """The two int arrays the C entry point takes: the GEMM's (launch_ints'
+    layout; for "small", its geometry) and the route's [route, group_elems,
+    group_pixels, chunk, chunks, team, vecs, groups]."""
+    vb, vh, vw = flat_view(b, h, w, kh, kw, stride, padding)
+    oh, ow = conv_out_hw(vh, vw, kh, stride, padding)
+    tiles = plan.conv or ConvPlan((1, 1, 1), SMALL_BN, 1, 1, 1, 0)
+    values = (vb, vh, vw, cin, oh, ow, cout, kh, kw, stride, padding, padding, *tiles.box,
+              tiles.bn, tiles.splits, tiles.per, 0, 0)
+    dyn = (ROUTES.index(plan.route), plan.group_elems, plan.group_pixels, plan.chunk,
+           plan.chunks, plan.team, plan.vecs, plan.groups)
+    return (ctypes.c_int * len(values))(*values), (ctypes.c_int * len(dyn))(*dyn)
+
+
+@functools.lru_cache(maxsize=1024)
+def dynamic_launch_ints(b, h, w, cin, cout, kh, kw, stride, padding, per_row, device):
+    """A launch's plan (dynamic_plan) and its two int arrays (_dynamic_ints),
+    built once per call signature."""
+    plan = dynamic_plan(b, h, w, cin, cout, kh, kw, stride, padding, per_row,
+                        _build.sm_count(device.index))
+    return (plan, *_dynamic_ints(plan, b, h, w, cin, cout, kh, kw, stride, padding))
 
 
 def conv2d_int8_acc_plain(xq: torch.Tensor, wq: torch.Tensor, stride: int,
@@ -330,8 +585,8 @@ def _library_dynamic() -> ctypes.CDLL:
     lib = _library()
     fn = lib.d3r_conv2d_int8_dynamic
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_int)]
-                       + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_int)] * 2
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
@@ -345,15 +600,18 @@ def conv2d_int8_dynamic(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
     own scale max(absmax * fp32(1/127), 1e-8), the output dequantized as
     (acc * s) * ws[co] (the "xla" order), the bias added after the cast.
 
-    CUDA tensors go to the kernel (bf16 x and bias, Cin % 32 == 0, Cout % 2
-    == 0): its C entry point computes the scales on the device (memset,
-    absmax), quantizes x into the stream's int8 workspace, and runs the
-    convolution, in one call with no host synchronization; or raise. CPU
-    tensors take the plain version. `conv2d_int8_dynamic.launches` counts
-    the calls."""
-    _check(x, wq, ws, bias, "xla")
+    CUDA tensors go to the kernels (bf16 x and bias, Cin % 32 == 0, Cout % 2
+    == 0) with no host synchronization, by the route dynamic_plan picks: one
+    launch for the small dense layers; the row quantize and the GEMM for
+    the others; the absmax and the convolution quantizing in its loader, or
+    the absmax, a quantize pass and the convolution, for a convolution (one
+    host call of the C entry point for each chunk of at most MAX_GROUPS
+    batch items, dynamic_chunks). The scales and x's int8 copy go to the
+    stream's int8 workspace; or raise. CPU tensors take the plain version.
+    `conv2d_int8_dynamic.launches` counts the calls."""
     if per_row and (wq.shape[1:3] != (1, 1) or stride != 1 or padding != 0):
         raise ValueError("per_row takes a 1x1 convolution of stride 1 without padding")
+    _check(x, wq, ws, bias, "xla")
     if x.device.type == "cpu":
         conv2d_int8_dynamic.launches += 1
         return conv2d_int8_dynamic_plain(x, wq, ws, bias, stride, padding, per_row)
@@ -361,25 +619,59 @@ def conv2d_int8_dynamic(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
         raise ValueError(f"conv2d_int8_dynamic runs on CUDA or the CPU, got {x.device}")
     _check_cuda(x, wq, ws, bias)
     x = x.contiguous()
+    if x.data_ptr() % 16:  # every route reads x 16 bytes at a time (TMA, vector loads)
+        x = x.clone()
     b, h, w, cin = x.shape
     cout, kh, kw, _ = wq.shape
     oh, ow = conv_out_hw(h, w, kh, stride, padding)
-    plan, ints = launch_ints(b, h, w, cin, cout, kh, kw, stride, padding, 1, "xla", False,
-                             x.device)
     out = torch.empty((b, oh, ow, cout), dtype=x.dtype, device=x.device)
-    work = plan_workspace(plan, x.device)
+    for i, j in dynamic_chunks(b, per_row):
+        xi, oi = (x, out) if j - i == b else (x[i:j], out[i:j])
+        _dynamic_launch(xi, wq, ws, bias, oi, *dynamic_launch_ints(
+            j - i, h, w, cin, cout, kh, kw, stride, padding, per_row, x.device))
+    conv2d_int8_dynamic.launches += 1
+    return out
+
+
+def _dynamic_launch(x, wq, ws, bias, out, plan: DynamicPlan, ints, dyn) -> None:
+    """One host call of the C entry point over contiguous, 16-byte aligned x
+    and out (a convolution's at most MAX_GROUPS items)."""
+    work = None if plan.conv is None else plan_workspace(plan.conv, x.device)
     stream = _build.current_stream(x.device)
-    group_elems, group_pixels = (cin, 1) if per_row else (h * w * cin, oh * ow)
-    # the workspace: x's int8 copy, then the groups' absmax (fp32 bits)
-    amax_at = -(-x.numel() // 128) * 128
-    base = act_workspace(x.device, stream, amax_at + 4 * (x.numel() // group_elems))
+    base = act_workspace(x.device, stream, max(plan.workspace_bytes, 16))
     with torch.cuda.device(x.device):
         err = _library_dynamic().d3r_conv2d_int8_dynamic(
-            x.data_ptr(), base, base + amax_at, wq.data_ptr(), ws.data_ptr(),
+            x.data_ptr(), base, wq.data_ptr(), ws.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(),
-            None if work is None else work.data_ptr(), ints, group_elems, group_pixels, stream)
+            None if work is None else work.data_ptr(), ints, dyn, stream)
     _build.check(err, "conv2d_int8_dynamic")
-    conv2d_int8_dynamic.launches += 1
+
+
+def _dynamic_on_route(route: str, x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
+                      bias: Optional[torch.Tensor] = None, stride: int = 1,
+                      padding: int = 0) -> torch.Tensor:
+    """conv2d_int8_dynamic's CUDA call on `route` (route_plan) instead of
+    the one dynamic_plan picks, so that chip_smoke.py checks and
+    scripts/time_dynamic.py times each route at one shape ("small" and
+    "rows": x [1, 1, rows, K]; the others at most MAX_GROUPS items). No model
+    path calls it, and it counts no launch."""
+    _check(x, wq, ws, bias, "xla")
+    if x.device.type != "cuda":
+        raise ValueError(f"_dynamic_on_route runs on CUDA, got {x.device}")
+    _check_cuda(x, wq, ws, bias)
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
+    b, h, w, cin = x.shape
+    cout, kh, kw, _ = wq.shape
+    if route in ("small", "rows") and (b, h, kh, kw, stride, padding) != (1, 1, 1, 1, 1, 0):
+        raise ValueError("a dense route takes x [1, 1, rows, K] and a 1x1 wq")
+    plan = route_plan(route, b, h, w, cin, cout, kh, kw, stride, padding,
+                      _build.sm_count(x.device.index))
+    oh, ow = conv_out_hw(h, w, kh, stride, padding)
+    out = torch.empty((b, oh, ow, cout), dtype=x.dtype, device=x.device)
+    _dynamic_launch(x, wq, ws, bias, out, plan,
+                    *_dynamic_ints(plan, b, h, w, cin, cout, kh, kw, stride, padding))
     return out
 
 

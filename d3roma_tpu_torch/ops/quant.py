@@ -252,7 +252,7 @@ def int8_linear_dynamic(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
     the bias added in that type. The dynamic int8 conv kernel as a 1x1
     convolution over the rows, each row a scale group."""
     lead, k, n = x.shape[:-1], x.shape[-1], wq.shape[0]
-    b = None if bias is None else bias.to(x.dtype)
+    b = bias if bias is None or bias.dtype == x.dtype else bias.to(x.dtype)
     out = conv2d_int8_dynamic(x.reshape(1, 1, -1, k), wq.view(n, 1, 1, k), ws, b, 1, 0,
                               per_row=True)
     return out.reshape(lead + (n,))

@@ -9,8 +9,10 @@ same knobs and defaults, batch 16), makes one warm call, then profiles
 `--calls` calls enqueued back to back as the bench times them (one
 synchronize at the end) under torch.profiler: the wall time, the summed
 device time of the kernels, memsets and copies, the idle share
-(1 - busy / wall) and the twelve largest kernels. Prints the card's name
-and power limit first and one JSON line last.
+(1 - busy / wall), the device ms a call by kernel group (chip_smoke.py's
+groups: the port's kernels by name, then the library's) and the twelve
+largest kernels. Prints the card's name and power limit first and one JSON
+line last.
 """
 
 from __future__ import annotations
@@ -57,6 +59,11 @@ def main() -> int:
             kernels.append((us / 1e3, evt.count, evt.key))
     busy = sum(ms for ms, _, _ in kernels)
     frames = batch * args.calls
+    from chip_smoke import _group
+
+    groups = {}
+    for ms, _, name in kernels:
+        groups[_group(name)] = groups.get(_group(name), 0.0) + ms / args.calls
     for ms, count, name in sorted(kernels, reverse=True)[:12]:
         print(f"  top: {ms / args.calls:8.2f} ms a call  x{count // args.calls:<5d} {name[:100]}",
               flush=True)
@@ -65,7 +72,9 @@ def main() -> int:
         "batch": batch, "calls": args.calls, "card": card,
         "wall_ms_per_frame": wall_ms / frames, "device_busy_ms_per_frame": busy / frames,
         "idle_share": max(0.0, 1.0 - busy / wall_ms),
-        "device_ops_per_call": sum(c for _, c, _ in kernels) / args.calls}), flush=True)
+        "device_ops_per_call": sum(c for _, c, _ in kernels) / args.calls,
+        "device_ms_per_call_by_group": dict(sorted(groups.items(), key=lambda kv: -kv[1]))}),
+        flush=True)
     return 0
 
 

@@ -11,6 +11,7 @@
                                      # int8 consumers' back-to-back (PDL race) cases only
     python3 chip_smoke.py --groupnorm  # device, build and the fused GroupNorm's cases only
     python3 chip_smoke.py --dynamic  # device, build and the dynamic int8 conv's cases only
+    python3 chip_smoke.py --pixel    # device, build, the pixel phase and the pixel bench only
 
 Run from the repository root, on a machine with a CUDA GPU and nvcc (the
 kernels build from d3roma_tpu_torch/csrc/ at first use). Phases, each
@@ -93,11 +94,29 @@ failing the run on its own error:
    conv or dense site of the capture logs and the Winograd and fused
    GroupNorm calls of the dry pass; ms/frame, the profile, and one full and
    one shallow UNet forward through the kernels against their plain versions;
-11. the torch bench, `python -m d3roma_tpu_torch.bench`, in its own process
+11. pixel path: GuidedDiffusionPipeline at the JAX bench's pixel setting
+    (UNet2D at its full widths, random seeded weights in bf16, my_ddpm over
+    128 squaredcos steps, SSI normalizer), batch 2, RGB + raw at 368x640
+    (360 padded to a multiple of 16), 10 steps, 5 intermediates, the raw
+    condition SSI-normalized on the card: shapes, finite output in [-1, 1],
+    no hand kernel launched (head dim 8, no transformer), ms/frame (median
+    of three calls), peak memory, the profile; SSI denormalize (least
+    squares, and RANSAC with explicit subsets) on the card against the CPU;
+    one bf16 UNet2D forward against the same weights in fp32; on a copy
+    fuse_norms() alone, one bf16 UNet2D forward through the fused
+    GroupNorm against its plain version; then on a copy
+    quantize_int8().fuse_norms(): a dry pass logs each site's route, the
+    fused GroupNorm is held against its plain version at every shape it
+    admits, and one call must launch the dynamic int8 conv once per conv
+    and dense visit and the fused GroupNorm once per norm its gate admits,
+    nothing else; ms/frame, the profile, and one UNet2D forward through the
+    kernels against their plain versions;
+12. the torch bench, `python -m d3roma_tpu_torch.bench`, in its own process
     at batch 2 with 3 timed calls (records and scales in a temporary
-    directory), at the default setting and at BENCH_CLIP_PCT=0.999: its
-    JSON line must carry every key of the JAX bench's, value > 0;
-12. a JSON line of per-kernel numbers, then the JSON result as the last line.
+    directory), at the default setting, at BENCH_CLIP_PCT=0.999 and at
+    BENCH_MODEL=pixel: its JSON line must carry every key of the JAX
+    bench's at that setting, value > 0;
+13. a JSON line of per-kernel numbers, then the JSON result as the last line.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -1089,11 +1108,12 @@ def int8_kernel_phase():
     return rows
 
 
-def _gn_case(shape, gen, timed, dtype="bfloat16", groups=32, param_dtype="bfloat16"):
+def _gn_case(shape, gen, timed, dtype="bfloat16", groups=32, param_dtype="bfloat16",
+             count_ops=True):
     """The fused GroupNorm against its plain version (gamma and beta in
-    `param_dtype`, as the models hold them): one device op a call, the
-    output bit-identical across two calls, within REL_TOL of the plain
-    version."""
+    `param_dtype`, as the models hold them): one device op a call (counted
+    by the profiler unless `count_ops` is false), the output bit-identical
+    across two calls, within REL_TOL of the plain version."""
     import torch
     import torch.nn.functional as F
 
@@ -1117,11 +1137,11 @@ def _gn_case(shape, gen, timed, dtype="bfloat16", groups=32, param_dtype="bfloat
            "tol": tol, "max_abs_out": ref.abs().max().item(),
            "repeats_bitwise": bool(torch.equal(out, again)),
            "device_ops_per_call": device_ops_per_call(
-               lambda: group_norm_silu(x, gamma, beta, groups, 1e-5)),
+               lambda: group_norm_silu(x, gamma, beta, groups, 1e-5)) if count_ops else None,
            "plan": {"k": plan.k, "band": plan.band, "cluster": plan.cluster, "per": plan.per,
                     "resident": plan.resident, "smem_bytes": plan.smem_bytes,
                     "ctas": plan.ctas}}
-    if not row["repeats_bitwise"] or row["device_ops_per_call"] != 1:
+    if not row["repeats_bitwise"] or (count_ops and row["device_ops_per_call"] != 1):
         raise AssertionError(f"group_norm_silu {list(shape)}: {row}")
     if timed:
         xc = x.permute(0, 3, 1, 2)  # NCHW view, channels_last in memory
@@ -2151,25 +2171,32 @@ def vae8_phase(pipe, inputs):
 BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "config", "batch", "ms_per_frame",
               "quant", "deepcache_interval", "deepcache_depth", "tflop_per_frame",
               "tflops_sustained", "mfu_bf16_peak", "mfu_int8_peak", "device")
+# the keys of the JAX bench's BENCH_MODEL=pixel line (bench.py: no DeepCache,
+# clipping or MFU keys there) and the torch bench's own
+PIXEL_BENCH_KEYS = BENCH_KEYS[:8] + ("device",)
 
 
-def bench_phase():
+def bench_phase(pixel_only: bool = False):
     """`python -m d3roma_tpu_torch.bench` as a user runs it, at batch 2 with
     3 timed calls, its records and calibrated scales in a temporary
-    directory: at the default setting (static int8, 2d2, calibrated) and
-    with BENCH_CLIP_PCT=0.999 (quantile calibration, clipped scales). Each
-    must exit 0 and print one JSON line with every key of the JAX bench's
-    (and act_clip_pct with the clipping), value > 0. Returns the lines."""
+    directory: at the default setting (static int8, 2d2, calibrated), with
+    BENCH_CLIP_PCT=0.999 (quantile calibration, clipped scales) and with
+    BENCH_MODEL=pixel (only this one with `pixel_only`). Each must exit 0
+    and print one JSON line with every key of the JAX bench's line at its
+    setting (and act_clip_pct with the clipping), value > 0. Returns the
+    lines."""
     import tempfile
 
+    runs = (("default", {}), ("clip 0.999", {"BENCH_CLIP_PCT": "0.999"}),
+            ("pixel", {"BENCH_MODEL": "pixel"}))
     lines = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for label, extra in (("default", {}), ("clip 0.999", {"BENCH_CLIP_PCT": "0.999"})):
-            env = dict(os.environ, BENCH_BATCH=str(BATCH), BENCH_REPS="3",
-                       BENCH_CACHE_DIR=tmp, **extra)
+        for label, extra in runs[2:] if pixel_only else runs:
+            env = dict(os.environ)
             for k in ("BENCH_QUANT", "BENCH_DEEPCACHE", "BENCH_CALIB", "BENCH_STEPS",
-                      "BENCH_RECORDS"):
+                      "BENCH_RECORDS", "BENCH_MODEL"):
                 env.pop(k, None)
+            env.update(BENCH_BATCH=str(BATCH), BENCH_REPS="3", BENCH_CACHE_DIR=tmp, **extra)
             t0 = time.perf_counter()
             proc = subprocess.run([sys.executable, "-m", "d3roma_tpu_torch.bench"], env=env,
                                   capture_output=True, text=True, timeout=600)
@@ -2181,7 +2208,12 @@ def bench_phase():
             if proc.returncode != 0 or not out:
                 raise AssertionError(f"bench ({label}) failed: {proc.stderr[-2000:]}")
             line = json.loads(out[-1])
-            keys = BENCH_KEYS + (("act_clip_pct",) if extra else ())
+            if label == "pixel":
+                keys = PIXEL_BENCH_KEYS
+                if set(line) != set(keys):
+                    raise AssertionError(f"bench (pixel): keys {sorted(line)}, want {keys}")
+            else:
+                keys = BENCH_KEYS + (("act_clip_pct",) if extra else ())
             missing = [k for k in keys if k not in line]
             if missing or not line["value"] > 0 or line["batch"] != BATCH:
                 raise AssertionError(f"bench ({label}): missing {missing} or bad line {line}")
@@ -2291,6 +2323,293 @@ def opt_in_phase(pipe, inputs):
     return counts, ms_per_frame
 
 
+PIXEL_H, PIXEL_W = 368, 640  # the JAX bench's pixel inputs: 360 padded to a multiple of 16
+PIXEL_INTERMEDIATES = 5
+# bf16 UNet2D forward against the same (bf16-valued) weights in fp32 with
+# TF32 off: bf16 rounding through the UNet, 8.2e-3 of max |out| at full
+# widths and 368x640 on an H100 (1.2e-2 at 48x80 on the CPU)
+PIXEL_BF16_REL_TOL = 5e-2
+# SSI denormalize on the card against the CPU (sums of 235,520 pixels in
+# another order; the RANSAC subsets are the same explicit indices)
+SSI_REL_TOL = 1e-3
+
+
+def _pixel_pipeline():
+    """The JAX bench's pixel setting (bench.py::bench_pixel): UNet2D at its
+    full widths, random weights from a seed, my_ddpm over 128 squaredcos
+    steps (prediction "sample", clipped), SSI normalizer, guidance off, in
+    bf16."""
+    import torch
+
+    from d3roma_tpu_torch.guidance import FlowGuidance
+    from d3roma_tpu_torch.models import UNet2D, init_random_, pixel_in_channels
+    from d3roma_tpu_torch.ops.normalizer import Normalizer
+    from d3roma_tpu_torch.ops.schedules import ScheduleConfig
+    from d3roma_tpu_torch.pipelines import GuidedDiffusionPipeline, SamplerSpec
+
+    unet = UNet2D(in_channels=pixel_in_channels("rgb+raw", 1), out_channels=1, device="cuda")
+    init_random_(unet, torch.Generator(device="cuda").manual_seed(0))
+    sched = ScheduleConfig(num_train_timesteps=128, beta_schedule="squaredcos_cap_v2",
+                           prediction_type="sample", clip_sample=True)
+    return GuidedDiffusionPipeline(
+        unet=unet, spec=SamplerSpec("my_ddpm", sched),
+        guidance=FlowGuidance(flow_guidance_weight=0.0),
+        normalizer=Normalizer(ssi=True, safe_ssi=False), device="cuda").half_precision()
+
+
+def _pixel_timed_calls(pipe, run, label):
+    """Zero the launch counts, make one call (its counts and output kept),
+    then two more; ms/frame is the median of the three. Checks the shapes
+    and that the images and intermediates are finite and in [-1, 1].
+    Returns (counts, ms/frame, peak device memory in bytes of the first
+    call)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.perf_counter()
+    out = run()
+    _sync()
+    walls = [time.perf_counter() - t0]
+    counts = _int8_launches()
+    peak = torch.cuda.max_memory_allocated()
+    for _ in range(2):
+        t0 = time.perf_counter()
+        run()
+        _sync()
+        walls.append(time.perf_counter() - t0)
+    ms_per_frame = sorted(walls)[1] * 1e3 / BATCH
+    img, inter = out.images, out.intermediates
+    print(f"{label}: {ms_per_frame:.2f} ms/frame, median of "
+          f"{[round(w * 1e3 / BATCH, 2) for w in walls]} (batch {BATCH}, {STEPS} steps, "
+          f"{PIXEL_H}x{PIXEL_W}); images {tuple(img.shape)} in [{img.min().item():.4f}, "
+          f"{img.max().item():.4f}], intermediates {tuple(inter.shape)}; peak memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    if (tuple(img.shape) != (BATCH, PIXEL_H, PIXEL_W, 1)
+            or tuple(inter.shape) != (PIXEL_INTERMEDIATES, BATCH, PIXEL_H, PIXEL_W, 1)):
+        raise AssertionError(f"{label}: shapes {tuple(img.shape)}, {tuple(inter.shape)}")
+    for t in (img, inter):
+        if not (torch.isfinite(t).all() and t.abs().max() <= 1.0):
+            raise AssertionError(f"{label}: output not finite or outside [-1, 1]")
+    return counts, ms_per_frame, peak
+
+
+def _pixel_dry_pass(pipe, run):
+    """One call with hooks that record the port's own routing: each dynamic
+    int8 conv and dense visit, each fused GroupNorm visit its gate admits.
+    Returns ({"conv", "dense", "groupnorm_silu"} visits, {site: route}, the
+    set of (shape, dtype, groups, parameter dtype) the fused GroupNorm
+    takes)."""
+    from d3roma_tpu_torch.models.layers import Conv2d, GroupNormSiLU, Linear
+    from d3roma_tpu_torch.ops.kernels import group_norm_silu_supported
+    from d3roma_tpu_torch.ops.quant import DYNAMIC_CONV_MODES, DYNAMIC_DENSE_MODES
+
+    visits = {"conv": 0, "dense": 0, "groupnorm_silu": 0}
+    table, gn_sites = {}, set()
+
+    def hook(kind):
+        def pre(mod, args):
+            shape = tuple(args[0].shape)
+            if kind == "groupnorm_silu":
+                ok = group_norm_silu_supported(shape, args[0].dtype)
+                visits[kind] += int(ok)
+                table[("groupnorm",) + shape] = "fused" if ok else "unfused"
+                if ok:
+                    gn_sites.add((shape, str(args[0].dtype).split(".")[-1], mod.groups,
+                                  str(mod.weight.dtype).split(".")[-1]))
+            else:
+                visits[kind] += 1
+                table[(kind,) + shape] = "dynamic int8"
+        return pre
+
+    hooks = []
+    for m in pipe.unet.modules():
+        if isinstance(m, Conv2d) and m.quant in DYNAMIC_CONV_MODES:
+            hooks.append(m.register_forward_pre_hook(hook("conv")))
+        elif isinstance(m, Linear) and m.quant in DYNAMIC_DENSE_MODES:
+            hooks.append(m.register_forward_pre_hook(hook("dense")))
+        elif isinstance(m, GroupNormSiLU) and m.fused:
+            hooks.append(m.register_forward_pre_hook(hook("groupnorm_silu")))
+    try:
+        run()
+        _sync()
+    finally:
+        for hk in hooks:
+            hk.remove()
+    return visits, table, gn_sites
+
+
+def _pixel_ssi_check(out, disp, mask):
+    """SSI denormalize of the pipeline's images on the card against the
+    same on the CPU: least squares against the raw disparity, and RANSAC
+    with explicit subsets drawn on the host against an affine image of the
+    output (scale 20, shift 30, noise, a fifth of the pixels outliers by
+    +-15), where it must recover the map on the inliers."""
+    import torch
+
+    from d3roma_tpu_torch.ops.normalizer import Normalizer
+    from d3roma_tpu_torch.ops.scale_shift import ransac_sizes
+
+    y = out.images.float()
+    n_sample, _ = ransac_sizes(PIXEL_H * PIXEL_W)
+    gen = torch.Generator().manual_seed(3)
+    subsets = torch.stack([torch.randperm(PIXEL_H * PIXEL_W, generator=gen)[:n_sample]
+                           for _ in range(10)])
+    noise = torch.randn(y.shape, generator=gen).to(y.device) * 0.1
+    outliers = (torch.rand(y.shape, generator=gen) < 0.2).to(y.device)
+    sign = torch.randint(0, 2, y.shape, generator=gen).to(y.device) * 2.0 - 1.0
+    affine = 20.0 * y + 30.0 + noise + 15.0 * sign * outliers
+    errs = {}
+    for label, norm, target, kw in (
+            ("lsq", Normalizer(ssi=True, safe_ssi=False), disp, {}),
+            ("ransac", Normalizer(ssi=True, safe_ssi=True), affine, {"subsets": subsets})):
+        t0 = time.perf_counter()
+        gpu = norm.denormalize(y, target, mask, **{k: v.cuda() for k, v in kw.items()})
+        _sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        cpu = norm.denormalize(y.cpu(), target.cpu(), mask.cpu(), **kw)
+        errs[label] = ((gpu.cpu() - cpu).abs().max() / cpu.abs().max()).item()
+        print(f"pixel SSI denormalize ({label}): card vs CPU max err / max |ref| = "
+              f"{errs[label]:.3e} (tol {SSI_REL_TOL}); {ms:.1f} ms on the card; disparity in "
+              f"[{cpu.min().item():.3f}, {cpu.max().item():.3f}]", flush=True)
+        if not (torch.isfinite(gpu).all() and errs[label] <= SSI_REL_TOL):
+            raise AssertionError(f"SSI denormalize ({label}) on the card differs: {errs[label]}")
+    # RANSAC found the scale: the inliers' disparity within the noise
+    fit = Normalizer(ssi=True, safe_ssi=True).denormalize(y, affine, mask, subsets=subsets.cuda())
+    inl = mask & ~outliers
+    if not (fit - (affine - 15.0 * sign * outliers))[inl].abs().max() < 1.0:
+        raise AssertionError("SSI RANSAC on the card did not recover the affine map")
+    return errs
+
+
+def pixel_phase():
+    """The pixel family at the JAX bench's setting, batch 2: bf16, then
+    quantize_int8().fuse_norms() on a copy. Returns a summary dict."""
+    import copy
+
+    import torch
+
+    from d3roma_tpu_torch.ops.normalizer import Normalizer
+
+    t0 = time.perf_counter()
+    pipe = _pixel_pipeline()
+    n = sum(p.numel() for p in pipe.unet.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rgb = torch.randn((BATCH, PIXEL_H, PIXEL_W, 3), generator=gen, device="cuda") * 0.5
+    disp = torch.rand((BATCH, PIXEL_H, PIXEL_W, 1), generator=gen, device="cuda") * 60 + 5
+    mask = torch.rand((BATCH, PIXEL_H, PIXEL_W, 1), generator=gen, device="cuda") > 0.3
+    disp = torch.where(mask, disp, torch.zeros_like(disp))
+    raw, low, up = Normalizer(ssi=True).normalize(disp, mask)  # the condition, SSI-normalized
+    _sync()
+    print(f"pixel: built UNet2D {n / 1e6:.1f}M params (bf16) in {time.perf_counter() - t0:.1f}s;"
+          f" raw windows {[round(v, 2) for v in low.flatten().tolist()]} .. "
+          f"{[round(v, 2) for v in up.flatten().tolist()]}", flush=True)
+
+    def run_of(p):
+        def run():
+            return p(num_inference_steps=STEPS, num_intermediate_images=PIXEL_INTERMEDIATES,
+                     depth_channels=1, cond_channels="rgb+raw", rgb_images=rgb, sim_disp=raw,
+                     generator=torch.Generator(device="cuda").manual_seed(7))
+        return run
+
+    run = run_of(pipe)
+    t0 = time.perf_counter()
+    out = run()
+    _sync()
+    print(f"pixel: first call {time.perf_counter() - t0:.2f}s", flush=True)
+    counts, ms_bf16, peak_bf16 = _pixel_timed_calls(pipe, run, "pixel bf16")
+    _check_counts("pixel bf16", counts, {})  # head dim 8, no transformer: no hand kernel
+    wall, busy = profile_phase(run, "pixel bf16")
+    ssi = _pixel_ssi_check(out, disp, mask)
+
+    # one bf16 forward against the same weights in fp32 (TF32 off)
+    x = torch.randn((BATCH, PIXEL_H, PIXEL_W, pipe.unet.in_channels), generator=gen,
+                    device="cuda")
+    fp32 = copy.deepcopy(pipe.unet).float()
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    with torch.no_grad():
+        half = pipe.unet(x, 60)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            full = fp32(x, 60)
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    del fp32
+    rel_bf16 = ((half - full).abs().max() / full.abs().max()).item()
+    print(f"pixel unet forward: bf16 vs fp32 weights max err / max |out| = {rel_bf16:.3e} "
+          f"(tol {PIXEL_BF16_REL_TOL})", flush=True)
+    if not rel_bf16 <= PIXEL_BF16_REL_TOL:
+        raise AssertionError(f"pixel UNet bf16 forward differs from fp32: {rel_bf16}")
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    # the fused GroupNorm alone, in bf16: one UNet2D forward through the
+    # kernel against its plain version (no int8 on either side)
+    g = copy.deepcopy(pipe).fuse_norms()
+    with torch.no_grad():
+        _zero_launches()
+        fused = g.unet(x, 60)
+        gn_counts = _int8_launches()
+        r_gn = rel(fused, _plain_int8_forward(lambda: g.unet(x, 60)))
+    del g
+    print(f"pixel unet forward (bf16, fuse_norms only): {gn_counts['groupnorm_silu']} fused "
+          f"GroupNorm launches; kernel vs plain max err / max |out| = {r_gn:.3e} (tol "
+          f"{UNET_REL_TOL})", flush=True)
+    if not (gn_counts["groupnorm_silu"] > 0 and r_gn <= UNET_REL_TOL):
+        raise AssertionError(f"pixel bf16 fused-norm forward differs from the plain version: "
+                             f"{r_gn}, {gn_counts}")
+
+    # the pipeline's own int8 and fused-norm switches, on a copy
+    q = copy.deepcopy(pipe).quantize_int8().fuse_norms()
+    run_q = run_of(q)
+    t0 = time.perf_counter()
+    visits, table, gn_sites = _pixel_dry_pass(q, run_q)
+    print(f"pixel int8+gn: routing dry pass (first call, {time.perf_counter() - t0:.2f}s): "
+          f"{visits}", flush=True)
+    for site, route in sorted(table.items(), key=str):
+        print(f"  route {site}: {route}", flush=True)
+    # the fused GroupNorm against its plain version at every site it takes;
+    # its one device op a call is counted at groupnorm_cases' shapes only:
+    # after the pixel calls' profiles torch.profiler has missed launches at
+    # these sites (0.9 and 0.1 a call counted on an H100, the outputs right),
+    # and the call's launch counts below must match the dry pass.
+    print(f"pixel fused GroupNorm at the {len(gn_sites)} sites the gate admits (tol "
+          f"{REL_TOL} x max |ref|):", flush=True)
+    gen_gn = torch.Generator(device="cuda").manual_seed(5679)
+    for shape, dtype, groups, pdt in sorted(gn_sites):
+        _gn_case(shape, gen_gn, False, dtype, groups, pdt, count_ops=False)
+    expected = {"conv2d_int8_dynamic": visits["conv"] + visits["dense"],
+                "groupnorm_silu": visits["groupnorm_silu"]}
+    if min(expected.values()) <= 0:
+        raise AssertionError(f"pixel int8+gn: expected launches {expected}")
+    counts_q, ms_q, peak_q = _pixel_timed_calls(q, run_q, "pixel int8+gn")
+    _check_counts("pixel int8+gn", counts_q, expected)
+    wall_q, busy_q = profile_phase(run_q, "pixel int8+gn")
+
+    def forward():
+        with torch.no_grad():
+            return q.unet(x, 60)
+
+    fast = forward()
+    r_conv = rel(fast, _plain_int8_forward(forward, attention=False))
+    r_all = rel(fast, _plain_int8_forward(forward))
+    print(f"pixel unet forward (int8+gn), max err / max |out|: kernels vs the conv's plain "
+          f"version (bit-equal) {r_conv:.3e} (tol 1e-3); all plain {r_all:.3e} (tol "
+          f"{UNET_REL_TOL})", flush=True)
+    if not (r_conv <= 1e-3 and r_all <= UNET_REL_TOL):
+        raise AssertionError(f"pixel int8+gn forward differs from the plain versions: "
+                             f"{r_conv}, {r_all}")
+    del q
+    _sync()
+    return {"bf16": {"ms_per_frame": ms_bf16, "peak_bytes": peak_bf16, "wall_ms": wall,
+                     "busy_ms": busy},
+            "int8_gn": {"ms_per_frame": ms_q, "peak_bytes": peak_q, "wall_ms": wall_q,
+                        "busy_ms": busy_q, "launches": {k: v for k, v in counts_q.items() if v}},
+            "bf16_vs_fp32": rel_bf16, "fused_norm_vs_plain": r_gn,
+            "int8_gn_vs_plain": r_all, "ssi_denormalize_err": ssi}
+
+
 _KERNEL_GROUPS = (
     # the port's own kernels first, so that no library group takes one of them
     ("winograd kernels (input transform, tap GEMMs, split sum)", ("wino_",)),
@@ -2336,9 +2655,10 @@ def _group(kernel_name: str) -> str:
     return "elementwise and other"
 
 
-def profile_phase(run, label: str = "pipeline") -> None:
+def profile_phase(run, label: str = "pipeline"):
     """One more pipeline call under torch.profiler: device time by kernel
-    group and the device's idle share of the call's wall time."""
+    group and the device's idle share of the call's wall time. Returns
+    (wall ms, device busy ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2365,6 +2685,7 @@ def profile_phase(run, label: str = "pipeline") -> None:
         print(f"  {g}: {ms:.2f} ms ({ms / max(busy, 1e-9):.3f})", flush=True)
     for ms, count, name in sorted(kernels, reverse=True)[:12]:
         print(f"  top: {ms:8.2f} ms  x{count:<5d} {name[:110]}", flush=True)
+    return wall_ms, busy
 
 
 def _kernel_entry(name, source, replaces, rows, launches, note=None):
@@ -2433,6 +2754,12 @@ def main() -> int:
         groupnorm_cases(torch.Generator(device="cuda").manual_seed(5678))
         print("GroupNorm cases passed", flush=True)
         return 0
+    if sys.argv[1:] == ["--pixel"]:
+        pixel = pixel_phase()
+        print(json.dumps({"pixel": pixel, "torch_bench_pixel": bench_phase(pixel_only=True)}),
+              flush=True)
+        print("pixel phase passed", flush=True)
+        return 0
     if sys.argv[1:] == ["--attention"]:
         import torch
 
@@ -2459,6 +2786,8 @@ def main() -> int:
     import torch
 
     del pipe, inputs
+    torch.cuda.empty_cache()
+    pixel = pixel_phase()
     torch.cuda.empty_cache()  # the bench's own process builds its own models
     bench_lines = bench_phase()
 
@@ -2485,14 +2814,16 @@ def main() -> int:
                            f"the \"all\" path; {dynamic['dense'][0]['conv2d_int8_dynamic']} on "
                            f"\"dense\""),
              back_to_back=int8_rows["back_to_back_dynamic"],
-             batch16_dense=int8_rows["conv2d_int8_dynamic_b16"]),
+             batch16_dense=int8_rows["conv2d_int8_dynamic_b16"],
+             pixel_launches=pixel["int8_gn"]["launches"]["conv2d_int8_dynamic"]),
         # no Pallas kernel: the XLA quantization in front of the int8 ops
         _kernel_entry("quantize_int8", "d3roma_tpu_torch/csrc/quantize.cu",
                       "d3roma_tpu/ops/quant.py:64", int8_rows["quantize"],
                       bench_counts["quantize"]),
-        _kernel_entry("groupnorm_silu", "d3roma_tpu_torch/csrc/groupnorm_silu.cu",
-                      "d3roma_tpu/ops/pallas/groupnorm.py:58", opt_rows["groupnorm_silu"],
-                      opt_counts["groupnorm_silu"]),
+        dict(_kernel_entry("groupnorm_silu", "d3roma_tpu_torch/csrc/groupnorm_silu.cu",
+                           "d3roma_tpu/ops/pallas/groupnorm.py:58", opt_rows["groupnorm_silu"],
+                           opt_counts["groupnorm_silu"]),
+             pixel_launches=pixel["int8_gn"]["launches"]["groupnorm_silu"]),
         _kernel_entry("attention_fused_int8", "d3roma_tpu_torch/csrc/attention_fused_int8.cu",
                       "d3roma_tpu/ops/pallas/attention_fused.py:80",
                       opt_rows["attention_fused_int8"], opt_counts["attention_fused_int8"]),
@@ -2532,6 +2863,7 @@ def main() -> int:
                       "launches_per_call": {k: {n: c for n, c in v[0].items() if c}
                                             for k, v in dynamic.items()},
                       "batch": BATCH, "steps": STEPS}), flush=True)
+    print(json.dumps({"pixel": pixel}), flush=True)
     print(json.dumps({"torch_bench": bench_lines}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,20 +1,30 @@
 """Benchmark of the port: denoised depth frames per second on one CUDA card
-at the release inference setting, 640x360 input, RGB + raw, 10 DDIM steps.
+at the release inference setting, 640x360 input, RGB + raw, 10 steps.
 
     python -m d3roma_tpu_torch.bench
+    BENCH_MODEL=pixel python -m d3roma_tpu_torch.bench
 
 Prints ONE JSON line, the keys of the JAX package's `bench.py` line:
 {"metric", "value", "unit", "vs_baseline", "config", "batch",
-"ms_per_frame", "quant", the DeepCache keys, "act_clip_pct" (with
-BENCH_CLIP_PCT), "tflop_per_frame", "tflops_sustained", "mfu_bf16_peak",
-"mfu_int8_peak"}, plus "device", the card's name. On an error (no CUDA card,
-BENCH_MODEL=pixel, a kernel that fails) it prints the same line with value
-0 and an "error" key, and exits 1.
+"ms_per_frame", "quant"}, for the latent pipeline also the DeepCache keys,
+"act_clip_pct" (with BENCH_CLIP_PCT), "tflop_per_frame",
+"tflops_sustained", "mfu_bf16_peak" and "mfu_int8_peak" (the JAX package
+counts no FLOPs of the pixel UNet, and neither does the port), plus
+"device", the card's name. On an error (no CUDA card, a kernel that fails)
+it prints the same line with value 0 and an "error" key, and exits 1.
 
-Port of `bench.py`'s latent family (`bench_ldm`, `_parse_deepcache`,
+Port of `bench.py` (`bench_ldm`, `bench_pixel`, `_parse_deepcache`,
 `_bench_setting`, `_deepcache_key`, `_maybe_autoselect_quant`,
 `_record_result`, `main`), with the same knobs and defaults:
-  BENCH_MODEL=ldm         the latent pipeline (pixel is not ported: it raises)
+  BENCH_MODEL=ldm|pixel   the latent pipeline (default), or the pixel one:
+                          UNet2D at its full widths in bf16, RGB + raw at
+                          640x368 (360 padded to a multiple of 16), the
+                          SSI normalizer, my_ddpm over 128 squaredcos
+                          steps (prediction "sample", clipped), 10 steps,
+                          5 intermediates, zero inputs as in the JAX bench.
+                          Of the knobs below it reads BENCH_BATCH,
+                          BENCH_REPS and BENCH_SEED; its line's "quant" is
+                          BENCH_QUANT's value, unused, as in the JAX line
   BENCH_BATCH=N           frames per pipeline call (default 16)
   BENCH_REPS=N            timed calls (default 12)
   BENCH_STEPS=N           denoise steps (default 10; the metric names them)
@@ -231,6 +241,42 @@ def bench_ldm(batch: int, reps: int):
     return run, f"ldm_rgb+raw_640x360_ddim{steps}", flops["total"], device
 
 
+def bench_pixel(batch: int, reps: int):
+    """The pixel family: UNet2D at its full widths, bf16 (fp32 conv_out),
+    RGB + raw at 640x368, SSI normalizer, my_ddpm, random weights from a
+    seed. Returns (run, config tag, None, the CUDA device)."""
+    import torch
+
+    from d3roma_tpu_torch.device import resolve_device
+    from d3roma_tpu_torch.guidance import FlowGuidance
+    from d3roma_tpu_torch.models import UNet2D, init_random_, pixel_in_channels
+    from d3roma_tpu_torch.ops.normalizer import Normalizer
+    from d3roma_tpu_torch.ops.schedules import ScheduleConfig
+    from d3roma_tpu_torch.pipelines import GuidedDiffusionPipeline, SamplerSpec
+
+    device = resolve_device(None)
+    H, W = 360, 640
+    unet = UNet2D(in_channels=pixel_in_channels("rgb+raw", 1), out_channels=1, device=device)
+    with torch.no_grad():
+        init_random_(unet, torch.Generator(device=device).manual_seed(0))
+    sched = ScheduleConfig(num_train_timesteps=128, beta_schedule="squaredcos_cap_v2",
+                           prediction_type="sample", clip_sample=True)
+    pipe = GuidedDiffusionPipeline(
+        unet=unet, spec=SamplerSpec("my_ddpm", sched),
+        guidance=FlowGuidance(flow_guidance_weight=0.0),
+        normalizer=Normalizer(ssi=True, safe_ssi=False), device=device).half_precision()
+    rgb = torch.zeros((batch, H + 8, W, 3), device=device)  # padded to a multiple of 16
+    raw = torch.zeros((batch, H + 8, W, 1), device=device)
+    seed_base = int(os.environ.get("BENCH_SEED", "0"))
+
+    def run(i):
+        return pipe(num_inference_steps=10, num_intermediate_images=5, depth_channels=1,
+                    cond_channels="rgb+raw", rgb_images=rgb, sim_disp=raw,
+                    generator=torch.Generator(device).manual_seed(seed_base + i))
+
+    return run, "pixel_rgb+raw_640x360_ddpm10", None, device
+
+
 def _bench_setting() -> dict:
     """The knobs that define comparability between bench runs."""
     return {
@@ -336,11 +382,12 @@ def main() -> int:
     reps = int(os.environ.get("BENCH_REPS", "12"))
     model = os.environ.get("BENCH_MODEL", "ldm")
     try:
-        if model != "ldm":
-            raise NotImplementedError(f"BENCH_MODEL={model} is not ported yet (only ldm)")
+        if model not in ("ldm", "pixel"):
+            raise ValueError(f"unknown BENCH_MODEL={model} (ldm or pixel)")
         import torch
 
-        run, tag, flops_per_frame, device = bench_ldm(batch, reps)
+        run, tag, flops_per_frame, device = (bench_ldm if model == "ldm"
+                                             else bench_pixel)(batch, reps)
         run(0)  # warm: first launches, builds, workspaces
         torch.cuda.synchronize(device)
         # the sustained-throughput protocol: every call enqueued, one
@@ -369,6 +416,9 @@ def main() -> int:
         "ms_per_frame": round(1000.0 * dt / batch, 2),
         "quant": os.environ.get("BENCH_QUANT", DEFAULT_QUANT),
     }
+    if model != "ldm":  # the DeepCache, clipping and MFU keys are the latent run's
+        print(json.dumps(dict(result, device=name)))
+        return 0
     dc_sched, dc_depth = _parse_deepcache()
     if dc_sched != 1 or dc_depth != 1:
         if isinstance(dc_sched, int):

@@ -72,9 +72,13 @@ class UNet2DCondition(nn.Module):
         device: DeviceLike = None,
     ):
         super().__init__()
-        self.in_channels = in_channels
+        self.in_channels, self.out_channels = in_channels, out_channels
         self.block_out_channels = tuple(block_out_channels)
+        self.down_block_types, self.up_block_types = tuple(down_block_types), tuple(up_block_types)
+        self.layers_per_block = layers_per_block
+        self.attention_head_dim = attention_head_dim
         self.cross_attention_dim = cross_attention_dim
+        self.norm_groups = norm_groups
         self.flip_sin_to_cos, self.freq_shift = flip_sin_to_cos, freq_shift
         boc = self.block_out_channels
         c0 = boc[0]

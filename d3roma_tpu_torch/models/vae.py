@@ -137,8 +137,10 @@ class AutoencoderKL(nn.Module):
                  norm_groups: int = 32, fused_norm: bool = False,
                  device: DeviceLike = None):
         super().__init__()
+        self.in_channels, self.out_channels = in_channels, out_channels
         self.latent_channels = latent_channels
         self.block_out_channels = tuple(block_out_channels)
+        self.norm_groups = norm_groups
         with torch.device(resolve_device(device)):
             self.encoder = Encoder(in_channels, latent_channels, block_out_channels,
                                    norm_groups=norm_groups)

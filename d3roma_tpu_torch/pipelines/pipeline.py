@@ -1,7 +1,12 @@
-"""The latent diffusion pipeline: UNet + VAE + the baked empty-prompt
-embedding + sampler + normalizer.
+"""The diffusion pipelines: the pixel-space one (UNet2D + sampler +
+guidance + normalizer) and the latent one (UNet + VAE + the baked
+empty-prompt embedding + sampler + normalizer), with the JAX package's
+directory format.
 
-Port of `d3roma_tpu/pipelines/pipeline.py::GuidedLatentDiffusionPipeline`:
+Port of `d3roma_tpu/pipelines/pipeline.py`. `GuidedDiffusionPipeline`:
+`__call__` (every sampler, imputation guidance), `half_precision`,
+`quantize_int8`, `fuse_norms`, `replace_sampler`, `save_pretrained` /
+`from_pretrained`. `GuidedLatentDiffusionPipeline`:
 `__call__`, `half_precision`, `quantize_int8` (dynamic int8 in the UNet and
 the VAE), `fast_inference("latency")` (bf16 weights, the whole-row
 attention kernel at self-attention sites of >= 512 tokens, the fused GEGLU
@@ -10,16 +15,26 @@ in the UNet and the VAE), `fast_inference("dense")` (the same with dynamic
 int8 at the dense layers only), `fast_inference("wino")` (the same with the
 "wino_static" mode: Winograd at the convs it routes there), `fuse_norms`,
 `deepcache`, `calibrate` (with optional |activation| quantiles),
-`quant_call_map`, `kind_pins` and `with_act_clipping`. Guidance, split
-programs / scan chunks and the compiled-program cache are not ported yet
-and raise NotImplementedError.
+`quant_call_map`, `kind_pins`, `with_act_clipping`, `replace_sampler` and
+`save_pretrained` / `from_pretrained`. Latent guidance, split programs /
+scan chunks and the compiled-program cache are not ported yet and raise
+NotImplementedError.
 
-Unlike the JAX package's, whose methods return a replaced copy, this
-pipeline's configuration methods (`half_precision`, `quantize_int8`,
+Unlike the JAX package's, whose methods return a replaced copy, these
+pipelines' configuration methods (`half_precision`, `quantize_int8`,
 `set_quant`, `fast_inference`, `fuse_norms`, `deepcache`, `calibrate`,
-`with_act_clipping`) change the pipeline (and its models) in place and
-return it: a caller that derives several configurations from one base
-pipeline copies it first. `quant_call_map` and `kind_pins` change nothing.
+`with_act_clipping`, `replace_sampler`) change the pipeline (and its
+models) in place and return it: a caller that derives several
+configurations from one base pipeline copies it first. `quant_call_map`
+and `kind_pins` change nothing.
+
+A pipeline directory is the JAX package's: `model_index.json` (the
+pipeline class, the sampler, the guidance and normalizer fields), one
+folder per model with `config.json` and `params.msgpack` (the Flax param
+tree, read and written by `utils/flax_msgpack.py`), and for the latent
+pipeline `text_embed.npy` and, when calibrated, `act_scales.json`. Either
+package reads what the other writes. A model whose saved params are all
+bf16 (a half-precision pipeline's) loads in bf16.
 
 `act_scales` keeps the JAX package's JSON form: tables "unet",
 "unet_cached", "vae_encode", "vae_decode" (and "<table>@pins"), lists of
@@ -33,13 +48,23 @@ from __future__ import annotations
 import copy
 import dataclasses
 import itertools
+import json
+import os
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from d3roma_tpu_torch.device import DeviceLike, resolve_device
+from d3roma_tpu_torch.guidance import FlowGuidance
+from d3roma_tpu_torch.models.convert import (
+    flax_unet2d_to_torch,
+    flax_unet_to_torch,
+    flax_vae_to_torch,
+    torch_to_flax,
+)
 from d3roma_tpu_torch.models.layers import _Cached
+from d3roma_tpu_torch.models.unet2d import UNet2D
 from d3roma_tpu_torch.models.unet2d_condition import UNet2DCondition
 from d3roma_tpu_torch.models.vae import AutoencoderKL, decode_latent, encode_image_to_latent
 from d3roma_tpu_torch.ops.normalizer import Normalizer
@@ -50,25 +75,177 @@ from d3roma_tpu_torch.ops.quant import (
     stack_taps,
 )
 from d3roma_tpu_torch.ops.scheduler_step import ddim_step
-from d3roma_tpu_torch.ops.schedules import set_timesteps
+from d3roma_tpu_torch.ops.schedules import ScheduleConfig, set_timesteps
 from d3roma_tpu_torch.pipelines.sampling import (
     PipelineOutput,
     SamplerSpec,
     latent_decode_images,
     latent_denoise,
     latent_encode_conds,
+    pixel_pipeline,
     step_pattern,
 )
+from d3roma_tpu_torch.utils import flax_msgpack
 
 ACT_TABLES = ("unet", "unet_cached", "vae_encode", "vae_decode")
+# the config.json keys of each model, as the JAX package's save_pretrained writes them
+UNET2D_CONFIG = ("in_channels", "out_channels", "block_out_channels", "down_block_types",
+                 "up_block_types", "layers_per_block", "attention_head_dim", "norm_groups")
+UNET_CONFIG = ("in_channels", "out_channels", "block_out_channels", "down_block_types",
+               "up_block_types", "layers_per_block", "attention_head_dim",
+               "cross_attention_dim", "norm_groups")
+VAE_CONFIG = ("in_channels", "out_channels", "latent_channels", "block_out_channels",
+              "norm_groups")
 
 
-@dataclasses.dataclass(frozen=True)
-class GuidanceConfig:
-    """Flow guidance settings. Guidance is not ported yet, so only a
-    disabled configuration is accepted."""
+def _save_module(path: str, model: torch.nn.Module, keys) -> None:
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({k: getattr(model, k) for k in keys}, f, indent=2)
+    flax_msgpack.dump(torch_to_flax(model.state_dict()), os.path.join(path, "params.msgpack"))
 
-    enabled: bool = False
+
+def _load_module(path: str, make, to_torch, device) -> torch.nn.Module:
+    """Build the model from `config.json` on `device` and load
+    `params.msgpack` into it (strict, names mapped by `to_torch`), in the
+    params' dtype when every floating leaf has the same one."""
+    with open(os.path.join(path, "config.json")) as f:
+        config = json.load(f)
+    for k in ("block_out_channels", "down_block_types", "up_block_types"):
+        if k in config:
+            config[k] = tuple(config[k])
+    state = to_torch(flax_msgpack.load(os.path.join(path, "params.msgpack")))
+    model = make(**config, device=device)
+    dtypes = {t.dtype for t in state.values() if t.is_floating_point()}
+    if len(dtypes) == 1:
+        model.to(dtypes.pop())
+    model.load_state_dict(state, strict=True)
+    return model
+
+
+def _meta(pipeline_class: str, spec: SamplerSpec, guidance: Optional[FlowGuidance],
+          normalizer: Normalizer) -> dict:
+    return {"pipeline_class": pipeline_class,
+            "scheduler": {"kind": spec.kind, "eta": spec.eta,
+                          "use_clipped_model_output": spec.use_clipped_model_output,
+                          "schedule": dataclasses.asdict(spec.schedule)},
+            "guidance": dataclasses.asdict(guidance or FlowGuidance(flow_guidance_weight=0.0)),
+            "normalizer": dataclasses.asdict(normalizer)}
+
+
+def _read_meta(out_dir: str, pipeline_class: str):
+    """(spec, guidance, normalizer) of a directory's model_index.json."""
+    with open(os.path.join(out_dir, "model_index.json")) as f:
+        meta = json.load(f)
+    if meta.get("pipeline_class", pipeline_class) != pipeline_class:
+        raise ValueError(f"{out_dir} holds a {meta['pipeline_class']}, not a {pipeline_class}")
+    sch = meta["scheduler"]
+    spec = SamplerSpec(kind=sch["kind"], eta=sch["eta"],
+                       use_clipped_model_output=sch["use_clipped_model_output"],
+                       schedule=ScheduleConfig(**sch["schedule"]))
+    norm = dict(meta["normalizer"])
+    for k in ("ch_bounds", "ch_gammas"):
+        norm[k] = tuple(norm[k])
+    return spec, FlowGuidance(**meta["guidance"]), Normalizer(**norm)
+
+
+@dataclasses.dataclass
+class GuidedDiffusionPipeline:
+    """The pixel-space pipeline. The UNet is moved to `device` (CUDA unless
+    the caller names another) when the pipeline is made."""
+
+    unet: UNet2D
+    spec: SamplerSpec
+    guidance: FlowGuidance
+    normalizer: Normalizer
+    device: DeviceLike = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        self.unet.to(self.device)
+        self._tables = self.spec.schedule.tables(self.device)
+
+    def replace_sampler(self, spec: SamplerSpec) -> "GuidedDiffusionPipeline":
+        """Another sampler (and schedule) for the same model. In place."""
+        self.spec = spec
+        self._tables = spec.schedule.tables(self.device)
+        return self
+
+    def half_precision(self) -> "GuidedDiffusionPipeline":
+        """Inference-only bf16 weights (conv_out still computes in fp32).
+        In place."""
+        self.unet.to(torch.bfloat16)
+        return self
+
+    def set_quant(self, quant) -> "GuidedDiffusionPipeline":
+        """The UNet's int8 mode (one of ops/quant.py's QUANT_MODES)."""
+        self.unet.set_quant(quant)
+        return self
+
+    def quantize_int8(self) -> "GuidedDiffusionPipeline":
+        """Dynamic int8 (quant=True): every resnet and resampler conv and
+        attention projection takes its own per-row or per-item activation
+        scale on the device and runs the dynamic int8 kernel. In place."""
+        return self.set_quant(True)
+
+    def fuse_norms(self) -> "GuidedDiffusionPipeline":
+        """The fused GroupNorm + SiLU kernel at the resnets' norms and
+        conv_norm_out, where its gate admits the shape. In place."""
+        self.unet.set_kernels(fused_norm=True)
+        return self
+
+    def __call__(
+        self,
+        num_inference_steps: int,
+        num_intermediate_images: int,
+        depth_channels: int,
+        cond_channels: str,
+        rgb_images: Optional[torch.Tensor] = None,
+        left_images: Optional[torch.Tensor] = None,
+        right_images: Optional[torch.Tensor] = None,
+        sim_disp: Optional[torch.Tensor] = None,
+        raw_mask: Optional[torch.Tensor] = None,
+        add_noise_rgb: bool = False,
+        generator: Optional[torch.Generator] = None,
+        x_init: Optional[torch.Tensor] = None,
+        step_noise: Optional[Sequence[torch.Tensor]] = None,
+    ) -> PipelineOutput:
+        """Restore disparity from the conditions (NHWC, in [-1, 1], the
+        normalized raw disparity as `sim_disp`): the sampler from `x_init`
+        (or noise drawn from `generator`), its per-step noise `step_noise`
+        (or drawn from `generator`). Returns the final sample and the kept
+        x_hat0s, clamped to [-1, 1]; `self.normalizer.denormalize` turns
+        them into disparity."""
+        def on_device(x):
+            return None if x is None else torch.as_tensor(x).to(self.device)
+
+        with torch.no_grad():
+            return pixel_pipeline(
+                self.unet, self.spec, self._tables, num_inference_steps,
+                num_intermediate_images, depth_channels, cond_channels,
+                rgb=on_device(rgb_images), left=on_device(left_images),
+                right=on_device(right_images), sim_disp=on_device(sim_disp),
+                guidance=self.guidance, raw_mask=on_device(raw_mask),
+                add_noise_rgb=add_noise_rgb, generator=generator,
+                x_init=on_device(x_init),
+                step_noise=None if step_noise is None else [on_device(n) for n in step_noise])
+
+    def save_pretrained(self, out_dir: str) -> None:
+        """Write the JAX package's pixel pipeline directory."""
+        os.makedirs(out_dir, exist_ok=True)
+        _save_module(os.path.join(out_dir, "unet"), self.unet, UNET2D_CONFIG)
+        with open(os.path.join(out_dir, "model_index.json"), "w") as f:
+            json.dump(_meta("GuidedDiffusionPipeline", self.spec, self.guidance,
+                            self.normalizer), f, indent=2)
+
+    @classmethod
+    def from_pretrained(cls, out_dir: str, device: DeviceLike = None) -> "GuidedDiffusionPipeline":
+        """Load a pixel pipeline directory written by either package."""
+        device = resolve_device(device)
+        spec, guidance, normalizer = _read_meta(out_dir, "GuidedDiffusionPipeline")
+        unet = _load_module(os.path.join(out_dir, "unet"), UNet2D, flax_unet2d_to_torch, device)
+        return cls(unet=unet, spec=spec, guidance=guidance, normalizer=normalizer,
+                   device=device)
 
 
 @dataclasses.dataclass
@@ -82,7 +259,8 @@ class GuidedLatentDiffusionPipeline:
     spec: SamplerSpec
     normalizer: Normalizer
     device: DeviceLike = None
-    guidance: Optional[GuidanceConfig] = None
+    # carried and saved; latent gradient guidance itself is not ported yet
+    guidance: Optional[FlowGuidance] = None
     # calibrated static-int8 activation scales (see the module docstring)
     act_scales: Optional[Dict[str, list]] = None
     # DeepCache: groups of one full and cache_interval - 1 shallow passes,
@@ -91,13 +269,19 @@ class GuidedLatentDiffusionPipeline:
     cache_schedule: Optional[str] = None
 
     def __post_init__(self):
-        if self.guidance is not None and self.guidance.enabled:
-            raise NotImplementedError("guidance is not ported yet")
         self.device = resolve_device(self.device)
         self.unet.to(self.device)
         self.vae.to(self.device)
         self.text_embed = torch.as_tensor(self.text_embed).to(self.device)
         self._tables = self.spec.schedule.tables(self.device)
+
+    def replace_sampler(self, spec: SamplerSpec) -> "GuidedLatentDiffusionPipeline":
+        """Another sampler (and schedule) for the same models. In place."""
+        if spec.kind == "heun" and self.cache_active:
+            raise ValueError("deepcache does not support the heun sampler")
+        self.spec = spec
+        self._tables = spec.schedule.tables(self.device)
+        return self
 
     def half_precision(self) -> "GuidedLatentDiffusionPipeline":
         """Inference-only bf16 weights. Casts the UNet and the VAE in place
@@ -163,11 +347,15 @@ class GuidedLatentDiffusionPipeline:
             if not s or set(s) - {"F", "S"} or s[0] != "F":
                 raise ValueError(f"cache schedule must be a nonempty F/S string starting "
                                  f"with F, got {interval!r}")
+            if "S" in s and self.spec.kind == "heun":
+                raise ValueError("deepcache does not support the heun sampler")
             self.cache_schedule, self.cache_interval = s, 1
             return self
         interval = int(interval)
         if interval < 1:
             raise ValueError(f"cache_interval must be >= 1, got {interval}")
+        if interval > 1 and self.spec.kind == "heun":
+            raise ValueError("deepcache does not support the heun sampler")
         self.cache_interval, self.cache_schedule = interval, None
         return self
 
@@ -179,9 +367,11 @@ class GuidedLatentDiffusionPipeline:
 
     def _replayed(self, fn, table: str):
         """`fn` with its static int8 ops taking the `table` scales, one
-        replay context per call (no-op without a table)."""
+        replay context per call (no-op without a table, or where the
+        table's model is in no static mode and so consumes no scale)."""
         scales = (self.act_scales or {}).get(table)
-        if not scales:
+        model = self.vae if table.startswith("vae") else self.unet
+        if not scales or model.quant not in STATIC_MODES:
             return fn
         pins = (self.act_scales or {}).get(table + "@pins") or ()
 
@@ -412,10 +602,12 @@ class GuidedLatentDiffusionPipeline:
         add_noise_rgb: bool = False,
         split_programs: bool = False,
         scan_chunk: Optional[int] = None,
+        step_noise: Optional[Sequence[torch.Tensor]] = None,
     ) -> PipelineOutput:
         """Restore disparity from the conditions (NHWC, in [-1, 1]): encode
         them once, run the sampler from `latents` (or noise drawn from
-        `generator`) and decode. Returns the decoded final x_hat0 in
+        `generator`), with the per-step noise `step_noise` (or drawn from
+        `generator`), and decode. Returns the decoded final x_hat0 in
         [-1, 1]; `self.normalizer.denormalize` turns it into disparity."""
         if raw_depth is not None or denormer is not None or denorm_builder is not None:
             raise NotImplementedError("guidance (raw_depth / denormer) is not ported yet")
@@ -441,9 +633,45 @@ class GuidedLatentDiffusionPipeline:
                 cond_channels, generator=generator, latents=latents,
                 noise_dtype=ref.dtype, cache_interval=self.cache_interval,
                 unet_apply_trunk=trunk_apply, unet_apply_cached=cached_apply,
-                cache_schedule=self.cache_schedule)
+                cache_schedule=self.cache_schedule,
+                step_noise=None if step_noise is None else [on_device(n) for n in step_noise])
             return latent_decode_images(
                 self._replayed(lambda z: decode_latent(self.vae, z), "vae_decode"), kept)
+
+    def save_pretrained(self, out_dir: str) -> None:
+        """Write the JAX package's latent pipeline directory."""
+        os.makedirs(out_dir, exist_ok=True)
+        _save_module(os.path.join(out_dir, "unet"), self.unet, UNET_CONFIG)
+        _save_module(os.path.join(out_dir, "vae"), self.vae, VAE_CONFIG)
+        embed = self.text_embed.detach().cpu()
+        # numpy has no bfloat16: a bf16 embedding is saved widened
+        np.save(os.path.join(out_dir, "text_embed.npy"),
+                (embed.float() if embed.dtype == torch.bfloat16 else embed).numpy())
+        with open(os.path.join(out_dir, "model_index.json"), "w") as f:
+            json.dump(_meta("GuidedLatentDiffusionPipeline", self.spec, self.guidance,
+                            self.normalizer), f, indent=2)
+        if self.act_scales:
+            with open(os.path.join(out_dir, "act_scales.json"), "w") as f:
+                json.dump(self.act_scales, f)
+
+    @classmethod
+    def from_pretrained(cls, out_dir: str,
+                        device: DeviceLike = None) -> "GuidedLatentDiffusionPipeline":
+        """Load a latent pipeline directory written by either package."""
+        device = resolve_device(device)
+        spec, guidance, normalizer = _read_meta(out_dir, "GuidedLatentDiffusionPipeline")
+        act_scales = None
+        path = os.path.join(out_dir, "act_scales.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                act_scales = json.load(f)
+        return cls(unet=_load_module(os.path.join(out_dir, "unet"), UNet2DCondition,
+                                     flax_unet_to_torch, device),
+                   vae=_load_module(os.path.join(out_dir, "vae"), AutoencoderKL,
+                                    flax_vae_to_torch, device),
+                   text_embed=torch.from_numpy(np.load(os.path.join(out_dir, "text_embed.npy"))),
+                   spec=spec, normalizer=normalizer, device=device, guidance=guidance,
+                   act_scales=act_scales)
 
 
 def _meta_replica(module: torch.nn.Module) -> torch.nn.Module:

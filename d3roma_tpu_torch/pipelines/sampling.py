@@ -1,37 +1,49 @@
-"""The latent sampling pipeline: encode the conditions once, denoise, decode.
+"""The sampling pipelines: the denoise loop with every sampler, the pixel
+pipeline, and the latent pipeline's three stages (encode the conditions
+once, denoise, decode).
 
-Port of the latent path of `d3roma_tpu/pipelines/sampling.py`. The JAX
-package runs the denoise as one `lax.scan`; here it is a Python loop over
-the host timestep table. The returned images are the VAE decodes of the
-kept x_hat0 latents (channel mean -> 1 channel), clamped to [-1, 1]; the
-last one is the final step's.
+Port of `d3roma_tpu/pipelines/sampling.py`. The JAX package runs the
+denoise as one `lax.scan`; here it is a Python loop over the host timestep
+table, with the same sampler dispatch: DDPM (`ddpm`, `my_ddpm`), DDIM
+(`ddim`, `my_ddim`), Euler and Heun (a second model call at the Euler
+point). The pixel pipeline's images are the last step's clamped
+prev_sample and its intermediates the kept x_hat0s, clamped; the latent
+pipeline's are the VAE decodes of the kept x_hat0 latents (channel mean ->
+1 channel), clamped, the last one the final step's.
+
+Noise is explicit: the initial noise (`x_init` / `latents`) and the
+per-step sampling noise (`step_noise`, one tensor per step, read by the
+DDPM steps and the DDIM steps with eta > 0) may be given, else they are
+drawn from the `torch.Generator`. The JAX package draws them from one key
+schedule (`split(key)` for the initial noise, then `split(k, 3)` per step,
+the second key the step's noise), which a test can replay this way.
 
 DeepCache (`cache_interval`, `cache_schedule`) runs each step's UNet pass as
 the F/S pattern says: a full pass that also returns its trunk where a
 shallow step follows, the shallow pass on the latest trunk at an S step.
+Heun refuses it (its second model call has no cached pass).
 
-Only the DDIM samplers (eta 0 or with a generator) are ported; DDPM,
-euler, heun, guidance and add_noise_rgb wait for later slices.
+Latent guidance and add_noise_rgb are not ported yet and raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from d3roma_tpu_torch.ops.scheduler_step import ddim_step
+from d3roma_tpu_torch.guidance import FlowGuidance
+from d3roma_tpu_torch.ops.scheduler_step import ddim_step, ddpm_step, euler_step, heun_correct
 from d3roma_tpu_torch.ops.schedules import ScheduleConfig, ScheduleTables, set_timesteps
 
-SAMPLER_KINDS = ("ddim", "my_ddim")
-_NOT_PORTED_KINDS = ("ddpm", "my_ddpm", "euler", "heun")
+SAMPLER_KINDS = ("ddpm", "my_ddpm", "ddim", "my_ddim", "euler", "heun")
 
 
 class PipelineOutput(NamedTuple):
-    images: torch.Tensor  # [B, H, W, C] final decoded x_hat0, clamped
-    intermediates: torch.Tensor  # [S, B, H, W, C] decoded x_hat0 per kept step
+    images: torch.Tensor  # [B, H, W, C] final image, clamped
+    intermediates: torch.Tensor  # [S, B, H, W, C] x_hat0 (decoded) per kept step
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,11 +54,17 @@ class SamplerSpec:
     use_clipped_model_output: bool = False
 
     def __post_init__(self):
-        if self.kind in _NOT_PORTED_KINDS:
-            raise NotImplementedError(f"sampler {self.kind!r} is not ported yet; "
-                                      f"ported: {SAMPLER_KINDS}")
         if self.kind not in SAMPLER_KINDS:
-            raise ValueError(f"unknown sampler kind {self.kind!r}")
+            raise ValueError(f"unknown sampler kind {self.kind!r}; supported: {SAMPLER_KINDS}")
+
+    @property
+    def is_ddim(self) -> bool:
+        return "ddim" in self.kind
+
+    @property
+    def is_ode(self) -> bool:
+        """The deterministic samplers, which take the latent guidance hook."""
+        return self.is_ddim or self.kind in ("euler", "heun")
 
 
 def build_cond_concat(cond_channels: str, rgb=None, left=None, right=None,
@@ -132,6 +150,25 @@ def step_pattern(num_steps: int, cache_interval: int = 1,
     return pattern if "S" in pattern else None
 
 
+def _scheduler_apply(spec: SamplerSpec, tables: ScheduleTables, model_output, t: int,
+                     prev_t: int, x, generator, noise, guidance_fn):
+    """One scheduler update for every sampler but Heun (which needs a
+    second model call and stays in the loop)."""
+    cfg = spec.schedule
+    if spec.is_ddim:
+        return ddim_step(tables, cfg, model_output, t, prev_t, x, eta=spec.eta,
+                         generator=generator, use_clipped_model_output=spec.use_clipped_model_output,
+                         guidance_fn=guidance_fn, noise=noise if spec.eta > 0 else None)
+    if spec.kind == "euler":
+        return euler_step(tables, cfg, model_output, t, prev_t, x, guidance_fn=guidance_fn)
+    if spec.kind in ("ddpm", "my_ddpm"):
+        if noise is None and generator is None:
+            raise ValueError(f"sampler {spec.kind!r} needs a torch.Generator or step_noise")
+        return ddpm_step(tables, cfg, model_output, t, prev_t, x, generator=generator,
+                         guidance_fn=guidance_fn, noise=noise)
+    raise ValueError(f"unknown sampler kind {spec.kind!r}")
+
+
 def run_sampler_steps(
     model_fn: Callable[[torch.Tensor, int], torch.Tensor],
     spec: SamplerSpec,
@@ -145,35 +182,120 @@ def run_sampler_steps(
     model_fn_trunk=None,
     model_fn_cached=None,
     cache_schedule: Optional[str] = None,
+    guidance_fn=None,
+    step_noise: Optional[Sequence[torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The denoise loop: model_fn(cat([x, conds]), t) -> model output, then
-    a DDIM step. Returns (final sample, x_hat0 of every step [S, ...]).
+    the sampler's step (Heun: an Euler step, a second model call at
+    max(prev_t, 0) on the Euler point, the correction). Returns (final
+    sample, guided x_hat0 of every step [S, ...]). `step_noise[i]` is step
+    i's sampling noise, else it is drawn from `generator`.
 
     With DeepCache (cache_interval > 1 or a cache_schedule with an S), a
     full step followed by an S runs model_fn_trunk(input, t) -> (output,
     trunk) and an S step model_fn_cached(input, t, trunk); other full steps
     run model_fn, as the JAX package's grouped scans do."""
     pattern = step_pattern(len(ts), cache_interval, cache_schedule)
-    if pattern is not None and (model_fn_trunk is None or model_fn_cached is None):
-        raise ValueError("DeepCache needs model_fn_trunk and model_fn_cached")
+    if pattern is not None:
+        if spec.kind == "heun":
+            raise ValueError("DeepCache does not support the heun sampler")
+        if model_fn_trunk is None or model_fn_cached is None:
+            raise ValueError("DeepCache needs model_fn_trunk and model_fn_cached")
+    if step_noise is not None and len(step_noise) != len(ts):
+        raise ValueError(f"step_noise has {len(step_noise)} entries for {len(ts)} steps")
+    cfg = spec.schedule
     x = x_init
     trunk = None
     x0s: List[torch.Tensor] = []
     for i, (t, prev_t) in enumerate(zip(ts, prev_ts)):
+        t, prev_t = int(t), int(prev_t)
         model_input = torch.cat([x, conds], dim=-1)
         if pattern is not None and pattern[i] == "S":
-            out = model_fn_cached(model_input, int(t), trunk)
+            out = model_fn_cached(model_input, t, trunk)
         elif pattern is not None and i + 1 < len(pattern) and pattern[i + 1] == "S":
-            out, trunk = model_fn_trunk(model_input, int(t))
+            out, trunk = model_fn_trunk(model_input, t)
         else:
-            out = model_fn(model_input, int(t))
-        step = ddim_step(tables, spec.schedule, out, int(t), int(prev_t), x, eta=spec.eta,
-                         generator=generator,
-                         use_clipped_model_output=spec.use_clipped_model_output)
+            out = model_fn(model_input, t)
+        if spec.kind == "heun":
+            e = euler_step(tables, cfg, out, t, prev_t, x, guidance_fn=guidance_fn)
+            out2 = model_fn(torch.cat([e.prev_sample, conds], dim=-1),
+                            max(prev_t, 0))
+            step = heun_correct(tables, cfg, out, out2, t, prev_t, x, e.prev_sample,
+                                guidance_fn=guidance_fn)
+        else:
+            noise = None if step_noise is None else step_noise[i]
+            step = _scheduler_apply(spec, tables, out, t, prev_t, x, generator, noise,
+                                    guidance_fn)
         # the table math runs in fp32; the carry keeps the noise's dtype
         x = step.prev_sample.to(x_init.dtype)
         x0s.append(step.perturbed_original_sample)
     return x, torch.stack(x0s)
+
+
+def _initial_noise(shape, x_init, generator, dtype, device) -> torch.Tensor:
+    if x_init is None:
+        return torch.randn(shape, generator=generator, dtype=dtype, device=device)
+    if tuple(x_init.shape) != tuple(shape):
+        raise ValueError(f"initial noise {tuple(x_init.shape)} != {tuple(shape)}")
+    return x_init.to(device)
+
+
+def _kept(stack: torch.Tensor, num_inference_steps: int,
+          num_intermediate_images: int) -> torch.Tensor:
+    # views stacked, not an index tensor: no host-to-device copy, no sync
+    return torch.stack([stack[int(i)] for i in _kept_indices(num_inference_steps,
+                                                              num_intermediate_images)])
+
+
+def pixel_pipeline(
+    unet_apply: Callable[[torch.Tensor, int], torch.Tensor],
+    spec: SamplerSpec,
+    tables: ScheduleTables,
+    num_inference_steps: int,
+    num_intermediate_images: int,
+    depth_channels: int,
+    cond_channels: str,
+    rgb: Optional[torch.Tensor] = None,
+    left: Optional[torch.Tensor] = None,
+    right: Optional[torch.Tensor] = None,
+    sim_disp: Optional[torch.Tensor] = None,
+    guidance: Optional[FlowGuidance] = None,
+    raw_mask: Optional[torch.Tensor] = None,
+    add_noise_rgb: bool = False,
+    generator: Optional[torch.Generator] = None,
+    x_init: Optional[torch.Tensor] = None,
+    step_noise: Optional[Sequence[torch.Tensor]] = None,
+) -> PipelineOutput:
+    """Pixel-space sampling, NHWC at full resolution: noise at image size
+    ([B, H, W, depth_channels], `x_init` or drawn from `generator` in the
+    reference image's dtype), the denoise loop, then the last step's
+    prev_sample clamped to [-1, 1] as the images and the kept x_hat0s,
+    clamped, as the intermediates. With an enabled `guidance` and a raw
+    condition, the imputation hook replaces x_hat0 by the raw disparity
+    where `raw_mask` (default: sim_disp != 0) is set."""
+    if add_noise_rgb:
+        raise NotImplementedError("add_noise_rgb is not ported yet")
+    ref = next(x for x in (rgb, left) if x is not None)
+    B, H, W, _ = ref.shape
+    conds = build_cond_concat(cond_channels, rgb, left, right, sim_disp)
+    x_init = _initial_noise((B, H, W, depth_channels), x_init, generator, ref.dtype, ref.device)
+
+    guidance_fn = None
+    if guidance is not None and guidance.enabled and sim_disp is not None:
+        if guidance.flow_guidance_mode != "imputation":
+            raise NotImplementedError(f"pixel pipeline supports only imputation guidance, "
+                                      f"got {guidance.flow_guidance_mode!r}")
+        # the fallback mask is right only where invalid raw pixels normalize
+        # to exactly 0 (SSI); other normalizers need the real raw_mask
+        mask = raw_mask if raw_mask is not None else (sim_disp != 0)
+        guidance_fn = guidance.make_pixel_imputation_fn(sim_disp[..., :depth_channels],
+                                                        mask[..., :depth_channels])
+
+    ts, prev_ts = _timestep_arrays(spec.schedule, num_inference_steps)
+    final, stack = run_sampler_steps(unet_apply, spec, tables, x_init, conds, ts, prev_ts,
+                                     generator, guidance_fn=guidance_fn, step_noise=step_noise)
+    inter = _kept(stack, num_inference_steps, num_intermediate_images).clamp(-1.0, 1.0)
+    return PipelineOutput(final.clamp(-1.0, 1.0), inter)
 
 
 def latent_encode_conds(
@@ -219,6 +341,7 @@ def latent_denoise(
     unet_apply_trunk=None,
     unet_apply_cached=None,
     cache_schedule: Optional[str] = None,
+    step_noise: Optional[Sequence[torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Stage 2: initial latent noise, then the denoise loop. Returns the kept
     x_hat0 latents [S, B, h, w, 4] (the last is the final step's).
@@ -227,15 +350,11 @@ def latent_denoise(
 
     `latents` is the initial noise [B, h, w, 4] (the diffusers idiom);
     without it the noise is drawn from `generator`, in `noise_dtype` (the
-    input images' dtype in the pipeline)."""
+    input images' dtype in the pipeline). `step_noise`: see
+    run_sampler_steps."""
     shape = tuple(conds.shape[:-1]) + (4,)
-    if latents is None:
-        x_init = torch.randn(shape, generator=generator,
-                             dtype=noise_dtype or conds.dtype, device=conds.device)
-    else:
-        if tuple(latents.shape) != shape:
-            raise ValueError(f"latents {tuple(latents.shape)} != {shape}")
-        x_init = latents.to(conds.device)
+    x_init = _initial_noise(shape, latents, generator, noise_dtype or conds.dtype,
+                            conds.device)
     B = conds.shape[0]
     if text_embed.shape[0] == 1 and B > 1:
         text_embed = text_embed.expand((B,) + tuple(text_embed.shape[1:]))
@@ -253,10 +372,8 @@ def latent_denoise(
     _, x0_stack = run_sampler_steps(
         model_fn, spec, tables, x_init, conds, ts, prev_ts, generator,
         cache_interval=cache_interval, model_fn_trunk=model_fn_trunk,
-        model_fn_cached=model_fn_cached, cache_schedule=cache_schedule)
-    kept = _kept_indices(num_inference_steps, num_intermediate_images)
-    # views stacked, not an index tensor: no host-to-device copy, no sync
-    return torch.stack([x0_stack[int(i)] for i in kept])
+        model_fn_cached=model_fn_cached, cache_schedule=cache_schedule, step_noise=step_noise)
+    return _kept(x0_stack, num_inference_steps, num_intermediate_images)
 
 
 def latent_decode_images(vae_decode: Callable[[torch.Tensor], torch.Tensor],

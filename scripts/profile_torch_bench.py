@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Where one call of the port's bench goes on the card: device busy, idle
-share and device time by kernel, for the BENCH_* setting in the environment.
+share, peak memory and device time by kernel, for the BENCH_* setting in the
+environment.
 
     BENCH_QUANT=static python3 scripts/profile_torch_bench.py [--calls 2]
+    BENCH_MODEL=pixel python3 scripts/profile_torch_bench.py
 
-Builds the bench's pipeline (`d3roma_tpu_torch/bench.py::bench_ldm`, the
-same knobs and defaults, batch 16), makes one warm call, then profiles
+Builds the bench's pipeline (`d3roma_tpu_torch/bench.py::bench_ldm`, or
+`bench_pixel` with BENCH_MODEL=pixel; the same knobs and defaults, batch
+16), makes one warm call, then profiles
 `--calls` calls enqueued back to back as the bench times them (one
 synchronize at the end) under torch.profiler: the wall time, the summed
 device time of the kernels, memsets and copies, the idle share
@@ -41,9 +44,12 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
     batch = int(os.environ.get("BENCH_BATCH", "16"))
-    run, tag, _, device = bench.bench_ldm(batch, args.calls)
+    model = os.environ.get("BENCH_MODEL", "ldm")
+    run, tag, _, device = (bench.bench_pixel if model == "pixel" else bench.bench_ldm)(
+        batch, args.calls)
     run(0)
     torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         outs = [run(i) for i in range(1, args.calls + 1)]
@@ -70,6 +76,7 @@ def main() -> int:
     print(json.dumps({
         "config": tag, "quant": os.environ.get("BENCH_QUANT", bench.DEFAULT_QUANT),
         "batch": batch, "calls": args.calls, "card": card,
+        "peak_memory_gib": torch.cuda.max_memory_allocated(device) / 2**30,
         "wall_ms_per_frame": wall_ms / frames, "device_busy_ms_per_frame": busy / frames,
         "idle_share": max(0.0, 1.0 - busy / wall_ms),
         "device_ops_per_call": sum(c for _, c, _ in kernels) / args.calls,

@@ -3,8 +3,9 @@ d3roma_tpu_torch.bench`): its pure logic, as tests/test_bench_select.py
 holds the JAX bench's, with the same cases against the port's module (the
 measured-mode autoselect, the DeepCache key, the accuracy-gated default,
 the records), and what the JAX bench's tests do not cover: the error line
-(no CUDA card, BENCH_MODEL=pixel), the knobs' parsing and the keys of the
-scale cache. No device work."""
+(no CUDA card, for the latent and the pixel bench), the knobs' parsing,
+the pixel bench's int8 setting and the keys of the scale cache. No device
+work."""
 
 import importlib
 import json
@@ -301,20 +302,34 @@ def test_scale_cache_is_the_ports_own(tmp_path):
 
 @pytest.mark.parametrize("env", [{}, {"BENCH_MODEL": "pixel"}])
 def test_error_line_and_exit(tmp_path, capsys, env):
-    """Without a CUDA card (this CPU-only test run), or with BENCH_MODEL=pixel
-    (not ported), main() prints the bench's error line, value 0, and
-    returns 1: no fallback to the CPU, no record written."""
+    """Without a CUDA card (this CPU-only test run), the latent bench and the
+    pixel bench (BENCH_MODEL=pixel) alike print the bench's error line,
+    value 0, and return 1: no fallback to the CPU, no record written."""
     bench = _load_bench()
     _set_env(tmp_path / "results.jsonl", BENCH_BATCH="1", BENCH_REPS="1", **env)
-    if not env:
-        import torch
+    import torch
 
-        if torch.cuda.is_available():
-            pytest.skip("a CUDA card is present: the bench would run")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the bench would run")
     assert bench.main() == 1
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["value"] == 0.0 and line["vs_baseline"] == 0.0
     assert line["metric"] == "depth_fps_per_chip_640x360_10step" and line["unit"] == "frames/s"
-    expected = "NotImplementedError" if env else "RuntimeError"
-    assert line["error"].startswith(expected), line["error"]
+    assert line["error"].startswith("RuntimeError"), line["error"]
+    assert "CUDA" in line["error"]
     assert not (tmp_path / "results.jsonl").exists()
+
+
+def test_pixel_bench_record_names_the_jax_setting(tmp_path):
+    """BENCH_MODEL=pixel runs the JAX bench's one pixel setting: its record
+    names the model and, as the JAX line does, BENCH_QUANT's value (unused
+    by the pixel run; "static" when unset)."""
+    bench = _load_bench()
+    _set_env(tmp_path / "r.jsonl", BENCH_MODEL="pixel")
+    bench._record_result(3.25)
+    os.environ["BENCH_QUANT"] = "0"
+    bench._record_result(3.5)
+    recs = [json.loads(r) for r in (tmp_path / "r.jsonl").read_text().splitlines()]
+    assert [(r["model"], r["quant"], r["fps"]) for r in recs] == [
+        ("pixel", bench.DEFAULT_QUANT, 3.25), ("pixel", "0", 3.5)]
+    assert bench.DEFAULT_QUANT == "static"

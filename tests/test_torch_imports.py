@@ -1,6 +1,6 @@
-"""The port stands alone: it imports with jax, flax and d3roma_tpu made
-unimportable, its entry points run on the CPU when asked to, and without a
-GPU they raise instead of falling back."""
+"""The port stands alone: it imports with jax, flax, msgpack and d3roma_tpu
+made unimportable, its entry points run on the CPU when asked to, and
+without a GPU they raise instead of falling back."""
 
 import os
 import re
@@ -15,7 +15,7 @@ import importlib, pkgutil, sys
 
 class Blocker:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "flax", "d3roma_tpu"):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack", "d3roma_tpu"):
             raise ImportError("blocked: " + name)
         return None
 
@@ -27,7 +27,8 @@ names = [m.name for m in pkgutil.walk_packages(d3roma_tpu_torch.__path__,
                                                 "d3roma_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-assert not any(m.split(".")[0] in ("jax", "flax", "d3roma_tpu") for m in sys.modules)
+assert not any(m.split(".")[0] in ("jax", "flax", "msgpack", "d3roma_tpu")
+               for m in sys.modules)
 
 from d3roma_tpu_torch.models import AutoencoderKL, UNet2DCondition
 from d3roma_tpu_torch.ops.normalizer import Normalizer
@@ -81,13 +82,44 @@ assert tuple(out.images.shape) == (1, 32, 64, 1) and torch.isfinite(out.images).
 assert min(f.launches for f in (conv3x3_winograd, fused_self_attention_int8,
                                 group_norm_silu)) > 0
 
+# the pixel pipeline, its directory written and read back without msgpack
+import tempfile
+from d3roma_tpu_torch.guidance import FlowGuidance
+from d3roma_tpu_torch.models import UNet2D
+from d3roma_tpu_torch.pipelines import GuidedDiffusionPipeline
+pixel_kw = dict(in_channels=5, out_channels=1, block_out_channels=(16, 32),
+                down_block_types=("DownBlock2D", "AttnDownBlock2D"),
+                up_block_types=("AttnUpBlock2D", "UpBlock2D"), layers_per_block=1,
+                norm_groups=8)
+pix = GuidedDiffusionPipeline(
+    unet=UNet2D(**pixel_kw, device="cpu"),
+    spec=SamplerSpec("my_ddpm", ScheduleConfig(num_train_timesteps=128,
+                                               prediction_type="sample")),
+    guidance=FlowGuidance(flow_guidance_weight=0.0), normalizer=Normalizer(ssi=True),
+    device="cpu").quantize_int8()
+pix_kw = dict(num_inference_steps=2, num_intermediate_images=1, depth_channels=1,
+              cond_channels="rgb+raw", rgb_images=torch.zeros(1, 16, 16, 3),
+              sim_disp=torch.zeros(1, 16, 16, 1))
+out = pix(generator=torch.Generator().manual_seed(0), **pix_kw)
+assert tuple(out.images.shape) == (1, 16, 16, 1) and torch.isfinite(out.images).all()
+with tempfile.TemporaryDirectory() as d:
+    pix.save_pretrained(d)
+    again = GuidedDiffusionPipeline.from_pretrained(d, device="cpu").quantize_int8()
+    out2 = again(generator=torch.Generator().manual_seed(0), **pix_kw)
+assert torch.equal(out.images, out2.images)
+
 if not torch.cuda.is_available():
     cpu_unet = UNet2DCondition(**unet_kw, device="cpu")
     for make in (lambda: UNet2DCondition(**unet_kw), lambda: AutoencoderKL(**vae_kw),
                  lambda: spec.schedule.tables(),
                  lambda: GuidedLatentDiffusionPipeline(
                      unet=cpu_unet, vae=AutoencoderKL(**vae_kw, device="cpu"),
-                     text_embed=torch.zeros(1, 2, 16), spec=spec, normalizer=norm)):
+                     text_embed=torch.zeros(1, 2, 16), spec=spec, normalizer=norm),
+                 lambda: UNet2D(**pixel_kw),
+                 lambda: GuidedDiffusionPipeline(
+                     unet=UNet2D(**pixel_kw, device="cpu"), spec=pix.spec,
+                     guidance=pix.guidance, normalizer=pix.normalizer),
+                 lambda: GuidedDiffusionPipeline.from_pretrained("unused")):
         try:
             make()
         except RuntimeError as e:
@@ -107,7 +139,7 @@ def test_port_imports_without_jax_and_runs_on_cpu():
 
 
 def test_no_source_line_imports_jax_or_the_jax_package():
-    pattern = re.compile(r"^\s*(import|from) (jax|flax|d3roma_tpu)([ .]|$)")
+    pattern = re.compile(r"^\s*(import|from) (jax|flax|msgpack|d3roma_tpu)([ .]|$)")
     files = sorted((REPO / "d3roma_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     offenders = [f"{f}:{i}" for f in files
                  for i, line in enumerate(f.read_text().splitlines(), 1)

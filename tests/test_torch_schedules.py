@@ -79,7 +79,8 @@ def test_normalizer(mode, num_chs, bounds, gammas):
     disp = np.abs(randn(2, 2, 5, 7, 1, scale=60.0))
     ref_y, _, _ = jax_norm.Normalizer(**kw).normalize(jnp.asarray(disp))
     port = port_norm.Normalizer(**kw)
-    y = port.normalize(torch.from_numpy(disp))
+    y, low, up = port.normalize(torch.from_numpy(disp))
+    assert low is None and up is None
     np.testing.assert_allclose(y.numpy(), np.asarray(ref_y), atol=1e-5, rtol=1e-5)
     ref_back = jax_norm.Normalizer(**kw).denormalize(ref_y)
     np.testing.assert_allclose(port.denormalize(y).numpy(), np.asarray(ref_back),
@@ -99,5 +100,14 @@ def test_add_noise():
 
 
 def test_ssi_normalizer_not_ported():
-    with pytest.raises(NotImplementedError):
-        port_norm.Normalizer(ssi=True)
+    """The SSI normalizer, refused before it was ported, now matches the JAX
+    one: per-sample quantile window, y in [-1, 1] inside the mask, 0 outside
+    (tests/test_torch_ssi.py has the degenerate frames and denormalize)."""
+    disp = np.abs(randn(5, 2, 5, 7, 1, scale=60.0))
+    mask = disp > 10.0
+    ref = jax_norm.Normalizer(ssi=True).normalize(jnp.asarray(disp), jnp.asarray(mask))
+    got = port_norm.Normalizer(ssi=True).normalize(torch.from_numpy(disp), torch.from_numpy(mask))
+    for a, b in zip(got, ref):
+        assert tuple(a.shape) == tuple(np.shape(b))
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5, rtol=1e-5)
+    assert got[0].min() >= -1.0 and got[0].max() <= 1.0 and (got[0][~mask] == 0).all()

@@ -66,3 +66,50 @@ def to_numpy(x) -> np.ndarray:
 
 def randn(seed: int, *shape, scale: float = 1.0) -> np.ndarray:
     return (np.random.RandomState(seed).standard_normal(shape) * scale).astype(np.float32)
+
+
+# The pixel UNet of tests/test_pipelines.py: two levels, the second with
+# self-attention (head dim 8), one layer a block, 8 groups; RGB + raw.
+TINY_UNET2D = dict(
+    in_channels=5, out_channels=1, block_out_channels=(16, 32),
+    down_block_types=("DownBlock2D", "AttnDownBlock2D"),
+    up_block_types=("AttnUpBlock2D", "UpBlock2D"), layers_per_block=1, norm_groups=8,
+)
+# the JAX bench's pixel sampler schedule
+PIXEL_SCHEDULE = dict(num_train_timesteps=128, beta_schedule="squaredcos_cap_v2",
+                      prediction_type="sample", clip_sample=True)
+
+
+def jax_noise_schedule(key, shape, steps: int):
+    """The noise the JAX package's sampling draws from `key`: the initial
+    noise (`split(key)`, its second key) and each step's sampling noise
+    (`split(k, 3)` per step, its second key), fp32 numpy."""
+    import jax
+
+    key, k_init = jax.random.split(key)
+    x_init = np.array(jax.random.normal(k_init, shape, np.float32))
+    noises = []
+    for _ in range(steps):
+        key, k_noise, _ = jax.random.split(key, 3)
+        noises.append(np.array(jax.random.normal(k_noise, shape, np.float32)))
+    return x_init, noises
+
+
+def random_flax_tree(module, seed: int, *args):
+    """The param tree of a JAX module with every leaf drawn from
+    numpy.random.RandomState(seed) (Flax init leaves biases at 0 and norm
+    scales at 1, which would hide a swapped pair): N(0, 1/fan_in) for
+    kernels, 1 + N(0, 0.1) for scales, N(0, 0.1) otherwise."""
+    import jax
+
+    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), *args)["params"]
+    rs = np.random.RandomState(seed)
+
+    def draw(path, s):
+        leaf = path[-1].key
+        if leaf == "kernel":
+            return (rs.standard_normal(s.shape) / np.sqrt(np.prod(s.shape[:-1]))).astype(np.float32)
+        base = 1.0 if leaf == "scale" else 0.0
+        return (base + 0.1 * rs.standard_normal(s.shape)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)

@@ -12,6 +12,7 @@
     python3 chip_smoke.py --groupnorm  # device, build and the fused GroupNorm's cases only
     python3 chip_smoke.py --dynamic  # device, build and the dynamic int8 conv's cases only
     python3 chip_smoke.py --pixel    # device, build, the pixel phase and the pixel bench only
+    python3 chip_smoke.py --eval     # device, build and the evaluation phase only
 
 Run from the repository root, on a machine with a CUDA GPU and nvcc (the
 kernels build from d3roma_tpu_torch/csrc/ at first use). Phases, each
@@ -111,12 +112,24 @@ failing the run on its own error:
     and dense visit and the fused GroupNorm once per norm its gate admits,
     nothing else; ms/frame, the profile, and one UNet2D forward through the
     kernels against their plain versions;
-12. the torch bench, `python -m d3roma_tpu_torch.bench`, in its own process
+12. evaluation (`eval_phase`): a full-width latent pipeline saved with
+    save_pretrained, 4 procedural HISS frames, `python -m
+    d3roma_tpu_torch.evaluate task=eval_ldm_mixed_rgb+raw ...
+    task.fast_inference=latency` in its own process (finite metrics, every
+    artifact read back), evaluate_dataset in process through the kernels
+    (their launch counts: 5 attention sites and 16 GEGLU blocks a UNet
+    pass at 272x480) and through their plain versions (each batch's
+    prediction within EVAL_PRED_REL_TOL, the metrics within
+    EVAL_METRIC_REL_TOL, other noise outside EVAL_PRED_REL_TOL), eval
+    ms/frame and the loader's host ms/frame,
+    and the golden stages (dumped through the plain versions, compared
+    through the kernels);
+13. the torch bench, `python -m d3roma_tpu_torch.bench`, in its own process
     at batch 2 with 3 timed calls (records and scales in a temporary
     directory), at the default setting, at BENCH_CLIP_PCT=0.999 and at
     BENCH_MODEL=pixel: its JSON line must carry every key of the JAX
     bench's at that setting, value > 0;
-13. a JSON line of per-kernel numbers, then the JSON result as the last line.
+14. a JSON line of per-kernel numbers, then the JSON result as the last line.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -2610,6 +2623,307 @@ def pixel_phase():
             "int8_gn_vs_plain": r_all, "ssi_denormalize_err": ssi}
 
 
+# the eval phase: procedural HISS frames, the eval preset's loader (640x360
+# resized to its 480x270 camera, padded to 272x480), batch 2, 10 DDIM steps
+EVAL_FRAMES = 4
+EVAL_BATCH = 2
+EVAL_PRESET = "eval_ldm_mixed_rgb+raw"
+# self-attention sites of >= 512 tokens per UNet pass at a 272x480 input:
+# the 34x60 = 2040-token level's (down block 0: 2, up block 3: 3); the
+# 17x30 = 510-token level runs the plain attention
+EVAL_ATTENTION_SITES = 5
+EVAL_TRANSFORMER_BLOCKS = 16
+# kernels against plain in the eval, on the same noise: each batch's
+# prediction (pred_mean, denormalized) within EVAL_PRED_REL_TOL x its max
+# |plain|. Each kernel call is one bf16 ulp from its plain version (REL_TOL);
+# a UNet forward through them stays within UNET_REL_TOL of the plain one, and
+# the prediction is the decoded x0 of the last step, a linear map of that
+# forward's output and the latents. The same run on other noise must fail
+# it, so the check can tell a sample from another.
+EVAL_PRED_REL_TOL = UNET_REL_TOL
+# depth/rel and disp/epe, |a - b| / |b|: means of per-pixel terms that move
+# by at most the prediction's change at that pixel (| |a - g| - |b - g| | <=
+# |a - b|); with one bf16 rounding's changes of either sign, a mean moves by
+# less than one bf16 rounding, 2^-8 relative
+EVAL_METRIC_REL_TOL = 2.0 ** -8
+GOLDEN_ATOL = 5e-2  # golden.compare's own default, relative to each stage's max |ref|
+
+
+def _eval_config(pipe_dir):
+    from d3roma_tpu_torch.config import load_task_preset
+
+    cfg = load_task_preset(EVAL_PRESET)
+    cfg.resume_pretrained = pipe_dir
+    cfg.eval_dataset = ["HISS"]
+    cfg.eval_batch_size = EVAL_BATCH
+    return cfg
+
+
+def _clamp_share(pipe, batch, steps):
+    """The share of output pixels at the clamp (|x| = 1) of one call."""
+    import torch
+
+    out = pipe(num_inference_steps=steps, num_intermediate_images=1, cond_channels="rgb+raw",
+               rgb_images=batch["normalized_rgb"], sim_disp=batch["sim_disp"],
+               generator=torch.Generator(device=pipe.device).manual_seed(3))
+    return (out.images.abs() >= 1.0).float().mean().item()
+
+
+def _predictions(fn):
+    """fn()'s result and the prediction (pred_mean, host array) of each
+    eval_batch call made in it, in order."""
+    from d3roma_tpu_torch.evaluation import eval_loop
+
+    preds = []
+    inner = eval_loop.eval_batch
+
+    def recording(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        preds.append(out[0].copy())
+        return out
+
+    eval_loop.eval_batch = recording
+    try:
+        return fn(), preds
+    finally:
+        eval_loop.eval_batch = inner
+
+
+def _pred_rel(preds, refs):
+    """The worst batch's max |a - b| / max |b| over two runs' predictions."""
+    import numpy as np
+
+    if len(preds) != len(refs) or not refs:
+        raise AssertionError(f"eval: {len(preds)} predictions against {len(refs)}")
+    return max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12))
+               for a, b in zip(preds, refs))
+
+
+def _plain_bf16(fn):
+    """fn() with the bf16 attention and GEGLU kernels' wrappers replaced by
+    their plain versions (the same arithmetic as PyTorch ops, on the card)."""
+    from d3roma_tpu_torch.models import layers
+    from d3roma_tpu_torch.ops import kernels
+
+    saved = layers.mha_attention, layers.geglu_ff
+    layers.mha_attention, layers.geglu_ff = kernels.mha_attention_plain, kernels.geglu_ff_plain
+    try:
+        return fn()
+    finally:
+        layers.mha_attention, layers.geglu_ff = saved
+
+
+def eval_phase():
+    """Evaluation end to end (`python -m d3roma_tpu_torch.evaluate`) on the
+    card, hermetic:
+
+    - a full-width latent pipeline (SD2.1 geometry, seeded random weights in
+      bf16) saved with the port's save_pretrained in a temporary directory.
+      The share of one call's output pixels at the clamp (|x| = 1, one
+      batch of the eval frames) is printed and must stay under half. The
+      weights are saved as drawn: at the generator's seed 0 the share is
+      0.4%, so no layer needs scaling;
+    - 4 procedural HISS frames (640x360) from the port's generate_dataset in
+      the same directory; one frame's PNGs and EXRs read back bit-equal to
+      the renderer's arrays; the loader's host ms per frame, from one pass
+      of the eval loader (its threads, PNG and EXR decode, resize);
+    - the entry point in its own process, with the temporary directory as
+      its working directory: finite metrics for HISS and every artifact
+      (the colourised predictions, the error map and the denoised grid, the
+      HISS simDepthImage EXRs), each read back by the port's PNG and EXR
+      readers;
+    - in process, evaluate_dataset on the same frames, weights and
+      generator seed through the kernels (fast_inference("latency")) and
+      through their plain versions: the launches of the kernel run (row 1
+      once per self-attention site of >= 512 tokens a UNet pass, row 2 once
+      per transformer block a pass); each batch's prediction within
+      EVAL_PRED_REL_TOL of the plain run's, depth/rel and disp/epe within
+      EVAL_METRIC_REL_TOL; the plain run on other noise (generator seed 2)
+      must fall outside EVAL_PRED_REL_TOL, so the check tells samples
+      apart; eval ms/frame, the median of three runs after a warm-up, and
+      the device's idle share from one profiled run;
+    - golden.dump through the plain versions at 272x480, golden.compare
+      through the kernels: every stage within GOLDEN_ATOL.
+
+    Returns a summary dict."""
+    import tempfile
+    from functools import partial
+
+    import numpy as np
+    import torch
+
+    from d3roma_tpu_torch.data import preprocess_eval, val_loaders
+    from d3roma_tpu_torch.evaluation import evaluate_dataset, golden
+    from d3roma_tpu_torch.models import (
+        AutoencoderKL,
+        UNet2DCondition,
+        init_random_,
+        widened_in_channels,
+    )
+    from d3roma_tpu_torch.ops.normalizer import Normalizer
+    from d3roma_tpu_torch.pipelines import GuidedLatentDiffusionPipeline, create_sampler_spec
+    from d3roma_tpu_torch.synthetic import ProceduralSceneRenderer, SceneConfig, generate_dataset
+    from d3roma_tpu_torch.utils import png
+    from d3roma_tpu_torch.utils.exr import read_exr
+
+    summary = {}
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        cwd = os.getcwd()
+        os.chdir(tmp)  # dataset roots are relative to the working directory
+        try:
+            t0 = time.perf_counter()
+            generate_dataset(os.path.join(tmp, "datasets", "HISS"), EVAL_FRAMES, split="test",
+                             seed=5)
+            gen_s = time.perf_counter() - t0
+            scene = os.path.join(tmp, "datasets", "HISS", "test", "scene_0000")
+            frame = ProceduralSceneRenderer(SceneConfig(), 5).render()
+            for name, got in (("rgb", png.read_png(os.path.join(scene, "0000_color.png"))),
+                              ("ir_l", png.read_png(os.path.join(scene, "0000_ir_l.png"))),
+                              ("ir_r", png.read_png(os.path.join(scene, "0000_ir_r.png"))),
+                              ("depth", read_exr(os.path.join(scene, "0000_depth.exr"))),
+                              ("sim_depth", read_exr(os.path.join(scene,
+                                                                  "0000_simDepthImage.exr")))):
+                if got.dtype != frame[name].dtype or not np.array_equal(got, frame[name]):
+                    raise AssertionError(f"eval: frame 0's {name} did not read back bit-equal")
+            pipe_dir = os.path.join(tmp, "pipe")
+            cfg = _eval_config(pipe_dir)
+            t0 = time.perf_counter()
+            loaded = list(val_loaders(cfg)[0])
+            loader_ms = (time.perf_counter() - t0) * 1e3 / EVAL_FRAMES
+            if sum(len(b["depth"]) for b in loaded) != EVAL_FRAMES:
+                raise AssertionError(f"eval: the loader gave {len(loaded)} batches")
+            print(f"eval: {EVAL_FRAMES} frames generated in {gen_s:.1f}s, frame 0 read back "
+                  f"bit-equal; the loader's host {loader_ms:.2f} ms/frame", flush=True)
+            summary["loader_ms_per_frame"] = loader_ms
+
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            unet = init_random_(UNet2DCondition(in_channels=widened_in_channels("rgb+raw"),
+                                                out_channels=4, device="cuda"), gen)
+            vae = init_random_(AutoencoderKL(device="cuda"), gen)
+            norm = Normalizer.from_config(cfg)
+            pipe = GuidedLatentDiffusionPipeline(
+                unet=unet, vae=vae, text_embed=torch.zeros(1, 2, 1024),
+                spec=create_sampler_spec(cfg, train=False), normalizer=norm,
+                device="cuda").half_precision()
+            pre = partial(preprocess_eval, config=cfg, normalizer=norm, device="cuda")
+            with torch.no_grad():
+                share = _clamp_share(pipe, pre(loaded[0]), cfg.num_inference_timesteps)
+            print(f"eval: {share:.5f} of one call's output pixels at the clamp (limit 0.5)",
+                  flush=True)
+            if not share < 0.5:
+                raise AssertionError(f"eval: {share:.3f} of the output pixels at the clamp")
+            summary["clamp_share"] = share
+            t0 = time.perf_counter()
+            pipe.save_pretrained(pipe_dir)
+            print(f"eval: save_pretrained in {time.perf_counter() - t0:.1f}s", flush=True)
+
+            # the entry point, as a user runs it, in its own process
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "d3roma_tpu_torch.evaluate", f"task={EVAL_PRESET}",
+                 f"task.resume_pretrained={pipe_dir}", "task.eval_dataset=[HISS]",
+                 "task.fast_inference=latency", f"task.eval_batch_size={EVAL_BATCH}"],
+                cwd=tmp, capture_output=True, text=True, timeout=600,
+                env=dict(os.environ, PYTHONPATH=repo + os.pathsep
+                         + os.environ.get("PYTHONPATH", "")))
+            lines = proc.stdout.strip().splitlines()
+            print(f"eval: entry point exit {proc.returncode} in {time.perf_counter() - t0:.1f}s;"
+                  f" {lines[-1] if lines else ''}", flush=True)
+            if proc.returncode != 0 or not lines:
+                raise AssertionError(f"eval entry point failed: {proc.stderr[-3000:]}")
+            line = json.loads(lines[-1])
+            flat = [v for grp in ("disp", "depth") for v in line["metrics"][grp].values()]
+            if line["dataset"] != "HISS" or not all(np.isfinite(flat)):
+                raise AssertionError(f"eval entry point: bad metrics {line}")
+            art = os.path.join(tmp, line["output_dir"])
+            read = 0
+            for i in range(EVAL_FRAMES // EVAL_BATCH):
+                for b in range(EVAL_BATCH):
+                    img = png.read_png(os.path.join(art, f"idx{i}_{b}_pred_disp.png"))
+                    depth = read_exr(os.path.join(art, f"idx{i}_{b}_simDepthImage.exr"))
+                    if img.shape != (270, 480, 3) or depth.shape != (270, 480):
+                        raise AssertionError(f"eval artifacts: {img.shape} {depth.shape}")
+                    read += 2
+                for name in (f"idx{i}_error.png", f"idx{i}_denoised.png"):
+                    if png.read_png(os.path.join(art, name)).ndim != 3:
+                        raise AssertionError(f"eval artifact {name}")
+                    read += 1
+            print(f"eval: entry point wrote {read} artifacts, each read back", flush=True)
+            summary["entry_point_metrics"] = line["metrics"]
+
+            # in process: the kernels against their plain versions
+            pipe.fast_inference("latency")
+
+            def run(seed=1):
+                return evaluate_dataset(cfg, pipe, val_loaders(cfg)[0],
+                                        torch.Generator().manual_seed(seed), preprocess=pre)[0]
+
+            _zero_launches()
+            fast, fast_preds = _predictions(run)
+            _sync()
+            counts = _int8_launches()
+            passes = cfg.num_inference_timesteps * EVAL_FRAMES // EVAL_BATCH
+            _check_counts("eval latency", counts,
+                          {"attention": EVAL_ATTENTION_SITES * passes,
+                           "geglu": EVAL_TRANSFORMER_BLOCKS * passes})
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                run()
+                _sync()
+                walls.append((time.perf_counter() - t0) * 1e3 / EVAL_FRAMES)
+            wall_ms, busy_ms = profile_phase(run, "eval", frames=EVAL_FRAMES)
+            idle = max(0.0, 1 - busy_ms / wall_ms)
+            plain, plain_preds = _plain_bf16(lambda: _predictions(run))
+            control, control_preds = _plain_bf16(lambda: _predictions(lambda: run(seed=2)))
+            pred_rel = _pred_rel(fast_preds, plain_preds)
+            control_rel = _pred_rel(control_preds, plain_preds)
+            print(f"eval: predictions, max |kernels - plain| / max |plain| over "
+                  f"{len(plain_preds)} batches {pred_rel:.3e} (tol {EVAL_PRED_REL_TOL}); plain on "
+                  f"other noise {control_rel:.3e} (must exceed the tol)", flush=True)
+            errs, control_errs = {}, {}
+            for grp, key in (("depth", "rel"), ("disp", "epe")):
+                a, b, c = fast[grp][key], plain[grp][key], control[grp][key]
+                errs[f"{grp}/{key}"] = abs(a - b) / max(abs(b), 1e-12)
+                control_errs[f"{grp}/{key}"] = abs(c - b) / max(abs(b), 1e-12)
+                print(f"eval: {grp}/{key} kernels {a:.6f} plain {b:.6f} rel diff "
+                      f"{errs[f'{grp}/{key}']:.3e} (tol {EVAL_METRIC_REL_TOL:.3e}); plain on other "
+                      f"noise {c:.6f}, {control_errs[f'{grp}/{key}']:.3e}", flush=True)
+            if not (np.isfinite(pred_rel) and pred_rel <= EVAL_PRED_REL_TOL):
+                raise AssertionError(f"eval: predictions, kernels against plain {pred_rel}")
+            if not control_rel > EVAL_PRED_REL_TOL:
+                raise AssertionError(f"eval: other noise within the tolerance ({control_rel})")
+            if not all(np.isfinite(list(errs.values()))) or max(errs.values()) > EVAL_METRIC_REL_TOL:
+                raise AssertionError(f"eval: kernels against plain {errs}")
+            ms = statistics.median(walls)
+            print(f"eval: {ms:.2f} ms/frame, median of {[round(w, 2) for w in walls]} "
+                  f"({EVAL_FRAMES} frames, batch {EVAL_BATCH}, {cfg.num_inference_timesteps} "
+                  f"steps, 272x480); profiled run device busy {busy_ms / EVAL_FRAMES:.2f} "
+                  f"ms/frame, idle share {idle:.3f}", flush=True)
+            summary.update(launches={k: v for k, v in counts.items() if v}, ms_per_frame=ms,
+                           device_busy_ms_per_frame=busy_ms / EVAL_FRAMES, idle_share=idle,
+                           pred_rel=pred_rel, control_pred_rel=control_rel,
+                           kernels_vs_plain=errs, control_vs_plain=control_errs,
+                           metrics=fast, metrics_plain=plain)
+
+            # golden stages: dumped through the plain versions, compared through the kernels
+            gdir = os.path.join(tmp, "golden")
+            _plain_bf16(lambda: golden.dump(pipe, gdir, H=272, W=480, seed=0))
+            report = golden.compare(pipe, gdir, atol=GOLDEN_ATOL)
+            worst = max(r.get("rel", float("inf")) for r in report.values())
+            print(f"eval: golden stages {[(k, round(r.get('rel', -1), 5)) for k, r in report.items()]}"
+                  f" (ok within {GOLDEN_ATOL} of each stage's max |ref|)", flush=True)
+            if not all(r["ok"] for r in report.values()):
+                raise AssertionError(f"eval: golden stages {report}")
+            summary["golden_worst_rel"] = worst
+        finally:
+            os.chdir(cwd)
+    del pipe, unet, vae
+    torch.cuda.empty_cache()
+    return summary
+
+
 _KERNEL_GROUPS = (
     # the port's own kernels first, so that no library group takes one of them
     ("winograd kernels (input transform, tap GEMMs, split sum)", ("wino_",)),
@@ -2655,10 +2969,10 @@ def _group(kernel_name: str) -> str:
     return "elementwise and other"
 
 
-def profile_phase(run, label: str = "pipeline"):
+def profile_phase(run, label: str = "pipeline", frames: int = BATCH):
     """One more pipeline call under torch.profiler: device time by kernel
-    group and the device's idle share of the call's wall time. Returns
-    (wall ms, device busy ms)."""
+    group and the device's idle share of the call's wall time (`frames`
+    frames a call). Returns (wall ms, device busy ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2679,7 +2993,7 @@ def profile_phase(run, label: str = "pipeline"):
         groups[g] = groups.get(g, 0.0) + us / 1e3
     busy = sum(groups.values())
     print(f"profile ({label}): one call {wall_ms:.1f} ms wall (profiled), device busy {busy:.1f} ms "
-          f"= {busy / BATCH:.1f} ms/frame, idle share {max(0.0, 1 - busy / wall_ms):.3f}",
+          f"= {busy / frames:.1f} ms/frame, idle share {max(0.0, 1 - busy / wall_ms):.3f}",
           flush=True)
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {g}: {ms:.2f} ms ({ms / max(busy, 1e-9):.3f})", flush=True)
@@ -2760,6 +3074,11 @@ def main() -> int:
               flush=True)
         print("pixel phase passed", flush=True)
         return 0
+    if sys.argv[1:] == ["--eval"]:
+        print(json.dumps({"eval": eval_phase()}), flush=True)
+        print(card, flush=True)
+        print("eval phase passed", flush=True)
+        return 0
     if sys.argv[1:] == ["--attention"]:
         import torch
 
@@ -2788,15 +3107,18 @@ def main() -> int:
     del pipe, inputs
     torch.cuda.empty_cache()
     pixel = pixel_phase()
-    torch.cuda.empty_cache()  # the bench's own process builds its own models
+    torch.cuda.empty_cache()
+    evaluation = eval_phase()  # its entry point's process builds its own models
     bench_lines = bench_phase()
 
     kernels = [
-        _kernel_entry("mha_attention", "d3roma_tpu_torch/csrc/attention.cu",
-                      "d3roma_tpu/ops/pallas/attention.py:69", attn_rows,
-                      counts["attention"]),
-        _kernel_entry("geglu_ff", "d3roma_tpu_torch/csrc/geglu.cu",
-                      "d3roma_tpu/ops/pallas/geglu.py:114", geglu_rows, counts["geglu"]),
+        dict(_kernel_entry("mha_attention", "d3roma_tpu_torch/csrc/attention.cu",
+                           "d3roma_tpu/ops/pallas/attention.py:69", attn_rows,
+                           counts["attention"]),
+             eval_launches=evaluation["launches"]["attention"]),
+        dict(_kernel_entry("geglu_ff", "d3roma_tpu_torch/csrc/geglu.cu",
+                           "d3roma_tpu/ops/pallas/geglu.py:114", geglu_rows, counts["geglu"]),
+             eval_launches=evaluation["launches"]["geglu"]),
         _kernel_entry("mha_attention_int8", "d3roma_tpu_torch/csrc/attention_int8.cu",
                       "d3roma_tpu/ops/pallas/attention.py:90", int8_rows["attention_int8"],
                       bench_counts["attention_int8"]),
@@ -2864,6 +3186,7 @@ def main() -> int:
                                             for k, v in dynamic.items()},
                       "batch": BATCH, "steps": STEPS}), flush=True)
     print(json.dumps({"pixel": pixel}), flush=True)
+    print(json.dumps({"eval": evaluation}), flush=True)
     print(json.dumps({"torch_bench": bench_lines}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

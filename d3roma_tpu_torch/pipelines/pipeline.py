@@ -688,3 +688,14 @@ def _meta_replica(module: torch.nn.Module) -> torch.nn.Module:
             if isinstance(v, _Cached):
                 memo[id(v)] = _Cached(v._make)
     return copy.deepcopy(module, memo)
+
+
+def create_sampler_spec(config, train: bool = True) -> SamplerSpec:
+    """The sampler of a training config (reference: config.py:182-212).
+    `schedule_config(train=...)` validates that only ddpm-family samplers
+    are used for training; SamplerSpec rejects unknown kinds."""
+    return SamplerSpec(
+        kind=config.sampler,
+        schedule=config.schedule_config(train=train),
+        eta=float(getattr(config, "eta", 0.0)),
+    )

@@ -1,6 +1,7 @@
 """The port stands alone: it imports with jax, flax, msgpack and d3roma_tpu
 made unimportable, its entry points run on the CPU when asked to, and
-without a GPU they raise instead of falling back."""
+without a GPU they raise instead of falling back; the evaluation entry
+point also runs with OpenCV, PIL, PyYAML and matplotlib unimportable."""
 
 import os
 import re
@@ -140,6 +141,80 @@ def test_port_imports_without_jax_and_runs_on_cpu():
 
 def test_no_source_line_imports_jax_or_the_jax_package():
     pattern = re.compile(r"^\s*(import|from) (jax|flax|msgpack|d3roma_tpu)([ .]|$)")
+    files = sorted((REPO / "d3roma_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    offenders = [f"{f}:{i}" for f in files
+                 for i, line in enumerate(f.read_text().splitlines(), 1)
+                 if pattern.match(line)]
+    assert not offenders, offenders
+
+
+_EVAL_CHILD = r"""
+import runpy, sys, tempfile, os
+
+BLOCKED = ("jax", "jaxlib", "flax", "msgpack", "d3roma_tpu", "cv2", "PIL", "yaml", "matplotlib")
+
+class Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Blocker())
+
+import torch
+from d3roma_tpu_torch.models import AutoencoderKL, UNet2DCondition
+from d3roma_tpu_torch.ops.normalizer import Normalizer
+from d3roma_tpu_torch.ops.schedules import ScheduleConfig
+from d3roma_tpu_torch.pipelines import GuidedLatentDiffusionPipeline, SamplerSpec
+from d3roma_tpu_torch.synthetic import SceneConfig, generate_dataset
+
+root = tempfile.mkdtemp()
+os.chdir(root)
+unet_kw = dict(in_channels=12, block_out_channels=(32, 64),
+               down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+               up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"), layers_per_block=1,
+               attention_head_dim=32, cross_attention_dim=16, norm_groups=8)
+GuidedLatentDiffusionPipeline(
+    unet=UNet2DCondition(**unet_kw, device="cpu"),
+    vae=AutoencoderKL(block_out_channels=(32, 64), norm_groups=8, device="cpu"),
+    text_embed=torch.zeros(1, 2, 16),
+    spec=SamplerSpec("my_ddim", ScheduleConfig(prediction_type="v_prediction")),
+    normalizer=Normalizer(ssi=False, mode="average", num_chs=1, ch_bounds=(8.0,),
+                          ch_gammas=(1.0,)), device="cpu").save_pretrained("pipe")
+generate_dataset("datasets/HISS", 2, split="test", config=SceneConfig(height=36, width=64))
+sys.argv = ["evaluate", "--device", "cpu", "task=eval_ldm_mixed_rgb+raw",
+            "task.resume_pretrained=pipe", "task.eval_dataset=[HISS]",
+            "task.camera_resolution=48x27", "task.eval_batch_size=2",
+            "task.num_inference_timesteps=1", "task.fast_inference=latency",
+            "task.eval_output=out"]
+try:
+    runpy.run_module("d3roma_tpu_torch.evaluate", run_name="__main__")
+except SystemExit as e:
+    assert not e.code, e.code
+assert not any(m.split(".")[0] in BLOCKED for m in sys.modules), sorted(
+    m for m in sys.modules if m.split(".")[0] in BLOCKED)
+for name in ("idx0_0_pred_disp.png", "idx0_1_pred_disp.png", "idx0_error.png",
+             "idx0_denoised.png", "idx0_0_simDepthImage.exr", "idx0_1_simDepthImage.exr"):
+    assert os.path.exists(os.path.join("out", "HISS", name)), name
+print("EVAL OK")
+"""
+
+
+def test_evaluate_runs_without_jax_opencv_pil_yaml_or_matplotlib():
+    """The evaluation entry point end to end (a saved pipeline, procedural
+    frames resized by the loader, metrics, every HISS artifact) with jax,
+    the JAX package, OpenCV, PIL, PyYAML and matplotlib unimportable, as on
+    the machine with the card."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _EVAL_CHILD], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "EVAL OK" in proc.stdout and '"dataset": "HISS"' in proc.stdout
+
+
+def test_no_source_line_imports_opencv_pil_yaml_or_matplotlib():
+    """None of these is on the machine with the card."""
+    pattern = re.compile(r"^\s*(import|from) (cv2|PIL|yaml|matplotlib)([ .]|$)")
     files = sorted((REPO / "d3roma_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     offenders = [f"{f}:{i}" for f in files
                  for i, line in enumerate(f.read_text().splitlines(), 1)

@@ -94,13 +94,29 @@ def opt_in():
     jax_opt = jax_pipe.fast_inference("wino").fuse_norms()
     jax_opt = dataclasses.replace(
         jax_opt, unet=dataclasses.replace(jax_opt.unet, use_flash_attention="fused"))
-    cal_key, key = jax.random.PRNGKey(31), jax.random.PRNGKey(32)
+    cal_key = jax.random.PRNGKey(31)
     batch = dict(rgb_images=jnp.asarray(rgb), sim_disp=jnp.asarray(raw))
     jax_opt = jax_opt.deepcache(2, depth=2).calibrate(cal_key, [batch], cond_channels="rgb+raw",
                                                       num_inference_steps=STEPS)
     latent_shape = (2, h // 2, w // 2, 4)
     cal_noise = np.array(jax.random.normal(jax.random.fold_in(cal_key, 0), latent_shape))
-    x_init = np.array(jax.random.normal(jax.random.split(key)[1], latent_shape, jnp.float32))
+
+    shape_logs = {}
+    port.calibrate(None, [dict(rgb_images=torch.from_numpy(rgb), sim_disp=torch.from_numpy(raw),
+                               latents=torch.from_numpy(cal_noise))],
+                   cond_channels="rgb+raw", num_inference_steps=STEPS, shape_logs=shape_logs)
+    return dict(port=port, jax_opt=jax_opt, rgb=rgb, raw=raw, latent_shape=latent_shape,
+                port_scales=dict(port.act_scales), shape_logs=shape_logs)
+
+
+@pytest.fixture(scope="module")
+def opt_in_call(opt_in):
+    """The JAX pipeline's call on its calibrated table (its own fixture, so
+    that a worker running only the calibration test does not run it)."""
+    key = jax.random.PRNGKey(32)
+    jax_opt, rgb, raw = opt_in["jax_opt"], opt_in["rgb"], opt_in["raw"]
+    x_init = np.array(jax.random.normal(jax.random.split(key)[1], opt_in["latent_shape"],
+                                        jnp.float32))
 
     # the JAX kernel calls of one __call__, counted at trace time: one full
     # and one shallow UNet pass, one encode, one decode
@@ -119,14 +135,7 @@ def opt_in():
         ref = jax_opt(key, num_inference_steps=STEPS, num_intermediate_images=1,
                       cond_channels="rgb+raw", rgb_images=jnp.asarray(rgb),
                       sim_disp=jnp.asarray(raw))
-
-    shape_logs = {}
-    port.calibrate(None, [dict(rgb_images=torch.from_numpy(rgb), sim_disp=torch.from_numpy(raw),
-                               latents=torch.from_numpy(cal_noise))],
-                   cond_channels="rgb+raw", num_inference_steps=STEPS, shape_logs=shape_logs)
-    return dict(port=port, jax_opt=jax_opt, ref=np.asarray(ref.images, np.float32),
-                jax_calls=calls, x_init=x_init, rgb=rgb, raw=raw,
-                port_scales=dict(port.act_scales), shape_logs=shape_logs)
+    return dict(ref=np.asarray(ref.images, np.float32), jax_calls=calls, x_init=x_init)
 
 
 def test_configuration():
@@ -173,7 +182,7 @@ def test_calibration_matches_jax(opt_in):
     assert "attn" in kinds and "conv" in kinds
 
 
-def test_call_matches_jax(opt_in):
+def test_call_matches_jax(opt_in, opt_in_call):
     """One call replaying the JAX-calibrated table, against the JAX pipeline
     on the same weights, table and initial noise; the kernel launches of the
     call equal the JAX trace's kernel calls, and the fused GroupNorm runs at
@@ -182,7 +191,7 @@ def test_call_matches_jax(opt_in):
     3e-2 mean on images in [-1, 1]."""
     import json
 
-    bd = opt_in
+    bd = dict(opt_in, **opt_in_call)
     port = bd["port"]
     port.act_scales = json.loads(json.dumps(bd["jax_opt"].act_scales))
     admitted = [0]

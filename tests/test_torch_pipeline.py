@@ -257,10 +257,8 @@ DC_STEPS = 2  # pattern "FS": one full pass with its trunk, one shallow pass
 @pytest.fixture(scope="module")
 def bench_default():
     """The tiny bench-default pipeline in both packages on the same weights:
-    JAX calibrates, then runs one call with its Pallas kernels in interpret
-    mode while the kernel calls are counted (at trace time, so one full and
-    one shallow UNet pass, one encode and one decode). The port calibrates
-    on the noise the JAX calibration drew."""
+    JAX calibrates; the port calibrates on the noise the JAX calibration
+    drew."""
     unet = randomize_(UNet2DCondition(**TINY_UNET3, device="cpu"), 0)
     vae = randomize_(AutoencoderKL(**TINY_VAE, device="cpu"), 1)
     text_embed = randn(2, 1, 2, TINY_UNET3["cross_attention_dim"])
@@ -286,15 +284,35 @@ def bench_default():
                               ch_bounds=(128.0,), ch_gammas=(1.0,)),
         device="cpu").fast_inference("throughput").deepcache(2, depth=2)
 
-    cal_key, key = jax.random.PRNGKey(21), jax.random.PRNGKey(22)
+    cal_key = jax.random.PRNGKey(21)
     batch = dict(rgb_images=jnp.asarray(rgb), sim_disp=jnp.asarray(raw))
     jax_fast = (jax_pipe.fast_inference("throughput").deepcache(2, depth=2)
                 .calibrate(cal_key, [batch], cond_channels="rgb+raw",
                            num_inference_steps=DC_STEPS))
     latent_shape = (2, h // 2, w // 2, 4)
-    # the noise JAX's calibrate drew for batch 0, and its __call__'s noise
+    # the noise JAX's calibrate drew for batch 0
     cal_noise = np.array(jax.random.normal(jax.random.fold_in(cal_key, 0), latent_shape))
-    x_init = np.array(jax.random.normal(jax.random.split(key)[1], latent_shape, jnp.float32))
+
+    shape_logs = {}
+    port.calibrate(None, [dict(rgb_images=torch.from_numpy(rgb), sim_disp=torch.from_numpy(raw),
+                               latents=torch.from_numpy(cal_noise))],
+                   cond_channels="rgb+raw", num_inference_steps=DC_STEPS, shape_logs=shape_logs)
+    return dict(port=port, jax_fast=jax_fast, rgb=rgb, raw=raw, latent_shape=latent_shape,
+                port_scales=dict(port.act_scales), shape_logs=shape_logs)
+
+
+@pytest.fixture(scope="module")
+def bench_default_call(bench_default):
+    """One JAX call on its calibrated table with its Pallas kernels in
+    interpret mode while the kernel calls are counted (at trace time, so one
+    full and one shallow UNet pass, one encode and one decode); its own
+    fixture, so that a worker running only the calibration tests does not
+    run it."""
+    key = jax.random.PRNGKey(22)
+    jax_fast, rgb, raw = bench_default["jax_fast"], bench_default["rgb"], bench_default["raw"]
+    # the initial noise of JAX's __call__
+    x_init = np.array(jax.random.normal(jax.random.split(key)[1], bench_default["latent_shape"],
+                                        jnp.float32))
 
     calls = {"attention": 0, "geglu": 0, "conv": 0}
     with pytest.MonkeyPatch.context() as mp:
@@ -309,14 +327,7 @@ def bench_default():
         ref = jax_fast(key, num_inference_steps=DC_STEPS, num_intermediate_images=1,
                        cond_channels="rgb+raw", rgb_images=jnp.asarray(rgb),
                        sim_disp=jnp.asarray(raw))
-
-    shape_logs = {}
-    port.calibrate(None, [dict(rgb_images=torch.from_numpy(rgb), sim_disp=torch.from_numpy(raw),
-                               latents=torch.from_numpy(cal_noise))],
-                   cond_channels="rgb+raw", num_inference_steps=DC_STEPS, shape_logs=shape_logs)
-    return dict(port=port, jax_fast=jax_fast, ref=np.asarray(ref.images, np.float32),
-                jax_calls=calls, x_init=x_init, rgb=rgb, raw=raw,
-                port_scales=dict(port.act_scales), shape_logs=shape_logs)
+    return dict(ref=np.asarray(ref.images, np.float32), jax_calls=calls, x_init=x_init)
 
 
 def _int8_counts():
@@ -324,7 +335,7 @@ def _int8_counts():
             "conv": conv2d_int8.launches}
 
 
-def test_bench_default_replays_a_jax_table(bench_default):
+def test_bench_default_replays_a_jax_table(bench_default, bench_default_call):
     """(a) The JAX-calibrated table, through its JSON form, replays unchanged
     in the port; the output against the JAX pipeline on the same weights,
     table and initial noise, and the kernel launches of one call.
@@ -341,7 +352,7 @@ def test_bench_default_replays_a_jax_table(bench_default):
     pipelines drift apart to the int8 quantization noise itself: at this
     tiny random model, about 2e-2 mean on images in [-1, 1] (the same as
     between the int8 and the bf16 pipeline). Bounds: 0.2 max, 3e-2 mean."""
-    bd = bench_default
+    bd = dict(bench_default, **bench_default_call)
     port = bd["port"]
     port.act_scales = json.loads(json.dumps(bd["jax_fast"].act_scales))
     assert set(port.act_scales) == {"unet", "unet_cached", "vae_encode", "vae_decode"}

@@ -5,6 +5,14 @@ conversions between torch and numpy."""
 import numpy as np
 import torch
 
+# One intra-op thread per test process. The suite runs under pytest-xdist,
+# several worker processes on the machine's cores; each PyTorch process
+# would otherwise keep a pool of one OpenMP thread per core, and the pools
+# of the workers, waiting on tiny tensors' ops, take the cores from one
+# another (the port's slowest test files ran 3-4x longer that way). Every
+# test module is collected in every worker, so this holds for all of them.
+torch.set_num_threads(1)
+
 # The slice's models at a tiny width. A 32x64 image gives a 16x32 latent =
 # 512 tokens, so the top UNet level takes the attention kernel in both
 # packages (>= 512 keys), and every transformer block the fused GEGLU

@@ -13,6 +13,7 @@
     python3 chip_smoke.py --dynamic  # device, build and the dynamic int8 conv's cases only
     python3 chip_smoke.py --pixel    # device, build, the pixel phase and the pixel bench only
     python3 chip_smoke.py --eval     # device, build and the evaluation phase only
+    python3 chip_smoke.py --train    # device, build and the training phase only
 
 Run from the repository root, on a machine with a CUDA GPU and nvcc (the
 kernels build from d3roma_tpu_torch/csrc/ at first use). Phases, each
@@ -124,12 +125,25 @@ failing the run on its own error:
     ms/frame and the loader's host ms/frame,
     and the golden stages (dumped through the plain versions, compared
     through the kernels);
-13. the torch bench, `python -m d3roma_tpu_torch.bench`, in its own process
+13. training (`train_phase`): 24 procedural HISS frames and 24 SceneFlow
+    frames at 960x540 in a temporary tree; `python -m
+    d3roma_tpu_torch.train task=train_ldm_mixed_rgb+raw ...` in its own
+    process for one epoch (3 steps of batch 16 at 180x320, full SD2.1
+    width, fp32, with in-training eval and the best/ and epoch exports):
+    every logged loss and grad_norm finite, the checkpoint and exports
+    written, the epoch export loaded and called; then resumed to a second
+    epoch (global step 3 to 6); one fp32 step of a narrow latent model on
+    the card against the CPU from the same weights and draws, the card's
+    under set_sync_debug_mode("error"); the full-width step's ms/step,
+    samples/s, peak memory and one profiled step (idle share, device ms by
+    phase and by kernel class), with no hand-written kernel launched (the
+    training path reaches none of the JAX package's Pallas kernels);
+14. the torch bench, `python -m d3roma_tpu_torch.bench`, in its own process
     at batch 2 with 3 timed calls (records and scales in a temporary
     directory), at the default setting, at BENCH_CLIP_PCT=0.999 and at
     BENCH_MODEL=pixel: its JSON line must carry every key of the JAX
     bench's at that setting, value > 0;
-14. a JSON line of per-kernel numbers, then the JSON result as the last line.
+15. a JSON line of per-kernel numbers, then the JSON result as the last line.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -2924,6 +2938,452 @@ def eval_phase():
     return summary
 
 
+TRAIN_PRESET = "train_ldm_mixed_rgb+raw"
+TRAIN_FRAMES = 24  # per dataset: 48 frames, 3 steps of batch 16 an epoch
+TRAIN_EVAL_FRAMES = 4
+SCENEFLOW_HW = (540, 960)  # the dataset's frames
+TRAIN_BATCH = 16
+TRAIN_HW = (184, 320)  # the preset's 180x320 crop, padded to divis_by 8
+TRAIN_TIMED_STEPS = 8  # the median of the steps after the first two
+# Card against CPU, one fp32 AdamW step of a narrow latent model (TF32
+# off on the card): loss within 1e-4 and grad_norm within 1e-3 relative
+# (fp32 sums in other orders, cuDNN's and the CPU's: a few ulps of each
+# activation, far below what a wrong op gives); the parameters after the
+# step within 2 learning rates everywhere and within 1e-3 of one for 99.9%
+# of the elements outside the key biases. AdamW's first update is lr times
+# the sign of the gradient: an element whose gradient is at the rounding
+# level moves by lr either way (the key biases' gradient is zero in exact
+# arithmetic), every other element the same to a few ulps.
+TRAIN_LOSS_REL_TOL = 1e-4
+TRAIN_GRAD_NORM_REL_TOL = 1e-3
+TRAIN_NARROW_UNET = dict(
+    in_channels=12, out_channels=4, block_out_channels=(32, 64),
+    down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+    up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"), layers_per_block=1,
+    attention_head_dim=32, cross_attention_dim=64, norm_groups=8)
+TRAIN_NARROW_VAE = dict(block_out_channels=(32, 64), norm_groups=8)
+
+
+def _write_sceneflow(root: str, n: int, seed: int) -> None:
+    """n frames in SceneFlow's FlyingThings3D layout at the dataset's
+    960x540: left and right PNGs (blocky random textures), the disparity
+    PFM and the raw (SGM) disparity PFM beside it."""
+    import numpy as np
+
+    from d3roma_tpu_torch.utils import png
+    from d3roma_tpu_torch.utils.frame_utils import writePFM
+
+    rs = np.random.RandomState(seed)
+    h, w = SCENEFLOW_HW
+    sub = os.path.join(root, "FlyingThings3D", "{}", "TRAIN", "A", "0000", "{}")
+    for kind, side in (("frames_cleanpass", "left"), ("frames_cleanpass", "right"),
+                       ("disparity", "left"), ("raw_cleanpass", "left")):
+        os.makedirs(sub.format(kind, side), exist_ok=True)
+    for i in range(n):
+        for side in ("left", "right"):
+            tex = rs.randint(0, 256, (h // 10, w // 10, 3)).astype(np.uint8)
+            png.write_png(os.path.join(sub.format("frames_cleanpass", side), f"{i:04d}.png"),
+                          np.kron(tex, np.ones((10, 10, 1), np.uint8)))
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        disp = (20 + 60 * (xx / w) + 10 * np.sin(yy / 37.0 + i)).astype(np.float32)
+        writePFM(os.path.join(sub.format("disparity", "left"), f"{i:04d}.pfm"), disp)
+        raw = disp + rs.standard_normal(disp.shape).astype(np.float32)
+        writePFM(os.path.join(sub.format("raw_cleanpass", "left"), f"{i:04d}.pfm"), raw)
+
+
+def _train_run(tmp, repo, extra):
+    """The train entry point in its own process in `tmp`; returns its step
+    log lines [(step, loss, grad_norm)] and the whole log."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "d3roma_tpu_torch.train", f"task={TRAIN_PRESET}",
+         "task.train_dataset=[SceneFlow,HISS]", "task.dataset_weight=[1,1]",
+         "task.eval_dataset=[HISS]", "task.val_every_global_steps=2", "task.eval_num_batch=1",
+         "task.save_model_epochs=1", "task.output_dir=run"] + list(extra),
+        cwd=tmp, capture_output=True, text=True, timeout=900,
+        env=dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", "")))
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"train entry point failed ({proc.returncode}): "
+                             f"{proc.stderr[-4000:]}")
+    with open(os.path.join(tmp, "run", "train.log")) as f:
+        log = f.read()
+    steps = []
+    for line in log.splitlines():
+        parts = line.split()
+        if "loss" in parts and "grad_norm" in parts and "step" in parts:
+            i = parts.index("step")
+            steps.append((int(parts[i + 1]), float(parts[parts.index("loss") + 1]),
+                          float(parts[parts.index("grad_norm") + 1])))
+    return steps, log, wall
+
+
+class _Recorded:
+    """A train step's draws: taken from `draws` and kept on a tape, or, with
+    no `draws`, given back from `tape` in the same order."""
+
+    def __init__(self, draws=None, tape=None):
+        self.draws, self.tape = draws, tape if tape is not None else []
+
+    def _take(self, name, *args):
+        if self.draws is not None:
+            out = getattr(self.draws, name)(*args)
+            self.tape.append(out.clone())
+            return out
+        return self.tape.pop(0)
+
+    def normal(self, shape, dtype=None):
+        import torch
+
+        return self._take("normal", shape, dtype or torch.float32)
+
+    def randint(self, low, high, n):
+        return self._take("randint", low, high, n)
+
+    def categorical(self, probs, n):
+        return self._take("categorical", probs, n)
+
+
+def _narrow_step(device, cfg, state_dict, vae_state, text, batch, draws, sampler):
+    """One train step of the narrow latent model on `device` from the given
+    weights; returns (metrics on the host, the UNet's state dict on the
+    host)."""
+    import torch
+
+    from d3roma_tpu_torch.models import AutoencoderKL, UNet2DCondition
+    from d3roma_tpu_torch.training import build_optimizer, create_train_state, make_train_step
+
+    unet = UNet2DCondition(**TRAIN_NARROW_UNET, remat=True, device=device)
+    unet.load_state_dict(state_dict)
+    vae = AutoencoderKL(**TRAIN_NARROW_VAE, device=device).requires_grad_(False)
+    vae.load_state_dict(vae_state)
+    opt = build_optimizer(cfg, 3, list(unet.parameters()))
+    state = create_train_state(cfg, unet, 3, optimizer=opt)
+    step = make_train_step(cfg, unet, opt, cfg.schedule_config(train=True).tables(device),
+                           vae=vae, text_embed=text.to(device), t_sampler=sampler)
+    on = {k: v.to(device) for k, v in batch.items()}
+    if device != "cpu":
+        _sync()
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        metrics = step(state, on, draws)
+    finally:
+        if device != "cpu":
+            torch.cuda.set_sync_debug_mode(0)
+    host = {k: v.detach().cpu() for k, v in metrics.items()}
+    return host, {k: v.detach().cpu() for k, v in unet.state_dict().items()}
+
+
+def _param_diffs(ours, ref):
+    import numpy as np
+
+    diffs = {k: (ours[k] - ref[k]).abs().flatten().numpy() for k in ref}
+    every = np.concatenate(list(diffs.values()))
+    rest = np.concatenate([d for k, d in diffs.items() if not k.endswith("to_k.bias")])
+    return float(every.max()), float(np.quantile(rest, 0.999))
+
+
+def train_card_vs_cpu(cfg):
+    """One fp32 train step of a narrow latent model (two levels, widths 32
+    and 64) on the card and on the CPU from the same weights, batch and
+    draws (recorded on the CPU, replayed on the card), for each timestep
+    sampler; the card's step runs under set_sync_debug_mode("error"). Then
+    one card step drawing from a CUDA generator (the loss-aware sampler's
+    categorical draw on the card), under the same mode."""
+    import numpy as np
+    import torch
+
+    from d3roma_tpu_torch.models import AutoencoderKL, UNet2DCondition, init_random_
+    from d3roma_tpu_torch.ops.noise import GeneratorDraws
+    from d3roma_tpu_torch.training.train_loop import fp32_math
+
+    gen = torch.Generator().manual_seed(11)
+    unet = init_random_(UNet2DCondition(**TRAIN_NARROW_UNET, device="cpu"), gen)
+    vae = init_random_(AutoencoderKL(**TRAIN_NARROW_VAE, device="cpu"), gen)
+    sd, vsd = unet.state_dict(), vae.state_dict()
+    text = torch.randn(1, 2, TRAIN_NARROW_UNET["cross_attention_dim"], generator=gen)
+    rs = np.random.RandomState(3)
+    disp = rs.uniform(-0.9, 0.9, (2, 64, 96, 1)).astype(np.float32)
+    batch = {"normalized_disp": torch.from_numpy(disp),
+             "sim_disp": torch.from_numpy(np.clip(disp + 0.05 * rs.standard_normal(disp.shape),
+                                                  -1, 1).astype(np.float32)),
+             "normalized_rgb": torch.from_numpy(rs.uniform(-1, 1, (2, 64, 96, 3))
+                                                .astype(np.float32)),
+             "mask": torch.from_numpy((rs.rand(2, 64, 96, 1) > 0.2).astype(np.float32))}
+    batch["left_image"] = batch["right_image"] = batch["normalized_rgb"]
+    lr = cfg.learning_rate
+    out = {}
+    for sampler in ("uniform", "loss-second-moment"):
+        rec = _Recorded(GeneratorDraws(torch.Generator().manual_seed(5)))
+        cpu, cpu_sd = _narrow_step("cpu", cfg, sd, vsd, text, batch, rec, sampler)
+        # the tape is on the card before the step: a copy from the host syncs
+        tape = [t.to("cuda") for t in rec.tape]
+        with fp32_math(torch.device("cuda")):
+            card, card_sd = _narrow_step("cuda", cfg, sd, vsd, text, batch,
+                                         _Recorded(tape=tape), sampler)
+        rel = {k: abs(float(card[k]) - float(cpu[k])) / max(abs(float(cpu[k])), 1e-30)
+               for k in ("loss", "grad_norm", "recon_mae")}
+        worst, q999 = _param_diffs(card_sd, cpu_sd)
+        print(f"train card vs CPU ({sampler}): loss {float(card['loss']):.7f} / "
+              f"{float(cpu['loss']):.7f} rel {rel['loss']:.2e} (tol {TRAIN_LOSS_REL_TOL}); "
+              f"grad_norm rel {rel['grad_norm']:.2e} (tol {TRAIN_GRAD_NORM_REL_TOL}); recon_mae "
+              f"rel {rel['recon_mae']:.2e}; params max |diff| {worst:.3e} (tol {2 * lr:.1e}), "
+              f"99.9% {q999:.3e} (tol {1e-3 * lr:.1e}); no host sync in the card's step",
+              flush=True)
+        if not (torch.equal(card["timesteps"], cpu["timesteps"])
+                and rel["loss"] <= TRAIN_LOSS_REL_TOL
+                and rel["grad_norm"] <= TRAIN_GRAD_NORM_REL_TOL
+                and rel["recon_mae"] <= TRAIN_GRAD_NORM_REL_TOL
+                and worst <= 2 * lr and q999 <= 1e-3 * lr):
+            raise AssertionError(f"train card vs CPU ({sampler}): {rel} {worst} {q999}")
+        out[sampler] = dict(rel, params_max_abs=worst, params_q999=q999)
+    with fp32_math(torch.device("cuda")):
+        card, _ = _narrow_step("cuda", cfg, sd, vsd, text, batch,
+                               GeneratorDraws(torch.Generator(device="cuda").manual_seed(5)),
+                               "loss-second-moment")
+    if not (torch.isfinite(card["loss"]) and torch.isfinite(card["grad_norm"])):
+        raise AssertionError("train: the card's own draws gave a non-finite step")
+    print("train: a step drawing from a CUDA generator (loss-aware sampler) made no host sync",
+          flush=True)
+    return out
+
+
+def _train_batch(gen):
+    """A preprocessed batch of the full-width run's shape on the card."""
+    import torch
+
+    b, (h, w) = TRAIN_BATCH, TRAIN_HW
+    disp = torch.rand(b, h, w, 1, generator=gen, device="cuda") * 1.8 - 0.9
+    return {"normalized_disp": disp,
+            "sim_disp": (disp + 0.05 * torch.randn(disp.shape, generator=gen, device="cuda"))
+            .clamp(-1, 1),
+            "normalized_rgb": torch.rand(b, h, w, 3, generator=gen, device="cuda") * 2 - 1,
+            "left_image": torch.zeros(b, h, w, 3, device="cuda"),
+            "right_image": torch.zeros(b, h, w, 3, device="cuda"),
+            "mask": torch.ones(b, h, w, 1, device="cuda")}
+
+
+_TRAIN_RANGES = ("vae_encode", "forward", "recon_decode", "backward", "optimizer", "sampler")
+_TRAIN_KERNEL_CLASSES = (
+    ("convolution forward", ("fprop", "implicit_convolve", "conv2d_c1_k1", "xmma_fprop")),
+    ("convolution backward (data)", ("dgrad",)),
+    ("convolution backward (weights)", ("wgrad", "conv_c1_k1_wgrad")),
+    ("group norm", ("group_norm", "groupnorm", "rowwisemoments", "computefusedparams",
+                    "compute_internal_gradients", "gamma_beta_backward")),
+    ("softmax", ("softmax",)),
+    ("matmul", ("gemm", "cutlass", "cublas", "sm90_xmma", "splitk")),
+)
+
+
+def _kernel_class(name: str) -> str:
+    low = name.lower()
+    for cls, keys in _TRAIN_KERNEL_CLASSES:
+        if any(k in low for k in keys):
+            return cls
+    return "elementwise and other"
+
+
+def train_timing(cfg):
+    """Full width (SD2.1 UNet and VAE, random weights), batch 16 at 184x320,
+    fp32 with TF32 off: TRAIN_TIMED_STEPS steps on a batch on the card, each
+    synchronized; ms/step the median of the steps after the first two,
+    samples/s, peak memory; no hand-written kernel launched; one more step
+    under torch.profiler: its idle share and device ms by phase and by
+    kernel class."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from d3roma_tpu_torch.ops.noise import GeneratorDraws
+    from d3roma_tpu_torch.training import (
+        build_models,
+        build_optimizer,
+        create_train_state,
+        make_train_step,
+    )
+    from d3roma_tpu_torch.training.train_loop import fp32_math, step_draws
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    models = build_models(cfg, 0, "cuda")
+    unet = models["unet"]
+    opt = build_optimizer(cfg, 3, list(unet.parameters()))
+    state = create_train_state(cfg, unet, 3, optimizer=opt)
+    step = make_train_step(cfg, unet, opt, cfg.schedule_config(train=True).tables("cuda"),
+                           vae=models["vae"], text_embed=models["text_embed"])
+    batch = _train_batch(torch.Generator(device="cuda").manual_seed(1))
+    walls, losses = [], []
+    _zero_launches()
+    with fp32_math(torch.device("cuda")):
+        for i in range(TRAIN_TIMED_STEPS):
+            t0 = time.perf_counter()
+            m = step(state, batch, step_draws(0, i, torch.device("cuda")))
+            _sync()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            losses.append((float(m["loss"]), float(m["grad_norm"])))
+        counts = {k: v for k, v in _int8_launches().items() if v}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(state, batch, GeneratorDraws(torch.Generator(device="cuda").manual_seed(9)))
+            _sync()
+            prof_wall = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if counts:
+        raise AssertionError(f"train: hand-written kernels launched in training: {counts}")
+    import math
+
+    if not all(math.isfinite(x) for pair in losses for x in pair):
+        raise AssertionError(f"train timing: non-finite loss or grad_norm {losses}")
+    ranges, classes, busy, top = {}, {}, 0.0, []
+    cuda = torch.autograd.DeviceType.CUDA
+    for evt in prof.events():
+        on_device = getattr(evt, "device_type", None) == cuda
+        if evt.name.startswith("train_step/"):
+            # the host-side range sums its ops' kernels; the profiler also
+            # draws each range on the device's timeline, as a span
+            if not on_device:
+                name = evt.name.split("/", 1)[1]
+                ranges[name] = ranges.get(name, 0.0) + evt.device_time_total / 1e3
+            continue
+        if on_device and "Sync" not in evt.name:
+            ms = evt.device_time_total / 1e3
+            busy += ms
+            c = _kernel_class(evt.name)
+            classes[c] = classes.get(c, 0.0) + ms
+            top.append((ms, evt.name))
+    # the forward range holds the recon decode's; the backward pass runs on
+    # autograd's device thread, outside every range: what no range holds
+    ranges["forward"] = ranges.get("forward", 0.0) - ranges.get("recon_decode", 0.0)
+    ranges["backward"] = busy - sum(v for k, v in ranges.items() if k != "backward")
+    ms = statistics.median(walls[2:])
+    idle = max(0.0, 1 - busy / prof_wall)
+    print(f"train (full width, batch {TRAIN_BATCH}, {TRAIN_HW[0]}x{TRAIN_HW[1]}, fp32): "
+          f"{ms:.1f} ms/step, median of {[round(w, 1) for w in walls[2:]]} (first two "
+          f"{[round(w, 1) for w in walls[:2]]}); {TRAIN_BATCH / ms * 1e3:.2f} samples/s; peak "
+          f"memory {peak:.2f} GiB; profiled step {prof_wall:.1f} ms wall, device busy "
+          f"{busy:.1f} ms, idle share {idle:.3f}; losses {[round(l, 4) for l, _ in losses]}",
+          flush=True)
+    print(f"  by phase (device ms): {json.dumps({k: round(v, 2) for k, v in ranges.items()})}",
+          flush=True)
+    print(f"  by kernel class (device ms): "
+          f"{json.dumps({k: round(v, 2) for k, v in sorted(classes.items(), key=lambda kv: -kv[1])})}",
+          flush=True)
+    totals = {}
+    for ms_, name in top:
+        totals[name] = totals.get(name, 0.0) + ms_
+    for name, ms_ in sorted(totals.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  top: {ms_:9.2f} ms {name[:110]}", flush=True)
+    del models, unet, opt, state, step, batch
+    torch.cuda.empty_cache()
+    return dict(ms_per_step=ms, step_walls_ms=walls, samples_per_s=TRAIN_BATCH / ms * 1e3,
+                peak_memory_gib=peak, profiled_wall_ms=prof_wall, device_busy_ms=busy,
+                idle_share=idle, device_ms_by_phase=ranges, device_ms_by_kernel_class=classes)
+
+
+def train_phase():
+    """Training end to end on the card, hermetic:
+
+    - frames in a temporary `datasets/` tree: TRAIN_FRAMES procedural HISS
+      frames (640x360) in `train` and TRAIN_EVAL_FRAMES in the split the
+      preset's HISS eval loader reads, and TRAIN_FRAMES SceneFlow frames at
+      the dataset's 960x540 (one epoch: 3 steps of batch 16);
+    - `python -m d3roma_tpu_torch.train task=train_ldm_mixed_rgb+raw
+      task.train_dataset=[SceneFlow,HISS] task.dataset_weight=[1,1]
+      task.eval_dataset=[HISS] task.num_epochs=1 task.val_every_global_steps=2
+      task.eval_num_batch=1 task.save_model_epochs=1` in its own process:
+      full SD2.1 width, random weights, batch 16, 180x320, fp32,
+      v-prediction. Every logged loss and grad_norm finite;
+      checkpoints/last, best/ and epoch_0000/ written; epoch_0000/ loads
+      through from_pretrained and one pipeline call on it is finite. Then
+      again with task.num_epochs=2: it resumes at global step 3 and ends at 6;
+    - one step of a narrow latent model on the card against the CPU
+      (`train_card_vs_cpu`), no host sync inside the card's step;
+    - the full-width step's ms, samples/s, peak memory and a profiled step
+      (`train_timing`).
+
+    Returns a summary dict."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from d3roma_tpu_torch.config import compose
+    from d3roma_tpu_torch.data import preprocess_eval, val_loaders
+    from d3roma_tpu_torch.ops.normalizer import Normalizer
+    from d3roma_tpu_torch.pipelines import GuidedLatentDiffusionPipeline
+    from d3roma_tpu_torch.synthetic import generate_dataset
+
+    summary = {}
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cfg = compose([f"task={TRAIN_PRESET}"]).task
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        generate_dataset(os.path.join(tmp, "datasets", "HISS"), TRAIN_FRAMES, split="train",
+                         seed=3)
+        generate_dataset(os.path.join(tmp, "datasets", "HISS"), TRAIN_EVAL_FRAMES,
+                         split=cfg.eval_split, seed=4)
+        _write_sceneflow(os.path.join(tmp, "datasets", "SceneFlow"), TRAIN_FRAMES, seed=6)
+        print(f"train: {2 * TRAIN_FRAMES + TRAIN_EVAL_FRAMES} frames written in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+        steps, log, wall = _train_run(tmp, repo, ["task.num_epochs=1"])
+        run = os.path.join(tmp, "run")
+        with open(os.path.join(run, "checkpoints", "last", "counter.json")) as f:
+            counter = json.load(f)
+        print(f"train: entry point, 1 epoch in {wall:.1f}s; steps {steps}; counter {counter}",
+              flush=True)
+        if [s for s, _, _ in steps] != [1, 2, 3] or not all(
+                np.isfinite([l for _, l, _ in steps] + [g for _, _, g in steps])):
+            raise AssertionError(f"train: steps {steps}\n{log[-3000:]}")
+        if counter["global_step"] != 3 or counter["epoch"] != 1:
+            raise AssertionError(f"train: counter {counter}")
+        for name in ("checkpoints/last/state.pt", "best/model_index.json",
+                     "epoch_0000/unet/params.msgpack", "epoch_0000/vae/params.msgpack"):
+            if not os.path.exists(os.path.join(run, name)):
+                raise AssertionError(f"train: {name} not written")
+        summary["epoch_1"] = dict(steps=steps, wall_s=wall, counter=counter)
+
+        pipe = GuidedLatentDiffusionPipeline.from_pretrained(os.path.join(run, "epoch_0000"),
+                                                             device="cuda")
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            eval_cfg = compose([f"task={TRAIN_PRESET}", "task.eval_dataset=[HISS]"]).task
+            batch = preprocess_eval(next(iter(val_loaders(eval_cfg)[0])), eval_cfg,
+                                    Normalizer.from_config(eval_cfg), "cuda")
+        finally:
+            os.chdir(cwd)
+        rgb, raw = batch["normalized_rgb"], batch["sim_disp"]
+        pad = (-rgb.shape[1]) % 8
+        rgb = torch.nn.functional.pad(rgb, (0, 0, 0, 0, 0, pad), mode="replicate")
+        raw = torch.nn.functional.pad(raw, (0, 0, 0, 0, 0, pad), mode="replicate")
+        out = pipe(num_inference_steps=eval_cfg.num_inference_timesteps,
+                   num_intermediate_images=1, cond_channels="rgb+raw", rgb_images=rgb,
+                   sim_disp=raw, generator=torch.Generator(device="cuda").manual_seed(0))
+        if not torch.isfinite(out.images).all():
+            raise AssertionError("train: the exported pipeline's output is not finite")
+        print(f"train: epoch_0000/ loaded through from_pretrained; one call "
+              f"{tuple(out.images.shape)} finite in [{out.images.min().item():.4f}, "
+              f"{out.images.max().item():.4f}]", flush=True)
+        del pipe, out
+        torch.cuda.empty_cache()
+
+        steps2, log2, wall2 = _train_run(tmp, repo, ["task.num_epochs=2"])
+        with open(os.path.join(run, "checkpoints", "last", "counter.json")) as f:
+            counter2 = json.load(f)
+        print(f"train: resumed run in {wall2:.1f}s; steps {steps2}; counter {counter2}",
+              flush=True)
+        if ("resuming from" not in log2 or [s for s, _, _ in steps2][-3:] != [4, 5, 6]
+                or not all(np.isfinite([l for _, l, _ in steps2] + [g for _, _, g in steps2]))
+                or counter2["global_step"] != 6 or counter2["epoch"] != 2
+                or not os.path.exists(os.path.join(run, "epoch_0001", "model_index.json"))):
+            raise AssertionError(f"train: resume {steps2} {counter2}\n{log2[-3000:]}")
+        summary["epoch_2"] = dict(steps=steps2[-3:], wall_s=wall2, counter=counter2)
+
+    summary["card_vs_cpu"] = train_card_vs_cpu(cfg)
+    summary["timing"] = train_timing(cfg)
+    return summary
+
+
 _KERNEL_GROUPS = (
     # the port's own kernels first, so that no library group takes one of them
     ("winograd kernels (input transform, tap GEMMs, split sum)", ("wino_",)),
@@ -3079,6 +3539,11 @@ def main() -> int:
         print(card, flush=True)
         print("eval phase passed", flush=True)
         return 0
+    if sys.argv[1:] == ["--train"]:
+        print(json.dumps({"train": train_phase()}), flush=True)
+        print(card, flush=True)
+        print("train phase passed", flush=True)
+        return 0
     if sys.argv[1:] == ["--attention"]:
         import torch
 
@@ -3109,6 +3574,7 @@ def main() -> int:
     pixel = pixel_phase()
     torch.cuda.empty_cache()
     evaluation = eval_phase()  # its entry point's process builds its own models
+    training = train_phase()  # so do its entry point's two processes
     bench_lines = bench_phase()
 
     kernels = [
@@ -3187,6 +3653,7 @@ def main() -> int:
                       "batch": BATCH, "steps": STEPS}), flush=True)
     print(json.dumps({"pixel": pixel}), flush=True)
     print(json.dumps({"eval": evaluation}), flush=True)
+    print(json.dumps({"train": training}), flush=True)
     print(json.dumps({"torch_bench": bench_lines}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""The evaluation sets, their loader and the on-device preprocessing."""
+"""The datasets (active stereo, passive stereo with its augmentation), their
+loader, the prefetch to the device and the on-device preprocessing."""
 
 from d3roma_tpu_torch.data.loader import (  # noqa: F401
     MONO_DATASETS,

@@ -1,11 +1,12 @@
 """RGB-D / active-IR dataset classes (host-side file IO + shape-defining aug).
 
-Port of the evaluation half of `d3roma_tpu/data/datasets.py`: the base
-classes (`BaseDataset`, `RepeatedDataset`, `ConcatDataset`) and
-`ActiveStereoDataset` with the two public variants' eval sets (`Dreds`,
-`HISS`, `ClearPose`, `SynTODDRgbd`, `Gapartnet2`, `Real`). The passive
-`StereoDataset` family (SceneFlow ... KITTIStereo) and its augmentation
-belong to the training slice (ROADMAP.md). Items are numpy, channel-LAST,
+Port of `d3roma_tpu/data/datasets.py`: the base classes (`BaseDataset`,
+`RepeatedDataset`, `ConcatDataset`), the passive `StereoDataset` family
+with its RAFT-style augmentation (`SceneFlow`, `Middlebury`, `ETH3D`,
+`SintelStereo`, `FallingThings`, `TartanAir`, `KITTIStereo`; where a
+reader resizes the disparity to the camera's resolution, the frames are
+resized with it) and `ActiveStereoDataset` with the two public variants'
+sets (`Dreds`, `HISS`, `ClearPose`, `SynTODDRgbd`, `Gapartnet2`, `Real`). Items are numpy, channel-LAST,
 *raw* (un-normalized) — numeric normalization runs batched on the device
 (`data/preprocess.py`). Item keys: disp, valid, depth, raw_depth, rgb,
 left, right, fxb, K, index, path, device. PNGs are read by `utils/png.py`
@@ -20,6 +21,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from d3roma_tpu_torch.data.augment import FlowAugmentor, SparseFlowAugmentor
 from d3roma_tpu_torch.utils import frame_utils
 from d3roma_tpu_torch.utils.camera import DepthCamera
 from d3roma_tpu_torch.utils.resize import INTER_LINEAR, INTER_NEAREST, resize
@@ -99,6 +101,282 @@ class ConcatDataset(BaseDataset):
         di = int(np.searchsorted(self._cum, index, side="right"))
         prev = 0 if di == 0 else int(self._cum[di - 1])
         return self.datasets[di][index - prev]
+
+
+# ---------------------------------------------------------------------- #
+# Passive stereo (SceneFlow family)
+# ---------------------------------------------------------------------- #
+
+
+class StereoDataset(BaseDataset):
+    """Passive stereo: GT disparity from PFM + left/right frames, with
+    RAFT-style augmentation producing a disparity 'flow'
+    (reference: data/stereo_datasets.py:33-156)."""
+
+    def __init__(self, aug_params=None, sparse: bool = False, reader=None,
+                 camera: Optional[DepthCamera] = None):
+        self.augmentor = None
+        self.sparse = sparse
+        self.img_pad = aug_params.pop("img_pad", None) if aug_params is not None else None
+        if aug_params is not None and "crop_size" in aug_params:
+            if sparse:
+                self.augmentor = SparseFlowAugmentor(**aug_params)
+            else:
+                self.augmentor = FlowAugmentor(**aug_params)
+        self.disparity_reader = reader if reader is not None else frame_utils.read_gen
+        self.camera = camera
+        self.is_test = False
+        self.disparity_list: List[str] = []
+        self.image_list: List[Tuple[str, str]] = []
+        self.sim_list: List[str] = []
+        self.extra_info: List = []
+
+    def __len__(self):
+        return len(self.image_list)
+
+    def __getitem__(self, index):
+        raw_index = index  # distinct per oversampled copy (RepeatedDataset)
+        index = index % len(self.image_list)
+        disp = self.disparity_reader(self.disparity_list[index])
+        if isinstance(disp, tuple):
+            disp, valid = disp[0], disp[1]
+        else:
+            valid = disp < 512
+
+        img1 = _to_rgb3(np.array(frame_utils.read_gen(self.image_list[index][0])).astype(np.uint8))
+        img2 = _to_rgb3(np.array(frame_utils.read_gen(self.image_list[index][1])).astype(np.uint8))
+        disp = np.array(disp).astype(np.float32)
+        if img1.shape[:2] != disp.shape:
+            # the reader brought the disparity to the camera's resolution
+            # (read_sceneflow at a camera_resolution other than the
+            # frames'): the frames follow it, bilinearly. The JAX package
+            # keeps them at their own size, and its batches of such items
+            # cannot be stacked (ROADMAP.md section 3).
+            dsize = (disp.shape[1], disp.shape[0])
+            img1 = resize(img1, dsize, INTER_LINEAR)
+            img2 = resize(img2, dsize, INTER_LINEAR)
+
+        # precomputed sim (SGM) disparity, if present ("" = missing for
+        # this frame; zeros keep the channel layout)
+        if self.sim_list and self.sim_list[index]:
+            sim = self.disparity_reader(self.sim_list[index])
+            sim = sim[0] if isinstance(sim, tuple) else sim
+            sim = np.array(sim).astype(np.float32)
+        else:
+            sim = np.zeros_like(disp)
+
+        flow = np.stack([-disp, np.zeros_like(disp)], axis=-1)
+        sim_flow = np.stack([-sim, np.zeros_like(sim)], axis=-1)
+
+        if self.augmentor is not None:
+            rng = self._sample_rng(raw_index)
+            if self.sparse:
+                img1, img2, flow, valid, sim_flow = self.augmentor(
+                    img1, img2, flow, valid, rng=rng, sim_flow=sim_flow)
+            else:
+                img1, img2, flow, sim_flow = self.augmentor(img1, img2, flow, sim_flow, rng=rng)
+                valid = (np.abs(flow[..., 0]) < 512) & (np.abs(flow[..., 1]) < 512)
+
+        disp = -flow[..., 0]
+        sim_disp = -sim_flow[..., 0] if sim_flow is not None else np.zeros_like(disp)
+        valid = valid & (disp > 0)
+
+        fxb = float(self.camera.fxb) if self.camera is not None else 1.0
+        # passive stereo has no sensor depth; raw_depth carries the sim
+        # disparity converted to pseudo-depth so device preprocessing can
+        # rebuild the sim channel uniformly
+        raw_depth = np.where(sim_disp > 0, fxb / np.maximum(sim_disp, 1e-6), 0.0)
+
+        h, w = disp.shape
+        return {
+            "disp": disp[..., None].astype(np.float32),
+            "valid": valid[..., None].astype(np.float32),
+            "depth": np.where(disp > 0, fxb / np.maximum(disp, 1e-6), 0.0)[..., None].astype(np.float32),
+            "raw_depth": raw_depth[..., None].astype(np.float32),
+            "rgb": img1.astype(np.float32),
+            "left": img1.astype(np.float32),
+            "right": img2.astype(np.float32),
+            "fxb": np.float32(fxb),
+            "K": (self.camera.K_depth.arr if self.camera is not None else np.eye(3)).astype(np.float32),
+            "index": np.int32(index),
+            "path": self.disparity_list[index],
+            "device": self.camera.device if self.camera is not None else "unknown",
+        }
+
+
+class SceneFlow(StereoDataset):
+    """FlyingThings3D + Monkaa + Driving with the bad-file filter and a
+    fixed 400-image val split (reference: data/stereo_datasets.py:169-249)."""
+
+    def __init__(self, camera=None, aug_params=None, root="datasets/SceneFlow",
+                 dstype="frames_cleanpass", split="train", resolution=None):
+        super().__init__(aug_params, reader=lambda fn: frame_utils.read_sceneflow(resolution, fn),
+                         camera=camera)
+        self.root = root
+        self.dstype = dstype
+        self.split = split
+        bad = set()
+        bad_file = osp.join(root, "bad_his.txt")
+        if osp.exists(bad_file):
+            with open(bad_file) as f:
+                bad = {line.strip() for line in f if line.strip()}
+        self._add_things(split, bad)
+        self._add_monkaa(split, bad)
+        self._add_driving(split, bad)
+        if split != "train":
+            # fixed 400-sample validation subset
+            self.image_list = self.image_list[:400]
+            self.disparity_list = self.disparity_list[:400]
+            self.sim_list = self.sim_list[:400] if self.sim_list else []
+
+    def _pairs(self, image_root, disp_root, bad):
+        lefts = sorted(glob.glob(osp.join(image_root, "**/left/*.png"), recursive=True))
+        for lf in lefts:
+            rf = lf.replace("/left/", "/right/")
+            df = lf.replace(self.dstype, "disparity").replace(".png", ".pfm")
+            if lf in bad or not osp.exists(rf) or not osp.exists(df):
+                continue
+            self.image_list.append((lf, rf))
+            self.disparity_list.append(df)
+            sim = lf.replace(self.dstype, "raw_cleanpass").replace(".png", ".pfm")
+            # "" placeholder keeps sim_list index-aligned with
+            # image_list — conditional appends silently paired most
+            # frames with another scene's sim disparity
+            self.sim_list.append(sim if osp.exists(sim) else "")
+
+    def _add_things(self, split, bad):
+        sub = "TRAIN" if split == "train" else "TEST"
+        self._pairs(osp.join(self.root, "FlyingThings3D", self.dstype, sub),
+                    None, bad)
+
+    def _add_monkaa(self, split, bad):
+        if split == "train":
+            self._pairs(osp.join(self.root, "Monkaa", self.dstype), None, bad)
+
+    def _add_driving(self, split, bad):
+        if split == "train":
+            self._pairs(osp.join(self.root, "Driving", self.dstype), None, bad)
+
+
+class Middlebury(StereoDataset):
+    """Middlebury v3 (reference: data/stereo_datasets.py:322-351)."""
+
+    def __init__(self, camera=None, aug_params=None, root="datasets/Middlebury", split="F"):
+        super().__init__(aug_params, sparse=True,
+                         reader=frame_utils.readDispMiddlebury, camera=camera)
+        scenes = sorted(glob.glob(osp.join(root, "MiddEval3", f"train{split}", "*")))
+        for scene in scenes:
+            self.image_list.append(
+                (osp.join(scene, "im0.png"), osp.join(scene, "im1.png"))
+            )
+            self.disparity_list.append(osp.join(scene, "disp0GT.pfm"))
+
+
+class ETH3D(StereoDataset):
+    """(reference: data/stereo_datasets.py:252-268)"""
+
+    def __init__(self, camera=None, aug_params=None, root="datasets/ETH3D", split="training"):
+        super().__init__(aug_params, sparse=True, camera=camera)
+        img1s = sorted(glob.glob(osp.join(root, f"two_view_{split}/*/im0.png")))
+        # non-training splits have no GT; the reference substitutes one
+        # fixed training disparity as a dummy (stereo_datasets.py:259) —
+        # an im0 PNG here would crash the PFM reader
+        dummy = osp.join(root, "two_view_training_gt/playground_1l/disp0GT.pfm")
+        for im0 in img1s:
+            self.image_list.append((im0, im0.replace("im0", "im1")))
+            self.disparity_list.append(
+                osp.join(osp.dirname(im0), "disp0GT.pfm")
+                if split == "training" else dummy
+            )
+
+
+class SintelStereo(StereoDataset):
+    """MPI-Sintel stereo: clean/final left-right renders over one shared
+    RGB-packed disparity per scene/frame (reference:
+    data/stereo_datasets.py:264-276). The disparity path is derived from
+    the frame's scene/name — both `clean_left` and `final_left` passes map
+    to the same training/disparities file, which the reference enforces by
+    an assert on a doubled sorted list."""
+
+    def __init__(self, camera=None, aug_params=None,
+                 root="datasets/SintelStereo"):
+        super().__init__(aug_params, sparse=True,
+                         reader=frame_utils.readDispSintelStereo,
+                         camera=camera)
+        for lf in sorted(glob.glob(
+                osp.join(root, "training", "*_left", "*", "frame_*.png"))):
+            scene, frame = lf.split(osp.sep)[-2:]
+            self.image_list.append((lf, lf.replace("_left", "_right")))
+            self.disparity_list.append(
+                osp.join(root, "training", "disparities", scene, frame))
+
+
+class FallingThings(StereoDataset):
+    """NVIDIA FallingThings: filenames.txt lists left JPEGs; right frames
+    and 0.1mm depth PNGs are path-derived (reference:
+    data/stereo_datasets.py:277-292)."""
+
+    def __init__(self, camera=None, aug_params=None,
+                 root="datasets/FallingThings"):
+        super().__init__(aug_params,
+                         reader=frame_utils.readDispFallingThings,
+                         camera=camera)
+        with open(osp.join(root, "filenames.txt")) as f:
+            names = sorted(line.strip() for line in f if line.strip())
+        for name in names:
+            self.image_list.append((osp.join(root, name),
+                                    osp.join(root, name.replace(
+                                        "left.jpg", "right.jpg"))))
+            self.disparity_list.append(
+                osp.join(root, name.replace("left.jpg", "left.depth.png")))
+
+
+class TartanAir(StereoDataset):
+    """TartanAir: tartanair_filenames.txt lists left PNGs; depth .npy is
+    path-derived; `seasonsforest_winter/Easy` is excluded and optional
+    keywords filter the listing (reference:
+    data/stereo_datasets.py:293-310)."""
+
+    def __init__(self, camera=None, aug_params=None, root="datasets",
+                 keywords: Sequence[str] = ()):
+        super().__init__(aug_params, reader=frame_utils.readDispTartanAir,
+                         camera=camera)
+        with open(osp.join(root, "tartanair_filenames.txt")) as f:
+            names = sorted(line.strip() for line in f
+                           if line.strip()
+                           and "seasonsforest_winter/Easy" not in line)
+        for kw in keywords:
+            names = [n for n in names if kw in n.lower()]
+        for name in names:
+            self.image_list.append((osp.join(root, name),
+                                    osp.join(root, name.replace(
+                                        "_left", "_right"))))
+            self.disparity_list.append(osp.join(root, name.replace(
+                "image_left", "depth_left").replace(
+                "left.png", "left_depth.npy")))
+
+
+class KITTIStereo(StereoDataset):
+    """KITTI 2015 stereo pairs + sparse disp_occ_0 GT (reference's stereo
+    KITTI class, data/stereo_datasets.py:311-321 — registered here as
+    `KITTIStereo`: the registry name `KITTI` is taken by the mono-depth
+    reader, matching the reference's own registry at data/data_loader.py:10
+    which also binds `KITTI` to the mono class)."""
+
+    def __init__(self, camera=None, aug_params=None, root="datasets/KITTI",
+                 image_set="training"):
+        super().__init__(aug_params, sparse=True,
+                         reader=frame_utils.readDispKITTI, camera=camera)
+        img1s = sorted(glob.glob(osp.join(root, image_set, "image_2",
+                                          "*_10.png")))
+        # non-training sets have no GT; the reference substitutes one fixed
+        # training disparity as a dummy (stereo_datasets.py:318)
+        dummy = osp.join(root, "training", "disp_occ_0", "000085_10.png")
+        for im0 in img1s:
+            self.image_list.append((im0, im0.replace("image_2", "image_3")))
+            self.disparity_list.append(
+                im0.replace("image_2", "disp_occ_0")
+                if image_set == "training" else dummy)
 
 
 # ---------------------------------------------------------------------- #

@@ -1,11 +1,14 @@
 """Dataset registry, factory, and the host->device input pipeline.
 
-Port of `d3roma_tpu/data/loader.py` for the evaluation sets:
-`create_dataset(config, name, split)` binds per-dataset camera defaults and
-disparity readers for the active-stereo / RGB-D datasets (`Dreds`, `HISS`,
-`Gapartnet2`, `ClearPose`, `SynTODDRgbd`, `Real_<split>_<device>`); the
-passive-stereo and mono names belong to the training slice and raise
-NotImplementedError (ROADMAP.md), with no fallback. `val_loaders(config)`
+Port of `d3roma_tpu/data/loader.py`: `create_dataset(config, name,
+split)` binds per-dataset camera defaults, disparity readers and the
+train split's augmentation for the active-stereo / RGB-D datasets
+(`Dreds`, `HISS`, `Gapartnet2`, `ClearPose`, `SynTODDRgbd`,
+`Real_<split>_<device>`) and the passive-stereo ones (`SceneFlow`,
+`Middlebury`, `SintelStereo`, `FallingThings`, `TartanAir`,
+`KITTIStereo`); the mono names (`data/mono_datasets.py` of the JAX
+package) are not ported and raise NotImplementedError (ROADMAP.md), with
+no fallback. `val_loaders(config)`
 builds one loader per eval dataset; `fetch_dataloader(config)` adds the
 weighted train concat. The loader is a thread-pool prefetching batcher
 feeding numpy batches; `data/preprocess.py` normalizes them on the
@@ -40,11 +43,17 @@ MONO_DATASETS = ["NYUv2", "ScanNet", "HyperSim", "SceneNet", "ScanNetpp",
                  "VK2", "KITTI", "InStereo2K", "Tartenair", "HRWSI", "SynTODD"]
 
 
-# the names of the training slice's datasets: the passive-stereo family
-# (data/datasets.py's StereoDataset, with data/augment.py) and the mono ones
-# (data/mono_datasets.py) of the JAX package
-TRAINING_SLICE_DATASETS = ["SceneFlow", "Middlebury", "SintelStereo", "FallingThings",
-                           "TartanAir", "KITTIStereo"] + MONO_DATASETS
+
+def _stereo_aug(config, split: str, image_size):
+    """The RAFT augmentation's parameters of a passive-stereo train split."""
+    if split != "train" or config.augment is None:
+        return None
+    return dict(crop_size=image_size,
+                min_scale=config.augment.min_scale,
+                max_scale=config.augment.max_scale,
+                saturation_range=tuple(config.augment.saturation_range),
+                gamma=tuple(config.augment.gamma),
+                yjitter=config.augment.yjitter)
 
 
 def create_dataset(config, name: str, split: str):
@@ -53,10 +62,10 @@ def create_dataset(config, name: str, split: str):
     `Real_<split>_<device>` parses into the bundled Real captures on a
     specific calibrated device (data_loader.py:14-15).
     """
-    if name in TRAINING_SLICE_DATASETS:
+    if name in MONO_DATASETS:
         raise NotImplementedError(
-            f"dataset {name!r} belongs to the training slice of the port, not ported "
-            "yet (ROADMAP.md section 1, item 5)")
+            f"mono dataset {name!r} (data/mono_datasets.py) is not ported yet "
+            "(ROADMAP.md section 1, item 11)")
     image_size = tuple(config.image_size)
     space = config.prediction_space
     variant = config.dataset_variant
@@ -103,6 +112,22 @@ def create_dataset(config, name: str, split: str):
         return D.SynTODDRgbd(camera, image_size, split=split, space=space,
                              variant=variant,
                              reader=partial(frame_utils.readDispReal, camera))
+
+    if name == "SceneFlow":
+        camera = Realsense.default_sim(min_depth=0.2, max_depth=2.0)
+        camera.change_resolution(config.camera_resolution)
+        return D.SceneFlow(camera=camera, aug_params=_stereo_aug(config, split, image_size),
+                           split=split, resolution=camera.resolution)
+
+    if name == "Middlebury":
+        camera = Realsense.default_sim()
+        return D.Middlebury(camera=camera)
+
+    if name in ("SintelStereo", "FallingThings", "TartanAir", "KITTIStereo"):
+        # RAFT-heritage passive-stereo readers: disparity-space, no device
+        # camera binding (the reference constructs them with aug_params
+        # only); train split gets the RAFT augmentation like SceneFlow
+        return getattr(D, name)(aug_params=_stereo_aug(config, split, image_size))
 
     raise ValueError(f"unknown dataset: {name}")
 

@@ -3,8 +3,9 @@ geometry), NHWC.
 
 Port of `d3roma_tpu/models/unet2d_condition.py`: the full pass, the
 DeepCache passes (`cache_depth`, `return_trunk`, `cached_trunk`), the
-static int8 modes (`quant`) and the fused GroupNorm + SiLU (`fused_norm`: the
-resnets' norms and conv_norm_out).
+static int8 modes (`quant`), the fused GroupNorm + SiLU (`fused_norm`: the
+resnets' norms and conv_norm_out) and `remat` (activation checkpointing of
+every resnet and transformer block while autograd records, for training).
 Parameter names follow diffusers
 (`down_blocks.0.attentions.0.transformer_blocks.0...`).
 """
@@ -15,6 +16,7 @@ from typing import Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from d3roma_tpu_torch.device import DeviceLike, resolve_device
 from d3roma_tpu_torch.models.layers import (
@@ -67,6 +69,7 @@ class UNet2DCondition(nn.Module):
         fused_ff: bool = False,
         fused_norm: bool = False,
         cache_depth: int = 1,
+        remat: bool = False,
         flip_sin_to_cos: bool = True,
         freq_shift: float = 0.0,
         device: DeviceLike = None,
@@ -140,6 +143,7 @@ class UNet2DCondition(nn.Module):
         self.set_kernels(use_flash_attention, fused_ff, fused_norm)
         self.quant = False
         self.cache_depth = cache_depth
+        self.remat = bool(remat)
 
     @property
     def cache_depth(self) -> int:
@@ -172,12 +176,20 @@ class UNet2DCondition(nn.Module):
         if fused_norm is not None:
             self.fused_norm = bool(fused_norm)
 
+    def _run(self, block: nn.Module, *args) -> torch.Tensor:
+        """A resnet or transformer block; under `remat` and autograd its
+        activations are recomputed in the backward pass instead of kept
+        (the JAX package's nn.remat of the same two block kinds)."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False)
+        return block(*args)
+
     def _up_block(self, blk, x, skips, t_emb, context, upsample: bool):
         attns = getattr(blk, "attentions", None)
         for j, res in enumerate(blk.resnets):
-            x = res(torch.cat([x, skips.pop()], dim=-1), t_emb)
+            x = self._run(res, torch.cat([x, skips.pop()], dim=-1), t_emb)
             if attns is not None:
-                x = attns[j](x, context)
+                x = self._run(attns[j], x, context)
         if upsample:
             x = blk.upsamplers[0](x, out_hw=skips[-1].shape[1:3])
         return x
@@ -217,9 +229,9 @@ class UNet2DCondition(nn.Module):
         for i, blk in enumerate(self.down_blocks):
             attns = getattr(blk, "attentions", None)
             for j, res in enumerate(blk.resnets):
-                x = res(x, t_emb)
+                x = self._run(res, x, t_emb)
                 if attns is not None:
-                    x = attns[j](x, context)
+                    x = self._run(attns[j], x, context)
                 skips.append(x)
             if cached_trunk is not None and i == depth - 1:
                 break
@@ -228,9 +240,9 @@ class UNet2DCondition(nn.Module):
                 skips.append(x)
 
         if cached_trunk is None:
-            x = self.mid_block.resnets[0](x, t_emb)
-            x = self.mid_block.attentions[0](x, context)
-            x = self.mid_block.resnets[1](x, t_emb)
+            x = self._run(self.mid_block.resnets[0], x, t_emb)
+            x = self._run(self.mid_block.attentions[0], x, context)
+            x = self._run(self.mid_block.resnets[1], x, t_emb)
             for blk in self.up_blocks[:refresh_from]:
                 x = self._up_block(blk, x, skips, t_emb, context, upsample=True)
             trunk = x

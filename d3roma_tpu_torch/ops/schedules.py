@@ -182,3 +182,17 @@ def add_noise(tables: ScheduleTables, x0: torch.Tensor, noise: torch.Tensor,
     a = extract(tables.sqrt_alphas_cumprod, t, x0.ndim)
     b = extract(tables.sqrt_one_minus_alphas_cumprod, t, x0.ndim)
     return a * x0 + b * noise
+
+
+def get_velocity(tables: ScheduleTables, x0: torch.Tensor, noise: torch.Tensor,
+                 t) -> torch.Tensor:
+    """The v-prediction target sqrt(ab) * noise - sqrt(1 - ab) * x0."""
+    a = extract(tables.sqrt_alphas_cumprod, t, x0.ndim)
+    b = extract(tables.sqrt_one_minus_alphas_cumprod, t, x0.ndim)
+    return a * noise - b * x0
+
+
+def snr(tables: ScheduleTables, t) -> torch.Tensor:
+    """Signal-to-noise ratio alpha_bar / (1 - alpha_bar) at timestep t."""
+    ab = extract(tables.alphas_cumprod, t, 1)
+    return ab / (1.0 - ab)

@@ -178,17 +178,6 @@ def _pack_str(out: bytearray, s: str) -> None:
     out += b
 
 
-def _pack_bin(out: bytearray, b: bytes) -> None:
-    for mark, fmt, limit in ((0xC4, ">B", 0xFF), (0xC5, ">H", 0xFFFF),
-                             (0xC6, ">I", 0xFFFFFFFF)):
-        if len(b) <= limit:
-            out.append(mark)
-            out += struct.pack(fmt, len(b))
-            out += b
-            return
-    raise ValueError("binary value too large for msgpack")
-
-
 def _pack_header(out: bytearray, n: int, fix: int, m16: int, m32: int) -> None:
     if n < 16:
         out.append(fix | n)
@@ -200,34 +189,36 @@ def _pack_header(out: bytearray, n: int, fix: int, m16: int, m32: int) -> None:
         out += struct.pack(">I", n)
 
 
-def _pack_ext(out: bytearray, code: int, payload: bytes) -> None:
+def _ext_header(n: int, code: int) -> bytes:
+    """The header of an ext value of type `code` with an n-byte payload."""
     fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
-    n = len(payload)
     if n in fixext:
-        out.append(fixext[n])
+        head = bytes((fixext[n],))
     elif n <= 0xFF:
-        out += bytes((0xC7, n))
+        head = bytes((0xC7, n))
     elif n <= 0xFFFF:
-        out.append(0xC8)
-        out += struct.pack(">H", n)
+        head = b"\xc8" + struct.pack(">H", n)
     else:
-        out.append(0xC9)
-        out += struct.pack(">I", n)
-    out += struct.pack(">b", code)
-    out += payload
+        head = b"\xc9" + struct.pack(">I", n)
+    return head + struct.pack(">b", code)
 
 
-def _array_bytes(x) -> Tuple[Tuple[int, ...], str, bytes]:
+def _array_bytes(x) -> Tuple[Tuple[int, ...], str, memoryview]:
+    """(shape, dtype name, the C-order bytes as a view: no copy of a
+    contiguous CPU array)."""
     if isinstance(x, torch.Tensor):
         t = x.detach().cpu().contiguous()
         if t.dtype == torch.bfloat16:
-            return tuple(t.shape), "bfloat16", t.view(torch.int16).numpy().tobytes()
+            return tuple(t.shape), "bfloat16", memoryview(t.view(torch.int16).numpy().reshape(-1)
+                                                          ).cast("B")
         x = t.numpy()
     x = np.asarray(x)  # not ascontiguousarray, which makes a 0-d array 1-d
-    return tuple(x.shape), x.dtype.name, x.tobytes("C")
+    flat = np.ascontiguousarray(x.reshape(-1))
+    return tuple(x.shape), x.dtype.name, memoryview(flat).cast("B")
 
 
-def _pack_leaf(out: bytearray, x) -> None:
+def _pack_leaf(write, x) -> None:
+    """An ndarray ext value: its headers, then its bytes as they are."""
     shape, name, buf = _array_bytes(x)
     inner = bytearray()
     _pack_header(inner, 3, 0x90, 0xDC, 0xDD)
@@ -235,8 +226,18 @@ def _pack_leaf(out: bytearray, x) -> None:
     for d in shape:
         _pack_int(inner, int(d))
     _pack_str(inner, name)
-    _pack_bin(inner, buf)
-    _pack_ext(out, EXT_NDARRAY, bytes(inner))
+    n = len(buf)
+    for mark, fmt, limit in ((0xC4, ">B", 0xFF), (0xC5, ">H", 0xFFFF),
+                             (0xC6, ">I", 0xFFFFFFFF)):
+        if n <= limit:
+            inner.append(mark)
+            inner += struct.pack(fmt, n)
+            break
+    else:
+        raise ValueError("binary value too large for msgpack")
+    write(_ext_header(len(inner) + n, EXT_NDARRAY))
+    write(bytes(inner))
+    write(buf)
 
 
 def _chunked(x) -> Dict[str, Any]:
@@ -249,14 +250,19 @@ def _chunked(x) -> Dict[str, Any]:
                                                                           step))}}
 
 
-def _pack(out: bytearray, v: Any) -> None:
+def _pack(write, v: Any) -> None:
+    """Pack `v`, handing the bytes to `write` in order."""
+    if isinstance(v, (torch.Tensor, np.ndarray)):
+        _pack_leaf(write, v)
+        return
+    out = bytearray()
     if isinstance(v, Mapping):
         _pack_header(out, len(v), 0x80, 0xDE, 0xDF)
         for k, item in v.items():
             _pack_str(out, str(k))
-            _pack(out, _maybe_chunk(item))
-    elif isinstance(v, (torch.Tensor, np.ndarray)):
-        _pack_leaf(out, v)
+            write(bytes(out))
+            out = bytearray()
+            _pack(write, _maybe_chunk(item))
     elif isinstance(v, bool):
         out.append(0xC3 if v else 0xC2)
     elif isinstance(v, int):
@@ -270,6 +276,8 @@ def _pack(out: bytearray, v: Any) -> None:
         out.append(0xC0)
     else:
         raise TypeError(f"cannot pack {type(v).__name__} as a flax msgpack value")
+    if out:
+        write(bytes(out))
 
 
 def _maybe_chunk(v: Any) -> Any:
@@ -284,10 +292,16 @@ def dumps(tree: Mapping) -> bytes:
     """Encode a nested dict of arrays (torch tensors or numpy arrays) as
     `flax.serialization.to_bytes` does, so that `msgpack_restore` reads it."""
     out = bytearray()
-    _pack(out, _maybe_chunk(tree))
+
+    def write(b) -> None:
+        out.extend(b)
+
+    _pack(write, _maybe_chunk(tree))
     return bytes(out)
 
 
 def dump(tree: Mapping, path: str) -> None:
+    """`dumps(tree)` written to `path`, the leaves' bytes straight from the
+    arrays (no copy of the whole file in memory)."""
     with open(path, "wb") as f:
-        f.write(dumps(tree))
+        _pack(f.write, _maybe_chunk(tree))

@@ -9,7 +9,8 @@ PNGs are read and written by `utils/png.py` (RGB channel order where
 explicitly), resizes go through `utils/resize.py` (cv2.resize's
 semantics), EXRs through `utils/exr.py`. `read_gen` returns a numpy array
 where the JAX package returns a PIL image (its callers take `np.array`
-of it either way); JPEG and PPM files raise NotImplementedError.
+of it either way); JPEG and PPM files raise NotImplementedError (a PNG
+under such a name is read as PIL reads it, by its content).
 """
 
 from __future__ import annotations
@@ -297,6 +298,11 @@ def read_gen(file_name: str, pil: bool = False):
     if ext == ".png":
         return png.read_png(file_name)
     if ext in (".jpeg", ".ppm", ".jpg"):
+        # PIL tells formats by their content, not their name: a PNG named
+        # .jpg opens as the PNG it is
+        with open(file_name, "rb") as f:
+            if f.read(8) == b"\x89PNG\r\n\x1a\n":
+                return png.read_png(file_name)
         raise NotImplementedError(f"no {ext} decoder without PIL: {file_name}")
     if ext in (".bin", ".raw", ".npy"):
         return np.load(file_name)

@@ -1,7 +1,8 @@
-"""The port stands alone: it imports with jax, flax, msgpack and d3roma_tpu
-made unimportable, its entry points run on the CPU when asked to, and
-without a GPU they raise instead of falling back; the evaluation entry
-point also runs with OpenCV, PIL, PyYAML and matplotlib unimportable."""
+"""The port stands alone: it imports with jax, flax, optax, orbax, msgpack
+and d3roma_tpu made unimportable, its entry points run on the CPU when
+asked to, and without a GPU they raise instead of falling back; the
+evaluation and training entry points also run with OpenCV, PIL, PyYAML,
+matplotlib (and for training tensorboardX) unimportable."""
 
 import os
 import re
@@ -16,7 +17,8 @@ import importlib, pkgutil, sys
 
 class Blocker:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack", "d3roma_tpu"):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack",
+                                  "d3roma_tpu"):
             raise ImportError("blocked: " + name)
         return None
 
@@ -28,7 +30,7 @@ names = [m.name for m in pkgutil.walk_packages(d3roma_tpu_torch.__path__,
                                                 "d3roma_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-assert not any(m.split(".")[0] in ("jax", "flax", "msgpack", "d3roma_tpu")
+assert not any(m.split(".")[0] in ("jax", "flax", "optax", "orbax", "msgpack", "d3roma_tpu")
                for m in sys.modules)
 
 from d3roma_tpu_torch.models import AutoencoderKL, UNet2DCondition
@@ -140,7 +142,7 @@ def test_port_imports_without_jax_and_runs_on_cpu():
 
 
 def test_no_source_line_imports_jax_or_the_jax_package():
-    pattern = re.compile(r"^\s*(import|from) (jax|flax|msgpack|d3roma_tpu)([ .]|$)")
+    pattern = re.compile(r"^\s*(import|from) (jax|flax|optax|orbax|msgpack|d3roma_tpu)([ .]|$)")
     files = sorted((REPO / "d3roma_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     offenders = [f"{f}:{i}" for f in files
                  for i, line in enumerate(f.read_text().splitlines(), 1)
@@ -220,3 +222,84 @@ def test_no_source_line_imports_opencv_pil_yaml_or_matplotlib():
                  for i, line in enumerate(f.read_text().splitlines(), 1)
                  if pattern.match(line)]
     assert not offenders, offenders
+
+
+_TRAIN_CHILD = r"""
+import os, runpy, sys, tempfile
+
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "d3roma_tpu", "cv2", "PIL",
+           "yaml", "matplotlib", "tensorboardX")
+
+class Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Blocker())
+
+import numpy as np
+import torch
+from d3roma_tpu_torch.synthetic import SceneConfig, generate_dataset
+from d3roma_tpu_torch.utils import png
+from d3roma_tpu_torch.utils.frame_utils import writePFM
+
+root = tempfile.mkdtemp()
+os.chdir(root)
+generate_dataset("datasets/HISS", 4, split="train", config=SceneConfig(height=36, width=64))
+generate_dataset("datasets/HISS", 2, split="val", config=SceneConfig(height=36, width=64))
+# SceneFlow frames at twice the camera's resolution: the loader resizes them
+rs = np.random.RandomState(0)
+sub = "datasets/SceneFlow/FlyingThings3D/{}/TRAIN/A/0000/{}"
+for i in range(4):
+    for side in ("left", "right"):
+        os.makedirs(sub.format("frames_cleanpass", side), exist_ok=True)
+        png.write_png(sub.format("frames_cleanpass", side) + f"/{i:04d}.png",
+                      rs.randint(0, 256, (72, 128, 3)).astype(np.uint8))
+    for kind in ("disparity", "raw_cleanpass"):
+        os.makedirs(sub.format(kind, "left"), exist_ok=True)
+        writePFM(sub.format(kind, "left") + f"/{i:04d}.pfm",
+                 rs.uniform(4, 60, (72, 128)).astype(np.float32))
+args = ["task=train_hiss", "task.cond_channels=rgb+raw", "task.train_dataset=[SceneFlow,HISS]",
+        "task.dataset_weight=[1,1]", "task.camera_resolution=64x36", "task.image_size=[32,48]",
+        "task.divis_by=16", "task.block_out_channels=[8,16]", "task.train_batch_size=2",
+        "task.eval_batch_size=2", "task.eval_num_batch=1", "task.num_epochs=1",
+        "task.val_every_global_steps=2", "task.save_model_epochs=1",
+        "task.num_inference_timesteps=2", "task.output_dir=run"]
+from d3roma_tpu_torch.train import main
+if not torch.cuda.is_available():
+    try:
+        main(args)
+    except RuntimeError as e:
+        assert "CUDA" in str(e)
+    else:
+        raise AssertionError("training ran without CUDA and without --device cpu")
+sys.argv = ["train", "--device", "cpu", "--seed", "2"] + args
+try:
+    runpy.run_module("d3roma_tpu_torch.train", run_name="__main__")
+except SystemExit as e:
+    assert not e.code, e.code
+assert not any(m.split(".")[0] in BLOCKED for m in sys.modules), sorted(
+    m for m in sys.modules if m.split(".")[0] in BLOCKED)
+log = open("run/train.log").read()
+assert "tensorboardX unavailable" in log
+steps = [line for line in log.splitlines() if " loss " in line and " grad_norm " in line]
+assert len(steps) == 4, log
+for name in ("checkpoints/last/state.pt", "checkpoints/last/counter.json", "best/model_index.json",
+             "epoch_0000/unet/params.msgpack"):
+    assert os.path.exists(os.path.join("run", name)), name
+print("TRAIN OK")
+"""
+
+
+def test_train_runs_without_jax_optax_orbax_opencv_or_tensorboardx():
+    """The training entry point end to end on the CPU (SceneFlow frames
+    the loader resizes, procedural HISS frames, in-training eval, the
+    exports and the checkpoint) with jax, optax, orbax, the JAX package,
+    OpenCV, PIL, PyYAML, matplotlib and tensorboardX unimportable; without
+    a GPU and without --device it raises."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _TRAIN_CHILD], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "TRAIN OK" in proc.stdout

@@ -121,3 +121,100 @@ def random_flax_tree(module, seed: int, *args):
         return (base + 0.1 * rs.standard_normal(s.shape)).astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+class ReplayDraws:
+    """Stands in for the port's train-step draws (`ops/noise.py`'s
+    GeneratorDraws): each call returns the next array of a list, made by
+    the JAX package from its keys, after checking its shape."""
+
+    def __init__(self, arrays):
+        self.arrays = [np.asarray(a) for a in arrays]
+
+    def _next(self, shape):
+        a = self.arrays.pop(0)
+        assert a.shape == tuple(shape), (a.shape, tuple(shape))
+        return torch.from_numpy(np.array(a))
+
+    def normal(self, shape, dtype=torch.float32):
+        return self._next(shape).to(dtype)
+
+    def randint(self, low, high, n):
+        return self._next((n,)).long()
+
+    def categorical(self, probs, n):
+        return self._next((n,)).long()
+
+
+def jax_pyramid_draws(key, shape):
+    """The normals `pyramid_noise_like(key, shape)` draws, in order."""
+    import jax
+
+    b, h, w, c = shape
+    keys = jax.random.split(key, 11)
+    out = [np.array(jax.random.normal(keys[0], shape, np.float32))]
+    for i in range(1, 11):
+        hh, ww = max(1, h // (2**i)), max(1, w // (2**i))
+        out.append(np.array(jax.random.normal(keys[i], (b, hh, ww, c), np.float32)))
+        if hh == 1 or ww == 1:
+            break
+    return out
+
+
+def jax_step_draws(key, noise_shape, strategy, bs, T, t_probs=None, rgb_shape=None):
+    """The JAX train step's draws from its key (`split(key, 3)`: the noise,
+    the timesteps — uniform, or categorical over `t_probs` — then the RGB
+    condition's noise when `rgb_shape` is given), in the port's call order."""
+    import jax
+    import jax.numpy as jnp
+
+    k_noise, k_t, k_rgb = jax.random.split(key, 3)
+    if strategy == "pyramid":
+        out = jax_pyramid_draws(k_noise, noise_shape)
+    else:
+        out = [np.array(jax.random.normal(k_noise, noise_shape, np.float32))]
+    if t_probs is None:
+        out.append(np.array(jax.random.randint(k_t, (bs,), 0, T)))
+    else:
+        logits = jnp.log(jnp.maximum(jnp.asarray(t_probs), 1e-20))
+        out.append(np.array(jax.random.categorical(k_t, logits, shape=(bs,))))
+    if rgb_shape is not None:
+        out.append(np.array(jax.random.normal(k_rgb, rgb_shape, np.float32)))
+    return out
+
+
+class JaxKeyDraws:
+    """The JAX train step's draws from its key, made on demand in the
+    port's call order: `split(key, 3)` gives the noise key (split again in
+    11 for the pyramid's levels), the timesteps' key and the RGB noise's
+    key; normals asked for before the timesteps are the noise's, after them
+    the RGB condition's."""
+
+    def __init__(self, key, strategy: str):
+        import jax
+
+        self.k_noise, self.k_t, self.k_rgb = jax.random.split(key, 3)
+        self.noise_keys = (list(jax.random.split(self.k_noise, 11)) if strategy == "pyramid"
+                           else [self.k_noise])
+        self.t_drawn = False
+
+    def normal(self, shape, dtype=torch.float32):
+        import jax
+
+        key = self.k_rgb if self.t_drawn else self.noise_keys.pop(0)
+        return torch.from_numpy(np.array(jax.random.normal(key, tuple(shape), np.float32)))
+
+    def randint(self, low, high, n):
+        import jax
+
+        self.t_drawn = True
+        return torch.from_numpy(np.array(jax.random.randint(self.k_t, (n,), low, high))).long()
+
+    def categorical(self, probs, n):
+        import jax
+        import jax.numpy as jnp
+
+        self.t_drawn = True
+        logits = jnp.log(jnp.maximum(jnp.asarray(probs.numpy()), 1e-20))
+        return torch.from_numpy(np.array(jax.random.categorical(self.k_t, logits,
+                                                                shape=(n,)))).long()

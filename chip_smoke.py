@@ -14,6 +14,7 @@
     python3 chip_smoke.py --pixel    # device, build, the pixel phase and the pixel bench only
     python3 chip_smoke.py --eval     # device, build and the evaluation phase only
     python3 chip_smoke.py --train    # device, build and the training phase only
+    python3 chip_smoke.py --serve    # device, build and the serving phase only
 
 Run from the repository root, on a machine with a CUDA GPU and nvcc (the
 kernels build from d3roma_tpu_torch/csrc/ at first use). Phases, each
@@ -138,12 +139,25 @@ failing the run on its own error:
     samples/s, peak memory and one profiled step (idle share, device ms by
     phase and by kernel class), with no hand-written kernel launched (the
     training path reaches none of the JAX package's Pallas kernels);
-14. the torch bench, `python -m d3roma_tpu_torch.bench`, in its own process
+14. serving (`serve_phase`): a full-width rgb+raw pipeline saved, and
+    calibrated under throughput and saved again; `python -m
+    d3roma_tpu_torch.demo` in its own process (its four artifacts read
+    back); the startup probe picking "latency" first; `python -m
+    d3roma_tpu_torch.serve --port 0 --max-batch 4` on the calibrated
+    directory under SSI: ready after its warm frame, 8 concurrent requests
+    (two at 480x848) each answered at its own frame's depth scale, a
+    malformed one 400, /metrics, SIGTERM; in process, D3RoMa's batched call
+    under throughput (launch counts from the calibration's logs, bit-equal to
+    the bit-equal kernels' plain versions, within twice the int8 noise of
+    every plain version, no host synchronization from upload to copy) and its
+    single-frame rgb+raw and left+right+raw calls under latency; ms/request,
+    ms/frame, host ms, idle share, the server's p50/p90/p99;
+15. the torch bench, `python -m d3roma_tpu_torch.bench`, in its own process
     at batch 2 with 3 timed calls (records and scales in a temporary
     directory), at the default setting, at BENCH_CLIP_PCT=0.999 and at
     BENCH_MODEL=pixel: its JSON line must carry every key of the JAX
     bench's at that setting, value > 0;
-15. a JSON line of per-kernel numbers, then the JSON result as the last line.
+16. a JSON line of per-kernel numbers, then the JSON result as the last line.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -3384,6 +3398,569 @@ def train_phase():
     return summary
 
 
+SERVE_PRESET = "eval_ldm_mixed_rgb+raw"
+SERVE_BATCH = 4  # the server's --max-batch and the in-process batched call
+SERVE_HW = (360, 640)
+# the in-process checks: the depth through the kernels against the same call
+# through their plain versions, compared as disparity (fxb / depth, the
+# model's own space, bounded by the normalizer's 128), max |a - b| / max |b|;
+# the same call on other noise must fall outside the limit. The bf16 calls
+# (latency): the eval phase's limit for a prediction after 10 steps. The
+# int8 call (throughput): the conv, GEGLU and quantize kernels are bit-equal
+# to their plain versions, so with the int8 attention kernel on both sides
+# the call must be bit-equal; with every plain version the attention's one
+# bf16 rounding (REL_TOL) flips int8 quanta downstream, so the limit is
+# twice the int8 noise, taken from sides that hold no kernel under test: the
+# call through every plain version against the same call in bf16 (latency,
+# the same weights and noise) through every plain version
+SERVE_PRED_REL_TOL = EVAL_PRED_REL_TOL
+# the server's frames: depth ramps (0.8-1.2 x the scale, the SSI window must
+# not be constant) at these scales in meters, two at 480x848
+SERVE_SCALES = (0.4, 1.0, 2.5, 4.0, 0.4, 1.0, 2.5, 4.0)
+SERVE_BIG = (5, 7)  # indexes of the 480x848 frames
+
+
+def _serve_frame(seed, scale, hw=SERVE_HW):
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    rgb = rs.randint(0, 256, hw + (3,)).astype(np.uint8)
+    ramp = np.linspace(0.8, 1.2, hw[0] * hw[1]).reshape(hw).astype(np.float32)
+    return rgb, (scale * ramp).astype(np.float32)
+
+
+def _disparity(depth, fxb):
+    import numpy as np
+
+    d = np.asarray(depth, np.float64)
+    return np.where(d > 0, fxb / np.maximum(d, 1e-12), 0.0)
+
+
+def _depth_rel(ours, ref, fxb):
+    """max |a - b| / max |b| over the frames' disparities."""
+    import numpy as np
+
+    a = np.stack([_disparity(d, fxb) for d in ours])
+    b = np.stack([_disparity(d, fxb) for d in ref])
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12))
+
+
+def _serve_counts(label, fn, expected):
+    """fn() once with the launch counts zeroed; check them; returns the
+    counts read, those above 0."""
+    _zero_launches()
+    fn()
+    _sync()
+    counts = _int8_launches()
+    _check_counts(label, counts, expected)
+    return {k: v for k, v in counts.items() if v}
+
+
+def _kernel_vs_plain(label, droma, fn, plain, seed, fxb, tol=SERVE_PRED_REL_TOL, fast=None,
+                     ref=None):
+    """fn() through the kernels (or `fast`, its result on `seed`) and
+    through `plain` (or `ref`, its result on `seed`), each from the
+    generator seeded with `seed`, within `tol`; the plain run on seed + 1
+    must fall outside it. Returns (rel, control rel)."""
+    import numpy as np
+
+    if fast is None:
+        droma._generator.manual_seed(seed)
+        fast = fn()
+    if ref is None:
+        droma._generator.manual_seed(seed)
+        ref = plain(fn)
+    droma._generator.manual_seed(seed + 1)
+    control = plain(fn)
+    fast, ref, control = ([x] if isinstance(x, np.ndarray) else x for x in (fast, ref, control))
+    if not all(np.isfinite(d).all() for d in fast):
+        raise AssertionError(f"{label}: non-finite depth through the kernels")
+    rel, control_rel = _depth_rel(fast, ref, fxb), _depth_rel(control, ref, fxb)
+    print(f"{label}: depth (as disparity) kernels against plain max |a - b| / max |b| = "
+          f"{rel:.3e} (tol {tol:.3e}); plain on other noise {control_rel:.3e} "
+          f"(must exceed the tol)", flush=True)
+    if not rel <= tol:
+        raise AssertionError(f"{label}: kernels against plain {rel} (tol {tol})")
+    if not control_rel > tol:
+        raise AssertionError(f"{label}: other noise within the tolerance ({control_rel})")
+    return rel, control_rel
+
+
+def _median_ms(fn, frames, reps=3):
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        _sync()
+        walls.append((time.perf_counter() - t0) * 1e3 / frames)
+    return statistics.median(walls), walls
+
+
+def _http(port, path, body=None, timeout=120):
+    """(status, bytes) of one request to the local server."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                                 method="POST" if body is not None else "GET")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _serve_demo(tmp, repo, pipe_dir):
+    """`python -m d3roma_tpu_torch.demo` in its own process: the four
+    artifacts read back, the depth finite, the clouds non-empty."""
+    import numpy as np
+
+    from d3roma_tpu_torch.utils.png import read_png
+    from d3roma_tpu_torch.utils.pointcloud import read_ply
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "d3roma_tpu_torch.demo", "--variant", "rgb+raw",
+         "--pretrained", pipe_dir, "task.fast_inference=latency"],
+        cwd=tmp, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", "")))
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"serve: demo failed ({proc.returncode}): {proc.stderr[-3000:]}")
+    out = os.path.join(tmp, "_outputs.rgb+raw")
+    shapes = {}
+    for name in ("raw_aligned.png", "pred.png"):
+        img = read_png(os.path.join(out, name))
+        if img.shape != SERVE_HW + (3,) or img.dtype != np.uint8:
+            raise AssertionError(f"serve: demo {name} {img.shape} {img.dtype}")
+        shapes[name] = list(img.shape)
+    points = {}
+    for name in ("raw.ply", "pred.ply"):
+        pts, cols = read_ply(os.path.join(out, name))
+        if not (len(pts) > 0 and np.isfinite(pts).all() and cols.shape == (len(pts), 3)):
+            raise AssertionError(f"serve: demo {name}: {pts.shape}")
+        points[name] = len(pts)
+    # a cloud of finite points is a finite depth: pred.ply holds its pixels > 0
+    print(f"serve: demo process exit 0 in {wall:.1f}s; {shapes}, points {points}", flush=True)
+    return dict(wall_s=wall, points=points)
+
+
+def _serve_server(tmp, repo, calib_dir):
+    """`python -m d3roma_tpu_torch.serve` in its own process under SSI
+    (least squares): ready after its warm frame, 8 concurrent requests
+    (SERVE_SCALES, two at 480x848), each answer at its own frame's scale; a
+    malformed one gets 400; /metrics; SIGTERM ends it with exit 0."""
+    import io
+    import json as _json
+    import signal
+    import threading
+
+    import numpy as np
+
+    from d3roma_tpu_torch.streaming.http_server import _npz_bytes
+
+    out_path, err_path = os.path.join(tmp, "serve.out"), os.path.join(tmp, "serve.err")
+    t0 = time.perf_counter()
+    with open(out_path, "w") as out_f, open(err_path, "w") as err_f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "d3roma_tpu_torch.serve", "--host", "127.0.0.1", "--port", "0",
+             "--max-batch", str(SERVE_BATCH), "--", f"task={SERVE_PRESET}",
+             "task.image_size=[360,640]", "task.num_intermediate_images=1",
+             "task.fast_inference=throughput", "task.ssi=true", "task.safe_ssi=false",
+             f"task.resume_pretrained={calib_dir}"],
+            cwd=tmp, stdout=out_f, stderr=err_f,
+            env=dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", "")))
+    summary = {}
+    try:
+        def log_tail():
+            with open(err_path) as f:
+                return f.read()[-3000:]
+
+        port, deadline = None, time.monotonic() + 300
+        while port is None and time.monotonic() < deadline:
+            if proc.poll() is not None:
+                raise AssertionError(f"serve: server exited {proc.returncode}: {log_tail()}")
+            with open(out_path) as f:
+                for line in f:
+                    if line.startswith("serving on http://127.0.0.1:"):
+                        port = int(line.split(":")[2].split()[0])
+            time.sleep(0.2)
+        if port is None:
+            raise AssertionError(f"serve: no port printed: {log_tail()}")
+        health = None
+        while time.monotonic() < deadline:
+            if proc.poll() is not None:
+                raise AssertionError(f"serve: server exited {proc.returncode}: {log_tail()}")
+            status, body = _http(port, "/healthz", timeout=10)
+            if status == 200:
+                health = _json.loads(body)
+                break
+            time.sleep(0.5)
+        ready_s = time.perf_counter() - t0
+        if health is None or health.get("status") != "ok" or "warmup_error" in health:
+            raise AssertionError(f"serve: not ready or warm-up failed: {health}; {log_tail()}")
+        print(f"serve: server on port {port} ready in {ready_s:.1f}s (process start, load, "
+              f"warm frame): {health}", flush=True)
+
+        frames = [_serve_frame(100 + i, s, (480, 848) if i in SERVE_BIG else SERVE_HW)
+                  for i, s in enumerate(SERVE_SCALES)]
+        answers, lock = {}, threading.Lock()
+
+        def call(i):
+            rgb, raw = frames[i]
+            t = time.perf_counter()
+            got = _http(port, "/v1/infer_rgb_raw", _npz_bytes(rgb=rgb, raw_depth=raw),
+                        timeout=300)
+            with lock:
+                answers[i] = got + ((time.perf_counter() - t) * 1e3,)
+
+        threads = [threading.Thread(target=call, args=(i,)) for i in range(len(frames))]
+        t1 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        burst_s = time.perf_counter() - t1
+        scales = sorted(set(SERVE_SCALES))
+        medians = []
+        for i, s in enumerate(SERVE_SCALES):
+            status, body, ms = answers[i]
+            if status != 200:
+                raise AssertionError(f"serve: request {i} got {status}: {body[:300]}")
+            depth = np.load(io.BytesIO(body))["depth"]
+            if depth.dtype != np.float32 or depth.shape != SERVE_HW or not np.isfinite(depth).all():
+                raise AssertionError(f"serve: request {i}: {depth.dtype} {depth.shape}")
+            pos = depth[depth > 0]
+            med = float(np.median(pos)) if pos.size else 0.0
+            nearest = min(scales, key=lambda c: abs(np.log(max(med, 1e-9) / c)))
+            medians.append((s, round(med, 4), round(pos.size / depth.size, 4), round(ms, 1)))
+            if nearest != s:
+                raise AssertionError(f"serve: request {i} at {s} m answered median {med} m")
+        print(f"serve: 8 concurrent requests in {burst_s:.2f}s, each 200 with a finite float32 "
+              f"{SERVE_HW} depth at its own scale (scale, median of depth > 0, share > 0, ms): "
+              f"{medians}", flush=True)
+        status, body = _http(port, "/metrics")
+        metrics = _json.loads(body)
+        print(f"serve: /metrics {metrics}", flush=True)
+        if status != 200 or metrics["errors"] != 0 or metrics["batches"] < 2:
+            raise AssertionError(f"serve: /metrics {metrics}")
+        bad = _http(port, "/v1/infer_rgb_raw",
+                    _npz_bytes(rgb=np.zeros((8, 8, 3), np.float32),
+                               raw_depth=np.ones((8, 8), np.float32)))
+        if bad[0] != 400:
+            raise AssertionError(f"serve: a float rgb got {bad[0]}, not 400")
+        print(f"serve: malformed request answered 400: {bad[1][:120]!r}", flush=True)
+        summary = dict(ready_s=ready_s, burst_s=burst_s, answers=medians,
+                       latency_ms=metrics.get("latency_ms"), batches=metrics["batches"],
+                       padded_rows=metrics["padded_rows"])
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise AssertionError("serve: the server did not exit within 60 s of SIGTERM")
+    with open(out_path) as f:
+        stopped = "server stopped" in f.read()
+    print(f"serve: server process exit {rc} after SIGTERM (stopped cleanly: {stopped})",
+          flush=True)
+    if rc != 0 or not stopped:
+        raise AssertionError(f"serve: server exit {rc}")
+    return summary
+
+
+def serve_phase():
+    """Serving on the card, hermetic, in a temporary directory:
+
+    - a full-width rgb+raw latent pipeline (SD2.1 geometry, seeded random
+      weights in bf16, guidance weight 0, the preset's normalizer) saved
+      with save_pretrained; the same pipeline under
+      fast_inference("throughput") calibrated on one batch of SERVE_BATCH
+      frames at 360x640 and saved with its act_scales.json; a second UNet
+      with the left+right+raw conv_in, in memory;
+    - `python -m d3roma_tpu_torch.demo --variant rgb+raw --pretrained DIR
+      task.fast_inference=latency` in its own process: its four artifacts
+      read back (`utils/png.py`, `read_ply`), the clouds non-empty;
+    - streaming/probe.py's `select_streaming_mode` at batch 1 on the saved
+      directory, its records in a temporary file: it must pick "latency",
+      the first candidate, with ok;
+    - `python -m d3roma_tpu_torch.serve --port 0 --max-batch 4` on the
+      calibrated directory under throughput and SSI least squares
+      (`_serve_server`);
+    - in process, `D3RoMa` on the calibrated directory under throughput:
+      one infer_with_rgb_raw_batch call of SERVE_BATCH frames, its launch
+      counts from the calibration's logs (102 int8 attention, 160 int8
+      GEGLU, one int8 conv per conv or dense site visit, one quantize per
+      int8 conv and GEGLU); the depth bit-equal to the same call with the
+      conv, GEGLU and quantize kernels' plain versions, and within twice
+      the int8 noise (the call through every plain version against the same
+      call in bf16 through every plain version) of the call with every
+      plain version (other noise outside); the upload, then pre, pipeline
+      and post under set_sync_debug_mode("error"), then the copy; under latency,
+      infer_with_rgb_raw (rgb+raw) and infer (left+right+raw) at batch 1
+      against _plain_bf16, 100 attention and 160 GEGLU launches each, and
+      the single-frame path under set_sync_debug_mode("error") too;
+    - timings: ms/request of infer_with_rgb_raw at batch 1 (latency and
+      throughput), ms/frame of the batched call, the host ms of the prep
+      (resize, disparity, upload) and of the final copy, one profiled
+      batched call's idle share, and the server's p50/p90/p99.
+
+    Returns a summary dict."""
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from d3roma_tpu_torch.config import compose
+    from d3roma_tpu_torch.guidance import FlowGuidance
+    from d3roma_tpu_torch.inference import D3RoMa
+    from d3roma_tpu_torch.models import (
+        AutoencoderKL,
+        UNet2DCondition,
+        init_random_,
+        widened_in_channels,
+    )
+    from d3roma_tpu_torch.ops.normalizer import Normalizer
+    from d3roma_tpu_torch.pipelines import GuidedLatentDiffusionPipeline, create_sampler_spec
+    from d3roma_tpu_torch.streaming.probe import select_streaming_mode
+    from d3roma_tpu_torch.utils.camera import Realsense
+
+    summary = {}
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cfg = compose([f"task={SERVE_PRESET}"]).task
+    with tempfile.TemporaryDirectory() as tmp:
+        cwd = os.getcwd()
+        os.chdir(tmp)  # D3RoMa writes _outputs.<variant>/ in the working directory
+        try:
+            t0 = time.perf_counter()
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            norm = Normalizer.from_config(cfg)
+
+            def latent_pipe(cond):
+                return GuidedLatentDiffusionPipeline(
+                    unet=init_random_(UNet2DCondition(in_channels=widened_in_channels(cond),
+                                                      out_channels=4, device="cuda"), gen),
+                    vae=init_random_(AutoencoderKL(device="cuda"), gen),
+                    text_embed=torch.zeros(1, 2, 1024), spec=create_sampler_spec(cfg, train=False),
+                    normalizer=norm, guidance=FlowGuidance(flow_guidance_weight=0.0),
+                    device="cuda").half_precision()
+
+            pipe = latent_pipe("rgb+raw")
+            pipe_dir, calib_dir = os.path.join(tmp, "pipe"), os.path.join(tmp, "calib")
+            pipe.save_pretrained(pipe_dir)
+            # the calibration batch: the in-process frames as D3RoMa feeds them
+            camera = Realsense.default_real("fxm")
+            camera.change_resolution("640x360")
+            frames = [_serve_frame(10 + i, s) for i, s in enumerate((0.5, 1.0, 2.0, 3.5))]
+            rgb = torch.from_numpy(np.stack([f[0] for f in frames])).cuda().float()
+            disp = torch.from_numpy(np.stack([camera.fxb_depth / f[1] for f in frames])
+                                    .astype(np.float32)).cuda()[..., None]
+            logs = {}
+            pipe.fast_inference("throughput").calibrate(
+                gen, [dict(rgb_images=(rgb / 255.0 - 0.5) * 2.0,
+                           sim_disp=norm.normalize(disp)[0])],
+                cond_channels="rgb+raw", num_inference_steps=cfg.num_inference_timesteps,
+                shape_logs=logs)
+            pipe.save_pretrained(calib_dir)
+            del pipe
+            torch.cuda.empty_cache()
+            print(f"serve: pipelines built, calibrated on {SERVE_BATCH} frames at 360x640 and "
+                  f"saved in {time.perf_counter() - t0:.1f}s; table lengths "
+                  f"{ {k: len(v) for k, v in logs.items()} }", flush=True)
+
+            # the demo and the probe, each its own processes, together (neither is timed)
+            probe_out = {}
+            records = os.path.join(tmp, "probe.jsonl")
+
+            def probe():
+                try:
+                    probe_out["result"] = select_streaming_mode(
+                        [f"task={SERVE_PRESET}", "task.image_size=[360,640]",
+                         "task.num_intermediate_images=1", f"task.resume_pretrained={pipe_dir}"],
+                        batch=1, timeout_s=600, records_path=records)
+                except Exception as e:  # noqa: BLE001 - reported below
+                    probe_out["error"] = repr(e)
+
+            t0 = time.perf_counter()
+            probe_thread = threading.Thread(target=probe)
+            probe_thread.start()
+            summary["demo"] = _serve_demo(tmp, repo, pipe_dir)
+            probe_thread.join()
+            if "error" in probe_out:
+                raise AssertionError(f"serve: probe raised {probe_out['error']}")
+            sel = probe_out["result"]
+            with open(records) as f:
+                record = json.loads(f.read().splitlines()[-1])
+            print(f"serve: probe in {time.perf_counter() - t0:.1f}s: {sel}", flush=True)
+            first = sel["probe"][0]
+            if (sel["mode"] != "latency" or first["mode"] != "latency" or not first["ok"]
+                    or len(sel["probe"]) != 1 or record["mode"] != "latency"):
+                raise AssertionError(f"serve: the probe did not pick latency first: {sel}")
+            summary["probe"] = sel["probe"]
+
+            summary["server"] = _serve_server(tmp, repo, calib_dir)
+
+            # in process: the batched call under throughput
+            t0 = time.perf_counter()
+            droma = D3RoMa([f"task={SERVE_PRESET}", "task.image_size=[360,640]",
+                            "task.num_intermediate_images=1", "task.fast_inference=throughput",
+                            f"task.resume_pretrained={calib_dir}"],
+                           Realsense.default_real("fxm"), variant="rgb+raw")
+            lat = D3RoMa([f"task={SERVE_PRESET}", "task.image_size=[360,640]",
+                          "task.num_intermediate_images=1", "task.fast_inference=latency",
+                          f"task.resume_pretrained={pipe_dir}"],
+                         Realsense.default_real("fxm"), variant="rgb+raw")
+            fxb = droma.camera.fxb_depth
+            print(f"serve: D3RoMa (throughput, calibrated) and D3RoMa (latency, the same "
+                  f"weights) loaded in {time.perf_counter() - t0:.1f}s", flush=True)
+
+            def batched():
+                return droma.infer_with_rgb_raw_batch(frames)
+
+            t0 = time.perf_counter()
+            batched()
+            _sync()
+            print(f"serve: first batched call {time.perf_counter() - t0:.2f}s", flush=True)
+            steps = cfg.num_inference_timesteps
+            convs = {k: sum(1 for kind, _ in v if kind in ("conv", "dot")) for k, v in logs.items()}
+            expected = {"attention_int8": 10 * steps + 2, "geglu_int8": 16 * steps,
+                        "conv2d_int8": convs["vae_encode"] + convs["unet"] * steps
+                        + convs["vae_decode"]}
+            expected["quantize"] = expected["conv2d_int8"] + expected["geglu_int8"]
+            expected["conv2d_int8_xla"] = expected["conv2d_int8"]
+            _zero_launches()
+            batched()
+            _sync()
+            counts = _int8_launches()
+            _check_counts("serve throughput batch 4", counts, expected)
+            summary["launches_throughput"] = {k: v for k, v in counts.items() if v}
+
+            droma._generator.manual_seed(21)
+            fast = batched()
+            droma._generator.manual_seed(21)
+            same = _plain_int8_forward(batched, attention=False)
+            exact = max(float(np.abs(a - b).max()) for a, b in zip(fast, same))
+            print(f"serve: batched depth through the kernels against the conv, GEGLU and "
+                  f"quantize kernels' plain versions: max |a - b| = {exact} (must be 0)",
+                  flush=True)
+            if exact != 0.0:
+                raise AssertionError(f"serve: bit-equal kernels differ by {exact}")
+            # the yardstick holds no kernel under test: every plain int8
+            # version against every plain bf16 version, the same noise
+            droma._generator.manual_seed(21)
+            ref = _plain_int8_forward(batched)
+            lat._generator.manual_seed(21)
+            noise = _depth_rel(ref, _plain_bf16(lambda: lat.infer_with_rgb_raw_batch(frames)),
+                               fxb)
+            print(f"serve: int8 noise of the batched call: its depth through every plain "
+                  f"version against the same call in bf16 (latency) through every plain "
+                  f"version {noise:.3e}", flush=True)
+            summary["batch_int8_noise"] = noise
+            summary["batch_rel"] = _kernel_vs_plain("serve throughput batch 4", droma, batched,
+                                                    _plain_int8_forward, 21, fxb,
+                                                    tol=2 * noise, fast=fast, ref=ref)
+
+            # pre, pipeline and post with no host synchronization
+            stacked = [droma._prep_rgb_raw(*f) for f in frames]
+            up = droma._upload(raw_disp=np.stack([s[1] for s in stacked]),
+                               rgb=np.stack([s[0] for s in stacked]))
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                depth, unc = droma._device(**up)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            droma._fetch(depth, unc)
+            print("serve: the batched call's pre, pipeline and post under "
+                  "set_sync_debug_mode('error'): no host synchronization", flush=True)
+
+            # timings of the throughput D3RoMa
+            ms_batch, walls_batch = _median_ms(batched, SERVE_BATCH)
+            one = frames[0]
+            ms_t1, walls_t1 = _median_ms(lambda: droma.infer_with_rgb_raw(*one), 1)
+            wall_ms, busy_ms = profile_phase(batched, "serve throughput batch 4",
+                                             frames=SERVE_BATCH)
+            idle = max(0.0, 1 - busy_ms / wall_ms)
+            big = _serve_frame(7, 1.0, (480, 848))
+            host = {}
+            for label, frame in (("360x640", one), ("480x848", big)):
+                reps = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    r, d = droma._prep_rgb_raw(*frame)
+                    droma._upload(raw_disp=d[None], rgb=r[None])
+                    _sync()
+                    reps.append((time.perf_counter() - t0) * 1e3)
+                host[f"pre_ms_{label}"] = statistics.median(reps)
+            reps = []
+            for _ in range(5):
+                depth, unc = droma._device(**up)
+                _sync()
+                t0 = time.perf_counter()
+                droma._fetch(depth, unc)
+                reps.append((time.perf_counter() - t0) * 1e3)
+            host["post_copy_ms_batch4"] = statistics.median(reps)
+            print(f"serve: throughput infer_with_rgb_raw_batch {ms_batch:.2f} ms/frame (batch "
+                  f"{SERVE_BATCH}, median of {[round(w, 2) for w in walls_batch]}); "
+                  f"infer_with_rgb_raw {ms_t1:.2f} ms/request (batch 1, median of "
+                  f"{[round(w, 2) for w in walls_t1]}); profiled batched call idle share "
+                  f"{idle:.3f}, device busy {busy_ms / SERVE_BATCH:.2f} ms/frame; host "
+                  f"{ {k: round(v, 3) for k, v in host.items()} }", flush=True)
+            summary.update(ms_per_frame_batch4_throughput=ms_batch,
+                           ms_per_request_throughput=ms_t1, idle_share_batch4=idle,
+                           device_busy_ms_per_frame_batch4=busy_ms / SERVE_BATCH, host_ms=host)
+            del droma
+            torch.cuda.empty_cache()
+
+            # under latency: rgb+raw and left+right+raw at batch 1
+            single = lambda: lat.infer_with_rgb_raw(*one)  # noqa: E731
+            single()
+            _sync()
+            bf16 = {"attention": 10 * steps, "geglu": 16 * steps}
+            summary["launches_latency"] = _serve_counts("serve latency rgb+raw batch 1",
+                                                        single, bf16)
+            summary["rel_latency_rgb_raw"] = _kernel_vs_plain(
+                "serve latency rgb+raw batch 1", lat, single, _plain_bf16, 31, fxb)
+            r, d = lat._prep_rgb_raw(*one)
+            up1 = lat._upload(raw_disp=d[None], rgb=r[None])
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                depth, unc, metrics = lat._device(**up1, metrics=True)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            lat._fetch(depth[0], unc[0], metrics)
+            print("serve: the single-frame path's pre, pipeline and post (metrics included) "
+                  "under set_sync_debug_mode('error'): no host synchronization", flush=True)
+            ms_l1, walls_l1 = _median_ms(single, 1)
+            print(f"serve: latency infer_with_rgb_raw {ms_l1:.2f} ms/request (batch 1, median "
+                  f"of {[round(w, 2) for w in walls_l1]})", flush=True)
+            summary["ms_per_request_latency"] = ms_l1
+            del lat
+            torch.cuda.empty_cache()
+
+            lr_pipe = latent_pipe("left+right+raw").fast_inference("latency")
+            stereo = D3RoMa(["task=eval_ldm_mixed", "task.image_size=[360,640]",
+                             "task.num_intermediate_images=1"],
+                            Realsense.default_real("fxm"), variant="left+right+raw",
+                            pipeline=lr_pipe)
+            rs = np.random.RandomState(5)
+            left = rs.randint(0, 256, SERVE_HW).astype(np.uint8)
+            right = np.roll(left, -8, axis=1)
+            pair = lambda: stereo.infer(left, right, raw_depth=one[1], rgb=one[0])  # noqa: E731
+            pair()
+            _sync()
+            _serve_counts("serve latency left+right+raw batch 1", pair, bf16)
+            summary["rel_latency_left_right_raw"] = _kernel_vs_plain(
+                "serve latency left+right+raw batch 1", stereo, pair, _plain_bf16, 41, fxb)
+            del stereo, lr_pipe
+            torch.cuda.empty_cache()
+        finally:
+            os.chdir(cwd)
+    return summary
+
+
 _KERNEL_GROUPS = (
     # the port's own kernels first, so that no library group takes one of them
     ("winograd kernels (input transform, tap GEMMs, split sum)", ("wino_",)),
@@ -3544,6 +4121,11 @@ def main() -> int:
         print(card, flush=True)
         print("train phase passed", flush=True)
         return 0
+    if sys.argv[1:] == ["--serve"]:
+        print(json.dumps({"serve": serve_phase()}), flush=True)
+        print(card, flush=True)
+        print("serve phase passed", flush=True)
+        return 0
     if sys.argv[1:] == ["--attention"]:
         import torch
 
@@ -3575,26 +4157,32 @@ def main() -> int:
     torch.cuda.empty_cache()
     evaluation = eval_phase()  # its entry point's process builds its own models
     training = train_phase()  # so do its entry point's two processes
+    serving = serve_phase()  # the demo, probe and server processes too
     bench_lines = bench_phase()
 
     kernels = [
         dict(_kernel_entry("mha_attention", "d3roma_tpu_torch/csrc/attention.cu",
                            "d3roma_tpu/ops/pallas/attention.py:69", attn_rows,
                            counts["attention"]),
-             eval_launches=evaluation["launches"]["attention"]),
+             eval_launches=evaluation["launches"]["attention"],
+             serve_launches=serving["launches_latency"]["attention"]),
         dict(_kernel_entry("geglu_ff", "d3roma_tpu_torch/csrc/geglu.cu",
                            "d3roma_tpu/ops/pallas/geglu.py:114", geglu_rows, counts["geglu"]),
-             eval_launches=evaluation["launches"]["geglu"]),
-        _kernel_entry("mha_attention_int8", "d3roma_tpu_torch/csrc/attention_int8.cu",
-                      "d3roma_tpu/ops/pallas/attention.py:90", int8_rows["attention_int8"],
-                      bench_counts["attention_int8"]),
-        _kernel_entry("geglu_ff_int8", "d3roma_tpu_torch/csrc/geglu_int8.cu",
-                      "d3roma_tpu/ops/pallas/geglu.py:71", int8_rows["geglu_int8"],
-                      bench_counts["geglu_int8"]),
+             eval_launches=evaluation["launches"]["geglu"],
+             serve_launches=serving["launches_latency"]["geglu"]),
+        dict(_kernel_entry("mha_attention_int8", "d3roma_tpu_torch/csrc/attention_int8.cu",
+                           "d3roma_tpu/ops/pallas/attention.py:90", int8_rows["attention_int8"],
+                           bench_counts["attention_int8"]),
+             serve_launches=serving["launches_throughput"]["attention_int8"]),
+        dict(_kernel_entry("geglu_ff_int8", "d3roma_tpu_torch/csrc/geglu_int8.cu",
+                           "d3roma_tpu/ops/pallas/geglu.py:71", int8_rows["geglu_int8"],
+                           bench_counts["geglu_int8"]),
+             serve_launches=serving["launches_throughput"]["geglu_int8"]),
         dict(_kernel_entry("conv2d_int8", "d3roma_tpu_torch/csrc/conv2d_int8.cu",
                            "d3roma_tpu/ops/pallas/conv2d.py:80", int8_rows["conv2d_int8"],
                            bench_counts["conv2d_int8"]),
-             tma_map_host_cost=new_rows["tma_map_host_cost"]),
+             tma_map_host_cost=new_rows["tma_map_host_cost"],
+             serve_launches=serving["launches_throughput"]["conv2d_int8"]),
         # no Pallas kernel: the XLA int8 conv and dot of the dynamic modes
         dict(_kernel_entry("conv2d_int8_dynamic", "d3roma_tpu_torch/csrc/conv2d_int8.cu",
                            "d3roma_tpu/ops/quant.py:370", int8_rows["conv2d_int8_dynamic"],
@@ -3654,6 +4242,7 @@ def main() -> int:
     print(json.dumps({"pixel": pixel}), flush=True)
     print(json.dumps({"eval": evaluation}), flush=True)
     print(json.dumps({"train": training}), flush=True)
+    print(json.dumps({"serve": serving}), flush=True)
     print(json.dumps({"torch_bench": bench_lines}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,8 +21,7 @@ noise through the pipeline (`x_init` / `latents` and `step_noise`).
 
 Not ported yet, and refused: gradient guidance (the latent pipeline raises
 when guidance is enabled), the "stereo-match" guide source
-(`ops/stereo.py`), `write_pcd` (`utils/pointcloud.py`) and the
-`plot_intermediate_metrics` figure (ROADMAP.md).
+(`ops/stereo.py`) and the `plot_intermediate_metrics` figure (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -396,8 +395,13 @@ def _write_artifacts(config, batch, i, pred, err, unc, out, eval_output_dir, dat
             os.path.join(eval_output_dir, f"idx{i}_intermediate_metrics.png"),
         )
     if config.write_pcd and "fxb" in batch:
-        raise NotImplementedError(
-            "write_pcd needs utils/pointcloud.py, not ported yet (ROADMAP.md)")
+        from d3roma_tpu_torch.utils.pointcloud import backproject_depth, write_ply
+
+        fxb = float(_to_host(batch["fxb"])[0])
+        K = _to_host(batch["K"][0]) if "K" in batch else np.eye(3)
+        depth = np.where(pred[0] > 0, fxb / np.maximum(pred[0], 1e-6), 0)
+        pts, _ = backproject_depth(depth.astype(np.float32), K)
+        write_ply(os.path.join(eval_output_dir, f"idx{i}_pred.ply"), pts)
 
 
 def evaluate_intermediate_metrics(

@@ -1,0 +1,291 @@
+"""Single-frame and batched inference API, the deployment surface of the port.
+
+Port of `d3roma_tpu/inference.py` (reference: inference.py:37-250): composes
+a config from overrides, loads a pipeline directory (either package's
+format), optionally swaps the sampler to MyDDIM, applies
+`task.fast_inference` and `task.deepcache`, and exposes
+``infer(left, right, raw_depth, rgb)``, ``infer_with_rgb_raw(rgb,
+raw_depth)`` and ``infer_with_rgb_raw_batch(frames)``, which return metric
+depth in meters.
+
+A call has three parts. The host prep resizes the frames to the camera
+resolution with OpenCV's semantics (`utils/resize.py`) and turns depth into
+raw disparity, in numpy. `_upload` copies the arrays to the device. Then
+normalize, the rounds as a batch, the pipeline, denormalize, the std over
+the rounds, the mean and disparity -> depth run on the device with no host
+synchronization, and `_fetch` copies the depth (and the uncertainty, and the
+single-frame path's metrics for its log line) back.
+
+Noise: one `torch.Generator` on the device, seeded with the config's seed
+(else `seed`), that every call draws from in call order: the pipeline's
+latents and step noise, then the SSI RANSAC subsets under `safe_ssi`. (The
+JAX package splits a PRNG key a call and folds in 1 for the RANSAC; a
+torch generator draws other noise.)
+
+Not ported, and refused: tensor parallelism (`task.tensor_parallel > 1`,
+`parallel/`), the executable cache (`task.aot_cache`, `serving/aot.py`) and
+latent flow guidance (`flow_guidance_weight > 0`): ROADMAP.md §1 items 10
+and 8.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from d3roma_tpu_torch.config import TrainingConfig, compose, deepcache_active
+from d3roma_tpu_torch.device import DeviceLike, resolve_device
+from d3roma_tpu_torch.evaluation.eval_loop import denormalize
+from d3roma_tpu_torch.ops.metrics import compute_errors, metrics_to_dict
+from d3roma_tpu_torch.ops.normalizer import Normalizer
+from d3roma_tpu_torch.pipelines import (
+    GuidedDiffusionPipeline,
+    GuidedLatentDiffusionPipeline,
+    SamplerSpec,
+)
+from d3roma_tpu_torch.utils.camera import Realsense
+from d3roma_tpu_torch.utils.resize import INTER_LINEAR, INTER_NEAREST, resize
+
+logger = logging.getLogger(__name__)
+
+
+def _three_channels(x: np.ndarray) -> np.ndarray:
+    if x.ndim == 2:
+        x = np.tile(x[..., None], (1, 1, 3))
+    return x[..., :3]
+
+
+class D3RoMa:
+    """Depth restoration from stereo IR / RGB-D frames, on `device` (CUDA
+    unless the caller names another; without CUDA it raises)."""
+
+    RELEASED_VARIANTS = ("left+right+raw", "rgb+raw")
+
+    def __init__(self, overrides: List[str] = (), camera: Optional[Realsense] = None,
+                 variant: str = "left+right+raw", pipeline=None, seed: int = 0,
+                 device: DeviceLike = None):
+        self.device = resolve_device(device)
+        assert variant in self.RELEASED_VARIANTS, "not released yet"
+        base_cfg = compose(overrides)
+        config = base_cfg.task
+        if base_cfg.seed is not None and base_cfg.seed != -1:
+            seed = base_cfg.seed
+        self._generator = torch.Generator(device=self.device).manual_seed(int(seed))
+
+        if int(getattr(config, "tensor_parallel", 1) or 1) > 1:
+            raise NotImplementedError(
+                "task.tensor_parallel > 1 needs parallel/, not ported yet (ROADMAP.md §1 item 10)")
+        if getattr(config, "aot_cache", ""):
+            raise NotImplementedError(
+                "task.aot_cache needs serving/aot.py, not ported yet (ROADMAP.md §1 item 10)")
+
+        self.camera = camera
+        self.camera.change_resolution(f"{config.image_size[1]}x{config.image_size[0]}")
+        self.config = config
+        self.pipeline = pipeline if pipeline is not None else self._load_pipeline(config)
+        self.eval_output_dir = f"_outputs.{variant}"
+        os.makedirs(self.eval_output_dir, exist_ok=True)
+        self.normer = Normalizer.from_config(config)
+        self.variant = variant
+        self.last_uncertainty = None
+
+    def _load_pipeline(self, config: TrainingConfig):
+        path = f"{config.resume_pretrained}"
+        if not os.path.exists(path):
+            raise ValueError(f"pretrained path not exists: {path}")
+        logger.info("load weights from %s", path)
+        cls = GuidedLatentDiffusionPipeline if config.ldm else GuidedDiffusionPipeline
+        pipeline = cls.from_pretrained(path, device=self.device)
+        if pipeline.guidance is not None:
+            pipeline.guidance = dataclasses.replace(
+                pipeline.guidance, flow_guidance_mode=config.flow_guidance_mode)
+        if config.sampler == "my_ddim":
+            # sampler override (reference: inference.py:77-92)
+            pipeline = pipeline.replace_sampler(
+                SamplerSpec("my_ddim", config.schedule_config(train=False)))
+            logger.info("Careful! sampler is overriden to %s", config.sampler)
+        if config.fast_inference != "off" and hasattr(pipeline, "fast_inference"):
+            pipeline = pipeline.fast_inference(config.fast_inference)
+            logger.info("fast_inference=%s kernels enabled", config.fast_inference)
+        if ((deepcache_active(config.deepcache) or config.deepcache_depth != 1)
+                and hasattr(pipeline, "deepcache")):
+            pipeline = pipeline.deepcache(config.deepcache, depth=config.deepcache_depth)
+            logger.info("deepcache schedule=%s depth=%d enabled", config.deepcache,
+                        config.deepcache_depth)
+        return pipeline
+
+    # ------------------------------------------------------------------ #
+    # host prep
+    def _size(self):
+        return self.camera.resolution[::-1]  # (width, height), as cv2 takes it
+
+    def _raw_disparity(self, raw_depth: np.ndarray) -> np.ndarray:
+        if raw_depth.shape[:2] != tuple(self.camera.resolution):
+            raw_depth = resize(raw_depth, self._size(), interpolation=INTER_NEAREST)
+        return np.where(raw_depth > 0,
+                        self.camera.fxb_depth / np.maximum(raw_depth, 1e-8), 0.0)
+
+    def _prep_rgb_raw(self, rgb: np.ndarray, raw_depth: np.ndarray):
+        """Resize to the camera resolution, depth (m) -> raw disparity
+        (reference: inference.py:98-134)."""
+        assert rgb.dtype == np.uint8
+        rgb = resize(_three_channels(rgb), self._size(), interpolation=INTER_LINEAR)
+        assert self.config.prediction_space == "disp", "not implemented"
+        return rgb, self._raw_disparity(raw_depth).astype(np.float32)
+
+    def infer_with_rgb_raw(self, rgb: np.ndarray, raw_depth: np.ndarray) -> np.ndarray:
+        """RGB (uint8, aligned with depth) + raw depth (meters) -> restored
+        metric depth [H,W] float32 (reference: inference.py:98-134)."""
+        rgb, raw_disp = self._prep_rgb_raw(rgb, raw_depth)
+        return self.run_pipeline(None, None, raw_disp, rgb)
+
+    def infer_with_rgb_raw_batch(self, frames) -> List[np.ndarray]:
+        """N (rgb uint8 [H,W,3] or [H,W], raw_depth float meters [H,W])
+        frames in one pipeline call at batch N x rounds; a list of [H,W]
+        float32 metric depths in frame order. `streaming.MicroBatcher`
+        aggregates concurrent requests into it."""
+        rgbs, disps = [], []
+        for rgb, raw_depth in frames:
+            rgb, raw_disp = self._prep_rgb_raw(rgb, raw_depth)
+            rgbs.append(rgb)
+            disps.append(raw_disp)
+        depths = self.run_pipeline_batch(np.stack(disps), np.stack(rgbs))
+        return [depths[i] for i in range(len(frames))]
+
+    def infer(self, left: np.ndarray, right: np.ndarray,
+              raw_depth: Optional[np.ndarray] = None,
+              rgb: Optional[np.ndarray] = None) -> np.ndarray:
+        """Stereo IR pair (+ raw depth, + rgb) -> restored metric depth
+        (reference: inference.py:136-190)."""
+        def prep_gray(x):
+            return resize(_three_channels(x), self._size(), interpolation=INTER_LINEAR)
+
+        left = prep_gray(left)
+        right = prep_gray(right)
+        if rgb is not None:
+            rgb = prep_gray(rgb)
+        if raw_depth is not None:
+            raw_disp = self._raw_disparity(raw_depth)
+        else:
+            raw_disp = np.zeros(self.camera.resolution, np.float32)
+        assert left.shape[0] % 8 == 0 and left.shape[1] % 8 == 0, (
+            "image size must be multiple of 8")
+        return self.run_pipeline(left, right, raw_disp.astype(np.float32), rgb)
+
+    # ------------------------------------------------------------------ #
+    # device
+    def _upload(self, **arrays):
+        """numpy -> tensors on the device (None stays None)."""
+        return {k: None if v is None else torch.from_numpy(np.ascontiguousarray(v)).to(
+            self.device) for k, v in arrays.items()}
+
+    def _const(self, value: float) -> torch.Tensor:
+        # a 0-d fill on the device, not a copy from the host; dividing by a
+        # tensor is IEEE division on every device (CUDA multiplies by the
+        # reciprocal of a Python scalar divisor)
+        return torch.full((), value, dtype=torch.float32, device=self.device)
+
+    def _norm_rgb(self, x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        if x is None:
+            return None
+        return (x.to(torch.float32) / self._const(255.0) - 0.5) * 2.0
+
+    def _to_depth(self, disp: torch.Tensor) -> torch.Tensor:
+        fxb = self._const(self.camera.fxb_depth)
+        return torch.where(disp > 0, fxb / torch.clamp(disp, min=1e-8), torch.zeros_like(disp))
+
+    def _pipeline_kwargs(self, mask_b):
+        """The config's part of a pipeline call; raises for what the port's
+        pipelines do not run."""
+        kwargs = dict(num_inference_steps=self.config.num_inference_timesteps,
+                      cond_channels=self.config.cond_channels,
+                      add_noise_rgb=self.config.noise_rgb, generator=self._generator)
+        if hasattr(self.pipeline, "vae"):  # the latent pipeline
+            if self.config.split_programs:
+                kwargs["split_programs"] = True
+            if self.config.scan_chunk:
+                kwargs["scan_chunk"] = self.config.scan_chunk
+            if self.pipeline.guidance is not None and self.pipeline.guidance.enabled:
+                raise NotImplementedError(
+                    "latent flow guidance (flow_guidance_weight > 0) is not ported yet "
+                    "(ROADMAP.md §1 item 8)")
+        else:
+            kwargs["depth_channels"] = self.config.depth_channels
+            # the sensor-validity mask for imputation guidance: the
+            # pipeline's fallback (sim_disp != 0) is wrong for a non-SSI
+            # normalizer (raw 0 normalizes to -1)
+            kwargs["raw_mask"] = mask_b
+        return kwargs
+
+    def _device(self, raw_disp, rgb=None, left=None, right=None, metrics=False):
+        """N frames, raw disparity [N,H,W] and images [N,H,W,3] uint8 (or
+        None), in one pipeline call at batch N*R, frame-major (a frame's
+        rounds adjacent): (depth [N,H,W], uncertainty [N,H,W]), and with
+        `metrics` the final prediction's (metrics_disp, metrics_depth)
+        against the raw disparity."""
+        R = self.config.num_inference_rounds
+        N = raw_disp.shape[0]
+
+        def rep(x):
+            if x is None:
+                return None
+            return x[:, None].expand((N, R) + tuple(x.shape[1:])).reshape(
+                (N * R,) + tuple(x.shape[1:]))
+
+        raw = raw_disp[..., None]  # [N,H,W,1]
+        normalized, _, _ = self.normer.normalize(raw)  # per sample
+        raw_b = rep(raw)
+        mask_b = (raw_b > 0).to(torch.float32)
+        kwargs = self._pipeline_kwargs(mask_b)
+        out = self.pipeline(num_intermediate_images=self.config.num_intermediate_images,
+                            rgb_images=rep(self._norm_rgb(rgb)),
+                            left_images=rep(self._norm_rgb(left)),
+                            right_images=rep(self._norm_rgb(right)),
+                            sim_disp=rep(normalized), **kwargs)
+        # the final prediction, rounds-as-batch -> [N,H,W,R]: the SSI
+        # alignment over each frame's rounds
+        pred = out.images[..., 0].to(torch.float32)
+        p = pred.reshape((N, R) + tuple(pred.shape[1:3])).movedim(1, -1)
+        unnorm = denormalize(self.config, p, raw, (raw > 0).to(torch.float32),
+                             generator=self._generator)
+        unc = torch.std(p, dim=-1, correction=0)
+        mean = torch.mean(unnorm, dim=-1)  # [N,H,W]
+        if not metrics:
+            return self._to_depth(mean), unc
+        fxb = self._const(self.camera.fxb_depth).expand(N)
+        return self._to_depth(mean), unc, compute_errors(
+            raw_disp, mean, self.config.prediction_space, raw_disp > 0, fxb)
+
+    def _fetch(self, depth, unc, metrics=None) -> np.ndarray:
+        """The device -> host copies at the end of a call."""
+        if self.config.num_inference_rounds > 1:
+            self.last_uncertainty = unc.cpu().numpy()
+        if metrics is not None:
+            logger.info("metrics vs raw: %s", metrics_to_dict(*metrics))
+        return depth.to(torch.float32).cpu().numpy()
+
+    def run_pipeline(self, left_image, right_image, raw_disp, rgb) -> np.ndarray:
+        """Normalize, batch by inference rounds, denoise, denormalize,
+        convert to metric depth (reference: inference.py:191-250)."""
+        def one(x):
+            return None if x is None else x[None]
+
+        up = self._upload(raw_disp=one(raw_disp), rgb=one(rgb), left=one(left_image),
+                          right=one(right_image))
+        depth, unc, metrics = self._device(**up, metrics=True)
+        return self._fetch(depth[0], unc[0], metrics)
+
+    def run_pipeline_batch(self, raw_disps: np.ndarray, rgbs: np.ndarray) -> np.ndarray:
+        """The batched `run_pipeline` of the rgb+raw variant: N frames in one
+        pipeline call at batch N*rounds; [N,H,W] metric depth. The serving
+        contract decodes only the final prediction, so the config must set
+        num_intermediate_images=1 (the reference's deployment override,
+        d3roma_processor.py:38-42)."""
+        assert self.config.num_intermediate_images == 1, (
+            "batched serving decodes only the final prediction")
+        return self._fetch(*self._device(**self._upload(raw_disp=raw_disps, rgb=rgbs)))

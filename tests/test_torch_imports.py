@@ -303,3 +303,127 @@ def test_train_runs_without_jax_optax_orbax_opencv_or_tensorboardx():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "TRAIN OK" in proc.stdout
+
+
+_SERVE_CHILD = r"""
+import io, json, os, runpy, signal, socket, sys, tempfile, threading, time, urllib.request
+
+BLOCKED = ("jax", "jaxlib", "flax", "msgpack", "d3roma_tpu", "cv2", "PIL", "yaml", "matplotlib",
+           "pyrealsense2", "rospy", "cv_bridge")
+
+class Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Blocker())
+
+import numpy as np
+import torch
+from d3roma_tpu_torch.models import AutoencoderKL, UNet2DCondition
+from d3roma_tpu_torch.ops.normalizer import Normalizer
+from d3roma_tpu_torch.ops.schedules import ScheduleConfig
+from d3roma_tpu_torch.pipelines import GuidedLatentDiffusionPipeline, SamplerSpec
+from d3roma_tpu_torch.utils.png import read_png
+from d3roma_tpu_torch.utils.pointcloud import read_ply
+
+root = tempfile.mkdtemp()
+os.chdir(root)
+unet_kw = dict(in_channels=12, block_out_channels=(32, 64),
+               down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+               up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"), layers_per_block=1,
+               attention_head_dim=32, cross_attention_dim=16, norm_groups=8)
+GuidedLatentDiffusionPipeline(
+    unet=UNet2DCondition(**unet_kw, device="cpu"),
+    vae=AutoencoderKL(block_out_channels=(32, 64), norm_groups=8, device="cpu"),
+    text_embed=torch.zeros(1, 2, 16),
+    spec=SamplerSpec("my_ddim", ScheduleConfig(prediction_type="v_prediction")),
+    normalizer=Normalizer(ssi=False, mode="average", num_chs=1, ch_bounds=(128.0,),
+                          ch_gammas=(1.0,)), device="cpu").save_pretrained("pipe")
+small = ["task.image_size=[32,64]", "task.num_inference_timesteps=1",
+         "task.num_intermediate_images=1"]
+
+if not torch.cuda.is_available():
+    from d3roma_tpu_torch import demo, serve
+    from d3roma_tpu_torch.inference import D3RoMa
+    for call in (lambda: D3RoMa(),
+                 lambda: D3RoMa(["task=eval_ldm_mixed_rgb+raw", "task.resume_pretrained=pipe"],
+                                variant="rgb+raw"),
+                 lambda: demo.main(["--pretrained", "pipe"] + small),
+                 lambda: serve.main(["--port", "0", "--", "task=eval_ldm_mixed_rgb+raw",
+                                     "task.resume_pretrained=pipe"] + small)):
+        try:
+            call()
+        except RuntimeError as e:
+            assert "CUDA" in str(e), e
+        else:
+            raise AssertionError("ran without CUDA and without a device")
+
+sys.argv = ["demo", "--device", "cpu", "--pretrained", "pipe"] + small
+try:
+    runpy.run_module("d3roma_tpu_torch.demo", run_name="__main__")
+except SystemExit as e:
+    assert not e.code, e.code
+out = "_outputs.rgb+raw"
+for name in ("raw_aligned.png", "pred.png"):
+    assert read_png(os.path.join(out, name)).shape == (32, 64, 3), name
+for name in ("raw.ply", "pred.ply"):
+    pts, cols = read_ply(os.path.join(out, name))
+    assert len(pts) > 0 and np.isfinite(pts).all() and cols.shape == (len(pts), 3), name
+
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+result = {}
+
+def client():
+    url = f"http://127.0.0.1:{port}"
+    try:
+        deadline = time.time() + 120
+        while time.time() < deadline:
+            try:
+                with urllib.request.urlopen(url + "/healthz", timeout=5) as r:
+                    result["healthz"] = json.loads(r.read())
+                    break
+            except Exception:
+                time.sleep(0.2)
+        buf = io.BytesIO()
+        np.savez_compressed(buf, rgb=np.zeros((48, 80, 3), np.uint8),
+                            raw_depth=np.full((48, 80), 1.5, np.float32))
+        req = urllib.request.Request(url + "/v1/infer_rgb_raw", buf.getvalue(), method="POST")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            result["depth"] = np.load(io.BytesIO(r.read()))["depth"]
+        with urllib.request.urlopen(url + "/metrics", timeout=5) as r:
+            result["metrics"] = json.loads(r.read())
+    finally:
+        os.kill(os.getpid(), signal.SIGTERM)
+
+threading.Thread(target=client, daemon=True).start()
+sys.argv = ["serve", "--host", "127.0.0.1", "--port", str(port), "--max-batch", "2",
+            "--device", "cpu", "--", "task=eval_ldm_mixed_rgb+raw",
+            "task.resume_pretrained=pipe"] + small
+try:
+    runpy.run_module("d3roma_tpu_torch.serve", run_name="__main__")
+except SystemExit as e:
+    assert not e.code, e.code
+assert result["healthz"]["status"] == "ok" and "warmup_error" not in result["healthz"], result
+assert result["depth"].shape == (32, 64) and np.isfinite(result["depth"]).all()
+assert result["metrics"]["errors"] == 0 and result["metrics"]["frames_served"] == 1
+assert not any(m.split(".")[0] in BLOCKED for m in sys.modules), sorted(
+    m for m in sys.modules if m.split(".")[0] in BLOCKED)
+print("SERVE OK")
+"""
+
+
+def test_demo_and_serve_run_without_jax_opencv_or_hardware_packages():
+    """`python -m d3roma_tpu_torch.demo` and `python -m d3roma_tpu_torch.serve`
+    (a warm-up, one request, /metrics, then SIGTERM: exit 0) on the CPU with
+    jax, the JAX package, OpenCV, PIL, PyYAML, matplotlib, pyrealsense2 and
+    ROS unimportable; without a GPU, `D3RoMa()`, the demo and the server
+    raise unless given a device."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _SERVE_CHILD], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "SERVE OK" in proc.stdout and "server stopped" in proc.stdout

@@ -15,6 +15,7 @@
     python3 chip_smoke.py --eval     # device, build and the evaluation phase only
     python3 chip_smoke.py --train    # device, build and the training phase only
     python3 chip_smoke.py --serve    # device, build and the serving phase only
+    python3 chip_smoke.py --import   # device, build and the reference-import phase only
 
 Run from the repository root, on a machine with a CUDA GPU and nvcc (the
 kernels build from d3roma_tpu_torch/csrc/ at first use). Phases, each
@@ -152,12 +153,27 @@ failing the run on its own error:
     every plain version, no host synchronization from upload to copy) and its
     single-frame rgb+raw and left+right+raw calls under latency; ms/request,
     ms/frame, host ms, idle share, the server's p50/p90/p99;
-15. the torch bench, `python -m d3roma_tpu_torch.bench`, in its own process
+15. reference checkpoints and guidance (`import_phase`): a bare SD2.1
+    diffusers directory at full width (random seeded weights: the UNet in
+    fp16 safetensors, the VAE in fp32 .bin, the 23-layer text tower in fp32
+    safetensors) imported by `python -m d3roma_tpu_torch.import_reference
+    --cond-channels rgb+raw` in its own process (timed; every tensor equal
+    to its source, conv_in the fp32 widening bit for bit, the text
+    embedding within 1e-4 of the CPU forward); `python -m
+    d3roma_tpu_torch.parity_check` at 64x96 and its golden dump and
+    compare; the imported pipeline under latency at batch 1, 360x640, 10
+    steps, unguided and guided (10 Adam steps at lr 1e-3): 100 attention
+    and 160 GEGLU launches each, the guided images within
+    IMPORT_PRED_REL_TOL of the plain versions' and different from the
+    unguided ones, ms/request and the guided peak memory; under
+    throughput, calibrated, 4 steps: guided bit-equal to unguided, the
+    extra launches those of 40 decodes;
+16. the torch bench, `python -m d3roma_tpu_torch.bench`, in its own process
     at batch 2 with 3 timed calls (records and scales in a temporary
     directory), at the default setting, at BENCH_CLIP_PCT=0.999 and at
     BENCH_MODEL=pixel: its JSON line must carry every key of the JAX
     bench's at that setting, value > 0;
-16. a JSON line of per-kernel numbers, then the JSON result as the last line.
+17. a JSON line of per-kernel numbers, then the JSON result as the last line.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -379,15 +395,48 @@ def _conv_plan_fields(b, h, w, cin, cout, k, stride, padding, itemsize, epilogue
             "workspace_mb": plan.workspace_bytes / 1e6}
 
 
+def _device_events(fn, calls: int, attempts: int = 12) -> dict:
+    """One torch.profiler session of `calls` calls of fn, after a synchronize:
+    {device op name (kernel, memset or copy): [count, self device us]}. Every
+    caller's fn launches work on the card, so a session that records no device
+    activity at all lost its events (on an H100 three sessions in a row came
+    back empty for a dense whose sessions before and after counted both of
+    its kernels); such a session is run again, up to `attempts` in all, and
+    an empty result is returned only when every attempt was empty."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.autograd.DeviceType.CUDA
+    events = {}
+    for attempt in range(attempts):
+        _sync()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            _sync()
+        events = {}
+        for evt in prof.key_averages():
+            if getattr(evt, "device_type", None) != cuda:
+                continue
+            us = getattr(evt, "self_device_time_total", None)
+            if us is None:
+                us = getattr(evt, "self_cuda_time_total", 0.0)
+            entry = events.setdefault(evt.key, [0, 0.0])
+            entry[0] += evt.count
+            entry[1] += us
+        if events:
+            break
+        print(f"  torch.profiler recorded no device op in session {attempt + 1} of "
+              f"{calls} calls: run again", flush=True)
+    return events
+
+
 def host_and_device_ms(fn, calls: int = 20):
     """Host time to issue one call of fn (the mean over `calls` issued right
     after a synchronize: too few for the launch queue to fill, so the device
     never holds the host back), device time of one call (its kernels' time
     summed by torch.profiler) and that time by device op (kernel or memset
     name -> ms a call)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
     _sync()
     t0 = time.perf_counter()
@@ -395,18 +444,11 @@ def host_and_device_ms(fn, calls: int = 20):
         fn()
     host_ms = (time.perf_counter() - t0) / calls * 1e3
     _sync()
-    for _ in range(2):  # the first session of a process can miss early kernels
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            _sync()
+    _device_events(fn, calls)  # the first session of a process can miss early kernels
     split = {}
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = getattr(evt, "self_cuda_time_total", 0.0)
-        if us > 0 and getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA:
-            split[evt.key[:80]] = split.get(evt.key[:80], 0.0) + us / calls / 1e3
+    for key, (_, us) in _device_events(fn, calls).items():
+        if us > 0:
+            split[key[:80]] = split.get(key[:80], 0.0) + us / calls / 1e3
     return host_ms, sum(split.values()), split
 
 
@@ -415,21 +457,10 @@ def device_ops_per_call(fn, calls: int = 10, sessions: int = 3) -> float:
     torch.profiler counts them over `calls` calls: the most of `sessions`
     sessions, since a session can miss a kernel (one of ten GroupNorm
     launches once went uncounted) but never counts one that did not run."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
     _sync()
-    counts = []
-    for _ in range(sessions):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            _sync()
-        counts.append(sum(evt.count for evt in prof.key_averages()
-                          if getattr(evt, "device_type", None)
-                          == torch.autograd.DeviceType.CUDA) / calls)
-    return max(counts)
+    return max(sum(n for n, _ in _device_events(fn, calls).values()) / calls
+               for _ in range(sessions))
 
 
 def _timed_against_library(row, kernel, library, split=False):
@@ -873,23 +904,20 @@ def _dynamic_plan_fields(b, h, w, cin, cout, k, stride, padding, per_row, route=
 def _check_dynamic_ops(name, row, plan, fn, sessions: int = 3):
     """The device ops of one call: each of a dynamic call's launches is a
     kernel of its own, so the distinct device activities of calls of fn
-    (torch.profiler, the union over `sessions` sessions of two calls: a busy
-    session can drop an event, never add one) must be the plan's count,
+    (torch.profiler, the union over `sessions` sessions of two calls, and
+    over up to as many more while it is short of the plan: a busy session
+    can drop an event, never add one) must be the plan's count,
     with no memset; a dense at most 2 (3 with a split), 1 on the small
     route; a loader convolution at most 2 plus a split sum."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
     _sync()
     names = set()
-    for _ in range(sessions):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            fn()
-            _sync()
-        names |= {evt.key for evt in prof.key_averages()
-                  if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA}
+    # a session short of the plan's count is followed by more, up to twice
+    # `sessions`: the union only grows towards what the calls ran
+    for i in range(2 * sessions):
+        if i >= sessions and len(names) >= plan.device_ops:
+            break
+        names |= set(_device_events(fn, 2))
     row["device_ops"] = len(names)
     split = plan.conv is not None and plan.conv.splits > 1
     limit = {"small": 1, "rows": 2, "loader": 2, "separate": 3}[plan.route] + split
@@ -3961,6 +3989,362 @@ def serve_phase():
     return summary
 
 
+IMPORT_HW = (360, 640)
+IMPORT_STEPS = 10  # the latency calls'
+IMPORT_STATIC_STEPS = 4  # the calibrated throughput calls'
+# The guided latency call through the kernels against the same call through
+# their plain versions, max |a - b| / max |b| of the images: the bf16
+# kernels' rule of the eval and serve phases (UNET_REL_TOL); the same call
+# on other noise must land outside it.
+IMPORT_PRED_REL_TOL = UNET_REL_TOL
+# The text embedding on the card against the plain CPU forward of the tower
+IMPORT_EMBED_REL_TOL = 1e-4
+# SD2.1's diffusers configs (stabilityai/stable-diffusion-2-1: unet/, vae/,
+# text_encoder/ and scheduler/ config.json, the fields the importers read)
+SD21_UNET = {"_class_name": "UNet2DConditionModel", "in_channels": 4, "out_channels": 4,
+             "block_out_channels": [320, 640, 1280, 1280],
+             "attention_head_dim": [5, 10, 20, 20], "cross_attention_dim": 1024,
+             "down_block_types": ["CrossAttnDownBlock2D", "CrossAttnDownBlock2D",
+                                  "CrossAttnDownBlock2D", "DownBlock2D"],
+             "up_block_types": ["UpBlock2D", "CrossAttnUpBlock2D", "CrossAttnUpBlock2D",
+                                "CrossAttnUpBlock2D"],
+             "layers_per_block": 2, "norm_num_groups": 32, "use_linear_projection": True}
+SD21_VAE = {"_class_name": "AutoencoderKL", "latent_channels": 4,
+            "block_out_channels": [128, 256, 512, 512], "norm_num_groups": 32}
+SD21_TEXT = {"architectures": ["CLIPTextModel"], "vocab_size": 49408, "hidden_size": 1024,
+             "intermediate_size": 4096, "num_hidden_layers": 23, "num_attention_heads": 16,
+             "max_position_embeddings": 77, "hidden_act": "gelu", "torch_dtype": "float32"}
+SD21_SCHEDULER = {"_class_name": "DDIMScheduler", "num_train_timesteps": 1000,
+                  "beta_schedule": "scaled_linear", "beta_start": 0.00085, "beta_end": 0.012,
+                  "prediction_type": "v_prediction", "clip_sample": False,
+                  "set_alpha_to_one": False, "steps_offset": 1}
+_ST_DTYPES = {"float32": "F32", "float16": "F16", "int64": "I64"}
+
+
+def _write_safetensors(path, tensors) -> None:
+    """A .safetensors file: the 8-byte header length, the JSON header
+    (padded to 8 bytes), then each tensor's bytes in order."""
+    import torch
+
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_DTYPES[str(t.dtype).split(".")[1]],
+                        "shape": list(t.shape), "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for t in tensors.values():
+            f.write(t.contiguous().cpu().view(-1).view(torch.uint8).numpy())
+
+
+def _write_sd21(ref, gen):
+    """A bare SD2.1 diffusers directory with weights random from `gen`: the
+    4-channel UNet in fp16 safetensors, the VAE in fp32 .bin, the 23-layer
+    text tower in fp32 safetensors (transformers' names and position_ids
+    buffer), a DDIM scheduler. Returns the source state dicts."""
+    import torch
+
+    from d3roma_tpu_torch.models import AutoencoderKL, UNet2DCondition, init_random_
+    from d3roma_tpu_torch.models.clip_text import CLIPTextModel
+
+    for sub, cfg in (("unet", SD21_UNET), ("vae", SD21_VAE), ("text_encoder", SD21_TEXT),
+                     ("scheduler", SD21_SCHEDULER)):
+        os.makedirs(os.path.join(ref, sub))
+        name = "scheduler_config.json" if sub == "scheduler" else "config.json"
+        with open(os.path.join(ref, sub, name), "w") as f:
+            json.dump(cfg, f)
+    unet = {k: v.half().cpu() for k, v in init_random_(
+        UNet2DCondition(in_channels=4, out_channels=4, device="cuda"), gen).state_dict().items()}
+    _write_safetensors(os.path.join(ref, "unet", "diffusion_pytorch_model.safetensors"), unet)
+    vae = {k: v.cpu() for k, v in init_random_(AutoencoderKL(device="cuda"),
+                                               gen).state_dict().items()}
+    torch.save(vae, os.path.join(ref, "vae", "diffusion_pytorch_model.bin"))
+    text = {k: v.cpu() for k, v in init_random_(CLIPTextModel(device="cuda"),
+                                                gen).state_dict().items()}
+    tensors = {f"text_model.{k}": v for k, v in text.items()}
+    tensors["text_model.embeddings.position_ids"] = torch.arange(77)[None]
+    _write_safetensors(os.path.join(ref, "text_encoder", "model.safetensors"), tensors)
+    return unet, vae, text
+
+
+def _run_module(tmp, repo, module, *argv, timeout=900):
+    """`python -m module argv...` in its own process; (returncode, stdout,
+    seconds)."""
+    env = dict(os.environ, PYTHONPATH=repo)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *argv], cwd=tmp, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:], proc.stderr[-3000:], flush=True)
+    return proc.returncode, proc.stdout, seconds
+
+
+def _check_imported(out, unet, vae, text):
+    """Every imported tensor equal to its source (in the source's dtype, as
+    the JAX importer holds it), conv_in the fp32 widening, the text
+    embedding within IMPORT_EMBED_REL_TOL of the plain CPU forward of the
+    same tower. Returns (conv_in max |err|, embedding rel)."""
+    import numpy as np
+    import torch
+
+    from d3roma_tpu_torch.models import flax_unet_to_torch, flax_vae_to_torch
+    from d3roma_tpu_torch.models.clip_text import CLIPTextModel, empty_prompt_tokens
+    from d3roma_tpu_torch.utils import flax_msgpack
+
+    for name, src, to_torch in (("unet", unet, flax_unet_to_torch),
+                                ("vae", vae, flax_vae_to_torch)):
+        got = to_torch(flax_msgpack.load(os.path.join(out, name, "params.msgpack")))
+        if set(got) != set(src):
+            raise AssertionError(f"import: {name} names differ: {sorted(set(got) ^ set(src))}")
+        for k, v in src.items():
+            want = v
+            if k in ("conv_in.weight", "conv_in.bias") and name == "unet":
+                w = v.float().repeat(1, 3, 1, 1) if k.endswith("weight") else v.float()
+                want = (w / 3).to(v.dtype)
+            if got[k].dtype != want.dtype or not torch.equal(got[k], want):
+                raise AssertionError(f"import: {name}.{k} differs from its source")
+    print("import: every UNet (fp16) and VAE (fp32) tensor equal to its source; conv_in "
+          "bit-equal to repeat(1, 3, 1, 1) / 3 in fp32", flush=True)
+    embed = np.load(os.path.join(out, "text_embed.npy"))
+    cpu = CLIPTextModel(device="cpu")
+    cpu.load_state_dict(text)
+    with torch.no_grad():
+        ref = cpu(torch.from_numpy(empty_prompt_tokens()).long()).numpy()
+    rel = float(np.abs(embed - ref).max() / np.abs(ref).max())
+    print(f"import: text embedding {embed.shape} {embed.dtype} on the card against the CPU "
+          f"forward: max |a - b| / max |b| = {rel:.3e} (tol {IMPORT_EMBED_REL_TOL})",
+          flush=True)
+    if embed.shape != (1, 2, 1024) or embed.dtype != np.float32 or not rel <= IMPORT_EMBED_REL_TOL:
+        raise AssertionError(f"import: text embedding {embed.shape} {embed.dtype}, rel {rel}")
+    return rel
+
+
+def import_phase():
+    """Reference checkpoints on the card, hermetic, in a temporary directory:
+
+    - a bare SD2.1 diffusers directory at full width, weights random from a
+      seed (`_write_sd21`): the 4-channel UNet in fp16 safetensors, the VAE
+      in fp32 .bin, the text tower in fp32 safetensors, a DDIM v-prediction
+      scheduler;
+    - `python -m d3roma_tpu_torch.import_reference REF OUT --cond-channels
+      rgb+raw` in its own process, timed; every imported tensor equal to its
+      source, conv_in the fp32 widening bit for bit, the [1, 2, 1024] text
+      embedding within IMPORT_EMBED_REL_TOL of the CPU forward;
+    - meanwhile, `python -m d3roma_tpu_torch.parity_check --ref-dir REF` at
+      64x96, 2 steps, one batch of 2 frames (exit 0, parity.json written),
+      and `--golden-dump` then `--golden-compare` on OUT (every stage
+      matching), each its own process;
+    - the imported pipeline under fast_inference("latency"), batch 1, RGB +
+      raw at 360x640, 10 DDIM steps: unguided and guided (gradient mode,
+      10 Adam steps at lr 1e-3, the raw disparity with 10% holes through
+      the pipeline's denormalizer), each 100 whole-row attention and 160
+      GEGLU launches; the guided images against the same call through the
+      kernels' plain versions within IMPORT_PRED_REL_TOL (another seed
+      outside it) and different from the unguided ones; ms/request of both
+      and the guided call's peak memory;
+    - the same models under fast_inference("throughput"), calibrated on one
+      batch, 4 steps: the guided images bit-equal to the unguided ones (the
+      gradient through static int8 is zero), the guided call's extra
+      launches those of 4 x 10 decodes;
+    - a decode's latent gradient with the VAE under "dense" (4 dynamic int8
+      launches) through the kernels within REL_TOL of the plain versions',
+      and under True the int8 whole-row attention refusing the gradient.
+
+    Returns a summary dict."""
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from d3roma_tpu_torch.guidance import FlowGuidance, frozen_parameters, grad_of
+    from d3roma_tpu_torch.models import decode_latent
+    from d3roma_tpu_torch.pipelines import GuidedLatentDiffusionPipeline
+
+    summary = {}
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        ref, out = os.path.join(tmp, "sd21"), os.path.join(tmp, "imported")
+        t0 = time.perf_counter()
+        unet, vae, text = _write_sd21(ref, torch.Generator(device="cuda").manual_seed(16))
+        torch.cuda.empty_cache()
+        print(f"import: SD2.1 directory written in {time.perf_counter() - t0:.1f}s", flush=True)
+        rc, stdout, seconds = _run_module(tmp, repo, "d3roma_tpu_torch.import_reference", ref,
+                                          out, "--cond-channels", "rgb+raw")
+        print(f"import: python -m d3roma_tpu_torch.import_reference exit {rc} in "
+              f"{seconds:.1f}s: {stdout.strip().splitlines()}", flush=True)
+        if rc != 0:
+            raise AssertionError(f"import: import_reference exited {rc}")
+        summary["import_s"] = seconds
+
+        children = {}
+
+        def parity():
+            children["parity"] = _run_module(
+                tmp, repo, "d3roma_tpu_torch.parity_check", "--ref-dir", ref, "--out-dir",
+                os.path.join(tmp, "parity"), "--image-size", "64x96", "--steps", "2",
+                "--max-batches", "1", "--frames", "2")
+
+        def golden():
+            gold = os.path.join(tmp, "golden")
+            for flag in ("--golden-dump", "--golden-compare"):
+                children[flag[2:]] = _run_module(tmp, repo, "d3roma_tpu_torch.parity_check",
+                                                 "--pipeline-dir", out, flag, gold)
+
+        sides = [threading.Thread(target=fn) for fn in (parity, golden)]
+        for side in sides:
+            side.start()
+        try:
+            summary["embed_rel"] = _check_imported(out, unet, vae, text)
+        finally:
+            for side in sides:
+                side.join()
+        if set(children) != {"parity", "golden-dump", "golden-compare"}:
+            raise AssertionError(f"import: parity_check runs missing: {sorted(children)}")
+        del unet, vae, text
+        for name, (rc, stdout, seconds) in children.items():
+            print(f"import: parity_check {name} exit {rc} in {seconds:.1f}s: "
+                  f"{stdout.strip().splitlines()[-1:]}", flush=True)
+        if any(rc != 0 for rc, _, _ in children.values()):
+            raise AssertionError(f"import: a parity_check run failed "
+                                 f"{ {k: v[0] for k, v in children.items()} }")
+        with open(os.path.join(tmp, "parity", "parity.json")) as f:
+            summary["parity_rel"] = json.load(f)["rel"]
+        if "GOLDEN COMPARE: all stages match" not in children["golden-compare"][1]:
+            raise AssertionError("import: the golden compare did not match every stage")
+
+        pipe = GuidedLatentDiffusionPipeline.from_pretrained(out, device="cuda")
+        pipe.fast_inference("latency")
+        gen = torch.Generator(device="cuda").manual_seed(17)
+        h, w = IMPORT_HW
+        rgb = torch.rand((1, h, w, 3), generator=gen, device="cuda") * 2 - 1
+        disp = 10 + 50 * torch.rand((1, h, w, 1), generator=gen, device="cuda")
+        disp = torch.where(torch.rand(disp.shape, generator=gen, device="cuda") < 0.1,
+                           torch.zeros_like(disp), disp)
+        sim = pipe.normalizer.normalize(disp)[0]
+        guidance = FlowGuidance(flow_guidance_weight=1.0, flow_guidance_mode="gradient")
+
+        def call(steps, guided, seed=23):
+            pipe.guidance = guidance if guided else None
+            kw = dict(raw_depth=disp, denormer=pipe.normalizer.denormalize) if guided else {}
+            return pipe(num_inference_steps=steps, num_intermediate_images=1,
+                        cond_channels="rgb+raw", rgb_images=rgb, sim_disp=sim,
+                        generator=torch.Generator(device="cuda").manual_seed(seed), **kw).images
+
+        bf16 = {"attention": 10 * IMPORT_STEPS, "geglu": 16 * IMPORT_STEPS}
+        call(IMPORT_STEPS, False)  # warm
+        _sync()
+        outs = {}
+        for guided in (False, True):
+            kind = "guided" if guided else "unguided"
+            torch.cuda.reset_peak_memory_stats()
+            summary[f"launches_latency_{kind}"] = _serve_counts(
+                f"import latency {kind}",
+                lambda: outs.setdefault(guided, call(IMPORT_STEPS, guided).float()), bf16)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            ms, walls = _median_ms(lambda: call(IMPORT_STEPS, guided), 1,
+                                   reps=2 if guided else 3)
+            print(f"import latency {kind}: {ms:.2f} ms/request (batch 1, {IMPORT_STEPS} "
+                  f"steps, {h}x{w}, median of {[round(x, 2) for x in walls]}), peak memory "
+                  f"{peak:.2f} GiB", flush=True)
+            summary[f"ms_per_request_{kind}"] = ms
+            summary[f"peak_gib_{kind}"] = peak
+        moved = (outs[True] - outs[False]).abs().max().item()
+        print(f"import: guided against unguided images, max |a - b| = {moved:.4e} (must be "
+              f"above 0: the gradient reached the latent)", flush=True)
+        if not moved > 0:
+            raise AssertionError("import: guided latency call equals the unguided one")
+        summary["guided_moved"] = moved
+
+        fast = outs[True]
+        plain = _plain_bf16(lambda: call(IMPORT_STEPS, True)).float()
+        control = _plain_bf16(lambda: call(IMPORT_STEPS, True, seed=24)).float()
+        scale = plain.abs().max().item()
+        rel = (fast - plain).abs().max().item() / scale
+        control_rel = (control - plain).abs().max().item() / scale
+        print(f"import latency guided: images through the kernels against their plain "
+              f"versions max |a - b| / max |b| = {rel:.3e} (tol {IMPORT_PRED_REL_TOL}); plain "
+              f"on other noise {control_rel:.3e} (must exceed the tol)", flush=True)
+        if not (rel <= IMPORT_PRED_REL_TOL < control_rel):
+            raise AssertionError(f"import: guided kernels against plain {rel}, control "
+                                 f"{control_rel} (tol {IMPORT_PRED_REL_TOL})")
+        summary.update(guided_rel=rel, guided_control_rel=control_rel)
+
+        # static int8: calibrated on one batch; the guidance is a no-op
+        pipe.guidance = None
+        pipe.fast_inference("throughput").calibrate(
+            gen, [dict(rgb_images=rgb, sim_disp=sim)], cond_channels="rgb+raw",
+            num_inference_steps=IMPORT_STATIC_STEPS)
+        call(IMPORT_STATIC_STEPS, False)
+        _sync()
+        decode = pipe._replayed(lambda z: decode_latent(pipe.vae, z), "vae_decode")
+        _zero_launches()
+        with torch.no_grad():
+            decode(torch.randn((1, h // 8, w // 8, 4), generator=gen, device="cuda"))
+        _sync()
+        per_decode = {k: v for k, v in _int8_launches().items() if v}
+        counts, images = {}, {}
+        for guided in (False, True):
+            _zero_launches()
+            images[guided] = call(IMPORT_STATIC_STEPS, guided)
+            _sync()
+            counts[guided] = _int8_launches()
+        extra = {k: counts[True][k] - counts[False][k] for k in counts[True]}
+        want = {k: IMPORT_STATIC_STEPS * guidance.num_opt_steps * per_decode.get(k, 0)
+                for k in extra}
+        same = torch.equal(images[True], images[False])
+        print(f"import throughput: one decode launches {per_decode}; guided call's extra "
+              f"launches {({k: v for k, v in extra.items() if v})} (expected "
+              f"{IMPORT_STATIC_STEPS} x {guidance.num_opt_steps} decodes); guided images "
+              f"bit-equal to unguided: {same}", flush=True)
+        if extra != want or not same:
+            raise AssertionError(f"import throughput: extra launches {extra} (want {want}), "
+                                 f"bit-equal {same}")
+        summary["launches_throughput_guided"] = {k: v for k, v in counts[True].items() if v}
+
+        # the dynamic int8 op's gradient (ops/quant.py::_DynamicInt8): the
+        # latent gradient of a decode under "dense" (the VAE attention's four
+        # projections dynamic int8, float elsewhere) through the kernels
+        # against their plain versions; under True the int8 whole-row
+        # attention refuses a gradient, as the JAX package's kernel does
+        z = torch.randn((1, h // 8, w // 8, 4), generator=gen, device="cuda")
+
+        def latent_grad():
+            with frozen_parameters(pipe.vae):
+                return grad_of(lambda latent: decode_latent(pipe.vae, latent).float().mean(), z)
+
+        pipe.vae.set_quant("dense")
+        _zero_launches()
+        g_fast = latent_grad()
+        _sync()
+        dense_launches = _int8_launches()["conv2d_int8_dynamic"]
+        g_plain = _plain_int8_forward(latent_grad, attention=False)
+        g_rel = (g_fast - g_plain).abs().max().item() / max(g_plain.abs().max().item(), 1e-30)
+        pipe.vae.set_quant(True)
+        try:
+            latent_grad()
+            refused = None
+        except RuntimeError as e:
+            refused = str(e)
+        print(f"import dynamic int8 gradient: {dense_launches} dynamic int8 launches in a "
+              f"decode; latent gradient through the kernels against the plain versions max "
+              f"|a - b| / max |b| = {g_rel:.3e} (tol {REL_TOL}), max |g| "
+              f"{g_plain.abs().max().item():.3e}; under True: {refused}", flush=True)
+        if not (dense_launches == 4 and g_rel <= REL_TOL and g_plain.abs().max() > 0
+                and refused and "has no gradient" in refused):
+            raise AssertionError(f"import: dynamic int8 gradient {dense_launches} launches, "
+                                 f"rel {g_rel}, refusal {refused!r}")
+        summary.update(dynamic_grad_rel=g_rel)
+        del pipe
+        torch.cuda.empty_cache()
+    return summary
+
+
 _KERNEL_GROUPS = (
     # the port's own kernels first, so that no library group takes one of them
     ("winograd kernels (input transform, tap GEMMs, split sum)", ("wino_",)),
@@ -4055,6 +4439,19 @@ def _kernel_entry(name, source, replaces, rows, launches, note=None):
     return entry
 
 
+PHASE_SECONDS: dict = {}
+
+
+def _phase(fn, *args):
+    """fn(*args), its wall seconds kept in PHASE_SECONDS under fn's name and
+    printed, so that a log shows where the full pass spends its limit."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[fn.__name__] = round(time.perf_counter() - t0, 1)
+    print(f"{fn.__name__}: {PHASE_SECONDS[fn.__name__]} s", flush=True)
+    return out
+
+
 def main() -> int:
     pin_one_card()
     card = device_phase()
@@ -4126,6 +4523,11 @@ def main() -> int:
         print(card, flush=True)
         print("serve phase passed", flush=True)
         return 0
+    if sys.argv[1:] == ["--import"]:
+        print(json.dumps({"import": import_phase()}), flush=True)
+        print(card, flush=True)
+        print("import phase passed", flush=True)
+        return 0
     if sys.argv[1:] == ["--attention"]:
         import torch
 
@@ -4137,52 +4539,63 @@ def main() -> int:
         _sync()
         print("attention cases passed", flush=True)
         return 0
-    attn_rows, geglu_rows = kernel_phase()
-    int8_rows = int8_kernel_phase()
-    opt_rows = opt_in_kernel_phase()
-    new_rows = conv_and_fused_bf16_kernel_phase()
-    pipe, inputs, counts, ms_per_frame = pipeline_phase()
-    fused_counts, fused_ms_per_frame = latency_fused_phase(pipe, inputs)
-    bench_counts, bench_ms_per_frame, bench_expected, visits = bench_default_phase(pipe, inputs)
-    routes = conv_routes_phase(pipe, inputs, bench_expected)
-    dynamic = dynamic_paths_phase(pipe, inputs, visits)
-    vae8_counts, vae8_ms_per_frame = vae8_phase(pipe, inputs)
-    opt_counts, opt_ms_per_frame = opt_in_phase(pipe, inputs)
+    attn_rows, geglu_rows = _phase(kernel_phase)
+    int8_rows = _phase(int8_kernel_phase)
+    opt_rows = _phase(opt_in_kernel_phase)
+    new_rows = _phase(conv_and_fused_bf16_kernel_phase)
+    pipe, inputs, counts, ms_per_frame = _phase(pipeline_phase)
+    fused_counts, fused_ms_per_frame = _phase(latency_fused_phase, pipe, inputs)
+    bench_counts, bench_ms_per_frame, bench_expected, visits = _phase(
+        bench_default_phase, pipe, inputs)
+    routes = _phase(conv_routes_phase, pipe, inputs, bench_expected)
+    dynamic = _phase(dynamic_paths_phase, pipe, inputs, visits)
+    vae8_counts, vae8_ms_per_frame = _phase(vae8_phase, pipe, inputs)
+    opt_counts, opt_ms_per_frame = _phase(opt_in_phase, pipe, inputs)
 
     import torch
 
     del pipe, inputs
     torch.cuda.empty_cache()
-    pixel = pixel_phase()
+    pixel = _phase(pixel_phase)
     torch.cuda.empty_cache()
-    evaluation = eval_phase()  # its entry point's process builds its own models
-    training = train_phase()  # so do its entry point's two processes
-    serving = serve_phase()  # the demo, probe and server processes too
-    bench_lines = bench_phase()
+    evaluation = _phase(eval_phase)  # its entry point's process builds its own models
+    training = _phase(train_phase)  # so do its entry point's two processes
+    serving = _phase(serve_phase)  # the demo, probe and server processes too
+    torch.cuda.empty_cache()
+    imported = _phase(import_phase)  # and the importer's and parity_check's
+    bench_lines = _phase(bench_phase)
+    print(f"phase seconds: {json.dumps(PHASE_SECONDS)}", flush=True)
+    import_bf16 = imported["launches_latency_guided"]
+    import_int8 = imported["launches_throughput_guided"]
 
     kernels = [
         dict(_kernel_entry("mha_attention", "d3roma_tpu_torch/csrc/attention.cu",
                            "d3roma_tpu/ops/pallas/attention.py:69", attn_rows,
                            counts["attention"]),
              eval_launches=evaluation["launches"]["attention"],
-             serve_launches=serving["launches_latency"]["attention"]),
+             serve_launches=serving["launches_latency"]["attention"],
+             import_launches=import_bf16["attention"]),
         dict(_kernel_entry("geglu_ff", "d3roma_tpu_torch/csrc/geglu.cu",
                            "d3roma_tpu/ops/pallas/geglu.py:114", geglu_rows, counts["geglu"]),
              eval_launches=evaluation["launches"]["geglu"],
-             serve_launches=serving["launches_latency"]["geglu"]),
+             serve_launches=serving["launches_latency"]["geglu"],
+             import_launches=import_bf16["geglu"]),
         dict(_kernel_entry("mha_attention_int8", "d3roma_tpu_torch/csrc/attention_int8.cu",
                            "d3roma_tpu/ops/pallas/attention.py:90", int8_rows["attention_int8"],
                            bench_counts["attention_int8"]),
-             serve_launches=serving["launches_throughput"]["attention_int8"]),
+             serve_launches=serving["launches_throughput"]["attention_int8"],
+             import_launches=import_int8["attention_int8"]),
         dict(_kernel_entry("geglu_ff_int8", "d3roma_tpu_torch/csrc/geglu_int8.cu",
                            "d3roma_tpu/ops/pallas/geglu.py:71", int8_rows["geglu_int8"],
                            bench_counts["geglu_int8"]),
-             serve_launches=serving["launches_throughput"]["geglu_int8"]),
+             serve_launches=serving["launches_throughput"]["geglu_int8"],
+             import_launches=import_int8["geglu_int8"]),
         dict(_kernel_entry("conv2d_int8", "d3roma_tpu_torch/csrc/conv2d_int8.cu",
                            "d3roma_tpu/ops/pallas/conv2d.py:80", int8_rows["conv2d_int8"],
                            bench_counts["conv2d_int8"]),
              tma_map_host_cost=new_rows["tma_map_host_cost"],
-             serve_launches=serving["launches_throughput"]["conv2d_int8"]),
+             serve_launches=serving["launches_throughput"]["conv2d_int8"],
+             import_launches=import_int8["conv2d_int8"]),
         # no Pallas kernel: the XLA int8 conv and dot of the dynamic modes
         dict(_kernel_entry("conv2d_int8_dynamic", "d3roma_tpu_torch/csrc/conv2d_int8.cu",
                            "d3roma_tpu/ops/quant.py:370", int8_rows["conv2d_int8_dynamic"],
@@ -4193,9 +4606,10 @@ def main() -> int:
              batch16_dense=int8_rows["conv2d_int8_dynamic_b16"],
              pixel_launches=pixel["int8_gn"]["launches"]["conv2d_int8_dynamic"]),
         # no Pallas kernel: the XLA quantization in front of the int8 ops
-        _kernel_entry("quantize_int8", "d3roma_tpu_torch/csrc/quantize.cu",
-                      "d3roma_tpu/ops/quant.py:64", int8_rows["quantize"],
-                      bench_counts["quantize"]),
+        dict(_kernel_entry("quantize_int8", "d3roma_tpu_torch/csrc/quantize.cu",
+                           "d3roma_tpu/ops/quant.py:64", int8_rows["quantize"],
+                           bench_counts["quantize"]),
+             import_launches=import_int8["quantize"]),
         dict(_kernel_entry("groupnorm_silu", "d3roma_tpu_torch/csrc/groupnorm_silu.cu",
                            "d3roma_tpu/ops/pallas/groupnorm.py:58", opt_rows["groupnorm_silu"],
                            opt_counts["groupnorm_silu"]),
@@ -4243,6 +4657,7 @@ def main() -> int:
     print(json.dumps({"eval": evaluation}), flush=True)
     print(json.dumps({"train": training}), flush=True)
     print(json.dumps({"serve": serving}), flush=True)
+    print(json.dumps({"import": imported}), flush=True)
     print(json.dumps({"torch_bench": bench_lines}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

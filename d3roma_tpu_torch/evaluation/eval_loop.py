@@ -19,8 +19,12 @@ the SSI RANSAC after them. A torch generator draws other noise than JAX's
 keys, so the two packages' metrics agree only when a test replays the JAX
 noise through the pipeline (`x_init` / `latents` and `step_noise`).
 
-Not ported yet, and refused: gradient guidance (the latent pipeline raises
-when guidance is enabled), the "stereo-match" guide source
+With guidance enabled (a weight of `flow_guidance_weights` above 0), the
+latent pipeline takes the padded raw disparity and `denormer`, the
+config's denormalization against it (RANSAC seeded 0 a call, as the JAX
+package's PRNGKey(0)).
+
+Not ported yet, and refused: the "stereo-match" guide source
 (`ops/stereo.py`) and the `plot_intermediate_metrics` figure (ROADMAP.md).
 """
 

@@ -16,16 +16,27 @@ the rounds, the mean and disparity -> depth run on the device with no host
 synchronization, and `_fetch` copies the depth (and the uncertainty, and the
 single-frame path's metrics for its log line) back.
 
+The pipeline's images [N*R, H, W, C] are denormalized as the JAX
+`post_fn` does: each frame's C images (C = 1 for the latent family) with
+their R rounds stacked last, all N*C in one call, the logged metrics over
+all of them; the depth and the uncertainty returned are image 0's.
+
+With the latent family's guidance enabled (`flow_guidance_weight > 0`,
+gradient mode), the pipeline takes the raw disparity, the config's
+denormalization as `denorm_builder` and the sensor mask, as the JAX
+`run_pipeline` does.
+
 Noise: one `torch.Generator` on the device, seeded with the config's seed
 (else `seed`), that every call draws from in call order: the pipeline's
 latents and step noise, then the SSI RANSAC subsets under `safe_ssi`. (The
 JAX package splits a PRNG key a call and folds in 1 for the RANSAC; a
-torch generator draws other noise.)
+torch generator draws other noise.) The guidance's denormalization seeds
+its own RANSAC generator with 0 at each call, as the JAX one takes
+PRNGKey(0).
 
 Not ported, and refused: tensor parallelism (`task.tensor_parallel > 1`,
-`parallel/`), the executable cache (`task.aot_cache`, `serving/aot.py`) and
-latent flow guidance (`flow_guidance_weight > 0`): ROADMAP.md §1 items 10
-and 8.
+`parallel/`) and the executable cache (`task.aot_cache`,
+`serving/aot.py`): ROADMAP.md §1 item 10.
 """
 
 from __future__ import annotations
@@ -93,6 +104,8 @@ class D3RoMa:
         self.normer = Normalizer.from_config(config)
         self.variant = variant
         self.last_uncertainty = None
+        # the guidance's denormalizer: the config's, RANSAC seeded 0 a call
+        self._denorm_builder = lambda x, raw, mask: denormalize(self.config, x, raw, mask)
 
     def _load_pipeline(self, config: TrainingConfig):
         path = f"{config.resume_pretrained}"
@@ -199,9 +212,10 @@ class D3RoMa:
         fxb = self._const(self.camera.fxb_depth)
         return torch.where(disp > 0, fxb / torch.clamp(disp, min=1e-8), torch.zeros_like(disp))
 
-    def _pipeline_kwargs(self, mask_b):
-        """The config's part of a pipeline call; raises for what the port's
-        pipelines do not run."""
+    def _pipeline_kwargs(self, raw_b, mask_b):
+        """The config's part of a pipeline call: the raw disparity [B,H,W,1]
+        and its mask go to the guidance (latent) or the imputation mask
+        (pixel)."""
         kwargs = dict(num_inference_steps=self.config.num_inference_timesteps,
                       cond_channels=self.config.cond_channels,
                       add_noise_rgb=self.config.noise_rgb, generator=self._generator)
@@ -211,9 +225,8 @@ class D3RoMa:
             if self.config.scan_chunk:
                 kwargs["scan_chunk"] = self.config.scan_chunk
             if self.pipeline.guidance is not None and self.pipeline.guidance.enabled:
-                raise NotImplementedError(
-                    "latent flow guidance (flow_guidance_weight > 0) is not ported yet "
-                    "(ROADMAP.md §1 item 8)")
+                kwargs.update(raw_depth=raw_b, denorm_builder=self._denorm_builder,
+                              denorm_mask=mask_b)
         else:
             kwargs["depth_channels"] = self.config.depth_channels
             # the sensor-validity mask for imputation guidance: the
@@ -225,9 +238,9 @@ class D3RoMa:
     def _device(self, raw_disp, rgb=None, left=None, right=None, metrics=False):
         """N frames, raw disparity [N,H,W] and images [N,H,W,3] uint8 (or
         None), in one pipeline call at batch N*R, frame-major (a frame's
-        rounds adjacent): (depth [N,H,W], uncertainty [N,H,W]), and with
-        `metrics` the final prediction's (metrics_disp, metrics_depth)
-        against the raw disparity."""
+        rounds adjacent): (depth [N,H,W], uncertainty [N,H,W]) of each
+        frame's image 0, and with `metrics` (metrics_disp, metrics_depth)
+        of all its C images against the raw disparity."""
         R = self.config.num_inference_rounds
         N = raw_disp.shape[0]
 
@@ -241,25 +254,29 @@ class D3RoMa:
         normalized, _, _ = self.normer.normalize(raw)  # per sample
         raw_b = rep(raw)
         mask_b = (raw_b > 0).to(torch.float32)
-        kwargs = self._pipeline_kwargs(mask_b)
+        kwargs = self._pipeline_kwargs(raw_b, mask_b)
         out = self.pipeline(num_intermediate_images=self.config.num_intermediate_images,
                             rgb_images=rep(self._norm_rgb(rgb)),
                             left_images=rep(self._norm_rgb(left)),
                             right_images=rep(self._norm_rgb(right)),
                             sim_disp=rep(normalized), **kwargs)
-        # the final prediction, rounds-as-batch -> [N,H,W,R]: the SSI
-        # alignment over each frame's rounds
-        pred = out.images[..., 0].to(torch.float32)
-        p = pred.reshape((N, R) + tuple(pred.shape[1:3])).movedim(1, -1)
-        unnorm = denormalize(self.config, p, raw, (raw > 0).to(torch.float32),
+        # rounds-as-batch [N*R,H,W,C] -> [N*C,H,W,R] (frame-major): the SSI
+        # alignment over the rounds of each of a frame's C images
+        pred = out.images.to(torch.float32)
+        C, (Hp, Wp) = pred.shape[-1], pred.shape[1:3]
+        p = pred.reshape(N, R, Hp, Wp, C).permute(0, 4, 2, 3, 1).reshape(N * C, Hp, Wp, R)
+        raw_c = raw.repeat_interleave(C, dim=0)
+        unnorm = denormalize(self.config, p, raw_c, (raw_c > 0).to(torch.float32),
                              generator=self._generator)
-        unc = torch.std(p, dim=-1, correction=0)
-        mean = torch.mean(unnorm, dim=-1)  # [N,H,W]
+        unc = torch.std(p, dim=-1, correction=0).reshape(N, C, Hp, Wp)[:, 0]
+        mean = torch.mean(unnorm, dim=-1)  # [N*C,H,W]
+        depth = self._to_depth(mean.reshape(N, C, Hp, Wp)[:, 0])
         if not metrics:
-            return self._to_depth(mean), unc
-        fxb = self._const(self.camera.fxb_depth).expand(N)
-        return self._to_depth(mean), unc, compute_errors(
-            raw_disp, mean, self.config.prediction_space, raw_disp > 0, fxb)
+            return depth, unc
+        disp_c = raw_disp.repeat_interleave(C, dim=0)
+        fxb = self._const(self.camera.fxb_depth).expand(N * C)
+        return depth, unc, compute_errors(
+            disp_c, mean, self.config.prediction_space, disp_c > 0, fxb)
 
     def _fetch(self, depth, unc, metrics=None) -> np.ndarray:
         """The device -> host copies at the end of a call."""

@@ -9,6 +9,10 @@ and return a state dict with diffusers names, which
 `AutoencoderKL` accepts. `torch_to_flax` is the inverse, for all three: a
 Flax tree of CPU torch tensors in the state dict's dtypes (numpy has no
 bfloat16), which `flax_msgpack.dump` writes as the JAX package reads it.
+`flax_clip_text_to_torch` / `clip_text_to_flax` do the same for the CLIP
+text tower (`models/clip_text.py`; the Flax tree of
+`d3roma_tpu/models/clip_text.py`, the inverse of its importer's
+`clip_text_torch_to_flax`).
 The name map is the inverse of
 `d3roma_tpu/models/torch_import.py::unet_torch_to_flax` /
 `vae_torch_to_flax`; this module keeps its own copy of it. The transforms:
@@ -142,6 +146,64 @@ def torch_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
             raise KeyError(f"unknown parameter {name!r}")
         node = tree
         for m in modules:
+            node = node.setdefault(m, {})
+        node[leaf] = t.contiguous()
+    return tree
+
+
+# Flax CLIP text tower path (without its leaf) <-> the port's module name
+_CLIP_RULES = (
+    (re.compile(r"^token_embedding$"), "embeddings.token_embedding"),
+    (re.compile(r"^position_embedding$"), "embeddings.position_embedding"),
+    (re.compile(r"^final_layer_norm$"), "final_layer_norm"),
+    (re.compile(r"^layers_(\d+)/(layer_norm[12])$"), r"encoder.layers.\1.\2"),
+    (re.compile(r"^layers_(\d+)/self_attn/([qkv]_proj|out_proj)$"),
+     r"encoder.layers.\1.self_attn.\2"),
+    (re.compile(r"^layers_(\d+)/mlp_(fc[12])$"), r"encoder.layers.\1.mlp.\2"),
+)
+_CLIP_INVERSE = (
+    (re.compile(r"^embeddings\.(token_embedding|position_embedding)$"), r"\1"),
+    (re.compile(r"^final_layer_norm$"), "final_layer_norm"),
+    (re.compile(r"^encoder\.layers\.(\d+)\.(layer_norm[12])$"), r"layers_\1/\2"),
+    (re.compile(r"^encoder\.layers\.(\d+)\.self_attn\.(\w+)$"), r"layers_\1/self_attn/\2"),
+    (re.compile(r"^encoder\.layers\.(\d+)\.mlp\.(fc[12])$"), r"layers_\1/mlp_\2"),
+)
+
+
+def _rename(name: str, rules) -> str:
+    for pattern, repl in rules:
+        if pattern.match(name):
+            return pattern.sub(repl, name)
+    raise KeyError(f"no CLIP text tower parameter is named {name!r}")
+
+
+def flax_clip_text_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax CLIPTextModel params -> the port's CLIPTextModel state dict
+    (embedding tables as they are, dense kernels [I, O] -> [O, I])."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, t in _leaves(params):
+        module = _rename("/".join(path[:-1]), _CLIP_RULES)
+        if path[-1] == "embedding":
+            out[module + ".weight"] = t.contiguous()
+        else:
+            leaf, value = _torch_leaf(path[-1], t)
+            out[f"{module}.{leaf}"] = value.contiguous()
+    return out
+
+
+def clip_text_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """The port's CLIPTextModel state dict -> the JAX package's Flax tree."""
+    tree: Dict = {}
+    for name, t in state_dict.items():
+        module, leaf = name.rsplit(".", 1)
+        path = _rename(module, _CLIP_INVERSE).split("/")
+        t = t.detach().cpu()
+        if "embedding" in path[-1]:
+            leaf = "embedding"
+        elif leaf == "weight":
+            leaf, t = ("kernel", t.t()) if t.ndim == 2 else ("scale", t)
+        node = tree
+        for m in path:
             node = node.setdefault(m, {})
         node[leaf] = t.contiguous()
     return tree

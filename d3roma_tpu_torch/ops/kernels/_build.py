@@ -115,3 +115,13 @@ def check(err: int, kernel: str) -> None:
     """Raise if a launcher returned a CUDA error (its cudaGetLastError())."""
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA error {err} at launch")
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise where autograd would need a gradient through a kernel that has
+    none (its output would carry no graph: a silent zero gradient). The JAX
+    package's Pallas kernels refuse the same way: differentiating through
+    their pallas_call fails ("Linearization failed")."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{kernel} has no gradient: a loss differentiated through it "
+                           f"would see none (the JAX package's kernel refuses it too)")

@@ -383,8 +383,10 @@ def mha_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the attention (the rows kernel, planned by rows_plan, up to head_dim
     128; the wide kernel, planned by wide_plan, at 256 and 512), in one
     call; or raise. CPU tensors take the plain
-    version. `mha_attention_int8.launches` counts the calls."""
+    version. `mha_attention_int8.launches` counts the calls. Neither has a
+    gradient: inputs that need one raise (_build.refuse_grad)."""
     _check(q, k, v)
+    _build.refuse_grad("mha_attention_int8", q, k, v)
     if q.device.type == "cpu":
         mha_attention_int8.launches += 1
         return mha_attention_int8_plain(q, k, v, sm_scale)

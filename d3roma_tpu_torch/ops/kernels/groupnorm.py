@@ -178,7 +178,7 @@ def group_norm_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     CUDA tensors go to the Hopper kernel (bf16 or fp32 x, C % 8 == 0, gamma
     and beta [C] in one type, bf16 or fp32, read as they are) or raise; CPU
     tensors take the plain version. `group_norm_silu.launches` counts the
-    calls."""
+    calls. The kernel has no gradient: CUDA inputs that need one raise."""
     if x.ndim != 4 or x.shape[-1] % groups:
         raise ValueError(f"group_norm_silu takes NHWC x with C % groups == 0, got "
                          f"{tuple(x.shape)} and {groups} groups")
@@ -187,6 +187,7 @@ def group_norm_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         return group_norm_silu_plain(x, gamma, beta, groups, eps, apply_silu)
     if x.device.type != "cuda":
         raise ValueError(f"group_norm_silu runs on CUDA or the CPU, got {x.device}")
+    _build.refuse_grad("group_norm_silu", x, gamma, beta)
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"the CUDA GroupNorm kernel takes bf16 or fp32, got {x.dtype}")
     b, h, w, c = x.shape

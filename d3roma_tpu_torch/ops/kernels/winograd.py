@@ -231,7 +231,8 @@ def conv3x3_winograd(x: torch.Tensor, u: torch.Tensor, out_dtype: torch.dtype,
     O % 8 == 0: the input transform, the tap GEMMs and, where wino_plan
     splits the taps, their sum, in one call) or raise; CPU tensors take the
     plain version.
-    `conv3x3_winograd.launches` counts the calls."""
+    `conv3x3_winograd.launches` counts the calls. The kernel has no
+    gradient: CUDA inputs that need one raise."""
     if x.ndim != 4 or u.ndim != 3 or u.shape[0] != 16 or u.shape[2] != x.shape[3]:
         raise ValueError(f"conv3x3_winograd takes NHWC x and U [16, O, C], got "
                          f"{tuple(x.shape)} and {tuple(u.shape)}")
@@ -240,6 +241,7 @@ def conv3x3_winograd(x: torch.Tensor, u: torch.Tensor, out_dtype: torch.dtype,
         return conv3x3_winograd_plain(x, u, out_dtype, bias)
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3_winograd runs on CUDA or the CPU, got {x.device}")
+    _build.refuse_grad("conv3x3_winograd", x, u, bias)
     b, h, w, c = x.shape
     o = u.shape[1]
     if u.dtype != torch.bfloat16 or out_dtype != torch.bfloat16:

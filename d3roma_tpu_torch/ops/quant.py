@@ -61,7 +61,9 @@ from d3roma_tpu_torch.ops.kernels import (
     conv3x3_supported,
     halo_conv_supported,
 )
+from d3roma_tpu_torch.ops.kernels.conv2d import conv2d_int8_acc_plain
 from d3roma_tpu_torch.ops.kernels.quantize import (
+    INV127,
     fp32,
     ieee_div,
     quantize_int8_scalar,
@@ -244,17 +246,64 @@ def int8_linear(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor, act_scale: 
     return out.reshape(lead + (n,))
 
 
+def _dynamic_through_scale(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor, stride: int,
+                           padding: int, per_row: bool) -> torch.Tensor:
+    """The dynamic int8 op's plain arithmetic (without the bias) with the
+    scale left in the graph: the JAX package's function of x as jax.grad
+    sees it, where the rounding has a zero derivative and the gradient
+    reaches x through each group's absmax scale alone."""
+    s = torch.clamp_min(x.float().abs().amax(dim=(3,) if per_row else (1, 2, 3), keepdim=True)
+                        * INV127, 1e-8)
+    acc = conv2d_int8_acc_plain(quantize_int8(x.detach(), s.detach()), wq, stride,
+                                padding).float()
+    return (acc * s * ws).to(x.dtype)
+
+
+class _DynamicInt8(torch.autograd.Function):
+    """The dynamic int8 op (the kernel on CUDA, its plain version on the
+    CPU) with the JAX package's gradient: the backward differentiates the
+    plain version through the absmax scales (_dynamic_through_scale)."""
+
+    @staticmethod
+    def forward(ctx, x, wq, ws, bias, stride, padding, per_row):
+        ctx.save_for_backward(x, wq, ws)
+        ctx.conf = (stride, padding, per_row, bias is not None)
+        return conv2d_int8_dynamic(x, wq, ws, bias, stride, padding, per_row=per_row)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, wq, ws = ctx.saved_tensors
+        stride, padding, per_row, has_bias = ctx.conf
+        gx = gb = None
+        if ctx.needs_input_grad[0]:
+            with torch.enable_grad():
+                xi = x.detach().requires_grad_(True)
+                (gx,) = torch.autograd.grad(
+                    _dynamic_through_scale(xi, wq, ws, stride, padding, per_row), xi, grad_out)
+        if has_bias and ctx.needs_input_grad[3]:
+            gb = grad_out.reshape(-1, grad_out.shape[-1]).sum(0)
+        return gx, None, None, gb, None, None, None
+
+
+def _dynamic(x, wq, ws, bias, stride, padding, per_row=False):
+    """conv2d_int8_dynamic, through _DynamicInt8 where autograd records."""
+    if torch.is_grad_enabled() and (x.requires_grad or (bias is not None
+                                                        and bias.requires_grad)):
+        return _DynamicInt8.apply(x, wq, ws, bias, stride, padding, per_row)
+    return conv2d_int8_dynamic(x, wq, ws, bias, stride, padding, per_row=per_row)
+
+
 def int8_linear_dynamic(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
                         bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The dynamic int8 dense (`int8_dot_general`): each row of x [..., K]
     quantized at its own scale max(absmax * fp32(1/127), 1e-8), exact int32
     sums with wq [N, K], (acc * s_row) * ws in fp32, one cast to x's type,
     the bias added in that type. The dynamic int8 conv kernel as a 1x1
-    convolution over the rows, each row a scale group."""
+    convolution over the rows, each row a scale group. Under autograd,
+    the gradient is the JAX package's (_DynamicInt8)."""
     lead, k, n = x.shape[:-1], x.shape[-1], wq.shape[0]
     b = bias if bias is None or bias.dtype == x.dtype else bias.to(x.dtype)
-    out = conv2d_int8_dynamic(x.reshape(1, 1, -1, k), wq.view(n, 1, 1, k), ws, b, 1, 0,
-                              per_row=True)
+    out = _dynamic(x.reshape(1, 1, -1, k), wq.view(n, 1, 1, k), ws, b, 1, 0, per_row=True)
     return out.reshape(lead + (n,))
 
 
@@ -263,8 +312,9 @@ def int8_conv_dynamic(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
     """The dynamic int8 convolution (`int8_conv_general_dilated`): each
     batch item of x (NHWC, the compute type) quantized at its own scale,
     exact int32 sums with wq [Cout, KH, KW, Cin], (acc * s_item) * ws, one
-    cast, the bias (in x's type) added after it."""
-    return conv2d_int8_dynamic(x, wq, ws, bias, stride, padding)
+    cast, the bias (in x's type) added after it. Under autograd, the
+    gradient is the JAX package's (_DynamicInt8)."""
+    return _dynamic(x, wq, ws, bias, stride, padding)
 
 
 def int8_conv_static(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,

@@ -7,18 +7,18 @@ Port of `d3roma_tpu/pipelines/pipeline.py`. `GuidedDiffusionPipeline`:
 `__call__` (every sampler, imputation guidance), `half_precision`,
 `quantize_int8`, `fuse_norms`, `replace_sampler`, `save_pretrained` /
 `from_pretrained`. `GuidedLatentDiffusionPipeline`:
-`__call__`, `half_precision`, `quantize_int8` (dynamic int8 in the UNet and
-the VAE), `fast_inference("latency")` (bf16 weights, the whole-row
-attention kernel at self-attention sites of >= 512 tokens, the fused GEGLU
-kernel), `fast_inference("throughput")` (the same with the static int8 mode
-in the UNet and the VAE), `fast_inference("dense")` (the same with dynamic
-int8 at the dense layers only), `fast_inference("wino")` (the same with the
+`__call__` (with the gradient guidance and add_noise_rgb), `half_precision`,
+`quantize_int8` (dynamic int8 in the UNet and the VAE),
+`fast_inference("latency")` (bf16 weights, the whole-row attention kernel at
+self-attention sites of >= 512 tokens, the fused GEGLU kernel),
+`fast_inference("throughput")` (the same with the static int8 mode in the
+UNet and the VAE), `fast_inference("dense")` (the same with dynamic int8 at
+the dense layers only), `fast_inference("wino")` (the same with the
 "wino_static" mode: Winograd at the convs it routes there), `fuse_norms`,
 `deepcache`, `calibrate` (with optional |activation| quantiles),
 `quant_call_map`, `kind_pins`, `with_act_clipping`, `replace_sampler` and
-`save_pretrained` / `from_pretrained`. Latent guidance, split programs /
-scan chunks and the compiled-program cache are not ported yet and raise
-NotImplementedError.
+`save_pretrained` / `from_pretrained`. Split programs / scan chunks and the
+compiled-program cache are not ported and raise NotImplementedError.
 
 Unlike the JAX package's, whose methods return a replaced copy, these
 pipelines' configuration methods (`half_precision`, `quantize_int8`,
@@ -56,7 +56,7 @@ import numpy as np
 import torch
 
 from d3roma_tpu_torch.device import DeviceLike, resolve_device
-from d3roma_tpu_torch.guidance import FlowGuidance
+from d3roma_tpu_torch.guidance import FlowGuidance, frozen_parameters
 from d3roma_tpu_torch.models.convert import (
     flax_unet2d_to_torch,
     flax_unet_to_torch,
@@ -107,8 +107,10 @@ def _save_module(path: str, model: torch.nn.Module, keys) -> None:
 
 def _load_module(path: str, make, to_torch, device) -> torch.nn.Module:
     """Build the model from `config.json` on `device` and load
-    `params.msgpack` into it (strict, names mapped by `to_torch`), in the
-    params' dtype when every floating leaf has the same one."""
+    `params.msgpack` into it (strict, names mapped by `to_torch`): in bf16
+    when every floating leaf is bf16 (a half-precision pipeline's), else in
+    fp32, other leaves (an fp16 reference import's) widened as the JAX
+    package's fp32 modules widen them."""
     with open(os.path.join(path, "config.json")) as f:
         config = json.load(f)
     for k in ("block_out_channels", "down_block_types", "up_block_types"):
@@ -116,9 +118,8 @@ def _load_module(path: str, make, to_torch, device) -> torch.nn.Module:
             config[k] = tuple(config[k])
     state = to_torch(flax_msgpack.load(os.path.join(path, "params.msgpack")))
     model = make(**config, device=device)
-    dtypes = {t.dtype for t in state.values() if t.is_floating_point()}
-    if len(dtypes) == 1:
-        model.to(dtypes.pop())
+    if {t.dtype for t in state.values() if t.is_floating_point()} == {torch.bfloat16}:
+        model.to(torch.bfloat16)
     model.load_state_dict(state, strict=True)
     return model
 
@@ -209,11 +210,13 @@ class GuidedDiffusionPipeline:
         generator: Optional[torch.Generator] = None,
         x_init: Optional[torch.Tensor] = None,
         step_noise: Optional[Sequence[torch.Tensor]] = None,
+        rgb_noise: Optional[Sequence[torch.Tensor]] = None,
     ) -> PipelineOutput:
         """Restore disparity from the conditions (NHWC, in [-1, 1], the
         normalized raw disparity as `sim_disp`): the sampler from `x_init`
         (or noise drawn from `generator`), its per-step noise `step_noise`
-        (or drawn from `generator`). Returns the final sample and the kept
+        and, with `add_noise_rgb`, the rgb condition's `rgb_noise` (or drawn
+        from `generator`). Returns the final sample and the kept
         x_hat0s, clamped to [-1, 1]; `self.normalizer.denormalize` turns
         them into disparity."""
         def on_device(x):
@@ -228,7 +231,8 @@ class GuidedDiffusionPipeline:
                 guidance=self.guidance, raw_mask=on_device(raw_mask),
                 add_noise_rgb=add_noise_rgb, generator=generator,
                 x_init=on_device(x_init),
-                step_noise=None if step_noise is None else [on_device(n) for n in step_noise])
+                step_noise=None if step_noise is None else [on_device(n) for n in step_noise],
+                rgb_noise=None if rgb_noise is None else [on_device(n) for n in rgb_noise])
 
     def save_pretrained(self, out_dir: str) -> None:
         """Write the JAX package's pixel pipeline directory."""
@@ -259,7 +263,7 @@ class GuidedLatentDiffusionPipeline:
     spec: SamplerSpec
     normalizer: Normalizer
     device: DeviceLike = None
-    # carried and saved; latent gradient guidance itself is not ported yet
+    # the in-step guidance, run where a call passes raw_depth
     guidance: Optional[FlowGuidance] = None
     # calibrated static-int8 activation scales (see the module docstring)
     act_scales: Optional[Dict[str, list]] = None
@@ -603,16 +607,23 @@ class GuidedLatentDiffusionPipeline:
         split_programs: bool = False,
         scan_chunk: Optional[int] = None,
         step_noise: Optional[Sequence[torch.Tensor]] = None,
+        denorm_mask=None,
+        rgb_noise: Optional[Sequence[torch.Tensor]] = None,
     ) -> PipelineOutput:
         """Restore disparity from the conditions (NHWC, in [-1, 1]): encode
         them once, run the sampler from `latents` (or noise drawn from
-        `generator`), with the per-step noise `step_noise` (or drawn from
+        `generator`), with the per-step noise `step_noise` (and, with
+        `add_noise_rgb`, the rgb condition's `rgb_noise`; else drawn from
         `generator`), and decode. Returns the decoded final x_hat0 in
-        [-1, 1]; `self.normalizer.denormalize` turns it into disparity."""
-        if raw_depth is not None or denormer is not None or denorm_builder is not None:
-            raise NotImplementedError("guidance (raw_depth / denormer) is not ported yet")
-        if add_noise_rgb:
-            raise NotImplementedError("add_noise_rgb is not ported yet")
+        [-1, 1]; `self.normalizer.denormalize` turns it into disparity.
+
+        With `raw_depth` (the unnormalized raw disparity [B, H, W, 1]) and
+        an enabled `self.guidance`, every step runs the gradient guidance
+        (ODE samplers only) through the VAE decode, each decode replaying
+        the "vae_decode" table from its start, and a denormalizer:
+        `denormer(x)`, or `denorm_builder(x, raw_depth, denorm_mask)`."""
+        if denormer is not None and denorm_builder is not None:
+            raise ValueError("pass denormer or denorm_builder, not both")
         if split_programs or scan_chunk:
             raise NotImplementedError("split_programs / scan_chunk are not ported")
 
@@ -623,6 +634,8 @@ class GuidedLatentDiffusionPipeline:
                                                 sim_disp))
         ref = next(x for x in (rgb, left, right, raw) if x is not None)
         trunk_apply, cached_apply = self._unet_cache_fns()
+        guidance_fn = self._guidance_fn(on_device(raw_depth), denormer, denorm_builder,
+                                        on_device(denorm_mask))
         with torch.no_grad():
             conds, lat = latent_encode_conds(
                 self._replayed(lambda x: encode_image_to_latent(self.vae, x), "vae_encode"),
@@ -634,9 +647,34 @@ class GuidedLatentDiffusionPipeline:
                 noise_dtype=ref.dtype, cache_interval=self.cache_interval,
                 unet_apply_trunk=trunk_apply, unet_apply_cached=cached_apply,
                 cache_schedule=self.cache_schedule,
-                step_noise=None if step_noise is None else [on_device(n) for n in step_noise])
+                step_noise=None if step_noise is None else [on_device(n) for n in step_noise],
+                guidance_fn=guidance_fn, add_noise_rgb=add_noise_rgb,
+                rgb_noise=None if rgb_noise is None else [on_device(n) for n in rgb_noise])
             return latent_decode_images(
                 self._replayed(lambda z: decode_latent(self.vae, z), "vae_decode"), kept)
+
+    def _guidance_fn(self, raw_depth, denormer, denorm_builder, mask):
+        """The steps' gradient guidance hook, or None without raw_depth or
+        an enabled guidance (the JAX package's `_guidance_fn`). Its decoder
+        is the replayed "vae_decode", with the VAE's parameters out of
+        autograd (only the latent is differentiated)."""
+        if raw_depth is None or self.guidance is None or not self.guidance.enabled:
+            return None
+        if not self.spec.is_ode:
+            raise ValueError(f"in-step guidance runs only with the deterministic samplers "
+                             f"(ddim, my_ddim, euler, heun), not {self.spec.kind!r}")
+        if denorm_builder is not None:
+            def denormer(x):
+                return denorm_builder(x, raw_depth, mask)
+        if denormer is None:
+            raise ValueError("guidance needs a denormer or a denorm_builder")
+        decode = self._replayed(lambda z: decode_latent(self.vae, z), "vae_decode")
+
+        def decoder(z):
+            with frozen_parameters(self.vae):
+                return decode(z)
+
+        return self.guidance.make_latent_guidance_fn(decoder, denormer, raw_depth)
 
     def save_pretrained(self, out_dir: str) -> None:
         """Write the JAX package's latent pipeline directory."""

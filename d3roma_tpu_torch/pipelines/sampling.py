@@ -11,19 +11,25 @@ prev_sample and its intermediates the kept x_hat0s, clamped; the latent
 pipeline's are the VAE decodes of the kept x_hat0 latents (channel mean ->
 1 channel), clamped, the last one the final step's.
 
-Noise is explicit: the initial noise (`x_init` / `latents`) and the
-per-step sampling noise (`step_noise`, one tensor per step, read by the
-DDPM steps and the DDIM steps with eta > 0) may be given, else they are
-drawn from the `torch.Generator`. The JAX package draws them from one key
+Noise is explicit: the initial noise (`x_init` / `latents`), the per-step
+sampling noise (`step_noise`, one tensor per step, read by the DDPM steps
+and the DDIM steps with eta > 0) and, with `add_noise_rgb`, the per-step
+noise of the rgb condition (`rgb_noise`) may be given, else they are drawn
+from the `torch.Generator`. The JAX package draws them from one key
 schedule (`split(key)` for the initial noise, then `split(k, 3)` per step,
-the second key the step's noise), which a test can replay this way.
+the second key the step's noise, the third the rgb condition's), which a
+test can replay this way.
+
+`add_noise_rgb` (reference: custom_pipelines.py:343-350): at each step the
+rgb slice of the conditions is blended 50/50 with its forward-noised
+version at that step's t. The latent family's in-step guidance (the
+gradient mode through the VAE decoder) enters the latent denoise as the
+steps' `guidance_fn`, as the pixel family's imputation does.
 
 DeepCache (`cache_interval`, `cache_schedule`) runs each step's UNet pass as
 the F/S pattern says: a full pass that also returns its trunk where a
 shallow step follows, the shallow pass on the latest trunk at an S step.
 Heun refuses it (its second model call has no cached pass).
-
-Latent guidance and add_noise_rgb are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -36,7 +42,12 @@ import torch
 
 from d3roma_tpu_torch.guidance import FlowGuidance
 from d3roma_tpu_torch.ops.scheduler_step import ddim_step, ddpm_step, euler_step, heun_correct
-from d3roma_tpu_torch.ops.schedules import ScheduleConfig, ScheduleTables, set_timesteps
+from d3roma_tpu_torch.ops.schedules import (
+    ScheduleConfig,
+    ScheduleTables,
+    add_noise,
+    set_timesteps,
+)
 
 SAMPLER_KINDS = ("ddpm", "my_ddpm", "ddim", "my_ddim", "euler", "heun")
 
@@ -169,6 +180,15 @@ def _scheduler_apply(spec: SamplerSpec, tables: ScheduleTables, model_output, t:
     raise ValueError(f"unknown sampler kind {spec.kind!r}")
 
 
+def _step_conds(conds: torch.Tensor, noise_rgb, tables: ScheduleTables, t: int,
+                noise: torch.Tensor) -> torch.Tensor:
+    """A step's conditions: with `noise_rgb` = (rgb, (start, stop)), the rgb
+    slice of `conds` replaced by rgb * 0.5 + add_noise(rgb, noise, t) * 0.5."""
+    rgb, (s0, s1) = noise_rgb
+    final_rgb = rgb * 0.5 + add_noise(tables, rgb, noise, t) * 0.5
+    return torch.cat([conds[..., :s0], final_rgb, conds[..., s1:]], dim=-1)
+
+
 def run_sampler_steps(
     model_fn: Callable[[torch.Tensor, int], torch.Tensor],
     spec: SamplerSpec,
@@ -184,12 +204,17 @@ def run_sampler_steps(
     cache_schedule: Optional[str] = None,
     guidance_fn=None,
     step_noise: Optional[Sequence[torch.Tensor]] = None,
+    noise_rgb=None,
+    rgb_noise: Optional[Sequence[torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The denoise loop: model_fn(cat([x, conds]), t) -> model output, then
     the sampler's step (Heun: an Euler step, a second model call at
     max(prev_t, 0) on the Euler point, the correction). Returns (final
     sample, guided x_hat0 of every step [S, ...]). `step_noise[i]` is step
-    i's sampling noise, else it is drawn from `generator`.
+    i's sampling noise, else it is drawn from `generator`. `noise_rgb` =
+    (rgb, (start, stop)) blends the rgb slice of the conditions with its
+    noised version at every step (_step_conds), with `rgb_noise[i]` as step
+    i's noise, else drawn from `generator` (before the step's model call).
 
     With DeepCache (cache_interval > 1 or a cache_schedule with an S), a
     full step followed by an S runs model_fn_trunk(input, t) -> (output,
@@ -201,15 +226,24 @@ def run_sampler_steps(
             raise ValueError("DeepCache does not support the heun sampler")
         if model_fn_trunk is None or model_fn_cached is None:
             raise ValueError("DeepCache needs model_fn_trunk and model_fn_cached")
-    if step_noise is not None and len(step_noise) != len(ts):
-        raise ValueError(f"step_noise has {len(step_noise)} entries for {len(ts)} steps")
+    for name, noises in (("step_noise", step_noise), ("rgb_noise", rgb_noise)):
+        if noises is not None and len(noises) != len(ts):
+            raise ValueError(f"{name} has {len(noises)} entries for {len(ts)} steps")
+    if noise_rgb is not None and rgb_noise is None and generator is None:
+        raise ValueError("add_noise_rgb needs a torch.Generator or rgb_noise")
     cfg = spec.schedule
     x = x_init
     trunk = None
     x0s: List[torch.Tensor] = []
     for i, (t, prev_t) in enumerate(zip(ts, prev_ts)):
         t, prev_t = int(t), int(prev_t)
-        model_input = torch.cat([x, conds], dim=-1)
+        step_conds = conds
+        if noise_rgb is not None:
+            rgb = noise_rgb[0]
+            noise = rgb_noise[i] if rgb_noise is not None else torch.randn(
+                rgb.shape, generator=generator, dtype=rgb.dtype, device=rgb.device)
+            step_conds = _step_conds(conds, noise_rgb, tables, t, noise)
+        model_input = torch.cat([x, step_conds], dim=-1)
         if pattern is not None and pattern[i] == "S":
             out = model_fn_cached(model_input, t, trunk)
         elif pattern is not None and i + 1 < len(pattern) and pattern[i + 1] == "S":
@@ -218,7 +252,7 @@ def run_sampler_steps(
             out = model_fn(model_input, t)
         if spec.kind == "heun":
             e = euler_step(tables, cfg, out, t, prev_t, x, guidance_fn=guidance_fn)
-            out2 = model_fn(torch.cat([e.prev_sample, conds], dim=-1),
+            out2 = model_fn(torch.cat([e.prev_sample, step_conds], dim=-1),
                             max(prev_t, 0))
             step = heun_correct(tables, cfg, out, out2, t, prev_t, x, e.prev_sample,
                                 guidance_fn=guidance_fn)
@@ -265,6 +299,7 @@ def pixel_pipeline(
     generator: Optional[torch.Generator] = None,
     x_init: Optional[torch.Tensor] = None,
     step_noise: Optional[Sequence[torch.Tensor]] = None,
+    rgb_noise: Optional[Sequence[torch.Tensor]] = None,
 ) -> PipelineOutput:
     """Pixel-space sampling, NHWC at full resolution: noise at image size
     ([B, H, W, depth_channels], `x_init` or drawn from `generator` in the
@@ -272,9 +307,8 @@ def pixel_pipeline(
     prev_sample clamped to [-1, 1] as the images and the kept x_hat0s,
     clamped, as the intermediates. With an enabled `guidance` and a raw
     condition, the imputation hook replaces x_hat0 by the raw disparity
-    where `raw_mask` (default: sim_disp != 0) is set."""
-    if add_noise_rgb:
-        raise NotImplementedError("add_noise_rgb is not ported yet")
+    where `raw_mask` (default: sim_disp != 0) is set. `add_noise_rgb` with
+    an rgb condition first in `cond_channels`: see run_sampler_steps."""
     ref = next(x for x in (rgb, left) if x is not None)
     B, H, W, _ = ref.shape
     conds = build_cond_concat(cond_channels, rgb, left, right, sim_disp)
@@ -291,9 +325,13 @@ def pixel_pipeline(
         guidance_fn = guidance.make_pixel_imputation_fn(sim_disp[..., :depth_channels],
                                                         mask[..., :depth_channels])
 
+    noise_rgb = None
+    if add_noise_rgb and rgb is not None and cond_channels.startswith("rgb"):
+        noise_rgb = (rgb, (0, rgb.shape[-1]))
     ts, prev_ts = _timestep_arrays(spec.schedule, num_inference_steps)
     final, stack = run_sampler_steps(unet_apply, spec, tables, x_init, conds, ts, prev_ts,
-                                     generator, guidance_fn=guidance_fn, step_noise=step_noise)
+                                     generator, guidance_fn=guidance_fn, step_noise=step_noise,
+                                     noise_rgb=noise_rgb, rgb_noise=rgb_noise)
     inter = _kept(stack, num_inference_steps, num_intermediate_images).clamp(-1.0, 1.0)
     return PipelineOutput(final.clamp(-1.0, 1.0), inter)
 
@@ -342,6 +380,9 @@ def latent_denoise(
     unet_apply_cached=None,
     cache_schedule: Optional[str] = None,
     step_noise: Optional[Sequence[torch.Tensor]] = None,
+    guidance_fn=None,
+    add_noise_rgb: bool = False,
+    rgb_noise: Optional[Sequence[torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Stage 2: initial latent noise, then the denoise loop. Returns the kept
     x_hat0 latents [S, B, h, w, 4] (the last is the final step's).
@@ -350,8 +391,10 @@ def latent_denoise(
 
     `latents` is the initial noise [B, h, w, 4] (the diffusers idiom);
     without it the noise is drawn from `generator`, in `noise_dtype` (the
-    input images' dtype in the pipeline). `step_noise`: see
-    run_sampler_steps."""
+    input images' dtype in the pipeline). `step_noise`, `guidance_fn` (the
+    in-step hook of the ODE steps) and `rgb_noise`: see run_sampler_steps;
+    `add_noise_rgb` blends the rgb condition's latent where the conditions
+    hold one."""
     shape = tuple(conds.shape[:-1]) + (4,)
     x_init = _initial_noise(shape, latents, generator, noise_dtype or conds.dtype,
                             conds.device)
@@ -368,11 +411,16 @@ def latent_denoise(
     def model_fn_cached(model_input, t, trunk):
         return unet_apply_cached(model_input, t, text_embed, trunk)
 
+    noise_rgb = None
+    if add_noise_rgb and "rgb" in lat and "rgb" in cond_channels:
+        noise_rgb = (lat["rgb"], (0, lat["rgb"].shape[-1]))
     ts, prev_ts = _timestep_arrays(spec.schedule, num_inference_steps)
     _, x0_stack = run_sampler_steps(
         model_fn, spec, tables, x_init, conds, ts, prev_ts, generator,
         cache_interval=cache_interval, model_fn_trunk=model_fn_trunk,
-        model_fn_cached=model_fn_cached, cache_schedule=cache_schedule, step_noise=step_noise)
+        model_fn_cached=model_fn_cached, cache_schedule=cache_schedule,
+        guidance_fn=guidance_fn, step_noise=step_noise, noise_rgb=noise_rgb,
+        rgb_noise=rgb_noise)
     return _kept(x0_stack, num_inference_steps, num_intermediate_images)
 
 

@@ -1,8 +1,10 @@
-"""The port stands alone: it imports with jax, flax, optax, orbax, msgpack
-and d3roma_tpu made unimportable, its entry points run on the CPU when
-asked to, and without a GPU they raise instead of falling back; the
-evaluation and training entry points also run with OpenCV, PIL, PyYAML,
-matplotlib (and for training tensorboardX) unimportable."""
+"""The port stands alone: it imports with jax, flax, optax, orbax, msgpack,
+d3roma_tpu, safetensors, transformers and diffusers made unimportable, its
+entry points run on the CPU when asked to, and without a GPU they raise
+instead of falling back; the evaluation and training entry points also run
+with OpenCV, PIL, PyYAML, matplotlib (and for training tensorboardX)
+unimportable, and the reference-checkpoint entry points (import_reference,
+parity_check) with the hub packages unimportable."""
 
 import os
 import re
@@ -18,7 +20,7 @@ import importlib, pkgutil, sys
 class Blocker:
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack",
-                                  "d3roma_tpu"):
+                                  "d3roma_tpu", "safetensors", "transformers", "diffusers"):
             raise ImportError("blocked: " + name)
         return None
 
@@ -30,7 +32,8 @@ names = [m.name for m in pkgutil.walk_packages(d3roma_tpu_torch.__path__,
                                                 "d3roma_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-assert not any(m.split(".")[0] in ("jax", "flax", "optax", "orbax", "msgpack", "d3roma_tpu")
+assert not any(m.split(".")[0] in ("jax", "flax", "optax", "orbax", "msgpack", "d3roma_tpu",
+                                  "safetensors", "transformers", "diffusers")
                for m in sys.modules)
 
 from d3roma_tpu_torch.models import AutoencoderKL, UNet2DCondition
@@ -142,7 +145,8 @@ def test_port_imports_without_jax_and_runs_on_cpu():
 
 
 def test_no_source_line_imports_jax_or_the_jax_package():
-    pattern = re.compile(r"^\s*(import|from) (jax|flax|optax|orbax|msgpack|d3roma_tpu)([ .]|$)")
+    pattern = re.compile(r"^\s*(import|from) (jax|flax|optax|orbax|msgpack|d3roma_tpu|safetensors"
+                         r"|transformers|diffusers)([ .]|$)")
     files = sorted((REPO / "d3roma_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     offenders = [f"{f}:{i}" for f in files
                  for i, line in enumerate(f.read_text().splitlines(), 1)
@@ -153,7 +157,8 @@ def test_no_source_line_imports_jax_or_the_jax_package():
 _EVAL_CHILD = r"""
 import runpy, sys, tempfile, os
 
-BLOCKED = ("jax", "jaxlib", "flax", "msgpack", "d3roma_tpu", "cv2", "PIL", "yaml", "matplotlib")
+BLOCKED = ("jax", "jaxlib", "flax", "msgpack", "d3roma_tpu", "cv2", "PIL", "yaml", "matplotlib",
+           "safetensors", "transformers", "diffusers")
 
 class Blocker:
     def find_spec(self, name, path=None, target=None):
@@ -228,7 +233,7 @@ _TRAIN_CHILD = r"""
 import os, runpy, sys, tempfile
 
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "d3roma_tpu", "cv2", "PIL",
-           "yaml", "matplotlib", "tensorboardX")
+           "yaml", "matplotlib", "tensorboardX", "safetensors", "transformers", "diffusers")
 
 class Blocker:
     def find_spec(self, name, path=None, target=None):
@@ -309,7 +314,7 @@ _SERVE_CHILD = r"""
 import io, json, os, runpy, signal, socket, sys, tempfile, threading, time, urllib.request
 
 BLOCKED = ("jax", "jaxlib", "flax", "msgpack", "d3roma_tpu", "cv2", "PIL", "yaml", "matplotlib",
-           "pyrealsense2", "rospy", "cv_bridge")
+           "pyrealsense2", "rospy", "cv_bridge", "safetensors", "transformers", "diffusers")
 
 class Blocker:
     def find_spec(self, name, path=None, target=None):
@@ -427,3 +432,82 @@ def test_demo_and_serve_run_without_jax_opencv_or_hardware_packages():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "SERVE OK" in proc.stdout and "server stopped" in proc.stdout
+
+
+_IMPORT_CHILD = r"""
+import runpy, sys
+
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "d3roma_tpu", "safetensors",
+           "transformers", "diffusers", "cv2", "PIL", "yaml", "matplotlib")
+
+class Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Blocker())
+
+import torch
+
+ref, out, gold = sys.argv[1:4]
+
+def run(module, *argv):
+    sys.argv = [module] + list(argv)
+    try:
+        runpy.run_module(module, run_name="__main__")
+    except SystemExit as e:
+        return e.code
+    return 0
+
+assert run("d3roma_tpu_torch.import_reference", ref, out, "--cond-channels", "rgb+raw",
+           "--device", "cpu") == 0
+for flag in ("--golden-dump", "--golden-compare"):
+    assert run("d3roma_tpu_torch.parity_check", "--pipeline-dir", out, flag, gold,
+               "--golden-size", "32x64", "--device", "cpu") == 0
+assert run("d3roma_tpu_torch.parity_check", "--ref-dir", ref + "/absent") == 0
+if not torch.cuda.is_available():
+    try:
+        run("d3roma_tpu_torch.import_reference", ref, out + "2")
+    except RuntimeError as e:
+        assert "CUDA" in str(e)
+    else:
+        raise AssertionError("import_reference ran without CUDA and without --device cpu")
+assert not any(m.split(".")[0] in BLOCKED for m in sys.modules), sorted(
+    m for m in sys.modules if m.split(".")[0] in BLOCKED)
+print("IMPORT OK")
+"""
+
+
+def test_reference_import_runs_without_jax_or_the_hub_packages(tmp_path):
+    """`python -m d3roma_tpu_torch.import_reference` on a synthetic diffusers
+    directory (a safetensors text tower, .bin UNet and VAE) and
+    `python -m d3roma_tpu_torch.parity_check`'s golden dump and compare on
+    its output, with jax, the JAX package, safetensors, transformers and
+    diffusers unimportable; parity_check without a reference directory
+    skips with exit 0; without a GPU and without --device the importer
+    raises."""
+    import json
+
+    import torch
+    from safetensors.torch import save_file
+
+    from test_import_e2e import _write_cond_unet, _write_text_encoder, _write_vae
+
+    ref = tmp_path / "ref"
+    _write_cond_unet(str(ref / "unet"))
+    _write_vae(str(ref / "vae"))
+    _write_text_encoder(str(ref / "text_encoder"))
+    te = ref / "text_encoder" / "pytorch_model.bin"
+    save_file(torch.load(te, weights_only=True), str(ref / "text_encoder" / "model.safetensors"))
+    te.unlink()
+    (ref / "scheduler").mkdir()
+    (ref / "scheduler" / "scheduler_config.json").write_text(json.dumps(
+        {"_class_name": "MyDDIMScheduler", "prediction_type": "v_prediction"}))
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_CHILD, str(ref), str(tmp_path / "out"),
+                           str(tmp_path / "golden")], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "IMPORT OK" in proc.stdout and "GOLDEN COMPARE: all stages match" in proc.stdout
+    assert "PARITY SKIP" in proc.stdout

@@ -15,6 +15,9 @@ noise:
   rounds) within the same tolerance, on SSI least squares, and the server's
   warm frame (black, a constant 1 m) through both packages under SSI:
   finite, and equal within the same tolerance;
+- two intermediate images under SSI RANSAC (`safe_ssi`), the port's subsets
+  the JAX key's: the depth within the same tolerance and the logged metrics
+  within METRIC_RTOL (means over the frame's pixels);
 - a batch of 3 distinct frames equal to each frame run alone on its own
   slice of the same noise (no mixing across frames), within
   BATCH_VS_SINGLE_RTOL x the depth's max;
@@ -31,6 +34,7 @@ noise:
 
 import io
 import json
+import logging
 import threading
 import time
 import urllib.error
@@ -52,8 +56,10 @@ from d3roma_tpu.ops import ScheduleConfig as JaxScheduleConfig
 from d3roma_tpu.pipelines import GuidedLatentDiffusionPipeline as JaxPipeline
 from d3roma_tpu.pipelines import SamplerSpec as JaxSamplerSpec
 from d3roma_tpu.utils.camera import Realsense as JaxRealsense
+import d3roma_tpu_torch.inference as port_inference
 from d3roma_tpu_torch.inference import D3RoMa
 from d3roma_tpu_torch.models import AutoencoderKL, UNet2DCondition
+from d3roma_tpu_torch.ops.normalizer import Normalizer
 from d3roma_tpu_torch.streaming import InferenceHTTPServer
 from d3roma_tpu_torch.utils.camera import Realsense
 from torch_port_utils import TINY_UNET, TINY_VAE, jax_noise_schedule, randn, randomize_, \
@@ -63,6 +69,7 @@ H, W = 32, 64
 FRAME_HW = (36, 64)
 STEPS = 2
 DEPTH_RTOL = 1e-4
+METRIC_RTOL = 1e-4
 BATCH_VS_SINGLE_RTOL = 1e-5
 COMMON = [f"task.image_size=[{H},{W}]", f"task.num_inference_timesteps={STEPS}",
           "task.num_intermediate_images=1"]
@@ -188,6 +195,33 @@ def test_two_rounds_and_the_warm_frame_under_ssi(tree):
     warm = [(np.zeros((360, 640, 3), np.uint8), np.ones((360, 640), np.float32))]
     (a,), (b,) = ours.infer_with_rgb_raw_batch(warm), ref.infer_with_rgb_raw_batch(warm)
     _close(a, b)
+
+
+def test_two_intermediates_under_safe_ssi(tree, monkeypatch, caplog):
+    """num_intermediate_images=2 with SSI RANSAC: the port denormalizes
+    each frame's images as the JAX post_fn does, with the RANSAC subsets of
+    the JAX key (fold_in(call key, 1), then fold_in(., i) an iteration)."""
+    extra = ["task.num_intermediate_images=2", "task.ssi=true", "task.safe_ssi=true"]
+    ref, ours = _pair(tree, "rgb+raw", extra, calls=1)
+    assert ours.config.num_intermediate_images == 2 and ours.normer.safe_ssi
+    rkey = jax.random.fold_in(_jax_call_keys(1)[0], 1)
+    n = H * W
+    subsets = torch.from_numpy(np.stack([np.asarray(jax.random.permutation(
+        jax.random.fold_in(rkey, i), n)[:int(0.1 * n)]) for i in range(10)]))
+
+    def denormalize(config, pred, raw, mask, generator=None):
+        return Normalizer.from_config(config).denormalize(pred, raw, mask, subsets=subsets)
+
+    monkeypatch.setattr(port_inference, "denormalize", denormalize)
+    caplog.set_level(logging.INFO)
+    rgb, raw = _frame(6)
+    _close(ours.infer_with_rgb_raw(rgb, raw), ref.infer_with_rgb_raw(rgb, raw))
+    logged = {r.name.split(".")[0]: r.args for r in caplog.records
+              if r.msg == "metrics vs raw: %s"}
+    theirs, mine = logged["d3roma_tpu"], logged["d3roma_tpu_torch"]
+    for group in ("disp", "depth"):
+        for k, v in theirs[group].items():
+            assert mine[group][k] == pytest.approx(v, rel=METRIC_RTOL, abs=1e-6), (group, k)
 
 
 class _Fixed:

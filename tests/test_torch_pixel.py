@@ -209,8 +209,9 @@ def test_pixel_pipeline_imputation_guidance(models, conds):
 
 
 def test_pixel_pipeline_generator_and_no_fallback(models, conds):
-    """Noise from a torch.Generator is reproducible; add_noise_rgb is not
-    ported; without CUDA the pipeline refuses to be made on the default
+    """Noise from a torch.Generator is reproducible, add_noise_rgb's rgb
+    noise too (refused before the port had it); without a noise source DDPM
+    raises; without CUDA the pipeline refuses to be made on the default
     device."""
     _, port = _pipes(models, "my_ddpm", PIXEL_SCHEDULE, 0.0)
     rgb, raw, _ = conds
@@ -220,8 +221,9 @@ def test_pixel_pipeline_generator_and_no_fallback(models, conds):
     a = port(generator=torch.Generator().manual_seed(0), **kw)
     b = port(generator=torch.Generator().manual_seed(0), **kw)
     assert torch.equal(a.images, b.images) and torch.isfinite(a.images).all()
-    with pytest.raises(NotImplementedError):
-        port(generator=torch.Generator().manual_seed(0), add_noise_rgb=True, **kw)
+    c = port(generator=torch.Generator().manual_seed(0), add_noise_rgb=True, **kw)
+    d = port(generator=torch.Generator().manual_seed(0), add_noise_rgb=True, **kw)
+    assert torch.equal(c.images, d.images) and not torch.equal(c.images, a.images)
     with pytest.raises(ValueError):  # DDPM without a noise source
         port(**kw)
     if not torch.cuda.is_available():

@@ -234,10 +234,13 @@ def test_latent_directories_both_ways(latent_case, tmp_path):
                latents=torch.from_numpy(x_init), step_noise=[torch.from_numpy(n) for n in noises],
                **kw).images.numpy()
     np.testing.assert_allclose(got, ref, atol=TOL * np.abs(ref).max(), rtol=0)
-    # the saved guidance is carried, not run: asking for it still raises
-    with pytest.raises(NotImplementedError):
+    # the saved guidance is carried and runs where a call passes raw_depth:
+    # with this directory's my_ddpm sampler it is refused (in-step guidance
+    # takes the deterministic samplers only, as the JAX pipeline asserts)
+    with pytest.raises(ValueError, match="deterministic samplers"):
         port(rgb_images=torch.from_numpy(rgb), sim_disp=torch.from_numpy(raw),
-             raw_depth=torch.from_numpy(raw), generator=torch.Generator(), **kw)
+             raw_depth=torch.from_numpy(raw), denormer=port.normalizer.denormalize,
+             generator=torch.Generator(), **kw)
 
 
 def test_wrong_pipeline_class_is_refused(latent_case, tmp_path):

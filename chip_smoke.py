@@ -16,6 +16,7 @@
     python3 chip_smoke.py --train    # device, build and the training phase only
     python3 chip_smoke.py --serve    # device, build and the serving phase only
     python3 chip_smoke.py --import   # device, build and the reference-import phase only
+    python3 chip_smoke.py --tp       # device, build and the tensor-parallel phase only
 
 Run from the repository root, on a machine with a CUDA GPU and nvcc (the
 kernels build from d3roma_tpu_torch/csrc/ at first use). Phases, each
@@ -124,7 +125,9 @@ failing the run on its own error:
     pass at 272x480) and through their plain versions (each batch's
     prediction within EVAL_PRED_REL_TOL, the metrics within
     EVAL_METRIC_REL_TOL, other noise outside EVAL_PRED_REL_TOL), eval
-    ms/frame and the loader's host ms/frame,
+    ms/frame and the loader's host ms/frame, `distributed_evaluate` data
+    parallel on two ranks (torchrun, gloo) against the entry point's metrics
+    (depth/rel, disp/epe within EVAL_METRIC_REL_TOL),
     and the golden stages (dumped through the plain versions, compared
     through the kernels);
 13. training (`train_phase`): 24 procedural HISS frames and 24 SceneFlow
@@ -168,12 +171,21 @@ failing the run on its own error:
     unguided ones, ms/request and the guided peak memory; under
     throughput, calibrated, 4 steps: guided bit-equal to unguided, the
     extra launches those of 40 decodes;
-16. the torch bench, `python -m d3roma_tpu_torch.bench`, in its own process
+16. tensor parallelism (`tp_phase`): two ranks on the card under torchrun
+    (gloo): `mha_attention_tp` and `geglu_ff_tp` at the flagship batch-1
+    shapes against their plain compositions, timed (kernel and collective
+    apart); `D3RoMa` rgb+raw at full width, batch 1, 360x640, 10 steps under
+    task.tensor_parallel=2, latency and throughput (calibrated on the
+    meshed pipeline): the launch counts (100 / 160 through the
+    compositions; 102 / 160 in int8), the depth against the tp=1 call and
+    the plain compositions', ms/request and its collectives, a rank's
+    parameter bytes (`--tp` alone also runs the eval phase's DP2 check);
+17. the torch bench, `python -m d3roma_tpu_torch.bench`, in its own process
     at batch 2 with 3 timed calls (records and scales in a temporary
     directory), at the default setting, at BENCH_CLIP_PCT=0.999 and at
     BENCH_MODEL=pixel: its JSON line must carry every key of the JAX
     bench's at that setting, value > 0;
-17. a JSON line of per-kernel numbers, then the JSON result as the last line.
+18. a JSON line of per-kernel numbers, then the JSON result as the last line.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -211,7 +223,8 @@ STEPS = 10
 def _sync():
     import torch
 
-    torch.cuda.synchronize()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -2783,6 +2796,8 @@ def eval_phase():
       the same directory; one frame's PNGs and EXRs read back bit-equal to
       the renderer's arrays; the loader's host ms per frame, from one pass
       of the eval loader (its threads, PNG and EXR decode, resize);
+    - `dp2_eval`: `distributed_evaluate` data parallel on two ranks of the
+      card (torchrun, gloo) against the entry point's metrics line below;
     - the entry point in its own process, with the temporary directory as
       its working directory: finite metrics for HISS and every artifact
       (the colourised predictions, the error map and the denoised grid, the
@@ -2892,6 +2907,8 @@ def eval_phase():
             flat = [v for grp in ("disp", "depth") for v in line["metrics"][grp].values()]
             if line["dataset"] != "HISS" or not all(np.isfinite(flat)):
                 raise AssertionError(f"eval entry point: bad metrics {line}")
+            # the same evaluation data parallel on two ranks of the card
+            summary["dp2"] = dp2_eval(tmp, repo, pipe_dir, ref=line)
             art = os.path.join(tmp, line["output_dir"])
             read = 0
             for i in range(EVAL_FRAMES // EVAL_BATCH):
@@ -4382,6 +4399,463 @@ _KERNEL_GROUPS = (
 )
 
 
+TP_RANKS = 2
+# the compositions' flagship batch-1 shapes: attention (B, N, H, D, int8), the
+# VAE's 512-wide head in int8 only; GEGLU rows x C x F at the UNet's levels
+TP_ATTENTION_SHAPES = ((1, 3600, 5, 64, False), (1, 920, 10, 64, False),
+                       (1, 3600, 5, 64, True), (1, 920, 10, 64, True),
+                       (1, 3600, 1, 512, True))
+TP_GEGLU_SHAPES = ((3600, 320, 1280), (920, 640, 2560), (240, 1280, 5120), (60, 1280, 5120))
+TP_SEED = 41
+
+
+def _tp_launches():
+    from d3roma_tpu_torch.ops.kernels import geglu_ff_tp, mha_attention_tp
+
+    return dict(_int8_launches(), attention_tp=mha_attention_tp.launches,
+                geglu_tp=geglu_ff_tp.launches)
+
+
+def _tp_zero_launches():
+    from d3roma_tpu_torch.ops.kernels import geglu_ff_tp, mha_attention_tp
+
+    _zero_launches()
+    mha_attention_tp.launches = geglu_ff_tp.launches = 0
+
+
+def _tp_time(fn, reps: int = 5, warmup: int = 2) -> float:
+    """time_ms(fn) with the ranks in step: each starts after the other has
+    finished its work before (a collective would otherwise wait for it)."""
+    import torch.distributed as dist
+
+    _sync()
+    dist.barrier()
+    return time_ms(fn, reps, warmup)
+
+
+def _tp_attention_case(mesh, b, n, h, d, int8, gen):
+    """mha_attention_tp on this rank against its plain composition; the
+    composition's ms, its kernel's (this rank's q rows against the whole
+    K/V) and its gather's, the plain composition's, SDPA's on the rank's
+    rows, and the bound of the rank's share of the work."""
+    import torch
+    import torch.nn.functional as F
+
+    from d3roma_tpu_torch.ops.kernels import (
+        mha_attention, mha_attention_int8, mha_attention_tp, mha_attention_tp_plain)
+    from d3roma_tpu_torch.parallel import MODEL_AXIS, all_gather_cat
+
+    q, k, v = (torch.randn((b, n, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    quant = "int8" if int8 else None
+    out = mha_attention_tp(q, k, v, mesh, quant=quant)
+    ref = mha_attention_tp_plain(q, k, v, mesh, quant=quant)
+    err = (out.float() - ref.float()).abs().max().item()
+    rows = n // mesh.axis_sizes[MODEL_AXIS]
+    i = mesh.coord(MODEL_AXIS)
+    ql = q[:, i * rows:(i + 1) * rows]
+    kernel = mha_attention_int8 if int8 else mha_attention
+    local = kernel(ql, k, v)
+    row = dict(shape=f"B{b} N{n} H{h} D{d} {'int8' if int8 else 'bf16'}, {rows} q rows a rank",
+               max_abs_err=err,
+               ms=_tp_time(lambda: mha_attention_tp(q, k, v, mesh, quant=quant)),
+               kernel_ms=_tp_time(lambda: kernel(ql, k, v)),
+               collective_ms=_tp_time(lambda: all_gather_cat(local, mesh, MODEL_AXIS, 1)),
+               plain_ms=_tp_time(lambda: mha_attention_tp_plain(q, k, v, mesh, quant=quant),
+                                reps=2, warmup=1))
+    qh, kh, vh = (t.transpose(1, 2) for t in (ql, k, v))
+    row["library_ms"] = _tp_time(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+    row["library_call"] = "SDPA bf16 on the rank's q rows"
+    nbytes = (ql.numel() + k.numel() + v.numel() + local.numel()) * 2
+    row["bound_ms"], row["bound_by"] = bound(4.0 * b * h * rows * n * d, nbytes,
+                                             H100_INT8_OPS if int8 else H100_BF16_FLOPS,
+                                             exps=float(b * h * rows * n))
+    return _check_row("mha_attention_tp", row, err, REL_TOL * ref.float().abs().max().item())
+
+
+def _tp_geglu_case(mesh, rows, c, f, int8, gen):
+    """geglu_ff_tp on this rank's F chunk against its plain composition
+    (the int8 one bit-equal: the kernel is, and the sum is the same); the
+    composition's ms, its kernel's on the chunk and its all-reduce's, the
+    plain composition's, two bf16 linears and the gelu on the chunk, and
+    the bound of the rank's share."""
+    import torch
+    import torch.nn.functional as F
+
+    from d3roma_tpu_torch.models.layers import FeedForward
+    from d3roma_tpu_torch.ops.kernels import (
+        geglu_ff, geglu_ff_int8, geglu_ff_tp, geglu_ff_tp_plain)
+    from d3roma_tpu_torch.parallel import MODEL_AXIS, all_reduce
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    tp, i = mesh.axis_sizes[MODEL_AXIS], mesh.coord(MODEL_AXIS)
+    x = randn(1, rows, c)
+    w1h, w1g, w2 = randn(f, c, scale=c ** -0.5), randn(f, c, scale=c ** -0.5), \
+        randn(c, f, scale=f ** -0.5)
+    b1h, b1g, b2 = randn(f, scale=0.1), randn(f, scale=0.1), randn(c, scale=0.1)
+    fl = f // tp
+    part = (w1h[i * fl:(i + 1) * fl], w1g[i * fl:(i + 1) * fl],
+            w2[:, i * fl:(i + 1) * fl].contiguous(), b1h[i * fl:(i + 1) * fl],
+            b1g[i * fl:(i + 1) * fl], b2)
+    if int8:
+        ops = FeedForward._make_int8_operands(*part)
+        scale = x.float().abs().max().item() / 127.0
+        chunk, args = ops[:8], (ops[8], mesh, scale)
+        zeros = torch.zeros(c, dtype=torch.float32, device="cuda")
+
+        def kernel():
+            return geglu_ff_int8(x, *chunk, zeros, scale)
+    else:
+        ops = FeedForward._make_operands(*part)
+        chunk, args = ops[:5], (ops[5], mesh)
+
+        def kernel():
+            return geglu_ff(x, *chunk)
+    out = geglu_ff_tp(x, chunk, *args)
+    ref = geglu_ff_tp_plain(x, chunk, *args)
+    err = (out.float() - ref.float()).abs().max().item()
+    partial = kernel()
+    row = dict(shape=f"rows {rows} C{c} F{f} {'int8' if int8 else 'bf16'}, F {fl} a rank",
+               max_abs_err=err, ms=_tp_time(lambda: geglu_ff_tp(x, chunk, *args)),
+               kernel_ms=_tp_time(kernel),
+               collective_ms=_tp_time(lambda: all_reduce(partial, mesh, MODEL_AXIS)),
+               plain_ms=_tp_time(lambda: geglu_ff_tp_plain(x, chunk, *args), reps=2, warmup=1))
+    w1h_r, w1g_r, w2_r, b1h_r, b1g_r = part[:5]
+    row["library_ms"] = _tp_time(lambda: F.linear(
+        F.linear(x, w1h_r, b1h_r) * F.gelu(F.linear(x, w1g_r, b1g_r), approximate="tanh"),
+        w2_r))
+    row["library_call"] = "2 bf16 linears + gelu on the rank's chunk"
+    wbytes = 1 if int8 else 2
+    nbytes = 2 * rows * c * 2 + 3 * c * fl * wbytes
+    row["bound_ms"], row["bound_by"] = bound(6.0 * rows * c * fl, nbytes,
+                                             H100_INT8_OPS if int8 else H100_BF16_FLOPS)
+    return _check_row("geglu_ff_tp", row, err,
+                      0.0 if int8 else REL_TOL * ref.float().abs().max().item())
+
+
+def _tp_depth_check(label, rel, tol):
+    print(f"{label}: max |a - b| / max |b| of the disparity {rel:.3e} (tol {tol:.3e})",
+          flush=True)
+    if not rel <= tol:
+        raise AssertionError(f"{label}: {rel} > {tol}")
+    return rel
+
+
+def _tp_plain(fn):
+    """fn() with the layers' compositions replaced by their plain versions."""
+    from d3roma_tpu_torch.models import layers
+    from d3roma_tpu_torch.ops import kernels
+
+    saved = layers.mha_attention_tp, layers.geglu_ff_tp
+    layers.mha_attention_tp = kernels.mha_attention_tp_plain
+    layers.geglu_ff_tp = kernels.geglu_ff_tp_plain
+    try:
+        return fn()
+    finally:
+        layers.mha_attention_tp, layers.geglu_ff_tp = saved
+
+
+def tp_rank_main(spec_path: str) -> int:
+    """One rank of the tensor-parallel phase, as `torchrun --nproc-per-node
+    2 chip_smoke.py --tp-rank SPEC` starts it: both ranks on the one card
+    (gloo). Writes its results to SPEC's directory as rank<r>.json, and a
+    failure's traceback to stdout. SPEC (JSON): max_sm_clock_mhz; for a
+    rehearsal on the CPU also pipe_dir (a small pipeline to load in place of
+    the full-width one `_tp_pipeline` builds), device "cpu", compositions
+    false (the flagship shapes' cases skipped) and expect, the launch counts
+    of a call by mode (else the SD2.1 UNet's)."""
+    try:
+        return _tp_rank(spec_path)
+    except BaseException:
+        import traceback
+
+        print(f"tp rank failed:\n{traceback.format_exc()}", flush=True)
+        raise
+
+
+def _tp_pipeline(cfg, device):
+    """The phase's full-width rgb+raw pipeline: SD2.1 geometry, random weights
+    from seed 0 (the same on every rank), in bf16, the preset's sampler and
+    normalizer."""
+    import torch
+
+    from d3roma_tpu_torch.guidance import FlowGuidance
+    from d3roma_tpu_torch.models import (
+        AutoencoderKL, UNet2DCondition, init_random_, widened_in_channels)
+    from d3roma_tpu_torch.ops.normalizer import Normalizer
+    from d3roma_tpu_torch.pipelines import GuidedLatentDiffusionPipeline, create_sampler_spec
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    return GuidedLatentDiffusionPipeline(
+        unet=init_random_(UNet2DCondition(in_channels=widened_in_channels("rgb+raw"),
+                                          out_channels=4, device=device), gen),
+        vae=init_random_(AutoencoderKL(device=device), gen),
+        text_embed=torch.zeros(1, 2, 1024), spec=create_sampler_spec(cfg, train=False),
+        normalizer=Normalizer.from_config(cfg), guidance=FlowGuidance(flow_guidance_weight=0.0),
+        device=device).half_precision()
+
+
+def _tp_rank(spec_path: str) -> int:
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from d3roma_tpu_torch.config import compose
+    from d3roma_tpu_torch.inference import D3RoMa
+    from d3roma_tpu_torch.parallel import (
+        MODEL_AXIS, all_gather_cat, broadcast_object, init_distributed, make_mesh_dp_tp,
+        param_bytes)
+    from d3roma_tpu_torch.parallel.mesh import COLLECTIVES
+    from d3roma_tpu_torch.pipelines import GuidedLatentDiffusionPipeline
+    from d3roma_tpu_torch.utils.camera import Realsense
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    device = init_distributed(spec.get("device"))
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = {"rank": rank, "world": world, "device": str(device), "backend": dist.get_backend()}
+    print(f"tp rank {rank} of {world} on {device}, backend {dist.get_backend()}", flush=True)
+
+    # (1) both compositions at the flagship batch-1 shapes
+    mesh = make_mesh_dp_tp(1, world)
+    if spec.get("compositions", True):
+        gen = torch.Generator(device="cuda").manual_seed(TP_SEED)
+        _CARD["max_sm_clock_mhz"] = spec["max_sm_clock_mhz"]
+        out["attention"] = [_tp_attention_case(mesh, *s, gen) for s in TP_ATTENTION_SHAPES]
+        out["geglu"] = [_tp_geglu_case(mesh, r, c, f, i8, gen) for i8 in (False, True)
+                        for r, c, f in TP_GEGLU_SHAPES]
+
+    # (2) D3RoMa rgb+raw at full width, batch 1, 360x640, under tensor_parallel
+    cfg = compose([f"task={SERVE_PRESET}"]).task
+    steps = cfg.num_inference_timesteps
+    rgb, raw = _serve_frame(30, 1.5)
+    base = [f"task={SERVE_PRESET}", "task.image_size=[360,640]",
+            "task.num_intermediate_images=1"]
+    cam = Realsense.default_real("fxm")  # D3RoMa sets each its own camera's resolution
+    refs = {}
+
+    def call(d, seed):
+        d._generator.manual_seed(seed)
+        return d.infer_with_rgb_raw(rgb, raw)
+
+    def same_on_ranks(label, depth):
+        t = torch.from_numpy(np.ascontiguousarray(depth))[None]
+        both = all_gather_cat(t, mesh, MODEL_AXIS, 0)
+        if not torch.equal(both[0], both[-1]):
+            raise AssertionError(f"{label}: the ranks' depths differ")
+
+    # one pipeline: latency is fast_inference("latency"), throughput the same
+    # with static int8 (what fast_inference("throughput") sets), calibrated
+    t0 = time.perf_counter()
+    pipe = (GuidedLatentDiffusionPipeline.from_pretrained(spec["pipe_dir"], device=device)
+            if spec.get("pipe_dir") else _tp_pipeline(cfg, device)).fast_inference("latency")
+    load_s = time.perf_counter() - t0
+    disp = torch.from_numpy(cam.fxb_depth / raw).to(device)[None, ..., None]
+    calib = [dict(rgb_images=(torch.from_numpy(rgb).to(device).float()[None] / 255.0 - 0.5)
+                  * 2.0, sim_disp=pipe.normalizer.normalize(disp)[0])]
+    modes = {"latency": False, "throughput": "static"}
+
+    def set_mode(quant):
+        pipe.set_quant(quant)
+        if quant:
+            pipe.calibrate(torch.Generator(device=device).manual_seed(5), calib,
+                           cond_channels="rgb+raw", num_inference_steps=steps)
+
+    ov = base + ["task.fast_inference=latency"]
+    if rank == 0:  # the tp=1 references on the same weights, inputs and noise
+        d1 = D3RoMa(ov, Realsense.default_real("fxm"), variant="rgb+raw", pipeline=pipe,
+                    device=device)
+        for mode, quant in modes.items():
+            set_mode(quant)
+            refs[mode] = call(d1, TP_SEED)
+            refs[mode + "_other"] = call(d1, TP_SEED + 1)
+        del d1
+    dist.barrier()
+    t0 = time.perf_counter()
+    d2 = D3RoMa(ov + [f"task.tensor_parallel={world}"], Realsense.default_real("fxm"),
+                variant="rgb+raw", pipeline=pipe, device=device)
+    shard_s = time.perf_counter() - t0
+    fxb = d2.camera.fxb_depth
+    out["param_bytes"] = param_bytes(pipe.unet) + param_bytes(pipe.vae)
+    out["param_bytes_whole"] = param_bytes(pipe.unet, whole=True) + param_bytes(pipe.vae,
+                                                                                whole=True)
+    print(f"tp: rank {rank} parameters {out['param_bytes'] / 2**20:.1f} MiB of "
+          f"{out['param_bytes_whole'] / 2**20:.1f} MiB replicated; built {load_s:.1f}s, shard "
+          f"{shard_s:.1f}s", flush=True)
+    for mode, quant in modes.items():
+        t0 = time.perf_counter()
+        set_mode(quant)  # the throughput tables calibrated on the meshed pipeline
+        calib_s = time.perf_counter() - t0
+        _tp_zero_launches()
+        before = dict(COLLECTIVES)
+        t0 = time.perf_counter()
+        fast = call(d2, TP_SEED)  # timed: the mode's first call (its weight caches built in it)
+        _sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        coll = {k: COLLECTIVES[k] - before[k] for k in COLLECTIVES}
+        counts = {k: v for k, v in _tp_launches().items() if v}
+        expected = spec.get("expect", {}).get(mode) or (
+            {"attention": 10 * steps, "geglu": 16 * steps, "attention_tp": 10 * steps,
+             "geglu_tp": 16 * steps} if mode == "latency" else
+            {"attention_int8": 10 * steps + 2, "geglu_int8": 16 * steps,
+             "attention_tp": 10 * steps + 2, "geglu_tp": 16 * steps})
+        print(f"tp {mode}: rank {rank} launches in one call {counts} (expected {expected})",
+              flush=True)
+        if any(counts.get(k, 0) != v for k, v in expected.items()):
+            raise AssertionError(f"tp {mode}: launches {counts}, expected {expected}")
+        same_on_ranks(f"tp {mode}", fast)
+        plain = _tp_plain(lambda: call(d2, TP_SEED))
+        res = dict(launches=counts, ms_per_request=ms, calibrate_s=calib_s,
+                   collectives=dict(calls=coll["calls"], mib=coll["bytes"] / 2**20,
+                                    ms=coll["seconds"] * 1e3),
+                   kernels_vs_plain=_depth_rel([fast], [plain], fxb))
+        if rank == 0:
+            if mode == "latency":
+                tol = SERVE_PRED_REL_TOL
+            else:  # the int8 noise: the tp=1 call in int8 against the same call in bf16
+                res["int8_noise"] = _depth_rel([refs["throughput"]], [refs["latency"]], fxb)
+                tol = 2 * res["int8_noise"]
+            res["tol"] = tol
+            res["vs_tp1"] = _tp_depth_check(f"tp {mode}: TP{world} against tp=1",
+                                            _depth_rel([fast], [refs[mode]], fxb), tol)
+            res["control"] = _depth_rel([refs[mode + "_other"]], [refs[mode]], fxb)
+            print(f"tp {mode}: tp=1 on other noise {res['control']:.3e} (must exceed the tol)",
+                  flush=True)
+            if not res["control"] > tol:
+                raise AssertionError(f"tp {mode}: other noise within the tolerance")
+        tol = broadcast_object(res.get("tol"), mesh)
+        _tp_depth_check(f"tp {mode}: rank {rank} kernels against the plain compositions",
+                        res["kernels_vs_plain"], tol)
+        print(f"tp {mode}: rank {rank} {ms:.2f} ms/request, of it {res['collectives']['ms']:.1f}"
+              f" ms in {coll['calls']} collectives of {res['collectives']['mib']:.1f} MiB "
+              f"(this rank's); calibrate {calib_s:.1f}s", flush=True)
+        out[mode] = res
+    with open(os.path.join(os.path.dirname(spec_path), f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def dp2_eval(tmp, repo, pipe_dir, ref=None):
+    """`python -m d3roma_tpu_torch.distributed_evaluate` data parallel on two
+    ranks of the card (torchrun, gloo) against the one-process `python -m
+    d3roma_tpu_torch.evaluate` (its JSON line `ref`, or run here at the same
+    time) on the same 4 procedural HISS frames under `tmp`/datasets and seed:
+    depth/rel and disp/epe within EVAL_METRIC_REL_TOL."""
+    args = [f"task={EVAL_PRESET}", f"task.resume_pretrained={pipe_dir}",
+            "task.eval_dataset=[HISS]", "task.fast_inference=latency",
+            f"task.eval_batch_size={EVAL_BATCH}"]
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    procs = {"distributed_evaluate": subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+         "-m", "d3roma_tpu_torch.distributed_evaluate"] + args, cwd=tmp, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)}
+    if ref is None:
+        procs["evaluate"] = subprocess.Popen(
+            [sys.executable, "-m", "d3roma_tpu_torch.evaluate"] + args, cwd=tmp, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    outs = {}
+    for name, p in procs.items():
+        try:
+            o, e = p.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            o, e = p.communicate()
+        if p.returncode != 0:
+            raise AssertionError(f"dp2 eval: {name} exited {p.returncode}: {e[-3000:]}")
+        lines = [json.loads(ln) for ln in o.splitlines() if ln.startswith('{"dataset"')]
+        if len(lines) != 1:
+            raise AssertionError(f"dp2 eval: {name} printed {len(lines)} metric lines: "
+                                 f"{o[-2000:]}")
+        outs[name] = lines[0]
+    ref = (ref or outs["evaluate"])["metrics"]
+    got = outs["distributed_evaluate"]["metrics"]
+    rels = {f"{g}/{k}": abs(got[g][k] - ref[g][k]) / max(abs(ref[g][k]), 1e-12)
+            for g, k in (("depth", "rel"), ("disp", "epe"))}
+    print(f"dp2 eval: distributed_evaluate ({outs['distributed_evaluate']['mesh']}) against one "
+          f"process in {time.perf_counter() - t0:.1f}s: {rels} (tol {EVAL_METRIC_REL_TOL:.3e}); "
+          f"DP2 {got}; one process {ref}", flush=True)
+    if not all(r <= EVAL_METRIC_REL_TOL for r in rels.values()):
+        raise AssertionError(f"dp2 eval: DP2 metrics {rels} over {EVAL_METRIC_REL_TOL}")
+    return dict(rel=rels, dp2=got, one_process=ref, wall_s=time.perf_counter() - t0)
+
+
+def tp_phase(dp2: bool = True):
+    """Tensor parallelism on the card, hermetic, in a temporary directory:
+
+    - `torchrun --nproc-per-node 2 chip_smoke.py --tp-rank`: two ranks on
+      the one card, gloo (NCCL refuses two ranks on one device). Each rank
+      (1) runs `mha_attention_tp` (3600 x H5 and 920 x H10 at D64, bf16 and
+      int8; the VAE's 3600 x H1 x D512, int8) and `geglu_ff_tp`
+      (3600/320/1280, 920/640/2560, 240/1280/5120, 60/1280/5120, bf16 and
+      static int8) at batch 1 against their plain compositions, timed (the
+      composition, its kernel, its collective, the plain composition, the
+      library call on the rank's share); (2) builds the full-width rgb+raw
+      pipeline (`_tp_pipeline`, the same seeded weights on both ranks) and
+      serves `D3RoMa` at batch 1, 360x640, 10 DDIM steps under
+      task.tensor_parallel=2, latency and throughput (calibrated on the
+      meshed pipeline): the launch counts of one call (100 attention and
+      160 GEGLU, each through its composition; 102 int8 attention and 160
+      int8 GEGLU), the depth the same on both ranks, within the serve
+      phase's tolerances of the tp=1 call on rank 0 (the same weights,
+      inputs and noise; bf16 5e-2 of the disparity's max, int8 twice the
+      int8 noise) and of the call through the plain compositions, ms/request
+      (the mode's first call, which also builds its weight caches), its
+      collectives' count, bytes and host ms, and the parameter bytes a rank
+      holds;
+    - (3) with `dp2`, the pipeline saved and `dp2_eval` on 4 procedural HISS
+      frames (the whole pass runs it in the eval phase, on that phase's
+      pipeline, frames and one-process line).
+
+    Two ranks share one card: the times show correctness and the cost of
+    passing through the host, not tensor parallelism's latency on two
+    cards. Returns a summary dict."""
+    import socket
+    import tempfile
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = os.path.join(tmp, "spec.json")
+        with open(spec, "w") as f:
+            json.dump({"max_sm_clock_mhz": _CARD["max_sm_clock_mhz"]}, f)
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(TP_RANKS),
+             "--master-addr", "localhost", "--master-port", str(port),
+             os.path.abspath(__file__), "--tp-rank", spec],
+            cwd=tmp, capture_output=True, text=True, timeout=900,
+            env=dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", "")))
+        for ln in proc.stdout.splitlines():
+            print(f"  {ln}", flush=True)
+        if proc.returncode != 0:
+            print(proc.stderr[-20000:], flush=True)
+            raise AssertionError(f"tp: the ranks exited {proc.returncode}")
+        ranks = []
+        for r in range(TP_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        print(f"tp: {TP_RANKS} ranks in {time.perf_counter() - t0:.1f}s", flush=True)
+        if not dp2:
+            return dict(ranks=ranks)
+        import torch
+
+        from d3roma_tpu_torch.config import compose
+        from d3roma_tpu_torch.synthetic import generate_dataset
+
+        pipe_dir = os.path.join(tmp, "pipe")
+        _tp_pipeline(compose([f"task={SERVE_PRESET}"]).task, "cuda").save_pretrained(pipe_dir)
+        torch.cuda.empty_cache()
+        generate_dataset(os.path.join(tmp, "datasets", "HISS"), EVAL_FRAMES, split="test")
+        return dict(ranks=ranks, eval=dp2_eval(tmp, repo, pipe_dir))
+
+
 def _group(kernel_name: str) -> str:
     low = kernel_name.lower()
     for group, keys in _KERNEL_GROUPS:
@@ -4453,9 +4927,16 @@ def _phase(fn, *args):
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--tp-rank"]:  # one rank of tp_phase, under torchrun
+        return tp_rank_main(sys.argv[2])
     pin_one_card()
     card = device_phase()
     build_phase()
+    if sys.argv[1:] == ["--tp"]:
+        print(json.dumps({"tp": tp_phase()}), flush=True)
+        print(card, flush=True)
+        print("tp phase passed", flush=True)
+        return 0
     if sys.argv[1:] == ["--geglu"]:
         import torch
 
@@ -4563,9 +5044,11 @@ def main() -> int:
     serving = _phase(serve_phase)  # the demo, probe and server processes too
     torch.cuda.empty_cache()
     imported = _phase(import_phase)  # and the importer's and parity_check's
+    tensor_parallel = _phase(tp_phase, False)  # and its two ranks' (DP2: the eval phase)
     bench_lines = _phase(bench_phase)
     print(f"phase seconds: {json.dumps(PHASE_SECONDS)}", flush=True)
     import_bf16 = imported["launches_latency_guided"]
+    tp_rank0 = tensor_parallel["ranks"][0]
     import_int8 = imported["launches_throughput_guided"]
 
     kernels = [
@@ -4639,6 +5122,18 @@ def main() -> int:
         _kernel_entry("conv3x3_halo (halo epilogue)", "d3roma_tpu_torch/csrc/conv2d_int8.cu",
                       "d3roma_tpu/ops/pallas/conv2d_halo.py:92", new_rows["conv3x3_halo"],
                       routes["halo"][0]["conv2d_int8_halo"]),
+        # the tensor-parallel compositions of rows 1/1b and 2/2b: rank 0's
+        # numbers (two ranks on the one card); launches a latency call
+        _kernel_entry("mha_attention_tp", "d3roma_tpu_torch/ops/kernels/attention.py",
+                      "d3roma_tpu/ops/pallas/attention.py:220", tp_rank0["attention"],
+                      tp_rank0["latency"]["launches"]["attention_tp"],
+                      f"a rank's latency call at tensor_parallel=2; "
+                      f"{tp_rank0['throughput']['launches']['attention_tp']} a throughput call"),
+        _kernel_entry("geglu_ff_tp", "d3roma_tpu_torch/ops/kernels/geglu.py",
+                      "d3roma_tpu/ops/pallas/geglu.py:267", tp_rank0["geglu"],
+                      tp_rank0["latency"]["launches"]["geglu_tp"],
+                      f"a rank's latency call at tensor_parallel=2; "
+                      f"{tp_rank0['throughput']['launches']['geglu_tp']} a throughput call"),
     ]
     # the card again, so that the end of a long log still names it
     print(card, flush=True)
@@ -4658,6 +5153,7 @@ def main() -> int:
     print(json.dumps({"train": training}), flush=True)
     print(json.dumps({"serve": serving}), flush=True)
     print(json.dumps({"import": imported}), flush=True)
+    print(json.dumps({"tp": tensor_parallel}), flush=True)
     print(json.dumps({"torch_bench": bench_lines}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

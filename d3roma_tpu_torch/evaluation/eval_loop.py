@@ -263,6 +263,7 @@ def evaluate_dataset(
     max_batches: Optional[int] = None,
     write_artifacts: bool = False,
     dataset_name: Optional[str] = None,
+    gather_rows=None,
 ):
     """Loop a val loader; returns (metrics dict, RunningAverager).
 
@@ -272,6 +273,10 @@ def evaluate_dataset(
     handles coarse_to_fine quadrant tiling — metrics there are computed on
     the REASSEMBLED full-resolution prediction, not averaged per quadrant.
     Batch i draws its seed from `generator` (module docstring).
+    `gather_rows(a)`, given by a data-parallel run, returns the rows of
+    every data rank's array `a` in rank order: each batch's per-sample
+    metrics and `sample_valid` go through it, so every rank averages the
+    whole batch's real samples, in the order a one-process run takes them.
 
     Reference: evaluate.py:340-427 and distributed_evaluate.py:109-174.
     """
@@ -311,9 +316,13 @@ def evaluate_dataset(
         sv = batch.get("sample_valid")
         sv = _to_host(sv) if sv is not None else None
 
+        if gather_rows is not None and sv is not None:
+            sv = gather_rows(sv)
         for w in weights:
             pred, metrics, unc, err, out = run_one(pipes[w], batch, seed)
             md, me = metrics
+            if gather_rows is not None:
+                md, me = gather_rows(md), gather_rows(me)
             for b in range(md.shape[0]):
                 if sv is not None and sv[b] == 0.0:
                     continue

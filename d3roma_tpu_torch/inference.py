@@ -34,8 +34,17 @@ torch generator draws other noise.) The guidance's denormalization seeds
 its own RANSAC generator with 0 at each call, as the JAX one takes
 PRNGKey(0).
 
-Not ported, and refused: tensor parallelism (`task.tensor_parallel > 1`,
-`parallel/`) and the executable cache (`task.aot_cache`,
+Tensor parallelism (`task.tensor_parallel=T`): run under `torchrun
+--nproc-per-node N` (T divides N), every rank making the same calls. Each
+rank joins the process group (`parallel/mesh.py::init_distributed`: NCCL
+when each rank has a card, gloo when ranks share one), and the pipeline,
+loaded or passed, is sharded over a (N / T, T) mesh
+(`parallel/tensor.py::shard_pipeline_tp`). The inputs, the noise (each
+rank's generator has the same seed) and the outputs are replicated; every
+rank returns the depth. Calibrate static int8 after the sharding (the
+kernel gates under the mesh decide the scale call order).
+
+Not ported, and refused: the executable cache (`task.aot_cache`,
 `serving/aot.py`): ROADMAP.md §1 item 10.
 """
 
@@ -54,6 +63,7 @@ from d3roma_tpu_torch.device import DeviceLike, resolve_device
 from d3roma_tpu_torch.evaluation.eval_loop import denormalize
 from d3roma_tpu_torch.ops.metrics import compute_errors, metrics_to_dict
 from d3roma_tpu_torch.ops.normalizer import Normalizer
+from d3roma_tpu_torch.parallel import init_distributed, shard_pipeline_tp
 from d3roma_tpu_torch.pipelines import (
     GuidedDiffusionPipeline,
     GuidedLatentDiffusionPipeline,
@@ -80,17 +90,23 @@ class D3RoMa:
     def __init__(self, overrides: List[str] = (), camera: Optional[Realsense] = None,
                  variant: str = "left+right+raw", pipeline=None, seed: int = 0,
                  device: DeviceLike = None):
-        self.device = resolve_device(device)
         assert variant in self.RELEASED_VARIANTS, "not released yet"
         base_cfg = compose(overrides)
         config = base_cfg.task
         if base_cfg.seed is not None and base_cfg.seed != -1:
             seed = base_cfg.seed
+        tp = max(1, int(getattr(config, "tensor_parallel", 1) or 1))
+        self.device = resolve_device(device) if tp == 1 else init_distributed(device)
+        if tp > 1:
+            world = (torch.distributed.get_world_size()
+                     if torch.distributed.is_initialized() else 1)
+            if world % tp or world == 1:
+                raise RuntimeError(
+                    f"task.tensor_parallel={tp} needs a process group whose world size it "
+                    f"divides (this process has a world of {world}): launch with "
+                    f"torchrun --nproc-per-node {tp} ...")
         self._generator = torch.Generator(device=self.device).manual_seed(int(seed))
 
-        if int(getattr(config, "tensor_parallel", 1) or 1) > 1:
-            raise NotImplementedError(
-                "task.tensor_parallel > 1 needs parallel/, not ported yet (ROADMAP.md §1 item 10)")
         if getattr(config, "aot_cache", ""):
             raise NotImplementedError(
                 "task.aot_cache needs serving/aot.py, not ported yet (ROADMAP.md §1 item 10)")
@@ -99,6 +115,11 @@ class D3RoMa:
         self.camera.change_resolution(f"{config.image_size[1]}x{config.image_size[0]}")
         self.config = config
         self.pipeline = pipeline if pipeline is not None else self._load_pipeline(config)
+        self.mesh = None
+        if tp > 1:
+            # applied here, not in _load_pipeline, so that a pipeline passed
+            # in is sharded too
+            self.pipeline, self.mesh = shard_pipeline_tp(self.pipeline, tp, logger)
         self.eval_output_dir = f"_outputs.{variant}"
         os.makedirs(self.eval_output_dir, exist_ok=True)
         self.normer = Normalizer.from_config(config)

@@ -59,6 +59,14 @@ _INVERSE_RULES = (
 )
 
 
+def flax_path(name: str) -> Tuple[str, ...]:
+    """The Flax module path of a state-dict name, with its leaf as the last
+    component (`torch_to_flax`'s renaming; the leaf keeps its torch name)."""
+    for pattern, repl in _INVERSE_RULES:
+        name = pattern.sub(repl, name)
+    return tuple(name.split("."))
+
+
 def _torch_component(name: str) -> str:
     for pattern, repl in _COMPONENT_RULES:
         if pattern.match(name):

@@ -52,6 +52,16 @@ bf16 body serves the sites the gate admits at itemsize 2 without int8. A
 truthy `use_flash` also sends the self-attention sites of >= FLASH_MIN_SEQ
 tokens that took no other kernel to the whole-row bf16 kernel, where the
 JAX package takes the TPU library's flash attention.
+
+Tensor parallelism (`parallel/tensor.py`): a Linear or Conv2d whose weight
+`shard_params_tp` cut holds its `tp_shard` and computes with it (the
+output's slice gathered, or the input's slice and the partial products
+summed). With `tp_mesh` set (`set_tp_mesh`), the whole-row attention sites
+take `mha_attention_tp` and the fused feed-forward `geglu_ff_tp` where
+their gates `tp_attention_ok` / `tp_geglu_ok` admit the shape, and the
+plain path where not; the fused self-attention and the flash route are off,
+as in the JAX package. The gates come before any activation scale is taken,
+so a pipeline calibrated under the mesh replays in the same call order.
 """
 
 from __future__ import annotations
@@ -69,12 +79,16 @@ from d3roma_tpu_torch.ops.kernels import (
     fused_self_attention_int8,
     geglu_ff,
     geglu_ff_int8,
+    geglu_ff_tp,
     geglu_supported,
     group_norm_silu,
     group_norm_silu_supported,
     mha_attention,
     mha_attention_int8,
+    mha_attention_tp,
     mha_supported,
+    tp_attention_ok,
+    tp_geglu_ok,
     winograd_weight,
 )
 from d3roma_tpu_torch.ops.quant import (
@@ -129,8 +143,9 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int, flip_sin_to_cos: bool 
 
 def _weight_key(*params) -> tuple:
     """Identifies a set of weights and their values (PyTorch bumps a
-    tensor's _version on every in-place change)."""
-    return tuple((p.data_ptr(), p._version, p.dtype, p.device) for p in params
+    tensor's _version on every in-place change; views of one storage
+    differ in their shapes)."""
+    return tuple((p.data_ptr(), p._version, p.dtype, p.device, tuple(p.shape)) for p in params
                  if p is not None)
 
 
@@ -164,18 +179,33 @@ class Linear(nn.Linear):
     def __init__(self, in_features: int, out_features: int, bias: bool = True):
         super().__init__(in_features, out_features, bias=bias)
         self.quant = False
-        self._int8 = _Cached(quantize_weight)
+        self.tp_shard = None
+        self._int8 = _Cached(self._quantize)
+
+    def _quantize(self, w: torch.Tensor):
+        """int8 weights; a row-parallel shard takes the whole weight's scale."""
+        tp = self.tp_shard
+        return quantize_weight(w, None if tp is None or tp.dim == 0 else tp.weight_absmax(w))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.weight.dtype)
+        tp = self.tp_shard
+        if tp is None:
+            bias, xin = self.bias, x
+        else:  # the tap stays on the whole x, as the JAX partitioner's
+            bias = tp.local_bias(self.bias)
+            xin = tp.input_slice(x) if tp.dim == 1 else x
+        y = None
         if self.quant in STATIC_MODES:
             mode, scale = consume_act_scale(x, "dot")
             if mode == "int8":
                 wq, ws = self._int8.get(self.weight)
-                return int8_linear(x, wq, ws, scale, self.bias)
+                y = int8_linear(xin, wq, ws, scale, bias)
         elif self.quant in DYNAMIC_DENSE_MODES:
-            return int8_linear_dynamic(x, *self._int8.get(self.weight), self.bias)
-        return F.linear(x, self.weight, self.bias)
+            y = int8_linear_dynamic(xin, *self._int8.get(self.weight), bias)
+        if y is None:
+            y = F.linear(xin, self.weight, bias)
+        return y if tp is None else tp.combine(y, self.bias)
 
 
 class Conv2d(nn.Conv2d):
@@ -201,10 +231,17 @@ class Conv2d(nn.Conv2d):
                          padding=padding)
         self.compute_dtype = compute_dtype
         self.quant = False
+        self.tp_shard = None
         self._int8 = _Cached(_int8_conv_weight)
         self._wino = _Cached(winograd_weight)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """NHWC in and out; a shard of the output channels computes its
+        slice, then gathers the channels."""
+        y = self._forward(x)
+        return y if self.tp_shard is None else self.tp_shard.combine(y, self.bias)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.compute_dtype is None:
             dt = self.weight.dtype
         elif self.compute_dtype == "promote":
@@ -212,7 +249,8 @@ class Conv2d(nn.Conv2d):
         else:
             dt = self.compute_dtype
         x = x.to(dt)
-        bias = None if self.bias is None else self.bias.to(dt)
+        bias = self.bias if self.tp_shard is None else self.tp_shard.local_bias(self.bias)
+        bias = None if bias is None else bias.to(dt)
         if self.quant == "wino_static":
             pad = ((self.padding[0],) * 2, (self.padding[1],) * 2)
             chunk = wino_static_route(tuple(x.shape), conv_hwio_shape(self.weight),
@@ -379,6 +417,7 @@ class SelfAttention2D(nn.Module):
                  eps: float = 1e-5):
         super().__init__()
         self.quant = False
+        self.tp_mesh = None
         self.num_heads = max(1, channels // head_dim)
         self.group_norm = GroupNorm(channels, groups, eps)
         self.to_q = Linear(channels, channels)
@@ -396,12 +435,16 @@ class SelfAttention2D(nn.Module):
         d = C // self.num_heads
         # the int8 whole-row kernel (the VAE's single 512-wide head) under
         # the int8 modes but "dense", outside calibration captures, at >= 512
-        # tokens
+        # tokens; under a mesh through its composition where the gate admits
+        attn = None
         if (self.quant in INT8_ATTENTION_MODES and act_ctx_mode() != "capture"
                 and H * W >= 512
                 and d >= 64 and mha_supported(H * W, d, itemsize=1)):
-            attn = mha_attention_int8(q, k, v)
-        else:
+            if self.tp_mesh is None:
+                attn = mha_attention_int8(q, k, v)
+            elif tp_attention_ok(self.tp_mesh, B, H * W):
+                attn = mha_attention_tp(q, k, v, self.tp_mesh, quant="int8")
+        if attn is None:
             attn = dot_product_attention(q, k, v)
         out = self.to_out[0](attn.reshape(B, H * W, C)).reshape(B, H, W, C)
         return x.to(out.dtype) + out
@@ -423,6 +466,7 @@ class CrossAttention(nn.Module):
         self.heads, self.head_dim = heads, head_dim
         self.use_flash = use_flash
         self.quant = False
+        self.tp_mesh = None
         self.to_q = Linear(query_dim, inner, bias=False)
         self.to_k = Linear(context_dim or query_dim, inner, bias=False)
         self.to_v = Linear(context_dim or query_dim, inner, bias=False)
@@ -477,7 +521,8 @@ class CrossAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
         is_self = context is None
-        if self.use_flash == "fused" and is_self:
+        mesh = self.tp_mesh
+        if self.use_flash == "fused" and is_self and mesh is None:
             out = self._fused(x)
             if out is not None:
                 return out
@@ -492,13 +537,19 @@ class CrossAttention(nn.Module):
         # the whole-row kernels take no tap, so a calibration capture skips
         # them; the flash route, as the JAX package's, runs under capture too
         capture = act_ctx_mode() == "capture"
+        int8 = self.quant in INT8_ATTENTION_MODES
+        attn = None
         if use_kernel and M >= 512 and mha_supported(M, self.head_dim) and not capture:
-            attn = (mha_attention_int8 if self.quant in INT8_ATTENTION_MODES
-                    else mha_attention)(q, k, v)
-        elif (self.use_flash and is_self and N >= FLASH_MIN_SEQ
+            if mesh is None:
+                attn = (mha_attention_int8 if int8 else mha_attention)(q, k, v)
+            elif tp_attention_ok(mesh, B, N):
+                attn = mha_attention_tp(q, k, v, mesh, quant="int8" if int8 else None)
+            # else: the plain path (a site the mesh's gate refuses skips the
+            # flash route too, as in the JAX package)
+        elif (self.use_flash and is_self and N >= FLASH_MIN_SEQ and mesh is None
               and mha_supported(N, self.head_dim)):
             attn = mha_attention(q, k, v)
-        else:
+        if attn is None:
             attn = dot_product_attention(q, k, v)
         return self.to_out[0](attn.reshape(B, N, self.heads * self.head_dim))
 
@@ -521,61 +572,86 @@ class FeedForward(nn.Module):
     kernel's operands (W1 split into its h and gate halves, both weights as
     transposed views, fp32 biases) are prepared once per set of weights and
     kept until a weight changes. The fused path is inference-only: the
-    kernel has no backward."""
+    kernel has no backward.
+
+    Under `tp_mesh` the fused path runs `geglu_ff_tp` where `tp_geglu_ok`
+    admits the shape (the operands made from this rank's F chunk), else the
+    unfused path on the sharded dense layers."""
 
     def __init__(self, dim: int, fused: bool = False):
         super().__init__()
         self.dim, self.hidden, self.fused = dim, 4 * dim, fused
         self.quant = False
+        self.tp_mesh = None
         self.net = nn.ModuleList([GEGLU(dim, self.hidden), nn.Identity(),
                                   Linear(self.hidden, dim)])
         self._int8 = _Cached(self._make_int8_operands)
         self._operands = _Cached(self._make_operands)
 
     @staticmethod
-    def _make_int8_operands(w1, b1, w2, b2):
+    def _make_int8_operands(w1h, w1g, w2, b1h, b1g, b2):
         """The int8 kernel's operands: W1h, W1g [F, C] and W2 [C, F] int8
         with per-column fp32 scales (the JAX wrapper's absmax_scale over the
-        contracted axis), fp32 biases."""
-        f = w1.shape[0] // 2
-        (w1hq, s1h), (w1gq, s1g), (w2q, s2) = (quantize_weight(w) for w in (w1[:f], w1[f:], w2))
-        return (w1hq, w1gq, w2q, s1h, s1g, s2, b1[:f].float().contiguous(),
-                b1[f:].float().contiguous(), b2.float().contiguous())
+        contracted axis, so over the F chunk of a shard), fp32 biases."""
+        (w1hq, s1h), (w1gq, s1g), (w2q, s2) = (quantize_weight(w) for w in (w1h, w1g, w2))
+        return (w1hq, w1gq, w2q, s1h, s1g, s2, b1h.float().contiguous(),
+                b1g.float().contiguous(), b2.float().contiguous())
 
     @staticmethod
-    def _make_operands(w1, b1, w2, b2):
+    def _make_operands(w1h, w1g, w2, b1h, b1g, b2):
         """The bf16 kernel's operands, JAX-named: W1h, W1g [C, F] and W2
         [F, C] as transposed views of the weights' halves (the K-major
         layout the kernel reads, no copy of a contiguous weight), fp32
         biases."""
+        return (w1h.contiguous().t(), w1g.contiguous().t(), w2.contiguous().t(),
+                b1h.float().contiguous(), b1g.float().contiguous(), b2.float().contiguous())
+
+    def _weights(self):
+        """(W1h, W1g, W2, b1h, b1g, b2) as views of the parameters: this
+        rank's F chunk under a mesh (the projection's bias is whole)."""
+        proj, out = self.net[0].proj, self.net[2]
+        w1, b1 = proj.weight, proj.bias
         f = w1.shape[0] // 2
-        return (w1[:f].contiguous().t(), w1[f:].contiguous().t(), w2.contiguous().t(),
-                b1[:f].float().contiguous(), b1[f:].float().contiguous(),
-                b2.float().contiguous())
+        b1h, b1g = b1[:self.hidden], b1[self.hidden:]
+        if proj.tp_shard is not None:
+            b1h, b1g = (proj.tp_shard.part(b, 0) for b in (b1h, b1g))
+        return w1[:f], w1[f:], out.weight, b1h, b1g, out.bias
 
     def _inline(self, x: torch.Tensor) -> torch.Tensor:
         """The fused branch's math in plain ops on the weights (the JAX
         package's calibration capture runs it inline in XLA, through no
-        quantized dense, so it takes no taps of its own)."""
+        quantized dense, so it takes no taps of its own); under a mesh on
+        this rank's chunk, the partial products summed."""
         proj, out = self.net[0].proj, self.net[2]
-        h, gate = F.linear(x, proj.weight, proj.bias).chunk(2, dim=-1)
-        return F.linear(h * F.gelu(gate, approximate="tanh"), out.weight, out.bias)
+        b1 = proj.bias if proj.tp_shard is None else proj.tp_shard.local_bias(proj.bias)
+        h, gate = F.linear(x, proj.weight, b1).chunk(2, dim=-1)
+        y = h * F.gelu(gate, approximate="tanh")
+        if out.tp_shard is None:
+            return F.linear(y, out.weight, out.bias)
+        return out.tp_shard.combine(F.linear(y, out.weight), out.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # the fused kernel has a static int8 and a bf16 body: the other int8
-        # modes take the unfused path (its dense layers in their mode)
-        if (self.fused and (self.quant in STATIC_MODES or not self.quant)
+        # modes take the unfused path (its dense layers in their mode); the
+        # mesh's gate comes before the scale is taken
+        mesh = self.tp_mesh
+        tp_ok = mesh is None or tp_geglu_ok(mesh, x.shape[-1], self.hidden, x.shape[0])
+        if (self.fused and (self.quant in STATIC_MODES or not self.quant) and tp_ok
                 and geglu_supported(self.dim, self.hidden)):
-            proj, out = self.net[0].proj, self.net[2]
-            weights = (proj.weight, proj.bias, out.weight, out.bias)
-            dt = proj.weight.dtype
+            weights = self._weights()
+            dt = weights[0].dtype
             if self.quant in STATIC_MODES:
                 mode, scale = consume_act_scale(x, "geglu")
                 if mode == "float":
                     return self._inline(x.to(dt))
-                return geglu_ff_int8(x.to(dt), *self._int8.get(*weights), scale)
-            w1h, w1g, w2, b1h, b1g, b2 = self._operands.get(*weights)
-            return geglu_ff(x.to(w1h.dtype), w1h, w1g, w2, b1h, b1g, b2)
+                ops = self._int8.get(*weights)
+                if mesh is not None:
+                    return geglu_ff_tp(x.to(dt), ops[:8], ops[8], mesh, act_scale=scale)
+                return geglu_ff_int8(x.to(dt), *ops, scale)
+            ops = self._operands.get(*weights)
+            if mesh is not None:
+                return geglu_ff_tp(x.to(dt), ops[:5], ops[5], mesh)
+            return geglu_ff(x.to(dt), *ops)
         return self.net[2](self.net[0](x))
 
 
@@ -680,6 +756,14 @@ def set_quant(module: nn.Module, quant) -> None:
         for site in sites:
             if site is not None:
                 site.quant = quant
+
+
+def set_tp_mesh(module: nn.Module, mesh) -> None:
+    """Route the kernel sites under `module` through their tensor-parallel
+    compositions on `mesh` (None: the unsharded kernels)."""
+    for m in module.modules():
+        if isinstance(m, (CrossAttention, SelfAttention2D, FeedForward)):
+            m.tp_mesh = mesh
 
 
 def set_kernels(module: nn.Module, use_flash_attention=None, fused_ff=None,

@@ -142,6 +142,7 @@ class UNet2DCondition(nn.Module):
                                    compute_dtype=torch.float32)
         self.set_kernels(use_flash_attention, fused_ff, fused_norm)
         self.quant = False
+        self.tp_mesh = None
         self.cache_depth = cache_depth
         self.remat = bool(remat)
 

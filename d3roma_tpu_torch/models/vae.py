@@ -153,6 +153,7 @@ class AutoencoderKL(nn.Module):
             self.post_quant_conv = Conv2d(latent_channels, latent_channels, 1,
                                           compute_dtype="promote")
         self.quant = False
+        self.tp_mesh = None
         self.set_kernels(fused_norm)
 
     def set_quant(self, quant) -> None:

@@ -5,6 +5,10 @@ version, its applicability gate and its launch counter.
 - `attention.mha_attention_int8`  <- the same, quant="int8"
 - `geglu.geglu_ff`                <- d3roma_tpu/ops/pallas/geglu.py::geglu_ff (bf16)
 - `geglu.geglu_ff_int8`           <- the same, quant="static"
+- `attention.mha_attention_tp`    <- d3roma_tpu/ops/pallas/attention.py::mha_attention_tp
+                                     (rows 1 / 1b on each rank's q rows)
+- `geglu.geglu_ff_tp`             <- d3roma_tpu/ops/pallas/geglu.py::geglu_ff_tp
+                                     (rows 2 / 2b on each rank's F chunk)
 - `conv2d.conv2d_int8`            <- d3roma_tpu/ops/pallas/conv2d.py::conv3x3_flat
                                      (quant="static"), conv3x3_rowtap and
                                      conv2d_halo.py::conv3x3_halo (int8), at
@@ -41,7 +45,10 @@ from d3roma_tpu_torch.ops.kernels.attention import (  # noqa: F401
     mha_attention_int8,
     mha_attention_int8_plain,
     mha_attention_plain,
+    mha_attention_tp,
+    mha_attention_tp_plain,
     mha_supported,
+    tp_attention_ok,
 )
 from d3roma_tpu_torch.ops.kernels.conv2d import (  # noqa: F401
     conv2d_bf16,
@@ -62,7 +69,10 @@ from d3roma_tpu_torch.ops.kernels.geglu import (  # noqa: F401
     geglu_ff_int8,
     geglu_ff_int8_plain,
     geglu_ff_plain,
+    geglu_ff_tp,
+    geglu_ff_tp_plain,
     geglu_supported,
+    tp_geglu_ok,
 )
 from d3roma_tpu_torch.ops.kernels.groupnorm import (  # noqa: F401
     group_norm_silu,

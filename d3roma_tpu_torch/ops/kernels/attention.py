@@ -6,7 +6,9 @@ path (kernel body `_kernel_f32`) is `mha_attention` over
 `csrc/attention.cu`; the int8 path (`_kernel_int8`, with the wrapper's
 per-(batch, head) quantization) is `mha_attention_int8` over
 `csrc/attention_int8.cu`. Each source note says what bounds the kernel on
-the H100 and how it is built around that.
+the H100 and how it is built around that. `mha_attention_tp` is the
+tensor-parallel composition of both (`mha_attention_tp` of the JAX
+package), with its gate `tp_attention_ok`.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import torch
 
 from d3roma_tpu_torch.ops.kernels import _build
 from d3roma_tpu_torch.ops.kernels.quantize import fp32, ieee_div
+from d3roma_tpu_torch.parallel.mesh import DATA_AXIS, all_gather_cat
+from d3roma_tpu_torch.parallel.tensor import MODEL_AXIS
 
 _LANES = 128
 # the TPU kernel's VMEM limit; the gate keeps it so the same sites take the
@@ -420,3 +424,56 @@ def mha_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 mha_attention_int8.launches = 0
+
+
+# ---------------------------------------------------------------------- #
+# tensor-parallel composition
+# ---------------------------------------------------------------------- #
+
+
+def tp_attention_ok(mesh, B: int, N: int) -> bool:
+    """The JAX package's gate, unchanged: the q tokens shard over the model
+    axis (any head count), so N must divide tp; the batch must divide the
+    data axis. B is the batch the mesh's data axis holds whole (the
+    layers' batch, which `D3RoMa` replicates over every rank)."""
+    axes = mesh.axis_sizes
+    tp = axes.get(MODEL_AXIS, 1)
+    dp = axes.get(DATA_AXIS, 1)
+    return tp > 1 and N % tp == 0 and B % dp == 0
+
+
+def _tp_attention(fn, q, k, v, mesh, sm_scale):
+    if not tp_attention_ok(mesh, q.shape[0], q.shape[1]):
+        raise ValueError(f"tp_attention_ok refuses B={q.shape[0]}, N={q.shape[1]} under "
+                         f"the mesh {mesh.axis_sizes}")
+    n = q.shape[1] // mesh.axis_sizes[MODEL_AXIS]
+    i = mesh.coord(MODEL_AXIS)
+    out = fn(q[:, i * n:(i + 1) * n], k, v, sm_scale)
+    return all_gather_cat(out, mesh, MODEL_AXIS, 1)
+
+
+def mha_attention_tp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh, *,
+                     quant: Optional[str] = None,
+                     sm_scale: Optional[float] = None) -> torch.Tensor:
+    """`mha_attention` under a ``(data, model)`` mesh (the JAX package's
+    shard_map composition): this rank's N/tp q token rows against the whole,
+    replicated K/V through the row-1 kernel (`mha_attention`, bf16) or,
+    with quant="int8", the row-1b kernel (`mha_attention_int8`: its q
+    scales are the absmax over the local rows, K/V's over all keys), then
+    the rows of every rank gathered along the tokens. q [B, N, H, D], k/v
+    [B, M, H, D] -> [B, N, H, D] on every rank. `mha_attention_tp.launches`
+    counts the calls."""
+    fn = mha_attention_int8 if quant == "int8" else mha_attention
+    out = _tp_attention(fn, q, k, v, mesh, sm_scale)
+    mha_attention_tp.launches += 1
+    return out
+
+
+mha_attention_tp.launches = 0
+
+
+def mha_attention_tp_plain(q, k, v, mesh, *, quant: Optional[str] = None,
+                           sm_scale: Optional[float] = None) -> torch.Tensor:
+    """`mha_attention_tp` with the kernels' plain versions."""
+    fn = mha_attention_int8_plain if quant == "int8" else mha_attention_plain
+    return _tp_attention(fn, q, k, v, mesh, sm_scale)

@@ -7,6 +7,8 @@ path (`_kernel_int8`, with the wrapper's quantization of x and of the
 weights) is `geglu_ff_int8` over `csrc/geglu_int8.cu`. Both are GEMMs on
 the TMA + wgmma building blocks of `csrc/sm90_gemm.cuh`; each source note
 says what bounds the kernel on the H100 and how it is built around that.
+`geglu_ff_tp` is the tensor-parallel composition of both (`geglu_ff_tp` of
+the JAX package), with its gate `tp_geglu_ok`.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ from d3roma_tpu_torch.ops.kernels.quantize import (
     quantize_int8_plain,
     quantize_int8_scalar,
 )
+from d3roma_tpu_torch.parallel.mesh import DATA_AXIS, all_reduce
+from d3roma_tpu_torch.parallel.tensor import MODEL_AXIS
 
 # rows of a tile of the CUDA kernels (csrc/sm90_gemm.cuh: kBlockRows), and
 # hidden columns of a tile of their first product (csrc/geglu*.cu:
@@ -356,3 +360,64 @@ def geglu_ff_int8(x: torch.Tensor, w1hq: torch.Tensor, w1gq: torch.Tensor,
 
 
 geglu_ff_int8.launches = 0
+
+
+# ---------------------------------------------------------------------- #
+# tensor-parallel composition
+# ---------------------------------------------------------------------- #
+
+
+def tp_geglu_ok(mesh, c: int, f: int, batch: int) -> bool:
+    """The JAX package's gate, unchanged: F splits over the model axis into
+    chunks that geglu_supported admits themselves (at tp=4 the C=320
+    level's F=1280 chunks to 320 and fails), and the batch divides the data
+    axis (the layers' batch, replicated over every rank by `D3RoMa`)."""
+    axes = mesh.axis_sizes
+    tp = axes.get(MODEL_AXIS, 1)
+    dp = axes.get(DATA_AXIS, 1)
+    return tp > 1 and f % tp == 0 and geglu_supported(c, f // tp) and batch % dp == 0
+
+
+def _tp_geglu(fn, x, chunk, b2, mesh, act_scale):
+    c = x.shape[-1]
+    f = chunk[0].shape[1 if act_scale is None else 0] * mesh.axis_sizes.get(MODEL_AXIS, 1)
+    if not tp_geglu_ok(mesh, c, f, x.shape[0]):
+        raise ValueError(f"tp_geglu_ok refuses C={c}, F={f}, batch {x.shape[0]} under the "
+                         f"mesh {mesh.axis_sizes}")
+    if act_scale is None:
+        part = fn(x, *chunk)
+    else:
+        part = fn(x, *chunk, x.new_zeros(c, dtype=torch.float32), act_scale)
+    y = all_reduce(part, mesh, MODEL_AXIS)
+    return y + b2.to(y.dtype)
+
+
+def geglu_ff_tp(x: torch.Tensor, chunk, b2: torch.Tensor, mesh,
+                act_scale: Optional[float] = None) -> torch.Tensor:
+    """`geglu_ff` under a ``(data, model)`` mesh (the JAX package's
+    shard_map composition): W1 split by columns and W2 by rows over the
+    hidden F axis, Megatron-style. Each rank runs the fused kernel on its F
+    chunk without b2, one all-reduce sums the partial [B, N, C] outputs (in
+    fp32, rounded once to x's type), and b2 is added once.
+
+    `chunk`: this rank's chunk of the operands, (w1h, w1g, w2, b1h, b1g)
+    as `geglu_ff` takes them ([C, F/tp], [C, F/tp], [F/tp, C], [F/tp],
+    [F/tp]), or, with `act_scale` (static int8), (w1hq, w1gq, w2q, s1h,
+    s1g, s2, b1h, b1g) as `geglu_ff_int8` takes them, quantized from the
+    chunk: W1's column scales are the whole weight's, W2's scales the
+    absmax over the chunk's F, and the gated intermediate is requantized
+    per (row block, chunk) tile of the chunk. b2 [C] is whole.
+    `geglu_ff_tp.launches` counts the calls."""
+    fn = geglu_ff if act_scale is None else geglu_ff_int8
+    out = _tp_geglu(fn, x, chunk, b2, mesh, act_scale)
+    geglu_ff_tp.launches += 1
+    return out
+
+
+geglu_ff_tp.launches = 0
+
+
+def geglu_ff_tp_plain(x, chunk, b2, mesh, act_scale: Optional[float] = None) -> torch.Tensor:
+    """`geglu_ff_tp` with the kernels' plain versions."""
+    fn = geglu_ff_plain if act_scale is None else geglu_ff_int8_plain
+    return _tp_geglu(fn, x, chunk, b2, mesh, act_scale)

@@ -17,7 +17,7 @@ card and on the CPU alike.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -61,16 +61,18 @@ def dynamic_scale_plain(x: torch.Tensor, dims) -> torch.Tensor:
     return torch.clamp_min(m * INV127, 1e-8)
 
 
-def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_weight(w: torch.Tensor, absmax: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-output-channel (dim 0) int8 weights and their fp32 scales [Cout],
     both contiguous: the scale is the absmax over every other axis times
     fp32(1/127), >= 1e-8. The JAX package divides the absmax by 127 (over
     all but the last axis of its [..., Cout] kernels); inside its jitted
     forward, the form its bench runs, XLA turns that division by a constant
     into this product with the fp32 reciprocal (an eager JAX call divides,
-    and can differ in the last place)."""
+    and can differ in the last place). `absmax` [Cout] (fp32) replaces w's
+    own: a shard of a weight takes the whole weight's."""
     w = w.detach()
-    m = w.float().abs().amax(dim=tuple(range(1, w.ndim)))
+    m = w.float().abs().amax(dim=tuple(range(1, w.ndim))) if absmax is None else absmax
     s = torch.clamp_min(m * INV127, 1e-8)
     wq = quantize_int8_plain(w, s.reshape((-1,) + (1,) * (w.ndim - 1)))
     return wq.contiguous(), s.contiguous()

@@ -11,7 +11,8 @@ guided x_hat0 as `perturbed_original_sample`.
 
 The sampling noise of DDPM (and of DDIM with eta > 0) is the explicit
 `noise` tensor when one is given (a test feeds the JAX package's), else it
-is drawn from `generator` in the sample's dtype.
+is drawn from `generator` in the sample's dtype (a data rank's rows of the
+whole batch's draw under `parallel/mesh.py::data_rows`).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Callable, NamedTuple, Optional, Union
 import torch
 
 from d3roma_tpu_torch.ops.schedules import ScheduleConfig, ScheduleTables, extract
+from d3roma_tpu_torch.parallel.mesh import randn_rows
 
 GuidanceFn = Callable[[torch.Tensor, Union[int, torch.Tensor]], torch.Tensor]
 
@@ -87,8 +89,7 @@ def _noise_like(sample: torch.Tensor, noise: Optional[torch.Tensor],
         if tuple(noise.shape) != tuple(sample.shape):
             raise ValueError(f"noise {tuple(noise.shape)} != sample {tuple(sample.shape)}")
         return noise.to(sample.device, sample.dtype)
-    return torch.randn(sample.shape, generator=generator, dtype=sample.dtype,
-                       device=sample.device)
+    return randn_rows(sample.shape, generator, sample.dtype, sample.device)
 
 
 def ddpm_step(

@@ -76,6 +76,7 @@ from d3roma_tpu_torch.ops.quant import (
 )
 from d3roma_tpu_torch.ops.scheduler_step import ddim_step
 from d3roma_tpu_torch.ops.schedules import ScheduleConfig, set_timesteps
+from d3roma_tpu_torch.parallel.mesh import broadcast_object
 from d3roma_tpu_torch.pipelines.sampling import (
     PipelineOutput,
     SamplerSpec,
@@ -423,7 +424,9 @@ class GuidedLatentDiffusionPipeline:
         the stale trunk of their group's full step; without any shallow
         step, each step also captures the shallow pass on its own trunk);
         the decode of the final x_hat0 and of the raw condition's latent.
-        Each table is the maximum over `batches` times `margin`.
+        Each table is the maximum over `batches` times `margin`. Under a
+        tensor-parallel mesh (`tp_mesh`) every rank captures the same taps
+        and keeps rank 0's tables.
 
         `quantiles` (e.g. (0.999,)): each tap also records those quantiles
         of |x| (ops/quant.py::abs_quantiles); the tables stay absmax-based,
@@ -506,6 +509,8 @@ class GuidedLatentDiffusionPipeline:
                 act_scales[k + "@q"] = [[float(x) for x in row] for row in tab]
         if quantiles:
             act_scales["@quantiles"] = [float(q) for q in quantiles]
+        if self.unet.tp_mesh is not None:  # every rank replays rank 0's table
+            act_scales = broadcast_object(act_scales, self.unet.tp_mesh)
         self.act_scales = act_scales
         return self
 

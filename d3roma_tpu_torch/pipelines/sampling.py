@@ -15,7 +15,8 @@ Noise is explicit: the initial noise (`x_init` / `latents`), the per-step
 sampling noise (`step_noise`, one tensor per step, read by the DDPM steps
 and the DDIM steps with eta > 0) and, with `add_noise_rgb`, the per-step
 noise of the rgb condition (`rgb_noise`) may be given, else they are drawn
-from the `torch.Generator`. The JAX package draws them from one key
+from the `torch.Generator` (under `parallel/mesh.py::data_rows`, a data
+rank's rows of the whole batch's draw). The JAX package draws them from one key
 schedule (`split(key)` for the initial noise, then `split(k, 3)` per step,
 the second key the step's noise, the third the rgb condition's), which a
 test can replay this way.
@@ -48,6 +49,7 @@ from d3roma_tpu_torch.ops.schedules import (
     add_noise,
     set_timesteps,
 )
+from d3roma_tpu_torch.parallel.mesh import randn_rows
 
 SAMPLER_KINDS = ("ddpm", "my_ddpm", "ddim", "my_ddim", "euler", "heun")
 
@@ -240,8 +242,8 @@ def run_sampler_steps(
         step_conds = conds
         if noise_rgb is not None:
             rgb = noise_rgb[0]
-            noise = rgb_noise[i] if rgb_noise is not None else torch.randn(
-                rgb.shape, generator=generator, dtype=rgb.dtype, device=rgb.device)
+            noise = rgb_noise[i] if rgb_noise is not None else randn_rows(
+                rgb.shape, generator, rgb.dtype, rgb.device)
             step_conds = _step_conds(conds, noise_rgb, tables, t, noise)
         model_input = torch.cat([x, step_conds], dim=-1)
         if pattern is not None and pattern[i] == "S":
@@ -268,7 +270,7 @@ def run_sampler_steps(
 
 def _initial_noise(shape, x_init, generator, dtype, device) -> torch.Tensor:
     if x_init is None:
-        return torch.randn(shape, generator=generator, dtype=dtype, device=device)
+        return randn_rows(shape, generator, dtype, device)
     if tuple(x_init.shape) != tuple(shape):
         raise ValueError(f"initial noise {tuple(x_init.shape)} != {tuple(shape)}")
     return x_init.to(device)

@@ -209,8 +209,7 @@ def test_feedforward_operands_hold_the_jax_named_weights():
     torch.manual_seed(0)
     ff = FeedForward(32).to(torch.bfloat16)
     proj, out = ff.net[0].proj, ff.net[2]
-    w1h, w1g, w2, b1h, b1g, b2 = ff._make_operands(proj.weight, proj.bias, out.weight,
-                                                   out.bias)
+    w1h, w1g, w2, b1h, b1g, b2 = ff._make_operands(*ff._weights())
     f = ff.hidden
     assert torch.equal(w1h, proj.weight.t()[:, :f]) and torch.equal(w1g, proj.weight.t()[:, f:])
     assert torch.equal(w2, out.weight.t())

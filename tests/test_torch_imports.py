@@ -511,3 +511,106 @@ def test_reference_import_runs_without_jax_or_the_hub_packages(tmp_path):
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "IMPORT OK" in proc.stdout and "GOLDEN COMPARE: all stages match" in proc.stdout
     assert "PARITY SKIP" in proc.stdout
+
+
+_DIST_EVAL_CHILD = r"""
+import json, os, runpy, socket, subprocess, sys, tempfile
+
+BLOCKER = '''
+import sys
+BLOCKED = ("jax", "jaxlib", "flax", "msgpack", "d3roma_tpu", "cv2", "PIL", "yaml",
+           "matplotlib", "safetensors", "transformers", "diffusers")
+
+class Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Blocker())
+'''
+exec(BLOCKER)
+
+import torch
+from d3roma_tpu_torch.models import AutoencoderKL, UNet2DCondition
+from d3roma_tpu_torch.ops.normalizer import Normalizer
+from d3roma_tpu_torch.ops.schedules import ScheduleConfig
+from d3roma_tpu_torch.pipelines import GuidedLatentDiffusionPipeline, SamplerSpec
+from d3roma_tpu_torch.synthetic import SceneConfig, generate_dataset
+
+root = tempfile.mkdtemp()
+os.chdir(root)
+unet_kw = dict(in_channels=12, block_out_channels=(32, 64),
+               down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+               up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"), layers_per_block=1,
+               attention_head_dim=32, cross_attention_dim=16, norm_groups=8)
+GuidedLatentDiffusionPipeline(
+    unet=UNet2DCondition(**unet_kw, device="cpu"),
+    vae=AutoencoderKL(block_out_channels=(32, 64), norm_groups=8, device="cpu"),
+    text_embed=torch.zeros(1, 2, 16),
+    spec=SamplerSpec("my_ddim", ScheduleConfig(prediction_type="v_prediction")),
+    normalizer=Normalizer(ssi=False, mode="average", num_chs=1, ch_bounds=(8.0,),
+                          ch_gammas=(1.0,)), device="cpu").save_pretrained("pipe")
+generate_dataset("datasets/HISS", 4, split="test", config=SceneConfig(height=36, width=64))
+args = ["--device", "cpu", "task=eval_ldm_mixed_rgb+raw", "task.resume_pretrained=pipe",
+        "task.eval_dataset=[HISS]", "task.camera_resolution=48x27", "task.eval_batch_size=2",
+        "task.num_inference_timesteps=2", "task.eval_output=out"]
+
+def metrics_line(out):
+    return json.loads(next(l for l in out.splitlines() if l.startswith('{"dataset"')))
+
+# one process, then two ranks as torchrun starts them (its environment)
+one = subprocess.run([sys.executable, "-c", BLOCKER + "import runpy, sys; sys.argv = "
+                      + repr(["evaluate"] + args) + "; runpy.run_module("
+                      "'d3roma_tpu_torch.evaluate', run_name='__main__')"],
+                     capture_output=True, text=True, timeout=240)
+assert one.returncode == 0, one.stderr[-3000:]
+code = (BLOCKER + "import runpy, sys; sys.argv = " + repr(["distributed_evaluate"] + args)
+        + " + ARGS; runpy.run_module('d3roma_tpu_torch.distributed_evaluate', "
+        "run_name='__main__'); assert not any(m.split('.')[0] in BLOCKED for m in sys.modules)")
+
+
+def two_ranks(extra):
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ranks = [subprocess.Popen([sys.executable, "-c", code.replace("ARGS", repr(extra))],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              env=dict(os.environ, MASTER_ADDR="localhost",
+                                       MASTER_PORT=str(port), WORLD_SIZE="2", RANK=str(r),
+                                       LOCAL_RANK=str(r), LOCAL_WORLD_SIZE="2"))
+             for r in range(2)]
+    outs = [p.communicate(timeout=240) for p in ranks]
+    for p, (o, e) in zip(ranks, outs):
+        assert p.returncode == 0, e[-3000:]
+    assert not any(l.startswith('{"dataset"') for l in outs[1][0].splitlines())  # rank 0 prints
+    return metrics_line(outs[0][0])
+
+ref = metrics_line(one.stdout)
+# data parallel (each rank 2 of the 4 frames' rows a batch), then tensor
+# parallel (each rank every row, half of each sharded weight)
+for extra, mesh in (([], {"data": 2}), (["task.tensor_parallel=2"], {"data": 1, "model": 2})):
+    got = two_ranks(extra)
+    assert got["ranks"] == 2 and got["mesh"] == mesh, got
+    for group, sub in ref["metrics"].items():
+        for k, v in sub.items():
+            assert abs(got["metrics"][group][k] - v) <= 1e-4 * max(abs(v), 1e-3), (
+                extra, group, k, v, got["metrics"])
+print("DIST EVAL OK")
+"""
+
+
+def test_distributed_evaluate_runs_without_jax_in_two_ranks():
+    """`python -m d3roma_tpu_torch.distributed_evaluate` as torchrun starts
+    it (two ranks, MASTER_ADDR/PORT, WORLD_SIZE, RANK, LOCAL_RANK; gloo on
+    the CPU) with jax, the JAX package, OpenCV, PIL, PyYAML and matplotlib
+    unimportable, over 4 procedural HISS frames at batch 2 (fp32): data
+    parallel (each rank draws its rows of the whole batch's noise), then
+    with task.tensor_parallel=2; each run's metrics within 1e-4 (relative)
+    of the one-process `python -m d3roma_tpu_torch.evaluate` on the same
+    frames and seed."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _DIST_EVAL_CHILD], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "DIST EVAL OK" in proc.stdout

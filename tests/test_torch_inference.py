@@ -23,7 +23,7 @@ noise:
   BATCH_VS_SINGLE_RTOL x the depth's max;
 - `_prep_rgb_raw` bit-equal to the JAX one (OpenCV's resize);
 - the refusals: an unreleased variant, a missing pipeline directory,
-  `task.tensor_parallel=2`, `task.aot_cache`;
+  `task.tensor_parallel=2` outside a process group, `task.aot_cache`;
 - the port's HTTP server in front of the port's `D3RoMa`: three concurrent
   frames at 0.5 / 1 / 1.5 m under SSI, each answer at its own frame's scale;
 - the demo (`python -m d3roma_tpu_torch.demo --device cpu`) against the
@@ -282,8 +282,8 @@ def test_refusals(tree, case):
         variant, err = "rgb", AssertionError
     elif case == "missing_path":
         ov, err = ov + [f"task.resume_pretrained={tree / 'absent'}"], ValueError
-    elif case == "tensor_parallel":
-        ov = ov + ["task.tensor_parallel=2"]
+    elif case == "tensor_parallel":  # outside a process group
+        ov, err = ov + ["task.tensor_parallel=2"], RuntimeError
     else:
         ov = ov + [f"task.aot_cache={tree / 'aot'}"]
     with pytest.raises(err):

@@ -14,6 +14,7 @@
     python3 chip_smoke.py --pixel    # device, build, the pixel phase and the pixel bench only
     python3 chip_smoke.py --eval     # device, build and the evaluation phase only
     python3 chip_smoke.py --train    # device, build and the training phase only
+    python3 chip_smoke.py --accuracy # device, build, one bf16 epoch and the accuracy phase
     python3 chip_smoke.py --serve    # device, build and the serving phase only
     python3 chip_smoke.py --import   # device, build and the reference-import phase only
     python3 chip_smoke.py --tp       # device, build and the tensor-parallel phase only
@@ -54,7 +55,7 @@ failing the run on its own error:
 4. latency path: GuidedLatentDiffusionPipeline.fast_inference("latency")
    at the full SD2.1 geometry (random seeded weights held in bf16), batch
    2, RGB + raw at 640x360, 10 DDIM steps; the launch counts of one call
-   must be 100 attention and 160 GEGLU; ms/frame is the median of three
+   must be 100 attention and 160 GEGLU; ms/frame is the faster of two
    calls; one more call is profiled (device time by kernel group, idle
    share); one UNet forward with the kernels must agree with the same
    forward through the plain torch paths;
@@ -134,16 +135,31 @@ failing the run on its own error:
     frames at 960x540 in a temporary tree; `python -m
     d3roma_tpu_torch.train task=train_ldm_mixed_rgb+raw ...` in its own
     process for one epoch (3 steps of batch 16 at 180x320, full SD2.1
-    width, fp32, with in-training eval and the best/ and epoch exports):
-    every logged loss and grad_norm finite, the checkpoint and exports
-    written, the epoch export loaded and called; then resumed to a second
-    epoch (global step 3 to 6); one fp32 step of a narrow latent model on
+    width, fp32, Adafactor, the epoch export): every logged loss and
+    grad_norm finite, the checkpoint and export written, the epoch export
+    loaded and called; then resumed to a second epoch (global step 3 to 6)
+    in bf16 compute over the fp32 parameters (task.mixed_precision=bf16),
+    with the in-training eval and the best/ export: its losses finite,
+    state.pt and the epoch_0001/ export fp32, the export's UNet equal to
+    the checkpoint's parameters; one fp32 step of a narrow latent model on
     the card against the CPU from the same weights and draws, the card's
     under set_sync_debug_mode("error"); the full-width step's ms/step,
     samples/s, peak memory and one profiled step (idle share, device ms by
     phase and by kernel class), with no hand-written kernel launched (the
     training path reaches none of the JAX package's Pallas kernels);
-14. serving (`serve_phase`): a full-width rgb+raw pipeline saved, and
+14. accuracy (`accuracy_phase`): the full-width step in bf16 compute
+    beside the fp32 one (ms/step, samples/s, peak memory, idle share, no
+    hand kernel); `d3roma_tpu_torch.deepcache_accuracy` in process on the
+    training phase's bf16 checkpoint (alone, `--accuracy`, on one bf16
+    epoch of the train entry point from random weights): 8 procedural val
+    frames at batch 4, the rows bf16:1, bf16:2d2, int8:1, int8:2d2, each
+    on its own copy of the loaded pipeline; the table with its drift
+    columns, every metric finite; the int8 rows' launches a call of the int8
+    attention, GEGLU, conv and quantize kernels; the int8:1 row's first
+    batch of predictions through the kernels within twice the int8 noise
+    (the plain int8 batch against the bf16:1 row's) of the same batch
+    through every plain version, the plain batch on other noise outside it;
+15. serving (`serve_phase`): a full-width rgb+raw pipeline saved, and
     calibrated under throughput and saved again; `python -m
     d3roma_tpu_torch.demo` in its own process (its four artifacts read
     back); the startup probe picking "latency" first; `python -m
@@ -156,7 +172,7 @@ failing the run on its own error:
     every plain version, no host synchronization from upload to copy) and its
     single-frame rgb+raw and left+right+raw calls under latency; ms/request,
     ms/frame, host ms, idle share, the server's p50/p90/p99;
-15. reference checkpoints and guidance (`import_phase`): a bare SD2.1
+16. reference checkpoints and guidance (`import_phase`): a bare SD2.1
     diffusers directory at full width (random seeded weights: the UNet in
     fp16 safetensors, the VAE in fp32 .bin, the 23-layer text tower in fp32
     safetensors) imported by `python -m d3roma_tpu_torch.import_reference
@@ -164,28 +180,28 @@ failing the run on its own error:
     to its source, conv_in the fp32 widening bit for bit, the text
     embedding within 1e-4 of the CPU forward); `python -m
     d3roma_tpu_torch.parity_check` at 64x96 and its golden dump and
-    compare; the imported pipeline under latency at batch 1, 360x640, 10
-    steps, unguided and guided (10 Adam steps at lr 1e-3): 100 attention
-    and 160 GEGLU launches each, the guided images within
+    compare; the imported pipeline under latency at batch 1, 360x640, 5
+    steps, unguided and guided (10 Adam steps at lr 1e-3): 50 attention
+    and 80 GEGLU launches each, the guided images within
     IMPORT_PRED_REL_TOL of the plain versions' and different from the
     unguided ones, ms/request and the guided peak memory; under
     throughput, calibrated, 4 steps: guided bit-equal to unguided, the
     extra launches those of 40 decodes;
-16. tensor parallelism (`tp_phase`): two ranks on the card under torchrun
+17. tensor parallelism (`tp_phase`): two ranks on the card under torchrun
     (gloo): `mha_attention_tp` and `geglu_ff_tp` at the flagship batch-1
     shapes against their plain compositions, timed (kernel and collective
-    apart); `D3RoMa` rgb+raw at full width, batch 1, 360x640, 10 steps under
-    task.tensor_parallel=2, latency and throughput (calibrated on the
-    meshed pipeline): the launch counts (100 / 160 through the
-    compositions; 102 / 160 in int8), the depth against the tp=1 call and
+    apart); `D3RoMa` rgb+raw at full width, batch 1, 360x640, TP_STEPS (3)
+    steps under task.tensor_parallel=2, latency and throughput (calibrated
+    on the meshed pipeline): the launch counts (30 / 48 through the
+    compositions; 32 / 48 in int8), the depth against the tp=1 call and
     the plain compositions', ms/request and its collectives, a rank's
     parameter bytes (`--tp` alone also runs the eval phase's DP2 check);
-17. the torch bench, `python -m d3roma_tpu_torch.bench`, in its own process
-    at batch 2 with 3 timed calls (records and scales in a temporary
+18. the torch bench, `python -m d3roma_tpu_torch.bench`, in its own process
+    at batch 2 with 2 timed calls (records and scales in a temporary
     directory), at the default setting, at BENCH_CLIP_PCT=0.999 and at
     BENCH_MODEL=pixel: its JSON line must carry every key of the JAX
     bench's at that setting, value > 0;
-18. a JSON line of per-kernel numbers, then the JSON result as the last line.
+19. a JSON line of per-kernel numbers, then the JSON result as the last line.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -1636,10 +1652,10 @@ def _run_call(pipe, rgb, raw):
 
 def _timed_calls(pipe, run, label):
     """Zero the launch counts, make one call (its counts and output are
-    kept), then two more: the host's share of a call varies from machine to
-    machine, so the median of three is the number kept. Checks the output's
-    shape and that it and its disparity are finite. Returns (counts,
-    ms/frame)."""
+    kept), then one more: the number kept is the faster of the two (two
+    calls a path keep the whole pass inside its time limit). Checks the
+    output's shape and that it and its disparity are finite. Returns
+    (counts, ms/frame)."""
     import torch
 
     _zero_launches()
@@ -1648,14 +1664,13 @@ def _timed_calls(pipe, run, label):
     _sync()
     walls = [time.perf_counter() - t0]
     counts = _int8_launches()
-    for _ in range(2):
-        t0 = time.perf_counter()
-        run()
-        _sync()
-        walls.append(time.perf_counter() - t0)
-    ms_per_frame = sorted(walls)[1] * 1e3 / BATCH
+    t0 = time.perf_counter()
+    run()
+    _sync()
+    walls.append(time.perf_counter() - t0)
+    ms_per_frame = min(walls) * 1e3 / BATCH
     disp = pipe.normalizer.denormalize(out.images.float())
-    print(f"{label}: {ms_per_frame:.2f} ms/frame, median of "
+    print(f"{label}: {ms_per_frame:.2f} ms/frame, the faster of "
           f"{[round(w * 1e3 / BATCH, 2) for w in walls]} (batch {BATCH}, {STEPS} steps, "
           f"{H}x{W}); images {tuple(out.images.shape)} in [{out.images.min().item():.4f}, "
           f"{out.images.max().item():.4f}], disparity in [{disp.min().item():.3f}, "
@@ -2260,7 +2275,7 @@ PIXEL_BENCH_KEYS = BENCH_KEYS[:8] + ("device",)
 
 def bench_phase(pixel_only: bool = False):
     """`python -m d3roma_tpu_torch.bench` as a user runs it, at batch 2 with
-    3 timed calls, its records and calibrated scales in a temporary
+    2 timed calls, its records and calibrated scales in a temporary
     directory: at the default setting (static int8, 2d2, calibrated), with
     BENCH_CLIP_PCT=0.999 (quantile calibration, clipped scales) and with
     BENCH_MODEL=pixel (only this one with `pixel_only`). Each must exit 0
@@ -2278,7 +2293,7 @@ def bench_phase(pixel_only: bool = False):
             for k in ("BENCH_QUANT", "BENCH_DEEPCACHE", "BENCH_CALIB", "BENCH_STEPS",
                       "BENCH_RECORDS", "BENCH_MODEL"):
                 env.pop(k, None)
-            env.update(BENCH_BATCH=str(BATCH), BENCH_REPS="3", BENCH_CACHE_DIR=tmp, **extra)
+            env.update(BENCH_BATCH=str(BATCH), BENCH_REPS="2", BENCH_CACHE_DIR=tmp, **extra)
             t0 = time.perf_counter()
             proc = subprocess.run([sys.executable, "-m", "d3roma_tpu_torch.bench"], env=env,
                                   capture_output=True, text=True, timeout=600)
@@ -2462,7 +2477,7 @@ def _pixel_timed_calls(pipe, run, label):
         walls.append(time.perf_counter() - t0)
     ms_per_frame = sorted(walls)[1] * 1e3 / BATCH
     img, inter = out.images, out.intermediates
-    print(f"{label}: {ms_per_frame:.2f} ms/frame, median of "
+    print(f"{label}: {ms_per_frame:.2f} ms/frame, the faster of "
           f"{[round(w * 1e3 / BATCH, 2) for w in walls]} (batch {BATCH}, {STEPS} steps, "
           f"{PIXEL_H}x{PIXEL_W}); images {tuple(img.shape)} in [{img.min().item():.4f}, "
           f"{img.max().item():.4f}], intermediates {tuple(inter.shape)}; peak memory "
@@ -2797,7 +2812,8 @@ def eval_phase():
       the renderer's arrays; the loader's host ms per frame, from one pass
       of the eval loader (its threads, PNG and EXR decode, resize);
     - `dp2_eval`: `distributed_evaluate` data parallel on two ranks of the
-      card (torchrun, gloo) against the entry point's metrics line below;
+      card (torchrun, gloo) against the entry point's metrics line, the two
+      run at the same time;
     - the entry point in its own process, with the temporary directory as
       its working directory: finite metrics for HISS and every artifact
       (the colourised predictions, the error map and the denoised grid, the
@@ -2811,7 +2827,7 @@ def eval_phase():
       EVAL_PRED_REL_TOL of the plain run's, depth/rel and disp/epe within
       EVAL_METRIC_REL_TOL; the plain run on other noise (generator seed 2)
       must fall outside EVAL_PRED_REL_TOL, so the check tells samples
-      apart; eval ms/frame, the median of three runs after a warm-up, and
+      apart; eval ms/frame, the faster of two runs after a warm-up, and
       the device's idle share from one profiled run;
     - golden.dump through the plain versions at 272x480, golden.compare
       through the kernels: every stage within GOLDEN_ATOL.
@@ -2889,26 +2905,14 @@ def eval_phase():
             pipe.save_pretrained(pipe_dir)
             print(f"eval: save_pretrained in {time.perf_counter() - t0:.1f}s", flush=True)
 
-            # the entry point, as a user runs it, in its own process
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, "-m", "d3roma_tpu_torch.evaluate", f"task={EVAL_PRESET}",
-                 f"task.resume_pretrained={pipe_dir}", "task.eval_dataset=[HISS]",
-                 "task.fast_inference=latency", f"task.eval_batch_size={EVAL_BATCH}"],
-                cwd=tmp, capture_output=True, text=True, timeout=600,
-                env=dict(os.environ, PYTHONPATH=repo + os.pathsep
-                         + os.environ.get("PYTHONPATH", "")))
-            lines = proc.stdout.strip().splitlines()
-            print(f"eval: entry point exit {proc.returncode} in {time.perf_counter() - t0:.1f}s;"
-                  f" {lines[-1] if lines else ''}", flush=True)
-            if proc.returncode != 0 or not lines:
-                raise AssertionError(f"eval entry point failed: {proc.stderr[-3000:]}")
-            line = json.loads(lines[-1])
+            # the entry point, as a user runs it, in its own process, and at
+            # the same time the same evaluation data parallel on two ranks
+            summary["dp2"] = dp2_eval(tmp, repo, pipe_dir)
+            line = summary["dp2"].pop("evaluate_line")
+            print(f"eval: entry point {line}", flush=True)
             flat = [v for grp in ("disp", "depth") for v in line["metrics"][grp].values()]
             if line["dataset"] != "HISS" or not all(np.isfinite(flat)):
                 raise AssertionError(f"eval entry point: bad metrics {line}")
-            # the same evaluation data parallel on two ranks of the card
-            summary["dp2"] = dp2_eval(tmp, repo, pipe_dir, ref=line)
             art = os.path.join(tmp, line["output_dir"])
             read = 0
             for i in range(EVAL_FRAMES // EVAL_BATCH):
@@ -2941,7 +2945,7 @@ def eval_phase():
                           {"attention": EVAL_ATTENTION_SITES * passes,
                            "geglu": EVAL_TRANSFORMER_BLOCKS * passes})
             walls = []
-            for _ in range(3):
+            for _ in range(2):
                 t0 = time.perf_counter()
                 run()
                 _sync()
@@ -2969,8 +2973,8 @@ def eval_phase():
                 raise AssertionError(f"eval: other noise within the tolerance ({control_rel})")
             if not all(np.isfinite(list(errs.values()))) or max(errs.values()) > EVAL_METRIC_REL_TOL:
                 raise AssertionError(f"eval: kernels against plain {errs}")
-            ms = statistics.median(walls)
-            print(f"eval: {ms:.2f} ms/frame, median of {[round(w, 2) for w in walls]} "
+            ms = min(walls)
+            print(f"eval: {ms:.2f} ms/frame, the faster of {[round(w, 2) for w in walls]} "
                   f"({EVAL_FRAMES} frames, batch {EVAL_BATCH}, {cfg.num_inference_timesteps} "
                   f"steps, 272x480); profiled run device busy {busy_ms / EVAL_FRAMES:.2f} "
                   f"ms/frame, idle share {idle:.3f}", flush=True)
@@ -3003,7 +3007,7 @@ TRAIN_EVAL_FRAMES = 4
 SCENEFLOW_HW = (540, 960)  # the dataset's frames
 TRAIN_BATCH = 16
 TRAIN_HW = (184, 320)  # the preset's 180x320 crop, padded to divis_by 8
-TRAIN_TIMED_STEPS = 8  # the median of the steps after the first two
+TRAIN_TIMED_STEPS = 5  # the median of the steps after the first two
 # Card against CPU, one fp32 AdamW step of a narrow latent model (TF32
 # off on the card): loss within 1e-4 and grad_norm within 1e-3 relative
 # (fp32 sums in other orders, cuDNN's and the CPU's: a few ulps of each
@@ -3057,8 +3061,9 @@ def _train_run(tmp, repo, extra):
     proc = subprocess.run(
         [sys.executable, "-m", "d3roma_tpu_torch.train", f"task={TRAIN_PRESET}",
          "task.train_dataset=[SceneFlow,HISS]", "task.dataset_weight=[1,1]",
-         "task.eval_dataset=[HISS]", "task.val_every_global_steps=2", "task.eval_num_batch=1",
-         "task.save_model_epochs=1", "task.output_dir=run"] + list(extra),
+         "task.eval_dataset=[HISS]", "task.val_every_global_steps=3", "task.eval_num_batch=1",
+         "task.save_model_epochs=1", "task.optimizer=adafactor", "task.output_dir=run"]
+        + list(extra),
         cwd=tmp, capture_output=True, text=True, timeout=900,
         env=dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", "")))
     wall = time.perf_counter() - t0
@@ -3244,7 +3249,8 @@ def _kernel_class(name: str) -> str:
 
 def train_timing(cfg):
     """Full width (SD2.1 UNet and VAE, random weights), batch 16 at 184x320,
-    fp32 with TF32 off: TRAIN_TIMED_STEPS steps on a batch on the card, each
+    in cfg's precision (fp32, or bf16 compute over fp32 parameters), TF32
+    off: TRAIN_TIMED_STEPS steps on a batch on the card, each
     synchronized; ms/step the median of the steps after the first two,
     samples/s, peak memory; no hand-written kernel launched; one more step
     under torch.profiler: its idle share and device ms by phase and by
@@ -3315,7 +3321,8 @@ def train_timing(cfg):
     ranges["backward"] = busy - sum(v for k, v in ranges.items() if k != "backward")
     ms = statistics.median(walls[2:])
     idle = max(0.0, 1 - busy / prof_wall)
-    print(f"train (full width, batch {TRAIN_BATCH}, {TRAIN_HW[0]}x{TRAIN_HW[1]}, fp32): "
+    precision = "bf16" if cfg.mixed_precision in ("bf16", "fp16") else "fp32"
+    print(f"train (full width, batch {TRAIN_BATCH}, {TRAIN_HW[0]}x{TRAIN_HW[1]}, {precision}): "
           f"{ms:.1f} ms/step, median of {[round(w, 1) for w in walls[2:]]} (first two "
           f"{[round(w, 1) for w in walls[:2]]}); {TRAIN_BATCH / ms * 1e3:.2f} samples/s; peak "
           f"memory {peak:.2f} GiB; profiled step {prof_wall:.1f} ms wall, device busy "
@@ -3338,8 +3345,44 @@ def train_timing(cfg):
                 idle_share=idle, device_ms_by_phase=ranges, device_ms_by_kernel_class=classes)
 
 
-def train_phase():
-    """Training end to end on the card, hermetic:
+def _fp32_checkpoint_and_export(run: str, export: str):
+    """Every parameter and optimizer tensor of run's checkpoints/last
+    state.pt and every leaf of the export's params.msgpack files fp32, the
+    UNet's leaves equal to the checkpoint's parameters. Returns the counts
+    checked."""
+    import torch
+
+    from d3roma_tpu_torch.models import flax_unet_to_torch
+    from d3roma_tpu_torch.utils import flax_msgpack
+
+    sd = torch.load(os.path.join(run, "checkpoints", "last", "state.pt"), map_location="cpu",
+                    weights_only=True, mmap=True)
+    params = sd["params"]
+    opt = [t for v in sd["opt_state"].values() for t in (v if isinstance(v, list) else [v])
+           if t.is_floating_point()]
+    bad = [k for k, v in params.items() if v.dtype != torch.float32]
+    bad += [f"opt_state tensor {t.dtype}" for t in opt if t.dtype != torch.float32]
+    leaves = {}
+    for part in ("unet", "vae"):
+        tree = flax_msgpack.load(os.path.join(export, part, "params.msgpack"))
+        leaves[part] = flax_unet_to_torch(tree) if part == "unet" else None
+        stack = [tree]
+        while stack:
+            node = stack.pop()
+            for k, v in node.items():
+                if isinstance(v, dict):
+                    stack.append(v)
+                elif v.dtype != torch.float32:
+                    bad.append(f"{part} leaf {k} {v.dtype}")
+    bad += [k for k, v in leaves["unet"].items() if not torch.equal(v, params[k])]
+    if bad:
+        raise AssertionError(f"train: not fp32 or not the checkpoint's: {bad[:10]}")
+    return dict(params=len(params), opt_tensors=len(opt), unet_leaves=len(leaves["unet"]))
+
+
+def train_phase(tmp: str):
+    """Training end to end on the card, hermetic (in `tmp`, which the
+    accuracy phase reads after it):
 
     - frames in a temporary `datasets/` tree: TRAIN_FRAMES procedural HISS
       frames (640x360) in `train` and TRAIN_EVAL_FRAMES in the split the
@@ -3347,21 +3390,26 @@ def train_phase():
       the dataset's 960x540 (one epoch: 3 steps of batch 16);
     - `python -m d3roma_tpu_torch.train task=train_ldm_mixed_rgb+raw
       task.train_dataset=[SceneFlow,HISS] task.dataset_weight=[1,1]
-      task.eval_dataset=[HISS] task.num_epochs=1 task.val_every_global_steps=2
-      task.eval_num_batch=1 task.save_model_epochs=1` in its own process:
-      full SD2.1 width, random weights, batch 16, 180x320, fp32,
-      v-prediction. Every logged loss and grad_norm finite;
-      checkpoints/last, best/ and epoch_0000/ written; epoch_0000/ loads
-      through from_pretrained and one pipeline call on it is finite. Then
-      again with task.num_epochs=2: it resumes at global step 3 and ends at 6;
+      task.eval_dataset=[HISS] task.num_epochs=1 task.eval_num_batch=1
+      task.save_model_epochs=1 task.optimizer=adafactor` in its own
+      process: full SD2.1 width, random weights, batch 16, 180x320, fp32,
+      v-prediction, Adafactor (the capstone recipe's optimizer; its state
+      is a fraction of AdamW's 7 GB of moments, which the checkpoint would
+      write and the resume read). Every logged loss and grad_norm finite;
+      checkpoints/last and epoch_0000/ written; epoch_0000/ loads through
+      from_pretrained and one pipeline call on it is finite. Then again
+      with task.num_epochs=2 task.mixed_precision=bf16: it resumes the fp32
+      checkpoint at global step 3 and ends at 6 in bf16 compute over the
+      fp32 parameters (the JAX bf16 template's parameters are fp32 too),
+      the in-training eval at step 6 exporting best/; every loss finite,
+      state.pt and the epoch_0001/ export fp32, the export's UNet equal to
+      the checkpoint's parameters;
     - one step of a narrow latent model on the card against the CPU
       (`train_card_vs_cpu`), no host sync inside the card's step;
     - the full-width step's ms, samples/s, peak memory and a profiled step
       (`train_timing`).
 
     Returns a summary dict."""
-    import tempfile
-
     import numpy as np
     import torch
 
@@ -3374,72 +3422,241 @@ def train_phase():
     summary = {}
     repo = os.path.dirname(os.path.abspath(__file__))
     cfg = compose([f"task={TRAIN_PRESET}"]).task
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        generate_dataset(os.path.join(tmp, "datasets", "HISS"), TRAIN_FRAMES, split="train",
-                         seed=3)
-        generate_dataset(os.path.join(tmp, "datasets", "HISS"), TRAIN_EVAL_FRAMES,
-                         split=cfg.eval_split, seed=4)
-        _write_sceneflow(os.path.join(tmp, "datasets", "SceneFlow"), TRAIN_FRAMES, seed=6)
-        print(f"train: {2 * TRAIN_FRAMES + TRAIN_EVAL_FRAMES} frames written in "
-              f"{time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    generate_dataset(os.path.join(tmp, "datasets", "HISS"), TRAIN_FRAMES, split="train",
+                     seed=3)
+    generate_dataset(os.path.join(tmp, "datasets", "HISS"), TRAIN_EVAL_FRAMES,
+                     split=cfg.eval_split, seed=4)
+    _write_sceneflow(os.path.join(tmp, "datasets", "SceneFlow"), TRAIN_FRAMES, seed=6)
+    print(f"train: {2 * TRAIN_FRAMES + TRAIN_EVAL_FRAMES} frames written in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
 
-        steps, log, wall = _train_run(tmp, repo, ["task.num_epochs=1"])
-        run = os.path.join(tmp, "run")
-        with open(os.path.join(run, "checkpoints", "last", "counter.json")) as f:
-            counter = json.load(f)
-        print(f"train: entry point, 1 epoch in {wall:.1f}s; steps {steps}; counter {counter}",
-              flush=True)
-        if [s for s, _, _ in steps] != [1, 2, 3] or not all(
-                np.isfinite([l for _, l, _ in steps] + [g for _, _, g in steps])):
-            raise AssertionError(f"train: steps {steps}\n{log[-3000:]}")
-        if counter["global_step"] != 3 or counter["epoch"] != 1:
-            raise AssertionError(f"train: counter {counter}")
-        for name in ("checkpoints/last/state.pt", "best/model_index.json",
-                     "epoch_0000/unet/params.msgpack", "epoch_0000/vae/params.msgpack"):
-            if not os.path.exists(os.path.join(run, name)):
-                raise AssertionError(f"train: {name} not written")
-        summary["epoch_1"] = dict(steps=steps, wall_s=wall, counter=counter)
+    steps, log, wall = _train_run(tmp, repo, ["task.num_epochs=1",
+                                              "task.val_every_global_steps=100"])
+    run = os.path.join(tmp, "run")
+    with open(os.path.join(run, "checkpoints", "last", "counter.json")) as f:
+        counter = json.load(f)
+    print(f"train: entry point, 1 epoch in {wall:.1f}s; steps {steps}; counter {counter}",
+          flush=True)
+    if [s for s, _, _ in steps] != [1, 2, 3] or not all(
+            np.isfinite([l for _, l, _ in steps] + [g for _, _, g in steps])):
+        raise AssertionError(f"train: steps {steps}\n{log[-3000:]}")
+    if counter["global_step"] != 3 or counter["epoch"] != 1:
+        raise AssertionError(f"train: counter {counter}")
+    for name in ("checkpoints/last/state.pt", "epoch_0000/unet/params.msgpack",
+                 "epoch_0000/vae/params.msgpack"):
+        if not os.path.exists(os.path.join(run, name)):
+            raise AssertionError(f"train: {name} not written")
+    summary["epoch_1"] = dict(steps=steps, wall_s=wall, counter=counter)
 
-        pipe = GuidedLatentDiffusionPipeline.from_pretrained(os.path.join(run, "epoch_0000"),
-                                                             device="cuda")
-        cwd = os.getcwd()
-        os.chdir(tmp)
-        try:
-            eval_cfg = compose([f"task={TRAIN_PRESET}", "task.eval_dataset=[HISS]"]).task
-            batch = preprocess_eval(next(iter(val_loaders(eval_cfg)[0])), eval_cfg,
-                                    Normalizer.from_config(eval_cfg), "cuda")
-        finally:
-            os.chdir(cwd)
-        rgb, raw = batch["normalized_rgb"], batch["sim_disp"]
-        pad = (-rgb.shape[1]) % 8
-        rgb = torch.nn.functional.pad(rgb, (0, 0, 0, 0, 0, pad), mode="replicate")
-        raw = torch.nn.functional.pad(raw, (0, 0, 0, 0, 0, pad), mode="replicate")
-        out = pipe(num_inference_steps=eval_cfg.num_inference_timesteps,
-                   num_intermediate_images=1, cond_channels="rgb+raw", rgb_images=rgb,
-                   sim_disp=raw, generator=torch.Generator(device="cuda").manual_seed(0))
-        if not torch.isfinite(out.images).all():
-            raise AssertionError("train: the exported pipeline's output is not finite")
-        print(f"train: epoch_0000/ loaded through from_pretrained; one call "
-              f"{tuple(out.images.shape)} finite in [{out.images.min().item():.4f}, "
-              f"{out.images.max().item():.4f}]", flush=True)
-        del pipe, out
-        torch.cuda.empty_cache()
+    pipe = GuidedLatentDiffusionPipeline.from_pretrained(os.path.join(run, "epoch_0000"),
+                                                         device="cuda")
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        eval_cfg = compose([f"task={TRAIN_PRESET}", "task.eval_dataset=[HISS]"]).task
+        batch = preprocess_eval(next(iter(val_loaders(eval_cfg)[0])), eval_cfg,
+                                Normalizer.from_config(eval_cfg), "cuda")
+    finally:
+        os.chdir(cwd)
+    rgb, raw = batch["normalized_rgb"], batch["sim_disp"]
+    pad = (-rgb.shape[1]) % 8
+    rgb = torch.nn.functional.pad(rgb, (0, 0, 0, 0, 0, pad), mode="replicate")
+    raw = torch.nn.functional.pad(raw, (0, 0, 0, 0, 0, pad), mode="replicate")
+    out = pipe(num_inference_steps=eval_cfg.num_inference_timesteps,
+               num_intermediate_images=1, cond_channels="rgb+raw", rgb_images=rgb,
+               sim_disp=raw, generator=torch.Generator(device="cuda").manual_seed(0))
+    if not torch.isfinite(out.images).all():
+        raise AssertionError("train: the exported pipeline's output is not finite")
+    print(f"train: epoch_0000/ loaded through from_pretrained; one call "
+          f"{tuple(out.images.shape)} finite in [{out.images.min().item():.4f}, "
+          f"{out.images.max().item():.4f}]", flush=True)
+    del pipe, out
+    torch.cuda.empty_cache()
 
-        steps2, log2, wall2 = _train_run(tmp, repo, ["task.num_epochs=2"])
-        with open(os.path.join(run, "checkpoints", "last", "counter.json")) as f:
-            counter2 = json.load(f)
-        print(f"train: resumed run in {wall2:.1f}s; steps {steps2}; counter {counter2}",
-              flush=True)
-        if ("resuming from" not in log2 or [s for s, _, _ in steps2][-3:] != [4, 5, 6]
-                or not all(np.isfinite([l for _, l, _ in steps2] + [g for _, _, g in steps2]))
-                or counter2["global_step"] != 6 or counter2["epoch"] != 2
-                or not os.path.exists(os.path.join(run, "epoch_0001", "model_index.json"))):
-            raise AssertionError(f"train: resume {steps2} {counter2}\n{log2[-3000:]}")
-        summary["epoch_2"] = dict(steps=steps2[-3:], wall_s=wall2, counter=counter2)
+    steps2, log2, wall2 = _train_run(tmp, repo, ["task.num_epochs=2",
+                                                 "task.mixed_precision=bf16"])
+    with open(os.path.join(run, "checkpoints", "last", "counter.json")) as f:
+        counter2 = json.load(f)
+    print(f"train: resumed run in bf16 in {wall2:.1f}s; steps {steps2}; counter {counter2}",
+          flush=True)
+    if ("resuming from" not in log2 or [s for s, _, _ in steps2][-3:] != [4, 5, 6]
+            or not all(np.isfinite([l for _, l, _ in steps2] + [g for _, _, g in steps2]))
+            or counter2["global_step"] != 6 or counter2["epoch"] != 2
+            or not os.path.exists(os.path.join(run, "epoch_0001", "model_index.json"))
+            or not os.path.exists(os.path.join(run, "best", "model_index.json"))):
+        raise AssertionError(f"train: resume {steps2} {counter2}\n{log2[-3000:]}")
+    checked = _fp32_checkpoint_and_export(run, os.path.join(run, "epoch_0001"))
+    print(f"train: the bf16 run's state.pt ({checked['params']} parameters, "
+          f"{checked['opt_tensors']} optimizer tensors) and epoch_0001/ leaves fp32, the "
+          f"export's UNet ({checked['unet_leaves']} leaves) equal to the checkpoint's",
+          flush=True)
+    summary["epoch_2_bf16"] = dict(steps=steps2[-3:], wall_s=wall2, counter=counter2,
+                                   fp32_checked=checked)
 
     summary["card_vs_cpu"] = train_card_vs_cpu(cfg)
     summary["timing"] = train_timing(cfg)
+    return summary
+
+
+ACCURACY_FRAMES = 8
+ACCURACY_BATCH = 4
+ACCURACY_KS = ("1", "2d2")
+ACCURACY_MODES = ("bf16", "int8")
+# a call's int8 attention and GEGLU launches in the int8 rows at the eval's
+# 184x320 (latent 23x40), per denoise step: the 920-token level's 5
+# self-attention sites in every UNet pass (the 240-token level runs plain;
+# 2d2's shallow passes refresh the whole level), and 16 transformer blocks
+# a full pass, 10 a depth-2 shallow one (5 full and 5 shallow steps under
+# 2d2: 13 a step); plus the VAE's two mid attentions (one stacked encode,
+# one stacked decode)
+ACCURACY_ATTENTION_SITES = 5
+ACCURACY_GEGLU_PER_STEP = {"1": 16, "2d2": 13}
+
+
+def _accuracy_checkpoint(tmp: str, repo: str) -> str:
+    """For --accuracy alone: frames and one bf16 epoch of the train entry
+    point (3 steps of batch 16) from random weights in `tmp`, its state.pt
+    and epoch_0000/ export fp32. Returns the run directory."""
+    import numpy as np
+
+    from d3roma_tpu_torch.config import compose
+    from d3roma_tpu_torch.synthetic import generate_dataset
+
+    cfg = compose([f"task={TRAIN_PRESET}"]).task
+    generate_dataset(os.path.join(tmp, "datasets", "HISS"), TRAIN_FRAMES, split="train", seed=3)
+    generate_dataset(os.path.join(tmp, "datasets", "HISS"), TRAIN_EVAL_FRAMES,
+                     split=cfg.eval_split, seed=4)
+    _write_sceneflow(os.path.join(tmp, "datasets", "SceneFlow"), TRAIN_FRAMES, seed=6)
+    steps, log, wall = _train_run(tmp, repo, ["task.num_epochs=1", "task.mixed_precision=bf16"])
+    run = os.path.join(tmp, "run")
+    if [s for s, _, _ in steps] != [1, 2, 3] or not np.isfinite(
+            [x for _, l, g in steps for x in (l, g)]).all():
+        raise AssertionError(f"accuracy: bf16 epoch steps {steps}\n{log[-3000:]}")
+    checked = _fp32_checkpoint_and_export(run, os.path.join(run, "epoch_0000"))
+    print(f"accuracy: the train entry point, one bf16 epoch in {wall:.1f}s; steps {steps}; "
+          f"state.pt and epoch_0000/ fp32 ({checked})", flush=True)
+    return run
+
+
+def accuracy_phase(train_tmp=None):
+    """bf16 training and the DeepCache accuracy sweep on its checkpoint:
+
+    - the full-width step in bf16 compute over fp32 parameters
+      (`train_timing` with task.mixed_precision=bf16) beside the fp32 one:
+      ms/step, samples/s, peak memory, idle share, losses finite, no hand
+      kernel launched;
+    - `d3roma_tpu_torch.deepcache_accuracy` in process on the train phase's
+      bf16 checkpoint (`train_tmp`; alone, one bf16 epoch of the train entry
+      point from random weights): ACCURACY_FRAMES procedural val frames at
+      batch ACCURACY_BATCH, the rows ACCURACY_MODES x ACCURACY_KS, each on
+      its own copy of the loaded pipeline; the table built with its drift
+      columns, every metric finite; the launches of one call of each int8
+      row (rows 1b, 2b, 3 and the quantize: 5 x 10 + 2 int8 attention and
+      16 x 10 int8 GEGLU a call without DeepCache, fewer GEGLU under 2d2's shallow
+      passes, one int8 conv and one quantize per conv and dense visit;
+      ACCURACY_ATTENTION_SITES, ACCURACY_GEGLU_PER_STEP);
+    - the int8:1 row's first batch of predictions through the kernels
+      against the same batch through every plain version (the serve phase's
+      int8 rule: within twice the int8 noise, the plain int8 batch against
+      the bf16:1 row's, which runs no kernel; the plain batch on other noise
+      must fall outside).
+
+    Returns a summary dict."""
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    from d3roma_tpu_torch import deepcache_accuracy as dca
+    from d3roma_tpu_torch.config import compose
+
+    summary = {}
+    repo = os.path.dirname(os.path.abspath(__file__))
+    summary["bf16_step"] = train_timing(compose([f"task={TRAIN_PRESET}",
+                                                 "task.mixed_precision=bf16"]).task)
+    own = None
+    if train_tmp is None:
+        own = tempfile.mkdtemp()
+        run = _accuracy_checkpoint(own, repo)
+    else:
+        run = os.path.join(train_tmp, "run")
+    try:
+        # the sweep's layout: frames under <dir>/datasets, the checkpoint
+        # under <dir>/run/checkpoints/last
+        work = os.path.dirname(run)
+        t0 = time.perf_counter()
+        dca.data(work, ACCURACY_FRAMES)
+        sweep = dca.Sweep.from_checkpoint(work, ACCURACY_FRAMES, ACCURACY_BATCH, "cuda")
+        print(f"accuracy: checkpoint at step {sweep.step} loaded, {ACCURACY_FRAMES} val frames "
+              f"in {time.perf_counter() - t0:.1f}s", flush=True)
+        calls = ACCURACY_FRAMES // ACCURACY_BATCH
+        results, launches, preds, row_s = {}, {}, {}, {}
+        for mode, k in dca.wanted_rows(ACCURACY_MODES, ACCURACY_KS):
+            pipe = sweep.pipeline(mode, k)
+            _zero_launches()
+            t0 = time.perf_counter()
+            m, preds[(mode, k)] = _predictions(lambda: sweep.evaluate(pipe))
+            _sync()
+            row_s[f"{mode}:{k}"] = round(time.perf_counter() - t0, 2)
+            counts = {n: c for n, c in _int8_launches().items() if c}
+            if mode == "bf16" and counts:
+                raise AssertionError(f"accuracy: the bf16 row {k} launched {counts}")
+            if mode == "int8":
+                if any(c % calls for c in counts.values()):
+                    raise AssertionError(f"accuracy: int8 {k} launches {counts} over {calls}")
+                launches[k] = one = {n: c // calls for n, c in counts.items()}
+                steps = sweep.config.num_inference_timesteps
+                want = {"attention_int8": ACCURACY_ATTENTION_SITES * steps + 2,
+                        "geglu_int8": ACCURACY_GEGLU_PER_STEP[k] * steps}
+                if (any(one.get(n) != v for n, v in want.items()) or not one.get("conv2d_int8")
+                        or one["quantize"] != one["conv2d_int8"] + one["geglu_int8"]):
+                    raise AssertionError(f"accuracy: int8 {k} launches a call {one} (want {want}"
+                                         f", one quantize a conv and a GEGLU)")
+            m = {sp: {n: float(v) for n, v in d.items()} for sp, d in m.items()}
+            m.update(_checkpoint_step=sweep.step, _device=dca.device_label("cuda"))
+            results[(mode, k)] = m
+            if mode == "int8" and k == "1":
+                int8_pipe = pipe
+            else:
+                del pipe
+        doc = dca.build_doc(results, ACCURACY_KS, ACCURACY_MODES, ACCURACY_FRAMES,
+                            sweep.config.num_inference_timesteps)
+        bad = [(sec, k, n) for sec in ("bf16", "combined_int8") for k, row in doc[sec].items()
+               for n, v in row.items() if not math.isfinite(v)]
+        drift = [(sec, k) for sec in ("bf16", "combined_int8") for k in doc[sec]
+                 if (sec, k) != ("bf16", "1") and "depth_rel_drift_pct" not in doc[sec][k]]
+        if bad or drift or "depth_rel_drift_pct_vs_int8" not in doc["combined_int8"]["2d2"]:
+            raise AssertionError(f"accuracy: table not finite {bad} or drifts missing {drift}")
+        print(f"accuracy: table {json.dumps(doc)}", flush=True)
+        print(f"accuracy: seconds a row {row_s}; int8 launches a call {launches}", flush=True)
+
+        # the int8:1 row's first batch through every plain version, and the
+        # yardstick
+        _, ref_preds = _predictions(lambda: _plain_int8_forward(
+            lambda: sweep.evaluate(int8_pipe, max_batches=1)))
+        noise = _pred_rel(ref_preds, preds[("bf16", "1")][:1])
+        _, control = _predictions(lambda: _plain_int8_forward(
+            lambda: sweep.evaluate(int8_pipe, seed=dca.EVAL_SEED + 1, max_batches=1)))
+        rel, control_rel = (_pred_rel(preds[("int8", "1")][:1], ref_preds),
+                            _pred_rel(control, ref_preds))
+        tol = 2 * noise
+        print(f"accuracy: int8:1 first batch's predictions through the kernels against every "
+              f"plain version max |a - b| / max |b| = {rel:.3e} (tol {tol:.3e}, twice the int8 "
+              f"noise: the plain int8 batch against the bf16 row's {noise:.3e}); plain on other "
+              f"noise {control_rel:.3e} (must exceed the tol)", flush=True)
+        if not rel <= tol < control_rel:
+            raise AssertionError(f"accuracy: kernels against plain {rel}, control {control_rel} "
+                                 f"(tol {tol})")
+        summary.update(checkpoint_step=sweep.step, table=doc, launches=launches,
+                       row_seconds=row_s, int8_noise=noise, kernels_vs_plain=rel,
+                       control=control_rel)
+        del sweep, int8_pipe
+        torch.cuda.empty_cache()
+    finally:
+        if own:
+            shutil.rmtree(own, ignore_errors=True)
     return summary
 
 
@@ -3531,7 +3748,7 @@ def _kernel_vs_plain(label, droma, fn, plain, seed, fxb, tol=SERVE_PRED_REL_TOL,
     return rel, control_rel
 
 
-def _median_ms(fn, frames, reps=3):
+def _median_ms(fn, frames, reps=2):
     walls = []
     for _ in range(reps):
         t0 = time.perf_counter()
@@ -4007,7 +4224,7 @@ def serve_phase():
 
 
 IMPORT_HW = (360, 640)
-IMPORT_STEPS = 10  # the latency calls'
+IMPORT_STEPS = 5  # the latency calls' (fewer than the preset's 10: the pass's time limit)
 IMPORT_STATIC_STEPS = 4  # the calibrated throughput calls'
 # The guided latency call through the kernels against the same call through
 # their plain versions, max |a - b| / max |b| of the images: the bf16
@@ -4191,17 +4408,9 @@ def import_phase():
         unet, vae, text = _write_sd21(ref, torch.Generator(device="cuda").manual_seed(16))
         torch.cuda.empty_cache()
         print(f"import: SD2.1 directory written in {time.perf_counter() - t0:.1f}s", flush=True)
-        rc, stdout, seconds = _run_module(tmp, repo, "d3roma_tpu_torch.import_reference", ref,
-                                          out, "--cond-channels", "rgb+raw")
-        print(f"import: python -m d3roma_tpu_torch.import_reference exit {rc} in "
-              f"{seconds:.1f}s: {stdout.strip().splitlines()}", flush=True)
-        if rc != 0:
-            raise AssertionError(f"import: import_reference exited {rc}")
-        summary["import_s"] = seconds
-
         children = {}
 
-        def parity():
+        def parity():  # reads only the reference directory: beside the import
             children["parity"] = _run_module(
                 tmp, repo, "d3roma_tpu_torch.parity_check", "--ref-dir", ref, "--out-dir",
                 os.path.join(tmp, "parity"), "--image-size", "64x96", "--steps", "2",
@@ -4213,10 +4422,18 @@ def import_phase():
                 children[flag[2:]] = _run_module(tmp, repo, "d3roma_tpu_torch.parity_check",
                                                  "--pipeline-dir", out, flag, gold)
 
-        sides = [threading.Thread(target=fn) for fn in (parity, golden)]
-        for side in sides:
-            side.start()
+        sides = [threading.Thread(target=parity)]
+        sides[0].start()
         try:
+            rc, stdout, seconds = _run_module(tmp, repo, "d3roma_tpu_torch.import_reference",
+                                              ref, out, "--cond-channels", "rgb+raw")
+            print(f"import: python -m d3roma_tpu_torch.import_reference exit {rc} in "
+                  f"{seconds:.1f}s: {stdout.strip().splitlines()}", flush=True)
+            if rc != 0:
+                raise AssertionError(f"import: import_reference exited {rc}")
+            summary["import_s"] = seconds
+            sides.append(threading.Thread(target=golden))
+            sides[1].start()
             summary["embed_rel"] = _check_imported(out, unet, vae, text)
         finally:
             for side in sides:
@@ -4265,7 +4482,7 @@ def import_phase():
                 lambda: outs.setdefault(guided, call(IMPORT_STEPS, guided).float()), bf16)
             peak = torch.cuda.max_memory_allocated() / 2**30
             ms, walls = _median_ms(lambda: call(IMPORT_STEPS, guided), 1,
-                                   reps=2 if guided else 3)
+                                   reps=1 if guided else 2)
             print(f"import latency {kind}: {ms:.2f} ms/request (batch 1, {IMPORT_STEPS} "
                   f"steps, {h}x{w}, median of {[round(x, 2) for x in walls]}), peak memory "
                   f"{peak:.2f} GiB", flush=True)
@@ -4407,6 +4624,7 @@ TP_ATTENTION_SHAPES = ((1, 3600, 5, 64, False), (1, 920, 10, 64, False),
                        (1, 3600, 1, 512, True))
 TP_GEGLU_SHAPES = ((3600, 320, 1280), (920, 640, 2560), (240, 1280, 5120), (60, 1280, 5120))
 TP_SEED = 41
+TP_STEPS = 3  # a TP request's denoise steps (fewer than the preset's 10: the pass's time limit)
 
 
 def _tp_launches():
@@ -4628,11 +4846,11 @@ def _tp_rank(spec_path: str) -> int:
                         for r, c, f in TP_GEGLU_SHAPES]
 
     # (2) D3RoMa rgb+raw at full width, batch 1, 360x640, under tensor_parallel
-    cfg = compose([f"task={SERVE_PRESET}"]).task
+    base = [f"task={SERVE_PRESET}", "task.image_size=[360,640]",
+            "task.num_intermediate_images=1", f"task.num_inference_timesteps={TP_STEPS}"]
+    cfg = compose(base).task
     steps = cfg.num_inference_timesteps
     rgb, raw = _serve_frame(30, 1.5)
-    base = [f"task={SERVE_PRESET}", "task.image_size=[360,640]",
-            "task.num_intermediate_images=1"]
     cam = Realsense.default_real("fxm")  # D3RoMa sets each its own camera's resolution
     refs = {}
 
@@ -4739,12 +4957,13 @@ def _tp_rank(spec_path: str) -> int:
     return 0
 
 
-def dp2_eval(tmp, repo, pipe_dir, ref=None):
+def dp2_eval(tmp, repo, pipe_dir):
     """`python -m d3roma_tpu_torch.distributed_evaluate` data parallel on two
     ranks of the card (torchrun, gloo) against the one-process `python -m
-    d3roma_tpu_torch.evaluate` (its JSON line `ref`, or run here at the same
-    time) on the same 4 procedural HISS frames under `tmp`/datasets and seed:
-    depth/rel and disp/epe within EVAL_METRIC_REL_TOL."""
+    d3roma_tpu_torch.evaluate`, run at the same time, on the same 4
+    procedural HISS frames under `tmp`/datasets and seed: depth/rel and
+    disp/epe within EVAL_METRIC_REL_TOL. Returns the comparison and the
+    one-process JSON line (`evaluate_line`)."""
     args = [f"task={EVAL_PRESET}", f"task.resume_pretrained={pipe_dir}",
             "task.eval_dataset=[HISS]", "task.fast_inference=latency",
             f"task.eval_batch_size={EVAL_BATCH}"]
@@ -4753,11 +4972,10 @@ def dp2_eval(tmp, repo, pipe_dir, ref=None):
     procs = {"distributed_evaluate": subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
          "-m", "d3roma_tpu_torch.distributed_evaluate"] + args, cwd=tmp, env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)}
-    if ref is None:
-        procs["evaluate"] = subprocess.Popen(
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+        "evaluate": subprocess.Popen(
             [sys.executable, "-m", "d3roma_tpu_torch.evaluate"] + args, cwd=tmp, env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)}
     outs = {}
     for name, p in procs.items():
         try:
@@ -4772,7 +4990,7 @@ def dp2_eval(tmp, repo, pipe_dir, ref=None):
             raise AssertionError(f"dp2 eval: {name} printed {len(lines)} metric lines: "
                                  f"{o[-2000:]}")
         outs[name] = lines[0]
-    ref = (ref or outs["evaluate"])["metrics"]
+    ref = outs["evaluate"]["metrics"]
     got = outs["distributed_evaluate"]["metrics"]
     rels = {f"{g}/{k}": abs(got[g][k] - ref[g][k]) / max(abs(ref[g][k]), 1e-12)
             for g, k in (("depth", "rel"), ("disp", "epe"))}
@@ -4781,7 +4999,8 @@ def dp2_eval(tmp, repo, pipe_dir, ref=None):
           f"DP2 {got}; one process {ref}", flush=True)
     if not all(r <= EVAL_METRIC_REL_TOL for r in rels.values()):
         raise AssertionError(f"dp2 eval: DP2 metrics {rels} over {EVAL_METRIC_REL_TOL}")
-    return dict(rel=rels, dp2=got, one_process=ref, wall_s=time.perf_counter() - t0)
+    return dict(rel=rels, dp2=got, one_process=ref, wall_s=time.perf_counter() - t0,
+                evaluate_line=outs["evaluate"])
 
 
 def tp_phase(dp2: bool = True):
@@ -4796,10 +5015,10 @@ def tp_phase(dp2: bool = True):
       composition, its kernel, its collective, the plain composition, the
       library call on the rank's share); (2) builds the full-width rgb+raw
       pipeline (`_tp_pipeline`, the same seeded weights on both ranks) and
-      serves `D3RoMa` at batch 1, 360x640, 10 DDIM steps under
+      serves `D3RoMa` at batch 1, 360x640, TP_STEPS (3) DDIM steps under
       task.tensor_parallel=2, latency and throughput (calibrated on the
-      meshed pipeline): the launch counts of one call (100 attention and
-      160 GEGLU, each through its composition; 102 int8 attention and 160
+      meshed pipeline): the launch counts of one call (30 attention and
+      48 GEGLU, each through its composition; 32 int8 attention and 48
       int8 GEGLU), the depth the same on both ranks, within the serve
       phase's tolerances of the tp=1 call on rank 0 (the same weights,
       inputs and noise; bf16 5e-2 of the disparity's max, int8 twice the
@@ -4853,7 +5072,9 @@ def tp_phase(dp2: bool = True):
         _tp_pipeline(compose([f"task={SERVE_PRESET}"]).task, "cuda").save_pretrained(pipe_dir)
         torch.cuda.empty_cache()
         generate_dataset(os.path.join(tmp, "datasets", "HISS"), EVAL_FRAMES, split="test")
-        return dict(ranks=ranks, eval=dp2_eval(tmp, repo, pipe_dir))
+        dp2 = dp2_eval(tmp, repo, pipe_dir)
+        dp2.pop("evaluate_line")
+        return dict(ranks=ranks, eval=dp2)
 
 
 def _group(kernel_name: str) -> str:
@@ -4995,9 +5216,17 @@ def main() -> int:
         print("eval phase passed", flush=True)
         return 0
     if sys.argv[1:] == ["--train"]:
-        print(json.dumps({"train": train_phase()}), flush=True)
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp:
+            print(json.dumps({"train": train_phase(tmp)}), flush=True)
         print(card, flush=True)
         print("train phase passed", flush=True)
+        return 0
+    if sys.argv[1:] == ["--accuracy"]:
+        print(json.dumps({"accuracy": accuracy_phase()}), flush=True)
+        print(card, flush=True)
+        print("accuracy phase passed", flush=True)
         return 0
     if sys.argv[1:] == ["--serve"]:
         print(json.dumps({"serve": serve_phase()}), flush=True)
@@ -5033,6 +5262,8 @@ def main() -> int:
     vae8_counts, vae8_ms_per_frame = _phase(vae8_phase, pipe, inputs)
     opt_counts, opt_ms_per_frame = _phase(opt_in_phase, pipe, inputs)
 
+    import tempfile
+
     import torch
 
     del pipe, inputs
@@ -5040,7 +5271,10 @@ def main() -> int:
     pixel = _phase(pixel_phase)
     torch.cuda.empty_cache()
     evaluation = _phase(eval_phase)  # its entry point's process builds its own models
-    training = _phase(train_phase)  # so do its entry point's two processes
+    with tempfile.TemporaryDirectory() as train_tmp:
+        training = _phase(train_phase, train_tmp)  # so do its entry point's two processes
+        accuracy = _phase(accuracy_phase, train_tmp)  # on the bf16 checkpoint they wrote
+    torch.cuda.empty_cache()
     serving = _phase(serve_phase)  # the demo, probe and server processes too
     torch.cuda.empty_cache()
     imported = _phase(import_phase)  # and the importer's and parity_check's
@@ -5050,6 +5284,10 @@ def main() -> int:
     import_bf16 = imported["launches_latency_guided"]
     tp_rank0 = tensor_parallel["ranks"][0]
     import_int8 = imported["launches_throughput_guided"]
+
+    def accuracy_int8(name):
+        """A call's launches of `name` in each int8 row of the accuracy sweep."""
+        return {f"int8:{k}": v.get(name, 0) for k, v in accuracy["launches"].items()}
 
     kernels = [
         dict(_kernel_entry("mha_attention", "d3roma_tpu_torch/csrc/attention.cu",
@@ -5067,18 +5305,21 @@ def main() -> int:
                            "d3roma_tpu/ops/pallas/attention.py:90", int8_rows["attention_int8"],
                            bench_counts["attention_int8"]),
              serve_launches=serving["launches_throughput"]["attention_int8"],
-             import_launches=import_int8["attention_int8"]),
+             import_launches=import_int8["attention_int8"],
+             accuracy_launches=accuracy_int8("attention_int8")),
         dict(_kernel_entry("geglu_ff_int8", "d3roma_tpu_torch/csrc/geglu_int8.cu",
                            "d3roma_tpu/ops/pallas/geglu.py:71", int8_rows["geglu_int8"],
                            bench_counts["geglu_int8"]),
              serve_launches=serving["launches_throughput"]["geglu_int8"],
-             import_launches=import_int8["geglu_int8"]),
+             import_launches=import_int8["geglu_int8"],
+             accuracy_launches=accuracy_int8("geglu_int8")),
         dict(_kernel_entry("conv2d_int8", "d3roma_tpu_torch/csrc/conv2d_int8.cu",
                            "d3roma_tpu/ops/pallas/conv2d.py:80", int8_rows["conv2d_int8"],
                            bench_counts["conv2d_int8"]),
              tma_map_host_cost=new_rows["tma_map_host_cost"],
              serve_launches=serving["launches_throughput"]["conv2d_int8"],
-             import_launches=import_int8["conv2d_int8"]),
+             import_launches=import_int8["conv2d_int8"],
+             accuracy_launches=accuracy_int8("conv2d_int8")),
         # no Pallas kernel: the XLA int8 conv and dot of the dynamic modes
         dict(_kernel_entry("conv2d_int8_dynamic", "d3roma_tpu_torch/csrc/conv2d_int8.cu",
                            "d3roma_tpu/ops/quant.py:370", int8_rows["conv2d_int8_dynamic"],
@@ -5092,7 +5333,8 @@ def main() -> int:
         dict(_kernel_entry("quantize_int8", "d3roma_tpu_torch/csrc/quantize.cu",
                            "d3roma_tpu/ops/quant.py:64", int8_rows["quantize"],
                            bench_counts["quantize"]),
-             import_launches=import_int8["quantize"]),
+             import_launches=import_int8["quantize"],
+             accuracy_launches=accuracy_int8("quantize")),
         dict(_kernel_entry("groupnorm_silu", "d3roma_tpu_torch/csrc/groupnorm_silu.cu",
                            "d3roma_tpu/ops/pallas/groupnorm.py:58", opt_rows["groupnorm_silu"],
                            opt_counts["groupnorm_silu"]),
@@ -5151,6 +5393,7 @@ def main() -> int:
     print(json.dumps({"pixel": pixel}), flush=True)
     print(json.dumps({"eval": evaluation}), flush=True)
     print(json.dumps({"train": training}), flush=True)
+    print(json.dumps({"accuracy": accuracy}), flush=True)
     print(json.dumps({"serve": serving}), flush=True)
     print(json.dumps({"import": imported}), flush=True)
     print(json.dumps({"tp": tensor_parallel}), flush=True)

@@ -86,9 +86,12 @@ DEFAULT_QUANT = "static"
 DEFAULT_FF = "1"
 # The DeepCache schedule of the default run: the JAX bench's DEFAULT_DEEPCACHE,
 # which may only name a schedule whose measured drift with the default int8
-# path is inside the 1% AbsRel bar of docs/deepcache_accuracy.json (the
-# coupling tests/test_torch_bench.py checks, as tests/test_bench_select.py
-# checks the JAX bench's). Speed never moves it.
+# path is inside the 1% AbsRel bar: the port's row in
+# docs/deepcache_accuracy_torch.json, measured on the card by `python -m
+# d3roma_tpu_torch.deepcache_accuracy` (the coupling
+# tests/test_torch_deepcache_accuracy.py checks, as tests/test_bench_select.py
+# checks the JAX bench's against docs/deepcache_accuracy.json). Speed never
+# moves it.
 DEFAULT_DEEPCACHE = "2d2"
 STATIC_QUANTS = ("static", "mxu", "halo", "wino_static", "vae8")
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -9,6 +9,7 @@ from d3roma_tpu_torch.models.convert import (  # noqa: F401
     init_random_,
     torch_to_flax,
 )
+from d3roma_tpu_torch.models.layers import set_compute_dtype  # noqa: F401
 from d3roma_tpu_torch.models.unet2d import UNet2D, pixel_in_channels  # noqa: F401
 from d3roma_tpu_torch.models.unet2d_condition import (  # noqa: F401
     UNet2DCondition,

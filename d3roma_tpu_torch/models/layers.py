@@ -8,8 +8,17 @@ diffusers (`norm1`, `conv1`, `attn1.to_out.0`, `ff.net.0.proj`, ...), so a
 diffusers state dict loads as it is.
 
 A module computes in the dtype of its parameters (bf16 after
-`half_precision()`); the exceptions mirror the reference: norm statistics
-are fp32, and the UNet's and the VAE's `conv_out` run in fp32.
+`half_precision()`), or in its `dtype` where `set_compute_dtype` set one:
+bf16 compute over fp32 parameters, Flax's module `dtype` with `param_dtype`
+fp32 (the JAX trainer's `mixed_precision="bf16"`). A dense layer or
+convolution then casts its weight and bias at use (autograd returns fp32
+gradients through the cast), a norm folds its fp32 affine with the fp32
+statistics and casts the result, as Flax's norms do. The exceptions mirror
+the reference: norm statistics are fp32, the UNet's and the VAE's
+`conv_out` run in fp32 and the VAE's quant convs in the promoted type of
+input and weight, both on the unrounded weight. The kernel routes (int8,
+Winograd, the fused attention, GEGLU and GroupNorm) read the weights in
+their own dtype: inference runs them after `half_precision()`.
 
 Where the JAX package calls a Pallas kernel on this path, the module calls
 the port's kernel wrapper (`ops/kernels/`): whole-row attention at
@@ -164,6 +173,11 @@ class _Cached:
         return self._cache[1]
 
 
+def module_dtype(layer: nn.Module) -> torch.dtype:
+    """The dtype `layer` computes in: its `dtype`, else its weight's."""
+    return layer.dtype or layer.weight.dtype
+
+
 def _int8_conv_weight(w: torch.Tensor):
     """`quantize_weight` of a conv weight laid out [Cout, KH, KW, Cin]:
     K-contiguous rows, as the int8 conv kernel takes them."""
@@ -178,6 +192,7 @@ class Linear(nn.Linear):
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True):
         super().__init__(in_features, out_features, bias=bias)
+        self.dtype: Optional[torch.dtype] = None  # see set_compute_dtype
         self.quant = False
         self.tp_shard = None
         self._int8 = _Cached(self._quantize)
@@ -188,7 +203,8 @@ class Linear(nn.Linear):
         return quantize_weight(w, None if tp is None or tp.dim == 0 else tp.weight_absmax(w))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.weight.dtype)
+        dt = module_dtype(self)
+        x = x.to(dt)
         tp = self.tp_shard
         if tp is None:
             bias, xin = self.bias, x
@@ -204,17 +220,17 @@ class Linear(nn.Linear):
         elif self.quant in DYNAMIC_DENSE_MODES:
             y = int8_linear_dynamic(xin, *self._int8.get(self.weight), bias)
         if y is None:
-            y = F.linear(xin, self.weight, bias)
+            y = F.linear(xin, self.weight.to(dt), None if bias is None else bias.to(dt))
         return y if tp is None else tp.combine(y, self.bias)
 
 
 class Conv2d(nn.Conv2d):
     """nn.Conv2d on NHWC tensors.
 
-    `compute_dtype` None computes in the weight's dtype (a Flax Conv with
-    dtype=the model's dtype); a torch dtype fixes it (the fp32 conv_out
-    sites); "promote" takes the promoted type of input and weight (a Flax
-    Conv without a dtype, as the VAE's quant convs).
+    `compute_dtype` None computes in the model's dtype (`dtype`, else the
+    weight's: a Flax Conv with dtype=the model's dtype); a torch dtype fixes
+    it (the fp32 conv_out sites); "promote" takes the promoted type of input
+    and weight (a Flax Conv without a dtype, as the VAE's quant convs).
 
     quant="wino_static" sends the convs `wino_static_route` admits to the
     Winograd kernel (U = winograd_weight(w), made once per weight; the bias
@@ -230,6 +246,7 @@ class Conv2d(nn.Conv2d):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride,
                          padding=padding)
         self.compute_dtype = compute_dtype
+        self.dtype: Optional[torch.dtype] = None  # see set_compute_dtype
         self.quant = False
         self.tp_shard = None
         self._int8 = _Cached(_int8_conv_weight)
@@ -243,7 +260,7 @@ class Conv2d(nn.Conv2d):
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.compute_dtype is None:
-            dt = self.weight.dtype
+            dt = module_dtype(self)
         elif self.compute_dtype == "promote":
             dt = torch.promote_types(x.dtype, self.weight.dtype)
         else:
@@ -311,11 +328,12 @@ class GroupNormSiLU(nn.Module):
         super().__init__()
         self.groups, self.eps, self.apply_silu = groups, eps, apply_silu
         self.fused = False
+        self.dtype: Optional[torch.dtype] = None  # see set_compute_dtype
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt, g = self.weight.dtype, self.groups
+        dt, g = module_dtype(self), self.groups
         if self.fused and group_norm_silu_supported(x.shape, x.dtype):
             return group_norm_silu(x, self.weight, self.bias, g, self.eps, self.apply_silu)
         mean, var = _group_stats(x, g)
@@ -334,6 +352,7 @@ class GroupNorm(nn.Module):
     def __init__(self, channels: int, groups: int = 32, eps: float = 1e-6):
         super().__init__()
         self.groups, self.eps = groups, eps
+        self.dtype: Optional[torch.dtype] = None  # see set_compute_dtype
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
@@ -346,7 +365,7 @@ class GroupNorm(nn.Module):
         # x (bf16 or fp32) times an fp32 scale promotes to fp32: the
         # normalize runs in fp32 without a separate copy of x
         y = torch.addcmul(_per_channel(shift, x), x, _per_channel(mul, x))
-        return y.to(self.weight.dtype)
+        return y.to(module_dtype(self))
 
 
 class LayerNorm(nn.LayerNorm):
@@ -355,10 +374,12 @@ class LayerNorm(nn.LayerNorm):
 
     def __init__(self, dim: int, eps: float = 1e-6):
         super().__init__(dim, eps=eps)
+        self.dtype: Optional[torch.dtype] = None  # see set_compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.to(self.weight.dtype), self.normalized_shape, self.weight,
-                            self.bias, self.eps)
+        y = F.layer_norm(x.to(self.weight.dtype), self.normalized_shape, self.weight,
+                         self.bias, self.eps)
+        return y.to(module_dtype(self))
 
 
 class TimestepEmbedding(nn.Module):
@@ -756,6 +777,17 @@ def set_quant(module: nn.Module, quant) -> None:
         for site in sites:
             if site is not None:
                 site.quant = quant
+
+
+def set_compute_dtype(module: nn.Module, dtype: Optional[torch.dtype]) -> None:
+    """Every layer under `module` computes in `dtype` whatever its
+    parameters' dtype (None: in its parameters' dtype again); the fp32
+    conv_out sites and the "promote" convs keep theirs. With fp32
+    parameters and bf16 this is the JAX package's bf16 compute over fp32
+    params (`build_models(dtype=bfloat16)`)."""
+    for m in module.modules():
+        if isinstance(m, (Linear, Conv2d, GroupNormSiLU, GroupNorm, LayerNorm)):
+            m.dtype = dtype
 
 
 def set_tp_mesh(module: nn.Module, mesh) -> None:

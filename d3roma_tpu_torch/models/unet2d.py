@@ -29,6 +29,7 @@ from d3roma_tpu_torch.models.layers import (
     SelfAttention2D,
     TimestepEmbedding,
     Upsample2D,
+    module_dtype,
     set_kernels,
     set_quant,
     timestep_embedding,
@@ -150,7 +151,7 @@ class UNet2D(nn.Module):
         timesteps an int or [B] / 0-d tensor -> fp32 [B, H, W,
         out_channels]. Each upsample resizes to its skip's size, so odd
         sizes (23 rows -> 12 -> 23) come back exactly."""
-        dtype = self.conv_in.weight.dtype
+        dtype = module_dtype(self.conv_in)
         B = sample.shape[0]
         if isinstance(timesteps, int):  # filled on the device: no host-to-device copy
             timesteps = torch.full((B,), timesteps, device=sample.device)

@@ -27,6 +27,7 @@ from d3roma_tpu_torch.models.layers import (
     TimestepEmbedding,
     Transformer2D,
     Upsample2D,
+    module_dtype,
     set_kernels,
     set_quant,
     timestep_embedding,
@@ -207,7 +208,7 @@ class UNet2DCondition(nn.Module):
         given trunk in place of the deep levels. Exact when the trunk comes
         from a full pass over the same input; an approximation when reused
         across steps."""
-        dtype = self.conv_in.weight.dtype
+        dtype = module_dtype(self.conv_in)
         B = sample.shape[0]
         if isinstance(timesteps, int):  # filled on the device: no host-to-device copy
             timesteps = torch.full((B,), timesteps, device=sample.device)

@@ -63,7 +63,7 @@ from d3roma_tpu_torch.models.convert import (
     flax_vae_to_torch,
     torch_to_flax,
 )
-from d3roma_tpu_torch.models.layers import _Cached
+from d3roma_tpu_torch.models.layers import _Cached, module_dtype
 from d3roma_tpu_torch.models.unet2d import UNet2D
 from d3roma_tpu_torch.models.unet2d_condition import UNet2DCondition
 from d3roma_tpu_torch.models.vae import AutoencoderKL, decode_latent, encode_image_to_latent
@@ -537,7 +537,7 @@ class GuidedLatentDiffusionPipeline:
         route = unet.use_flash_attention
         unet.set_kernels(use_flash_attention="fused" if route == "fused" else False,
                          fused_norm=False)
-        dt = unet.conv_in.weight.dtype
+        dt = module_dtype(unet.conv_in)
         x = torch.empty((batch, height // 8, width // 8, unet.in_channels), dtype=dt,
                         device="meta")
         t = torch.empty((batch,), dtype=torch.int32, device="meta")

@@ -20,9 +20,18 @@ fp32: TF32 is off for matmuls and cuDNN convolutions while `train` runs
 (PyTorch's cuDNN default rounds fp32 convolutions to TF32), and restored
 after.
 
+`mixed_precision="bf16"` (and "fp16", which means the same, as in the
+JAX package: no loss scaler) computes the freshly built models in bf16
+over fp32 parameters (`models.set_compute_dtype`): the parameters, the
+optimizer state, `checkpoints/last/state.pt` and every export stay fp32;
+the loss, its reductions and the fp32-pinned sites (the UNet's and the
+VAE's `conv_out`, the VAE's quant convs) stay fp32, as the JAX trainer's
+`build_models(dtype=bfloat16)` has them. The frozen VAE computes in bf16
+too. Models loaded from `task.resume_pretrained` compute as loaded, as in
+the JAX package, whose pipeline directories build their modules in fp32.
+
 Not ported, and refused with NotImplementedError: `tensor_parallel > 1`
-and multi-card training (ROADMAP.md section 1, item 10) and
-`mixed_precision="bf16"` / "fp16" (item 5's remainder; no preset uses it).
+and multi-card training (ROADMAP.md section 1, item 10).
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ from d3roma_tpu_torch.models import (
     UNet2DCondition,
     init_random_,
     pixel_in_channels,
+    set_compute_dtype,
     widened_in_channels,
 )
 from d3roma_tpu_torch.ops.noise import GeneratorDraws
@@ -105,21 +115,28 @@ def _check_supported(config) -> None:
         raise NotImplementedError(
             "tensor_parallel > 1: multi-card training is not ported yet "
             "(ROADMAP.md section 1, item 10)")
-    if config.mixed_precision in ("bf16", "fp16"):
-        raise NotImplementedError(
-            f"mixed_precision={config.mixed_precision!r} training is not ported yet "
-            "(ROADMAP.md section 1, item 5)")
 
 
 def build_models(config, seed: int = 0, device: DeviceLike = None) -> dict:
-    """The model family, in fp32 on `device`: unet (+ vae, text_embed for
-    the latent family). From `config.resume_pretrained` (a pipeline
-    directory of either package) when set, else random weights drawn from
-    a generator seeded with `seed`. The latent UNet rematerializes its
-    blocks in training (remat=True, as the JAX trainer builds it); the VAE
-    is frozen."""
+    """The model family on `device`: unet (+ vae, text_embed for the
+    latent family). From `config.resume_pretrained` (a pipeline directory
+    of either package) when set, computing as loaded; else random fp32
+    weights drawn from a generator seeded with `seed`, computing in bf16
+    under mixed precision "bf16" or "fp16" (the JAX package maps both to
+    bf16 compute over the fp32 parameters), else in fp32. The latent UNet
+    rematerializes its blocks in training (remat=True, as the JAX trainer
+    builds it); the VAE is frozen."""
     _check_supported(config)
     device = resolve_device(device)
+    models = _build_models(config, seed, device)
+    if not config.resume_pretrained and config.mixed_precision in ("bf16", "fp16"):
+        for name in ("unet", "vae"):
+            if name in models:
+                set_compute_dtype(models[name], torch.bfloat16)
+    return models
+
+
+def _build_models(config, seed: int, device: torch.device) -> dict:
     if config.ldm:
         assert config.depth_channels == 4, "ldm only support 4 channels"
         if config.resume_pretrained:

@@ -15,6 +15,13 @@ back), `best_epe` survives the resume, and the epoch export loads in the
 JAX package's `from_pretrained` and computes the port's output within the
 pipeline tolerance (1e-3 of max |ref|, as tests/test_torch_pretrained.py,
 with the JAX key schedule replayed as explicit noise).
+
+A bf16 run (`task.mixed_precision=bf16` on freshly built weights, one
+epoch): the models compute in bf16 over fp32 parameters; `state.pt`'s
+parameters and optimizer moments and every leaf of the `epoch_0000/`
+export are fp32 and equal the live fp32 masters; the export loads in the
+JAX package as an fp32 pipeline and computes the port's output within the
+same tolerance, as the fp32 run's does.
 """
 
 import json
@@ -38,6 +45,7 @@ from d3roma_tpu_torch.config import compose
 from d3roma_tpu_torch.models import flax_unet2d_to_torch
 from d3roma_tpu_torch.pipelines import GuidedDiffusionPipeline
 from d3roma_tpu_torch.synthetic.procedural import SceneConfig, generate_dataset
+from d3roma_tpu_torch.utils import flax_msgpack
 from torch_port_utils import TINY_UNET2D, JaxKeyDraws, jax_noise_schedule, random_flax_tree
 
 LR = 1e-3
@@ -157,6 +165,52 @@ def test_epoch_export_loads_in_jax(tree, monkeypatch):
     export = tree / "whole" / "epoch_0000"
     if not export.exists():
         _port_run(tree, "whole", monkeypatch, replay=False)
+    _export_matches_jax(export)
+
+
+BF16_EXTRA = ["task.mixed_precision=bf16", "task.block_out_channels=[16,32]"]
+
+
+@pytest.fixture(scope="module")
+def bf16_run(tree):
+    """One epoch of the port in bf16 compute from freshly built weights (a
+    pipeline directory computes as loaded, as in the JAX package)."""
+    mp = pytest.MonkeyPatch()
+    mp.chdir(tree)
+    base = compose(OVERRIDES + BF16_EXTRA)
+    try:
+        return port_loop.train(base.task, base, str(tree / "bf16_run"), device="cpu")
+    finally:
+        mp.undo()
+
+
+def test_bf16_run_keeps_fp32_state_and_exports(tree, bf16_run):
+    state, counter, models = bf16_run
+    unet = models["unet"]
+    assert counter.global_step == 4 and counter.epoch == 1
+    assert unet.conv_in.dtype == torch.bfloat16 and unet.conv_out.compute_dtype == torch.float32
+    masters = unet.state_dict()
+    assert all(v.dtype == torch.float32 for v in masters.values())
+    saved = torch.load(tree / "bf16_run" / "checkpoints" / "last" / "state.pt",
+                       weights_only=True)
+    assert saved["params"].keys() == masters.keys()
+    for k, v in saved["params"].items():
+        assert v.dtype == torch.float32 and torch.equal(v, masters[k]), k
+    for k in ("mu", "nu"):
+        assert all(t.dtype == torch.float32 for t in saved["opt_state"][k]), k
+    leaves = flax_msgpack.load(str(tree / "bf16_run" / "epoch_0000" / "unet" / "params.msgpack"))
+    exported = flax_unet2d_to_torch(leaves)
+    assert exported.keys() == masters.keys()
+    for k, v in exported.items():
+        assert v.dtype == torch.float32 and torch.equal(v, masters[k]), k
+    assert np.isfinite(counter.best_epe)
+
+
+def test_bf16_epoch_export_loads_in_jax(tree, bf16_run):
+    _export_matches_jax(tree / "bf16_run" / "epoch_0000")
+
+
+def _export_matches_jax(export):
     jax_pipe = JaxPixelPipeline.from_pretrained(str(export))
     port = GuidedDiffusionPipeline.from_pretrained(str(export), device="cpu")
     rs = np.random.RandomState(0)

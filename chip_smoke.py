@@ -105,8 +105,8 @@ failing the run on its own error:
     128 squaredcos steps, SSI normalizer), batch 2, RGB + raw at 368x640
     (360 padded to a multiple of 16), 10 steps, 5 intermediates, the raw
     condition SSI-normalized on the card: shapes, finite output in [-1, 1],
-    no hand kernel launched (head dim 8, no transformer), ms/frame (median
-    of three calls), peak memory, the profile; SSI denormalize (least
+    no hand kernel launched (head dim 8, no transformer), ms/frame (the
+    faster of two calls), peak memory, the profile; SSI denormalize (least
     squares, and RANSAC with explicit subsets) on the card against the CPU;
     one bf16 UNet2D forward against the same weights in fp32; on a copy
     fuse_norms() alone, one bf16 UNet2D forward through the fused
@@ -135,13 +135,14 @@ failing the run on its own error:
     frames at 960x540 in a temporary tree; `python -m
     d3roma_tpu_torch.train task=train_ldm_mixed_rgb+raw ...` in its own
     process for one epoch (3 steps of batch 16 at 180x320, full SD2.1
-    width, fp32, Adafactor, the epoch export): every logged loss and
-    grad_norm finite, the checkpoint and export written, the epoch export
-    loaded and called; then resumed to a second epoch (global step 3 to 6)
-    in bf16 compute over the fp32 parameters (task.mixed_precision=bf16),
-    with the in-training eval and the best/ export: its losses finite,
-    state.pt and the epoch_0001/ export fp32, the export's UNet equal to
-    the checkpoint's parameters; one fp32 step of a narrow latent model on
+    width, fp32, AdamW, with the in-training eval and the best/ and epoch
+    exports): every logged loss and grad_norm finite, the checkpoint (with
+    AdamW's moments) and exports written, the epoch export loaded and
+    called; then resumed to a second epoch (global step 3 to 6) in bf16
+    compute over the fp32 parameters (task.mixed_precision=bf16), with its
+    in-training eval: its losses finite, state.pt and the epoch_0001/
+    export fp32, the export's UNet equal to the checkpoint's parameters;
+    one fp32 step of a narrow latent model on
     the card against the CPU from the same weights and draws, the card's
     under set_sync_debug_mode("error"); the full-width step's ms/step,
     samples/s, peak memory and one profiled step (idle share, device ms by
@@ -156,9 +157,11 @@ failing the run on its own error:
     on its own copy of the loaded pipeline; the table with its drift
     columns, every metric finite; the int8 rows' launches a call of the int8
     attention, GEGLU, conv and quantize kernels; the int8:1 row's first
-    batch of predictions through the kernels within twice the int8 noise
-    (the plain int8 batch against the bf16:1 row's) of the same batch
-    through every plain version, the plain batch on other noise outside it;
+    batch of predictions through the kernels bit-equal to the same batch
+    through the conv, GEGLU and quantize kernels' plain versions, and
+    within twice the int8 noise (the plain int8 batch against the bf16:1
+    row's) of the same batch through every plain version, the plain batch
+    on other noise outside it;
 15. serving (`serve_phase`): a full-width rgb+raw pipeline saved, and
     calibrated under throughput and saved again; `python -m
     d3roma_tpu_torch.demo` in its own process (its four artifacts read
@@ -2456,7 +2459,8 @@ def _pixel_pipeline():
 
 def _pixel_timed_calls(pipe, run, label):
     """Zero the launch counts, make one call (its counts and output kept),
-    then two more; ms/frame is the median of the three. Checks the shapes
+    then one more; ms/frame is the faster of the two, as in `_timed_calls`.
+    Checks the shapes
     and that the images and intermediates are finite and in [-1, 1].
     Returns (counts, ms/frame, peak device memory in bytes of the first
     call)."""
@@ -2470,12 +2474,11 @@ def _pixel_timed_calls(pipe, run, label):
     walls = [time.perf_counter() - t0]
     counts = _int8_launches()
     peak = torch.cuda.max_memory_allocated()
-    for _ in range(2):
-        t0 = time.perf_counter()
-        run()
-        _sync()
-        walls.append(time.perf_counter() - t0)
-    ms_per_frame = sorted(walls)[1] * 1e3 / BATCH
+    t0 = time.perf_counter()
+    run()
+    _sync()
+    walls.append(time.perf_counter() - t0)
+    ms_per_frame = min(walls) * 1e3 / BATCH
     img, inter = out.images, out.intermediates
     print(f"{label}: {ms_per_frame:.2f} ms/frame, the faster of "
           f"{[round(w * 1e3 / BATCH, 2) for w in walls]} (batch {BATCH}, {STEPS} steps, "
@@ -3062,8 +3065,7 @@ def _train_run(tmp, repo, extra):
         [sys.executable, "-m", "d3roma_tpu_torch.train", f"task={TRAIN_PRESET}",
          "task.train_dataset=[SceneFlow,HISS]", "task.dataset_weight=[1,1]",
          "task.eval_dataset=[HISS]", "task.val_every_global_steps=3", "task.eval_num_batch=1",
-         "task.save_model_epochs=1", "task.optimizer=adafactor", "task.output_dir=run"]
-        + list(extra),
+         "task.save_model_epochs=1", "task.output_dir=run"] + list(extra),
         cwd=tmp, capture_output=True, text=True, timeout=900,
         env=dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", "")))
     wall = time.perf_counter() - t0
@@ -3380,30 +3382,73 @@ def _fp32_checkpoint_and_export(run: str, export: str):
     return dict(params=len(params), opt_tensors=len(opt), unet_leaves=len(leaves["unet"]))
 
 
+def _write_train_frames(tmp: str) -> None:
+    """The train entry point's frames in tmp/datasets: TRAIN_FRAMES
+    procedural HISS frames (640x360) in `train` and TRAIN_EVAL_FRAMES in the
+    split the preset's HISS eval loader reads, and TRAIN_FRAMES SceneFlow
+    frames at the dataset's 960x540."""
+    from d3roma_tpu_torch.config import compose
+    from d3roma_tpu_torch.synthetic import generate_dataset
+
+    cfg = compose([f"task={TRAIN_PRESET}"]).task
+    t0 = time.perf_counter()
+    generate_dataset(os.path.join(tmp, "datasets", "HISS"), TRAIN_FRAMES, split="train",
+                     seed=3)
+    generate_dataset(os.path.join(tmp, "datasets", "HISS"), TRAIN_EVAL_FRAMES,
+                     split=cfg.eval_split, seed=4)
+    _write_sceneflow(os.path.join(tmp, "datasets", "SceneFlow"), TRAIN_FRAMES, seed=6)
+    print(f"train: {2 * TRAIN_FRAMES + TRAIN_EVAL_FRAMES} frames written in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+
+def _first_epoch(tmp: str, repo: str, extra=()):
+    """Frames, then one epoch of the train entry point (3 steps of batch 16,
+    the in-training eval at step 3) from random weights in `tmp`, in fp32
+    or with `extra`'s precision: every logged loss and grad_norm finite,
+    the eval logged, checkpoints/last, best/ and epoch_0000/ written.
+    Returns (run directory, summary)."""
+    import numpy as np
+
+    _write_train_frames(tmp)
+    steps, log, wall = _train_run(tmp, repo, ["task.num_epochs=1"] + list(extra))
+    run = os.path.join(tmp, "run")
+    with open(os.path.join(run, "checkpoints", "last", "counter.json")) as f:
+        counter = json.load(f)
+    print(f"train: entry point {' '.join(extra) or 'fp32'}, 1 epoch in {wall:.1f}s; steps "
+          f"{steps}; counter {counter}", flush=True)
+    if [s for s, _, _ in steps] != [1, 2, 3] or not all(
+            np.isfinite([l for _, l, _ in steps] + [g for _, _, g in steps])):
+        raise AssertionError(f"train: steps {steps}\n{log[-3000:]}")
+    if counter["global_step"] != 3 or counter["epoch"] != 1 or "eval[0] @3:" not in log:
+        raise AssertionError(f"train: counter {counter} or no eval at step 3\n{log[-3000:]}")
+    for name in ("checkpoints/last/state.pt", "best/model_index.json",
+                 "epoch_0000/unet/params.msgpack", "epoch_0000/vae/params.msgpack"):
+        if not os.path.exists(os.path.join(run, name)):
+            raise AssertionError(f"train: {name} not written")
+    return run, dict(steps=steps, wall_s=wall, counter=counter)
+
+
 def train_phase(tmp: str):
     """Training end to end on the card, hermetic (in `tmp`, which the
     accuracy phase reads after it):
 
-    - frames in a temporary `datasets/` tree: TRAIN_FRAMES procedural HISS
-      frames (640x360) in `train` and TRAIN_EVAL_FRAMES in the split the
-      preset's HISS eval loader reads, and TRAIN_FRAMES SceneFlow frames at
-      the dataset's 960x540 (one epoch: 3 steps of batch 16);
+    - frames in a temporary `datasets/` tree (`_write_train_frames`; one
+      epoch: 3 steps of batch 16);
     - `python -m d3roma_tpu_torch.train task=train_ldm_mixed_rgb+raw
       task.train_dataset=[SceneFlow,HISS] task.dataset_weight=[1,1]
-      task.eval_dataset=[HISS] task.num_epochs=1 task.eval_num_batch=1
-      task.save_model_epochs=1 task.optimizer=adafactor` in its own
-      process: full SD2.1 width, random weights, batch 16, 180x320, fp32,
-      v-prediction, Adafactor (the capstone recipe's optimizer; its state
-      is a fraction of AdamW's 7 GB of moments, which the checkpoint would
-      write and the resume read). Every logged loss and grad_norm finite;
-      checkpoints/last and epoch_0000/ written; epoch_0000/ loads through
-      from_pretrained and one pipeline call on it is finite. Then again
-      with task.num_epochs=2 task.mixed_precision=bf16: it resumes the fp32
-      checkpoint at global step 3 and ends at 6 in bf16 compute over the
-      fp32 parameters (the JAX bf16 template's parameters are fp32 too),
-      the in-training eval at step 6 exporting best/; every loss finite,
-      state.pt and the epoch_0001/ export fp32, the export's UNet equal to
-      the checkpoint's parameters;
+      task.eval_dataset=[HISS] task.num_epochs=1 task.val_every_global_steps=3
+      task.eval_num_batch=1 task.save_model_epochs=1` in its own process:
+      full SD2.1 width, random weights, batch 16, 180x320, fp32,
+      v-prediction, the preset's AdamW. Every logged loss and grad_norm
+      finite; the in-training eval at step 3; checkpoints/last (with
+      AdamW's moments), best/ and epoch_0000/ written; epoch_0000/ loads
+      through from_pretrained and one pipeline call on it is finite. Then
+      again with task.num_epochs=2 task.mixed_precision=bf16: it resumes the
+      fp32 checkpoint (parameters and AdamW moments) at global step 3 and
+      ends at 6 in bf16 compute over the fp32 parameters (the JAX bf16
+      template's parameters are fp32 too), its in-training eval at step 6;
+      every loss finite, state.pt and the epoch_0001/ export fp32, the
+      export's UNet equal to the checkpoint's parameters;
     - one step of a narrow latent model on the card against the CPU
       (`train_card_vs_cpu`), no host sync inside the card's step;
     - the full-width step's ms, samples/s, peak memory and a profiled step
@@ -3417,37 +3462,11 @@ def train_phase(tmp: str):
     from d3roma_tpu_torch.data import preprocess_eval, val_loaders
     from d3roma_tpu_torch.ops.normalizer import Normalizer
     from d3roma_tpu_torch.pipelines import GuidedLatentDiffusionPipeline
-    from d3roma_tpu_torch.synthetic import generate_dataset
 
     summary = {}
     repo = os.path.dirname(os.path.abspath(__file__))
     cfg = compose([f"task={TRAIN_PRESET}"]).task
-    t0 = time.perf_counter()
-    generate_dataset(os.path.join(tmp, "datasets", "HISS"), TRAIN_FRAMES, split="train",
-                     seed=3)
-    generate_dataset(os.path.join(tmp, "datasets", "HISS"), TRAIN_EVAL_FRAMES,
-                     split=cfg.eval_split, seed=4)
-    _write_sceneflow(os.path.join(tmp, "datasets", "SceneFlow"), TRAIN_FRAMES, seed=6)
-    print(f"train: {2 * TRAIN_FRAMES + TRAIN_EVAL_FRAMES} frames written in "
-          f"{time.perf_counter() - t0:.1f}s", flush=True)
-
-    steps, log, wall = _train_run(tmp, repo, ["task.num_epochs=1",
-                                              "task.val_every_global_steps=100"])
-    run = os.path.join(tmp, "run")
-    with open(os.path.join(run, "checkpoints", "last", "counter.json")) as f:
-        counter = json.load(f)
-    print(f"train: entry point, 1 epoch in {wall:.1f}s; steps {steps}; counter {counter}",
-          flush=True)
-    if [s for s, _, _ in steps] != [1, 2, 3] or not all(
-            np.isfinite([l for _, l, _ in steps] + [g for _, _, g in steps])):
-        raise AssertionError(f"train: steps {steps}\n{log[-3000:]}")
-    if counter["global_step"] != 3 or counter["epoch"] != 1:
-        raise AssertionError(f"train: counter {counter}")
-    for name in ("checkpoints/last/state.pt", "epoch_0000/unet/params.msgpack",
-                 "epoch_0000/vae/params.msgpack"):
-        if not os.path.exists(os.path.join(run, name)):
-            raise AssertionError(f"train: {name} not written")
-    summary["epoch_1"] = dict(steps=steps, wall_s=wall, counter=counter)
+    run, summary["epoch_1"] = _first_epoch(tmp, repo)
 
     pipe = GuidedLatentDiffusionPipeline.from_pretrained(os.path.join(run, "epoch_0000"),
                                                          device="cuda")
@@ -3482,9 +3501,8 @@ def train_phase(tmp: str):
           flush=True)
     if ("resuming from" not in log2 or [s for s, _, _ in steps2][-3:] != [4, 5, 6]
             or not all(np.isfinite([l for _, l, _ in steps2] + [g for _, _, g in steps2]))
-            or counter2["global_step"] != 6 or counter2["epoch"] != 2
-            or not os.path.exists(os.path.join(run, "epoch_0001", "model_index.json"))
-            or not os.path.exists(os.path.join(run, "best", "model_index.json"))):
+            or counter2["global_step"] != 6 or counter2["epoch"] != 2 or "eval[0] @6:" not in log2
+            or not os.path.exists(os.path.join(run, "epoch_0001", "model_index.json"))):
         raise AssertionError(f"train: resume {steps2} {counter2}\n{log2[-3000:]}")
     checked = _fp32_checkpoint_and_export(run, os.path.join(run, "epoch_0001"))
     print(f"train: the bf16 run's state.pt ({checked['params']} parameters, "
@@ -3514,31 +3532,6 @@ ACCURACY_ATTENTION_SITES = 5
 ACCURACY_GEGLU_PER_STEP = {"1": 16, "2d2": 13}
 
 
-def _accuracy_checkpoint(tmp: str, repo: str) -> str:
-    """For --accuracy alone: frames and one bf16 epoch of the train entry
-    point (3 steps of batch 16) from random weights in `tmp`, its state.pt
-    and epoch_0000/ export fp32. Returns the run directory."""
-    import numpy as np
-
-    from d3roma_tpu_torch.config import compose
-    from d3roma_tpu_torch.synthetic import generate_dataset
-
-    cfg = compose([f"task={TRAIN_PRESET}"]).task
-    generate_dataset(os.path.join(tmp, "datasets", "HISS"), TRAIN_FRAMES, split="train", seed=3)
-    generate_dataset(os.path.join(tmp, "datasets", "HISS"), TRAIN_EVAL_FRAMES,
-                     split=cfg.eval_split, seed=4)
-    _write_sceneflow(os.path.join(tmp, "datasets", "SceneFlow"), TRAIN_FRAMES, seed=6)
-    steps, log, wall = _train_run(tmp, repo, ["task.num_epochs=1", "task.mixed_precision=bf16"])
-    run = os.path.join(tmp, "run")
-    if [s for s, _, _ in steps] != [1, 2, 3] or not np.isfinite(
-            [x for _, l, g in steps for x in (l, g)]).all():
-        raise AssertionError(f"accuracy: bf16 epoch steps {steps}\n{log[-3000:]}")
-    checked = _fp32_checkpoint_and_export(run, os.path.join(run, "epoch_0000"))
-    print(f"accuracy: the train entry point, one bf16 epoch in {wall:.1f}s; steps {steps}; "
-          f"state.pt and epoch_0000/ fp32 ({checked})", flush=True)
-    return run
-
-
 def accuracy_phase(train_tmp=None):
     """bf16 training and the DeepCache accuracy sweep on its checkpoint:
 
@@ -3557,16 +3550,19 @@ def accuracy_phase(train_tmp=None):
       passes, one int8 conv and one quantize per conv and dense visit;
       ACCURACY_ATTENTION_SITES, ACCURACY_GEGLU_PER_STEP);
     - the int8:1 row's first batch of predictions through the kernels
-      against the same batch through every plain version (the serve phase's
-      int8 rule: within twice the int8 noise, the plain int8 batch against
-      the bf16:1 row's, which runs no kernel; the plain batch on other noise
-      must fall outside).
+      against the same batch with the conv, GEGLU and quantize kernels'
+      plain versions (bit-equal kernels, the int8 attention kernel kept on
+      both sides: bit-equal), and against the same batch through every
+      plain version (the serve phase's int8 rule: within twice the int8
+      noise, the plain int8 batch against the bf16:1 row's, which runs no
+      kernel; the plain batch on other noise must fall outside).
 
     Returns a summary dict."""
     import math
     import shutil
     import tempfile
 
+    import numpy as np
     import torch
 
     from d3roma_tpu_torch import deepcache_accuracy as dca
@@ -3579,7 +3575,10 @@ def accuracy_phase(train_tmp=None):
     own = None
     if train_tmp is None:
         own = tempfile.mkdtemp()
-        run = _accuracy_checkpoint(own, repo)
+        run, _ = _first_epoch(own, repo, ["task.mixed_precision=bf16"])
+        checked = _fp32_checkpoint_and_export(run, os.path.join(run, "epoch_0000"))
+        print(f"accuracy: the bf16 epoch's state.pt and epoch_0000/ fp32 ({checked})",
+              flush=True)
     else:
         run = os.path.join(train_tmp, "run")
     try:
@@ -3632,8 +3631,18 @@ def accuracy_phase(train_tmp=None):
         print(f"accuracy: table {json.dumps(doc)}", flush=True)
         print(f"accuracy: seconds a row {row_s}; int8 launches a call {launches}", flush=True)
 
-        # the int8:1 row's first batch through every plain version, and the
-        # yardstick
+        # the int8:1 row's first batch with the bit-equal kernels' plain
+        # versions (the int8 attention kernel on both sides): bit-equal
+        _, same_preds = _predictions(lambda: _plain_int8_forward(
+            lambda: sweep.evaluate(int8_pipe, max_batches=1), attention=False))
+        exact = float(max(np.abs(a - b).max() for a, b in zip(preds[("int8", "1")][:1],
+                                                               same_preds)))
+        print(f"accuracy: int8:1 first batch's predictions through the kernels against the "
+              f"conv, GEGLU and quantize kernels' plain versions: max |a - b| = {exact} (must "
+              f"be 0)", flush=True)
+        if len(same_preds) != 1 or exact != 0.0:
+            raise AssertionError(f"accuracy: bit-equal kernels differ by {exact}")
+        # the same batch through every plain version, and the yardstick
         _, ref_preds = _predictions(lambda: _plain_int8_forward(
             lambda: sweep.evaluate(int8_pipe, max_batches=1)))
         noise = _pred_rel(ref_preds, preds[("bf16", "1")][:1])
@@ -3650,7 +3659,8 @@ def accuracy_phase(train_tmp=None):
             raise AssertionError(f"accuracy: kernels against plain {rel}, control {control_rel} "
                                  f"(tol {tol})")
         summary.update(checkpoint_step=sweep.step, table=doc, launches=launches,
-                       row_seconds=row_s, int8_noise=noise, kernels_vs_plain=rel,
+                       row_seconds=row_s, int8_noise=noise, bit_equal_kernels=exact,
+                       kernels_vs_plain=rel,
                        control=control_rel)
         del sweep, int8_pipe
         torch.cuda.empty_cache()

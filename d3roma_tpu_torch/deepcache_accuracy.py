@@ -11,14 +11,19 @@ metrics are poor; the drifts against the exact run are the signal.
     python -m d3roma_tpu_torch.deepcache_accuracy data  [--run DIR]
     python -m d3roma_tpu_torch.deepcache_accuracy train [--run DIR] [--steps 1520]
     python -m d3roma_tpu_torch.deepcache_accuracy sweep [--run DIR] [--ks 1,2,3,5]
-        [--modes bf16,int8] [--frames 64] [--batch 4] [--out FILE]
+        [--modes bf16,int8] [--frames 64] [--batch 4] [--seed 1234] [--out FILE]
+    python -m d3roma_tpu_torch.deepcache_accuracy ceiling [--run DIR] [--frames 64]
+        [--batch 4] [--out FILE]
 
 `--device` names the torch device (default: cuda). Everything lives under
 `--run` (default `capstone_ldm`, relative to the working directory):
 `datasets/HISS` (the frames), `run/` (the training output,
 `run/checkpoints/last` the checkpoint the sweep reads), one file per row
-(`dc_row_<mode>_<cfg>.json`, so a cut sweep resumes from the rows it has)
-and the calibrated scales (`dc_act_scales_step<N>_b<batch>_k<cfg>.json`).
+(`dc_row_<mode>_<cfg>.json`, `..._s<seed>.json` under another `--seed`, so a
+cut sweep resumes from the rows it has; a row file of another checkpoint
+step is evaluated again), the calibrated scales
+(`dc_act_scales_step<N>_b<batch>_k<cfg>.json`) and the VAE ceiling
+(`dc_vae_ceiling_f<frames>_b<batch>.json`).
 
 - `data`: 64 train frames (seed 11) and 8 val frames (seed 97) at 360x640;
 - `train`: the capstone recipe through `training.train(max_steps=N)`:
@@ -28,8 +33,18 @@ and the calibrated scales (`dc_act_scales_step<N>_b<batch>_k<cfg>.json`).
 - `sweep`: the rows `<mode>:<cfg>` for every mode and config (bf16 rows
   skip the int8-only levers), each on its own copy of the loaded
   pipeline (the port's pipeline methods work in place), each evaluated from
-  a generator seeded with 1234, then the table at `--out` (default
-  `docs/deepcache_accuracy_torch.json` of the repository).
+  a generator seeded with `--seed` (1234, the JAX sweep's), then the table
+  at `--out` (default `docs/deepcache_accuracy_torch.json` of the
+  repository) with the VAE ceiling;
+- `ceiling`: the VAE ceiling alone, added to the table at `--out`. It
+  reads no checkpoint: the frozen VAE is drawn from the training's seed.
+
+The VAE ceiling is the rows' metrics for the frozen VAE's round trip of
+the ground truth, decode(encode(disparity)), through the same eval: the
+score of a UNet whose every prediction were the ground truth's exact
+latent, which training drives the rows toward. With a VAE that inverts its
+encode it is the best a row can reach; the capstone's random frozen VAE
+does not, and rows can score on either side of it.
 
 A config is `<schedule>[d<depth>][q<pct>][m<margin>][p<kind>]` (`parse_cfg`):
 schedule a uniform interval or an F/S pattern, d the shallow pass's depth,
@@ -86,6 +101,32 @@ NOTE = ("drift_pct = vs bf16 exact (mode=bf16,k=1) - for int8 rows this is the C
         "`python -m d3roma_tpu_torch.deepcache_accuracy train` (no real dataset here).")
 
 
+class _RoundTrip:
+    """A stand-in pipeline for `evaluate_dataset`: its output is the VAE's
+    round trip of the ground truth that `take` (in the preprocess) keeps
+    of each batch, padded as the eval pads the conditions and clamped as a
+    pipeline's output."""
+
+    def __init__(self, pipe, divis_by: int):
+        self.vae, self.device, self.divis_by, self.gt = pipe.vae, pipe.device, divis_by, None
+
+    def take(self, batch: dict) -> dict:
+        self.gt = batch["normalized_disp"]
+        return batch
+
+    def __call__(self, **_):
+        import torch
+
+        from d3roma_tpu_torch.models.vae import decode_latent, encode_disp_to_latent
+        from d3roma_tpu_torch.ops.padding import InputPadder
+        from d3roma_tpu_torch.pipelines.sampling import latent_decode_images
+
+        (gt,) = InputPadder(self.gt.shape, divis_by=self.divis_by).pad(self.gt)
+        with torch.no_grad():
+            z = encode_disp_to_latent(self.vae, gt)
+            return latent_decode_images(lambda x: decode_latent(self.vae, x), z[None])
+
+
 class EmptyPins(ValueError):
     """A pin kind selected no call of a replay table."""
 
@@ -132,9 +173,11 @@ def wanted_rows(modes: Sequence[str], ks: Sequence[str]) -> List[Tuple[str, str]
 
 def build_doc(results: Dict[Tuple[str, str], dict], ks: Sequence[str],
               modes: Sequence[str], frames: int, steps: int,
-              refused: Optional[Dict[str, str]] = None) -> dict:
+              refused: Optional[Dict[str, str]] = None, ceiling: Optional[dict] = None,
+              seed: int = EVAL_SEED) -> dict:
     """The table, in the JAX script's layout, from each row's metrics, plus
-    the card (`device`) and the refused rows."""
+    the card (`device`), the refused rows, the VAE ceiling and, where it is
+    not EVAL_SEED, the rows' seed."""
     exact = results[("bf16", "1")]
     devices = sorted({r.get("_device", "not recorded") for r in results.values()})
     doc = {"checkpoint_step": exact.get("_checkpoint_step"), "frames": frames, "steps": steps,
@@ -148,6 +191,10 @@ def build_doc(results: Dict[Tuple[str, str], dict], ks: Sequence[str],
                                 for k in ks if ("int8", k) in results}
     if refused:
         doc["refused"] = dict(refused)
+    if ceiling is not None:
+        doc["vae_ceiling"] = table_row(ceiling, {})
+    if seed != EVAL_SEED:
+        doc["eval_seed"] = seed
     return doc
 
 
@@ -276,20 +323,25 @@ class Sweep:
     """The rows of one checkpoint: `base` the loaded pipeline (bf16,
     remat off), never changed; each row runs on its own copy."""
 
-    def __init__(self, run: str, config, base, loader, checkpoint_step: int, batch: int):
+    def __init__(self, run: str, config, base, loader, checkpoint_step: Optional[int],
+                 batch: int, seed: int = EVAL_SEED):
         from d3roma_tpu_torch.data import preprocess_eval
         from d3roma_tpu_torch.ops.normalizer import Normalizer
 
         self.run, self.config, self.base, self.loader = run, config, base, loader
-        self.step, self.batch = int(checkpoint_step), int(batch)
+        self.step = None if checkpoint_step is None else int(checkpoint_step)
+        self.batch, self.seed = int(batch), int(seed)
         self.device = base.device
         self.preprocess = partial(preprocess_eval, config=config,
                                   normalizer=Normalizer.from_config(config), device=self.device)
 
     @classmethod
-    def from_checkpoint(cls, run: str, frames: int, batch: int, device=None) -> "Sweep":
-        """The capstone's models at the checkpoint run/run/checkpoints/last,
-        the eval of `frames` val frames at `batch`."""
+    def from_checkpoint(cls, run: str, frames: int, batch: int, device=None,
+                        seed: int = EVAL_SEED, load: bool = True) -> "Sweep":
+        """The capstone's models at the checkpoint run/run/checkpoints/last
+        (with `load` False, the UNet untrained and no step: for the VAE
+        ceiling alone), the eval of `frames` val frames at `batch`, the rows
+        drawn from `seed`."""
         from d3roma_tpu_torch.config import compose
         from d3roma_tpu_torch.data import val_loaders
         from d3roma_tpu_torch.device import resolve_device
@@ -302,14 +354,16 @@ class Sweep:
         # the training's models (its seed draws the frozen VAE), then the
         # trained UNet
         models = build_models(config, _seed(base), device)
-        step = load_unet(os.path.join(run, "run", "checkpoints", "last"), models["unet"])
-        logger.info("loaded checkpoint @ step %d", step)
+        step = None
+        if load:
+            step = load_unet(os.path.join(run, "run", "checkpoints", "last"), models["unet"])
+            logger.info("loaded checkpoint @ step %d", step)
         pipe = create_pipeline(config, models).half_precision()
         # remat is a training lever: at inference it only recomputes
         pipe.unet.remat = False
         with _cwd(run):
             loader = val_loaders(config)[0]
-        return cls(run, config, pipe, loader, step, batch)
+        return cls(run, config, pipe, loader, step, batch, seed)
 
     def _scales_path(self, cfg: str) -> str:
         return os.path.join(self.run, f"dc_act_scales_step{self.step}_b{self.batch}"
@@ -376,23 +430,57 @@ class Sweep:
             pipe.with_act_clipping(pins=self.pins(pipe, pin))
         return pipe
 
-    def evaluate(self, pipe, seed: int = EVAL_SEED, max_batches: Optional[int] = None) -> dict:
+    def evaluate(self, pipe, seed: Optional[int] = None,
+                 max_batches: Optional[int] = None) -> dict:
         """`evaluate_dataset` of `pipe` on the sweep's frames (the first
         `max_batches` batches, else all), its batches' noise drawn from a
-        generator seeded with `seed`."""
+        generator seeded with `seed` (default: the sweep's)."""
+        seed = self.seed if seed is None else seed
         with _cwd(self.run):
             return _evaluate(self.config, pipe, self.loader, self.preprocess, seed, max_batches)
 
-    def row_path(self, mode: str, cfg: str) -> str:
-        return os.path.join(self.run, f"dc_row_{mode}_{cfg}.json")
+    def vae_ceiling(self) -> dict:
+        """The VAE ceiling's metrics (module docstring), from its file when
+        one is there, else evaluated (from EVAL_SEED whatever the rows'
+        seed: it draws no noise, and one file serves every seed) and
+        written."""
+        import torch
 
-    def row(self, mode: str, cfg: str) -> dict:
-        """The row's metrics, from its file when one is there, else
-        evaluated and written."""
-        path = self.row_path(mode, cfg)
+        from d3roma_tpu_torch.evaluation import evaluate_dataset
+
+        frames = self.batch * self.config.eval_num_batch
+        path = os.path.join(self.run, f"dc_vae_ceiling_f{frames}_b{self.batch}.json")
         if os.path.exists(path):
             with open(path) as f:
                 return json.load(f)
+        trip = _RoundTrip(self.base, self.config.divis_by)
+        with _cwd(self.run):
+            m, _ = evaluate_dataset(self.config, trip, self.loader,
+                                    torch.Generator().manual_seed(EVAL_SEED),
+                                    preprocess=lambda b: trip.take(self.preprocess(b)),
+                                    dataset_name="HISS")
+        m = {s: {k: float(v) for k, v in d.items()} for s, d in m.items()}
+        m.update(_device=device_label(self.device))
+        with open(path, "w") as f:
+            json.dump(m, f)
+        logger.info("VAE ceiling: epe=%.4f absrel=%.4f", m["disp"]["epe"], m["depth"]["rel"])
+        return m
+
+    def row_path(self, mode: str, cfg: str) -> str:
+        tag = "" if self.seed == EVAL_SEED else f"_s{self.seed}"
+        return os.path.join(self.run, f"dc_row_{mode}_{cfg}{tag}.json")
+
+    def row(self, mode: str, cfg: str) -> dict:
+        """The row's metrics, from its file when one of this checkpoint step
+        is there, else evaluated and written."""
+        path = self.row_path(mode, cfg)
+        if os.path.exists(path):
+            with open(path) as f:
+                m = json.load(f)
+            if m.get("_checkpoint_step") == self.step:
+                return m
+            logger.info("%s: step %s, not the checkpoint's %s: evaluated again", path,
+                        m.get("_checkpoint_step"), self.step)
         pipe = self.pipeline(mode, cfg)
         t0 = time.perf_counter()
         m = self.evaluate(pipe)
@@ -418,26 +506,44 @@ class Sweep:
                 logger.error("%s:%s refused: %s", mode, k, e)
                 refused[f"{mode}:{k}"] = str(e)
         return build_doc(results, ks, modes, frames, self.config.num_inference_timesteps,
-                         refused)
+                         refused, self.vae_ceiling(), self.seed)
 
 
 def sweep(run: str, ks: Sequence[str], modes: Sequence[str], frames: int, batch: int,
-          out: str, device=None) -> dict:
-    """Every row of `modes` x `ks` on run's checkpoint, the table written to
-    `out`."""
+          out: str, device=None, seed: int = EVAL_SEED) -> dict:
+    """Every row of `modes` x `ks` on run's checkpoint, drawn from `seed`,
+    the table written to `out`."""
     wanted_rows(modes, ks)  # refuse a bad list before loading anything
     data(run, frames)
-    doc = Sweep.from_checkpoint(run, frames, batch, device).table(ks, modes, frames)
+    doc = Sweep.from_checkpoint(run, frames, batch, device, seed).table(ks, modes, frames)
+    _write(out, doc)
+    return doc
+
+
+def ceiling(run: str, frames: int, batch: int, out: str, device=None) -> dict:
+    """The VAE ceiling on `frames` val frames at `batch`, added to the table
+    at `out` (which must be of as many frames)."""
+    with open(out) as f:
+        doc = json.load(f)
+    if doc["frames"] != frames:
+        raise ValueError(f"{out} is a table of {doc['frames']} frames, not {frames}")
+    data(run, frames)
+    doc["vae_ceiling"] = table_row(
+        Sweep.from_checkpoint(run, frames, batch, device, load=False).vae_ceiling(), {})
+    _write(out, doc)
+    return doc
+
+
+def _write(out: str, doc: dict) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     with open(out, "w") as f:
         json.dump(doc, f, indent=1)
     logger.info("wrote %s", out)
-    return doc
 
 
 def main(argv) -> int:
     parser = argparse.ArgumentParser(prog="python -m d3roma_tpu_torch.deepcache_accuracy")
-    parser.add_argument("command", choices=("data", "train", "sweep"))
+    parser.add_argument("command", choices=("data", "train", "sweep", "ceiling"))
     parser.add_argument("--run", default="capstone_ldm", help="work directory")
     parser.add_argument("--device", default=None, help="torch device (default: cuda)")
     parser.add_argument("--steps", type=int, default=1520, help="train: global steps")
@@ -445,7 +551,8 @@ def main(argv) -> int:
     parser.add_argument("--modes", default="bf16,int8", help="sweep: bf16 and/or int8")
     parser.add_argument("--frames", type=int, default=64, help="sweep: eval frames")
     parser.add_argument("--batch", type=int, default=4, help="sweep: eval batch")
-    parser.add_argument("--out", default=DEFAULT_OUT, help="sweep: the table's file")
+    parser.add_argument("--seed", type=int, default=EVAL_SEED, help="sweep: the rows' seed")
+    parser.add_argument("--out", default=DEFAULT_OUT, help="sweep, ceiling: the table's file")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
@@ -455,10 +562,13 @@ def main(argv) -> int:
         data(run)
     elif args.command == "train":
         print(json.dumps(train(run, args.steps, args.device)), flush=True)
-    else:
+    elif args.command == "sweep":
         doc = sweep(run, args.ks.split(","), args.modes.split(","), args.frames, args.batch,
-                    os.path.abspath(args.out), args.device)
+                    os.path.abspath(args.out), args.device, args.seed)
         print(json.dumps(doc), flush=True)
+    else:
+        doc = ceiling(run, args.frames, args.batch, os.path.abspath(args.out), args.device)
+        print(json.dumps(doc["vae_ceiling"]), flush=True)
     return 0
 
 

@@ -123,6 +123,11 @@ def main(argv) -> int:
             print(json.dumps({"dataset": name, "metrics": metrics,
                               "num_rejected": stat.num_rejected,
                               "ranks": mesh.size, "mesh": mesh.axis_sizes}), flush=True)
+    if torch.distributed.is_initialized():
+        # before the interpreter's teardown: a process group left to it can
+        # abort the rank at exit ("terminate called without an active
+        # exception" from gloo's threads)
+        torch.distributed.destroy_process_group()
     return 0
 
 

@@ -24,7 +24,15 @@ the port's bench default.
   `fast_inference("throughput")` the self-attention takes the whole-row
   kernel, which takes no scale: kind "attn" has no call), and the sweep
   lists the row under "refused";
-- row files resume: a second sweep reads every row from its file;
+- row files resume: a second sweep reads every row from its file; a row
+  file of another checkpoint step is evaluated again, and rows of another
+  seed have files of their own and draw from that seed;
+- the VAE ceiling (the frozen VAE's round trip of the ground truth through
+  the rows' eval) gives the JAX eval loop's metrics for the JAX VAE's round
+  trip on the same weights and frames, both in fp32, within 1e-4 relative
+  (fp32 sums in other orders: measured 1.3e-6; the round trip's images
+  agree to 4e-5 of their max). In bf16 the tiny random VAE's rounding alone moves the images
+  by 1e-2 on average, which would hide a wrong round trip;
 - `load_unet` takes the trained UNet and the global step from a checkpoint
   whichever optimizer wrote it;
 - the gate: `d3roma_tpu_torch/bench.py`'s DEFAULT_DEEPCACHE has a
@@ -49,12 +57,16 @@ from d3roma_tpu.evaluation import evaluate_dataset as jax_evaluate
 from d3roma_tpu.guidance import FlowGuidance as JaxGuidance
 from d3roma_tpu.models import AutoencoderKL as JaxVAE
 from d3roma_tpu.models import UNet2DCondition as JaxUNet
+from d3roma_tpu.models import decode_latent as jax_decode_latent
+from d3roma_tpu.models import encode_disp_to_latent as jax_encode_disp
 from d3roma_tpu.models.torch_import import unet_torch_to_flax, vae_torch_to_flax
+from d3roma_tpu.ops import InputPadder as JaxInputPadder
 from d3roma_tpu.ops import Normalizer as JaxNormalizer
 from d3roma_tpu.ops import ScheduleConfig as JaxScheduleConfig
 from d3roma_tpu.pipelines import GuidedLatentDiffusionPipeline as JaxPipeline
 from d3roma_tpu.pipelines import SamplerSpec as JaxSamplerSpec
 from d3roma_tpu.pipelines import create_sampler_spec as jax_sampler_spec
+from d3roma_tpu.pipelines.sampling import latent_decode_images as jax_decode_images
 from d3roma_tpu.training.train_loop import _preprocess_eval
 from d3roma_tpu_torch import deepcache_accuracy as dca
 from d3roma_tpu_torch.config import compose
@@ -209,12 +221,15 @@ def _jax_row(tree, mode, cfg, monkeypatch):
     return m, scales
 
 
-def _port_sweep(tree, run):
-    """A Sweep over the port's load of the same directory, drawing the JAX
-    key schedule of the row's evaluate_dataset call."""
+def _port_sweep(tree, run, half=True):
+    """A Sweep over the port's load of the same directory (in bf16, as the
+    sweep loads it, unless `half` is False), drawing the JAX key schedule of
+    the row's evaluate_dataset call."""
     config = compose(dca.CAPSTONE + OVERRIDES).task
     base = GuidedLatentDiffusionPipeline.from_pretrained(str(tree / "pipe"), device="cpu")
-    base.replace_sampler(create_sampler_spec(config, train=False)).half_precision()
+    base.replace_sampler(create_sampler_spec(config, train=False))
+    if half:
+        base.half_precision()
     cwd = os.getcwd()
     os.chdir(tree)
     try:
@@ -277,6 +292,72 @@ def test_empty_pins_raise_and_rows_resume(tree, replayed, monkeypatch, tmp_path)
     again_doc = again.table(["1"], ["bf16", "int8"], FRAMES)
     assert again_doc["combined_int8"]["1"]["depth_rel"] == round(row["depth"]["rel"], 4)
     assert again_doc["bf16"] == doc["bf16"]
+
+
+def test_rows_of_another_step_or_seed(tree, monkeypatch, tmp_path):
+    seeds = []
+
+    def evaluate(config, pipe, loader, preprocess, seed=dca.EVAL_SEED, max_batches=None):
+        seeds.append(seed)
+        return {"disp": {"epe": float(len(seeds))},
+                "depth": {"rel": 0.5, "rmse": 1.0, "mae": 0.25}}
+
+    monkeypatch.setattr(dca, "_evaluate", evaluate)
+    sweep = _port_sweep(tree, tmp_path / "run")
+    assert sweep.row("bf16", "1")["disp"]["epe"] == 1.0 and seeds == [dca.EVAL_SEED]
+    assert sweep.row("bf16", "1")["disp"]["epe"] == 1.0 and len(seeds) == 1  # its file
+    # a later checkpoint in the same directory evaluates the row again
+    later = dca.Sweep(sweep.run, sweep.config, sweep.base, sweep.loader, 5, BATCH)
+    m = later.row("bf16", "1")
+    assert m["_checkpoint_step"] == 5 and m["disp"]["epe"] == 2.0 and len(seeds) == 2
+    # another seed: its own file, its own draws, named in the table
+    other = dca.Sweep(sweep.run, sweep.config, sweep.base, sweep.loader, 5, BATCH, seed=7)
+    assert os.path.basename(other.row_path("bf16", "1")) == "dc_row_bf16_1_s7.json"
+    assert os.path.basename(later.row_path("bf16", "1")) == "dc_row_bf16_1.json"
+    assert other.row("bf16", "1")["disp"]["epe"] == 3.0 and seeds[-1] == 7
+    doc = dca.build_doc({("bf16", "1"): m}, ["1"], ["bf16"], FRAMES, 2, seed=7)
+    assert doc["eval_seed"] == 7 and "eval_seed" not in dca.build_doc(
+        {("bf16", "1"): m}, ["1"], ["bf16"], FRAMES, 2)
+
+
+class _JaxRoundTrip:
+    """The VAE ceiling's stand-in in the JAX eval loop: the JAX VAE's round
+    trip of the ground truth kept by `take`, padded and clamped as the
+    port's `_RoundTrip` does."""
+
+    def __init__(self, pipe, divis_by):
+        self.vae, self.apply = pipe.vae, pipe._vae_apply(pipe.vae_params)
+        self.guidance, self.divis_by, self.gt = JaxGuidance(flow_guidance_weight=0.0), divis_by, None
+
+    def take(self, batch):
+        self.gt = batch["normalized_disp"]
+        return batch
+
+    def __call__(self, key, **_):
+        (gt,) = JaxInputPadder(self.gt.shape, divis_by=self.divis_by).pad(self.gt)
+        z = jax_encode_disp(self.apply, gt)
+        return jax_decode_images(lambda x: jax_decode_latent(self.apply, x), z[None])
+
+
+def test_vae_ceiling_matches_jax(tree, monkeypatch, tmp_path):
+    monkeypatch.chdir(tree)
+    jcfg = jax_compose(dca.CAPSTONE + OVERRIDES).task
+    pipe = JaxPipeline.from_pretrained(str(tree / "pipe"))
+    loader = jax_fetch(jcfg, seed=0)[1][0]
+    preprocess = partial(_preprocess_eval, config=jcfg, normalizer=JaxNormalizer.from_config(jcfg))
+    trip = _JaxRoundTrip(pipe, jcfg.divis_by)
+    ref, _ = jax_evaluate(jcfg, trip, loader, jax.random.PRNGKey(dca.EVAL_SEED),
+                          preprocess=lambda b: trip.take(preprocess(b)),
+                          max_batches=jcfg.eval_num_batch, dataset_name="HISS")
+    monkeypatch.chdir(tmp_path)
+    sweep = _port_sweep(tree, tmp_path / "run", half=False)
+    ours = sweep.vae_ceiling()
+    assert ours["_device"] == "cpu"
+    for space, met in METRICS:
+        np.testing.assert_allclose(ours[space][met], float(ref[space][met]), rtol=1e-4, atol=0,
+                                   err_msg=f"{space}/{met}")
+    doc = sweep.table(["1"], ["bf16"], FRAMES)  # the table carries it, from its file
+    assert doc["vae_ceiling"] == dca.table_row(ours, {})
 
 
 @pytest.mark.parametrize("optimizer", ["adamw", "adafactor"])

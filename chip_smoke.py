@@ -17,6 +17,7 @@
     python3 chip_smoke.py --accuracy # device, build, one bf16 epoch and the accuracy phase
     python3 chip_smoke.py --serve    # device, build and the serving phase only
     python3 chip_smoke.py --import   # device, build and the reference-import phase only
+    python3 chip_smoke.py --offline  # device, build and the offline-tooling phase only
     python3 chip_smoke.py --tp       # device, build and the tensor-parallel phase only
 
 Run from the repository root, on a machine with a CUDA GPU and nvcc (the
@@ -25,7 +26,8 @@ failing the run on its own error:
 
 1. device: require CUDA; print the card's name and power limit, and its
    maximum SM clock (the exponentials' bound of the attention rows);
-2. build: compile the kernels, one nvcc per source, all at once;
+2. build: compile the kernels, one nvcc per source, all at once, and the
+   native EXR reader (`csrc/d3roma_io.cpp`, g++);
 3. kernels: each hand-written kernel against its plain PyTorch version at
    the main paths' shapes and a few ragged ones, with the stated tolerance;
    time kernel, plain version and one library call, and compute the bound
@@ -162,20 +164,31 @@ failing the run on its own error:
     within twice the int8 noise (the plain int8 batch against the bf16:1
     row's) of the same batch through every plain version, the plain batch
     on other noise outside it;
-15. serving (`serve_phase`): a full-width rgb+raw pipeline saved, and
-    calibrated under throughput and saved again; `python -m
+15. serving (`serve_phase`): a full-width rgb+raw pipeline saved, and a
+    copy calibrated by `python -m d3roma_tpu_torch.calibrate_pipeline` in
+    its own process (4 procedural frames at 360x640, 10 steps); `python -m
     d3roma_tpu_torch.demo` in its own process (its four artifacts read
     back); the startup probe picking "latency" first; `python -m
     d3roma_tpu_torch.serve --port 0 --max-batch 4` on the calibrated
     directory under SSI: ready after its warm frame, 8 concurrent requests
     (two at 480x848) each answered at its own frame's depth scale, a
     malformed one 400, /metrics, SIGTERM; in process, D3RoMa's batched call
-    under throughput (launch counts from the calibration's logs, bit-equal to
+    under throughput (launch counts from the calibrated tables, bit-equal to
     the bit-equal kernels' plain versions, within twice the int8 noise of
     every plain version, no host synchronization from upload to copy) and its
     single-frame rgb+raw and left+right+raw calls under latency; ms/request,
     ms/frame, host ms, idle share, the server's p50/p90/p99;
-16. reference checkpoints and guidance (`import_phase`): a bare SD2.1
+16. offline tooling (`offline_phase`): the NCC block matcher at 360x640,
+    batch 4, D 101 against the CPU (TF32 shown not to reach it), its
+    ms/frame, peak memory, StepTimer summary and a profiling.trace file;
+    `python -m d3roma_tpu_torch.stereo_matching` on 8 frames in its own
+    process, its EXRs bit-equal through the native and the Python reader,
+    their decode ms; `reproject_depth` at 1280x720 against the CPU; one
+    guided evaluate_dataset batch under guide_source="stereo-match"
+    (left+right+raw at full width, latency), its target against the CPU
+    matcher; the serve phase's calibrate_pipeline run (alone, `--offline`
+    runs its own);
+17. reference checkpoints and guidance (`import_phase`): a bare SD2.1
     diffusers directory at full width (random seeded weights: the UNet in
     fp16 safetensors, the VAE in fp32 .bin, the 23-layer text tower in fp32
     safetensors) imported by `python -m d3roma_tpu_torch.import_reference
@@ -190,7 +203,7 @@ failing the run on its own error:
     unguided ones, ms/request and the guided peak memory; under
     throughput, calibrated, 4 steps: guided bit-equal to unguided, the
     extra launches those of 40 decodes;
-17. tensor parallelism (`tp_phase`): two ranks on the card under torchrun
+18. tensor parallelism (`tp_phase`): two ranks on the card under torchrun
     (gloo): `mha_attention_tp` and `geglu_ff_tp` at the flagship batch-1
     shapes against their plain compositions, timed (kernel and collective
     apart); `D3RoMa` rgb+raw at full width, batch 1, 360x640, TP_STEPS (3)
@@ -199,12 +212,12 @@ failing the run on its own error:
     compositions; 32 / 48 in int8), the depth against the tp=1 call and
     the plain compositions', ms/request and its collectives, a rank's
     parameter bytes (`--tp` alone also runs the eval phase's DP2 check);
-18. the torch bench, `python -m d3roma_tpu_torch.bench`, in its own process
+19. the torch bench, `python -m d3roma_tpu_torch.bench`, in its own process
     at batch 2 with 2 timed calls (records and scales in a temporary
     directory), at the default setting, at BENCH_CLIP_PCT=0.999 and at
     BENCH_MODEL=pixel: its JSON line must carry every key of the JAX
     bench's at that setting, value > 0;
-19. a JSON line of per-kernel numbers, then the JSON result as the last line.
+20. a JSON line of per-kernel numbers, then the JSON result as the last line.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -213,6 +226,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -324,11 +338,15 @@ def device_phase() -> str:
 
 def build_phase() -> None:
     from d3roma_tpu_torch.ops.kernels import KERNEL_SOURCES, _build
+    from d3roma_tpu_torch.utils import native_io
 
     t0 = time.perf_counter()
     secs = _build.build(KERNEL_SOURCES)
     print(f"build: {json.dumps({k: round(v, 1) for k, v in secs.items()})} "
           f"wall {time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    lib = native_io.build()  # host code (g++): the EXR reader; raises if it does not build
+    print(f"build: {lib.name} (g++) in {time.perf_counter() - t0:.1f}s", flush=True)
     for name in KERNEL_SOURCES:
         log = (_build.BUILD_DIR / f"{name}.log")
         if log.exists():
@@ -3293,7 +3311,7 @@ def train_timing(cfg):
             step(state, batch, GeneratorDraws(torch.Generator(device="cuda").manual_seed(9)))
             _sync()
             prof_wall = (time.perf_counter() - t0) * 1e3
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30  # the matcher's own
     if counts:
         raise AssertionError(f"train: hand-written kernels launched in training: {counts}")
     import math
@@ -3948,9 +3966,10 @@ def serve_phase():
 
     - a full-width rgb+raw latent pipeline (SD2.1 geometry, seeded random
       weights in bf16, guidance weight 0, the preset's normalizer) saved
-      with save_pretrained; the same pipeline under
-      fast_inference("throughput") calibrated on one batch of SERVE_BATCH
-      frames at 360x640 and saved with its act_scales.json; a second UNet
+      with save_pretrained; a copy of the directory calibrated by `python -m
+      d3roma_tpu_torch.calibrate_pipeline` in its own process
+      (`calibrate_cli`: SERVE_BATCH procedural frames at 360x640, the
+      preset's steps, act_scales.json written into the copy); a second UNet
       with the left+right+raw conv_in, in memory;
     - `python -m d3roma_tpu_torch.demo --variant rgb+raw --pretrained DIR
       task.fast_inference=latency` in its own process: its four artifacts
@@ -3963,7 +3982,7 @@ def serve_phase():
       (`_serve_server`);
     - in process, `D3RoMa` on the calibrated directory under throughput:
       one infer_with_rgb_raw_batch call of SERVE_BATCH frames, its launch
-      counts from the calibration's logs (102 int8 attention, 160 int8
+      counts from the calibrated tables (102 int8 attention, 160 int8
       GEGLU, one int8 conv per conv or dense site visit, one quantize per
       int8 conv and GEGLU); the depth bit-equal to the same call with the
       conv, GEGLU and quantize kernels' plain versions, and within twice
@@ -4023,25 +4042,16 @@ def serve_phase():
             pipe = latent_pipe("rgb+raw")
             pipe_dir, calib_dir = os.path.join(tmp, "pipe"), os.path.join(tmp, "calib")
             pipe.save_pretrained(pipe_dir)
-            # the calibration batch: the in-process frames as D3RoMa feeds them
-            camera = Realsense.default_real("fxm")
-            camera.change_resolution("640x360")
-            frames = [_serve_frame(10 + i, s) for i, s in enumerate((0.5, 1.0, 2.0, 3.5))]
-            rgb = torch.from_numpy(np.stack([f[0] for f in frames])).cuda().float()
-            disp = torch.from_numpy(np.stack([camera.fxb_depth / f[1] for f in frames])
-                                    .astype(np.float32)).cuda()[..., None]
-            logs = {}
-            pipe.fast_inference("throughput").calibrate(
-                gen, [dict(rgb_images=(rgb / 255.0 - 0.5) * 2.0,
-                           sim_disp=norm.normalize(disp)[0])],
-                cond_channels="rgb+raw", num_inference_steps=cfg.num_inference_timesteps,
-                shape_logs=logs)
-            pipe.save_pretrained(calib_dir)
             del pipe
             torch.cuda.empty_cache()
-            print(f"serve: pipelines built, calibrated on {SERVE_BATCH} frames at 360x640 and "
-                  f"saved in {time.perf_counter() - t0:.1f}s; table lengths "
-                  f"{ {k: len(v) for k, v in logs.items()} }", flush=True)
+            print(f"serve: pipeline built and saved in {time.perf_counter() - t0:.1f}s",
+                  flush=True)
+            # the calibrated directory: a copy calibrated by the entry point, on
+            # SERVE_BATCH procedural frames at 360x640 and the preset's steps
+            shutil.copytree(pipe_dir, calib_dir)
+            summary["calibrate"] = calibrate_cli(tmp, repo, calib_dir, SERVE_BATCH,
+                                                 cfg.num_inference_timesteps)
+            frames = [_serve_frame(10 + i, s) for i, s in enumerate((0.5, 1.0, 2.0, 3.5))]
 
             # the demo and the probe, each its own processes, together (neither is timed)
             probe_out = {}
@@ -4097,7 +4107,7 @@ def serve_phase():
             _sync()
             print(f"serve: first batched call {time.perf_counter() - t0:.2f}s", flush=True)
             steps = cfg.num_inference_timesteps
-            convs = {k: sum(1 for kind, _ in v if kind in ("conv", "dot")) for k, v in logs.items()}
+            convs = _calibrated_conv_sites(droma.pipeline, SERVE_BATCH, SERVE_HW)
             expected = {"attention_int8": 10 * steps + 2, "geglu_int8": 16 * steps,
                         "conv2d_int8": convs["vae_encode"] + convs["unet"] * steps
                         + convs["vae_decode"]}
@@ -4230,6 +4240,431 @@ def serve_phase():
             torch.cuda.empty_cache()
         finally:
             os.chdir(cwd)
+    return summary
+
+
+
+def calibrate_cli(tmp, repo, pipe_dir, frames, steps, image_size="360x640"):
+    """`python -m d3roma_tpu_torch.calibrate_pipeline pipe_dir` in its own
+    process (`frames` procedural frames in one batch, `steps` DDIM steps):
+    its act_scales.json holds the four tables, each non-empty, every scale
+    finite and positive. Returns its seconds and table lengths."""
+    import numpy as np
+
+    rc, out, secs = _run_module(tmp, repo, "d3roma_tpu_torch.calibrate_pipeline", pipe_dir,
+                                "--frames", str(frames), "--batches", "1", "--image-size",
+                                image_size, "--steps", str(steps))
+    if rc != 0:
+        raise AssertionError(f"calibrate_pipeline exited {rc}")
+    with open(os.path.join(pipe_dir, "act_scales.json")) as f:
+        scales = json.load(f)
+    sizes = {k: len(v) for k, v in scales.items()}
+    if set(scales) != {"unet", "unet_cached", "vae_encode", "vae_decode"} or min(sizes.values()) < 1:
+        raise AssertionError(f"calibrate_pipeline wrote the tables {sizes}")
+    flat = np.concatenate([np.asarray(v, np.float64) for v in scales.values()])
+    if not (np.isfinite(flat).all() and (flat > 0).all()):
+        raise AssertionError("calibrate_pipeline wrote a scale that is not finite and positive")
+    print(f"calibrate_pipeline: {frames} frames at {image_size}, {steps} steps, in its own "
+          f"process in {secs:.1f}s; table lengths {sizes}", flush=True)
+    return {"seconds": secs, "table_lengths": sizes}
+
+
+def _calibrated_conv_sites(pipe, batch, hw):
+    """The int8 conv launches a calibrated throughput call makes per table:
+    the UNet's conv and dense sites from its call map (whose length must be
+    the "unet" table's), the VAE tables' lengths (every static VAE site is a
+    conv or dense one: its attention takes no scale)."""
+    unet = pipe.quant_call_map(batch, *hw)["unet"]
+    if len(unet) != len(pipe.act_scales["unet"]):
+        raise AssertionError(f"the unet table holds {len(pipe.act_scales['unet'])} scales for "
+                             f"{len(unet)} sites")
+    return {"unet": sum(1 for kind, _ in unet if kind in ("conv", "dot")),
+            "vae_encode": len(pipe.act_scales["vae_encode"]),
+            "vae_decode": len(pipe.act_scales["vae_decode"])}
+
+
+OFFLINE_BATCH = 4  # the stereo CLI's default batch
+OFFLINE_CLI_FRAMES = 8
+# the matcher on the card against the same call on the CPU, as
+# tests/test_torch_stereo.py holds the port against JAX: the same validity
+# on OFFLINE_VALID_AGREE of the pixels, the disparity within
+# OFFLINE_DISP_ATOL px where both are valid (the output is discontinuous at
+# the LRC threshold and the range cut, and the softmax at beta 100 amplifies
+# last-place cost differences)
+OFFLINE_VALID_AGREE = 0.995
+OFFLINE_DISP_ATOL = 0.15
+# the box sums against float64: fp32 rounding only (TF32 or an average
+# re-multiplied misses by ~1e-3)
+OFFLINE_BOX_REL_TOL = 1e-6
+OFFLINE_VALID_MIN = 0.3  # the CLI's sim depth: valid on at least this share of a frame
+REPROJECT_HW = (720, 1280)
+REPROJECT_AGREE = 0.999  # pixels with the same hole and depth within 1e-5 (rounding ties)
+# the guided eval batch: DDIM steps and Adam steps a step (fewer than the
+# preset's 10 steps: the phase's time limit)
+OFFLINE_EVAL_STEPS = 3
+OFFLINE_OPT_STEPS = 2
+
+
+def _ir_pairs(n, seed):
+    """n procedural IR pairs at 360x640, [n, H, W, 1] in [0, 1], and fxb."""
+    import numpy as np
+    import torch
+
+    from d3roma_tpu_torch.synthetic import ProceduralSceneRenderer, SceneConfig
+
+    renderer = ProceduralSceneRenderer(SceneConfig(), seed)
+    frames = [renderer.render() for _ in range(n)]
+    left, right = (torch.from_numpy(np.stack([f[k] for f in frames]).astype(np.float32)
+                                    / 255.0)[..., None] for k in ("ir_l", "ir_r"))
+    return left, right, frames[0]["fxb"]
+
+
+def _stereo_agree(label, ours, ref):
+    """ours (any device) against ref (the CPU) at the tests' tolerance;
+    returns (validity agreement, max disparity error where both valid)."""
+    import numpy as np
+
+    ov, rv = ours.valid.cpu().numpy(), ref.valid.cpu().numpy()
+    agree = float((ov == rv).mean())
+    both = ov & rv
+    err = float(np.abs(ours.disp.cpu().numpy()[both] - ref.disp.cpu().numpy()[both]).max())
+    print(f"{label}: validity agrees on {agree:.5f} of the pixels (limit {OFFLINE_VALID_AGREE}), "
+          f"max |disp a - b| where both valid {err:.4f} px (tol {OFFLINE_DISP_ATOL}); valid "
+          f"share {rv.mean():.4f}", flush=True)
+    if not (agree >= OFFLINE_VALID_AGREE and err <= OFFLINE_DISP_ATOL):
+        raise AssertionError(f"{label}: the card's matcher against the CPU's: {agree}, {err}")
+    return agree, err
+
+
+def _stereo_on_card(tmp, card):
+    """stereo_match at 360x640, batch OFFLINE_BATCH, the CLI's defaults
+    (D 101), against the CPU; TF32 settings that change nothing; the box sums
+    against float64; ms/frame, peak memory, the StepTimer summary and one
+    profiling.trace file read back."""
+    import numpy as np
+    import torch
+
+    from d3roma_tpu_torch.ops import stereo
+    from d3roma_tpu_torch.utils.profiling import StepTimer, trace
+
+    timer = StepTimer()
+    left, right, fxb = _ir_pairs(OFFLINE_BATCH, 19)
+    held = {}
+    with timer.phase("upload", block_on=held):
+        held["l"], held["r"] = left.cuda(), right.cuda()
+    lc, rc = held["l"], held["r"]
+    t0 = time.perf_counter()
+    out = stereo.stereo_match(lc, rc, fxb)
+    _sync()
+    first_s = time.perf_counter() - t0
+    # neither TF32 switch reaches the matcher: the same bits with both on and off
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        on = stereo.stereo_match(lc, rc, fxb)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        off = stereo.stereo_match(lc, rc, fxb)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    if not (torch.equal(on.disp, off.disp) and torch.equal(on.disp, out.disp)):
+        raise AssertionError("offline: the matcher's result moves with the TF32 settings")
+    box = stereo._box_sum(lc, 11).double().cpu()
+    box64 = stereo._box_sum(left.double(), 11)
+    box_rel = float((box - box64).abs().max() / box64.abs().max())
+    print(f"offline: stereo box sums on the card against float64 max |a - b| / max |b| "
+          f"{box_rel:.3e} (tol {OFFLINE_BOX_REL_TOL}); the disparities bit-equal with TF32 on "
+          f"and off", flush=True)
+    if not box_rel <= OFFLINE_BOX_REL_TOL:
+        raise AssertionError(f"offline: box sums {box_rel} from float64")
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # the inputs and what earlier phases still hold
+    walls = []
+    for _ in range(3):
+        res = {}
+        t0 = time.perf_counter()
+        with timer.phase("match", block_on=res):
+            res["out"] = stereo.stereo_match(lc, rc, fxb)
+        walls.append((time.perf_counter() - t0) * 1e3 / OFFLINE_BATCH)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with timer.phase("download"):
+        host = [t.cpu() for t in res["out"]]
+    t0 = time.perf_counter()
+    ref = stereo.stereo_match(left, right, fxb)
+    cpu_s = time.perf_counter() - t0
+    agree, err = _stereo_agree("offline: stereo_match card vs CPU", res["out"], ref)
+    if not np.isfinite(host[2].numpy()).all():
+        raise AssertionError("offline: non-finite sim depth")
+    trace_dir = os.path.join(tmp, "trace")
+    with trace(trace_dir):
+        stereo.stereo_match(lc, rc, fxb)
+        _sync()
+    files = os.listdir(trace_dir)
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    if len(files) != 1 or not events or not kernels:
+        raise AssertionError(f"offline: the trace {files} holds {len(events)} events, "
+                             f"{kernels} kernels")
+    ms = min(walls)
+    summary = {k: v * 1e3 for k, v in timer.summary().items()}
+    print(f"offline: stereo_match {OFFLINE_BATCH}x360x640, D 101, block 11: {ms:.2f} ms/frame "
+          f"(the faster of {[round(w, 2) for w in walls]}; first call {first_s:.2f}s), peak "
+          f"{peak:.2f} GiB above the {base / 2**30:.2f} GiB held before, the CPU "
+          f"{cpu_s:.1f}s; StepTimer ms/it { {k: round(v, 2) for k, v in summary.items()} }; "
+          f"trace {files[0]}: {len(events)} events, {kernels} kernels; {card}", flush=True)
+    return {"ms_per_frame": ms, "walls_ms_per_frame": walls, "first_call_s": first_s,
+            "peak_gib": peak, "held_before_gib": base / 2**30, "cpu_s": cpu_s,
+            "valid_agree": agree, "max_disp_err": err, "box_rel_err": box_rel,
+            "step_timer_ms": summary, "trace_events": len(events), "trace_kernels": kernels}
+
+
+def _stereo_cli(tmp, repo, card):
+    """`python -m d3roma_tpu_torch.stereo_matching` on an 8-frame tree in its
+    own process; its EXRs read back through native_io and utils/exr.py."""
+    import numpy as np
+
+    from d3roma_tpu_torch.synthetic import generate_dataset
+    from d3roma_tpu_torch.utils import exr, native_io
+
+    scene = generate_dataset(os.path.join(tmp, "cli", "HISS"), OFFLINE_CLI_FRAMES, split="train",
+                             seed=23)
+    rc, out, secs = _run_module(tmp, repo, "d3roma_tpu_torch.stereo_matching",
+                                os.path.join(tmp, "cli"), "--overwrite")
+    if rc != 0:
+        raise AssertionError(f"stereo_matching exited {rc}")
+    per_frame = [float(ln.split()[0]) for ln in out.splitlines() if ln.endswith(" s/frame")]
+    paths = sorted(os.path.join(scene, n) for n in os.listdir(scene)
+                   if n.endswith("_simDepthImage.exr"))
+    pngs = [p.replace("_simDepthImage.exr", "_simDispImage.png") for p in paths]
+    if len(paths) != OFFLINE_CLI_FRAMES or not per_frame or not all(map(os.path.exists, pngs)):
+        raise AssertionError(f"stereo_matching wrote {len(paths)} depth maps: {out[-2000:]}")
+    native_io.read_exr(paths[0])  # loads the library; the files are in the page cache after
+
+    def timed(read):
+        t0 = time.perf_counter()
+        out = read()
+        return out, (time.perf_counter() - t0) * 1e3 / len(paths)
+
+    # in turns (Python, native, batch, batch, native, Python), the faster of each pair
+    py, py_ms = timed(lambda: [exr.read_exr(p) for p in paths])
+    nat, nat_ms = timed(lambda: [native_io.read_exr(p) for p in paths])
+    (batch, status), batch_ms = timed(lambda: native_io.read_exr_batch(paths))
+    batch_ms = min(batch_ms, timed(lambda: native_io.read_exr_batch(paths))[1])
+    nat_ms = min(nat_ms, timed(lambda: [native_io.read_exr(p) for p in paths])[1])
+    py_ms = min(py_ms, timed(lambda: [exr.read_exr(p) for p in paths])[1])
+    valid = [float((d > 0).mean()) for d in py]
+    for a, b, c in zip(py, nat, batch):
+        if a.shape != (360, 640) or not (np.array_equal(a, b) and np.array_equal(a, c)):
+            raise AssertionError("offline: the native and Python EXR reads differ")
+        if not np.isfinite(a).all():
+            raise AssertionError("offline: non-finite sim depth in an EXR")
+    if not (status > 0).all() or min(valid) < OFFLINE_VALID_MIN:
+        raise AssertionError(f"offline: EXR status {status}, valid shares {valid}")
+    print(f"offline: stereo_matching on {len(paths)} frames in its own process in {secs:.1f}s "
+          f"({per_frame[0]:.4f} s/frame as it prints); EXRs bit-equal through native_io and "
+          f"utils/exr.py, valid {min(valid):.3f}-{max(valid):.3f} (limit {OFFLINE_VALID_MIN}); "
+          f"decode ms an item (360x640 fp32, warm page cache): native {nat_ms:.3f}, native "
+          f"batch {batch_ms:.3f}, Python {py_ms:.3f}; {card}", flush=True)
+    return {"process_s": secs, "s_per_frame": per_frame[0], "valid_share": valid,
+            "native_ms_per_item": nat_ms, "native_batch_ms_per_item": batch_ms,
+            "python_ms_per_item": py_ms}
+
+
+def _reproject_on_card(card):
+    """reproject_depth at 1280x720 (the fxm camera, depth to color) on the
+    card against the CPU, with TF32 matmul off as PyTorch leaves it."""
+    import numpy as np
+    import torch
+
+    from d3roma_tpu_torch.ops.reproject import reproject_depth
+    from d3roma_tpu_torch.utils.camera import Realsense
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("offline: TF32 matmul is on before the reprojection")
+    cam = Realsense.default_real("fxm")
+    cam.change_resolution(f"{REPROJECT_HW[1]}x{REPROJECT_HW[0]}")
+    rs = np.random.RandomState(31)
+    depth = rs.uniform(0.3, 3.0, REPROJECT_HW).astype(np.float32)
+    depth[rs.random_sample(REPROJECT_HW) < 0.2] = 0.0
+    mats = [torch.from_numpy(np.asarray(m, np.float32))
+            for m in (cam.K_depth.arr, cam.K_color.arr, cam.T_cl)]
+    ref = reproject_depth(torch.from_numpy(depth), *mats, REPROJECT_HW).numpy()
+    dev = torch.from_numpy(depth).cuda()
+    reproject_depth(dev, *mats, REPROJECT_HW)
+    _sync()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        got = reproject_depth(dev, *mats, REPROJECT_HW)
+        _sync()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    got = got.cpu().numpy()
+    same = ((got > 0) == (ref > 0)) & (np.abs(got - ref) <= 1e-5 * np.abs(ref))
+    agree = float(same.mean())
+    print(f"offline: reproject_depth {REPROJECT_HW[1]}x{REPROJECT_HW[0]} card against CPU: "
+          f"{agree:.6f} of the pixels agree (limit {REPROJECT_AGREE}), filled "
+          f"{(ref > 0).mean():.4f}; {min(walls):.3f} ms; {card}", flush=True)
+    if not agree >= REPROJECT_AGREE:
+        raise AssertionError(f"offline: reprojection card against CPU {agree}")
+    return {"agree": agree, "ms": min(walls)}
+
+
+class _TargetSpy:
+    """A pipeline that records the guidance target and the IR pair of each
+    call (eval_batch's stereo-match branch)."""
+
+    def __init__(self, pipe):
+        self.pipe, self.seen = pipe, []
+
+    def __getattr__(self, name):
+        return getattr(self.pipe, name)
+
+    def __call__(self, **kw):
+        self.seen.append({k: kw[k].detach() for k in ("raw_depth", "left_images",
+                                                      "right_images")})
+        return self.pipe(**kw)
+
+
+def _eval_stereo_match(tmp, card):
+    """One evaluate_dataset batch under guide_source="stereo-match": the
+    left+right+raw latent pipeline at full width (seeded random weights,
+    bf16, latency), gradient guidance at weight 1.0, two procedural frames
+    at 480x270; the target the pipeline received against the CPU matcher
+    on the same IR pair, finite metrics, the latency kernels launched."""
+    from functools import partial
+
+    import numpy as np
+    import torch
+
+    from d3roma_tpu_torch.config import load_task_preset
+    from d3roma_tpu_torch.data import preprocess_eval, val_loaders
+    from d3roma_tpu_torch.evaluation import evaluate_dataset
+    from d3roma_tpu_torch.guidance import FlowGuidance
+    from d3roma_tpu_torch.models import (
+        AutoencoderKL,
+        UNet2DCondition,
+        init_random_,
+        widened_in_channels,
+    )
+    from d3roma_tpu_torch.ops.normalizer import Normalizer
+    from d3roma_tpu_torch.ops.stereo import StereoMatchOutput, stereo_match
+    from d3roma_tpu_torch.pipelines import GuidedLatentDiffusionPipeline, create_sampler_spec
+    from d3roma_tpu_torch.synthetic import generate_dataset
+
+    cfg = load_task_preset("eval_ldm_mixed")
+    cfg.eval_dataset, cfg.eval_batch_size, cfg.eval_num_batch = ["HISS"], 2, 1
+    cfg.guide_source, cfg.flow_guidance_weights = "stereo-match", [1.0]
+    cfg.num_inference_timesteps = OFFLINE_EVAL_STEPS
+    generate_dataset(os.path.join(tmp, "datasets", "HISS"), 2, split="test", seed=29)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    norm = Normalizer.from_config(cfg)
+    pipe = GuidedLatentDiffusionPipeline(
+        unet=init_random_(UNet2DCondition(in_channels=widened_in_channels(cfg.cond_channels),
+                                          out_channels=4, device="cuda"), gen),
+        vae=init_random_(AutoencoderKL(device="cuda"), gen), text_embed=torch.zeros(1, 2, 1024),
+        spec=create_sampler_spec(cfg, train=False), normalizer=norm,
+        guidance=FlowGuidance(flow_guidance_weight=1.0, flow_guidance_mode="gradient",
+                              num_opt_steps=OFFLINE_OPT_STEPS, opt_lr=1e-3),
+        device="cuda").half_precision().fast_inference("latency")
+    spy = _TargetSpy(pipe)
+    cwd = os.getcwd()
+    os.chdir(tmp)  # the dataset root is relative to the working directory
+    try:
+        _zero_launches()
+        t0 = time.perf_counter()
+        metrics, _ = evaluate_dataset(
+            cfg, spy, val_loaders(cfg)[0], torch.Generator().manual_seed(1),
+            preprocess=partial(preprocess_eval, config=cfg, normalizer=norm, device="cuda"))
+        _sync()
+        secs = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    counts = {k: v for k, v in _int8_launches().items() if v}
+    flat = [v for grp in ("disp", "depth") for v in metrics[grp].values()]
+    if len(spy.seen) != 1 or not np.isfinite(flat).all():
+        raise AssertionError(f"offline eval: {len(spy.seen)} calls, metrics {metrics}")
+    if not (counts.get("attention") and counts.get("geglu")):
+        raise AssertionError(f"offline eval: the latency kernels did not launch: {counts}")
+    seen = spy.seen[0]
+    left, right = ((seen[k].float().cpu() + 1.0) / 2.0 for k in ("left_images", "right_images"))
+    scale = left.shape[2] / 640.0
+    # fxb scales the depth only: the disparities are compared
+    ref = stereo_match(left, right, 24.0, min_disp=max(1, int(10 * scale)),
+                       max_disp=max(8, int(110 * scale)))
+    target = seen["raw_depth"][..., 0].float().cpu()
+    got = StereoMatchOutput(torch.where(target > 0, target, torch.full_like(target, -1.0)),
+                            target > 0, None)
+    agree, err = _stereo_agree("offline eval: the stereo-match target vs the CPU matcher",
+                               got, ref)
+    print(f"offline eval: one batch of 2 frames ({tuple(left.shape[1:3])} padded), "
+          f"{OFFLINE_EVAL_STEPS} steps, gradient guidance ({OFFLINE_OPT_STEPS} Adam steps a "
+          f"step) on the stereo-match target in {secs:.1f}s; launches {counts}; disp/epe "
+          f"{metrics['disp']['epe']:.4f}, depth/rel {metrics['depth']['rel']:.4f}; {card}",
+          flush=True)
+    del pipe, spy
+    torch.cuda.empty_cache()
+    return {"seconds": secs, "launches": counts, "target_valid_agree": agree,
+            "target_max_disp_err": err, "metrics": metrics}
+
+
+def offline_phase(card, calibration=None):
+    """The offline tooling on the card (`offline_phase`), each step failing
+    the run on its own error:
+
+    - `ops/stereo.py::stereo_match` at 360x640, batch 4, the stereo CLI's
+      defaults (D 101, block 11, beta 100) on procedural IR pairs against
+      the same call on the CPU (OFFLINE_VALID_AGREE, OFFLINE_DISP_ATOL); the
+      disparities bit-equal with cuDNN's and matmul's TF32 switches on and
+      off, and the box sums within OFFLINE_BOX_REL_TOL of float64 (no TF32
+      reaches them); ms/frame (the faster of three calls), peak memory, the
+      phase's StepTimer summary and one `utils.profiling.trace` file read
+      back with its kernels;
+    - `python -m d3roma_tpu_torch.stereo_matching` on an 8-frame procedural
+      tree in its own process; each EXR read back through `native_io` (one
+      by one and batched) and `utils/exr.py`, bit-equal, finite, valid on
+      OFFLINE_VALID_MIN of the frame at least; decode ms an item;
+    - `reproject_depth` at 1280x720 on the card against the CPU;
+    - one `evaluate_dataset` batch under guide_source="stereo-match"
+      (`_eval_stereo_match`);
+    - `calibrate_pipeline` as a process: the serve phase's (`calibration`,
+      which replaces the serve phase's own calibration step), or, run
+      alone, one on a saved full-width rgb+raw pipeline at 2 frames and 2
+      steps.
+
+    Returns a summary dict."""
+    import tempfile
+
+    import torch
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    summary = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        summary["stereo"] = _stereo_on_card(tmp, card)
+        torch.cuda.empty_cache()
+        summary["stereo_cli"] = _stereo_cli(tmp, repo, card)
+        summary["reproject"] = _reproject_on_card(card)
+        summary["eval_stereo_match"] = _eval_stereo_match(tmp, card)
+        if calibration is None:
+            from d3roma_tpu_torch.models import AutoencoderKL, UNet2DCondition, init_random_
+            from d3roma_tpu_torch.ops.normalizer import Normalizer
+            from d3roma_tpu_torch.ops.schedules import ScheduleConfig
+            from d3roma_tpu_torch.pipelines import GuidedLatentDiffusionPipeline, SamplerSpec
+
+            gen = torch.Generator(device="cuda").manual_seed(3)
+            pipe_dir = os.path.join(tmp, "pipe")
+            GuidedLatentDiffusionPipeline(
+                unet=init_random_(UNet2DCondition(in_channels=12, out_channels=4,
+                                                  device="cuda"), gen),
+                vae=init_random_(AutoencoderKL(device="cuda"), gen),
+                text_embed=torch.zeros(1, 2, 1024),
+                spec=SamplerSpec("my_ddim", ScheduleConfig(prediction_type="v_prediction")),
+                normalizer=Normalizer(ssi=False, mode="average", num_chs=1, ch_bounds=(128.0,),
+                                      ch_gammas=(1.0,)),
+                device="cuda").half_precision().save_pretrained(pipe_dir)
+            torch.cuda.empty_cache()
+            calibration = calibrate_cli(tmp, repo, pipe_dir, 2, 2)
+        summary["calibrate"] = calibration
     return summary
 
 
@@ -5243,6 +5678,11 @@ def main() -> int:
         print(card, flush=True)
         print("serve phase passed", flush=True)
         return 0
+    if sys.argv[1:] == ["--offline"]:
+        print(json.dumps({"offline": offline_phase(card)}), flush=True)
+        print(card, flush=True)
+        print("offline phase passed", flush=True)
+        return 0
     if sys.argv[1:] == ["--import"]:
         print(json.dumps({"import": import_phase()}), flush=True)
         print(card, flush=True)
@@ -5285,7 +5725,9 @@ def main() -> int:
         training = _phase(train_phase, train_tmp)  # so do its entry point's two processes
         accuracy = _phase(accuracy_phase, train_tmp)  # on the bf16 checkpoint they wrote
     torch.cuda.empty_cache()
-    serving = _phase(serve_phase)  # the demo, probe and server processes too
+    serving = _phase(serve_phase)  # the demo, probe, calibration and server processes too
+    torch.cuda.empty_cache()
+    offline = _phase(offline_phase, card, serving["calibrate"])  # and the stereo CLI's
     torch.cuda.empty_cache()
     imported = _phase(import_phase)  # and the importer's and parity_check's
     tensor_parallel = _phase(tp_phase, False)  # and its two ranks' (DP2: the eval phase)
@@ -5405,6 +5847,7 @@ def main() -> int:
     print(json.dumps({"train": training}), flush=True)
     print(json.dumps({"accuracy": accuracy}), flush=True)
     print(json.dumps({"serve": serving}), flush=True)
+    print(json.dumps({"offline": offline}), flush=True)
     print(json.dumps({"import": imported}), flush=True)
     print(json.dumps({"tp": tensor_parallel}), flush=True)
     print(json.dumps({"torch_bench": bench_lines}), flush=True)

@@ -24,8 +24,10 @@ latent pipeline takes the padded raw disparity and `denormer`, the
 config's denormalization against it (RANSAC seeded 0 a call, as the JAX
 package's PRNGKey(0)).
 
-Not ported yet, and refused: the "stereo-match" guide source
-(`ops/stereo.py`) and the `plot_intermediate_metrics` figure (ROADMAP.md).
+Under `guide_source="stereo-match"` the NCC block matcher
+(`ops/stereo.py`) on the padded IR pair gives the guidance and SSI target.
+Not ported yet, and refused: the `plot_intermediate_metrics` figure
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ from d3roma_tpu_torch.ops.ensemble import ensemble_depths
 from d3roma_tpu_torch.ops.metrics import compute_errors, metrics_to_dict
 from d3roma_tpu_torch.ops.normalizer import Normalizer
 from d3roma_tpu_torch.ops.padding import InputPadder
+from d3roma_tpu_torch.ops.stereo import stereo_match
 
 logger = logging.getLogger("d3roma_tpu_torch.eval")
 
@@ -123,10 +126,24 @@ def eval_batch(
         normalized_rgb, left, right, sim_disp, raw_depth
     )
 
+    # guide-source selection (reference: evaluate.py:171-182): the block
+    # matcher on the IR pair replaces the raw guidance target
     if (config.guide_source == "stereo-match" and left is not None
             and right is not None):
-        raise NotImplementedError(
-            "guide_source='stereo-match' needs ops/stereo.py, not ported yet (ROADMAP.md)")
+        scale = left.shape[2] / 640.0
+        fxb_val = float(_to_host(fxb).reshape(-1)[0]) if fxb is not None else 24.0
+        sm = stereo_match(
+            (left + 1.0) / 2.0, (right + 1.0) / 2.0, fxb_val,
+            min_disp=max(1, int(10 * scale)), max_disp=max(8, int(110 * scale)),
+        )
+        # the target is the raw *disparity* where the LRC kept it, metric
+        # depth only for depth-space models
+        disp = torch.where(sm.valid, sm.disp, torch.zeros_like(sm.disp))
+        if config.prediction_space == "depth":
+            raw_depth_p = torch.where(disp > 0, fxb_val / torch.clamp(disp, min=1e-6),
+                                      torch.zeros_like(disp))[..., None]
+        else:
+            raw_depth_p = disp[..., None]
 
     def denormer(x):
         # SSI re-alignment inside the guidance loop aligns against the raw

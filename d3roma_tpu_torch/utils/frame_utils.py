@@ -7,10 +7,12 @@ filling (scipy). OpenCV and PIL are not on the machine with the card:
 PNGs are read and written by `utils/png.py` (RGB channel order where
 `cv2.imread` gives BGR: the reads that took BGR channels flip
 explicitly), resizes go through `utils/resize.py` (cv2.resize's
-semantics), EXRs through `utils/exr.py`. `read_gen` returns a numpy array
-where the JAX package returns a PIL image (its callers take `np.array`
-of it either way); JPEG and PPM files raise NotImplementedError (a PNG
-under such a name is read as PIL reads it, by its content).
+semantics), EXRs through the native reader `utils/native_io.py` (else
+`utils/exr.py`, as the JAX package's hook falls back). `read_gen`
+returns a numpy array where the JAX package returns a PIL image (its
+callers take `np.array` of it either way); JPEG and PPM files raise
+NotImplementedError (a PNG under such a name is read as PIL reads it, by
+its content).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import re
 from os.path import splitext
 import numpy as np
 
-from d3roma_tpu_torch.utils import png
+from d3roma_tpu_torch.utils import native_io, png
 from d3roma_tpu_torch.utils.exr import read_exr
 from d3roma_tpu_torch.utils.resize import INTER_NEAREST, resize
 
@@ -28,7 +30,14 @@ TAG_CHAR = np.array([202021.25], np.float32)  # .flo magic
 
 
 def _read_exr_file(path):
-    """EXR read through the pure-Python reader (`utils/exr.py`)."""
+    """EXR read: the native threaded decoder (`utils/native_io.py`) first,
+    then the pure-Python reader (`utils/exr.py`) where the native library
+    is not built or refuses the file."""
+    try:
+        if native_io.available():
+            return native_io.read_exr(path)
+    except (NotImplementedError, ValueError, OSError):
+        pass
     return read_exr(path)
 
 

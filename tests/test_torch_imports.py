@@ -3,8 +3,10 @@ d3roma_tpu, safetensors, transformers and diffusers made unimportable, its
 entry points run on the CPU when asked to, and without a GPU they raise
 instead of falling back; the evaluation and training entry points also run
 with OpenCV, PIL, PyYAML, matplotlib (and for training tensorboardX)
-unimportable, and the reference-checkpoint entry points (import_reference,
-parity_check) with the hub packages unimportable."""
+unimportable, the reference-checkpoint entry points (import_reference,
+parity_check) with the hub packages unimportable, and the offline tools
+(stereo_matching, check_sceneflow, calibrate_pipeline, the native EXR
+reader, reprojection, profiling) with OpenCV, PIL and h5py unimportable."""
 
 import os
 import re
@@ -220,8 +222,8 @@ def test_evaluate_runs_without_jax_opencv_pil_yaml_or_matplotlib():
 
 
 def test_no_source_line_imports_opencv_pil_yaml_or_matplotlib():
-    """None of these is on the machine with the card."""
-    pattern = re.compile(r"^\s*(import|from) (cv2|PIL|yaml|matplotlib)([ .]|$)")
+    """None of these (nor h5py) is on the machine with the card."""
+    pattern = re.compile(r"^\s*(import|from) (cv2|PIL|yaml|matplotlib|h5py)([ .]|$)")
     files = sorted((REPO / "d3roma_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     offenders = [f"{f}:{i}" for f in files
                  for i, line in enumerate(f.read_text().splitlines(), 1)
@@ -614,3 +616,100 @@ def test_distributed_evaluate_runs_without_jax_in_two_ranks():
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "DIST EVAL OK" in proc.stdout
+
+
+_OFFLINE_CHILD = r"""
+import glob, os, shutil, sys, tempfile
+
+BLOCKED = ("jax", "jaxlib", "flax", "msgpack", "d3roma_tpu", "cv2", "PIL", "h5py", "yaml",
+           "matplotlib", "safetensors", "transformers", "diffusers")
+
+class Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Blocker())
+
+import json
+import numpy as np
+import torch
+from d3roma_tpu_torch import calibrate_pipeline, check_sceneflow, stereo_matching
+from d3roma_tpu_torch.models import AutoencoderKL, UNet2DCondition
+from d3roma_tpu_torch.ops.normalizer import Normalizer
+from d3roma_tpu_torch.ops.reproject import reproject_depth
+from d3roma_tpu_torch.ops.schedules import ScheduleConfig
+from d3roma_tpu_torch.pipelines import GuidedLatentDiffusionPipeline, SamplerSpec
+from d3roma_tpu_torch.synthetic import SceneConfig, generate_dataset
+from d3roma_tpu_torch.utils import exr, native_io, profiling
+from d3roma_tpu_torch.utils.camera import Realsense
+
+root = tempfile.mkdtemp()
+os.chdir(root)
+generate_dataset("HISS", 2, split="train", config=SceneConfig(height=36, width=64))
+GuidedLatentDiffusionPipeline(
+    unet=UNet2DCondition(in_channels=12, block_out_channels=(32, 64),
+                         down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+                         up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"), layers_per_block=1,
+                         attention_head_dim=32, cross_attention_dim=16, norm_groups=8,
+                         device="cpu"),
+    vae=AutoencoderKL(block_out_channels=(32, 64), norm_groups=8, device="cpu"),
+    text_embed=torch.zeros(1, 2, 16),
+    spec=SamplerSpec("my_ddim", ScheduleConfig(prediction_type="v_prediction")),
+    normalizer=Normalizer(ssi=False, mode="average", num_chs=1, ch_bounds=(64.0,),
+                          ch_gammas=(1.0,)), device="cpu").save_pretrained("pipe")
+if not torch.cuda.is_available():
+    for call in (lambda: stereo_matching.main(["HISS"]),
+                 lambda: calibrate_pipeline.main(["pipe"])):
+        try:
+            call()
+        except RuntimeError as e:
+            assert "CUDA" in str(e), e
+        else:
+            raise AssertionError("ran without CUDA and without --device")
+with profiling.trace("trace"):
+    assert stereo_matching.main(["HISS", "--device", "cpu", "--overwrite", "--min-disp", "2",
+                                 "--max-disp", "12"]) == 0
+assert len(glob.glob("trace/*.json")) == 1
+for path in sorted(glob.glob("HISS/**/*_simDepthImage.exr", recursive=True)):
+    depth = exr.read_exr(path)
+    assert depth.shape == (36, 64) and np.isfinite(depth).all() and (depth > 0).any()
+    if shutil.which("g++"):
+        assert np.array_equal(native_io.read_exr(path), depth)
+assert check_sceneflow.main(["--root", "SceneFlow", "--out", "bad.txt"]) == 0
+assert calibrate_pipeline.main(["pipe", "--device", "cpu", "--frames", "1", "--batches", "1",
+                                "--image-size", "32x64", "--steps", "2"]) == 0
+scales = json.load(open("pipe/act_scales.json"))
+calibrated = GuidedLatentDiffusionPipeline.from_pretrained("pipe", device="cpu")
+assert calibrated.act_scales == scales
+# the serving mode replays the tables the entry point wrote
+out = calibrated.fast_inference("throughput")(
+    num_inference_steps=2, num_intermediate_images=1, cond_channels="rgb+raw",
+    rgb_images=torch.rand(1, 32, 64, 3) * 2 - 1, sim_disp=torch.rand(1, 32, 64, 1),
+    generator=torch.Generator().manual_seed(0))
+assert tuple(out.images.shape) == (1, 32, 64, 1) and torch.isfinite(out.images).all()
+cam = Realsense.default_real("fxm")
+cam.change_resolution("64x36")
+d = torch.rand(36, 64) + 0.5
+out = reproject_depth(d, torch.from_numpy(cam.K_depth.arr), torch.from_numpy(cam.K_color.arr),
+                      torch.from_numpy(np.asarray(cam.T_cl)), (36, 64))
+assert out.shape == (36, 64) and (out > 0).float().mean() > 0.5
+assert not any(m.split(".")[0] in BLOCKED for m in sys.modules), sorted(
+    m for m in sys.modules if m.split(".")[0] in BLOCKED)
+print("OFFLINE OK")
+"""
+
+
+def test_offline_tools_run_without_jax_opencv_pil_or_h5py():
+    """The offline entry points on the CPU (the stereo CLI under
+    utils/profiling.trace, its EXRs read back through both readers,
+    check_sceneflow, calibrate_pipeline and the act_scales.json it writes
+    loaded back and replayed under fast_inference("throughput"),
+    reprojection) with jax, the JAX package, OpenCV, PIL and
+    h5py unimportable; without a GPU and without --device they raise."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _OFFLINE_CHILD], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "OFFLINE OK" in proc.stdout

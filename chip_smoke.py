@@ -3311,7 +3311,7 @@ def train_timing(cfg):
             step(state, batch, GeneratorDraws(torch.Generator(device="cuda").manual_seed(9)))
             _sync()
             prof_wall = (time.perf_counter() - t0) * 1e3
-    peak = (torch.cuda.max_memory_allocated() - base) / 2**30  # the matcher's own
+    peak = torch.cuda.max_memory_allocated() / 2**30
     if counts:
         raise AssertionError(f"train: hand-written kernels launched in training: {counts}")
     import math
@@ -3961,6 +3961,31 @@ def _serve_server(tmp, repo, calib_dir):
     return summary
 
 
+def serve_latent_pipe(cfg, cond, gen):
+    """The serve phase's full-width latent pipeline for the condition
+    `cond`: SD2.1 geometry, random weights from `gen` in bf16, guidance
+    weight 0, the normalizer and sampler of the preset `cfg`."""
+    import torch
+
+    from d3roma_tpu_torch.guidance import FlowGuidance
+    from d3roma_tpu_torch.models import (
+        AutoencoderKL,
+        UNet2DCondition,
+        init_random_,
+        widened_in_channels,
+    )
+    from d3roma_tpu_torch.ops.normalizer import Normalizer
+    from d3roma_tpu_torch.pipelines import GuidedLatentDiffusionPipeline, create_sampler_spec
+
+    return GuidedLatentDiffusionPipeline(
+        unet=init_random_(UNet2DCondition(in_channels=widened_in_channels(cond),
+                                          out_channels=4, device="cuda"), gen),
+        vae=init_random_(AutoencoderKL(device="cuda"), gen),
+        text_embed=torch.zeros(1, 2, 1024), spec=create_sampler_spec(cfg, train=False),
+        normalizer=Normalizer.from_config(cfg),
+        guidance=FlowGuidance(flow_guidance_weight=0.0), device="cuda").half_precision()
+
+
 def serve_phase():
     """Serving on the card, hermetic, in a temporary directory:
 
@@ -4006,16 +4031,7 @@ def serve_phase():
     import torch
 
     from d3roma_tpu_torch.config import compose
-    from d3roma_tpu_torch.guidance import FlowGuidance
     from d3roma_tpu_torch.inference import D3RoMa
-    from d3roma_tpu_torch.models import (
-        AutoencoderKL,
-        UNet2DCondition,
-        init_random_,
-        widened_in_channels,
-    )
-    from d3roma_tpu_torch.ops.normalizer import Normalizer
-    from d3roma_tpu_torch.pipelines import GuidedLatentDiffusionPipeline, create_sampler_spec
     from d3roma_tpu_torch.streaming.probe import select_streaming_mode
     from d3roma_tpu_torch.utils.camera import Realsense
 
@@ -4028,16 +4044,9 @@ def serve_phase():
         try:
             t0 = time.perf_counter()
             gen = torch.Generator(device="cuda").manual_seed(0)
-            norm = Normalizer.from_config(cfg)
 
             def latent_pipe(cond):
-                return GuidedLatentDiffusionPipeline(
-                    unet=init_random_(UNet2DCondition(in_channels=widened_in_channels(cond),
-                                                      out_channels=4, device="cuda"), gen),
-                    vae=init_random_(AutoencoderKL(device="cuda"), gen),
-                    text_embed=torch.zeros(1, 2, 1024), spec=create_sampler_spec(cfg, train=False),
-                    normalizer=norm, guidance=FlowGuidance(flow_guidance_weight=0.0),
-                    device="cuda").half_precision()
+                return serve_latent_pipe(cfg, cond, gen)
 
             pipe = latent_pipe("rgb+raw")
             pipe_dir, calib_dir = os.path.join(tmp, "pipe"), os.path.join(tmp, "calib")
@@ -4386,7 +4395,7 @@ def _stereo_on_card(tmp, card):
         with timer.phase("match", block_on=res):
             res["out"] = stereo.stereo_match(lc, rc, fxb)
         walls.append((time.perf_counter() - t0) * 1e3 / OFFLINE_BATCH)
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30  # the matcher's own
     with timer.phase("download"):
         host = [t.cpu() for t in res["out"]]
     t0 = time.perf_counter()
@@ -4629,8 +4638,8 @@ def offline_phase(card, calibration=None):
       (`_eval_stereo_match`);
     - `calibrate_pipeline` as a process: the serve phase's (`calibration`,
       which replaces the serve phase's own calibration step), or, run
-      alone, one on a saved full-width rgb+raw pipeline at 2 frames and 2
-      steps.
+      alone, one on the serve phase's rgb+raw pipeline (`serve_latent_pipe`),
+      saved, at 2 frames and 2 steps.
 
     Returns a summary dict."""
     import tempfile
@@ -4646,22 +4655,12 @@ def offline_phase(card, calibration=None):
         summary["reproject"] = _reproject_on_card(card)
         summary["eval_stereo_match"] = _eval_stereo_match(tmp, card)
         if calibration is None:
-            from d3roma_tpu_torch.models import AutoencoderKL, UNet2DCondition, init_random_
-            from d3roma_tpu_torch.ops.normalizer import Normalizer
-            from d3roma_tpu_torch.ops.schedules import ScheduleConfig
-            from d3roma_tpu_torch.pipelines import GuidedLatentDiffusionPipeline, SamplerSpec
+            from d3roma_tpu_torch.config import compose
 
-            gen = torch.Generator(device="cuda").manual_seed(3)
             pipe_dir = os.path.join(tmp, "pipe")
-            GuidedLatentDiffusionPipeline(
-                unet=init_random_(UNet2DCondition(in_channels=12, out_channels=4,
-                                                  device="cuda"), gen),
-                vae=init_random_(AutoencoderKL(device="cuda"), gen),
-                text_embed=torch.zeros(1, 2, 1024),
-                spec=SamplerSpec("my_ddim", ScheduleConfig(prediction_type="v_prediction")),
-                normalizer=Normalizer(ssi=False, mode="average", num_chs=1, ch_bounds=(128.0,),
-                                      ch_gammas=(1.0,)),
-                device="cuda").half_precision().save_pretrained(pipe_dir)
+            serve_latent_pipe(compose([f"task={SERVE_PRESET}"]).task, "rgb+raw",
+                              torch.Generator(device="cuda").manual_seed(3)
+                              ).save_pretrained(pipe_dir)
             torch.cuda.empty_cache()
             calibration = calibrate_cli(tmp, repo, pipe_dir, 2, 2)
         summary["calibrate"] = calibration

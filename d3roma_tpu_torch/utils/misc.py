@@ -1,6 +1,7 @@
 """Small shared utilities (reference: utils_d3roma/utils.py:466-486).
 
-Port of `d3roma_tpu/utils/misc.py`."""
+Port of `d3roma_tpu/utils/misc.py`, kept for the same API: nothing in the
+package calls these; they serve scripts and notebooks built on it."""
 
 from __future__ import annotations
 

@@ -6,7 +6,8 @@ at first use into `d3roma_tpu_torch/_build/` under a name that hashes the
 source and the flags, as the kernels' libraries are. Where no compiler
 builds it, `available()` is False and `utils/frame_utils.py` reads EXRs
 with the pure-Python reader (`utils/exr.py`); `build()` raises instead, for
-callers that require the native path.
+callers that require the native path. The port writes its own EXRs
+through `utils/exr.py`; `write_exr` mirrors the JAX package's API.
 """
 
 from __future__ import annotations
@@ -21,9 +22,9 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from d3roma_tpu_torch.ops.kernels._build import BUILD_DIR, CSRC_DIR
-
-SOURCE = CSRC_DIR / "d3roma_io.cpp"
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+BUILD_DIR = PACKAGE_DIR / "_build"  # shared with the kernels' builds
+SOURCE = PACKAGE_DIR / "csrc" / "d3roma_io.cpp"
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 LIBS = ("-lz", "-lpthread")
 
@@ -153,7 +154,7 @@ def read_exr_batch(paths: List[str], num_threads: int = 0) -> Tuple[np.ndarray, 
 
 
 def write_exr(path: str, image: np.ndarray) -> None:
-    """Single-channel float32 EXR, NO_COMPRESSION."""
+    """Single-channel float32 EXR, NO_COMPRESSION (the JAX package's API)."""
     img = np.ascontiguousarray(np.asarray(image, np.float32))
     if img.ndim != 2:
         raise ValueError(f"the native writer is single-channel, got shape {img.shape}")

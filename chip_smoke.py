@@ -206,10 +206,10 @@ failing the run on its own error:
 18. tensor parallelism (`tp_phase`): two ranks on the card under torchrun
     (gloo): `mha_attention_tp` and `geglu_ff_tp` at the flagship batch-1
     shapes against their plain compositions, timed (kernel and collective
-    apart); `D3RoMa` rgb+raw at full width, batch 1, 360x640, TP_STEPS (3)
+    apart); `D3RoMa` rgb+raw at full width, batch 1, 360x640, TP_STEPS (2)
     steps under task.tensor_parallel=2, latency and throughput (calibrated
-    on the meshed pipeline): the launch counts (30 / 48 through the
-    compositions; 32 / 48 in int8), the depth against the tp=1 call and
+    on the meshed pipeline): the launch counts (20 / 32 through the
+    compositions; 22 / 32 in int8), the depth against the tp=1 call and
     the plain compositions', ms/request and its collectives, a rank's
     parameter bytes (`--tp` alone also runs the eval phase's DP2 check);
 19. the torch bench, `python -m d3roma_tpu_torch.bench`, in its own process
@@ -4058,13 +4058,19 @@ def serve_phase():
             # the calibrated directory: a copy calibrated by the entry point, on
             # SERVE_BATCH procedural frames at 360x640 and the preset's steps
             shutil.copytree(pipe_dir, calib_dir)
-            summary["calibrate"] = calibrate_cli(tmp, repo, calib_dir, SERVE_BATCH,
-                                                 cfg.num_inference_timesteps)
             frames = [_serve_frame(10 + i, s) for i, s in enumerate((0.5, 1.0, 2.0, 3.5))]
 
-            # the demo and the probe, each its own processes, together (neither is timed)
-            probe_out = {}
+            # the calibration, the demo and the probe, each its own processes,
+            # together (none is timed against another phase)
+            probe_out, calib_out = {}, {}
             records = os.path.join(tmp, "probe.jsonl")
+
+            def calibrate():
+                try:
+                    calib_out["result"] = calibrate_cli(tmp, repo, calib_dir, SERVE_BATCH,
+                                                        cfg.num_inference_timesteps)
+                except Exception as e:  # noqa: BLE001 - raised below
+                    calib_out["error"] = e
 
             def probe():
                 try:
@@ -4076,10 +4082,18 @@ def serve_phase():
                     probe_out["error"] = repr(e)
 
             t0 = time.perf_counter()
-            probe_thread = threading.Thread(target=probe)
-            probe_thread.start()
-            summary["demo"] = _serve_demo(tmp, repo, pipe_dir)
-            probe_thread.join()
+            sides = [threading.Thread(target=probe), threading.Thread(target=calibrate)]
+            for side in sides:
+                side.start()
+            try:
+                summary["demo"] = _serve_demo(tmp, repo, pipe_dir)
+            finally:
+                for side in sides:
+                    side.join()
+            if "error" in calib_out:
+                raise AssertionError(f"serve: calibrate_pipeline: {calib_out['error']!r}"
+                                     ) from calib_out["error"]
+            summary["calibrate"] = calib_out["result"]
             if "error" in probe_out:
                 raise AssertionError(f"serve: probe raised {probe_out['error']}")
             sel = probe_out["result"]
@@ -5068,7 +5082,7 @@ TP_ATTENTION_SHAPES = ((1, 3600, 5, 64, False), (1, 920, 10, 64, False),
                        (1, 3600, 1, 512, True))
 TP_GEGLU_SHAPES = ((3600, 320, 1280), (920, 640, 2560), (240, 1280, 5120), (60, 1280, 5120))
 TP_SEED = 41
-TP_STEPS = 3  # a TP request's denoise steps (fewer than the preset's 10: the pass's time limit)
+TP_STEPS = 2  # a TP request's denoise steps (fewer than the preset's 10: the pass's time limit)
 
 
 def _tp_launches():
@@ -5459,10 +5473,10 @@ def tp_phase(dp2: bool = True):
       composition, its kernel, its collective, the plain composition, the
       library call on the rank's share); (2) builds the full-width rgb+raw
       pipeline (`_tp_pipeline`, the same seeded weights on both ranks) and
-      serves `D3RoMa` at batch 1, 360x640, TP_STEPS (3) DDIM steps under
+      serves `D3RoMa` at batch 1, 360x640, TP_STEPS (2) DDIM steps under
       task.tensor_parallel=2, latency and throughput (calibrated on the
-      meshed pipeline): the launch counts of one call (30 attention and
-      48 GEGLU, each through its composition; 32 int8 attention and 48
+      meshed pipeline): the launch counts of one call (20 attention and
+      32 GEGLU, each through its composition; 22 int8 attention and 32
       int8 GEGLU), the depth the same on both ranks, within the serve
       phase's tolerances of the tp=1 call on rank 0 (the same weights,
       inputs and noise; bf16 5e-2 of the disparity's max, int8 twice the

@@ -19,6 +19,7 @@
     python3 chip_smoke.py --import   # device, build and the reference-import phase only
     python3 chip_smoke.py --offline  # device, build and the offline-tooling phase only
     python3 chip_smoke.py --tp       # device, build and the tensor-parallel phase only
+    python3 chip_smoke.py --mono     # device, build and the mono-datasets phase only
 
 Run from the repository root, on a machine with a CUDA GPU and nvcc (the
 kernels build from d3roma_tpu_torch/csrc/ at first use). Phases, each
@@ -164,7 +165,19 @@ failing the run on its own error:
     within twice the int8 noise (the plain int8 batch against the bf16:1
     row's) of the same batch through every plain version, the plain batch
     on other noise outside it;
-15. serving (`serve_phase`): a full-width rgb+raw pipeline saved, and a
+15. mono datasets (`mono_phase`): every committed fixture of
+    tests/data/torch_mono/ (JPEGs and HDF5 files PIL and h5py wrote)
+    decoded by the port's host readers, each array's sha256 the manifest's,
+    the decode ms of an item; `python -m d3roma_tpu_torch.train
+    task=train_ldm_mono` in its own process (with timing hooks) on trees of
+    symlinks to the fixtures (8 NYUv2 and 8 HyperSim items, each set
+    weighted 2: two steps of batch 16 at 180x320 in one epoch, full SD2.1
+    width, fp32), its losses finite, the in-training eval at step 2 on one
+    batch of 4 NYUv2 test frames, best/ exported; ms/step, the loader's host
+    ms an item, peak memory, idle share; then `python -m
+    d3roma_tpu_torch.evaluate task=eval_ldm_mono` on best/ (4 frames,
+    my_ddim at 3 steps): finite metrics, the prediction files written;
+16. serving (`serve_phase`): a full-width rgb+raw pipeline saved, and a
     copy calibrated by `python -m d3roma_tpu_torch.calibrate_pipeline` in
     its own process (4 procedural frames at 360x640, 10 steps); `python -m
     d3roma_tpu_torch.demo` in its own process (its four artifacts read
@@ -178,7 +191,7 @@ failing the run on its own error:
     every plain version, no host synchronization from upload to copy) and its
     single-frame rgb+raw and left+right+raw calls under latency; ms/request,
     ms/frame, host ms, idle share, the server's p50/p90/p99;
-16. offline tooling (`offline_phase`): the NCC block matcher at 360x640,
+17. offline tooling (`offline_phase`): the NCC block matcher at 360x640,
     batch 4, D 101 against the CPU (TF32 shown not to reach it), its
     ms/frame, peak memory, StepTimer summary and a profiling.trace file;
     `python -m d3roma_tpu_torch.stereo_matching` on 8 frames in its own
@@ -188,7 +201,7 @@ failing the run on its own error:
     (left+right+raw at full width, latency), its target against the CPU
     matcher; the serve phase's calibrate_pipeline run (alone, `--offline`
     runs its own);
-17. reference checkpoints and guidance (`import_phase`): a bare SD2.1
+18. reference checkpoints and guidance (`import_phase`): a bare SD2.1
     diffusers directory at full width (random seeded weights: the UNet in
     fp16 safetensors, the VAE in fp32 .bin, the 23-layer text tower in fp32
     safetensors) imported by `python -m d3roma_tpu_torch.import_reference
@@ -196,28 +209,28 @@ failing the run on its own error:
     to its source, conv_in the fp32 widening bit for bit, the text
     embedding within 1e-4 of the CPU forward); `python -m
     d3roma_tpu_torch.parity_check` at 64x96 and its golden dump and
-    compare; the imported pipeline under latency at batch 1, 360x640, 5
-    steps, unguided and guided (10 Adam steps at lr 1e-3): 50 attention
-    and 80 GEGLU launches each, the guided images within
+    compare; the imported pipeline under latency at batch 1, 360x640, 3
+    steps, unguided and guided (10 Adam steps at lr 1e-3): 30 attention
+    and 48 GEGLU launches each, the guided images within
     IMPORT_PRED_REL_TOL of the plain versions' and different from the
     unguided ones, ms/request and the guided peak memory; under
-    throughput, calibrated, 4 steps: guided bit-equal to unguided, the
-    extra launches those of 40 decodes;
-18. tensor parallelism (`tp_phase`): two ranks on the card under torchrun
+    throughput, calibrated, 2 steps: guided bit-equal to unguided, the
+    extra launches those of 20 decodes;
+19. tensor parallelism (`tp_phase`): two ranks on the card under torchrun
     (gloo): `mha_attention_tp` and `geglu_ff_tp` at the flagship batch-1
     shapes against their plain compositions, timed (kernel and collective
-    apart); `D3RoMa` rgb+raw at full width, batch 1, 360x640, TP_STEPS (2)
+    apart); `D3RoMa` rgb+raw at full width, batch 1, 360x640, TP_STEPS (1)
     steps under task.tensor_parallel=2, latency and throughput (calibrated
-    on the meshed pipeline): the launch counts (20 / 32 through the
-    compositions; 22 / 32 in int8), the depth against the tp=1 call and
+    on the meshed pipeline): the launch counts (10 / 16 through the
+    compositions; 12 / 16 in int8), the depth against the tp=1 call and
     the plain compositions', ms/request and its collectives, a rank's
     parameter bytes (`--tp` alone also runs the eval phase's DP2 check);
-19. the torch bench, `python -m d3roma_tpu_torch.bench`, in its own process
+20. the torch bench, `python -m d3roma_tpu_torch.bench`, in its own process
     at batch 2 with 2 timed calls (records and scales in a temporary
     directory), at the default setting, at BENCH_CLIP_PCT=0.999 and at
     BENCH_MODEL=pixel: its JSON line must carry every key of the JAX
     bench's at that setting, value > 0;
-20. a JSON line of per-kernel numbers, then the JSON result as the last line.
+21. a JSON line of per-kernel numbers, then the JSON result as the last line.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -2834,7 +2847,8 @@ def eval_phase():
       of the eval loader (its threads, PNG and EXR decode, resize);
     - `dp2_eval`: `distributed_evaluate` data parallel on two ranks of the
       card (torchrun, gloo) against the entry point's metrics line, the two
-      run at the same time;
+      run at the same time, beside the untimed checks in process below (the
+      timed runs wait for them);
     - the entry point in its own process, with the temporary directory as
       its working directory: finite metrics for HISS and every artifact
       (the colourised predictions, the error map and the denoised grid, the
@@ -2855,6 +2869,7 @@ def eval_phase():
 
     Returns a summary dict."""
     import tempfile
+    import threading
     from functools import partial
 
     import numpy as np
@@ -2927,8 +2942,74 @@ def eval_phase():
             print(f"eval: save_pretrained in {time.perf_counter() - t0:.1f}s", flush=True)
 
             # the entry point, as a user runs it, in its own process, and at
-            # the same time the same evaluation data parallel on two ranks
-            summary["dp2"] = dp2_eval(tmp, repo, pipe_dir)
+            # the same time the same evaluation data parallel on two ranks;
+            # meanwhile the untimed checks in process (the timed runs wait
+            # for the children)
+            children = {}
+
+            def entry_points():
+                try:
+                    children["dp2"] = dp2_eval(tmp, repo, pipe_dir)
+                except BaseException as e:  # raised after the join
+                    children["error"] = e
+
+            side = threading.Thread(target=entry_points)
+            side.start()
+            try:
+                # in process: the kernels against their plain versions
+                pipe.fast_inference("latency")
+
+                def run(seed=1):
+                    return evaluate_dataset(cfg, pipe, val_loaders(cfg)[0],
+                                            torch.Generator().manual_seed(seed), preprocess=pre)[0]
+
+                _zero_launches()
+                fast, fast_preds = _predictions(run)
+                _sync()
+                counts = _int8_launches()
+                passes = cfg.num_inference_timesteps * EVAL_FRAMES // EVAL_BATCH
+                _check_counts("eval latency", counts,
+                              {"attention": EVAL_ATTENTION_SITES * passes,
+                               "geglu": EVAL_TRANSFORMER_BLOCKS * passes})
+                plain, plain_preds = _plain_bf16(lambda: _predictions(run))
+                control, control_preds = _plain_bf16(lambda: _predictions(lambda: run(seed=2)))
+                pred_rel = _pred_rel(fast_preds, plain_preds)
+                control_rel = _pred_rel(control_preds, plain_preds)
+                print(f"eval: predictions, max |kernels - plain| / max |plain| over "
+                      f"{len(plain_preds)} batches {pred_rel:.3e} (tol {EVAL_PRED_REL_TOL}); plain "
+                      f"on other noise {control_rel:.3e} (must exceed the tol)", flush=True)
+                errs, control_errs = {}, {}
+                for grp, key in (("depth", "rel"), ("disp", "epe")):
+                    a, b, c = fast[grp][key], plain[grp][key], control[grp][key]
+                    errs[f"{grp}/{key}"] = abs(a - b) / max(abs(b), 1e-12)
+                    control_errs[f"{grp}/{key}"] = abs(c - b) / max(abs(b), 1e-12)
+                    print(f"eval: {grp}/{key} kernels {a:.6f} plain {b:.6f} rel diff "
+                          f"{errs[f'{grp}/{key}']:.3e} (tol {EVAL_METRIC_REL_TOL:.3e}); plain on "
+                          f"other noise {c:.6f}, {control_errs[f'{grp}/{key}']:.3e}", flush=True)
+                if not (np.isfinite(pred_rel) and pred_rel <= EVAL_PRED_REL_TOL):
+                    raise AssertionError(f"eval: predictions, kernels against plain {pred_rel}")
+                if not control_rel > EVAL_PRED_REL_TOL:
+                    raise AssertionError(f"eval: other noise within the tolerance ({control_rel})")
+                if (not all(np.isfinite(list(errs.values())))
+                        or max(errs.values()) > EVAL_METRIC_REL_TOL):
+                    raise AssertionError(f"eval: kernels against plain {errs}")
+
+                # golden stages: dumped through the plain versions, compared through the kernels
+                gdir = os.path.join(tmp, "golden")
+                _plain_bf16(lambda: golden.dump(pipe, gdir, H=272, W=480, seed=0))
+                report = golden.compare(pipe, gdir, atol=GOLDEN_ATOL)
+                worst = max(r.get("rel", float("inf")) for r in report.values())
+                print(f"eval: golden stages "
+                      f"{[(k, round(r.get('rel', -1), 5)) for k, r in report.items()]}"
+                      f" (ok within {GOLDEN_ATOL} of each stage's max |ref|)", flush=True)
+                if not all(r["ok"] for r in report.values()):
+                    raise AssertionError(f"eval: golden stages {report}")
+                summary["golden_worst_rel"] = worst
+            finally:
+                side.join()
+            if "error" in children:
+                raise children["error"]
+            summary["dp2"] = children["dp2"]
             line = summary["dp2"].pop("evaluate_line")
             print(f"eval: entry point {line}", flush=True)
             flat = [v for grp in ("disp", "depth") for v in line["metrics"][grp].values()]
@@ -2950,21 +3031,7 @@ def eval_phase():
             print(f"eval: entry point wrote {read} artifacts, each read back", flush=True)
             summary["entry_point_metrics"] = line["metrics"]
 
-            # in process: the kernels against their plain versions
-            pipe.fast_inference("latency")
-
-            def run(seed=1):
-                return evaluate_dataset(cfg, pipe, val_loaders(cfg)[0],
-                                        torch.Generator().manual_seed(seed), preprocess=pre)[0]
-
-            _zero_launches()
-            fast, fast_preds = _predictions(run)
-            _sync()
-            counts = _int8_launches()
-            passes = cfg.num_inference_timesteps * EVAL_FRAMES // EVAL_BATCH
-            _check_counts("eval latency", counts,
-                          {"attention": EVAL_ATTENTION_SITES * passes,
-                           "geglu": EVAL_TRANSFORMER_BLOCKS * passes})
+            # timed, alone on the card
             walls = []
             for _ in range(2):
                 t0 = time.perf_counter()
@@ -2973,27 +3040,6 @@ def eval_phase():
                 walls.append((time.perf_counter() - t0) * 1e3 / EVAL_FRAMES)
             wall_ms, busy_ms = profile_phase(run, "eval", frames=EVAL_FRAMES)
             idle = max(0.0, 1 - busy_ms / wall_ms)
-            plain, plain_preds = _plain_bf16(lambda: _predictions(run))
-            control, control_preds = _plain_bf16(lambda: _predictions(lambda: run(seed=2)))
-            pred_rel = _pred_rel(fast_preds, plain_preds)
-            control_rel = _pred_rel(control_preds, plain_preds)
-            print(f"eval: predictions, max |kernels - plain| / max |plain| over "
-                  f"{len(plain_preds)} batches {pred_rel:.3e} (tol {EVAL_PRED_REL_TOL}); plain on "
-                  f"other noise {control_rel:.3e} (must exceed the tol)", flush=True)
-            errs, control_errs = {}, {}
-            for grp, key in (("depth", "rel"), ("disp", "epe")):
-                a, b, c = fast[grp][key], plain[grp][key], control[grp][key]
-                errs[f"{grp}/{key}"] = abs(a - b) / max(abs(b), 1e-12)
-                control_errs[f"{grp}/{key}"] = abs(c - b) / max(abs(b), 1e-12)
-                print(f"eval: {grp}/{key} kernels {a:.6f} plain {b:.6f} rel diff "
-                      f"{errs[f'{grp}/{key}']:.3e} (tol {EVAL_METRIC_REL_TOL:.3e}); plain on other "
-                      f"noise {c:.6f}, {control_errs[f'{grp}/{key}']:.3e}", flush=True)
-            if not (np.isfinite(pred_rel) and pred_rel <= EVAL_PRED_REL_TOL):
-                raise AssertionError(f"eval: predictions, kernels against plain {pred_rel}")
-            if not control_rel > EVAL_PRED_REL_TOL:
-                raise AssertionError(f"eval: other noise within the tolerance ({control_rel})")
-            if not all(np.isfinite(list(errs.values()))) or max(errs.values()) > EVAL_METRIC_REL_TOL:
-                raise AssertionError(f"eval: kernels against plain {errs}")
             ms = min(walls)
             print(f"eval: {ms:.2f} ms/frame, the faster of {[round(w, 2) for w in walls]} "
                   f"({EVAL_FRAMES} frames, batch {EVAL_BATCH}, {cfg.num_inference_timesteps} "
@@ -3004,17 +3050,6 @@ def eval_phase():
                            pred_rel=pred_rel, control_pred_rel=control_rel,
                            kernels_vs_plain=errs, control_vs_plain=control_errs,
                            metrics=fast, metrics_plain=plain)
-
-            # golden stages: dumped through the plain versions, compared through the kernels
-            gdir = os.path.join(tmp, "golden")
-            _plain_bf16(lambda: golden.dump(pipe, gdir, H=272, W=480, seed=0))
-            report = golden.compare(pipe, gdir, atol=GOLDEN_ATOL)
-            worst = max(r.get("rel", float("inf")) for r in report.values())
-            print(f"eval: golden stages {[(k, round(r.get('rel', -1), 5)) for k, r in report.items()]}"
-                  f" (ok within {GOLDEN_ATOL} of each stage's max |ref|)", flush=True)
-            if not all(r["ok"] for r in report.values()):
-                raise AssertionError(f"eval: golden stages {report}")
-            summary["golden_worst_rel"] = worst
         finally:
             os.chdir(cwd)
     del pipe, unet, vae
@@ -3028,7 +3063,7 @@ TRAIN_EVAL_FRAMES = 4
 SCENEFLOW_HW = (540, 960)  # the dataset's frames
 TRAIN_BATCH = 16
 TRAIN_HW = (184, 320)  # the preset's 180x320 crop, padded to divis_by 8
-TRAIN_TIMED_STEPS = 5  # the median of the steps after the first two
+TRAIN_TIMED_STEPS = 4  # the median of the steps after the first two
 # Card against CPU, one fp32 AdamW step of a narrow latent model (TF32
 # off on the card): loss within 1e-4 and grad_norm within 1e-3 relative
 # (fp32 sums in other orders, cuDNN's and the CPU's: a few ulps of each
@@ -3468,11 +3503,14 @@ def train_phase(tmp: str):
       every loss finite, state.pt and the epoch_0001/ export fp32, the
       export's UNet equal to the checkpoint's parameters;
     - one step of a narrow latent model on the card against the CPU
-      (`train_card_vs_cpu`), no host sync inside the card's step;
+      (`train_card_vs_cpu`), no host sync inside the card's step; it and the
+      epoch_0000/ call run beside the resumed run's process;
     - the full-width step's ms, samples/s, peak memory and a profiled step
-      (`train_timing`).
+      (`train_timing`), alone on the card.
 
     Returns a summary dict."""
+    import threading
+
     import numpy as np
     import torch
 
@@ -3486,33 +3524,51 @@ def train_phase(tmp: str):
     cfg = compose([f"task={TRAIN_PRESET}"]).task
     run, summary["epoch_1"] = _first_epoch(tmp, repo)
 
-    pipe = GuidedLatentDiffusionPipeline.from_pretrained(os.path.join(run, "epoch_0000"),
-                                                         device="cuda")
-    cwd = os.getcwd()
-    os.chdir(tmp)
-    try:
-        eval_cfg = compose([f"task={TRAIN_PRESET}", "task.eval_dataset=[HISS]"]).task
-        batch = preprocess_eval(next(iter(val_loaders(eval_cfg)[0])), eval_cfg,
-                                Normalizer.from_config(eval_cfg), "cuda")
-    finally:
-        os.chdir(cwd)
-    rgb, raw = batch["normalized_rgb"], batch["sim_disp"]
-    pad = (-rgb.shape[1]) % 8
-    rgb = torch.nn.functional.pad(rgb, (0, 0, 0, 0, 0, pad), mode="replicate")
-    raw = torch.nn.functional.pad(raw, (0, 0, 0, 0, 0, pad), mode="replicate")
-    out = pipe(num_inference_steps=eval_cfg.num_inference_timesteps,
-               num_intermediate_images=1, cond_channels="rgb+raw", rgb_images=rgb,
-               sim_disp=raw, generator=torch.Generator(device="cuda").manual_seed(0))
-    if not torch.isfinite(out.images).all():
-        raise AssertionError("train: the exported pipeline's output is not finite")
-    print(f"train: epoch_0000/ loaded through from_pretrained; one call "
-          f"{tuple(out.images.shape)} finite in [{out.images.min().item():.4f}, "
-          f"{out.images.max().item():.4f}]", flush=True)
-    del pipe, out
-    torch.cuda.empty_cache()
+    # the resumed bf16 run in its own process; meanwhile, the epoch export
+    # loaded and called and the narrow card-against-CPU step (neither reads
+    # what the resumed run writes; the timed step waits for it)
+    resumed = {}
 
-    steps2, log2, wall2 = _train_run(tmp, repo, ["task.num_epochs=2",
-                                                 "task.mixed_precision=bf16"])
+    def resume():
+        try:
+            resumed["run"] = _train_run(tmp, repo, ["task.num_epochs=2",
+                                                    "task.mixed_precision=bf16"])
+        except BaseException as e:  # raised after the join
+            resumed["error"] = e
+
+    side = threading.Thread(target=resume)
+    side.start()
+    try:
+        pipe = GuidedLatentDiffusionPipeline.from_pretrained(os.path.join(run, "epoch_0000"),
+                                                             device="cuda")
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            eval_cfg = compose([f"task={TRAIN_PRESET}", "task.eval_dataset=[HISS]"]).task
+            batch = preprocess_eval(next(iter(val_loaders(eval_cfg)[0])), eval_cfg,
+                                    Normalizer.from_config(eval_cfg), "cuda")
+        finally:
+            os.chdir(cwd)
+        rgb, raw = batch["normalized_rgb"], batch["sim_disp"]
+        pad = (-rgb.shape[1]) % 8
+        rgb = torch.nn.functional.pad(rgb, (0, 0, 0, 0, 0, pad), mode="replicate")
+        raw = torch.nn.functional.pad(raw, (0, 0, 0, 0, 0, pad), mode="replicate")
+        out = pipe(num_inference_steps=eval_cfg.num_inference_timesteps,
+                   num_intermediate_images=1, cond_channels="rgb+raw", rgb_images=rgb,
+                   sim_disp=raw, generator=torch.Generator(device="cuda").manual_seed(0))
+        if not torch.isfinite(out.images).all():
+            raise AssertionError("train: the exported pipeline's output is not finite")
+        print(f"train: epoch_0000/ loaded through from_pretrained; one call "
+              f"{tuple(out.images.shape)} finite in [{out.images.min().item():.4f}, "
+              f"{out.images.max().item():.4f}]", flush=True)
+        del pipe, out
+        torch.cuda.empty_cache()
+        summary["card_vs_cpu"] = train_card_vs_cpu(cfg)
+    finally:
+        side.join()
+    if "error" in resumed:
+        raise resumed["error"]
+    steps2, log2, wall2 = resumed["run"]
     with open(os.path.join(run, "checkpoints", "last", "counter.json")) as f:
         counter2 = json.load(f)
     print(f"train: resumed run in bf16 in {wall2:.1f}s; steps {steps2}; counter {counter2}",
@@ -3530,12 +3586,11 @@ def train_phase(tmp: str):
     summary["epoch_2_bf16"] = dict(steps=steps2[-3:], wall_s=wall2, counter=counter2,
                                    fp32_checked=checked)
 
-    summary["card_vs_cpu"] = train_card_vs_cpu(cfg)
     summary["timing"] = train_timing(cfg)
     return summary
 
 
-ACCURACY_FRAMES = 8
+ACCURACY_FRAMES = 4  # one batch a row (8 before the mono phase: the pass's time limit)
 ACCURACY_BATCH = 4
 ACCURACY_KS = ("1", "2d2")
 ACCURACY_MODES = ("bf16", "int8")
@@ -4681,9 +4736,339 @@ def offline_phase(card, calibration=None):
     return summary
 
 
+MONO_FIXTURES = os.path.join("tests", "data", "torch_mono")
+MONO_TRAIN_PRESET = "train_ldm_mono"
+MONO_EVAL_PRESET = "eval_ldm_mono"
+MONO_ITEMS = 8  # items a train set: symlinks to its two committed fixture frames
+MONO_WEIGHT = 2  # dataset_weight of each set: 32 items, 2 steps of batch 16 in one epoch
+MONO_EVAL_FRAMES = 4  # NYUv2 test frames: one batch of the presets' eval_batch_size
+MONO_EVAL_STEPS = 3  # the evaluate entry point's my_ddim steps (the preset's 10, cut)
+MONO_DECODE_REPS = 5
+
+
+def _sha256(arr) -> str:
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+
+
+def _decode_ms(fn, reps=MONO_DECODE_REPS) -> float:
+    """Median wall ms of fn() over reps calls after one warm call (warm
+    page cache)."""
+    fn()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls)
+
+
+def mono_fixtures(repo: str) -> dict:
+    """Every committed mono fixture decoded by the port's host readers (the
+    JPEG decoder built by g++, the HDF5 reader on numpy and zlib; this
+    machine has neither PIL nor h5py), each array's shape, dtype and sha256
+    equal to the manifest PIL and h5py wrote; the decode ms of an item."""
+    from d3roma_tpu_torch.utils import hdf5
+    from d3roma_tpu_torch.utils.jpeg import read_jpeg
+
+    root = os.path.join(repo, MONO_FIXTURES)
+    with open(os.path.join(root, "manifest.json")) as f:
+        manifest = json.load(f)
+    checked = 0
+    for rel, arrays in sorted(manifest.items()):
+        path = os.path.join(root, rel)
+        if rel.endswith(".jpg"):
+            got = {"": read_jpeg(path)}
+        else:
+            h5 = hdf5.File(path)
+            got = {k: h5[k] for k in arrays}
+        for name, want in arrays.items():
+            arr = got[name]
+            ours = dict(shape=list(arr.shape), dtype=arr.dtype.str, sha256=_sha256(arr))
+            if ours != want:
+                raise AssertionError(f"mono: {rel}[{name!r}] decoded {ours}, manifest {want}")
+            checked += 1
+    nyu = os.path.join(root, "nyu_depth_v2/official_splits/train/bedroom_0001/00000.h5")
+    hypersim = os.path.join(root, "hypersim/ai_001_001/frame.0000")
+
+    def nyu_item():
+        f = hdf5.File(nyu)
+        return f["rgb"], f["depth"]
+
+    ms = {"jpeg_768x1024_420": _decode_ms(lambda: read_jpeg(hypersim + ".tonemap.jpg")),
+          "jpeg_480x640_420": _decode_ms(
+              lambda: read_jpeg(os.path.join(root, "jpeg/baseline_420_480x640.jpg"))),
+          "nyu_h5_rgb_and_depth": _decode_ms(nyu_item),
+          "hypersim_hdf5_768x1024_f16": _decode_ms(
+              lambda: hdf5.read_dataset(hypersim + ".depth_meters.hdf5", "dataset"))}
+    print(f"mono: {len(manifest)} fixtures, {checked} arrays decoded by the port, each "
+          f"sha256 the manifest's (PIL's and h5py's); decode ms an item (median of "
+          f"{MONO_DECODE_REPS}, warm page cache): "
+          f"{json.dumps({k: round(v, 3) for k, v in ms.items()})}", flush=True)
+    return dict(files=len(manifest), arrays=checked, decode_ms=ms)
+
+
+def _mono_trees(tmp: str, repo: str) -> None:
+    """datasets/ under tmp from symlinks to the fixtures: MONO_ITEMS NYUv2
+    train items and MONO_ITEMS HyperSim train frames (alternating between
+    each set's two fixture frames), MONO_EVAL_FRAMES NYUv2 test items."""
+    root = os.path.join(repo, MONO_FIXTURES)
+    nyu = ("nyu_depth_v2/official_splits/train/bedroom_0001/00000.h5",
+           "nyu_depth_v2/official_splits/test/kitchen_0002/00001.h5")
+    hypersim = ("hypersim/ai_001_001/frame.0000", "hypersim/ai_001_002/frame.0001")
+
+    def link(src, dst):
+        dst = os.path.join(tmp, "datasets", dst)
+        os.makedirs(os.path.dirname(dst), exist_ok=True)
+        os.symlink(os.path.join(root, src), dst)
+
+    for i in range(MONO_ITEMS):
+        link(nyu[i % 2], f"nyu_depth_v2/official_splits/train/scene_{i // 2:02d}/{i:05d}.h5")
+        for ext in (".tonemap.jpg", ".depth_meters.hdf5"):
+            link(hypersim[i % 2] + ext,
+                 f"hypersim/train/ai_{i // 2:03d}/images/frame.{i:04d}{ext}")
+    for i in range(MONO_EVAL_FRAMES):
+        link(nyu[i % 2], f"nyu_depth_v2/official_splits/test/scene_{i:02d}/{i:05d}.h5")
+
+
+def _device_busy_ms(prof) -> float:
+    """Device ms of a finished torch.profiler session's kernels, copies and
+    memsets (not the record_function ranges the profiler also draws on the
+    device's timeline), summed from its raw kineto events: the FunctionEvent
+    parse of a training step's tens of thousands of ops takes seconds."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def counted(name):
+        return not name.startswith("train_step/") and "Sync" not in name
+
+    try:
+        events = prof.profiler.kineto_results.events()
+        return sum(e.duration_ns() for e in events
+                   if e.device_type() == cuda and counted(e.name())) / 1e6
+    except AttributeError:  # a torch without the raw events
+        return sum(e.device_time_total for e in prof.events()
+                   if getattr(e, "device_type", None) == cuda and counted(e.name)) / 1e3
+
+
+def mono_train_child(out_path: str, argv) -> int:
+    """`python -m d3roma_tpu_torch.train argv` (runpy, in this process) with
+    timing hooks: each train step synchronized and timed, the second under
+    torch.profiler (its wall up to the synchronize, its device busy ms and
+    idle share), the host ms of every mono item the loader's threads build
+    (the in-training eval's items too), and the peak memory; the record
+    written to out_path as JSON."""
+    import runpy
+    import threading
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from d3roma_tpu_torch.data import mono_datasets
+    from d3roma_tpu_torch.training import train_loop
+
+    record = dict(step_ms=[], item_ms=[])
+    lock = threading.Lock()
+    get_item = mono_datasets.MonoDataset.__getitem__
+
+    def timed_item(self, index):
+        t0 = time.perf_counter()
+        out = get_item(self, index)
+        with lock:
+            record["item_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    make_step = train_loop.make_train_step
+
+    def make_timed(*args, **kw):
+        step = make_step(*args, **kw)
+
+        def timed(state, batch, draws):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if len(record["step_ms"]) != 1:
+                out = step(state, batch, draws)
+                torch.cuda.synchronize()
+                record["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                return out
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                out = step(state, batch, draws)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            record["step_ms"].append(wall)
+            busy = _device_busy_ms(prof)
+            record["device_busy_ms"] = busy
+            record["idle_share"] = max(0.0, 1 - busy / wall)
+            return out
+
+        return timed
+
+    mono_datasets.MonoDataset.__getitem__ = timed_item
+    train_loop.make_train_step = make_timed
+    torch.cuda.reset_peak_memory_stats()
+    sys.argv = ["d3roma_tpu_torch.train"] + list(argv)
+    rc = 0
+    try:
+        runpy.run_module("d3roma_tpu_torch.train", run_name="__main__", alter_sys=True)
+    except SystemExit as e:
+        rc = e.code or 0
+    record["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    with open(out_path, "w") as f:
+        json.dump(record, f)
+    return int(rc)
+
+
+def _mono_train_start(tmp: str, repo: str):
+    """Start the train entry point on the mono preset at full width in its
+    own process (`mono_train_child`): 2 steps, the in-training eval at step
+    2 on one batch of the NYUv2 test frames, best/ exported. Returns the
+    process once train.log says best/ was exported (the evaluate entry
+    point may read it while the checkpoint is still being written) or the
+    process has ended."""
+    out = open(os.path.join(tmp, "train.out"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(repo, "chip_smoke.py"), "--mono-train",
+         os.path.join(tmp, "train_record.json"), f"task={MONO_TRAIN_PRESET}",
+         f"task.dataset_weight=[{MONO_WEIGHT},{MONO_WEIGHT}]", "task.num_epochs=1",
+         "task.val_every_global_steps=2", "task.eval_num_batch=1",
+         f"task.num_inference_timesteps={MONO_EVAL_STEPS}", "task.save_model_epochs=2",
+         "task.output_dir=run"],
+        cwd=tmp, stdout=out, stderr=subprocess.STDOUT,
+        env=dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", "")))
+    out.close()
+    log_path = os.path.join(tmp, "run", "train.log")
+    deadline = time.perf_counter() + 900
+    while proc.poll() is None:
+        if os.path.exists(log_path):
+            with open(log_path) as f:
+                if "exported best/" in f.read():
+                    break
+        if time.perf_counter() > deadline:
+            proc.kill()
+            proc.wait()
+            raise AssertionError("mono: the train entry point exported no best/ in 900 s")
+        time.sleep(0.5)
+    return proc
+
+
+def _mono_train_finish(tmp: str, proc, t0: float) -> dict:
+    """Wait for the train process; its steps, eval and export checked, its
+    timing record read."""
+    import math
+
+    rc = proc.wait(timeout=900)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        with open(os.path.join(tmp, "train.out")) as f:
+            raise AssertionError(f"mono: train entry point failed ({rc}): {f.read()[-4000:]}")
+    with open(os.path.join(tmp, "run", "train.log")) as f:
+        log = f.read()
+    with open(os.path.join(tmp, "train_record.json")) as f:
+        record = json.load(f)
+    steps = []
+    for line in log.splitlines():
+        parts = line.split()
+        if "loss" in parts and "grad_norm" in parts and "step" in parts:
+            steps.append((int(parts[parts.index("step") + 1]),
+                          float(parts[parts.index("loss") + 1]),
+                          float(parts[parts.index("grad_norm") + 1])))
+    if ([s for s, _, _ in steps] != [1, 2]
+            or not all(math.isfinite(x) for _, l, g in steps for x in (l, g))):
+        raise AssertionError(f"mono: train steps {steps}\n{log[-3000:]}")
+    if "eval[0] @2:" not in log or not os.path.exists(
+            os.path.join(tmp, "run", "best", "model_index.json")):
+        raise AssertionError(f"mono: no eval at step 2 or no best/ export\n{log[-3000:]}")
+    items = record["item_ms"]
+    summary = dict(steps=steps, wall_s=wall, step_ms=record["step_ms"],
+                   ms_per_step=record["step_ms"][1], device_busy_ms=record["device_busy_ms"],
+                   idle_share=record["idle_share"], peak_memory_gib=record["peak_memory_gib"],
+                   loader_items=len(items), loader_host_ms_per_item=statistics.mean(items))
+    print(f"mono: train entry point ({MONO_TRAIN_PRESET}, full SD2.1 width, fp32, batch 16 at "
+          f"180x320, {MONO_ITEMS} NYUv2 + {MONO_ITEMS} HyperSim items x{MONO_WEIGHT}) in "
+          f"{wall:.1f}s; steps {steps}; step ms {[round(w, 1) for w in record['step_ms']]} (the "
+          f"first with the process's warm-up; the second profiled: device busy "
+          f"{record['device_busy_ms']:.1f} ms, idle share {record['idle_share']:.3f}); peak "
+          f"memory {record['peak_memory_gib']:.2f} GiB; the loader's host "
+          f"{summary['loader_host_ms_per_item']:.2f} ms an item over {len(items)} items; eval "
+          f"at step 2 ({MONO_EVAL_STEPS} steps) and best/ written", flush=True)
+    return summary
+
+
+def _mono_eval(tmp: str, repo: str) -> dict:
+    """The evaluate entry point on the mono preset, on the train run's best/
+    export: MONO_EVAL_FRAMES NYUv2 test frames, my_ddim at MONO_EVAL_STEPS
+    steps; finite metrics and the prediction files written."""
+    import math
+
+    out_dir = os.path.join(tmp, "eval_out")
+    rc, stdout, seconds = _run_module(
+        tmp, repo, "d3roma_tpu_torch.evaluate", f"task={MONO_EVAL_PRESET}",
+        "task.resume_pretrained=run/best", f"task.num_inference_timesteps={MONO_EVAL_STEPS}",
+        f"task.eval_output={out_dir}")
+    if rc != 0:
+        raise AssertionError(f"mono: evaluate entry point failed ({rc})")
+    lines = [json.loads(x) for x in stdout.splitlines() if x.startswith('{"dataset"')]
+    if len(lines) != 1 or lines[0]["dataset"] != "NYUv2":
+        raise AssertionError(f"mono: evaluate printed {lines}")
+    metrics = lines[0]["metrics"]
+    values = [v for group in metrics.values() for v in group.values()]
+    if not values or not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"mono: evaluate metrics not finite: {metrics}")
+    preds = sorted(f for f in os.listdir(os.path.join(out_dir, "NYUv2"))
+                   if f.endswith("_pred_disp.png"))
+    if not preds:
+        raise AssertionError("mono: evaluate wrote no prediction")
+    print(f"mono: evaluate entry point ({MONO_EVAL_PRESET}, {MONO_EVAL_FRAMES} NYUv2 test "
+          f"frames, my_ddim {MONO_EVAL_STEPS} steps) exit 0 in {seconds:.1f}s; metrics "
+          f"{json.dumps(metrics)}; {len(preds)} prediction files", flush=True)
+    return dict(wall_s=seconds, metrics=metrics, predictions=len(preds))
+
+
+def mono_phase() -> dict:
+    """The monocular datasets on the card's machine: the committed fixtures
+    through the port's decoders (`mono_fixtures`), then the mono presets
+    through the train and evaluate entry points in their own processes on
+    trees of symlinks to them; the evaluate process starts once the train
+    process has exported best/, beside its checkpoint write."""
+    import tempfile
+    import threading
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    summary = dict(fixtures=mono_fixtures(repo))
+    with tempfile.TemporaryDirectory() as tmp:
+        _mono_trees(tmp, repo)
+        t0 = time.perf_counter()
+        proc = _mono_train_start(tmp, repo)
+        side, errors = None, []
+        try:
+            if proc.poll() is None or proc.returncode == 0:
+                def evaluate():
+                    try:
+                        summary["eval"] = _mono_eval(tmp, repo)
+                    except BaseException as e:  # raised after the join
+                        errors.append(e)
+
+                side = threading.Thread(target=evaluate)
+                side.start()
+            summary["train"] = _mono_train_finish(tmp, proc, t0)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if side is not None:
+                side.join()
+        if errors:
+            raise errors[0]
+    return summary
+
+
 IMPORT_HW = (360, 640)
-IMPORT_STEPS = 5  # the latency calls' (fewer than the preset's 10: the pass's time limit)
-IMPORT_STATIC_STEPS = 4  # the calibrated throughput calls'
+IMPORT_STEPS = 3  # the latency calls' (fewer than the preset's 10: the pass's time limit)
+IMPORT_STATIC_STEPS = 2  # the calibrated throughput calls'
 # The guided latency call through the kernels against the same call through
 # their plain versions, max |a - b| / max |b| of the images: the bf16
 # kernels' rule of the eval and serve phases (UNET_REL_TOL); the same call
@@ -4832,17 +5217,17 @@ def import_phase():
       and `--golden-dump` then `--golden-compare` on OUT (every stage
       matching), each its own process;
     - the imported pipeline under fast_inference("latency"), batch 1, RGB +
-      raw at 360x640, 10 DDIM steps: unguided and guided (gradient mode,
-      10 Adam steps at lr 1e-3, the raw disparity with 10% holes through
-      the pipeline's denormalizer), each 100 whole-row attention and 160
-      GEGLU launches; the guided images against the same call through the
+      raw at 360x640, IMPORT_STEPS DDIM steps: unguided and guided
+      (gradient mode, 10 Adam steps at lr 1e-3, the raw disparity with 10%
+      holes through the pipeline's denormalizer), each 10 whole-row
+      attention and 16 GEGLU launches a step; the guided images against the same call through the
       kernels' plain versions within IMPORT_PRED_REL_TOL (another seed
       outside it) and different from the unguided ones; ms/request of both
       and the guided call's peak memory;
     - the same models under fast_inference("throughput"), calibrated on one
-      batch, 4 steps: the guided images bit-equal to the unguided ones (the
-      gradient through static int8 is zero), the guided call's extra
-      launches those of 4 x 10 decodes;
+      batch, IMPORT_STATIC_STEPS steps: the guided images bit-equal to the
+      unguided ones (the gradient through static int8 is zero), the guided
+      call's extra launches those of IMPORT_STATIC_STEPS x 10 decodes;
     - a decode's latent gradient with the VAE under "dense" (4 dynamic int8
       launches) through the kernels within REL_TOL of the plain versions',
       and under True the int8 whole-row attention refusing the gradient.
@@ -5082,7 +5467,7 @@ TP_ATTENTION_SHAPES = ((1, 3600, 5, 64, False), (1, 920, 10, 64, False),
                        (1, 3600, 1, 512, True))
 TP_GEGLU_SHAPES = ((3600, 320, 1280), (920, 640, 2560), (240, 1280, 5120), (60, 1280, 5120))
 TP_SEED = 41
-TP_STEPS = 2  # a TP request's denoise steps (fewer than the preset's 10: the pass's time limit)
+TP_STEPS = 1  # a TP request's denoise steps (fewer than the preset's 10: the pass's time limit)
 
 
 def _tp_launches():
@@ -5473,7 +5858,7 @@ def tp_phase(dp2: bool = True):
       composition, its kernel, its collective, the plain composition, the
       library call on the rank's share); (2) builds the full-width rgb+raw
       pipeline (`_tp_pipeline`, the same seeded weights on both ranks) and
-      serves `D3RoMa` at batch 1, 360x640, TP_STEPS (2) DDIM steps under
+      serves `D3RoMa` at batch 1, 360x640, TP_STEPS (1) DDIM steps under
       task.tensor_parallel=2, latency and throughput (calibrated on the
       meshed pipeline): the launch counts of one call (20 attention and
       32 GEGLU, each through its composition; 22 int8 attention and 32
@@ -5608,6 +5993,8 @@ def _phase(fn, *args):
 def main() -> int:
     if sys.argv[1:2] == ["--tp-rank"]:  # one rank of tp_phase, under torchrun
         return tp_rank_main(sys.argv[2])
+    if sys.argv[1:2] == ["--mono-train"]:  # the mono phase's train entry point
+        return mono_train_child(sys.argv[2], sys.argv[3:])
     pin_one_card()
     card = device_phase()
     build_phase()
@@ -5691,6 +6078,11 @@ def main() -> int:
         print(card, flush=True)
         print("serve phase passed", flush=True)
         return 0
+    if sys.argv[1:] == ["--mono"]:
+        print(json.dumps({"mono": mono_phase()}), flush=True)
+        print(card, flush=True)
+        print("mono phase passed", flush=True)
+        return 0
     if sys.argv[1:] == ["--offline"]:
         print(json.dumps({"offline": offline_phase(card)}), flush=True)
         print(card, flush=True)
@@ -5738,6 +6130,7 @@ def main() -> int:
         training = _phase(train_phase, train_tmp)  # so do its entry point's two processes
         accuracy = _phase(accuracy_phase, train_tmp)  # on the bf16 checkpoint they wrote
     torch.cuda.empty_cache()
+    mono = _phase(mono_phase)  # the train and evaluate entry points' processes too
     serving = _phase(serve_phase)  # the demo, probe, calibration and server processes too
     torch.cuda.empty_cache()
     offline = _phase(offline_phase, card, serving["calibrate"])  # and the stereo CLI's
@@ -5859,6 +6252,7 @@ def main() -> int:
     print(json.dumps({"eval": evaluation}), flush=True)
     print(json.dumps({"train": training}), flush=True)
     print(json.dumps({"accuracy": accuracy}), flush=True)
+    print(json.dumps({"mono": mono}), flush=True)
     print(json.dumps({"serve": serving}), flush=True)
     print(json.dumps({"offline": offline}), flush=True)
     print(json.dumps({"import": imported}), flush=True)

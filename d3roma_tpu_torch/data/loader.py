@@ -6,9 +6,9 @@ train split's augmentation for the active-stereo / RGB-D datasets
 (`Dreds`, `HISS`, `Gapartnet2`, `ClearPose`, `SynTODDRgbd`,
 `Real_<split>_<device>`) and the passive-stereo ones (`SceneFlow`,
 `Middlebury`, `SintelStereo`, `FallingThings`, `TartanAir`,
-`KITTIStereo`); the mono names (`data/mono_datasets.py` of the JAX
-package) are not ported and raise NotImplementedError (ROADMAP.md), with
-no fallback. `val_loaders(config)`
+`KITTIStereo`) and the monocular ones (`data/mono_datasets.py`: `NYUv2`,
+`HyperSim`, `ScanNet`, ..., `KITTI` naming the mono reader, as in the JAX
+registry). `val_loaders(config)`
 builds one loader per eval dataset; `fetch_dataloader(config)` adds the
 weighted train concat. The loader is a thread-pool prefetching batcher
 feeding numpy batches; `data/preprocess.py` normalizes them on the
@@ -26,6 +26,7 @@ from typing import Iterator, List, Optional, Tuple
 import numpy as np
 
 from d3roma_tpu_torch.data import datasets as D
+from d3roma_tpu_torch.data import mono_datasets as M
 from d3roma_tpu_torch.utils import frame_utils
 from d3roma_tpu_torch.utils.camera import Realsense, RGBDCamera
 
@@ -62,10 +63,6 @@ def create_dataset(config, name: str, split: str):
     `Real_<split>_<device>` parses into the bundled Real captures on a
     specific calibrated device (data_loader.py:14-15).
     """
-    if name in MONO_DATASETS:
-        raise NotImplementedError(
-            f"mono dataset {name!r} (data/mono_datasets.py) is not ported yet "
-            "(ROADMAP.md section 1, item 11)")
     image_size = tuple(config.image_size)
     space = config.prediction_space
     variant = config.dataset_variant
@@ -128,6 +125,9 @@ def create_dataset(config, name: str, split: str):
         # camera binding (the reference constructs them with aug_params
         # only); train split gets the RAFT augmentation like SceneFlow
         return getattr(D, name)(aug_params=_stereo_aug(config, split, image_size))
+
+    if name in MONO_DATASETS:
+        return getattr(M, name)(image_size, split=split)
 
     raise ValueError(f"unknown dataset: {name}")
 

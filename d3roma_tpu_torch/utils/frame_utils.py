@@ -10,9 +10,11 @@ explicitly), resizes go through `utils/resize.py` (cv2.resize's
 semantics), EXRs through the native reader `utils/native_io.py` (else
 `utils/exr.py`, as the JAX package's hook falls back). `read_gen`
 returns a numpy array where the JAX package returns a PIL image (its
-callers take `np.array` of it either way); JPEG and PPM files raise
-NotImplementedError (a PNG under such a name is read as PIL reads it, by
-its content).
+callers take `np.array` of it either way). PNG, JPEG and binary PPM files
+are told apart by their content, as PIL tells them: a PNG named .jpg reads
+as a PNG, a JPEG named .png as a JPEG. JPEGs go through the port's host
+decoder (`utils/jpeg.py`), PPMs through `utils/netpbm.py`, both PIL's
+pixels bit for bit.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import re
 from os.path import splitext
 import numpy as np
 
-from d3roma_tpu_torch.utils import native_io, png
+from d3roma_tpu_torch.utils import jpeg, native_io, netpbm, png
 from d3roma_tpu_torch.utils.exr import read_exr
 from d3roma_tpu_torch.utils.resize import INTER_NEAREST, resize
 
@@ -299,20 +301,27 @@ def read_sceneflow(resolution, file_name: str, pil: bool = False):
     return disp, (disp < max_disp) & (disp > min_disp), min_disp, max_disp
 
 
+def read_image(file_name: str) -> np.ndarray:
+    """A PNG, JPEG or binary PPM file as `np.array(PIL.Image.open(...))`,
+    its format told by its first bytes."""
+    with open(file_name, "rb") as f:
+        data = f.read()
+    if data[:8] == b"\x89PNG\r\n\x1a\n":
+        return png.decode_png(data)
+    if jpeg.is_jpeg(data):
+        return jpeg.decode_jpeg(data, file_name)
+    if data[:1] == b"P":
+        return netpbm.decode_ppm(data, file_name)
+    raise NotImplementedError(f"{file_name}: not a PNG, JPEG or binary PPM file")
+
+
 def read_gen(file_name: str, pil: bool = False):
     """Extension-dispatched generic reader (reference: frame_utils.py:380-398).
     A PNG comes back as `np.array(PIL.Image.open(...))` would: uint8 gray,
     RGB or RGBA, uint16 for 16-bit gray."""
     ext = splitext(file_name)[-1]
-    if ext == ".png":
-        return png.read_png(file_name)
-    if ext in (".jpeg", ".ppm", ".jpg"):
-        # PIL tells formats by their content, not their name: a PNG named
-        # .jpg opens as the PNG it is
-        with open(file_name, "rb") as f:
-            if f.read(8) == b"\x89PNG\r\n\x1a\n":
-                return png.read_png(file_name)
-        raise NotImplementedError(f"no {ext} decoder without PIL: {file_name}")
+    if ext in (".png", ".jpeg", ".ppm", ".jpg"):
+        return read_image(file_name)
     if ext in (".bin", ".raw", ".npy"):
         return np.load(file_name)
     if ext == ".flo":

@@ -17,6 +17,7 @@ import functools
 import hashlib
 import os
 import subprocess
+import threading
 from pathlib import Path
 from typing import List, Optional, Tuple
 
@@ -29,29 +30,35 @@ CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 LIBS = ("-lz", "-lpthread")
 
 
-def library_path() -> Path:
-    """Where the build of the source lives: keyed by the source and flags."""
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(CXX_FLAGS + LIBS).encode())
-    return BUILD_DIR / f"libd3roma_io-{h.hexdigest()[:16]}.so"
+class BuildError(RuntimeError):
+    """g++ is missing, or failed on a host source; the message has its output."""
 
 
-def build() -> Path:
-    """Compile the library unless a current build exists; returns its path.
-    Raises RuntimeError when g++ is missing or fails."""
-    target = library_path()
+def library_path(source: Path = SOURCE, libs: Tuple[str, ...] = LIBS) -> Path:
+    """Where the build of `source` lives: keyed by the source and flags."""
+    h = hashlib.sha256(source.read_bytes())
+    h.update(" ".join(CXX_FLAGS + tuple(libs)).encode())
+    return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
+
+
+def build(source: Path = SOURCE, libs: Tuple[str, ...] = LIBS) -> Path:
+    """Compile a host C++ source into a shared library unless a current build
+    exists; returns its path. Raises BuildError with the compiler's output
+    when g++ is missing or fails. The IO library by default; the JPEG
+    decoder (`utils/jpeg.py`) builds `csrc/jpeg_decode.cpp` through it."""
+    target = library_path(source, libs)
     if target.exists():
         return target
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-    cmd = ["g++", *CXX_FLAGS, str(SOURCE), "-o", str(tmp), *LIBS]
+    tmp = target.with_name(f"{target.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = ["g++", *CXX_FLAGS, str(source), "-o", str(tmp), *libs]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     except (OSError, subprocess.TimeoutExpired) as e:
-        raise RuntimeError(f"building {SOURCE.name} failed: {e!r}") from e
+        raise BuildError(f"building {source.name} failed: {e!r}") from e
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"building {SOURCE.name} failed:\n{proc.stdout}{proc.stderr}")
+        raise BuildError(f"building {source.name} failed:\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, target)  # atomic: concurrent builds each publish a whole file
     return target
 

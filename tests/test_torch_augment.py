@@ -312,9 +312,13 @@ def test_sceneflow_frames_follow_the_camera_resolution(trees):
 
 
 def test_real_jpeg_is_refused(tmp_path):
+    """JPEGs decode through the port's own decoder (`utils/jpeg.py`, PIL's
+    pixels); one outside its scope, here 4:1:1 chroma (a sampling factor of
+    4), is refused with an error naming the file and what was found."""
     from d3roma_tpu_torch.utils.frame_utils import read_gen
 
     path = str(tmp_path / "x.jpg")
-    cv2.imwrite(path, np.zeros((8, 8, 3), np.uint8))
-    with pytest.raises(NotImplementedError, match="jpg"):
+    cv2.imwrite(path, np.zeros((8, 8, 3), np.uint8),
+                [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411])
+    with pytest.raises(NotImplementedError, match=r"x\.jpg.*sampling factor 4x1"):
         read_gen(path)

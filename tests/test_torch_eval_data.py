@@ -281,16 +281,17 @@ def test_dataset_items_match_jax(trees, name, monkeypatch):
 
 
 def test_training_slice_datasets_raise(trees, monkeypatch):
-    """The mono sets are not ported and raise, naming their ROADMAP item;
-    the passive-stereo ones came with the training slice and build (with
-    no frames here, empty)."""
+    """The mono sets build since the mono slice ported them, as the
+    passive-stereo ones of the training slice do (with no frames here,
+    empty; `KITTI` is the mono reader, `KITTIStereo` the stereo one); a name
+    that is no dataset raises."""
     monkeypatch.chdir(trees)
     cfg = port_config.load_task_preset("eval_ldm_mixed_rgb+raw")
-    for name in ("NYUv2", "KITTI", "HRWSI"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            create_dataset(cfg, name, "test")
-    for name in ("SceneFlow", "KITTIStereo"):
+    for name in ("NYUv2", "KITTI", "HRWSI", "SceneFlow", "KITTIStereo"):
         assert len(create_dataset(cfg, name, "test")) == 0
+    assert type(create_dataset(cfg, "KITTI", "test")).__name__ == "KITTI"
+    with pytest.raises(ValueError, match="unknown dataset"):
+        create_dataset(cfg, "NYUv3", "test")
 
 
 class _Failing:

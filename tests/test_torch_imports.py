@@ -6,7 +6,8 @@ with OpenCV, PIL, PyYAML, matplotlib (and for training tensorboardX)
 unimportable, the reference-checkpoint entry points (import_reference,
 parity_check) with the hub packages unimportable, and the offline tools
 (stereo_matching, check_sceneflow, calibrate_pipeline, the native EXR
-reader, reprojection, profiling) with OpenCV, PIL and h5py unimportable."""
+reader, reprojection, profiling) and the mono datasets (the port's JPEG
+decoder and HDF5 reader) with OpenCV, PIL and h5py unimportable."""
 
 import os
 import re
@@ -713,3 +714,62 @@ def test_offline_tools_run_without_jax_opencv_pil_or_h5py():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "OFFLINE OK" in proc.stdout
+
+
+_MONO_CHILD = r"""
+import os, sys, tempfile
+
+BLOCKED = ("jax", "jaxlib", "flax", "d3roma_tpu", "cv2", "PIL", "h5py", "yaml", "matplotlib")
+
+class Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Blocker())
+
+import numpy as np
+from d3roma_tpu_torch.config import load_task_preset
+from d3roma_tpu_torch.data import create_dataset
+from d3roma_tpu_torch.utils import png
+
+fixtures = os.path.abspath(os.path.join("tests", "data", "torch_mono"))
+root = tempfile.mkdtemp()
+os.chdir(root)
+
+def link(src, dst):
+    os.makedirs(os.path.dirname(dst), exist_ok=True)
+    os.symlink(os.path.join(fixtures, src), dst)
+
+link("nyu_depth_v2/official_splits/train/bedroom_0001/00000.h5",
+     "datasets/nyu_depth_v2/official_splits/train/bedroom_0001/00000.h5")
+for ext in (".tonemap.jpg", ".depth_meters.hdf5"):
+    link("hypersim/ai_001_001/frame.0000" + ext, "datasets/hypersim/train/ai_001_001/frame.0000" + ext)
+link("jpeg/baseline_420_480x640.jpg", "datasets/ScanNet/train/scene0000_00/color/0.jpg")
+os.makedirs("datasets/ScanNet/train/scene0000_00/depth")
+png.write_png("datasets/ScanNet/train/scene0000_00/depth/0.png",
+              np.full((480, 640), 2500, np.uint16))
+cfg = load_task_preset("train_ldm_mono")
+for name in ("NYUv2", "HyperSim", "ScanNet"):
+    item = create_dataset(cfg, name, "train")[0]
+    assert item["rgb"].shape == (180, 320, 3) and item["depth"].shape == (180, 320, 1), name
+    valid = item["valid"][..., 0] > 0
+    assert valid.mean() > 0.9 and np.isfinite(item["disp"]).all(), name
+    assert 0.4 < item["depth"][..., 0][valid].min() <= item["depth"][..., 0][valid].max() < 8.1, name
+assert not any(m.split(".")[0] in BLOCKED for m in sys.modules), sorted(
+    m for m in sys.modules if m.split(".")[0] in BLOCKED)
+print("MONO OK")
+"""
+
+
+def test_mono_datasets_load_without_jax_opencv_pil_or_h5py():
+    """NYUv2 (HDF5), HyperSim (JPEG + HDF5) and ScanNet (JPEG + 16-bit PNG)
+    items through `create_dataset` from the committed fixtures, with jax,
+    the JAX package, OpenCV, PIL and h5py unimportable: the port's own JPEG
+    decoder and HDF5 reader."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _MONO_CHILD], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "MONO OK" in proc.stdout

@@ -20,6 +20,7 @@
     python3 chip_smoke.py --offline  # device, build and the offline-tooling phase only
     python3 chip_smoke.py --tp       # device, build and the tensor-parallel phase only
     python3 chip_smoke.py --mono     # device, build and the mono-datasets phase only
+    python3 chip_smoke.py --synthetic  # device, build and the synthetic-data phase only
 
 Run from the repository root, on a machine with a CUDA GPU and nvcc (the
 kernels build from d3roma_tpu_torch/csrc/ at first use). Phases, each
@@ -177,7 +178,25 @@ failing the run on its own error:
     ms an item, peak memory, idle share; then `python -m
     d3roma_tpu_torch.evaluate task=eval_ldm_mono` on best/ (4 frames,
     my_ddim at 3 steps): finite metrics, the prediction files written;
-16. serving (`serve_phase`): a full-width rgb+raw pipeline saved, and a
+16. synthetic data (`synthetic_phase`): `python -m
+    d3roma_tpu_torch.render_synthetic` on conf/synthetic/hssd.yaml (640x360,
+    backend auto, which falls back to the procedural SimBackend) in three
+    processes side by side, 16 train, 4 val and 4 test frames at a pinned
+    seed; `python -m d3roma_tpu_torch.stereo_matching` on the tree, every
+    pair's sim depth finite and valid on at least SYN_VALID_MIN of the
+    frame; `python -m d3roma_tpu_torch.train task=train_hiss` in its own
+    process (timing hooks) at the preset's widths, left+right+raw, 256x320,
+    batch 32, fp32, three steps in one epoch: losses finite, the in-training
+    eval at step 3, checkpoint and best/ written, ms/step, samples/s, peak
+    memory, idle share, the first step's seconds, the loader's host ms an
+    item, no hand kernel launched; beside it one fp32 step of a narrow
+    pixel model on the card against the CPU under
+    set_sync_debug_mode("error"), and `python -m d3roma_tpu_torch.camera_test
+    --replay assets/examples`; then `python -m d3roma_tpu_torch.evaluate
+    task=eval_his_sim task.plot_intermediate_metrics=true` on best/ (4 test
+    frames, my_ddpm 8 steps): finite metrics, every artifact read back with
+    the intermediate-metrics figure, no hand kernel launched, ms/frame;
+17. serving (`serve_phase`): a full-width rgb+raw pipeline saved, and a
     copy calibrated by `python -m d3roma_tpu_torch.calibrate_pipeline` in
     its own process (4 procedural frames at 360x640, 10 steps); `python -m
     d3roma_tpu_torch.demo` in its own process (its four artifacts read
@@ -191,7 +210,7 @@ failing the run on its own error:
     every plain version, no host synchronization from upload to copy) and its
     single-frame rgb+raw and left+right+raw calls under latency; ms/request,
     ms/frame, host ms, idle share, the server's p50/p90/p99;
-17. offline tooling (`offline_phase`): the NCC block matcher at 360x640,
+18. offline tooling (`offline_phase`): the NCC block matcher at 360x640,
     batch 4, D 101 against the CPU (TF32 shown not to reach it), its
     ms/frame, peak memory, StepTimer summary and a profiling.trace file;
     `python -m d3roma_tpu_torch.stereo_matching` on 8 frames in its own
@@ -201,7 +220,7 @@ failing the run on its own error:
     (left+right+raw at full width, latency), its target against the CPU
     matcher; the serve phase's calibrate_pipeline run (alone, `--offline`
     runs its own);
-18. reference checkpoints and guidance (`import_phase`): a bare SD2.1
+19. reference checkpoints and guidance (`import_phase`): a bare SD2.1
     diffusers directory at full width (random seeded weights: the UNet in
     fp16 safetensors, the VAE in fp32 .bin, the 23-layer text tower in fp32
     safetensors) imported by `python -m d3roma_tpu_torch.import_reference
@@ -216,7 +235,7 @@ failing the run on its own error:
     unguided ones, ms/request and the guided peak memory; under
     throughput, calibrated, 2 steps: guided bit-equal to unguided, the
     extra launches those of 20 decodes;
-19. tensor parallelism (`tp_phase`): two ranks on the card under torchrun
+20. tensor parallelism (`tp_phase`): two ranks on the card under torchrun
     (gloo): `mha_attention_tp` and `geglu_ff_tp` at the flagship batch-1
     shapes against their plain compositions, timed (kernel and collective
     apart); `D3RoMa` rgb+raw at full width, batch 1, 360x640, TP_STEPS (1)
@@ -225,12 +244,12 @@ failing the run on its own error:
     compositions; 12 / 16 in int8), the depth against the tp=1 call and
     the plain compositions', ms/request and its collectives, a rank's
     parameter bytes (`--tp` alone also runs the eval phase's DP2 check);
-20. the torch bench, `python -m d3roma_tpu_torch.bench`, in its own process
+21. the torch bench, `python -m d3roma_tpu_torch.bench`, in its own process
     at batch 2 with 2 timed calls (records and scales in a temporary
     directory), at the default setting, at BENCH_CLIP_PCT=0.999 and at
     BENCH_MODEL=pixel: its JSON line must carry every key of the JAX
     bench's at that setting, value > 0;
-21. a JSON line of per-kernel numbers, then the JSON result as the last line.
+22. a JSON line of per-kernel numbers, then the JSON result as the last line.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -2310,45 +2329,56 @@ PIXEL_BENCH_KEYS = BENCH_KEYS[:8] + ("device",)
 def bench_phase(pixel_only: bool = False):
     """`python -m d3roma_tpu_torch.bench` as a user runs it, at batch 2 with
     2 timed calls, its records and calibrated scales in a temporary
-    directory: at the default setting (static int8, 2d2, calibrated), with
-    BENCH_CLIP_PCT=0.999 (quantile calibration, clipped scales) and with
-    BENCH_MODEL=pixel (only this one with `pixel_only`). Each must exit 0
-    and print one JSON line with every key of the JAX bench's line at its
-    setting (and act_clip_pct with the clipping), value > 0. Returns the
-    lines."""
+    directory (one a run): at the default setting (static int8, 2d2,
+    calibrated), with BENCH_CLIP_PCT=0.999 (quantile calibration, clipped
+    scales) and with BENCH_MODEL=pixel (only this one with `pixel_only`),
+    the three processes side by side (their fps, at batch 2 host-bound
+    anyway, are not a lone run's). Each must exit 0 and print one JSON line
+    with every key of the JAX bench's line at its setting (and act_clip_pct
+    with the clipping), value > 0. Returns the lines."""
     import tempfile
 
     runs = (("default", {}), ("clip 0.999", {"BENCH_CLIP_PCT": "0.999"}),
             ("pixel", {"BENCH_MODEL": "pixel"}))
     lines = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for label, extra in runs[2:] if pixel_only else runs:
+        started = []
+        for i, (label, extra) in enumerate(runs[2:] if pixel_only else runs):
             env = dict(os.environ)
             for k in ("BENCH_QUANT", "BENCH_DEEPCACHE", "BENCH_CALIB", "BENCH_STEPS",
                       "BENCH_RECORDS", "BENCH_MODEL"):
                 env.pop(k, None)
-            env.update(BENCH_BATCH=str(BATCH), BENCH_REPS="2", BENCH_CACHE_DIR=tmp, **extra)
-            t0 = time.perf_counter()
-            proc = subprocess.run([sys.executable, "-m", "d3roma_tpu_torch.bench"], env=env,
-                                  capture_output=True, text=True, timeout=600)
-            out = proc.stdout.strip().splitlines()
-            print(f"bench ({label}): exit {proc.returncode} in {time.perf_counter() - t0:.1f}s; "
-                  f"{out[-1] if out else ''}", flush=True)
-            for ln in proc.stderr.strip().splitlines()[-3:]:
-                print(f"  stderr: {ln}", flush=True)
-            if proc.returncode != 0 or not out:
-                raise AssertionError(f"bench ({label}) failed: {proc.stderr[-2000:]}")
-            line = json.loads(out[-1])
-            if label == "pixel":
-                keys = PIXEL_BENCH_KEYS
-                if set(line) != set(keys):
-                    raise AssertionError(f"bench (pixel): keys {sorted(line)}, want {keys}")
-            else:
-                keys = BENCH_KEYS + (("act_clip_pct",) if extra else ())
-            missing = [k for k in keys if k not in line]
-            if missing or not line["value"] > 0 or line["batch"] != BATCH:
-                raise AssertionError(f"bench ({label}): missing {missing} or bad line {line}")
-            lines[label] = line
+            env.update(BENCH_BATCH=str(BATCH), BENCH_REPS="2",
+                       BENCH_CACHE_DIR=os.path.join(tmp, str(i)), **extra)
+            started.append((label, extra, time.perf_counter(), subprocess.Popen(
+                [sys.executable, "-m", "d3roma_tpu_torch.bench"], env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        try:
+            for label, extra, t0, proc in started:
+                stdout, stderr = proc.communicate(timeout=600)
+                out = stdout.strip().splitlines()
+                print(f"bench ({label}): exit {proc.returncode} in "
+                      f"{time.perf_counter() - t0:.1f}s; {out[-1] if out else ''}", flush=True)
+                for ln in stderr.strip().splitlines()[-3:]:
+                    print(f"  stderr: {ln}", flush=True)
+                if proc.returncode != 0 or not out:
+                    raise AssertionError(f"bench ({label}) failed: {stderr[-2000:]}")
+                line = json.loads(out[-1])
+                if label == "pixel":
+                    keys = PIXEL_BENCH_KEYS
+                    if set(line) != set(keys):
+                        raise AssertionError(f"bench (pixel): keys {sorted(line)}, want {keys}")
+                else:
+                    keys = BENCH_KEYS + (("act_clip_pct",) if extra else ())
+                missing = [k for k in keys if k not in line]
+                if missing or not line["value"] > 0 or line["batch"] != BATCH:
+                    raise AssertionError(f"bench ({label}): missing {missing} or bad line {line}")
+                lines[label] = line
+        finally:
+            for *_, proc in started:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
     return lines
 
 
@@ -3127,14 +3157,36 @@ def _train_run(tmp, repo, extra):
                              f"{proc.stderr[-4000:]}")
     with open(os.path.join(tmp, "run", "train.log")) as f:
         log = f.read()
+    return _logged_steps(log), log, wall
+
+
+def _logged_steps(log: str) -> list:
+    """(step, loss, grad_norm) of every step line of a train.log."""
     steps = []
     for line in log.splitlines():
         parts = line.split()
         if "loss" in parts and "grad_norm" in parts and "step" in parts:
-            i = parts.index("step")
-            steps.append((int(parts[i + 1]), float(parts[parts.index("loss") + 1]),
+            steps.append((int(parts[parts.index("step") + 1]),
+                          float(parts[parts.index("loss") + 1]),
                           float(parts[parts.index("grad_norm") + 1])))
-    return steps, log, wall
+    return steps
+
+
+def _wait_for_best(tmp: str, proc, label: str) -> None:
+    """Return once tmp/run/train.log says best/ was exported or the train
+    process has ended; kill it after 900 s without."""
+    log_path = os.path.join(tmp, "run", "train.log")
+    deadline = time.perf_counter() + 900
+    while proc.poll() is None:
+        if os.path.exists(log_path):
+            with open(log_path) as f:
+                if "exported best/" in f.read():
+                    return
+        if time.perf_counter() > deadline:
+            proc.kill()
+            proc.wait()
+            raise AssertionError(f"{label}: the train entry point exported no best/ in 900 s")
+        time.sleep(0.5)
 
 
 class _Recorded:
@@ -4855,25 +4907,25 @@ def _device_busy_ms(prof) -> float:
                    if getattr(e, "device_type", None) == cuda and counted(e.name)) / 1e3
 
 
-def mono_train_child(out_path: str, argv) -> int:
+def train_child(out_path: str, argv, item_class) -> int:
     """`python -m d3roma_tpu_torch.train argv` (runpy, in this process) with
     timing hooks: each train step synchronized and timed, the second under
     torch.profiler (its wall up to the synchronize, its device busy ms and
-    idle share), the host ms of every mono item the loader's threads build
-    (the in-training eval's items too), and the peak memory; the record
-    written to out_path as JSON."""
+    idle share), the host ms of every item of `item_class` the loader's
+    threads build (the in-training eval's items too), the peak memory, and
+    the hand kernels' launch counts of the run (set to 0 before it); the
+    record written to out_path as JSON."""
     import runpy
     import threading
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from d3roma_tpu_torch.data import mono_datasets
     from d3roma_tpu_torch.training import train_loop
 
     record = dict(step_ms=[], item_ms=[])
     lock = threading.Lock()
-    get_item = mono_datasets.MonoDataset.__getitem__
+    get_item = item_class.__getitem__
 
     def timed_item(self, index):
         t0 = time.perf_counter()
@@ -4907,19 +4959,29 @@ def mono_train_child(out_path: str, argv) -> int:
 
         return timed
 
-    mono_datasets.MonoDataset.__getitem__ = timed_item
+    item_class.__getitem__ = timed_item
     train_loop.make_train_step = make_timed
     torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
     sys.argv = ["d3roma_tpu_torch.train"] + list(argv)
     rc = 0
     try:
         runpy.run_module("d3roma_tpu_torch.train", run_name="__main__", alter_sys=True)
     except SystemExit as e:
         rc = e.code or 0
+    record["launches"] = _int8_launches()
     record["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
     with open(out_path, "w") as f:
         json.dump(record, f)
     return int(rc)
+
+
+def mono_train_child(out_path: str, argv) -> int:
+    """The mono phase's train entry point: `train_child` timing the mono
+    datasets' items."""
+    from d3roma_tpu_torch.data import mono_datasets
+
+    return train_child(out_path, argv, mono_datasets.MonoDataset)
 
 
 def _mono_train_start(tmp: str, repo: str):
@@ -4940,18 +5002,7 @@ def _mono_train_start(tmp: str, repo: str):
         cwd=tmp, stdout=out, stderr=subprocess.STDOUT,
         env=dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", "")))
     out.close()
-    log_path = os.path.join(tmp, "run", "train.log")
-    deadline = time.perf_counter() + 900
-    while proc.poll() is None:
-        if os.path.exists(log_path):
-            with open(log_path) as f:
-                if "exported best/" in f.read():
-                    break
-        if time.perf_counter() > deadline:
-            proc.kill()
-            proc.wait()
-            raise AssertionError("mono: the train entry point exported no best/ in 900 s")
-        time.sleep(0.5)
+    _wait_for_best(tmp, proc, "mono")
     return proc
 
 
@@ -4969,13 +5020,7 @@ def _mono_train_finish(tmp: str, proc, t0: float) -> dict:
         log = f.read()
     with open(os.path.join(tmp, "train_record.json")) as f:
         record = json.load(f)
-    steps = []
-    for line in log.splitlines():
-        parts = line.split()
-        if "loss" in parts and "grad_norm" in parts and "step" in parts:
-            steps.append((int(parts[parts.index("step") + 1]),
-                          float(parts[parts.index("loss") + 1]),
-                          float(parts[parts.index("grad_norm") + 1])))
+    steps = _logged_steps(log)
     if ([s for s, _, _ in steps] != [1, 2]
             or not all(math.isfinite(x) for _, l, g in steps for x in (l, g))):
         raise AssertionError(f"mono: train steps {steps}\n{log[-3000:]}")
@@ -5028,17 +5073,20 @@ def _mono_eval(tmp: str, repo: str) -> dict:
     return dict(wall_s=seconds, metrics=metrics, predictions=len(preds))
 
 
-def mono_phase() -> dict:
+def mono_phase(after_fixtures=None) -> dict:
     """The monocular datasets on the card's machine: the committed fixtures
     through the port's decoders (`mono_fixtures`), then the mono presets
     through the train and evaluate entry points in their own processes on
     trees of symlinks to them; the evaluate process starts once the train
-    process has exported best/, beside its checkpoint write."""
+    process has exported best/, beside its checkpoint write. after_fixtures()
+    is called once the decode timings are taken."""
     import tempfile
     import threading
 
     repo = os.path.dirname(os.path.abspath(__file__))
     summary = dict(fixtures=mono_fixtures(repo))
+    if after_fixtures is not None:
+        after_fixtures()
     with tempfile.TemporaryDirectory() as tmp:
         _mono_trees(tmp, repo)
         t0 = time.perf_counter()
@@ -5063,6 +5111,449 @@ def mono_phase() -> dict:
                 side.join()
         if errors:
             raise errors[0]
+    return summary
+
+
+SYN_SEED = 21  # the render's pinned seed (train; val and test take the next two)
+SYN_SURFACES = 2  # the SimBackend's support surfaces
+SYN_TRAIN_FRAMES = 8  # frames a surface: 16 train frames
+SYN_EVAL_FRAMES = 2  # frames a surface of the val and test splits: 4 each
+SYN_WEIGHT = 6  # dataset_weight: 96 items, 3 steps of the preset's batch 32 in one epoch
+SYN_TRAIN_PRESET = "train_hiss"
+SYN_EVAL_PRESET = "eval_his_sim"
+SYN_VALID_MIN = OFFLINE_VALID_MIN  # the sim depth of every rendered pair
+SYN_NARROW_WIDTHS = (32, 64)  # the narrow pixel model of the card-vs-CPU step
+SYN_NARROW_HW = (64, 96)
+SYN_CAMERA_FRAMES = 8  # camera_test's frames a thread on the bundled capture
+SYN_PARAMS = "113.7M"  # the preset's UNet2D, as the train entry point logs it
+
+
+def _syn_render_start(tmp: str, repo: str, split: str, frames: int, seed: int):
+    """`python -m d3roma_tpu_torch.render_synthetic` on conf/synthetic/hssd.yaml
+    (its 640x360 D435 geometry, backend auto) into datasets/HISS/<split>/hssd/
+    (the HISS loader lists one directory level under a split)."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "d3roma_tpu_torch.render_synthetic", f"seed={seed}",
+         f"num_frames_per_surface={frames}", f"max_surfaces={SYN_SURFACES}",
+         f"writer_config.output_dir=datasets/HISS/{split}/hssd"],
+        cwd=tmp, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=repo))
+
+
+def _syn_render(tmp: str, repo: str) -> dict:
+    """The three splits rendered side by side, each in its own process; every
+    frame's files written, the PNGs and EXRs at 360x640; s/frame."""
+    import numpy as np
+
+    from d3roma_tpu_torch.utils.exr import read_exr
+    from d3roma_tpu_torch.utils.png import read_png
+
+    t0 = time.perf_counter()
+    splits = {"train": SYN_TRAIN_FRAMES, "val": SYN_EVAL_FRAMES, "test": SYN_EVAL_FRAMES}
+    procs = {split: _syn_render_start(tmp, repo, split, frames, SYN_SEED + i)
+             for i, (split, frames) in enumerate(splits.items())}
+    out = {}
+    for split, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"synthetic: render {split} failed ({proc.returncode}): "
+                                 f"{stderr[-3000:]}")
+        n = SYN_SURFACES * splits[split]
+        lines = stdout.strip().splitlines()
+        if not lines[0].startswith(f"wrote {n} frames (seed ") or "SimBackend" not in stderr:
+            raise AssertionError(f"synthetic: render {split} printed {stdout!r} {stderr!r}")
+        root = os.path.join(tmp, "datasets", "HISS", split, "hssd")
+        for i in range(n):
+            for suffix in ("color.png", "ir_l.png", "ir_r.png", "depth.exr"):
+                path = os.path.join(root, f"{i:04d}_{suffix}")
+                arr = read_png(path) if suffix.endswith(".png") else read_exr(path)
+                if arr.shape[:2] != (H, W) or not np.isfinite(arr).all():
+                    raise AssertionError(f"synthetic: {path} {arr.shape}")
+        metas = sorted(f for f in os.listdir(root) if f.startswith("meta_"))
+        if len(metas) != SYN_SURFACES:
+            raise AssertionError(f"synthetic: render {split} wrote {metas}")
+        out[split] = dict(frames=n, s_per_frame=float(lines[1].split()[0]))
+    wall = time.perf_counter() - t0
+    print(f"synthetic: render_synthetic (hssd.yaml, 640x360, backend auto -> SimBackend, seed "
+          f"{SYN_SEED}) wrote {', '.join(f'{k} {v['frames']}' for k, v in out.items())} frames "
+          f"in three processes side by side, {wall:.1f} s; s/frame "
+          f"{json.dumps({k: v['s_per_frame'] for k, v in out.items()})}", flush=True)
+    return dict(splits=out, wall_s=wall)
+
+
+def _syn_stereo(tmp: str, repo: str) -> dict:
+    """`python -m d3roma_tpu_torch.stereo_matching datasets/HISS` at its
+    defaults (the reference HISS run's): every pair's _simDepthImage.exr,
+    finite, valid on at least SYN_VALID_MIN of each frame."""
+    import glob
+
+    import numpy as np
+
+    from d3roma_tpu_torch.utils.exr import read_exr
+
+    rc, stdout, seconds = _run_module(tmp, repo, "d3roma_tpu_torch.stereo_matching",
+                                      os.path.join("datasets", "HISS"))
+    if rc != 0:
+        raise AssertionError(f"synthetic: stereo_matching failed ({rc})")
+    pairs = sorted(glob.glob(os.path.join(tmp, "datasets", "HISS", "*", "hssd", "*_ir_l.png")))
+    shares = []
+    for left in pairs:
+        depth = read_exr(left.replace("_ir_l.png", "_simDepthImage.exr"))
+        if depth.shape != (H, W) or not np.isfinite(depth).all():
+            raise AssertionError(f"synthetic: sim depth of {left} {depth.shape}")
+        shares.append(float((depth > 0).mean()))
+    n = SYN_SURFACES * (SYN_TRAIN_FRAMES + 2 * SYN_EVAL_FRAMES)
+    if len(pairs) != n or min(shares) < SYN_VALID_MIN:
+        raise AssertionError(f"synthetic: {len(pairs)} pairs, valid shares {shares}")
+    s_per_frame = float(stdout.strip().splitlines()[-1].split()[0])
+    print(f"synthetic: stereo_matching on {n} pairs in {seconds:.1f} s, {s_per_frame} s/frame "
+          f"(its own clock); valid share min {min(shares):.4f}, mean "
+          f"{statistics.mean(shares):.4f} (at least {SYN_VALID_MIN})", flush=True)
+    return dict(pairs=n, wall_s=seconds, s_per_frame=s_per_frame, valid_min=min(shares),
+                valid_mean=statistics.mean(shares))
+
+
+def _syn_prepare(tmp: str, repo: str) -> dict:
+    """The rendered tree with its sim depth: `_syn_render`, then `_syn_stereo`."""
+    return dict(render=_syn_render(tmp, repo), stereo=_syn_stereo(tmp, repo))
+
+
+def synthetic_train_child(out_path: str, argv) -> int:
+    """The synthetic phase's train entry point: `train_child` timing the
+    HISS items (left+right+raw from the rendered tree)."""
+    from d3roma_tpu_torch.data import datasets
+
+    return train_child(out_path, argv, datasets.HISS)
+
+
+def synthetic_eval_child(out_path: str, argv) -> int:
+    """`python -m d3roma_tpu_torch.evaluate argv` (runpy, in this process):
+    the wall of each evaluate_dataset call (synchronized) and its frames,
+    and the hand kernels' launch counts (set to 0 before it)."""
+    import runpy
+
+    import torch
+
+    from d3roma_tpu_torch import evaluation
+
+    record = dict(calls=[])
+    evaluate = evaluation.evaluate_dataset
+
+    def timed(config, pipeline, loader, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = evaluate(config, pipeline, loader, *args, **kw)
+        torch.cuda.synchronize()
+        record["calls"].append(dict(wall_ms=(time.perf_counter() - t0) * 1e3,
+                                    frames=len(loader.dataset)))
+        return out
+
+    evaluation.evaluate_dataset = timed
+    _zero_launches()
+    sys.argv = ["d3roma_tpu_torch.evaluate"] + list(argv)
+    rc = 0
+    try:
+        runpy.run_module("d3roma_tpu_torch.evaluate", run_name="__main__", alter_sys=True)
+    except SystemExit as e:
+        rc = e.code or 0
+    record["launches"] = _int8_launches()
+    with open(out_path, "w") as f:
+        json.dump(record, f)
+    return int(rc)
+
+
+def _syn_child(tmp: str, repo: str, flag: str, name: str, argv):
+    out = open(os.path.join(tmp, f"{name}.out"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(repo, "chip_smoke.py"), flag,
+         os.path.join(tmp, f"{name}_record.json"), *argv],
+        cwd=tmp, stdout=out, stderr=subprocess.STDOUT,
+        env=dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", "")))
+    out.close()
+    return proc
+
+
+def _syn_train_finish(tmp: str, proc, t0: float) -> dict:
+    """The train process's steps finite, its eval at the last step, the
+    checkpoint and best/ written, no hand kernel launched; its record."""
+    import math
+
+    rc = proc.wait(timeout=900)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(tmp, "train.out")) as f:
+        output = f.read()
+    if rc != 0:
+        raise AssertionError(f"synthetic: train entry point failed ({rc}): {output[-4000:]}")
+    with open(os.path.join(tmp, "run", "train.log")) as f:
+        log = f.read()
+    with open(os.path.join(tmp, "train_record.json")) as f:
+        record = json.load(f)
+    steps = _logged_steps(log)
+    n = SYN_WEIGHT * SYN_SURFACES * SYN_TRAIN_FRAMES // 32
+    if ([s for s, _, _ in steps] != list(range(1, n + 1))
+            or not all(math.isfinite(x) for _, l, g in steps for x in (l, g))):
+        raise AssertionError(f"synthetic: train steps {steps}\n{log[-3000:]}")
+    run = os.path.join(tmp, "run")
+    if (f"eval[0] @{n}:" not in log
+            or not os.path.exists(os.path.join(run, "best", "model_index.json"))
+            or not os.path.exists(os.path.join(run, "checkpoints", "last", "state.pt"))):
+        raise AssertionError(f"synthetic: no eval at step {n}, best/ or checkpoint\n{log[-3000:]}")
+    if f"total trainable params: {SYN_PARAMS}" not in log + output:
+        raise AssertionError("synthetic: the pixel UNet is not the preset's width")
+    if any(record["launches"].values()):
+        raise AssertionError(f"synthetic: hand kernels launched in training: {record['launches']}")
+    items = record["item_ms"]
+    step_ms = record["step_ms"]
+    summary = dict(steps=steps, wall_s=wall, step_ms=step_ms, first_step_s=step_ms[0] / 1e3,
+                   ms_per_step=step_ms[2], samples_per_s=32 / (step_ms[2] / 1e3),
+                   profiled_step_ms=step_ms[1], device_busy_ms=record["device_busy_ms"],
+                   idle_share=record["idle_share"], peak_memory_gib=record["peak_memory_gib"],
+                   loader_items=len(items), loader_host_ms_per_item=statistics.mean(items),
+                   launches=record["launches"])
+    print(f"synthetic: train entry point ({SYN_TRAIN_PRESET}: UNet2D (128, 128, 256, 256, 512, "
+          f"512), 113.7M params, left+right+raw, sample prediction, pyramid noise, fp32, batch "
+          f"32 at 256x320; {SYN_SURFACES * SYN_TRAIN_FRAMES} rendered frames x{SYN_WEIGHT}) in "
+          f"{wall:.1f} s; steps {steps}; step ms {[round(w, 1) for w in step_ms]} (the first "
+          f"with the process's warm-up, the second profiled: device busy "
+          f"{record['device_busy_ms']:.1f} ms, idle share {record['idle_share']:.3f}); "
+          f"{summary['ms_per_step']:.1f} ms/step, {summary['samples_per_s']:.2f} samples/s; "
+          f"peak memory {record['peak_memory_gib']:.2f} GiB; the loader's host "
+          f"{summary['loader_host_ms_per_item']:.2f} ms an item over {len(items)} items; eval at "
+          f"step {n}, checkpoint and best/ written; hand-kernel launches 0", flush=True)
+    return summary
+
+
+def _syn_eval(tmp: str, repo: str) -> dict:
+    """`python -m d3roma_tpu_torch.evaluate task=eval_his_sim
+    task.plot_intermediate_metrics=true` on best/ (the test split, my_ddpm at
+    the preset's 8 steps, dynamic thresholding): finite metrics, every
+    artifact read back, the intermediate-metrics figure included; no hand
+    kernel launched; ms/frame."""
+    import math
+
+    import numpy as np
+
+    from d3roma_tpu_torch.utils.exr import read_exr
+    from d3roma_tpu_torch.utils.png import read_png
+
+    out_dir = os.path.join(tmp, "eval_out")
+    t0 = time.perf_counter()
+    proc = _syn_child(tmp, repo, "--synthetic-eval", "eval",
+                      [f"task={SYN_EVAL_PRESET}", "task.resume_pretrained=run/best",
+                       "task.plot_intermediate_metrics=true", f"task.eval_output={out_dir}"])
+    rc = proc.wait(timeout=900)
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(tmp, "eval.out")) as f:
+        output = f.read()
+    if rc != 0:
+        raise AssertionError(f"synthetic: evaluate entry point failed ({rc}): {output[-4000:]}")
+    lines = [json.loads(x) for x in output.splitlines() if x.startswith('{"dataset"')]
+    if len(lines) != 1 or lines[0]["dataset"] != "HISS":
+        raise AssertionError(f"synthetic: evaluate printed {lines}")
+    metrics = lines[0]["metrics"]
+    values = [v for group in metrics.values() for v in group.values()]
+    if not values or not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"synthetic: evaluate metrics not finite: {metrics}")
+    with open(os.path.join(tmp, "eval_record.json")) as f:
+        record = json.load(f)
+    if any(record["launches"].values()):
+        raise AssertionError(f"synthetic: hand kernels launched in the eval: {record['launches']}")
+    art = os.path.join(out_dir, "HISS")
+    names = sorted(os.listdir(art))
+    frames = SYN_SURFACES * SYN_EVAL_FRAMES
+    want = ({f"idx0_{b}_pred_disp.png" for b in range(frames)}
+            | {f"idx0_{b}_simDepthImage.exr" for b in range(frames)}
+            | {"idx0_error.png", "idx0_denoised.png", "idx0_intermediate_metrics.png"})
+    if not want <= set(names):
+        raise AssertionError(f"synthetic: evaluate artifacts {names}")
+    for name in names:
+        path = os.path.join(art, name)
+        if name.endswith(".png"):
+            arr = read_png(path)
+        elif name.endswith(".exr"):
+            arr = read_exr(path)
+        else:
+            continue
+        if not np.isfinite(arr).all():
+            raise AssertionError(f"synthetic: {name} not finite")
+    figure = read_png(os.path.join(art, "idx0_intermediate_metrics.png"))
+    if figure.shape != (240, 640, 3) or not (figure != 255).any(axis=-1).any():
+        raise AssertionError(f"synthetic: intermediate-metrics figure {figure.shape}")
+    (call,) = record["calls"]
+    ms_per_frame = call["wall_ms"] / call["frames"]
+    print(f"synthetic: evaluate entry point ({SYN_EVAL_PRESET}, {frames} rendered test frames, "
+          f"my_ddpm 8 steps, dynamic thresholding, plot_intermediate_metrics) exit 0 in "
+          f"{seconds:.1f} s; {ms_per_frame:.1f} ms/frame (evaluate_dataset's wall, the first "
+          f"call's warm-up and the artifacts included); metrics {json.dumps(metrics)}; "
+          f"{len(names)} artifacts read back, the intermediate-metrics figure {figure.shape}; "
+          f"hand-kernel launches 0", flush=True)
+    return dict(wall_s=seconds, ms_per_frame=ms_per_frame, metrics=metrics,
+                artifacts=len(names), launches=record["launches"])
+
+
+def synthetic_card_vs_cpu() -> dict:
+    """One fp32 train step of a narrow pixel model (UNet2D, widths
+    SYN_NARROW_WIDTHS, the preset's left+right+raw, sample prediction and
+    pyramid noise) on the card and on the CPU from the same weights, batch
+    and draws (recorded on the CPU, replayed on the card); the card's step
+    under set_sync_debug_mode("error"). Held to the train phase's
+    tolerances."""
+    import numpy as np
+    import torch
+
+    from d3roma_tpu_torch.config import load_task_preset
+    from d3roma_tpu_torch.training import (
+        build_models,
+        build_optimizer,
+        create_train_state,
+        make_train_step,
+    )
+    from d3roma_tpu_torch.ops.noise import GeneratorDraws
+    from d3roma_tpu_torch.training.train_loop import fp32_math
+
+    cfg = load_task_preset(SYN_TRAIN_PRESET)
+    cfg.block_out_channels = list(SYN_NARROW_WIDTHS)
+    sd = build_models(cfg, 0, "cpu")["unet"].state_dict()
+    rs = np.random.RandomState(4)
+    b, (h, w) = 2, SYN_NARROW_HW
+    disp = rs.uniform(-0.9, 0.9, (b, h, w, 1)).astype(np.float32)
+    batch = {"normalized_disp": disp,
+             "sim_disp": np.clip(disp + 0.05 * rs.standard_normal(disp.shape), -1, 1),
+             "normalized_rgb": rs.uniform(-1, 1, (b, h, w, 3)),
+             "left_image": rs.uniform(-1, 1, (b, h, w, 3)),
+             "right_image": rs.uniform(-1, 1, (b, h, w, 3)),
+             "mask": (rs.rand(b, h, w, 1) > 0.2)}
+    batch = {k: torch.from_numpy(np.asarray(v, np.float32)) for k, v in batch.items()}
+
+    def step(device, draws):
+        unet = build_models(cfg, 0, device)["unet"]
+        unet.load_state_dict(sd)
+        opt = build_optimizer(cfg, 3, list(unet.parameters()))
+        state = create_train_state(cfg, unet, 3, optimizer=opt)
+        fn = make_train_step(cfg, unet, opt, cfg.schedule_config(train=True).tables(device))
+        on = {k: v.to(device) for k, v in batch.items()}
+        if device != "cpu":
+            _sync()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            metrics = fn(state, on, draws)
+        finally:
+            if device != "cpu":
+                torch.cuda.set_sync_debug_mode(0)
+        return ({k: v.detach().cpu() for k, v in metrics.items()},
+                {k: v.detach().cpu() for k, v in unet.state_dict().items()})
+
+    rec = _Recorded(GeneratorDraws(torch.Generator().manual_seed(5)))
+    cpu, cpu_sd = step("cpu", rec)
+    tape = [t.to("cuda") for t in rec.tape]
+    with fp32_math(torch.device("cuda")):
+        card, card_sd = step("cuda", _Recorded(tape=tape))
+    rel = {k: abs(float(card[k]) - float(cpu[k])) / max(abs(float(cpu[k])), 1e-30)
+           for k in ("loss", "grad_norm")}
+    worst, q999 = _param_diffs(card_sd, cpu_sd)
+    lr = cfg.learning_rate
+    print(f"synthetic: narrow pixel step card vs CPU (UNet2D {SYN_NARROW_WIDTHS}, conv_in "
+          f"{tuple(sd['conv_in.weight'].shape)}, batch {b} at {h}x{w}): loss "
+          f"{float(card['loss']):.7f} / {float(cpu['loss']):.7f} rel {rel['loss']:.2e} (tol "
+          f"{TRAIN_LOSS_REL_TOL}); grad_norm rel {rel['grad_norm']:.2e} (tol "
+          f"{TRAIN_GRAD_NORM_REL_TOL}); params max |diff| {worst:.3e} (tol {2 * lr:.1e}), 99.9% "
+          f"{q999:.3e} (tol {1e-3 * lr:.1e}); no host sync in the card's step", flush=True)
+    if not (torch.equal(card["timesteps"], cpu["timesteps"])
+            and rel["loss"] <= TRAIN_LOSS_REL_TOL and rel["grad_norm"] <= TRAIN_GRAD_NORM_REL_TOL
+            and worst <= 2 * lr and q999 <= 1e-3 * lr):
+        raise AssertionError(f"synthetic: narrow step card vs CPU {rel} {worst} {q999}")
+    return dict(rel, params_max_abs=worst, params_q999=q999)
+
+
+def _syn_camera_test(tmp: str, repo: str) -> dict:
+    """`python -m d3roma_tpu_torch.camera_test --replay assets/examples`:
+    two threads of SYN_CAMERA_FRAMES frames of the bundled capture."""
+    rc, stdout, seconds = _run_module(tmp, repo, "d3roma_tpu_torch.camera_test", "--replay",
+                                      os.path.join(repo, "assets", "examples"), "--frames",
+                                      str(SYN_CAMERA_FRAMES))
+    import re
+
+    lines = stdout.strip().splitlines()
+    # the two threads' prints may share a line
+    frames = re.findall(r"\[t[01]\] frame \d+: \(360, 640, 3\) \(360, 640\) ", stdout)
+    if (rc != 0 or len(frames) != 2 * SYN_CAMERA_FRAMES or stdout.count("] frame ") != len(frames)
+            or not lines[-1].startswith("mean latency:")):
+        raise AssertionError(f"synthetic: camera_test ({rc}) printed {stdout[-2000:]}")
+    mean_ms = float(lines[-1].split()[2])
+    print(f"synthetic: camera_test --replay assets/examples exit 0 in {seconds:.1f} s: "
+          f"{len(frames)} frames on two threads, {lines[-1]}", flush=True)
+    return dict(wall_s=seconds, frames=len(frames), mean_latency_ms=mean_ms)
+
+
+class _Beside:
+    """fn(*args) on a thread; result() joins it and returns its value or
+    raises its error."""
+
+    def __init__(self, fn, *args):
+        import threading
+
+        self._out, self._error = None, None
+
+        def run():
+            try:
+                self._out = fn(*args)
+            except BaseException as e:  # raised by result()
+                self._error = e
+
+        self._thread = threading.Thread(target=run)
+        self._thread.start()
+
+    def result(self):
+        self._thread.join()
+        if self._error is not None:
+            raise self._error
+        return self._out
+
+
+def synthetic_phase(tmp=None, prepared=None) -> dict:
+    """The reference's synthetic-data workflow on the card's machine: render
+    (three splits, side by side), sim depth by the stereo CLI, the train_hiss
+    entry point (with the narrow card-vs-CPU step and camera_test beside it),
+    then the eval_his_sim entry point on best/, started once best/ is
+    exported, beside the train process's checkpoint write. The whole pass
+    renders and runs the stereo CLI into `tmp` beside the mono phase's
+    processes (`prepared`, a `_Beside` of `_syn_prepare`: host work, and
+    about 0.25 s of the card's); alone the phase does that first.
+
+    Cut from the presets: 16 rendered train frames weighted 6 (3 steps of
+    batch 32 in one epoch; the preset trains 200 epochs on the HISS set),
+    the in-training eval at step 3 (every 5000) on one batch of the 4 val
+    frames, the preset's epoch export not reached (save_model_epochs 5),
+    the eval on 4 rendered test frames; the models from seeded random
+    weights. Widths, image size, batch, precision, conditions, prediction
+    type, noise and the eval's sampler are the presets'."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    if tmp is None:
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as own:
+            return synthetic_phase(own, _Beside(_syn_prepare, own, repo))
+    summary = prepared.result()
+    steps = SYN_WEIGHT * SYN_SURFACES * SYN_TRAIN_FRAMES // 32
+    t0 = time.perf_counter()
+    proc = _syn_child(tmp, repo, "--synthetic-train", "train",
+                      [f"task={SYN_TRAIN_PRESET}", f"task.dataset_weight=[{SYN_WEIGHT}]",
+                       "task.num_epochs=1", f"task.val_every_global_steps={steps}",
+                       "task.eval_num_batch=1", "task.output_dir=run"])
+    evaluate = None
+    try:
+        summary["card_vs_cpu"] = synthetic_card_vs_cpu()
+        summary["camera_test"] = _syn_camera_test(tmp, repo)
+        _wait_for_best(tmp, proc, "synthetic")
+        if proc.poll() is None or proc.returncode == 0:
+            evaluate = _Beside(_syn_eval, tmp, repo)
+        summary["train"] = _syn_train_finish(tmp, proc, t0)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        if evaluate is not None:
+            summary["eval"] = evaluate.result()
     return summary
 
 
@@ -5215,7 +5706,8 @@ def import_phase():
     - meanwhile, `python -m d3roma_tpu_torch.parity_check --ref-dir REF` at
       64x96, 2 steps, one batch of 2 frames (exit 0, parity.json written),
       and `--golden-dump` then `--golden-compare` on OUT (every stage
-      matching), each its own process;
+      matching), each its own process; the in-process checks below run
+      beside the golden ones (so their ms/request is not a lone run's);
     - the imported pipeline under fast_inference("latency"), batch 1, RGB +
       raw at 360x640, IMPORT_STEPS DDIM steps: unguided and guided
       (gradient mode, 10 Adam steps at lr 1e-3, the raw disparity with 10%
@@ -5265,6 +5757,132 @@ def import_phase():
                 children[flag[2:]] = _run_module(tmp, repo, "d3roma_tpu_torch.parity_check",
                                                  "--pipeline-dir", out, flag, gold)
 
+        def pipeline_checks():
+            pipe = GuidedLatentDiffusionPipeline.from_pretrained(out, device="cuda")
+            pipe.fast_inference("latency")
+            gen = torch.Generator(device="cuda").manual_seed(17)
+            h, w = IMPORT_HW
+            rgb = torch.rand((1, h, w, 3), generator=gen, device="cuda") * 2 - 1
+            disp = 10 + 50 * torch.rand((1, h, w, 1), generator=gen, device="cuda")
+            disp = torch.where(torch.rand(disp.shape, generator=gen, device="cuda") < 0.1,
+                               torch.zeros_like(disp), disp)
+            sim = pipe.normalizer.normalize(disp)[0]
+            guidance = FlowGuidance(flow_guidance_weight=1.0, flow_guidance_mode="gradient")
+
+            def call(steps, guided, seed=23):
+                pipe.guidance = guidance if guided else None
+                kw = dict(raw_depth=disp, denormer=pipe.normalizer.denormalize) if guided else {}
+                return pipe(num_inference_steps=steps, num_intermediate_images=1,
+                            cond_channels="rgb+raw", rgb_images=rgb, sim_disp=sim,
+                            generator=torch.Generator(device="cuda").manual_seed(seed), **kw).images
+
+            bf16 = {"attention": 10 * IMPORT_STEPS, "geglu": 16 * IMPORT_STEPS}
+            call(IMPORT_STEPS, False)  # warm
+            _sync()
+            outs = {}
+            for guided in (False, True):
+                kind = "guided" if guided else "unguided"
+                torch.cuda.reset_peak_memory_stats()
+                summary[f"launches_latency_{kind}"] = _serve_counts(
+                    f"import latency {kind}",
+                    lambda: outs.setdefault(guided, call(IMPORT_STEPS, guided).float()), bf16)
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                ms, walls = _median_ms(lambda: call(IMPORT_STEPS, guided), 1,
+                                       reps=1 if guided else 2)
+                print(f"import latency {kind}: {ms:.2f} ms/request (batch 1, {IMPORT_STEPS} "
+                      f"steps, {h}x{w}, median of {[round(x, 2) for x in walls]}), peak memory "
+                      f"{peak:.2f} GiB", flush=True)
+                summary[f"ms_per_request_{kind}"] = ms
+                summary[f"peak_gib_{kind}"] = peak
+            moved = (outs[True] - outs[False]).abs().max().item()
+            print(f"import: guided against unguided images, max |a - b| = {moved:.4e} (must be "
+                  f"above 0: the gradient reached the latent)", flush=True)
+            if not moved > 0:
+                raise AssertionError("import: guided latency call equals the unguided one")
+            summary["guided_moved"] = moved
+
+            fast = outs[True]
+            plain = _plain_bf16(lambda: call(IMPORT_STEPS, True)).float()
+            control = _plain_bf16(lambda: call(IMPORT_STEPS, True, seed=24)).float()
+            scale = plain.abs().max().item()
+            rel = (fast - plain).abs().max().item() / scale
+            control_rel = (control - plain).abs().max().item() / scale
+            print(f"import latency guided: images through the kernels against their plain "
+                  f"versions max |a - b| / max |b| = {rel:.3e} (tol {IMPORT_PRED_REL_TOL}); plain "
+                  f"on other noise {control_rel:.3e} (must exceed the tol)", flush=True)
+            if not (rel <= IMPORT_PRED_REL_TOL < control_rel):
+                raise AssertionError(f"import: guided kernels against plain {rel}, control "
+                                     f"{control_rel} (tol {IMPORT_PRED_REL_TOL})")
+            summary.update(guided_rel=rel, guided_control_rel=control_rel)
+
+            # static int8: calibrated on one batch; the guidance is a no-op
+            pipe.guidance = None
+            pipe.fast_inference("throughput").calibrate(
+                gen, [dict(rgb_images=rgb, sim_disp=sim)], cond_channels="rgb+raw",
+                num_inference_steps=IMPORT_STATIC_STEPS)
+            call(IMPORT_STATIC_STEPS, False)
+            _sync()
+            decode = pipe._replayed(lambda z: decode_latent(pipe.vae, z), "vae_decode")
+            _zero_launches()
+            with torch.no_grad():
+                decode(torch.randn((1, h // 8, w // 8, 4), generator=gen, device="cuda"))
+            _sync()
+            per_decode = {k: v for k, v in _int8_launches().items() if v}
+            counts, images = {}, {}
+            for guided in (False, True):
+                _zero_launches()
+                images[guided] = call(IMPORT_STATIC_STEPS, guided)
+                _sync()
+                counts[guided] = _int8_launches()
+            extra = {k: counts[True][k] - counts[False][k] for k in counts[True]}
+            want = {k: IMPORT_STATIC_STEPS * guidance.num_opt_steps * per_decode.get(k, 0)
+                    for k in extra}
+            same = torch.equal(images[True], images[False])
+            print(f"import throughput: one decode launches {per_decode}; guided call's extra "
+                  f"launches {({k: v for k, v in extra.items() if v})} (expected "
+                  f"{IMPORT_STATIC_STEPS} x {guidance.num_opt_steps} decodes); guided images "
+                  f"bit-equal to unguided: {same}", flush=True)
+            if extra != want or not same:
+                raise AssertionError(f"import throughput: extra launches {extra} (want {want}), "
+                                     f"bit-equal {same}")
+            summary["launches_throughput_guided"] = {k: v for k, v in counts[True].items() if v}
+
+            # the dynamic int8 op's gradient (ops/quant.py::_DynamicInt8): the
+            # latent gradient of a decode under "dense" (the VAE attention's four
+            # projections dynamic int8, float elsewhere) through the kernels
+            # against their plain versions; under True the int8 whole-row
+            # attention refuses a gradient, as the JAX package's kernel does
+            z = torch.randn((1, h // 8, w // 8, 4), generator=gen, device="cuda")
+
+            def latent_grad():
+                with frozen_parameters(pipe.vae):
+                    return grad_of(lambda latent: decode_latent(pipe.vae, latent).float().mean(), z)
+
+            pipe.vae.set_quant("dense")
+            _zero_launches()
+            g_fast = latent_grad()
+            _sync()
+            dense_launches = _int8_launches()["conv2d_int8_dynamic"]
+            g_plain = _plain_int8_forward(latent_grad, attention=False)
+            g_rel = (g_fast - g_plain).abs().max().item() / max(g_plain.abs().max().item(), 1e-30)
+            pipe.vae.set_quant(True)
+            try:
+                latent_grad()
+                refused = None
+            except RuntimeError as e:
+                refused = str(e)
+            print(f"import dynamic int8 gradient: {dense_launches} dynamic int8 launches in a "
+                  f"decode; latent gradient through the kernels against the plain versions max "
+                  f"|a - b| / max |b| = {g_rel:.3e} (tol {REL_TOL}), max |g| "
+                  f"{g_plain.abs().max().item():.3e}; under True: {refused}", flush=True)
+            if not (dense_launches == 4 and g_rel <= REL_TOL and g_plain.abs().max() > 0
+                    and refused and "has no gradient" in refused):
+                raise AssertionError(f"import: dynamic int8 gradient {dense_launches} launches, "
+                                     f"rel {g_rel}, refusal {refused!r}")
+            summary.update(dynamic_grad_rel=g_rel)
+            del pipe
+            torch.cuda.empty_cache()
+
         sides = [threading.Thread(target=parity)]
         sides[0].start()
         try:
@@ -5278,12 +5896,13 @@ def import_phase():
             sides.append(threading.Thread(target=golden))
             sides[1].start()
             summary["embed_rel"] = _check_imported(out, unet, vae, text)
+            del unet, vae, text
+            pipeline_checks()  # beside the parity_check processes, which only read files
         finally:
             for side in sides:
                 side.join()
         if set(children) != {"parity", "golden-dump", "golden-compare"}:
             raise AssertionError(f"import: parity_check runs missing: {sorted(children)}")
-        del unet, vae, text
         for name, (rc, stdout, seconds) in children.items():
             print(f"import: parity_check {name} exit {rc} in {seconds:.1f}s: "
                   f"{stdout.strip().splitlines()[-1:]}", flush=True)
@@ -5295,130 +5914,6 @@ def import_phase():
         if "GOLDEN COMPARE: all stages match" not in children["golden-compare"][1]:
             raise AssertionError("import: the golden compare did not match every stage")
 
-        pipe = GuidedLatentDiffusionPipeline.from_pretrained(out, device="cuda")
-        pipe.fast_inference("latency")
-        gen = torch.Generator(device="cuda").manual_seed(17)
-        h, w = IMPORT_HW
-        rgb = torch.rand((1, h, w, 3), generator=gen, device="cuda") * 2 - 1
-        disp = 10 + 50 * torch.rand((1, h, w, 1), generator=gen, device="cuda")
-        disp = torch.where(torch.rand(disp.shape, generator=gen, device="cuda") < 0.1,
-                           torch.zeros_like(disp), disp)
-        sim = pipe.normalizer.normalize(disp)[0]
-        guidance = FlowGuidance(flow_guidance_weight=1.0, flow_guidance_mode="gradient")
-
-        def call(steps, guided, seed=23):
-            pipe.guidance = guidance if guided else None
-            kw = dict(raw_depth=disp, denormer=pipe.normalizer.denormalize) if guided else {}
-            return pipe(num_inference_steps=steps, num_intermediate_images=1,
-                        cond_channels="rgb+raw", rgb_images=rgb, sim_disp=sim,
-                        generator=torch.Generator(device="cuda").manual_seed(seed), **kw).images
-
-        bf16 = {"attention": 10 * IMPORT_STEPS, "geglu": 16 * IMPORT_STEPS}
-        call(IMPORT_STEPS, False)  # warm
-        _sync()
-        outs = {}
-        for guided in (False, True):
-            kind = "guided" if guided else "unguided"
-            torch.cuda.reset_peak_memory_stats()
-            summary[f"launches_latency_{kind}"] = _serve_counts(
-                f"import latency {kind}",
-                lambda: outs.setdefault(guided, call(IMPORT_STEPS, guided).float()), bf16)
-            peak = torch.cuda.max_memory_allocated() / 2**30
-            ms, walls = _median_ms(lambda: call(IMPORT_STEPS, guided), 1,
-                                   reps=1 if guided else 2)
-            print(f"import latency {kind}: {ms:.2f} ms/request (batch 1, {IMPORT_STEPS} "
-                  f"steps, {h}x{w}, median of {[round(x, 2) for x in walls]}), peak memory "
-                  f"{peak:.2f} GiB", flush=True)
-            summary[f"ms_per_request_{kind}"] = ms
-            summary[f"peak_gib_{kind}"] = peak
-        moved = (outs[True] - outs[False]).abs().max().item()
-        print(f"import: guided against unguided images, max |a - b| = {moved:.4e} (must be "
-              f"above 0: the gradient reached the latent)", flush=True)
-        if not moved > 0:
-            raise AssertionError("import: guided latency call equals the unguided one")
-        summary["guided_moved"] = moved
-
-        fast = outs[True]
-        plain = _plain_bf16(lambda: call(IMPORT_STEPS, True)).float()
-        control = _plain_bf16(lambda: call(IMPORT_STEPS, True, seed=24)).float()
-        scale = plain.abs().max().item()
-        rel = (fast - plain).abs().max().item() / scale
-        control_rel = (control - plain).abs().max().item() / scale
-        print(f"import latency guided: images through the kernels against their plain "
-              f"versions max |a - b| / max |b| = {rel:.3e} (tol {IMPORT_PRED_REL_TOL}); plain "
-              f"on other noise {control_rel:.3e} (must exceed the tol)", flush=True)
-        if not (rel <= IMPORT_PRED_REL_TOL < control_rel):
-            raise AssertionError(f"import: guided kernels against plain {rel}, control "
-                                 f"{control_rel} (tol {IMPORT_PRED_REL_TOL})")
-        summary.update(guided_rel=rel, guided_control_rel=control_rel)
-
-        # static int8: calibrated on one batch; the guidance is a no-op
-        pipe.guidance = None
-        pipe.fast_inference("throughput").calibrate(
-            gen, [dict(rgb_images=rgb, sim_disp=sim)], cond_channels="rgb+raw",
-            num_inference_steps=IMPORT_STATIC_STEPS)
-        call(IMPORT_STATIC_STEPS, False)
-        _sync()
-        decode = pipe._replayed(lambda z: decode_latent(pipe.vae, z), "vae_decode")
-        _zero_launches()
-        with torch.no_grad():
-            decode(torch.randn((1, h // 8, w // 8, 4), generator=gen, device="cuda"))
-        _sync()
-        per_decode = {k: v for k, v in _int8_launches().items() if v}
-        counts, images = {}, {}
-        for guided in (False, True):
-            _zero_launches()
-            images[guided] = call(IMPORT_STATIC_STEPS, guided)
-            _sync()
-            counts[guided] = _int8_launches()
-        extra = {k: counts[True][k] - counts[False][k] for k in counts[True]}
-        want = {k: IMPORT_STATIC_STEPS * guidance.num_opt_steps * per_decode.get(k, 0)
-                for k in extra}
-        same = torch.equal(images[True], images[False])
-        print(f"import throughput: one decode launches {per_decode}; guided call's extra "
-              f"launches {({k: v for k, v in extra.items() if v})} (expected "
-              f"{IMPORT_STATIC_STEPS} x {guidance.num_opt_steps} decodes); guided images "
-              f"bit-equal to unguided: {same}", flush=True)
-        if extra != want or not same:
-            raise AssertionError(f"import throughput: extra launches {extra} (want {want}), "
-                                 f"bit-equal {same}")
-        summary["launches_throughput_guided"] = {k: v for k, v in counts[True].items() if v}
-
-        # the dynamic int8 op's gradient (ops/quant.py::_DynamicInt8): the
-        # latent gradient of a decode under "dense" (the VAE attention's four
-        # projections dynamic int8, float elsewhere) through the kernels
-        # against their plain versions; under True the int8 whole-row
-        # attention refuses a gradient, as the JAX package's kernel does
-        z = torch.randn((1, h // 8, w // 8, 4), generator=gen, device="cuda")
-
-        def latent_grad():
-            with frozen_parameters(pipe.vae):
-                return grad_of(lambda latent: decode_latent(pipe.vae, latent).float().mean(), z)
-
-        pipe.vae.set_quant("dense")
-        _zero_launches()
-        g_fast = latent_grad()
-        _sync()
-        dense_launches = _int8_launches()["conv2d_int8_dynamic"]
-        g_plain = _plain_int8_forward(latent_grad, attention=False)
-        g_rel = (g_fast - g_plain).abs().max().item() / max(g_plain.abs().max().item(), 1e-30)
-        pipe.vae.set_quant(True)
-        try:
-            latent_grad()
-            refused = None
-        except RuntimeError as e:
-            refused = str(e)
-        print(f"import dynamic int8 gradient: {dense_launches} dynamic int8 launches in a "
-              f"decode; latent gradient through the kernels against the plain versions max "
-              f"|a - b| / max |b| = {g_rel:.3e} (tol {REL_TOL}), max |g| "
-              f"{g_plain.abs().max().item():.3e}; under True: {refused}", flush=True)
-        if not (dense_launches == 4 and g_rel <= REL_TOL and g_plain.abs().max() > 0
-                and refused and "has no gradient" in refused):
-            raise AssertionError(f"import: dynamic int8 gradient {dense_launches} launches, "
-                                 f"rel {g_rel}, refusal {refused!r}")
-        summary.update(dynamic_grad_rel=g_rel)
-        del pipe
-        torch.cuda.empty_cache()
     return summary
 
 
@@ -5995,6 +6490,10 @@ def main() -> int:
         return tp_rank_main(sys.argv[2])
     if sys.argv[1:2] == ["--mono-train"]:  # the mono phase's train entry point
         return mono_train_child(sys.argv[2], sys.argv[3:])
+    if sys.argv[1:2] == ["--synthetic-train"]:  # the synthetic phase's entry points
+        return synthetic_train_child(sys.argv[2], sys.argv[3:])
+    if sys.argv[1:2] == ["--synthetic-eval"]:
+        return synthetic_eval_child(sys.argv[2], sys.argv[3:])
     pin_one_card()
     card = device_phase()
     build_phase()
@@ -6083,6 +6582,11 @@ def main() -> int:
         print(card, flush=True)
         print("mono phase passed", flush=True)
         return 0
+    if sys.argv[1:] == ["--synthetic"]:
+        print(json.dumps({"synthetic": synthetic_phase()}), flush=True)
+        print(card, flush=True)
+        print("synthetic phase passed", flush=True)
+        return 0
     if sys.argv[1:] == ["--offline"]:
         print(json.dumps({"offline": offline_phase(card)}), flush=True)
         print(card, flush=True)
@@ -6130,7 +6634,11 @@ def main() -> int:
         training = _phase(train_phase, train_tmp)  # so do its entry point's two processes
         accuracy = _phase(accuracy_phase, train_tmp)  # on the bf16 checkpoint they wrote
     torch.cuda.empty_cache()
-    mono = _phase(mono_phase)  # the train and evaluate entry points' processes too
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as syn_tmp:
+        prepared = []  # the synthetic frames and their sim depth, beside mono's processes
+        mono = _phase(mono_phase, lambda: prepared.append(_Beside(_syn_prepare, syn_tmp, repo)))
+        synthetic = _phase(synthetic_phase, syn_tmp, prepared[0])  # train, eval, camera
     serving = _phase(serve_phase)  # the demo, probe, calibration and server processes too
     torch.cuda.empty_cache()
     offline = _phase(offline_phase, card, serving["calibrate"])  # and the stereo CLI's
@@ -6253,6 +6761,7 @@ def main() -> int:
     print(json.dumps({"train": training}), flush=True)
     print(json.dumps({"accuracy": accuracy}), flush=True)
     print(json.dumps({"mono": mono}), flush=True)
+    print(json.dumps({"synthetic": synthetic}), flush=True)
     print(json.dumps({"serve": serving}), flush=True)
     print(json.dumps({"offline": offline}), flush=True)
     print(json.dumps({"import": imported}), flush=True)

@@ -26,8 +26,8 @@ package's PRNGKey(0)).
 
 Under `guide_source="stereo-match"` the NCC block matcher
 (`ops/stereo.py`) on the padded IR pair gives the guidance and SSI target.
-Not ported yet, and refused: the `plot_intermediate_metrics` figure
-(ROADMAP.md).
+`plot_intermediate_metrics` draws the epe and rel curves over the denoise
+steps through `utils/viz.py`'s line charts.
 """
 
 from __future__ import annotations

@@ -11,6 +11,13 @@ attention projection takes the int8 path, and `fused_norm` sends the
 resnets' norms and conv_norm_out to the fused GroupNorm + SiLU where its
 gate admits the shape. conv_in, the time embedding and the fp32 conv_out
 are never quantized.
+
+`remat` checkpoints each resnet and attention block under autograd (their
+activations recomputed in the backward pass): the trainer sets it. The JAX
+package does not remat this model, whose memory XLA schedules; eager
+PyTorch keeps every activation, and the `train_hiss` preset (batch 32 at
+256x320, fp32) then needs more than the H100's 80 GB. The arithmetic is
+the same either way.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from typing import Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from d3roma_tpu_torch.device import DeviceLike, resolve_device
 from d3roma_tpu_torch.models.layers import (
@@ -63,9 +71,11 @@ class UNet2D(nn.Module):
         fused_norm: bool = False,
         flip_sin_to_cos: bool = True,
         freq_shift: float = 0.0,
+        remat: bool = False,
         device: DeviceLike = None,
     ):
         super().__init__()
+        self.remat = bool(remat)
         if len(down_block_types) != len(block_out_channels):
             raise ValueError("one down block type per entry of block_out_channels")
         self.in_channels, self.out_channels = in_channels, out_channels
@@ -146,6 +156,13 @@ class UNet2D(nn.Module):
         if fused_norm is not None:
             self.fused_norm = bool(fused_norm)
 
+    def _run(self, block: nn.Module, *args) -> torch.Tensor:
+        """A resnet or attention block; under `remat` and autograd its
+        activations are recomputed in the backward pass instead of kept."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False)
+        return block(*args)
+
     def forward(self, sample: torch.Tensor, timesteps) -> torch.Tensor:
         """sample [B, H, W, in_channels] (noisy depth + conditions),
         timesteps an int or [B] / 0-d tensor -> fp32 [B, H, W,
@@ -167,24 +184,24 @@ class UNet2D(nn.Module):
         for blk in self.down_blocks:
             attns = getattr(blk, "attentions", None)
             for j, res in enumerate(blk.resnets):
-                x = res(x, t_emb)
+                x = self._run(res, x, t_emb)
                 if attns is not None:
-                    x = attns[j](x)
+                    x = self._run(attns[j], x)
                 skips.append(x)
             if hasattr(blk, "downsamplers"):
                 x = blk.downsamplers[0](x)
                 skips.append(x)
 
-        x = self.mid_block.resnets[0](x, t_emb)
-        x = self.mid_block.attentions[0](x)
-        x = self.mid_block.resnets[1](x, t_emb)
+        x = self._run(self.mid_block.resnets[0], x, t_emb)
+        x = self._run(self.mid_block.attentions[0], x)
+        x = self._run(self.mid_block.resnets[1], x, t_emb)
 
         for blk in self.up_blocks:
             attns = getattr(blk, "attentions", None)
             for j, res in enumerate(blk.resnets):
-                x = res(torch.cat([x, skips.pop()], dim=-1), t_emb)
+                x = self._run(res, torch.cat([x, skips.pop()], dim=-1), t_emb)
                 if attns is not None:
-                    x = attns[j](x)
+                    x = self._run(attns[j], x)
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0](x, out_hw=skips[-1].shape[1:3])
 

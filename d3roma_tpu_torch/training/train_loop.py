@@ -123,9 +123,12 @@ def build_models(config, seed: int = 0, device: DeviceLike = None) -> dict:
     of either package) when set, computing as loaded; else random fp32
     weights drawn from a generator seeded with `seed`, computing in bf16
     under mixed precision "bf16" or "fp16" (the JAX package maps both to
-    bf16 compute over the fp32 parameters), else in fp32. The latent UNet
-    rematerializes its blocks in training (remat=True, as the JAX trainer
-    builds it); the VAE is frozen."""
+    bf16 compute over the fp32 parameters), else in fp32. The UNet
+    rematerializes its blocks in training (remat=True: the latent one as
+    the JAX trainer builds it; the pixel one, which the JAX trainer does
+    not remat, because eager PyTorch would keep every activation of the
+    train_hiss preset's batch, more than an H100's 80 GB); the VAE is
+    frozen."""
     _check_supported(config)
     device = resolve_device(device)
     models = _build_models(config, seed, device)
@@ -158,6 +161,7 @@ def _build_models(config, seed: int, device: torch.device) -> dict:
     in_ch = pixel_in_channels(config.cond_channels, config.depth_channels)
     if config.resume_pretrained:
         pipe = GuidedDiffusionPipeline.from_pretrained(config.resume_pretrained, device=device)
+        pipe.unet.remat = True
         return dict(unet=pipe.unet)
     # attention on the second-deepest level (the deepest for fewer than
     # four levels), groups the largest count <= 32 dividing every width
@@ -172,7 +176,7 @@ def _build_models(config, seed: int, device: torch.device) -> dict:
     unet = UNet2D(in_channels=in_ch, out_channels=config.depth_channels,
                   block_out_channels=tuple(config.block_out_channels),
                   down_block_types=down_types, up_block_types=up_types,
-                  norm_groups=groups, device=device)
+                  norm_groups=groups, remat=True, device=device)
     init_random_(unet, torch.Generator(device=device).manual_seed(int(seed)))
     return dict(unet=unet)
 

@@ -172,5 +172,8 @@ def test_figures_are_the_pixels_matplotlib_colours(tmp_path):
     assert grid.shape == (36, 128, 3)
     assert np.array_equal(grid, jax_viz.make_image_grid([imshow(s, "Spectral") for s in steps],
                                                         2, 4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        viz.plot_intermediate_metrics({"epe": [1.0, 0.5]}, str(tmp_path / "m.png"))
+    # the line charts are drawn since they were ported (tests/test_torch_viz_plots.py)
+    viz.plot_intermediate_metrics({"epe": [1.0, 0.5]}, str(tmp_path / "m.png"))
+    assert png.read_png(str(tmp_path / "m.png")).shape == (240, 320, 3)
+    viz.plot_intermediate_metrics({}, str(tmp_path / "none.png"))
+    assert not (tmp_path / "none.png").exists()

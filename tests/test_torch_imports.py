@@ -7,7 +7,10 @@ unimportable, the reference-checkpoint entry points (import_reference,
 parity_check) with the hub packages unimportable, and the offline tools
 (stereo_matching, check_sceneflow, calibrate_pipeline, the native EXR
 reader, reprojection, profiling) and the mono datasets (the port's JPEG
-decoder and HDF5 reader) with OpenCV, PIL and h5py unimportable."""
+decoder and HDF5 reader) with OpenCV, PIL and h5py unimportable; the
+synthetic-data workflow (the Isaac replicator package, render_synthetic,
+camera_test, the line charts) with those, PyYAML, matplotlib and Isaac Sim
+unimportable."""
 
 import os
 import re
@@ -773,3 +776,68 @@ def test_mono_datasets_load_without_jax_opencv_pil_or_h5py():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "MONO OK" in proc.stdout
+
+
+_SYNTHETIC_CHILD = r"""
+import importlib, os, pkgutil, runpy, sys, tempfile
+
+BLOCKED = ("jax", "jaxlib", "flax", "msgpack", "d3roma_tpu", "cv2", "PIL", "h5py", "yaml",
+           "matplotlib", "isaacsim", "omni", "pxr")
+
+class Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Blocker())
+
+import numpy as np
+import d3roma_tpu_torch.synthetic.isaac as isaac
+from d3roma_tpu_torch import camera_test, render_synthetic
+from d3roma_tpu_torch.utils import png, viz
+
+modules = [m.name for m in pkgutil.walk_packages(isaac.__path__, "d3roma_tpu_torch.synthetic.isaac.")]
+for name in modules:
+    importlib.import_module(name)
+assert len(modules) == 7, modules
+examples = os.path.abspath(os.path.join("assets", "examples"))
+root = tempfile.mkdtemp()
+os.chdir(root)
+sys.argv = ["render_synthetic", "--backend", "sim", "depth_sensor.resolution=[64, 36]",
+            "num_frames_per_surface=2", "max_surfaces=1", "seed=3",
+            "writer_config.output_dir=hiss/train/scene"]
+try:
+    runpy.run_module("d3roma_tpu_torch.render_synthetic", run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    assert not e.code, e.code
+assert sorted(os.listdir("hiss/train/scene"))[:5] == [
+    "0000_color.png", "0000_depth.exr", "0000_ir_l.png", "0000_ir_r.png", "0001_color.png"]
+assert png.read_png("hiss/train/scene/0001_color.png").shape == (36, 64, 3)
+try:
+    render_synthetic.build_replicator({}, backend="auto")  # no Isaac Sim: the SimBackend
+    render_synthetic.build_replicator({}, backend="omni")
+except ImportError as e:
+    assert "Isaac Sim" in str(e)
+else:
+    raise AssertionError("--backend omni ran without Isaac Sim")
+assert camera_test.main(["--replay", examples, "--frames", "2"]) == 0
+viz.plot_intermediate_metrics({"epe": np.array([2.0, 1.0]), "rel": [0.3, 0.2]}, "m.png")
+viz.plot_loss_terms({"loss": [1.0, 0.5, 0.25]}, "l.png")
+assert png.read_png("m.png").shape == (240, 640, 3) and png.read_png("l.png").shape == (400, 640, 3)
+assert not any(m.split(".")[0] in BLOCKED for m in sys.modules), sorted(
+    m for m in sys.modules if m.split(".")[0] in BLOCKED)
+print("SYNTHETIC OK")
+"""
+
+
+def test_synthetic_workflow_runs_without_jax_opencv_pil_yaml_or_isaac():
+    """The replicator package (its seven modules), the render_synthetic
+    entry point on the SimBackend (omni refused loudly), camera_test on
+    the bundled capture and the two line charts, with jax, the JAX package,
+    OpenCV, PIL, h5py, PyYAML, matplotlib and Isaac Sim unimportable."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _SYNTHETIC_CHILD], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "SYNTHETIC OK" in proc.stdout and "mean latency:" in proc.stdout

@@ -12,7 +12,9 @@ package's cases and outputs, on the CPU with stand-in models:
 - `D3RoMaProcessor`: the batched drain (tests/test_batcher.py) on both
   packages, and the published clouds equal to the JAX processor's;
 - `FileReplaySource` on PNGs the port writes (both namings, 16-bit depth):
-  the same frames as the JAX source (OpenCV) reads;
+  the same frames as the JAX source (OpenCV) reads; `python -m
+  d3roma_tpu_torch.camera_test --replay assets/examples` prints the root
+  `camera_test.py`'s lines for the bundled capture (latencies apart);
 - `select_streaming_mode` with `subprocess.run` replaced: the first
   candidate that runs wins, a failure or a timeout falls through, no winner
   keeps the caller's overrides; the record is appended."""
@@ -477,6 +479,31 @@ def test_file_replay_matches_jax(tmp_path, tag):
         assert a_d.dtype == b_d.dtype == np.float32 and np.array_equal(a_d, b_d)
     looped = streaming.FileReplaySource(str(tmp_path), loop=True).frames()
     assert len([next(looped) for _ in range(5)]) == 5
+
+
+def test_camera_test_replay_matches_jax(capsys):
+    """Both scripts on the bundled capture: two threads of three frames,
+    the same shapes on every line (the latencies are wall times)."""
+    import importlib.util
+    import os
+    import re
+
+    from d3roma_tpu_torch import camera_test
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location("jax_camera_test",
+                                                  os.path.join(repo, "camera_test.py"))
+    jax_camera_test = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jax_camera_test)
+    argv = ["--replay", os.path.join(repo, "assets", "examples"), "--frames", "3"]
+    outputs = []
+    for main in (camera_test.main, jax_camera_test.main):
+        main(argv)
+        outputs.append(sorted(re.sub(r"[0-9.]+ ?ms", "MS", line)
+                              for line in capsys.readouterr().out.splitlines()))
+    assert outputs[0] == outputs[1]
+    assert len(outputs[0]) == 7 and outputs[0][-1] == "mean latency: MS over 6 frames"
+    assert "[t0] frame 2: (360, 640, 3) (360, 640) MS" in outputs[0]
 
 
 def test_file_replay_errors(tmp_path):

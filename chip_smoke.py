@@ -14,6 +14,10 @@
     python3 chip_smoke.py --pixel    # device, build, the pixel phase and the pixel bench only
     python3 chip_smoke.py --eval     # device, build and the evaluation phase only
     python3 chip_smoke.py --train    # device, build and the training phase only
+    python3 chip_smoke.py --train-parallel  # device, build, the train frames, the one-process
+                                     # first epoch and the DP2 and TP2 torchruns beside it
+    python3 chip_smoke.py --train-tp-ff  # device, build and TP2's feed-forward on chunks
+                                     # against its gathered projection (two runs)
     python3 chip_smoke.py --accuracy # device, build, one bf16 epoch and the accuracy phase
     python3 chip_smoke.py --serve    # device, build and the serving phase only
     python3 chip_smoke.py --import   # device, build and the reference-import phase only
@@ -152,6 +156,18 @@ failing the run on its own error:
     samples/s, peak memory and one profiled step (idle share, device ms by
     phase and by kernel class), with no hand-written kernel launched (the
     training path reaches none of the JAX package's Pallas kernels);
+    beside them (`TrainParallel`), `python -m torch.distributed.run
+    --standalone --nproc-per-node 2` of the same entry point and arguments,
+    both ranks on the card over gloo: TP2 (task.tensor_parallel=2, one
+    step), started with the frames before the eval phase (its loss held to
+    the first epoch's step 1, its gathered state, loaded in the first
+    epoch's process, to that run's step 1; both ranks shard parameters and
+    moments), then DP2 beside the first epoch and the resumed run (its
+    losses, grad_norms, step-3 parameters and AdamW moments and eval
+    metrics held to the first epoch's; rank 1 wrote nothing): ms/step, peak
+    memory, a rank's parameter and optimizer bytes, collectives a step;
+    joined (`train_parallel_join`) after the accuracy phase, before the
+    timed step (`train_timing`), which runs alone;
 14. accuracy (`accuracy_phase`): the full-width step in bf16 compute
     beside the fp32 one (ms/step, samples/s, peak memory, idle share, no
     hand kernel); `d3roma_tpu_torch.deepcache_accuracy` in process on the
@@ -3061,7 +3077,10 @@ def eval_phase():
             print(f"eval: entry point wrote {read} artifacts, each read back", flush=True)
             summary["entry_point_metrics"] = line["metrics"]
 
-            # timed, alone on the card
+            # timed: alone on the card under --eval; in the whole pass beside
+            # the multi-rank train runs' TP2 ranks (started before this
+            # phase, for the time limit), whose host-staged collectives share
+            # the host's cores
             walls = []
             for _ in range(2):
                 t0 = time.perf_counter()
@@ -3140,15 +3159,23 @@ def _write_sceneflow(root: str, n: int, seed: int) -> None:
         writePFM(os.path.join(sub.format("raw_cleanpass", "left"), f"{i:04d}.pfm"), raw)
 
 
-def _train_run(tmp, repo, extra):
-    """The train entry point in its own process in `tmp`; returns its step
-    log lines [(step, loss, grad_norm)] and the whole log."""
+# the train phase's arguments of the entry point (after task=TRAIN_PRESET)
+TRAIN_ARGS = ["task.train_dataset=[SceneFlow,HISS]", "task.dataset_weight=[1,1]",
+              "task.eval_dataset=[HISS]", "task.val_every_global_steps=3", "task.eval_num_batch=1",
+              "task.save_model_epochs=1"]
+
+
+def _train_run(tmp, repo, extra, tp2=None):
+    """The train entry point in its own process in `tmp` (through
+    `first_epoch_child` where `tp2` is (the TP2 run's directory, the file
+    of the agreement of its step-1 state with this run's)); returns its
+    step log lines [(step, loss, grad_norm)] and the whole log."""
     t0 = time.perf_counter()
+    entry = (["-m", "d3roma_tpu_torch.train"] if tp2 is None else
+             [os.path.join(repo, "chip_smoke.py"), "--train-first-epoch", *tp2])
     proc = subprocess.run(
-        [sys.executable, "-m", "d3roma_tpu_torch.train", f"task={TRAIN_PRESET}",
-         "task.train_dataset=[SceneFlow,HISS]", "task.dataset_weight=[1,1]",
-         "task.eval_dataset=[HISS]", "task.val_every_global_steps=3", "task.eval_num_batch=1",
-         "task.save_model_epochs=1", "task.output_dir=run"] + list(extra),
+        [sys.executable] + entry + [f"task={TRAIN_PRESET}"] + TRAIN_ARGS
+        + ["task.output_dir=run"] + list(extra),
         cwd=tmp, capture_output=True, text=True, timeout=900,
         env=dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", "")))
     wall = time.perf_counter() - t0
@@ -3506,16 +3533,18 @@ def _write_train_frames(tmp: str) -> None:
           f"{time.perf_counter() - t0:.1f}s", flush=True)
 
 
-def _first_epoch(tmp: str, repo: str, extra=()):
-    """Frames, then one epoch of the train entry point (3 steps of batch 16,
-    the in-training eval at step 3) from random weights in `tmp`, in fp32
-    or with `extra`'s precision: every logged loss and grad_norm finite,
-    the eval logged, checkpoints/last, best/ and epoch_0000/ written.
-    Returns (run directory, summary)."""
+def _first_epoch(tmp: str, repo: str, extra=(), frames: bool = True, tp2=None):
+    """Frames (unless written already), then one epoch of the train entry
+    point (3 steps of batch 16, the in-training eval at step 3) from random
+    weights in `tmp`, in fp32 or with `extra`'s precision (its step-1 state
+    held to a TP2 run's, `tp2` as `_train_run` takes it): every logged loss
+    and grad_norm finite, the eval logged, checkpoints/last, best/ and
+    epoch_0000/ written. Returns (run directory, summary)."""
     import numpy as np
 
-    _write_train_frames(tmp)
-    steps, log, wall = _train_run(tmp, repo, ["task.num_epochs=1"] + list(extra))
+    if frames:
+        _write_train_frames(tmp)
+    steps, log, wall = _train_run(tmp, repo, ["task.num_epochs=1"] + list(extra), tp2)
     run = os.path.join(tmp, "run")
     with open(os.path.join(run, "checkpoints", "last", "counter.json")) as f:
         counter = json.load(f)
@@ -3533,9 +3562,13 @@ def _first_epoch(tmp: str, repo: str, extra=()):
     return run, dict(steps=steps, wall_s=wall, counter=counter)
 
 
-def train_phase(tmp: str):
+def train_phase(tmp: str, multi: "TrainParallel" = None):
     """Training end to end on the card, hermetic (in `tmp`, which the
-    accuracy phase reads after it):
+    accuracy phase reads after it). With `multi`, the multi-rank runs
+    already started in `tmp` (`train_parallel_start`, which wrote the
+    frames): the first epoch keeps its step-1 state and tells them when it
+    is done, and no timed step runs (the caller runs it alone on the card
+    after `train_parallel_join`):
 
     - frames in a temporary `datasets/` tree (`_write_train_frames`; one
       epoch: 3 steps of batch 16);
@@ -3561,6 +3594,25 @@ def train_phase(tmp: str):
       (`train_timing`), alone on the card.
 
     Returns a summary dict."""
+    from d3roma_tpu_torch.config import compose
+
+    summary = {}
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cfg = compose([f"task={TRAIN_PRESET}"]).task
+    if multi is None:
+        run, summary["epoch_1"] = _first_epoch(tmp, repo)
+        _train_resumed(tmp, repo, cfg, run, summary)
+        summary["timing"] = train_timing(cfg)
+        return summary
+    run, summary["epoch_1"] = _first_epoch(tmp, repo, frames=False, tp2=multi.first_epoch_args)
+    multi.first_epoch_done(run)
+    _train_resumed(tmp, repo, cfg, run, summary)
+    return summary
+
+
+def _train_resumed(tmp, repo, cfg, run, summary) -> None:
+    """The train phase after the first epoch: the resumed bf16 run, with the
+    export's call and the narrow card-against-CPU step beside it."""
     import threading
 
     import numpy as np
@@ -3571,14 +3623,14 @@ def train_phase(tmp: str):
     from d3roma_tpu_torch.ops.normalizer import Normalizer
     from d3roma_tpu_torch.pipelines import GuidedLatentDiffusionPipeline
 
-    summary = {}
-    repo = os.path.dirname(os.path.abspath(__file__))
-    cfg = compose([f"task={TRAIN_PRESET}"]).task
-    run, summary["epoch_1"] = _first_epoch(tmp, repo)
-
     # the resumed bf16 run in its own process; meanwhile, the epoch export
-    # loaded and called and the narrow card-against-CPU step (neither reads
-    # what the resumed run writes; the timed step waits for it)
+    # loaded and called, then removed (the resumed run writes epoch_0001/,
+    # never epoch_0000/), and the narrow card-against-CPU step (neither
+    # reads what the resumed run writes; the timed step waits for it).
+    # best/, checked and read by nothing after, goes before the resumed
+    # run starts: that run may export best/ anew at its eval. Both go for
+    # room on the machine's disk.
+    shutil.rmtree(os.path.join(run, "best"))
     resumed = {}
 
     def resume():
@@ -3615,6 +3667,7 @@ def train_phase(tmp: str):
               f"{out.images.max().item():.4f}]", flush=True)
         del pipe, out
         torch.cuda.empty_cache()
+        shutil.rmtree(os.path.join(run, "epoch_0000"))
         summary["card_vs_cpu"] = train_card_vs_cpu(cfg)
     finally:
         side.join()
@@ -3638,8 +3691,585 @@ def train_phase(tmp: str):
     summary["epoch_2_bf16"] = dict(steps=steps2[-3:], wall_s=wall2, counter=counter2,
                                    fp32_checked=checked)
 
-    summary["timing"] = train_timing(cfg)
-    return summary
+
+TRAIN_PARALLEL_RANKS = 2  # both ranks on the one card: gloo, collectives staged through the host
+TRAIN_PARALLEL_TIMEOUT = 900  # s a torchrun may take: a rank that hangs fails the phase
+# a rank's share of the card it shares with the one-process runs: PyTorch's
+# cuDNN tries the next convolution plan when a plan's workspace does not
+# fit, and one TP2 rank took a plan of ~19 GiB for the sharded VAE's
+# full-resolution convs (a 43.64 GiB peak against the other rank's 24.33)
+TRAIN_PARALLEL_MEMORY_FRACTION = 0.4
+# DP2 against the one-process first epoch: the train step tests' tolerances
+# (tests/test_torch_train_step.py): loss within 1e-5 and grad_norm within
+# 1e-4 relative, the parameters by its rule (every element within two
+# learning rates a step, all but 0.1% outside the key biases within 1e-3 of
+# the learning rate times the steps); AdamW's moments every element within
+# 1e-3 of its tensor's largest outside the key biases (whose gradient is at
+# the rounding level); the eval's metrics within EVAL_METRIC_REL_TOL. TP2's
+# first loss within the JAX test_train_tensor_parallel_matches_dp's 1e-4.
+TRAIN_PARALLEL_LOSS_REL_TOL = 1e-5
+TRAIN_PARALLEL_GRAD_NORM_REL_TOL = 1e-4
+TRAIN_TP_LOSS_REL_TOL = 1e-4
+TRAIN_MOMENT_REL_TOL = 1e-3
+
+
+def _scratch_path(path: str) -> bool:
+    """A path a library writes on its own: the temp directory, /dev/null,
+    the port's build caches."""
+    import tempfile
+
+    return path.startswith((tempfile.gettempdir(), os.devnull)) or "_build" in path
+
+
+def train_parallel_child(out_dir: str, max_steps, argv) -> int:
+    """One rank of a torchrun of `python -m d3roma_tpu_torch.train argv`
+    (runpy, in this process; capped at TRAIN_PARALLEL_MEMORY_FRACTION of
+    the card; `train` given `max_steps`, None for every epoch), recording
+    to out_dir/rank<RANK>.json: each
+    train step synchronized and timed with its loss, grad_norm and the
+    collectives it made (calls, bytes, host seconds), the run's collectives,
+    this rank's sharded parameters and optimizer tensors and their bytes,
+    its peak memory, the hand kernels' launches, and every path it opened
+    for writing or made (an audit hook)."""
+    import runpy
+    from functools import partial
+
+    import torch
+
+    from d3roma_tpu_torch import training
+    from d3roma_tpu_torch.parallel import mesh as pmesh
+    from d3roma_tpu_torch.parallel import param_bytes
+    from d3roma_tpu_torch.training import train_loop
+
+    rank = int(os.environ.get("RANK", "0"))
+    record = dict(rank=rank, step_ms=[], loss=[], grad_norm=[], step_collectives=[],
+                  step_peak_gib=[], wrote=[])
+    recording = [True]
+
+    def hook(event, args):
+        if not recording[0]:
+            return
+        if event == "open" and args[1] is not None and any(c in str(args[1]) for c in "wax+"):
+            record["wrote"].append(str(args[0]))
+        elif event in ("os.mkdir", "os.rename", "os.remove"):
+            record["wrote"].append(str(args[0]))
+
+    make_step = train_loop.make_train_step
+    card = torch.cuda.is_available()
+
+    def sync():
+        if card:
+            torch.cuda.synchronize()
+
+    def make_timed(config, unet, optimizer, *args, **kw):
+        step = make_step(config, unet, optimizer, *args, **kw)
+        sharded = optimizer.sharded_counts()
+        record.update(sharded_params=sharded[0], sharded_optimizer_tensors=sharded[1],
+                      param_bytes=param_bytes(unet), whole_param_bytes=param_bytes(unet, True),
+                      optimizer_bytes=optimizer.nbytes())
+
+        def timed(state, batch, draws):
+            sync()
+            before = dict(pmesh.COLLECTIVES)
+            t0 = time.perf_counter()
+            out = step(state, batch, draws)
+            sync()
+            record["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            record["step_collectives"].append(
+                {k: pmesh.COLLECTIVES[k] - before[k] for k in before})
+            record["loss"].append(float(out["loss"]))
+            record["grad_norm"].append(float(out["grad_norm"]))
+            if card:  # the run's peak so far: the steps' against the rest's
+                record["step_peak_gib"].append(torch.cuda.max_memory_allocated() / 2**30)
+            return out
+
+        return timed
+
+    train_loop.make_train_step = make_timed
+    training.train = partial(training.train, max_steps=max_steps)
+    if card:
+        torch.cuda.set_per_process_memory_fraction(TRAIN_PARALLEL_MEMORY_FRACTION)
+        torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    sys.addaudithook(hook)
+    sys.argv = ["d3roma_tpu_torch.train"] + list(argv)
+    rc = 0
+    try:
+        runpy.run_module("d3roma_tpu_torch.train", run_name="__main__", alter_sys=True)
+    except SystemExit as e:
+        rc = e.code or 0
+    recording[0] = False
+    record.update(launches=_int8_launches(), collectives=dict(pmesh.COLLECTIVES),
+                  peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30 if card else 0.0)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(record, f)
+    return int(rc)
+
+
+def _parallel_start(tmp: str, repo: str, name: str, extra=(), max_steps=None,
+                    child="--train-parallel-rank"):
+    """`python -m torch.distributed.run --standalone --nproc-per-node 2` of
+    the train entry point (each rank through `train_parallel_child`, by
+    `child`'s flag, which stops it after `max_steps` when given) with the
+    train phase's arguments, one epoch, output in tmp/name (`extra` after
+    them).
+    Returns (process, start time); the process leads its own session, so a
+    timeout kills torchrun and its ranks together."""
+    records = os.path.join(tmp, f"{name}_records")
+    os.makedirs(records, exist_ok=True)
+    out = open(os.path.join(tmp, f"{name}.out"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc-per-node={TRAIN_PARALLEL_RANKS}", os.path.join(repo, "chip_smoke.py"),
+         child, records, str(max_steps or 0), f"task={TRAIN_PRESET}"]
+        + TRAIN_ARGS + ["task.num_epochs=1", f"task.output_dir={name}"] + list(extra),
+        cwd=tmp, stdout=out, stderr=subprocess.STDOUT, start_new_session=True,
+        env=dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", "")))
+    out.close()
+    return proc, time.perf_counter()
+
+
+def _kill_session(proc) -> None:
+    """Kill a child that leads its session, and its session (torchrun's
+    ranks)."""
+    import signal
+
+    os.killpg(proc.pid, signal.SIGKILL)
+    proc.wait()
+
+
+def _wait_or_kill(proc, timeout: float, label: str, out_path: str) -> float:
+    """Wait for a child that leads its session; on the timeout kill the
+    session and fail. Returns its exit code."""
+    try:
+        return proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        _kill_session(proc)
+        with open(out_path) as f:
+            raise AssertionError(f"{label}: no end in {timeout} s (a rank hung?)\n"
+                                 f"{f.read()[-4000:]}")
+
+
+def _parallel_finish(tmp: str, name: str, proc, t0: float):
+    """Wait for a torchrun; fail on a non-zero exit. Returns (the ranks'
+    records, rank 0's train.log, wall seconds)."""
+    out_path = os.path.join(tmp, f"{name}.out")
+    rc = _wait_or_kill(proc, TRAIN_PARALLEL_TIMEOUT, name, out_path)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        with open(out_path) as f:
+            raise AssertionError(f"{name}: torchrun failed ({rc}):\n{f.read()[-6000:]}")
+    records = []
+    for r in range(TRAIN_PARALLEL_RANKS):
+        with open(os.path.join(tmp, f"{name}_records", f"rank{r}.json")) as f:
+            records.append(json.load(f))
+    with open(os.path.join(tmp, name, "train.log")) as f:
+        return records, f.read(), wall
+
+
+def _logged_eval(log: str, step: int) -> dict:
+    """The metrics dict of the `eval[0] @step:` line of a train.log."""
+    import ast
+
+    key = f"eval[0] @{step}: "
+    line = next(l for l in log.splitlines() if key in l)
+    return ast.literal_eval(line.split(key, 1)[1])
+
+
+def _state_agreement(ours, ref, lr: float, steps: int, device: str = "cuda") -> dict:
+    """Two train states (state dicts, or paths of state.pt, loaded with
+    mmap) compared tensor by tensor on the card: the parameters' largest
+    |difference| and the share of elements outside the key biases over
+    1e-3 of the learning rate times the steps; each AdamW moment's largest
+    |difference| over its tensor's largest |value| outside the key biases.
+    Raises unless the parameters keep TRAIN_* rule and the moments
+    TRAIN_MOMENT_REL_TOL."""
+    import torch
+
+    def load(s):
+        return s if isinstance(s, dict) else torch.load(s, map_location="cpu", weights_only=True,
+                                                        mmap=True)
+
+    def on(t):
+        return t.to(device).float()
+
+    a, b = load(ours), load(ref)
+    names = list(b["params"])
+    if list(a["params"]) != names:
+        raise AssertionError("the two states name other parameters")
+    worst, over, total = 0.0, 0, 0
+    bound = 1e-3 * lr * steps
+    for k in names:
+        d = (on(a["params"][k]) - on(b["params"][k])).abs()
+        worst = max(worst, float(d.max()))
+        if not k.endswith("to_k.bias"):
+            over += int((d > bound).sum())
+            total += d.numel()
+    moments = {}
+    for key in ("mu", "nu"):
+        ta, tb = a["opt_state"][key], b["opt_state"][key]
+        if len(ta) != len(tb) or len(tb) != len(names):
+            raise AssertionError(f"{key}: {len(ta)} / {len(tb)} tensors for {len(names)} params")
+        rel = 0.0
+        for k, x, y in zip(names, ta, tb):
+            if tuple(x.shape) != tuple(y.shape):
+                raise AssertionError(f"{key} {k}: shapes {tuple(x.shape)} / {tuple(y.shape)}")
+            if k.endswith("to_k.bias"):
+                continue
+            y = on(y)
+            d = (on(x) - y).abs().max()
+            rel = max(rel, float(d / y.abs().max().clamp_min(1e-30)))
+        moments[key] = rel
+    out = dict(params_max_abs=worst, params_share_over=over / max(total, 1),
+               moments_max_rel=moments, lr=lr, steps=steps)
+    if (worst > 2 * lr * steps or over > 1e-3 * total
+            or max(moments.values()) > TRAIN_MOMENT_REL_TOL):
+        raise AssertionError(f"train states disagree: {out}")
+    return out
+
+
+def first_epoch_child(tp2_run: str, out_path: str, argv) -> int:
+    """`python -m d3roma_tpu_torch.train argv` (runpy, in this process)
+    keeping its train state after the first step in host memory (the
+    one-process layout); once the run ends and the TP2 run in `tp2_run` has
+    written its gathered step-1 checkpoint, that state loaded here and held
+    to it by `_state_agreement`, the result written to out_path (no second
+    copy of a state on the disk: the machine's disk is bounded). Waits at
+    most TRAIN_PARALLEL_TIMEOUT s, less if `tp2_run` + ".failed" appears."""
+    import runpy
+
+    import torch
+
+    from d3roma_tpu_torch.training import train_loop
+
+    make_step = train_loop.make_train_step
+    kept = {}
+
+    def make_keeping(config, *args, **kw):
+        step = make_step(config, *args, **kw)
+
+        def keeping(state, batch, draws):
+            out = step(state, batch, draws)
+            if not kept:
+                sd = state.state_dict()
+                kept.update(lr=config.learning_rate, state={
+                    "params": {k: v.detach().cpu().clone() for k, v in sd["params"].items()},
+                    "opt_state": {k: [t.detach().cpu().clone() for t in sd["opt_state"][k]]
+                                  for k in ("mu", "nu")}})
+            return out
+
+        return keeping
+
+    train_loop.make_train_step = make_keeping
+    sys.argv = ["d3roma_tpu_torch.train"] + list(argv)
+    rc = 0
+    try:
+        runpy.run_module("d3roma_tpu_torch.train", run_name="__main__", alter_sys=True)
+    except SystemExit as e:
+        rc = int(e.code or 0)
+    if rc or not kept:
+        return rc or 1
+    done = os.path.join(tp2_run, "checkpoints", "last", "counter.json")
+    deadline = time.perf_counter() + TRAIN_PARALLEL_TIMEOUT
+    while not os.path.exists(done):
+        if os.path.exists(tp2_run + ".failed") or time.perf_counter() > deadline:
+            print("first epoch: no TP2 checkpoint to compare", flush=True)
+            return 1
+        time.sleep(0.5)
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    agreement = _state_agreement(os.path.join(tp2_run, "checkpoints", "last", "state.pt"),
+                                 kept["state"], kept["lr"], 1,
+                                 "cuda" if torch.cuda.is_available() else "cpu")
+    with open(out_path, "w") as f:
+        json.dump(agreement, f)
+    return 0
+
+
+def _rank_summary(records, global_batch: int, steady: slice) -> dict:
+    """Each rank's ms/step (the median of the `steady` steps), samples/s of
+    the global batch, peak memory, collectives a step and its bytes."""
+    out = []
+    for rec in records:
+        ms = statistics.median(rec["step_ms"][steady])
+        out.append(dict(rank=rec["rank"], step_ms=rec["step_ms"], ms_per_step=ms,
+                        samples_per_s=global_batch / ms * 1e3,
+                        peak_memory_gib=rec["peak_memory_gib"],
+                        step_peak_gib=rec["step_peak_gib"],
+                        step_collectives=rec["step_collectives"],
+                        run_collectives=rec["collectives"], param_bytes=rec["param_bytes"],
+                        whole_param_bytes=rec["whole_param_bytes"],
+                        optimizer_bytes=rec["optimizer_bytes"],
+                        sharded_params=rec["sharded_params"],
+                        sharded_optimizer_tensors=rec["sharded_optimizer_tensors"]))
+    return out
+
+
+class TrainParallel:
+    """The train phase's multi-rank runs, on a thread beside the one-process
+    work: `python -m torch.distributed.run --standalone --nproc-per-node 2
+    -m d3roma_tpu_torch.train` (through `train_parallel_child`) with the
+    train phase's arguments, both ranks on the one card over gloo. Their
+    reference is the train phase's one-process first epoch (the same
+    frames, seed and epoch). The card's memory sets the order (TP2's two
+    ranks take ~49 GiB, DP2's ~34, the first epoch ~23, the resumed run
+    ~16, the accuracy phase's int8 checks ~25), and the machine's disk
+    (45 GiB written at most; a train state is 10.4 GB) keeps every reference
+    state in host memory and each run's outputs only until they are
+    checked:
+
+    - TP2 (task.tensor_parallel=2, dp 1, global batch 16 on each rank) starts
+      with the frames, beside the eval phase and the first epoch; cut to
+      one step (`train(max_steps=1)`: no eval, no epoch export; checkpoints/last
+      holds the gathered step-1 state). Held to the first epoch's logged
+      step-1 loss, and its state, loaded in the first epoch's process once
+      that run ends, to that run's step-1 state (`first_epoch_child`).
+      Both ranks shard parameters and moments.
+    - DP2 (3 steps of global batch 16, 8 rows a rank, the eval at step 3)
+      starts when TP2 ends, beside the first epoch and the resumed run.
+      Held to the first epoch: every step's loss and grad_norm,
+      checkpoints/last's parameters and AdamW moments (the one-process
+      step-3 state, read into host memory before the resumed run replaces
+      it), the eval's depth/rel and disp/epe, rank 1 wrote nothing, rank 0
+      the one-process run's files."""
+
+    def __init__(self, tmp: str, repo: str, device: str = "cuda"):
+        """Start TP2 (the train frames must be in `tmp`)."""
+        import threading
+
+        from d3roma_tpu_torch.config import compose
+
+        self.tmp, self.repo, self.device = tmp, repo, device
+        # the entry point's device flag (the CUDA default needs none)
+        self.flags = [] if device == "cuda" else ["--device", device]
+        self.lr = compose([f"task={TRAIN_PRESET}"]).task.learning_rate
+        self.tp2_run = os.path.join(tmp, "run_tp2")
+        # (the TP2 run, the first epoch's file of its agreement with it)
+        self.first_epoch_args = (self.tp2_run, os.path.join(tmp, "tp2_agreement.json"))
+        self.first_epoch = threading.Event()
+        self.one = {}
+        self.tp2 = _parallel_start(tmp, repo, "run_tp2", ["task.tensor_parallel=2"] + self.flags,
+                                   max_steps=1)
+        self.side = _Beside(self._run)
+
+    def first_epoch_done(self, run: str) -> None:
+        """Keep the one-process step-3 state (read into host memory on a
+        thread, long before the resumed run replaces state.pt at its end)
+        and log (the resumed run appends to train.log)."""
+        from functools import partial
+
+        import torch
+
+        state = _Beside(partial(torch.load, os.path.join(run, "checkpoints", "last", "state.pt"),
+                                map_location="cpu", weights_only=True))
+        with open(os.path.join(run, "train.log")) as f:
+            self.one = dict(state=state, log=f.read())
+        self.first_epoch.set()
+
+    def result(self) -> dict:
+        """Join the runs (after a failure of the first epoch, nothing more
+        starts)."""
+        self.first_epoch.set()
+        return self.side.result()
+
+    def _run(self) -> dict:
+        dp2_run = None
+        try:
+            try:
+                records, log, wall = _parallel_finish(self.tmp, "run_tp2", *self.tp2)
+            except BaseException:
+                open(self.tp2_run + ".failed", "w").close()  # the first epoch stops waiting
+                raise
+            dp2_run = _parallel_start(self.tmp, self.repo, "run_dp2", self.flags)
+            self.first_epoch.wait()
+            if not self.one:
+                raise AssertionError("train: the one-process first epoch failed")
+            tp2 = self._check_tp2(records, log, wall)
+        except BaseException:
+            if dp2_run is not None:
+                _kill_session(dp2_run[0])
+            raise
+        finally:
+            shutil.rmtree(self.tp2_run, ignore_errors=True)
+        try:
+            records, log, wall = _parallel_finish(self.tmp, "run_dp2", *dp2_run)
+            dp2 = self._check_dp2(records, log, wall)
+        finally:
+            shutil.rmtree(os.path.join(self.tmp, "run_dp2"), ignore_errors=True)
+            self.one.pop("state", None)
+        return dict(dp2=dp2, tp2=tp2)
+
+    def _common(self, label, records, log):
+        """Finite steps on every rank, the same on both, no hand kernel,
+        rank 1 wrote nothing; rank 0's mesh line."""
+        import math
+
+        for rec in records:
+            if rec["launches"] and any(rec["launches"].values()):
+                raise AssertionError(f"{label}: hand kernels launched: {rec['launches']}")
+            if not all(math.isfinite(x) for x in rec["loss"] + rec["grad_norm"]):
+                raise AssertionError(f"{label}: rank {rec['rank']} non-finite steps")
+        if records[0]["loss"] != records[1]["loss"]:
+            raise AssertionError(f"{label}: the ranks' losses differ {records[0]['loss']} "
+                                 f"{records[1]['loss']}")
+        wrote = [w for w in records[1]["wrote"] if not _scratch_path(w)]
+        if wrote:
+            raise AssertionError(f"{label}: rank 1 wrote {wrote[:10]}")
+        if "backend gloo" not in log:
+            raise AssertionError(f"{label}: no gloo mesh line in train.log\n{log[-2000:]}")
+
+    def _check_dp2(self, records, log, wall) -> dict:
+        self._common("DP2", records, log)
+        one_steps = _logged_steps(self.one["log"])[:3]
+        dp_steps = _logged_steps(log)
+        rel = []
+        for (s1, l1, g1), (s2, l2, g2) in zip(one_steps, dp_steps):
+            rel.append((s1, abs(l2 - l1) / abs(l1), abs(g2 - g1) / abs(g1)))
+        if ([s for s, _, _ in dp_steps] != [1, 2, 3]
+                or max(r[1] for r in rel) > TRAIN_PARALLEL_LOSS_REL_TOL
+                or max(r[2] for r in rel) > TRAIN_PARALLEL_GRAD_NORM_REL_TOL):
+            raise AssertionError(f"DP2 steps {dp_steps} against one process {one_steps}")
+        run = os.path.join(self.tmp, "run_dp2")
+        agreement = _state_agreement(os.path.join(run, "checkpoints", "last", "state.pt"),
+                                     self.one["state"].result(), self.lr, 3, self.device)
+        ours, ref = _logged_eval(log, 3), _logged_eval(self.one["log"], 3)
+        eval_rel = {k: abs(ours[g][m] - ref[g][m]) / abs(ref[g][m])
+                    for k, (g, m) in {"depth/rel": ("depth", "rel"),
+                                      "disp/epe": ("disp", "epe")}.items()}
+        if max(eval_rel.values()) > EVAL_METRIC_REL_TOL:
+            raise AssertionError(f"DP2 eval {ours} against one process {ref}")
+        for name in ("checkpoints/last/state.pt", "checkpoints/last/counter.json",
+                     "best/model_index.json", "epoch_0000/unet/params.msgpack",
+                     "epoch_0000/vae/params.msgpack"):
+            if not os.path.exists(os.path.join(run, name)):
+                raise AssertionError(f"DP2: rank 0 wrote no {name}")
+        ranks = _rank_summary(records, TRAIN_BATCH, slice(1, None))
+        summary = dict(wall_s=wall, steps=dp_steps, rel_to_one_process=rel, state=agreement,
+                       eval_rel=eval_rel, ranks=ranks, rank1_wrote=[])
+        print(f"train DP2 (2 ranks, gloo, one card): {wall:.1f}s; steps {dp_steps}; against one "
+              f"process: loss / grad_norm rel {[(s, f'{l:.1e}', f'{g:.1e}') for s, l, g in rel]} "
+              f"(tol {TRAIN_PARALLEL_LOSS_REL_TOL} / {TRAIN_PARALLEL_GRAD_NORM_REL_TOL}); "
+              f"step-3 state {agreement}; eval rel {eval_rel} (tol {EVAL_METRIC_REL_TOL}); rank 1 "
+              f"wrote nothing", flush=True)
+        for r in ranks:
+            c = r["step_collectives"][-1]
+            print(f"  DP2 rank {r['rank']}: {r['ms_per_step']:.1f} ms/step (median of steps 2-3; "
+                  f"steps {[round(x, 1) for x in r['step_ms']]}), {r['samples_per_s']:.2f} "
+                  f"samples/s, peak {r['peak_memory_gib']:.2f} GiB (after each step "
+                  f"{[round(x, 2) for x in r['step_peak_gib']]}); a step's collectives "
+                  f"{c['calls']} calls, {c['bytes'] / 2**20:.1f} MiB, {c['seconds']:.3f} s host; "
+                  f"parameter bytes {r['param_bytes']}, optimizer bytes {r['optimizer_bytes']}",
+                  flush=True)
+        return summary
+
+    def _check_tp2(self, records, log, wall) -> dict:
+        self._common("TP2", records, log)
+        steps = _logged_steps(log)
+        one = _logged_steps(self.one["log"])[0]
+        loss_rel = abs(steps[0][1] - one[1]) / abs(one[1]) if steps else float("inf")
+        grad_rel = abs(steps[0][2] - one[2]) / abs(one[2]) if steps else float("inf")
+        if [s for s, _, _ in steps] != [1] or loss_rel > TRAIN_TP_LOSS_REL_TOL:
+            raise AssertionError(f"TP2 step {steps} against one process {one}")
+        for rec in records:
+            if not (rec["sharded_params"] > 0 and rec["sharded_optimizer_tensors"] > 0):
+                raise AssertionError(f"TP2 rank {rec['rank']} shards nothing: {rec}")
+        with open(self.first_epoch_args[1]) as f:
+            agreement = json.load(f)
+        ranks = _rank_summary(records, TRAIN_BATCH, slice(0, 1))
+        summary = dict(wall_s=wall, steps=steps, loss_rel_to_first_epoch=loss_rel,
+                       grad_norm_rel_to_first_epoch=grad_rel, state=agreement, ranks=ranks,
+                       rank1_wrote=[])
+        print(f"train TP2 (2 ranks, gloo, one card; cut to 1 step): {wall:.1f}s; step {steps}; "
+              f"against the first epoch's step 1: loss rel {loss_rel:.2e} (tol "
+              f"{TRAIN_TP_LOSS_REL_TOL}), grad_norm rel {grad_rel:.2e}; the gathered step-1 "
+              f"state in one process against that run's {agreement}; rank 1 wrote nothing",
+              flush=True)
+        for r in ranks:
+            c = r["step_collectives"][0]
+            print(f"  TP2 rank {r['rank']}: step {r['ms_per_step']:.1f} ms (a fresh process's "
+                  f"first), {r['samples_per_s']:.2f} samples/s, peak {r['peak_memory_gib']:.2f} "
+                  f"GiB (after the step {[round(x, 2) for x in r['step_peak_gib']]}); the "
+                  f"step's collectives {c['calls']} calls, {c['bytes'] / 2**30:.2f} GiB, "
+                  f"{c['seconds']:.1f} s host; the run's {r['run_collectives']}; "
+                  f"{r['sharded_params']} sharded parameters, {r['sharded_optimizer_tensors']} "
+                  f"sharded optimizer tensors; parameter bytes {r['param_bytes']} of "
+                  f"{r['whole_param_bytes']}, optimizer bytes {r['optimizer_bytes']}", flush=True)
+        return summary
+
+
+def train_parallel_phase(tmp: str) -> dict:
+    """`python3 chip_smoke.py --train-parallel`: the train phase's frames,
+    TP2 beside the one-process first epoch (which keeps its step-1 state),
+    then DP2 (`TrainParallel`)."""
+    parallel = train_parallel_start(tmp)
+    try:
+        run, first = _first_epoch(tmp, os.path.dirname(os.path.abspath(__file__)),
+                                  frames=False, tp2=parallel.first_epoch_args)
+        parallel.first_epoch_done(run)
+    finally:
+        out = parallel.result()  # after a failure, ends the runs it started
+    return dict(out, epoch_1=first)
+
+
+def train_parallel_start(tmp: str) -> "TrainParallel":
+    """The train phase's frames in `tmp`, then the multi-rank runs started."""
+    _write_train_frames(tmp)
+    return TrainParallel(tmp, os.path.dirname(os.path.abspath(__file__)))
+
+
+def train_parallel_join(parallel) -> dict:
+    """Wait for the train phase's multi-rank runs (`TrainParallel`)."""
+    return parallel.result()
+
+
+TRAIN_TP_FF_STEPS = 2  # the second, warm, step is the one compared
+
+
+def train_tp_ff_phase(tmp: str) -> dict:
+    """`python3 chip_smoke.py --train-tp-ff`: the TP2 train run (two ranks,
+    gloo, one card; the train phase's arguments, TRAIN_TP_FF_STEPS steps)
+    with every unquantized feed-forward on each rank's chunk of the hidden
+    width (`FeedForward._inline`, the port's path), then with the
+    projection gathered (the unfused sharded dense layers: the ranks make
+    `FeedForward._paired_shards` false), one after the other: each run's
+    ms a step, collectives a step (calls, bytes, host seconds) and peak
+    memory a rank; both runs' losses within TRAIN_TP_LOSS_REL_TOL of each
+    other."""
+    _write_train_frames(tmp)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    for variant, child in (("chunked", "--train-parallel-rank"),
+                           ("gathered", "--train-parallel-rank-gathered-ff")):
+        name = f"run_ff_{variant}"
+        proc, t0 = _parallel_start(tmp, repo, name, ["task.tensor_parallel=2"],
+                                   TRAIN_TP_FF_STEPS, child)
+        try:
+            records, log, wall = _parallel_finish(tmp, name, proc, t0)
+        finally:
+            shutil.rmtree(os.path.join(tmp, name), ignore_errors=True)
+        ranks = _rank_summary(records, TRAIN_BATCH, slice(1, None))
+        out[variant] = dict(wall_s=wall, loss=records[0]["loss"], ranks=ranks)
+        for r in ranks:
+            c = r["step_collectives"][-1]
+            print(f"train TP2, feed-forward {variant}: rank {r['rank']} steps "
+                  f"{[round(x, 1) for x in r['step_ms']]} ms, peak {r['peak_memory_gib']:.2f} GiB; "
+                  f"step {TRAIN_TP_FF_STEPS}'s collectives {c['calls']} calls, "
+                  f"{c['bytes'] / 2**30:.3f} GiB, {c['seconds']:.2f} s host; the run {wall:.1f} s",
+                  flush=True)
+    rel = [abs(a - b) / abs(b) for a, b in zip(out["chunked"]["loss"], out["gathered"]["loss"])]
+    if len(rel) != TRAIN_TP_FF_STEPS or max(rel) > TRAIN_TP_LOSS_REL_TOL:
+        raise AssertionError(f"train TP2 feed-forward: losses {out}")
+    out["loss_rel"] = rel
+    return out
+
+
+def train_timings() -> tuple:
+    """The full-width step timed in fp32 and in bf16 compute over fp32
+    parameters (`train_timing`), once the multi-rank runs have ended."""
+    from d3roma_tpu_torch.config import compose
+
+    fp32 = train_timing(compose([f"task={TRAIN_PRESET}"]).task)
+    return fp32, train_timing(compose([f"task={TRAIN_PRESET}", "task.mixed_precision=bf16"]).task)
 
 
 ACCURACY_FRAMES = 4  # one batch a row (8 before the mono phase: the pass's time limit)
@@ -3657,13 +4287,14 @@ ACCURACY_ATTENTION_SITES = 5
 ACCURACY_GEGLU_PER_STEP = {"1": 16, "2d2": 13}
 
 
-def accuracy_phase(train_tmp=None):
+def accuracy_phase(train_tmp=None, timing=True):
     """bf16 training and the DeepCache accuracy sweep on its checkpoint:
 
-    - the full-width step in bf16 compute over fp32 parameters
-      (`train_timing` with task.mixed_precision=bf16) beside the fp32 one:
-      ms/step, samples/s, peak memory, idle share, losses finite, no hand
-      kernel launched;
+    - with `timing`, the full-width step in bf16 compute over fp32
+      parameters (`train_timing` with task.mixed_precision=bf16) beside the
+      fp32 one: ms/step, samples/s, peak memory, idle share, losses finite,
+      no hand kernel launched (the whole pass times it in `train_timings`,
+      alone on the card);
     - `d3roma_tpu_torch.deepcache_accuracy` in process on the train phase's
       bf16 checkpoint (`train_tmp`; alone, one bf16 epoch of the train entry
       point from random weights): ACCURACY_FRAMES procedural val frames at
@@ -3695,8 +4326,9 @@ def accuracy_phase(train_tmp=None):
 
     summary = {}
     repo = os.path.dirname(os.path.abspath(__file__))
-    summary["bf16_step"] = train_timing(compose([f"task={TRAIN_PRESET}",
-                                                 "task.mixed_precision=bf16"]).task)
+    if timing:
+        summary["bf16_step"] = train_timing(compose([f"task={TRAIN_PRESET}",
+                                                     "task.mixed_precision=bf16"]).task)
     own = None
     if train_tmp is None:
         own = tempfile.mkdtemp()
@@ -6494,6 +7126,15 @@ def main() -> int:
         return synthetic_train_child(sys.argv[2], sys.argv[3:])
     if sys.argv[1:2] == ["--synthetic-eval"]:
         return synthetic_eval_child(sys.argv[2], sys.argv[3:])
+    if sys.argv[1:2] in (["--train-parallel-rank"], ["--train-parallel-rank-gathered-ff"]):
+        if sys.argv[1] == "--train-parallel-rank-gathered-ff":  # train_tp_ff_phase's control
+            from d3roma_tpu_torch.models.layers import FeedForward
+
+            FeedForward._paired_shards = lambda self: False
+        # one rank of a multi-rank train run
+        return train_parallel_child(sys.argv[2], int(sys.argv[3]) or None, sys.argv[4:])
+    if sys.argv[1:2] == ["--train-first-epoch"]:  # the one-process run, its step 1 kept
+        return first_epoch_child(sys.argv[2], sys.argv[3], sys.argv[4:])
     pin_one_card()
     card = device_phase()
     build_phase()
@@ -6567,6 +7208,22 @@ def main() -> int:
         print(card, flush=True)
         print("train phase passed", flush=True)
         return 0
+    if sys.argv[1:] == ["--train-tp-ff"]:
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp:
+            print(json.dumps({"train_tp_ff": train_tp_ff_phase(tmp)}), flush=True)
+        print(card, flush=True)
+        print("train tp feed-forward phase passed", flush=True)
+        return 0
+    if sys.argv[1:] == ["--train-parallel"]:
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp:
+            print(json.dumps({"train_parallel": train_parallel_phase(tmp)}), flush=True)
+        print(card, flush=True)
+        print("train parallel phase passed", flush=True)
+        return 0
     if sys.argv[1:] == ["--accuracy"]:
         print(json.dumps({"accuracy": accuracy_phase()}), flush=True)
         print(card, flush=True)
@@ -6629,10 +7286,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     pixel = _phase(pixel_phase)
     torch.cuda.empty_cache()
-    evaluation = _phase(eval_phase)  # its entry point's process builds its own models
     with tempfile.TemporaryDirectory() as train_tmp:
-        training = _phase(train_phase, train_tmp)  # so do its entry point's two processes
-        accuracy = _phase(accuracy_phase, train_tmp)  # on the bf16 checkpoint they wrote
+        # the train frames, then the multi-rank train runs (TP2, then DP2)
+        # beside the eval, train and accuracy phases
+        multi = _phase(train_parallel_start, train_tmp)
+        try:
+            evaluation = _phase(eval_phase)  # its entry point's process builds its own models
+            # so do its entry point's two one-process runs
+            training = _phase(train_phase, train_tmp, multi)
+            # on the bf16 checkpoint they wrote; its timed step below
+            accuracy = _phase(accuracy_phase, train_tmp, False)
+        finally:
+            parallel = _phase(train_parallel_join, multi)
+        training["parallel"] = parallel
+        # the timed full-width steps, alone on the card
+        training["timing"], accuracy["bf16_step"] = _phase(train_timings)
     torch.cuda.empty_cache()
     repo = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory() as syn_tmp:

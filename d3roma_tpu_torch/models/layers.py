@@ -71,6 +71,10 @@ their gates `tp_attention_ok` / `tp_geglu_ok` admit the shape, and the
 plain path where not; the fused self-attention and the flash route are off,
 as in the JAX package. The gates come before any activation scale is taken,
 so a pipeline calibrated under the mesh replays in the same call order.
+Under autograd the shards' collectives carry gradients (a sharded layer's
+input through `TPShard.copy_input`). An unquantized feed-forward off the
+fused kernel runs on each rank's chunk of the hidden width
+(`FeedForward._inline`), in training and inference alike.
 """
 
 from __future__ import annotations
@@ -210,7 +214,7 @@ class Linear(nn.Linear):
             bias, xin = self.bias, x
         else:  # the tap stays on the whole x, as the JAX partitioner's
             bias = tp.local_bias(self.bias)
-            xin = tp.input_slice(x) if tp.dim == 1 else x
+            xin = tp.input_slice(x) if tp.dim == 1 else tp.copy_input(x)
         y = None
         if self.quant in STATIC_MODES:
             mode, scale = consume_act_scale(x, "dot")
@@ -255,8 +259,9 @@ class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC in and out; a shard of the output channels computes its
         slice, then gathers the channels."""
-        y = self._forward(x)
-        return y if self.tp_shard is None else self.tp_shard.combine(y, self.bias)
+        if self.tp_shard is None:
+            return self._forward(x)
+        return self.tp_shard.combine(self._forward(self.tp_shard.copy_input(x)), self.bias)
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.compute_dtype is None:
@@ -596,8 +601,10 @@ class FeedForward(nn.Module):
     kernel has no backward.
 
     Under `tp_mesh` the fused path runs `geglu_ff_tp` where `tp_geglu_ok`
-    admits the shape (the operands made from this rank's F chunk), else the
-    unfused path on the sharded dense layers."""
+    admits the shape (the operands made from this rank's F chunk). Off it,
+    an unquantized feed-forward on sharded layers runs `_inline` on this
+    rank's F chunk, with no gather of the projection; an int8 one the
+    unfused path on the sharded dense layers (their int8 modes)."""
 
     def __init__(self, dim: int, fused: bool = False):
         super().__init__()
@@ -639,17 +646,25 @@ class FeedForward(nn.Module):
         return w1[:f], w1[f:], out.weight, b1h, b1g, out.bias
 
     def _inline(self, x: torch.Tensor) -> torch.Tensor:
-        """The fused branch's math in plain ops on the weights (the JAX
-        package's calibration capture runs it inline in XLA, through no
-        quantized dense, so it takes no taps of its own); under a mesh on
-        this rank's chunk, the partial products summed."""
+        """The fused branch's math in plain ops on the weights, in the
+        layers' compute dtype (the JAX package's calibration capture runs it
+        inline in XLA, through no quantized dense, so it takes no taps of
+        its own); under a mesh on this rank's chunk of the hidden width end
+        to end (no gather of the projection), the partial products summed.
+        Under autograd x's gradient is the sum of the chunks' and each
+        rank's weights get their chunk's: the unfused path's values and
+        gradients."""
         proj, out = self.net[0].proj, self.net[2]
-        b1 = proj.bias if proj.tp_shard is None else proj.tp_shard.local_bias(proj.bias)
-        h, gate = F.linear(x, proj.weight, b1).chunk(2, dim=-1)
+        dt = module_dtype(proj)
+        x, b1 = x.to(dt), proj.bias
+        if proj.tp_shard is not None:
+            x, b1 = proj.tp_shard.copy_input(x), proj.tp_shard.local_bias(b1)
+        h, gate = F.linear(x, proj.weight.to(dt), b1.to(dt)).chunk(2, dim=-1)
         y = h * F.gelu(gate, approximate="tanh")
+        dt = module_dtype(out)
         if out.tp_shard is None:
-            return F.linear(y, out.weight, out.bias)
-        return out.tp_shard.combine(F.linear(y, out.weight), out.bias)
+            return F.linear(y.to(dt), out.weight.to(dt), out.bias.to(dt))
+        return out.tp_shard.combine(F.linear(y.to(dt), out.weight.to(dt)), out.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # the fused kernel has a static int8 and a bf16 body: the other int8
@@ -673,7 +688,16 @@ class FeedForward(nn.Module):
             if mesh is not None:
                 return geglu_ff_tp(x.to(dt), ops[:5], ops[5], mesh)
             return geglu_ff(x.to(dt), *ops)
+        if not self.quant and self._paired_shards():
+            return self._inline(x)
         return self.net[2](self.net[0](x))
+
+    def _paired_shards(self) -> bool:
+        """The projection holds chunk r of each half and the output
+        projection the matching input rows (the rules' pairing)."""
+        proj, out = self.net[0].proj.tp_shard, self.net[2].tp_shard
+        return (proj is not None and out is not None and proj.paired and proj.dim == 0
+                and out.dim == 1)
 
 
 class BasicTransformerBlock(nn.Module):

@@ -24,6 +24,14 @@ shape and moves no data.
 initial, step and rgb noise) this data rank's rows of the whole batch's
 draw, so that a data-parallel evaluation samples the noise a one-process
 run draws for the same rows.
+
+Training differentiates through the collectives (`gather_along`,
+`sum_along`, `copy_along`: Megatron's conjugate pairs as autograd
+functions; under no_grad they are the plain collectives) and averages
+the data ranks' gradients in a few flat fp32 buckets (`mean_gradients`).
+A mesh may cover the first ranks of the world only (`build_mesh(...,
+allow_idle=True)`): the ranks past it join every process group and get
+no mesh.
 """
 
 from __future__ import annotations
@@ -60,6 +68,7 @@ class Mesh:
     device: torch.device = field(default_factory=lambda: torch.device("cpu"))
     backend: Optional[str] = None
     groups: Dict[str, Any] = field(default_factory=dict)
+    group: Any = None  # the process group of every rank of the mesh
 
     def __deepcopy__(self, memo):
         return self  # a handle on process groups: copies of a model share it
@@ -79,6 +88,9 @@ class Mesh:
 
 _STATE = threading.local()
 _DEVICE: Optional[torch.device] = None
+_TIMEOUT: Optional[timedelta] = None  # init_distributed's, for every group made after it
+# the bytes a collective of the data ranks' gradient mean or of a gathered state
+GRAD_BUCKET_BYTES = 256 * 2**20
 # the collectives that moved data: calls, this rank's bytes sent in, and the
 # host's wall seconds inside them (each waits for its result)
 COLLECTIVES = {"calls": 0, "bytes": 0, "seconds": 0.0}
@@ -105,7 +117,7 @@ def init_distributed(device: DeviceLike = None, timeout_s: float = 600.0) -> tor
     on CUDA the card LOCAL_RANK % the host's cards. Without that environment,
     or with a world of one, it joins nothing. A process group that is
     already up is kept."""
-    global _DEVICE
+    global _DEVICE, _TIMEOUT
     dev = resolve_device(device)
     world = int(os.environ.get("WORLD_SIZE", "1"))
     local_rank = int(os.environ.get("LOCAL_RANK", "0"))
@@ -113,9 +125,11 @@ def init_distributed(device: DeviceLike = None, timeout_s: float = 600.0) -> tor
     if dev.type == "cuda":
         dev = torch.device("cuda", local_rank % torch.cuda.device_count())
         torch.cuda.set_device(dev)
+        torch.empty(1, device=dev)  # a card this rank cannot reach raises here
     if world > 1 and not dist.is_initialized():
         backend = pick_backend(dev, local_world)
-        dist.init_process_group(backend, timeout=timedelta(seconds=timeout_s))
+        _TIMEOUT = timedelta(seconds=timeout_s)
+        dist.init_process_group(backend, timeout=_TIMEOUT)
         logger.info("rank %d of %d on %s: backend %s (%d ranks on this host, %d cards)",
                     dist.get_rank(), world, dev, backend, local_world,
                     torch.cuda.device_count() if dev.type == "cuda" else 0)
@@ -129,21 +143,29 @@ def _world() -> Tuple[int, int, Optional[str]]:
     return 0, 1, None
 
 
+def _new_group(ranks, world: int):
+    if len(ranks) == world:
+        return dist.group.WORLD
+    return dist.new_group(ranks, timeout=_TIMEOUT) if _TIMEOUT else dist.new_group(ranks)
+
+
 def build_mesh(shape: Sequence[int], axis_names: Sequence[str],
-               device: DeviceLike = None) -> Mesh:
-    """The mesh of `shape` over the whole world (their product must be the
-    world size). Every rank must call it, in the same order: it makes the
-    process group of every line of ranks along every axis."""
+               device: DeviceLike = None, allow_idle: bool = False) -> Optional[Mesh]:
+    """The mesh of `shape` over the world (their product must be the world
+    size), or, with `allow_idle`, over its first prod(shape) ranks: the
+    ranks past them get None. Every rank must call it, in the same order:
+    it makes the process group of every line of ranks along every axis and
+    of the whole mesh."""
     rank, world, backend = _world()
     shape = tuple(int(s) for s in shape)
-    if int(np.prod(shape)) != world:
-        raise ValueError(f"a mesh of shape {shape} needs {int(np.prod(shape))} ranks; the "
-                         f"world has {world}")
+    size = int(np.prod(shape))
+    if size != world and not (allow_idle and size < world):
+        raise ValueError(f"a mesh of shape {shape} needs {size} ranks; the world has {world}")
     if device is not None:
         dev = resolve_device(device)
     else:
         dev = _DEVICE if _DEVICE is not None else resolve_device(None)
-    grid = np.arange(world).reshape(shape)
+    grid = np.arange(size).reshape(shape)
     groups = {}
     for a, name in enumerate(axis_names):
         if shape[a] == 1:
@@ -151,10 +173,13 @@ def build_mesh(shape: Sequence[int], axis_names: Sequence[str],
         lines = np.moveaxis(grid, a, -1).reshape(-1, shape[a])
         for line in lines:
             ranks = [int(r) for r in line]
-            group = dist.group.WORLD if len(ranks) == world else dist.new_group(ranks)
+            group = _new_group(ranks, world)
             if rank in ranks:
                 groups[name] = group
-    return Mesh(tuple(axis_names), shape, rank, dev, backend, groups)
+    whole = _new_group(list(range(size)), world) if size > 1 else None
+    if rank >= size:
+        return None
+    return Mesh(tuple(axis_names), shape, rank, dev, backend, groups, whole)
 
 
 def make_mesh(device: DeviceLike = None, axis: str = DATA_AXIS) -> Mesh:
@@ -167,19 +192,34 @@ def make_mesh(device: DeviceLike = None, axis: str = DATA_AXIS) -> Mesh:
 # ---------------------------------------------------------------------- #
 
 
+def _pinned(shape, dtype) -> torch.Tensor:
+    """Page-locked host memory (PyTorch's caching host allocator keeps the
+    blocks for the next collective of that size)."""
+    return torch.empty(tuple(shape), dtype=dtype, pin_memory=True)
+
+
+def _through_host(x: torch.Tensor, mesh: Mesh) -> bool:
+    return mesh.backend == "gloo" and x.device.type == "cuda"
+
+
 def _staged(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """x where the backend reads it: gloo takes CUDA tensors through the
-    host, NCCL host tensors through the rank's card."""
-    if mesh.backend == "gloo" and x.device.type == "cuda":
-        return x.contiguous().cpu()
+    host (a page-locked copy: the card's copies run at the link's rate),
+    NCCL host tensors through the rank's card."""
+    if _through_host(x, mesh):
+        host = _pinned(x.shape, x.dtype)
+        host.copy_(x)
+        return host
     if mesh.backend == "nccl" and x.device.type == "cpu":
         return x.to(mesh.device)
     return x.contiguous()
 
 
-def all_gather_cat(x: torch.Tensor, mesh: Mesh, axis: str, dim: int) -> torch.Tensor:
+def all_gather_cat(x: torch.Tensor, mesh: Mesh, axis: str, dim: int,
+                   out_device: DeviceLike = None) -> torch.Tensor:
     """The concatenation along `dim` of every rank's x on the line of ranks
-    along `axis`, in their order along it."""
+    along `axis`, in their order along it, on `out_device` (x's by
+    default)."""
     n = mesh.axis_sizes.get(axis, 1)
     if n == 1:
         return x
@@ -187,9 +227,17 @@ def all_gather_cat(x: torch.Tensor, mesh: Mesh, axis: str, dim: int) -> torch.Te
         return torch.cat([x] * n, dim=dim)
     t0 = time.perf_counter()
     xs = _staged(x, mesh)
-    parts = [torch.empty_like(xs) for _ in range(n)]
-    dist.all_gather(parts, xs, group=mesh.groups[axis])
-    out = torch.cat(parts, dim=dim).to(x.device)
+    dev = x.device if out_device is None else torch.device(out_device)
+    if _through_host(x, mesh):
+        # every rank's part into one page-locked buffer, concatenated where
+        # the result lives (on the card: a device copy, not a host one)
+        parts = _pinned((n,) + tuple(xs.shape), xs.dtype)
+        dist.all_gather(list(parts.unbind(0)), xs, group=mesh.groups[axis])
+        out = torch.cat(parts.to(dev).unbind(0), dim=dim)
+    else:
+        parts = [torch.empty_like(xs) for _ in range(n)]
+        dist.all_gather(parts, xs, group=mesh.groups[axis])
+        out = torch.cat(parts, dim=dim).to(dev)
     _count(x, t0)
     return out
 
@@ -218,9 +266,15 @@ def broadcast_object(obj, mesh: Mesh):
     if mesh.size == 1:
         return obj
     box = [obj]
-    dist.broadcast_object_list(box, src=0,
+    dist.broadcast_object_list(box, src=0, group=mesh.group,
                                device=torch.device("cpu") if mesh.backend == "gloo" else None)
     return box[0]
+
+
+def barrier(mesh: Optional[Mesh]) -> None:
+    """Wait for every rank of the mesh."""
+    if mesh is not None and mesh.size > 1:
+        dist.barrier(group=mesh.group)
 
 
 def replicate_state(state, mesh: Mesh):
@@ -235,10 +289,118 @@ def replicate_state(state, mesh: Mesh):
     with torch.no_grad():
         for t in tensors:
             staged = _staged(t, mesh)
-            dist.broadcast(staged, src=0)
+            dist.broadcast(staged, src=0, group=mesh.group)
             if staged.data_ptr() != t.data_ptr():
                 t.copy_(staged)
     return state
+
+
+# ---------------------------------------------------------------------- #
+# the collectives under autograd
+# ---------------------------------------------------------------------- #
+
+
+class _GatherAlong(torch.autograd.Function):
+    """all_gather_cat; backward: this rank's slice of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return all_gather_cat(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = ctx.mesh.axis_sizes[ctx.axis]
+        return g.chunk(n, ctx.dim)[ctx.mesh.coord(ctx.axis)], None, None, None
+
+
+class _SumAlong(torch.autograd.Function):
+    """all_reduce (sum); backward: the gradient as it is (every rank's
+    partial product gets the whole output's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return all_reduce(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _CopyAlong(torch.autograd.Function):
+    """The identity; backward: the sum of every rank's gradient (a
+    replicated input feeding a sharded layer, whose rank computes only its
+    part of the input's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.mesh, ctx.axis), None, None
+
+
+def _traced(x: torch.Tensor, mesh: Mesh, axis: str) -> bool:
+    """Whether a collective on x must carry a gradient."""
+    return (mesh.axis_sizes.get(axis, 1) > 1 and torch.is_grad_enabled()
+            and x.requires_grad)
+
+
+def gather_along(x: torch.Tensor, mesh: Mesh, axis: str, dim: int) -> torch.Tensor:
+    """`all_gather_cat` that carries a gradient: each rank's slice of it."""
+    if _traced(x, mesh, axis):
+        return _GatherAlong.apply(x, mesh, axis, dim)
+    return all_gather_cat(x, mesh, axis, dim)
+
+
+def sum_along(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """`all_reduce` (sum) that carries a gradient: the output's, to every
+    rank."""
+    if _traced(x, mesh, axis):
+        return _SumAlong.apply(x, mesh, axis)
+    return all_reduce(x, mesh, axis)
+
+
+def copy_along(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """x, whose gradient is summed over `axis` in the backward pass; x
+    itself where no gradient flows."""
+    if _traced(x, mesh, axis):
+        return _CopyAlong.apply(x, mesh, axis)
+    return x
+
+
+def mean_gradients(grads: Sequence[torch.Tensor], mesh: Mesh, axis: str = DATA_AXIS) -> list:
+    """The mean over `axis` of every rank's gradients, in order: fp32 flat
+    buckets of about GRAD_BUCKET_BYTES, one all-reduce each; each gradient
+    comes back in its dtype."""
+    n = mesh.axis_sizes.get(axis, 1)
+    out = list(grads)
+    if n == 1:
+        return out
+    bucket: list = []
+
+    def flush():
+        flat = torch.cat([out[i].reshape(-1).float() for i in bucket])
+        total = all_reduce(flat, mesh, axis) / n
+        offset = 0
+        for i in bucket:
+            k = out[i].numel()
+            out[i] = total[offset:offset + k].view(out[i].shape).to(out[i].dtype)
+            offset += k
+        bucket.clear()
+
+    size = 0
+    for i, g in enumerate(out):
+        bucket.append(i)
+        size += g.numel() * 4
+        if size >= GRAD_BUCKET_BYTES:
+            flush()
+            size = 0
+    if bucket:
+        flush()
+    return out
 
 
 # ---------------------------------------------------------------------- #

@@ -30,12 +30,22 @@ routes their kernel sites through the tensor-parallel compositions
 (`mha_attention_tp`, `geglu_ff_tp`) where the gates admit them, and to the
 plain path where not; the fused self-attention and the flash route are off
 under a mesh, as in the JAX package.
+
+Training: the gather and the sum carry gradients (`parallel/mesh.py`'s
+`gather_along`, `sum_along`), and a sharded layer's replicated input goes
+through `copy_along`, whose backward sums the ranks' parts of the input's
+gradient; so each rank gets exactly its slice of the whole weight's
+gradient, and every replicated tensor the whole gradient.
+`shard_state_tp` cuts a train state (the model's parameters and the
+optimizer's moments, by the same rules); `gather_params_tp` and the
+optimizer's `state_dict` give the one-process layout back, for checkpoints
+and exports.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Mapping, Optional, Tuple, Union
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -43,11 +53,15 @@ from torch import nn
 from d3roma_tpu_torch.device import DeviceLike
 from d3roma_tpu_torch.parallel.mesh import (
     DATA_AXIS,
+    GRAD_BUCKET_BYTES,
     Mesh,
     _world,
     all_gather_cat,
     all_reduce,
     build_mesh,
+    copy_along,
+    gather_along,
+    sum_along,
 )
 
 MODEL_AXIS = "model"
@@ -58,10 +72,12 @@ _ROW_PARALLEL_NAMES = ("to_out", "net_2", "proj_out")
 TP_QUANT_MODES = (False, "static")
 
 
-def make_mesh_dp_tp(dp: int, tp: int, device: DeviceLike = None) -> Mesh:
+def make_mesh_dp_tp(dp: int, tp: int, device: DeviceLike = None,
+                    allow_idle: bool = False) -> Optional[Mesh]:
     """The 2-D ``(data, model)`` mesh of the world's dp * tp ranks: rank
-    d * tp + m is (d, m), so the ranks of one model group are adjacent."""
-    return build_mesh((dp, tp), (DATA_AXIS, MODEL_AXIS), device)
+    d * tp + m is (d, m), so the ranks of one model group are adjacent.
+    With `allow_idle` the world may hold more ranks: those get None."""
+    return build_mesh((dp, tp), (DATA_AXIS, MODEL_AXIS), device, allow_idle)
 
 
 def _leaf_dim(name: str, shape: Tuple[int, ...], tp: int) -> Optional[int]:
@@ -145,26 +161,36 @@ class TPShard:
 
     def local_bias(self, bias: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
         """The bias a shard adds to its output: its slice under column
-        parallelism, none under row parallelism (added after the sum)."""
+        parallelism, none under row parallelism (added after the sum). The
+        whole bias is replicated: under autograd its gradient is the sum of
+        the ranks' slices'."""
         if bias is None or self.dim == 1:
             return None
-        return self.take(bias, 0)
+        return self.take(copy_along(bias, self.mesh, MODEL_AXIS), 0)
+
+    def copy_input(self, x: torch.Tensor) -> torch.Tensor:
+        """The replicated input of a column-parallel layer: its gradient
+        is the sum of the ranks' parts."""
+        return copy_along(x, self.mesh, MODEL_AXIS)
 
     def input_slice(self, x: torch.Tensor) -> torch.Tensor:
-        """A row-parallel shard's slice of the replicated input [..., K]."""
-        return self.part(x, -1)
+        """A row-parallel shard's slice of the replicated input [..., K]
+        (the other ranks fill the rest of its gradient)."""
+        return self.part(self.copy_input(x), -1)
 
     def combine(self, y: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
         """The whole output from this rank's part: the gather of the
         output-feature slices along the last dim (the halves of a paired
         projection in order), or the sum of the partial products plus the
-        bias."""
+        bias. Both carry gradients: the gather's backward takes this rank's
+        slice (the paired reorder undone by autograd), the sum's passes the
+        output's gradient to every rank."""
         if self.dim == 1:
-            y = all_reduce(y, self.mesh, MODEL_AXIS)
+            y = sum_along(y, self.mesh, MODEL_AXIS)
             return y if bias is None else y + bias.to(y.dtype)
         if not self.paired:
-            return all_gather_cat(y, self.mesh, MODEL_AXIS, -1)
-        g = all_gather_cat(y.unsqueeze(-2), self.mesh, MODEL_AXIS, -2)  # [..., tp, 2 f]
+            return gather_along(y, self.mesh, MODEL_AXIS, -1)
+        g = gather_along(y.unsqueeze(-2), self.mesh, MODEL_AXIS, -2)  # [..., tp, 2 f]
         g = g.unflatten(-1, (2, -1)).transpose(-3, -2)  # [..., 2, tp, f]
         return g.flatten(-3)
 
@@ -173,6 +199,52 @@ class TPShard:
         shards' (a row-parallel dense's static int8 scale)."""
         m = w.detach().float().abs().amax(dim=tuple(range(1, w.ndim)))
         return all_reduce(m, self.mesh, MODEL_AXIS, "max")
+
+    def join(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The whole tensor from every rank's part, in rank order: the
+        inverse of `take`."""
+        if self.paired:
+            halves = [p.chunk(2, self.dim) for p in parts]
+            parts = [h[0] for h in halves] + [h[1] for h in halves]
+        return torch.cat(list(parts), self.dim)
+
+
+def whole_tensors(items: Sequence[Tuple[torch.Tensor, Optional[TPShard]]],
+                  out_device: DeviceLike = None) -> List[torch.Tensor]:
+    """The whole tensor of each (this rank's part, the TPShard it was cut
+    by) on `out_device` (each part's own by default), a tensor without a
+    shard as it is: the parts flattened into buckets of about
+    GRAD_BUCKET_BYTES of one dtype, one all-gather a bucket. Every rank of the
+    model axis must call it with the same items."""
+    out: List[Optional[torch.Tensor]] = [None] * len(items)
+
+    def flush(idx):
+        shard = items[idx[0]][1]
+        flat = torch.cat([items[i][0].detach().reshape(-1) for i in idx])
+        ranks = all_gather_cat(flat, shard.mesh, MODEL_AXIS, 0, out_device).chunk(shard.tp)
+        offset = 0
+        for i in idx:
+            t, sh = items[i]
+            k = t.numel()
+            out[i] = sh.join([r[offset:offset + k].view(t.shape) for r in ranks])
+            offset += k
+
+    buckets: Dict[torch.dtype, list] = {}
+    for i, (t, sh) in enumerate(items):
+        if sh is None:
+            out[i] = t.detach() if out_device is None else t.detach().to(out_device)
+            continue
+        idx, size = buckets.get(t.dtype, ([], 0))
+        idx.append(i)
+        size += t.numel() * t.element_size()
+        if size >= GRAD_BUCKET_BYTES:
+            flush(idx)
+            idx, size = [], 0
+        buckets[t.dtype] = (idx, size)
+    for idx, _ in buckets.values():
+        if idx:
+            flush(idx)
+    return out
 
 
 def shard_params_tp(model: nn.Module, mesh: Mesh) -> nn.Module:
@@ -200,6 +272,41 @@ def shard_params_tp(model: nn.Module, mesh: Mesh) -> nn.Module:
     set_tp_mesh(model, mesh)
     model.tp_mesh = mesh
     return model
+
+
+def layer_shards(model: nn.Module) -> Dict[str, TPShard]:
+    """{parameter name: the TPShard it is cut by} of a sharded model's
+    sharded weights (a layer's bias stays whole)."""
+    return {f"{name}.weight" if name else "weight": m.tp_shard
+            for name, m in model.named_modules() if getattr(m, "tp_shard", None) is not None}
+
+
+def gather_params_tp(model: nn.Module, out_device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """The state dict an unsharded model would have, from a sharded one,
+    on `out_device` (each tensor's own by default). Every rank of the model
+    axis must call it."""
+    shards = layer_shards(model)
+    state = model.state_dict()
+    return dict(zip(state, whole_tensors([(t, shards.get(n)) for n, t in state.items()],
+                                         out_device)))
+
+
+def shard_state_tp(state, mesh: Mesh):
+    """TP-shard a whole train state consistently, in place: the model's
+    parameters by the rules (`shard_params_tp`) and the optimizer's
+    moments by the same cuts, so a rank keeps only its shards of both.
+    Returns the state."""
+    model, opt = state.model, state.optimizer
+    assert tp_shard_count(model, mesh) > 0, (
+        "tensor_parallel set but no param dim divides it — check block_out_channels vs "
+        "tensor_parallel")
+    names = {id(p): n for n, p in model.named_parameters()}
+    order = [names[id(p)] for p in opt.params]
+    shard_params_tp(model, mesh)
+    params = dict(model.named_parameters())
+    shards = layer_shards(model)
+    opt.shard_(mesh, [params[n] for n in order], [shards.get(n) for n in order])
+    return state
 
 
 def param_bytes(model: nn.Module, whole: bool = False) -> int:

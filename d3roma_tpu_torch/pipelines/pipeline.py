@@ -99,11 +99,14 @@ VAE_CONFIG = ("in_channels", "out_channels", "latent_channels", "block_out_chann
               "norm_groups")
 
 
-def _save_module(path: str, model: torch.nn.Module, keys) -> None:
+def _save_module(path: str, model: torch.nn.Module, keys, state=None) -> None:
+    """The model's directory; `state` in place of its state dict (a
+    tensor-parallel model's, gathered)."""
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump({k: getattr(model, k) for k in keys}, f, indent=2)
-    flax_msgpack.dump(torch_to_flax(model.state_dict()), os.path.join(path, "params.msgpack"))
+    flax_msgpack.dump(torch_to_flax(model.state_dict() if state is None else state),
+                      os.path.join(path, "params.msgpack"))
 
 
 def _load_module(path: str, make, to_torch, device) -> torch.nn.Module:
@@ -235,10 +238,12 @@ class GuidedDiffusionPipeline:
                 step_noise=None if step_noise is None else [on_device(n) for n in step_noise],
                 rgb_noise=None if rgb_noise is None else [on_device(n) for n in rgb_noise])
 
-    def save_pretrained(self, out_dir: str) -> None:
-        """Write the JAX package's pixel pipeline directory."""
+    def save_pretrained(self, out_dir: str, states: Optional[dict] = None) -> None:
+        """Write the JAX package's pixel pipeline directory (`states`:
+        {"unet": state dict} in place of the model's own)."""
         os.makedirs(out_dir, exist_ok=True)
-        _save_module(os.path.join(out_dir, "unet"), self.unet, UNET2D_CONFIG)
+        _save_module(os.path.join(out_dir, "unet"), self.unet, UNET2D_CONFIG,
+                     (states or {}).get("unet"))
         with open(os.path.join(out_dir, "model_index.json"), "w") as f:
             json.dump(_meta("GuidedDiffusionPipeline", self.spec, self.guidance,
                             self.normalizer), f, indent=2)
@@ -681,11 +686,14 @@ class GuidedLatentDiffusionPipeline:
 
         return self.guidance.make_latent_guidance_fn(decoder, denormer, raw_depth)
 
-    def save_pretrained(self, out_dir: str) -> None:
-        """Write the JAX package's latent pipeline directory."""
+    def save_pretrained(self, out_dir: str, states: Optional[dict] = None) -> None:
+        """Write the JAX package's latent pipeline directory (`states`:
+        {"unet": ..., "vae": ...} state dicts in place of the models' own,
+        as a tensor-parallel run gathers them)."""
         os.makedirs(out_dir, exist_ok=True)
-        _save_module(os.path.join(out_dir, "unet"), self.unet, UNET_CONFIG)
-        _save_module(os.path.join(out_dir, "vae"), self.vae, VAE_CONFIG)
+        states = states or {}
+        _save_module(os.path.join(out_dir, "unet"), self.unet, UNET_CONFIG, states.get("unet"))
+        _save_module(os.path.join(out_dir, "vae"), self.vae, VAE_CONFIG, states.get("vae"))
         embed = self.text_embed.detach().cpu()
         # numpy has no bfloat16: a bf16 embedding is saved widened
         np.save(os.path.join(out_dir, "text_embed.npy"),

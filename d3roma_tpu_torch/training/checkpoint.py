@@ -12,6 +12,12 @@ package:
   Orbax directory);
 - the *pipeline export* (`best/`, `epoch_NNNN/`): `save_pretrained`
   directories, which both packages read.
+
+On a mesh of ranks `save_state` gathers a tensor-parallel state into the
+one-process layout first (`TrainState.state_dict`; every rank of a model
+group takes part), rank 0 alone writes, and the ranks wait for it: `state.pt`
+is the file one process writes, so a run resumes on another topology
+(`load_state` reads the whole state; the loop shards it after).
 """
 
 from __future__ import annotations
@@ -22,19 +28,32 @@ from typing import Optional, Tuple
 
 import torch
 
+from d3roma_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, barrier
 from d3roma_tpu_torch.training.state import StepCounter, TrainState
 
 STATE_FILE = "state.pt"
 
 
-def save_state(ckpt_dir: str, state: TrainState, counter: StepCounter) -> None:
-    ckpt_dir = os.path.abspath(ckpt_dir)
-    os.makedirs(ckpt_dir, exist_ok=True)
-    tmp = os.path.join(ckpt_dir, STATE_FILE + ".tmp")
-    torch.save(state.state_dict(), tmp)
-    os.replace(tmp, os.path.join(ckpt_dir, STATE_FILE))
-    with open(os.path.join(ckpt_dir, "counter.json"), "w") as f:
-        json.dump(counter.state_dict(), f)
+def save_state(ckpt_dir: str, state: TrainState, counter: StepCounter,
+               mesh: Optional[Mesh] = None) -> None:
+    """Write the state and the counter (on a mesh: rank 0, after every rank
+    of its model group gathered a tensor-parallel state)."""
+    lead = mesh is None or mesh.rank == 0
+    sd = None
+    if state.optimizer.tp > 1:
+        if mesh.coord(DATA_AXIS) == 0:  # data rank 0's model group gathers
+            sd = state.state_dict()
+    elif lead:
+        sd = state.state_dict()
+    if lead:
+        ckpt_dir = os.path.abspath(ckpt_dir)
+        os.makedirs(ckpt_dir, exist_ok=True)
+        tmp = os.path.join(ckpt_dir, STATE_FILE + ".tmp")
+        torch.save(sd, tmp)
+        os.replace(tmp, os.path.join(ckpt_dir, STATE_FILE))
+        with open(os.path.join(ckpt_dir, "counter.json"), "w") as f:
+            json.dump(counter.state_dict(), f)
+    barrier(mesh)
 
 
 def load_state(ckpt_dir: str, template: TrainState) -> Tuple[TrainState, StepCounter]:

@@ -29,7 +29,18 @@ tensors, in the same order and arithmetic:
   accepts.
 
 All of it runs on the parameters' device with `torch.where` selections, so
-a step reads nothing back to the host. The schedules are pure functions of
+a step reads nothing back to the host.
+
+Over a tensor-parallel state (`shard_`, called by `parallel/tensor.py::
+shard_state_tp`) each rank holds its shards of the sharded parameters and
+of their moments, and the chain sees whole parameters, as optax does under
+GSPMD: the global norm sums the sharded leaves' squares over the model axis
+and counts the replicated ones once, and every rank rejects a step that is
+not finite on any rank (`norm_and_finite`, one collective); Adafactor
+factors by the whole parameter's shape and takes its row and column means,
+the update's block RMS and the parameter's RMS over the whole parameter.
+AdamW is elementwise. `state_dict(whole=True)` gathers the one-process
+layout. The schedules are pure functions of
 the update count (`build_lr_schedule`), equal to optax's `join_schedules`
 of linear warmup, cosine with hard restarts and linear decay, in float32.
 """
@@ -44,6 +55,13 @@ import numpy as np
 import torch
 
 from d3roma_tpu_torch.ops.resample import SamplerState, init_loss_aware_state
+from d3roma_tpu_torch.parallel.mesh import Mesh, all_reduce
+from d3roma_tpu_torch.parallel.tensor import (
+    MODEL_AXIS,
+    TPShard,
+    gather_params_tp,
+    whole_tensors,
+)
 
 Schedule = Callable[[torch.Tensor], torch.Tensor]
 
@@ -146,6 +164,13 @@ def flax_view(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def flax_dim(ndim: int, dim: int) -> int:
+    """Where torch dim `dim` of an `ndim`-dim tensor lands in `flax_view`."""
+    if ndim == 4:
+        return (3, 2, 0, 1)[dim]
+    return 1 - dim if ndim == 2 else dim
+
+
 def _factored_dims(shape, min_dim_size_to_factor: int = 128):
     """optax's choice: the two largest axes (second, largest), or None."""
     if len(shape) < 2:
@@ -174,6 +199,11 @@ class ChainOptimizer:
         self.kind = kind
         self.clip = float(clip_grad_norm or 0.0)
         self.accumulation = max(1, int(accumulation))
+        # set by shard_: the model axis's mesh and each parameter's TPShard
+        self.mesh: Optional[Mesh] = None
+        self.shards: list = [None] * len(self.params)
+        # Adafactor's factoring, decided on each whole parameter's shape
+        self.factored = [_factored_dims(tuple(flax_view(p).shape)) for p in self.params]
         dev = self.params[0].device
 
         def scalar(value, dtype=torch.int32):
@@ -195,9 +225,8 @@ class ChainOptimizer:
             st["nu"] = [torch.zeros_like(p) for p in self.params]
         else:
             rows, cols, full = [], [], []
-            for p in self.params:
+            for p, dims in zip(self.params, self.factored):
                 fp = flax_view(p)
-                dims = _factored_dims(tuple(fp.shape))
                 one = torch.zeros((1,), dtype=p.dtype, device=dev)
                 if dims is not None:
                     d1, d0 = dims
@@ -212,6 +241,71 @@ class ChainOptimizer:
                     full.append(torch.zeros_like(fp))
             st["v_row"], st["v_col"], st["v"] = rows, cols, full
         self.state = st
+
+    # ------------------------------------------------------------------ #
+    # tensor parallelism
+    # ------------------------------------------------------------------ #
+    @property
+    def tp(self) -> int:
+        return 1 if self.mesh is None else self.mesh.axis_sizes.get(MODEL_AXIS, 1)
+
+    def _moment_shard(self, key: str, i: int) -> Optional[TPShard]:
+        """How parameter i's moment `key` is cut: as the parameter for the
+        elementwise ones; Adafactor's along the parameter's sharded dim in
+        their Flax-layout shapes, whole where the dim was averaged away."""
+        sh = self.shards[i]
+        if sh is None or key in ("mu", "nu", "acc"):
+            return sh
+        s, dims = flax_dim(self.params[i].ndim, sh.dim), self.factored[i]
+        if key == "v":
+            d = None if dims is not None else s
+        elif dims is None:
+            d = None
+        else:
+            gone = dims[1] if key == "v_row" else dims[0]
+            d = None if s == gone else s - (s > gone)
+        return None if d is None else TPShard(sh.mesh, d, sh.paired)
+
+    @torch.no_grad()
+    def shard_(self, mesh: Mesh, params: Sequence[torch.Tensor], shards: Sequence) -> None:
+        """Take the sharded parameters `params` (in order; `shards[i]` the
+        TPShard parameter i is cut by, or None) and cut the moments to this
+        rank's shards, in place."""
+        self.params, self.mesh, self.shards = list(params), mesh, list(shards)
+        for key in ("mu", "nu", "acc", "v", "v_row", "v_col"):
+            if key in self.state:
+                self.state[key] = [
+                    t if sh is None else sh.take(t).clone(memory_format=torch.contiguous_format)
+                    for t, sh in ((t, self._moment_shard(key, i))
+                                  for i, t in enumerate(self.state[key]))]
+
+    def sharded_counts(self):
+        """(sharded parameters, sharded optimizer tensors) this rank holds."""
+        moments = sum(self._moment_shard(k, i) is not None for k, v in self.state.items()
+                      if isinstance(v, list) for i in range(len(v)))
+        return sum(sh is not None for sh in self.shards), moments
+
+    def nbytes(self) -> int:
+        """The bytes of the optimizer state this rank holds."""
+        return sum(t.numel() * t.element_size() for v in self.state.values()
+                   for t in (v if isinstance(v, list) else [v]))
+
+    def _model_sum(self, t: torch.Tensor) -> torch.Tensor:
+        return all_reduce(t, self.mesh, MODEL_AXIS)
+
+    def norm_and_finite(self, grads: Sequence[torch.Tensor]):
+        """(the global norm of the whole gradients, whether all of them are
+        finite), the same on every rank of the model axis."""
+        if self.tp == 1:
+            return global_norm(grads), torch.stack([torch.isfinite(g).all() for g in grads]).all()
+        zero = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+        sharded = sum((torch.sum(g * g) for g, sh in zip(grads, self.shards) if sh is not None),
+                      zero)
+        whole = sum((torch.sum(g * g) for g, sh in zip(grads, self.shards) if sh is None), zero)
+        bad = torch.stack([~torch.isfinite(g).all() for g in grads]).sum().float()
+        # replicated leaves are counted once: each rank adds its copy's share
+        v = self._model_sum(torch.stack([sharded, whole, bad]))
+        return torch.sqrt(v[0] + v[1] / self.tp), v[2] == 0
 
     # ------------------------------------------------------------------ #
     def _adamw(self, i: int, g, p, lr, bc1, bc2, commit):
@@ -233,14 +327,21 @@ class ChainOptimizer:
         st = self.state
         vr, vc, v = st["v_row"][i], st["v_col"][i], st["v"][i]
         fg, fp = flax_view(g), flax_view(p)
-        dims = _factored_dims(tuple(fp.shape))
+        dims = self.factored[i]
+        # a shard's Flax dim: means over it are taken over the whole dim
+        sh = self.shards[i] if self.tp > 1 else None
+        s = None if sh is None else flax_dim(p.ndim, sh.dim)
+
+        def whole_mean(t, shard_dim):
+            return self._model_sum(t) / self.tp if s == shard_dim else t
+
         g2 = fg * fg + 1e-30
         if dims is not None:
             d1, d0 = dims
-            new_vr = decay * vr + (1.0 - decay) * torch.mean(g2, dim=d0)
-            new_vc = decay * vc + (1.0 - decay) * torch.mean(g2, dim=d1)
+            new_vr = decay * vr + (1.0 - decay) * whole_mean(torch.mean(g2, dim=d0), d0)
+            new_vc = decay * vc + (1.0 - decay) * whole_mean(torch.mean(g2, dim=d1), d1)
             reduced_d1 = d1 - 1 if d1 > d0 else d1
-            row_col_mean = torch.mean(new_vr, dim=reduced_d1, keepdim=True)
+            row_col_mean = whole_mean(torch.mean(new_vr, dim=reduced_d1, keepdim=True), d1)
             row_factor = (new_vr / row_col_mean) ** -0.5
             col_factor = new_vc ** -0.5
             u = fg * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
@@ -251,22 +352,28 @@ class ChainOptimizer:
             u = fg * new_v ** -0.5
             v.copy_(torch.where(commit, new_v, v))
         # clip_by_block_rms(1.0), the learning rate, the parameter's RMS
-        u = u / torch.clamp(torch.sqrt(torch.mean(u * u)), min=1.0)
+        if sh is None:
+            u_ms, p_ms = torch.mean(u * u), torch.mean(fp * fp)
+        else:
+            u_ms, p_ms = self._model_sum(torch.stack([torch.sum(u * u), torch.sum(fp * fp)])) / (
+                fp.numel() * self.tp)
+        u = u / torch.clamp(torch.sqrt(u_ms), min=1.0)
         u = lr * u
-        rms = torch.sqrt(torch.mean(fp * fp))
+        rms = torch.sqrt(p_ms)
         u = -(u * torch.where(rms <= 1e-3, torch.full_like(rms, 1e-3), rms))
         return u.permute(3, 2, 0, 1) if u.ndim == 4 else (u.t() if u.ndim == 2 else u)
 
     @torch.no_grad()
-    def step(self, grads: Sequence[torch.Tensor], grad_norm: Optional[torch.Tensor] = None) -> None:
+    def step(self, grads: Sequence[torch.Tensor], grad_norm: Optional[torch.Tensor] = None,
+             isfinite: Optional[torch.Tensor] = None) -> None:
         """One optax update with `grads` (one per parameter, in order):
         writes the parameters and the state in place, one parameter at a
-        time (no second copy of the moments). `grad_norm`, the gradients'
-        global norm, saves recomputing it for the clip when there is no
-        accumulation."""
+        time (no second copy of the moments). `grad_norm` and `isfinite`
+        (`norm_and_finite` of the gradients) save recomputing them."""
         st = self.state
         grads = list(grads)
-        isfinite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+        if isfinite is None:
+            isfinite = self.norm_and_finite(grads)[1]
         notfinite = torch.where(isfinite, torch.zeros_like(st["notfinite_count"]),
                                 st["notfinite_count"] + 1)
         accept = isfinite | (notfinite > MAX_CONSECUTIVE_ERRORS)
@@ -283,7 +390,7 @@ class ChainOptimizer:
         else:
             inner, commit, norm = grads, accept, grad_norm
         if self.clip > 0:
-            g_norm = global_norm(inner) if norm is None else norm
+            g_norm = self.norm_and_finite(inner)[0] if norm is None else norm
             trigger = g_norm < self.clip
         lr = self.schedule(count)
         inc = count + 1
@@ -316,8 +423,20 @@ class ChainOptimizer:
         st["last_finite"] = isfinite
 
     # ------------------------------------------------------------------ #
-    def state_dict(self) -> Dict[str, object]:
-        return {k: (list(v) if isinstance(v, list) else v) for k, v in self.state.items()}
+    def state_dict(self, whole: bool = False, out_device=None) -> Dict[str, object]:
+        """The state; with `whole`, over a tensor-parallel state, the
+        one-process layout on `out_device` (every rank of the model axis
+        must call it)."""
+        if not whole or self.tp == 1:
+            return {k: (list(v) if isinstance(v, list) else v) for k, v in self.state.items()}
+        out: Dict[str, object] = {}
+        for k, v in self.state.items():
+            if isinstance(v, list):
+                out[k] = whole_tensors([(t, self._moment_shard(k, i)) for i, t in enumerate(v)],
+                                       out_device)
+            else:
+                out[k] = v.to(out_device) if out_device is not None else v
+        return out
 
     def load_state_dict(self, sd: Dict[str, object]) -> None:
         if set(sd) != set(self.state):
@@ -361,8 +480,14 @@ class TrainState:
     seed: int = 0
 
     def state_dict(self) -> Dict[str, object]:
-        return {"step": self.step, "params": self.model.state_dict(),
-                "opt_state": self.optimizer.state_dict(),
+        """The one-process layout: a tensor-parallel state is gathered (on
+        the CPU; every rank of the model axis must call it)."""
+        opt = self.optimizer
+        if opt.tp > 1:
+            params, opt_state = gather_params_tp(self.model, "cpu"), opt.state_dict(True, "cpu")
+        else:
+            params, opt_state = self.model.state_dict(), opt.state_dict()
+        return {"step": self.step, "params": params, "opt_state": opt_state,
                 "sampler_state": {"loss_history": self.sampler_state.loss_history,
                                   "loss_counts": self.sampler_state.loss_counts},
                 "seed": torch.tensor(int(self.seed), dtype=torch.int64)}

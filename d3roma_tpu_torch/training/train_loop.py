@@ -1,11 +1,31 @@
 """The training loop.
 
-Port of `d3roma_tpu/training/train_loop.py`, on one device: model
-construction per family, the train step, the loss-aware sampler, periodic
-in-training evaluation over every val loader with the `best/` export on a
-better EPE, per-epoch `checkpoints/last` and `epoch_NNNN/` exports, resume
-with the mid-epoch fast-forward, scalar logging and abnormal-loss
-forensics.
+Port of `d3roma_tpu/training/train_loop.py`: model construction per
+family, the train step, the loss-aware sampler, periodic in-training
+evaluation over every val loader with the `best/` export on a better EPE,
+per-epoch `checkpoints/last` and `epoch_NNNN/` exports, resume with the
+mid-epoch fast-forward, scalar logging and abnormal-loss forensics.
+
+On one process or on every rank of a process group (`torchrun`; see
+`train.py`), as the JAX trainer on every device: the ranks form a
+``(data, model)`` mesh with model = `task.tensor_parallel` and data the
+largest divisor of `train_batch_size` that fits the world (the JAX rule);
+ranks past the mesh train nothing and return. Every rank builds the same
+models and runs a seed-identical loader, keeps its data rank's rows of each
+batch (`slice_process_local`) and runs its share of the global step
+(`train_step.py`). Under `tensor_parallel > 1` the train state is sharded
+over the model axis (`shard_state_tp`: parameters and optimizer moments by
+the same rules) and so is the frozen VAE (`shard_params_tp`; it runs under
+no_grad through the inference path's collectives). A resume loads the
+whole state on every rank, then takes the shards. The in-training eval
+runs on the training mesh, as `distributed_evaluate.py` does: each data
+rank its rows of a batch padded to the data axis, the noise its rows of
+the whole batch's, the per-sample metrics gathered. Rank 0 alone writes:
+`train.log` and the TensorBoard scalars (`train.py`), `checkpoints/last`
+(gathered into the one-process layout first, so `state.pt` is the file
+one process writes and a run resumes across topologies), `best/` on rank
+0's decision and the `epoch_NNNN/` exports; the ranks wait for it
+(`barrier`).
 
 Randomness: step i's draws come from a generator seeded with a pure
 function of (seed, i) (`step_draws`), so a resumed run draws what an
@@ -29,9 +49,6 @@ VAE's `conv_out`, the VAE's quant convs) stay fp32, as the JAX trainer's
 `build_models(dtype=bfloat16)` has them. The frozen VAE computes in bf16
 too. Models loaded from `task.resume_pretrained` compute as loaded, as in
 the JAX package, whose pipeline directories build their modules in fp32.
-
-Not ported, and refused with NotImplementedError: `tensor_parallel > 1`
-and multi-card training (ROADMAP.md section 1, item 10).
 """
 
 from __future__ import annotations
@@ -62,6 +79,23 @@ from d3roma_tpu_torch.models import (
 from d3roma_tpu_torch.ops.noise import GeneratorDraws
 from d3roma_tpu_torch.ops.normalizer import Normalizer
 from d3roma_tpu_torch.ops.padding import InputPadder
+from d3roma_tpu_torch.parallel import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    Mesh,
+    all_gather_cat,
+    barrier,
+    broadcast_object,
+    data_rows,
+    gather_params_tp,
+    make_mesh_dp_tp,
+    pad_batch_to_devices,
+    param_bytes,
+    shard_params_tp,
+    shard_state_tp,
+    slice_process_local,
+)
+from d3roma_tpu_torch.parallel.mesh import _world
 from d3roma_tpu_torch.pipelines import (
     GuidedDiffusionPipeline,
     GuidedLatentDiffusionPipeline,
@@ -110,11 +144,20 @@ def fp32_math(device: torch.device):
         torch.backends.cudnn.allow_tf32 = cudnn
 
 
-def _check_supported(config) -> None:
-    if int(getattr(config, "tensor_parallel", 1) or 1) > 1:
-        raise NotImplementedError(
-            "tensor_parallel > 1: multi-card training is not ported yet "
-            "(ROADMAP.md section 1, item 10)")
+def train_mesh(config, device: DeviceLike = None) -> Optional[Mesh]:
+    """The ``(data, model)`` mesh of a run over the world's ranks: model =
+    `config.tensor_parallel` (it must divide the world), data the largest
+    divisor of `train_batch_size` no larger than world / model, as the JAX
+    trainer picks its devices. Every rank must call it; the ranks past the
+    mesh get None."""
+    _, world, _ = _world()
+    tp = max(1, int(getattr(config, "tensor_parallel", 1) or 1))
+    if world % tp:
+        raise ValueError(f"tensor_parallel={tp} must divide the world's {world} ranks")
+    dp = world // tp
+    while config.train_batch_size % dp:
+        dp -= 1
+    return make_mesh_dp_tp(dp, tp, device, allow_idle=True)
 
 
 def build_models(config, seed: int = 0, device: DeviceLike = None) -> dict:
@@ -129,7 +172,6 @@ def build_models(config, seed: int = 0, device: DeviceLike = None) -> dict:
     not remat, because eager PyTorch would keep every activation of the
     train_hiss preset's batch, more than an H100's 80 GB); the VAE is
     frozen."""
-    _check_supported(config)
     device = resolve_device(device)
     models = _build_models(config, seed, device)
     if not config.resume_pretrained and config.mixed_precision in ("bf16", "fp16"):
@@ -214,19 +256,46 @@ def _preprocess_and_pad(raw_batch, config, normalizer, device):
 def train(config, base_config=None, output_dir: Optional[str] = None,
           max_steps: Optional[int] = None, writer=None, device: DeviceLike = None):
     """Full training run on `device` (CUDA unless the caller names
-    another). Returns (state, counter, models)."""
-    _check_supported(config)
+    another), on this rank's share of the world's mesh. Returns (state,
+    counter, models), or (None, None, None) on a rank past the mesh."""
     device = resolve_device(device)
     with fp32_math(device):
         return _train(config, base_config, output_dir, max_steps, writer, device)
 
 
+def _export(pipeline, path: str, mesh: Mesh) -> None:
+    """`save_pretrained` on rank 0, the tensor-parallel models gathered
+    first (every rank of a model group takes part; data rank 0's group
+    is gathered)."""
+    states = None
+    if mesh.axis_sizes[MODEL_AXIS] > 1 and mesh.coord(DATA_AXIS) == 0:
+        states = {"unet": gather_params_tp(pipeline.unet, "cpu")}
+        if getattr(pipeline, "vae", None) is not None:
+            states["vae"] = gather_params_tp(pipeline.vae, "cpu")
+    if mesh.rank == 0:
+        pipeline.save_pretrained(path, states=states)
+    barrier(mesh)
+
+
 def _train(config, base_config, output_dir, max_steps, writer, device):
     output_dir = output_dir or config.output_dir or "experiments/run"
-    os.makedirs(output_dir, exist_ok=True)
     seed = getattr(base_config, "seed", 0) if base_config is not None else 0
     if seed is None or seed < 0:
         seed = 0
+
+    mesh = train_mesh(config, device)
+    rank, world, backend = _world()
+    if mesh is None:
+        logger.info("rank %d of %d is outside the mesh (train_batch_size %d): it trains "
+                    "nothing", rank, world, config.train_batch_size)
+        return None, None, None
+    dp, tp = mesh.axis_sizes[DATA_AXIS], mesh.axis_sizes[MODEL_AXIS]
+    data_index = mesh.coord(DATA_AXIS)
+    lead = mesh.rank == 0
+    logger.info("rank %d of %d: mesh DP%d x TP%d, data %d, model %d, backend %s, %s",
+                rank, world, dp, tp, data_index, mesh.coord(MODEL_AXIS), backend, device)
+    if lead:
+        os.makedirs(output_dir, exist_ok=True)
 
     train_loader, val_loaders = fetch_dataloader(config, seed=seed)
     steps_per_epoch = max(1, len(train_loader))
@@ -246,16 +315,37 @@ def _train(config, base_config, output_dir, max_steps, writer, device):
     resume_dir = config.resume_ckpt or latest_checkpoint(output_dir)
     if resume_dir:
         logger.info("resuming from %s", resume_dir)
-        state, counter = load_state(resume_dir, state)
+        state, counter = load_state(resume_dir, state)  # whole, on every rank
+    if tp > 1:
+        shard_state_tp(state, mesh)  # then this rank's shards
+        if models.get("vae") is not None:
+            shard_params_tp(models["vae"], mesh)
 
+    logger.info("rank %d holds %d sharded parameters and %d sharded optimizer tensors; "
+                "parameter bytes %d (whole %d), optimizer bytes %d", rank,
+                *optimizer.sharded_counts(), param_bytes(unet), param_bytes(unet, whole=True),
+                optimizer.nbytes())
     step_fn = make_train_step(config, unet, optimizer, tables, models.get("vae"),
-                              models.get("text_embed"))
+                              models.get("text_embed"), mesh=mesh if mesh.size > 1 else None)
     preprocess = partial(_preprocess_and_pad, config=config, normalizer=normalizer,
                          device=device)
-    eval_preprocess = partial(preprocess_eval, config=config, normalizer=normalizer,
-                              device=device)
 
-    detector = AbnormalLossDetector(output_dir)
+    def rank_rows(raw_batch):
+        """This data rank's rows of a host batch."""
+        return raw_batch if dp == 1 else slice_process_local(raw_batch, data_index, dp)
+
+    def eval_preprocess(raw_batch):
+        if dp > 1:  # the eval's tails: padded to the data axis, marked invalid
+            arrays = {k: v for k, v in raw_batch.items() if not isinstance(v, (list, str))}
+            raw_batch = slice_process_local(pad_batch_to_devices(arrays, dp), data_index, dp)
+        return preprocess_eval(raw_batch, config=config, normalizer=normalizer, device=device)
+
+    def gather_rows(a):
+        t = torch.as_tensor(np.ascontiguousarray(a))
+        return all_gather_cat(t, mesh, DATA_AXIS, 0).numpy()
+
+    # every rank decides as rank 0 (the same losses); only rank 0 dumps
+    detector = AbnormalLossDetector(output_dir, on_abnormal="dump" if lead else "ignore")
     done = False
     storm_saves = 0
     skip_batches = counter.local_step  # mid-epoch fast-forward
@@ -271,14 +361,15 @@ def _train(config, base_config, output_dir, max_steps, writer, device):
         pending = None
         loss = float(metrics["loss"])
         grad_norm = float(metrics["grad_norm"])
-        logger.info("step %d loss %.6g grad_norm %.6g", gstep + 1, loss, grad_norm)
+        logger.info("step %d loss %.9g grad_norm %.9g", gstep + 1, loss, grad_norm)
         abnormal = detector.check(loss, counter.avg_loss, gstep, gstep, raw_batch, metrics,
                                   paths=raw_batch.get("path"))
         if abnormal and storm_saves < 2:
             # forensic snapshot, capped: the chain rejects non-finite
             # updates, so repeats add no information
             storm_saves += 1
-            save_state(os.path.join(output_dir, "checkpoints", f"{gstep}_storm"), state, counter)
+            save_state(os.path.join(output_dir, "checkpoints", f"{gstep}_storm"), state, counter,
+                       mesh)
         counter.record(loss)
         if writer is not None and (gstep + 1) % 10 == 0:
             writer.add_scalar("train/loss", loss, gstep + 1)
@@ -291,8 +382,8 @@ def _train(config, base_config, output_dir, max_steps, writer, device):
         # the fast-forward skips batches before they are prepared
         items = ((bi, rb) for bi, rb in enumerate(train_loader)
                  if not (epoch == start_epoch and bi < skip_batches))
-        prefetched = device_prefetch(items, prepare=lambda item: (item[0], item[1],
-                                                                  preprocess(item[1])))
+        prefetched = device_prefetch(items, prepare=lambda item: (
+            item[0], item[1], preprocess(rank_rows(item[1]))))
         last_bi = steps_per_epoch - 1 if epoch == start_epoch and skip_batches else -1
         for bi, raw_batch, batch in prefetched:
             last_bi = bi
@@ -305,19 +396,25 @@ def _train(config, base_config, output_dir, max_steps, writer, device):
             if counter.global_step % config.val_every_global_steps == 0 and val_loaders:
                 pipeline = create_pipeline(config, models)
                 for vi, vl in enumerate(val_loaders):
-                    m, _ = evaluate_dataset(
-                        config, pipeline, vl, eval_generator(seed, counter.global_step, vi),
-                        preprocess=eval_preprocess, max_batches=config.eval_num_batch,
-                        dataset_name=(config.eval_dataset[vi]
-                                      if vi < len(config.eval_dataset or []) else None))
+                    with data_rows(data_index, dp):
+                        m, _ = evaluate_dataset(
+                            config, pipeline, vl, eval_generator(seed, counter.global_step, vi),
+                            preprocess=eval_preprocess, max_batches=config.eval_num_batch,
+                            dataset_name=(config.eval_dataset[vi]
+                                          if vi < len(config.eval_dataset or []) else None),
+                            gather_rows=gather_rows if dp > 1 else None)
                     if m:
                         logger.info("eval[%d] @%d: %s", vi, counter.global_step, m)
                         if writer is not None:
                             for k, v in m["disp"].items():
                                 writer.add_scalar(f"val{vi}/disp_{k}", v, counter.global_step)
-                        if vi == 0 and m["disp"]["epe"] < counter.best_epe:
-                            counter.best_epe = m["disp"]["epe"]
-                            pipeline.save_pretrained(os.path.join(output_dir, "best"))
+                        # rank 0 decides; every rank learns it
+                        better, epe = broadcast_object(
+                            (vi == 0 and m["disp"]["epe"] < counter.best_epe, m["disp"]["epe"]),
+                            mesh)
+                        if better:
+                            counter.best_epe = epe
+                            _export(pipeline, os.path.join(output_dir, "best"), mesh)
                             logger.info("new best EPE %.4f -> exported best/", counter.best_epe)
 
             if max_steps is not None and counter.global_step >= max_steps:
@@ -331,10 +428,10 @@ def _train(config, base_config, output_dir, max_steps, writer, device):
         epoch_complete = (not done) or (last_bi == steps_per_epoch - 1)
         if epoch_complete:
             counter.new_epoch()
-        save_state(os.path.join(output_dir, "checkpoints", "last"), state, counter)
+        save_state(os.path.join(output_dir, "checkpoints", "last"), state, counter, mesh)
         if epoch_complete and (epoch + 1) % config.save_model_epochs == 0:
-            create_pipeline(config, models).save_pretrained(
-                os.path.join(output_dir, f"epoch_{epoch:04d}"))
+            _export(create_pipeline(config, models), os.path.join(output_dir, f"epoch_{epoch:04d}"),
+                    mesh)
         if done:
             break
 

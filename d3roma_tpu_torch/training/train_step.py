@@ -18,6 +18,17 @@ first (one normal, or the pyramid's levels in order), then the timesteps,
 then the RGB condition's noise, the order in which the JAX step splits its
 key.
 
+On a mesh (`parallel/`), a step is one data rank's share of the global
+step, as the JAX step's under jit on a mesh: the draws are the whole global
+batch's (the one-process run's), of which the rank keeps its rows; the loss
+is the mean over the rank's rows, so the data ranks' gradients averaged
+(`mean_gradients`, fp32 buckets) are the global mean's; the per-sample
+losses and the timesteps are gathered along the data axis in rank order
+before the loss-aware sampler's update, so every rank keeps the one-process
+sampler state; and the metrics are the global batch's. Over the model axis
+the sharded layers' collectives carry the gradients, and the chain's norm
+and finiteness are the whole gradients' (`ChainOptimizer.norm_and_finite`).
+
 Its phases are `torch.profiler.record_function` ranges
 ("train_step/vae_encode", "train_step/forward" with the loss,
 "train_step/recon_decode", "train_step/backward", "train_step/optimizer",
@@ -37,8 +48,15 @@ from d3roma_tpu_torch.models.vae import decode_latent, encode_disp_to_latent, en
 from d3roma_tpu_torch.ops.noise import make_noise
 from d3roma_tpu_torch.ops.resample import loss_aware_weights, sample_timesteps, update_loss_aware
 from d3roma_tpu_torch.ops.schedules import ScheduleTables, add_noise, extract, get_velocity
+from d3roma_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    Mesh,
+    all_gather_cat,
+    all_reduce,
+    mean_gradients,
+)
 from d3roma_tpu_torch.pipelines.sampling import build_cond_concat
-from d3roma_tpu_torch.training.state import ChainOptimizer, TrainState, global_norm
+from d3roma_tpu_torch.training.state import ChainOptimizer, TrainState
 
 
 def make_train_step(
@@ -49,13 +67,16 @@ def make_train_step(
     vae: Optional[torch.nn.Module] = None,
     text_embed: Optional[torch.Tensor] = None,
     t_sampler: Optional[str] = None,  # None -> config.timestep_sampler
+    mesh: Optional[Mesh] = None,
 ) -> Callable:
     """Returns step_fn(state, batch, draws) -> metrics (device tensors:
     loss, grad_norm, t_mean, recon_mae for the v-prediction types,
     per_sample_loss [B], timesteps [B]); it updates `state` in place.
 
     batch: the device_preprocess output dict (normalized_disp, sim_disp,
-    normalized_rgb, left_image, right_image, mask, ...), channel-last."""
+    normalized_rgb, left_image, right_image, mask, ...), channel-last; on a
+    mesh of several data ranks, this rank's rows of the global batch (the
+    metrics are the global batch's: B its rows)."""
     ldm = config.ldm
     loss_kind = config.loss_type
     pred_type = config.prediction_type
@@ -71,6 +92,12 @@ def make_train_step(
     if pred_type == "v_pred_depth" and not ldm:
         raise ValueError("v_pred_depth decodes x_hat0 through the VAE: latent family only")
     params = list(optimizer.params)
+    dp = 1 if mesh is None else mesh.axis_sizes.get(DATA_AXIS, 1)
+    rank_rows = 0 if dp == 1 else mesh.coord(DATA_AXIS)
+
+    def rows(x: torch.Tensor, bs: int) -> torch.Tensor:
+        """This data rank's rows of a draw for the global batch."""
+        return x if dp == 1 else x[rank_rows * bs:(rank_rows + 1) * bs]
 
     def elementwise_loss(a, b):
         return torch.abs(a - b) if loss_kind == "l1" else (a - b) ** 2
@@ -148,16 +175,19 @@ def make_train_step(
             cond_right = batch["right_image"] if "right" in cond_channels else None
 
         bs = x_clean.shape[0]
-        noise = make_noise(draws, x_clean.shape, config.noise_strategy, x_clean.dtype)
+        gb = bs * dp  # the global batch, whose draws every data rank makes
+        noise = rows(make_noise(draws, (gb,) + tuple(x_clean.shape[1:]), config.noise_strategy,
+                                x_clean.dtype), bs)
 
         if t_sampler == "uniform":
-            t = draws.randint(0, config.num_train_timesteps, bs)
+            t = rows(draws.randint(0, config.num_train_timesteps, gb), bs)
             weights = torch.ones((bs,), dtype=torch.float32, device=x_clean.device)
         else:
-            t, weights = sample_timesteps(draws, loss_aware_weights(state.sampler_state), bs)
+            t, weights = (rows(a, bs) for a in sample_timesteps(
+                draws, loss_aware_weights(state.sampler_state), gb))
 
         if cond_rgb is not None and config.noise_rgb:
-            rgb_noise = draws.normal(cond_rgb.shape, cond_rgb.dtype)
+            rgb_noise = rows(draws.normal((gb,) + tuple(cond_rgb.shape[1:]), cond_rgb.dtype), bs)
             noisy_rgb = add_noise(tables, cond_rgb, rgb_noise, t)
             cond_rgb = cond_rgb * 0.5 + noisy_rgb * 0.5
 
@@ -171,15 +201,29 @@ def make_train_step(
         with record_function("train_step/backward"):
             grads = torch.autograd.grad(loss, params)
         with record_function("train_step/optimizer"):
-            grad_norm = global_norm(grads)
-            optimizer.step(grads, grad_norm)
+            if dp > 1:
+                grads = mean_gradients(grads, mesh, DATA_AXIS)
+            grad_norm, isfinite = optimizer.norm_and_finite(grads)
+            optimizer.step(grads, grad_norm, isfinite)
         del grads
+        loss = loss.detach()
+        if dp > 1:
+            # the global batch's: its per-sample losses and timesteps in rank
+            # order, the means over the data ranks' equal shares of rows
+            gathered = all_gather_cat(torch.stack([t.to(torch.float32), per_sample], 1), mesh,
+                                      DATA_AXIS, 0)
+            t, per_sample = gathered[:, 0].to(t.dtype), gathered[:, 1]
+            means = torch.stack([loss] + ([metrics["recon_mae"]] if "recon_mae" in metrics
+                                          else []))
+            means = all_reduce(means, mesh, DATA_AXIS) / dp
+            loss = means[0]
+            if "recon_mae" in metrics:
+                metrics["recon_mae"] = means[1]
         with record_function("train_step/sampler"):
             state.sampler_state = update_loss_aware(state.sampler_state, t, per_sample)
             state.step += 1
 
-        out = {"loss": loss.detach(), "grad_norm": grad_norm,
-               "t_mean": torch.mean(t.to(torch.float32))}
+        out = {"loss": loss, "grad_norm": grad_norm, "t_mean": torch.mean(t.to(torch.float32))}
         if "recon_mae" in metrics:
             out["recon_mae"] = metrics["recon_mae"]
         out["per_sample_loss"] = per_sample
